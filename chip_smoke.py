@@ -6,20 +6,32 @@ Phases, each raising on failure (the script then exits non-zero and
 prints no result):
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the solve kernel from kubernetes_tpu_torch/csrc with nvcc;
-3. hold the kernel against its plain PyTorch version, on the card, over
-   seeded problems (the test cases' shapes, two batches carrying state,
-   a constraint space wider than eight, and 5,000 nodes x 512 pods with
-   SC, T and U of 16): assignments and state planes must be equal;
+2. build the solve kernels (the cluster kernel and the one-block kernel)
+   from kubernetes_tpu_torch/csrc with nvcc and print ptxas's registers,
+   shared memory and spills for each;
+3. hold the kernels against their plain PyTorch version, on the card,
+   over seeded problems (the test cases' shapes, forced ties within and
+   across the cluster's slices, a ragged last slice, the only feasible
+   node in the last slice, two batches carrying state, constraint spaces
+   wider than eight, 5,000 nodes x 512 pods with SC, T and U of 16, a
+   cluster of eight, and a shape past the cluster's shared memory):
+   assignments and state planes must be equal. Each case runs on the
+   kernel the launch plan picks, and again on the one-block kernel;
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
    4,096, through ``run_workload`` on the card. Every pod bound, the
-   kernel launched once per solve, the plain version never called;
-5. TopologySpreading, 5,000 nodes / 5,000 pods: every pod bound, zone
-   skew at most one;
+   cluster kernel launched once per solve, the one-block kernel and the
+   plain version never;
+5. TopologySpreading, 5,000 nodes / 5,000 pods: the same, and zone skew
+   at most one;
 6. small SchedulingBasic and TopologySpreading runs on the card and on
    the CPU (the plain version) give identical pod -> node maps;
-7. time the kernel, and the plain version, on the main path's own
-   largest batch (CUDA events).
+7. time both kernels on the main paths' largest batches and on the
+   SchedulingBasic batch cut to 1,024 columns, in turns (one-block,
+   cluster, cluster, one-block), with CUDA events around the bare launch
+   (the wrapper's input checks outside the window, its whole call timed
+   beside it); the cluster kernel on the two largest batches at cluster
+   sizes 16, 8, 4 and 2; and the plain version once on each of the two
+   largest batches, which must equal the kernels.
 
 The second-to-last lines are the kernel table as JSON and the card's
 name and power limit; the last line is the JSON ok line.
@@ -38,9 +50,15 @@ import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.harness import perf, workloads
+from kubernetes_tpu_torch.harness.problems import random_planes
 from kubernetes_tpu_torch.ops import solve as solve_mod
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
-from kubernetes_tpu_torch.ops.planes import PStatic, prepare
+from kubernetes_tpu_torch.ops.planes import (
+    PStatic,
+    prepare,
+    state_planes,
+    static_planes,
+)
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 
@@ -161,27 +179,57 @@ def on(device, ps: PStatic, state, ints, floats):
             torch.as_tensor(ints).to(device), torch.as_tensor(floats).to(device))
 
 
-def compare_kernel_plain(name, ps, state, ints, floats):
-    """Kernel and plain version on the card, on the same inputs (the
-    state planes copied for each). Returns the largest absolute
-    difference over assignments and final planes."""
+def _solve_on_card(ps, state, ints, floats, plan=None):
+    """One kernel launch on copies of the inputs on the card: the kernel
+    the wrapper plans, or ``plan``'s. Returns (assignments, final state,
+    the kernel that ran)."""
+    kernel = solve_mod.solve_kernel
     a = on("cuda", ps, state, ints, floats)
-    b = on("cuda", ps, state, ints, floats)
-    got = solve_mod.solve_kernel(PARAMS, *a)
+    before = dict(kernel.counts)
+    if plan is None:
+        got = kernel(PARAMS, *a)
+    else:
+        kernel.check(*a)
+        got = kernel.launch(PARAMS, *a, plan)
     torch.cuda.synchronize()
+    ran = [k for k in kernel.counts if kernel.counts[k] != before[k]]
+    check(len(ran) == 1, "one kernel launch")
+    return got, a[1], ran[0]
+
+
+def compare_kernel_plain(name, ps, state, ints, floats, plan=None):
+    """The planned kernel (or ``plan``'s), the one-block kernel and the
+    plain version on the card, on the same inputs (the state planes
+    copied for each). Returns ({kernel: largest absolute difference over
+    assignments and final planes}, the planned kernel's final state)."""
+    b = on("cuda", ps, state, ints, floats)
     want = solve_mod.solve_plain(PARAMS, *b)
     torch.cuda.synchronize()
-    err = max(int((got - want).abs().max()),
-              int((a[1] - b[1]).abs().max()))
-    log(f"  {name}: N={ps.ints.shape[1]} B={ints.shape[0]} SC={ps.sc} "
-        f"T={ps.t} U={ps.u} placed={int((want >= 0).sum())} "
-        f"max_abs_err={err}")
-    check(err == 0, f"kernel equals plain on {name}")
-    return err, a[1]
+    errs, final = {}, None
+    n = ps.ints.shape[1]
+    runs = [plan, solve_mod.block_plan(n, ps.sc, ps.t)]
+    for i, p in enumerate(runs):
+        got, st, ran = _solve_on_card(ps, state, ints, floats, p)
+        err = max(int((got - want).abs().max()), int((st - b[1]).abs().max()))
+        errs[ran] = max(errs.get(ran, 0), err)
+        final = st if i == 0 else final
+        check(err == 0, f"{ran} kernel equals plain on {name}")
+    planned = plan or solve_mod.solve_kernel.plan(ps)
+    log(f"  {name}: N={n} B={ints.shape[0]} SC={ps.sc} T={ps.t} U={ps.u} "
+        f"placed={int((want >= 0).sum())} kernel={planned.kernel} "
+        f"cluster={planned.cluster}x{planned.cols_per_block} cols "
+        f"max_abs_err " + " ".join(f"{k}={v}" for k, v in errs.items()))
+    return errs, final
 
 
 def phase_compare():
-    errs = []
+    errs = {"cluster": 0, "block": 0}
+
+    def keep(result):
+        for k, v in result[0].items():
+            errs[k] = max(errs[k], v)
+        return result[1]
+
     rng = np.random.default_rng(0)
     cases = [("mixed-64", 64, 96, 4, 3), ("groups-64", 64, 96, 6, 5),
              ("wide-128", 128, 120, 12, 9)]
@@ -190,7 +238,7 @@ def phase_compare():
                                 make_pods(rng, b, groups, profiles), 128)
         ps, state = prepare(cluster, batch, "cpu")
         ints, floats = pack_podin(batch)
-        errs.append(compare_kernel_plain(name, ps, state, ints, floats)[0])
+        keep(compare_kernel_plain(name, ps, state, ints, floats))
         if name == "wide-128":
             check(ps.sc > 8 and ps.t > 8, "wide case is wider than eight")
     # identical nodes and pods: forced ties
@@ -198,8 +246,7 @@ def phase_compare():
     cluster, batch = encode(nodes, [workloads.basic_pod(i)
                                     for i in range(300)], 304)
     ps, state = prepare(cluster, batch, "cpu")
-    errs.append(compare_kernel_plain("ties-40", ps, state,
-                                     *pack_podin(batch))[0])
+    keep(compare_kernel_plain("ties-40", ps, state, *pack_podin(batch)))
     # two batches carrying the state: the second starts from the first's
     # final planes
     nodes = make_nodes(rng, 64)
@@ -208,20 +255,59 @@ def phase_compare():
     ints, floats = pack_podin(batch)
     half = np.zeros_like(ints), np.zeros_like(floats)
     half[0][:32], half[1][:32] = ints[:32], floats[:32]
-    err, carried = compare_kernel_plain("carry-1", ps, state, *half)
-    errs.append(err)
+    carried = keep(compare_kernel_plain("carry-1", ps, state, *half))
     rest = np.zeros_like(ints), np.zeros_like(floats)
     rest[0][:32], rest[1][:32] = ints[32:], floats[32:]
-    errs.append(compare_kernel_plain("carry-2", ps, carried.cpu(), *rest)[0])
+    keep(compare_kernel_plain("carry-2", ps, carried.cpu(), *rest))
     # the headline width with a wide constraint space
     cluster, batch = encode(make_nodes(rng, 5000),
                             make_pods(rng, 512, 8, 16, prefix="h"), 512)
     ps, state = prepare(cluster, batch, "cpu")
     check(ps.ints.shape[1] == 5120, "headline width pads to 5120 columns")
     check(max(ps.sc, ps.t, ps.u) > 8, "headline case wider than eight")
-    errs.append(compare_kernel_plain("headline-5120x512", ps, state,
-                                     *pack_podin(batch))[0])
-    return max(errs)
+    keep(compare_kernel_plain("headline-5120x512", ps, state,
+                              *pack_podin(batch)))
+    for name, args, plan, want in planes_cases():
+        ran = (plan or solve_mod.solve_kernel.plan(args[0])).kernel
+        check(ran == want, f"{name} plans the {want} kernel")
+        keep(compare_kernel_plain(name, *args, plan=plan))
+    return errs
+
+
+def planes_cases():
+    """Seeded cases made in the planes layout: (name, (planes, state,
+    pod ints, pod floats), a forced launch plan or None, the kernel that
+    must run)."""
+    out = [("ragged-1408", random_planes(3, 1408, 96, sc=2, t=2, u=2,
+                                         real=1400), None, "cluster")]
+    ps, state, ints, floats = random_planes(4, 5120, 40)
+    so, _ = static_planes(ps.r, ps.sc, ps.t, ps.u)
+    do, _ = state_planes(ps.r, ps.sc, ps.t)
+    ps.ints[so["masks"]:so["masks"] + ps.u] = 0
+    ps.ints[so["masks"]:so["masks"] + ps.u, 5100] = 1
+    ps.ints[so["alloc"]:so["alloc"] + ps.r, 5100] = 10 ** 7
+    ps.ints[so["max_pods"], 5100] = 1000
+    state[do["requested"]:do["pod_count"] + 1, 5100] = 0
+    ints[:, ps.r + 4:] = 0
+    out.append(("only-last-slice", (ps, state, ints, floats), None,
+                "cluster"))
+    ps, state, ints, floats = random_planes(5, 5120, 64)
+    for planes in (ps.ints, ps.f32s, state):
+        planes[:] = planes[:, :1].clone()
+    ps.ints[so["node_valid"], :330] = 0
+    ints[:, ps.r + 4:] = 0
+    floats[:] = 0
+    out.append(("ties-across-slices", (ps, state, ints, floats), None,
+                "cluster"))
+    out.append(("wide16-5120", random_planes(6, 5120, 128, sc=16, t=16,
+                                             u=16, real=5000), None,
+                "cluster"))
+    out.append(("portable-8", random_planes(9, 5120, 96, sc=2, t=2, u=2),
+                solve_mod.plan_launch(5120, 3, 2, 2, 2, max_cluster=8),
+                "cluster"))
+    out.append(("past-budget", random_planes(8, 5120, 32, sc=40, t=40, u=2),
+                None, "block"))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -267,7 +353,7 @@ def run_main_path(name, nodes, pods, max_batch=4096):
         return real_plain(*args)
 
     solve_mod.solve_plain, solve_mod.solve_kernel = trapped_plain, recorder
-    real_kernel.launches = 0
+    real_kernel.reset_counts()
     try:
         t0 = time.monotonic()
         res = perf.run_workload(
@@ -275,15 +361,19 @@ def run_main_path(name, nodes, pods, max_batch=4096):
             max_batch=max_batch, device="cuda")
         wall = time.monotonic() - t0
     finally:
-        launches = real_kernel.launches
+        counts = dict(real_kernel.counts)
         solve_mod.solve_plain, solve_mod.solve_kernel = real_plain, real_kernel
+    launches = counts["cluster"]
     kernel_ms = recorder.kernel_ms()
     check(res.device.startswith("cuda"), f"{name} ran on the card")
     check(len(res.placements) == pods, f"{name} created {pods} pods")
     unbound = sum(1 for v in res.placements.values() if not v)
     check(unbound == 0, f"{name}: {unbound} pods left unbound")
     check(launches == res.solves and launches > 0,
-          f"{name}: kernel launches {launches} == solves {res.solves}")
+          f"{name}: cluster kernel launches {launches} == solves "
+          f"{res.solves}")
+    check(counts["block"] == 0, f"{name}: one-block kernel launched "
+          f"{counts['block']} times")
     check(not plain_calls, f"{name}: plain version called on the card")
     check(len(kernel_ms) == launches, "one timed event pair per launch")
     busy = sum(kernel_ms) / 1000
@@ -296,12 +386,13 @@ def run_main_path(name, nodes, pods, max_batch=4096):
         + "; solve-start->bind ms p50/p90/p99: "
         + "/".join(f"{res.metrics[k]:.1f}" for k in ("Perc50", "Perc90",
                                                       "Perc99")))
-    log(f"    solves={res.solves} rebuilds={res.rebuilds} launches="
-        f"{launches} kernel ms/launch mean={np.mean(kernel_ms):.3f} "
+    log(f"    solves={res.solves} rebuilds={res.rebuilds} launches "
+        f"cluster={launches} block={counts['block']} kernel ms/launch "
+        f"(wrapper call) mean={np.mean(kernel_ms):.3f} "
         f"max={np.max(kernel_ms):.3f} kernel busy {busy:.3f} s")
     log("    host seconds: " + ", ".join(
         f"{k}={v:.3f}" for k, v in res.seconds.items()))
-    return res, launches, kernel_ms, recorder.largest
+    return res, counts, kernel_ms, recorder.largest
 
 
 def zone_skew(res):
@@ -361,36 +452,147 @@ def bound_ms(ps: PStatic, state, ints, floats):
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def time_kernel(largest, repeats=20):
-    """Kernel (CUDA events, mean over ``repeats`` launches, each on a
-    fresh copy of the state) and plain version (one run) on the main
-    path's largest batch; they must agree."""
-    ps, state, ints, floats = largest
+def cut_columns(batch, n):
+    """A batch on the first ``n`` node columns of its planes."""
+    ps, state, ints, floats = batch
+    cut = PStatic(ps.ints[:, :n].contiguous(), ps.f32s[:, :n].contiguous(),
+                  ps.sc_meta, *ps[3:])
+    return cut, state[:, :n].contiguous(), ints, floats
+
+
+def _event_ms(fn, state, repeats):
+    """Mean ms of ``repeats`` calls of ``fn(fresh state copy)``, CUDA
+    events around each call only."""
     times = []
-    for _ in range(repeats + 2):
+    for _ in range(repeats):
         st = state.clone()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        got = solve_mod.solve_kernel(PARAMS, ps, st, ints, floats)
+        fn(st)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    ms = float(np.mean(times[2:]))
-    st_plain = state.clone()
+    return float(np.mean(times))
+
+
+def time_batch(name, batch, repeats=10):
+    """Both kernels on one batch, in turns (one-block, cluster, cluster,
+    one-block), each a mean over ``repeats`` bare launches after one
+    warm-up, with the wrapper's whole call (input checks included) timed
+    beside them. The two kernels must agree on the batch. Returns the
+    timings and the cluster kernel's (assignments, final state)."""
+    kernel = solve_mod.solve_kernel
+    ps, state, ints, floats = batch
+    kernel.check(ps, state, ints, floats)
+    plans = {"cluster": kernel.plan(ps),
+             "block": solve_mod.block_plan(ps.ints.shape[1], ps.sc, ps.t)}
+    check(plans["cluster"].kernel == "cluster",
+          f"{name} plans the cluster kernel")
+    turns, finals = {}, {}
+    for which in ("block", "cluster", "cluster", "block"):
+        plan = plans[which]
+
+        def bare(st, plan=plan):
+            finals[plan.kernel] = (kernel.launch(PARAMS, ps, st, ints,
+                                                 floats, plan), st)
+
+        _event_ms(bare, state, 1)
+        turns.setdefault(which, []).append(_event_ms(bare, state, repeats))
+    (a, sa), (b, sb) = finals["cluster"], finals["block"]
+    err = max(int((a - b).abs().max()), int((sa - sb).abs().max()))
+    check(err == 0, f"{name}: cluster kernel equals one-block kernel")
+    whole = _event_ms(lambda st: kernel(PARAMS, ps, st, ints, floats), state,
+                      repeats)
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    valid = int((ints[:, ps.r + 3] > 0).sum())
+    p = plans["cluster"]
+    log(f"  {name}: N={ps.ints.shape[1]} B={ints.shape[0]} valid={valid}; "
+        f"cluster of {p.cluster} x {p.cols_per_block} columns, {p.threads} "
+        f"threads, {p.smem_bytes} B shared a block")
+    log(f"    one-block ms {turns['block'][0]:.3f} / {turns['block'][1]:.3f};"
+        f" cluster ms {turns['cluster'][0]:.3f} / {turns['cluster'][1]:.3f};"
+        f" per pod cluster {ms['cluster'] / valid * 1000:.3f} us, one-block "
+        f"{ms['block'] / valid * 1000:.3f} us; wrapper call (cluster, checks "
+        f"included) {whole:.3f} ms")
+    return {"n": ps.ints.shape[1], "valid_pods": valid, "ms": ms,
+            "turns": turns, "wrapper_ms": whole, "err": err,
+            "plan": p._asdict()}, finals["cluster"]
+
+
+def cluster_sweep(name, batch, repeats=10):
+    """The cluster kernel on one batch at cluster sizes 16, 8, 4 and 2
+    (each plan the size rule keeps on the cluster kernel): ms per launch,
+    a mean over ``repeats`` bare launches after one warm-up. Every size
+    must give the same assignments and planes."""
+    kernel = solve_mod.solve_kernel
+    ps, state, ints, floats = batch
+    kernel.check(ps, state, ints, floats)
+    out, first = {}, None
+    for size in (16, 8, 4, 2):
+        plan = solve_mod.plan_launch(ps.ints.shape[1], ps.r, ps.sc, ps.t,
+                                     ps.u, max_cluster=size)
+        if plan.kernel != "cluster":
+            continue
+        got = {}
+
+        def bare(st, plan=plan):
+            got["a"] = (kernel.launch(PARAMS, ps, st, ints, floats, plan), st)
+
+        _event_ms(bare, state, 1)
+        out[plan.cluster] = _event_ms(bare, state, repeats)
+        a, st = got["a"]
+        first = first or (a, st)
+        check(bool((a == first[0]).all()) and bool((st == first[1]).all()),
+              f"{name}: cluster of {plan.cluster} equals the others")
+    log(f"  {name}, cluster kernel ms by cluster size: " + ", ".join(
+        f"{k}: {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def plain_against(name, batch, got):
+    """One run of the plain version on the card (host clock) against the
+    kernel's (assignments, final state) on the same batch. Returns (ms,
+    largest absolute difference), which must be 0."""
+    ps, state, ints, floats = batch
+    st = state.clone()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = solve_mod.solve_plain(PARAMS, ps, st_plain, ints, floats)
+    want = solve_mod.solve_plain(PARAMS, ps, st, ints, floats)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1000
-    err = max(int((got - want).abs().max()),
-              int((st - st_plain).abs().max()))
-    check(err == 0, "kernel equals plain on the main path's largest batch")
-    b_ms, b_by = bound_ms(ps, state, ints, floats)
-    log(f"  largest main-path batch: N={ps.ints.shape[1]} B={ints.shape[0]} "
-        f"valid={int((ints[:, ps.r + 3] > 0).sum())}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return ms, plain_ms, b_ms, b_by, err
+    ms = (time.perf_counter() - t0) * 1000
+    err = max(int((got[0] - want).abs().max()),
+              int((got[1] - st).abs().max()))
+    check(err == 0, f"cluster kernel equals plain on the {name} batch")
+    log(f"  plain version on the {name} batch {ms:.1f} ms, max_abs_err "
+        f"{err}")
+    return ms, err
+
+
+def split_per_pod(big, small):
+    """Per-pod time as a fixed cost plus a cost per column, from the same
+    pods on two plane widths: (fixed us, per-column ns) per kernel."""
+    out = {}
+    for k in big["ms"]:
+        per_col = ((big["ms"][k] - small["ms"][k]) / (big["n"] - small["n"])
+                   / big["valid_pods"] * 1e6)
+        fixed = big["ms"][k] / big["valid_pods"] * 1000 \
+            - per_col * big["n"] / 1000
+        out[k] = (fixed, per_col)
+        log(f"  {k} kernel per pod: {fixed:.3f} us fixed + {per_col:.4f} ns "
+            f"per column (N={small['n']} and N={big['n']})")
+    return out
+
+
+def print_ptxas(lib):
+    """ptxas's registers, shared memory and spills of each kernel."""
+    report = solve_mod.ptxas_report_path(lib).read_text().splitlines()
+    for i, line in enumerate(report):
+        if "Compiling entry function" in line:
+            log(f"  {line.strip()}")
+            for follow in report[i + 1:i + 4]:
+                if "ptxas info" in follow or "bytes stack frame" in follow:
+                    log(f"    {follow.strip()}")
 
 
 def gpu_name_and_power() -> str:
@@ -416,16 +618,17 @@ def main() -> None:
     lib = solve_mod.build_kernel()
     log(f"[2] built {lib.name} from {KERNEL_SOURCE} in "
         f"{time.monotonic() - t0:.1f} s")
+    print_ptxas(lib)
 
-    log("[3] kernel against plain on seeded problems")
-    max_err = phase_compare()
+    log("[3] kernels against plain on seeded problems")
+    errs = phase_compare()
 
     log("[4] main path: SchedulingBasic")
-    res, launches, kernel_ms, largest = run_main_path(
+    res, counts, kernel_ms, largest = run_main_path(
         "SchedulingBasic", 5000, 30000)
 
     log("[5] TopologySpreading")
-    spread, spread_launches, spread_ms, _ = run_main_path(
+    spread, spread_counts, spread_ms, spread_largest = run_main_path(
         "TopologySpreading", 5000, 5000)
     skew = zone_skew(spread)
     check(skew <= 1, f"TopologySpreading zone skew {skew} <= 1")
@@ -434,16 +637,40 @@ def main() -> None:
     log("[6] small slices: card against CPU")
     phase_small_slices()
 
-    log("[7] kernel timing on the main path's largest batch")
-    ms, plain_ms, b_ms, b_by, err = time_kernel(largest)
-    max_err = max(max_err, err)
+    log("[7] kernel timing: both kernels in turns")
+    batches = {"SchedulingBasic": largest,
+               "TopologySpreading": spread_largest,
+               "SchedulingBasic@1024": cut_columns(largest, 1024)}
+    timings, finals = {}, {}
+    for name, batch in batches.items():
+        timings[name], finals[name] = time_batch(name + " largest batch",
+                                                 batch)
+    sb = timings["SchedulingBasic"]
+    split = split_per_pod(sb, timings["SchedulingBasic@1024"])
+    sweep = {"SchedulingBasic": cluster_sweep("SchedulingBasic", largest),
+             "TopologySpreading": cluster_sweep("TopologySpreading",
+                                                spread_largest)}
+    plain_ms, err = plain_against("SchedulingBasic", largest,
+                                  finals["SchedulingBasic"])
+    errs["cluster"] = max(errs["cluster"], err)
+    _, err = plain_against("TopologySpreading", spread_largest,
+                           finals["TopologySpreading"])
+    errs["cluster"] = max(errs["cluster"], err)
+    b_ms, b_by = bound_ms(*largest)
+    log(f"  bound on the SchedulingBasic batch {b_ms:.6f} ms ({b_by})")
+    for t in timings.values():
+        for k in errs:
+            errs[k] = max(errs[k], t["err"])
 
     kernels = {"kernels": [{
-        "name": "solve_kernel", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }]}
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES, "launches": counts[k],
+        "max_abs_err": float(errs[k]), "ms": sb["ms"][k],
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "library_ms_reason": "no single PyTorch call computes the solve",
+    } for k, name in (("cluster", "solve_cluster_kernel"),
+                      ("block", "solve_block_kernel"))]}
     report = {
         "card": card, "kernels": kernels["kernels"],
         "scheduling_basic": {
@@ -452,11 +679,13 @@ def main() -> None:
             "enqueue_to_bind_ms": res.latency, "solve_to_bind_ms": res.metrics,
             "solves": res.solves, "rebuilds": res.rebuilds,
             "kernel_ms": kernel_ms, "host_seconds": res.seconds},
+        "timings": timings, "per_pod_split_us_ns": split,
+        "cluster_sweep_ms": sweep,
         "topology_spreading": {
             "pods_per_s": spread.pods_per_second,
             "duration_s": spread.duration_seconds,
             "enqueue_to_bind_ms": spread.latency, "zone_skew": skew,
-            "solves": spread.solves, "launches": spread_launches,
+            "solves": spread.solves, "launches": spread_counts,
             "kernel_ms": spread_ms, "host_seconds": spread.seconds},
     }
     if args.out:

@@ -20,30 +20,68 @@
 //   pod ints     [B, R+4+2*SC+3*T] rows of pack_podin; pod floats [B, T]
 // SC, T and U are runtime loop bounds, so no constraint space is too wide.
 //
-// What bounds it: operations. A batch of B pods over N nodes is B*N
-// pod-node evaluations of a few tens of operations each, over planes of a
-// few hundred KB that are read again for every pod; the pods are sequential
-// (pod i+1 sees pod i's commit), so only the node axis is parallel.
-// Design: one block of up to 1024 threads owns the whole batch; thread k
-// owns node columns k, k+blockDim, ... for every plane, so a thread only
-// ever reads back what it wrote itself and state needs no fence between
-// pods. Per pod the block synchronises for the hard-spread domain minima
-// (one block reduction per active hard constraint), for the (max score,
-// lowest index) reduction, and once at the end (the per-term totals live in
-// shared memory, updated by thread 0). The planes stay in global memory,
-// where the 50 MB L2 holds them across pods. Padding rows cost one branch.
+// What bounds it on this card: latency. The work is B*N pod-node checks of
+// a few tens of operations each, over planes of a few hundred KB, but the
+// pods are sequential (pod i+1 sees pod i's commit), so only the node axis
+// is parallel and every pod pays the latency of its plane reads and of one
+// reduction over all N columns. The TPU kernel keeps the whole state in VMEM
+// across its sequential grid; a pod step there touches on-chip memory only.
+// On an H100 the cluster kernel below spends about 2.1 us a pod whatever the
+// width (PERF.md): the per-pod chain of barriers, shuffles and shared-memory
+// round trips, not the columns, is what remains.
+//
+// Two kernels, picked by the wrapper's launch plan (ops/solve.py,
+// plan_launch) by one size rule: the cluster kernel whenever its shared-
+// memory layout fits one block's 227 KB, the one-block kernel otherwise.
+//
+// solve_cluster_kernel, the main path. The node axis is spread over a
+// thread-block cluster of up to 16 blocks (one per SM); block q owns columns
+// [q*cpb, (q+1)*cpb) and, at most 512 threads a block, a thread owns one or a
+// few of them. Each block holds its slice of every state row (loaded once
+// with cp.async, written back once at the end) and of the static rows each
+// pod reads (alloc, max_pods, node_valid, sc_codes, term_codes, and the U
+// profile masks and static scores) in shared memory for the whole launch.
+// The profiles' eligible-domain rows (U*SC of them, too many to hold) go
+// through the read-only path (__ldg). Pod rows are staged 32 at a time,
+// double-buffered with cp.async, and each pod's uniform facts (its active
+// hard and soft constraints, its filter, affinity, preference and commit
+// terms) are built once per chunk as index lists in shared memory, so a
+// column loops over only what the pod uses. Across the cluster, reductions
+// go over distributed shared memory: each block reduces its slice (warp
+// shuffles, then the block), writes its candidate into a slot in every
+// block's shared memory, and arrives on the cluster barrier; after the wait
+// every block reduces the candidates itself, so one barrier per exchange
+// suffices. Slots alternate by parity so an exchange's writes never race the
+// previous exchange's reads. A pod with hard spread exchanges the vector of
+// its constraints' domain minima first, with the barrier split: arrive,
+// filter and score every column, then wait and apply only the skew check.
+// A pod costs one cluster barrier (two with hard spread). The commit is
+// local: each block updates its own columns, reading the winner's codes from
+// the static plane by one broadcast load, and keeps its own copy of the
+// per-term totals.
+//
+// solve_block_kernel: the design of the first port, one block of up to 1024
+// threads with the planes in global memory (held in L2), for the shapes
+// whose slices do not fit the cluster's shared memory.
 //
 // Exactness: built with --fmad=false and IEEE division; the score is summed
-// in the reference's order, so assignments match the reference bit for bit.
+// in the reference's order, and the (higher score, lower index) rule is
+// associative and commutative, so assignments match the reference bit for
+// bit in any reduction order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kClusterThreads = 512;
+constexpr int kMaxCluster = 16;
 constexpr int kBig = 1 << 30;
 constexpr float kFoundThreshold = -5e29f;  // NEG_INF / 2
 
@@ -54,6 +92,57 @@ struct Dims {
 struct Weights {
   float balanced, least, spread, affinity, stat;
 };
+
+// The cluster kernel's launch plan, as ops/solve.py::plan_launch made it.
+struct Plan {
+  int cluster, threads, cpb, chunk;
+};
+
+// Shared-memory layout of the cluster kernel, in 4-byte words. The wrapper's
+// plan computes the same total (ops/solve.py::cluster_smem_bytes); the launch
+// refuses a plan whose byte count differs.
+struct Layout {
+  int state, stat, score, totals, meta, pod_i, pod_f, facts, wmin, wbest, slot_min,
+      slot_best, words;
+};
+
+__host__ __device__ inline int fact_stride(int sc, int t) { return 8 + 3 * sc + 4 * t; }
+
+__host__ __device__ inline Layout cluster_layout(const Dims& d, const Plan& p) {
+  Layout l;
+  int w = 0;
+  const int width = d.r + 4 + 2 * d.sc + 3 * d.t;
+  l.state = w;
+  w += (d.r + 3 + d.sc + 2 * d.t) * p.cpb;  // every state row but totals
+  l.stat = w;
+  w += (d.r + 2 + d.sc + d.t + 2 * d.u) * p.cpb;  // + masks, static scores
+  l.score = w;
+  w += p.cpb;
+  l.totals = w;
+  w += d.t;
+  l.meta = w;
+  w += 2 * d.sc;
+  l.pod_i = w;
+  w += 2 * p.chunk * width;
+  l.pod_f = w;
+  w += 2 * p.chunk * d.t;
+  l.facts = w;
+  w += p.chunk * fact_stride(d.sc, d.t);
+  l.wmin = w;
+  w += d.sc * (p.threads / 32);
+  l.wbest = w;
+  w += 2 * (p.threads / 32);
+  l.slot_min = w;
+  w += 2 * p.cluster * d.sc;
+  l.slot_best = w;
+  w += 2 * 2 * p.cluster;
+  l.words = w;
+  return l;
+}
+
+// Per-pod facts: eight counts, then the index lists, each in increasing
+// constraint or term order (the reference's summation order).
+enum { kNHard, kNSoft, kNScc, kNTf, kNAff, kNPref, kNTc, kSelfAll, kHead };
 
 __device__ __forceinline__ int warp_min(int x) {
   for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_down_sync(0xffffffffu, x, o));
@@ -83,11 +172,15 @@ __device__ __forceinline__ void better(float& s, int& j, float os, int oj) {
   }
 }
 
+__device__ __forceinline__ void warp_best(float& s, int& j) {
+  for (int o = 16; o > 0; o >>= 1)
+    better(s, j, __shfl_down_sync(0xffffffffu, s, o), __shfl_down_sync(0xffffffffu, j, o));
+}
+
 // Block-wide best pair, returned to every thread.
 __device__ void block_best(float& s, int& j, float* fs, int* js) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1)
-    better(s, j, __shfl_down_sync(0xffffffffu, s, o), __shfl_down_sync(0xffffffffu, j, o));
+  warp_best(s, j);
   if (lane == 0) {
     fs[warp] = s;
     js[warp] = j;
@@ -100,8 +193,7 @@ __device__ void block_best(float& s, int& j, float* fs, int* js) {
       s = fs[lane];
       j = js[lane];
     }
-    for (int o = 16; o > 0; o >>= 1)
-      better(s, j, __shfl_down_sync(0xffffffffu, s, o), __shfl_down_sync(0xffffffffu, j, o));
+    warp_best(s, j);
     if (lane == 0) {
       fs[kMaxWarps] = s;
       js[kMaxWarps] = j;
@@ -112,17 +204,43 @@ __device__ void block_best(float& s, int& j, float* fs, int* js) {
   j = js[kMaxWarps];
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The one-block kernel: thread k owns node columns k, k+blockDim, ... of
+// every plane, so a thread only ever reads back what it wrote itself and
+// state needs no fence between pods.
 __global__ void __launch_bounds__(kMaxThreads, 1)
-solve_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
-             const float* __restrict__ pod_floats, const int* __restrict__ sta,
-             const float* __restrict__ sta_f, int* __restrict__ st, int* __restrict__ assign,
-             Dims d, Weights w) {
+solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
+                   const float* __restrict__ pod_floats, const int* __restrict__ sta,
+                   const float* __restrict__ sta_f, int* __restrict__ st, int* __restrict__ assign,
+                   Dims d, Weights w) {
   extern __shared__ int smem[];
-  int* red_i = smem;                                          // kMaxWarps + 1
-  int* red_j = red_i + kMaxWarps + 1;                         // kMaxWarps + 1
+  int* red_i = smem;                                               // kMaxWarps + 1
+  int* red_j = red_i + kMaxWarps + 1;                              // kMaxWarps + 1
   float* red_f = reinterpret_cast<float*>(red_j + kMaxWarps + 1);  // kMaxWarps + 1
-  int* min_c = reinterpret_cast<int*>(red_f + kMaxWarps + 1);  // SC
-  int* totals = min_c + d.sc;                                 // T
+  int* min_c = reinterpret_cast<int*>(red_f + kMaxWarps + 1);      // SC
+  int* totals = min_c + d.sc;                                      // T
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int r = d.r, sc = d.sc, t = d.t, u = d.u, v = d.v, n = d.n;
@@ -279,25 +397,450 @@ solve_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
   for (int j = tid; j < n; j += nt) totals_plane[j] = j < t ? totals[j] : 0;
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernel (see the note at the top).
+__global__ void __launch_bounds__(kClusterThreads, 1)
+solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
+                     const float* __restrict__ pod_floats, const int* __restrict__ sta,
+                     const float* __restrict__ sta_f, int* __restrict__ st,
+                     int* __restrict__ assign, Dims d, Weights w, Plan pl) {
+  extern __shared__ int smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nc = pl.cluster;
+  const Layout L = cluster_layout(d, pl);
+
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int r = d.r, sc = d.sc, t = d.t, u = d.u, v = d.v, n = d.n;
+  const size_t N = (size_t)n;
+  const int cpb = pl.cpb, chunk = pl.chunk;
+  const int lo = rank * cpb;
+  const int cols = max(0, min(cpb, n - lo));
+
+  // global static plane rows
+  const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
+  const int s_sc_domain = s_sc_codes + sc, s_term_codes = s_sc_domain + u * sc;
+  const int s_node_valid = s_term_codes + t;
+  // state plane rows (global and shared alike, totals excepted)
+  const int d_req = 0, d_nz = r, d_pod_count = r + 2, d_sc_counts = r + 3;
+  const int d_term_counts = d_sc_counts + sc, d_term_owners = d_term_counts + t;
+  const int d_totals = d_term_owners + t;
+  // shared static rows: alloc[R] | max_pods | node_valid | sc_codes[SC] |
+  // term_codes[T] | masks[U] | static scores[U] (f32)
+  const int a_max_pods = r, a_valid = r + 1, a_sc_codes = r + 2, a_term_codes = r + 2 + sc;
+  const int a_masks = a_term_codes + t, a_scores = a_masks + u;
+  const int n_int_stat = a_scores;
+  // pod stream columns
+  const int c_nz = r, c_profile = r + 2, c_valid = r + 3, c_pod_sc = r + 4;
+  const int c_sc_match = c_pod_sc + sc, c_match_by = c_sc_match + sc;
+  const int c_own_aff = c_match_by + t, c_own_anti = c_own_aff + t;
+  const int width = c_own_anti + t;
+  const int fstride = fact_stride(sc, t);
+
+  int* s_state = smem + L.state;
+  int* s_stat = smem + L.stat;
+  float* s_score = reinterpret_cast<float*>(smem + L.score);
+  int* totals = smem + L.totals;
+  int* meta = smem + L.meta;
+  int* pod_i = smem + L.pod_i;
+  float* pod_f = reinterpret_cast<float*>(smem + L.pod_f);
+  int* facts = smem + L.facts;
+  int* wmin = smem + L.wmin;
+  float* wbest_s = reinterpret_cast<float*>(smem + L.wbest);
+  int* wbest_j = smem + L.wbest + nwarps;
+  int* slot_min = smem + L.slot_min;  // [2][cluster][SC]
+  float* slot_s = reinterpret_cast<float*>(smem + L.slot_best);  // [2][cluster]
+  int* slot_j = smem + L.slot_best + 2 * nc;                    // [2][cluster]
+
+  // the block's slice of the planes, once
+  for (int row = 0; row < d_totals; ++row)
+    for (int c = tid; c < cols; c += nt)
+      cp_async4(s_state + row * cpb + c, st + row * N + lo + c);
+  for (int row = 0; row < n_int_stat; ++row) {
+    const int g = row < a_max_pods      ? s_alloc + row
+                  : row == a_max_pods   ? s_max_pods
+                  : row == a_valid      ? s_node_valid
+                  : row < a_term_codes  ? s_sc_codes + (row - a_sc_codes)
+                  : row < a_masks       ? s_term_codes + (row - a_term_codes)
+                                        : s_masks + (row - a_masks);
+    for (int c = tid; c < cols; c += nt) cp_async4(s_stat + row * cpb + c, sta + g * N + lo + c);
+  }
+  for (int k = 0; k < u; ++k)
+    for (int c = tid; c < cols; c += nt)
+      cp_async4(s_stat + (a_scores + k) * cpb + c, sta_f + k * N + lo + c);
+  cp_async_commit();
+  for (int k = tid; k < t; k += nt) totals[k] = st[d_totals * N + k];
+  for (int k = tid; k < 2 * sc; k += nt) meta[k] = sc_meta[k];
+
+  const int nchunks = (d.b + chunk - 1) / chunk;
+  auto fetch = [&](int ch) {
+    const int p0 = ch * chunk, np = min(chunk, d.b - p0), buf = ch & 1;
+    int* di = pod_i + buf * chunk * width;
+    const int* si = pod_ints + (size_t)p0 * width;
+    for (int i = tid; i < np * width; i += nt) cp_async4(di + i, si + i);
+    float* df = pod_f + buf * chunk * t;
+    const float* sf = pod_floats + (size_t)p0 * t;
+    for (int i = tid; i < np * t; i += nt) cp_async4(df + i, sf + i);
+  };
+  if (nchunks > 0) fetch(0);
+  cp_async_commit();
+
+  // every block of the cluster is running before any slot is written
+  cluster_arrive();
+  cluster_wait();
+
+  int par_min = 0, par_best = 0;
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) fetch(ch + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // the slice and this chunk have landed
+    __syncthreads();
+    const int p0 = ch * chunk, np = min(chunk, d.b - p0), buf = ch & 1;
+    const int* rows = pod_i + buf * chunk * width;
+    const float* frows = pod_f + buf * chunk * t;
+
+    for (int i = tid; i < np; i += nt) {  // each pod's uniform facts, once
+      const int* row = rows + i * width;
+      const float* wrow = frows + i * t;
+      int* f = facts + i * fstride;
+      int* hard = f + kHead;
+      int* soft = hard + sc;
+      int* scc = soft + sc;
+      int* tf = scc + sc;
+      int* aff = tf + t;
+      int* pref = aff + t;
+      int* tc = pref + t;
+      int nh = 0, ns = 0, nscc = 0, ntf = 0, naff = 0, npref = 0, ntc = 0, self_all = 1;
+      for (int k = 0; k < sc; ++k) {
+        if (row[c_pod_sc + k] > 0) {
+          if (meta[sc + k] > 0)
+            hard[nh++] = k;
+          else
+            soft[ns++] = k;
+        }
+        if (row[c_sc_match + k] != 0) scc[nscc++] = k;
+      }
+      for (int k = 0; k < t; ++k) {
+        const int matched = row[c_match_by + k], anti = row[c_own_anti + k];
+        if (matched > 0 || anti > 0) tf[ntf++] = k;
+        if (row[c_own_aff + k] > 0) {
+          aff[naff++] = k;
+          self_all = self_all && matched > 0;
+        }
+        if (wrow[k] != 0.0f) pref[npref++] = k;
+        if (matched != 0 || anti != 0) tc[ntc++] = k;
+      }
+      f[kNHard] = nh;
+      f[kNSoft] = ns;
+      f[kNScc] = nscc;
+      f[kNTf] = ntf;
+      f[kNAff] = naff;
+      f[kNPref] = npref;
+      f[kNTc] = ntc;
+      f[kSelfAll] = self_all;
+    }
+    __syncthreads();
+
+    for (int i = 0; i < np; ++i) {
+      const int p = p0 + i;
+      const int* row = rows + i * width;
+      const float* wrow = frows + i * t;
+      if (row[c_valid] <= 0) {  // padding or inexpressible: no node, no commit
+        if (rank == 0 && tid == 0) assign[p] = -1;
+        continue;
+      }
+      const int* f = facts + i * fstride;
+      const int nh = f[kNHard], ns = f[kNSoft], nscc = f[kNScc], ntf = f[kNTf];
+      const int naff = f[kNAff], npref = f[kNPref], ntc = f[kNTc];
+      const int* hard = f + kHead;
+      const int* soft = hard + sc;
+      const int* scc = soft + sc;
+      const int* tf = scc + sc;
+      const int* aff = tf + t;
+      const int* pref = aff + t;
+      const int* tc = pref + t;
+      const int profile = row[c_profile];
+      const int* mask_row = s_stat + (a_masks + profile) * cpb;
+      const float* static_row = reinterpret_cast<const float*>(s_stat + (a_scores + profile) * cpb);
+
+      // hard spread: this block's domain minima of every active constraint,
+      // published to every block; the barrier's wait comes after the filter
+      if (nh > 0) {
+        for (int h = 0; h < nh; ++h) {
+          const int k = hard[h];
+          const int* dom = sta + (s_sc_domain + profile * sc + k) * N + lo;
+          const int* counts = s_state + (d_sc_counts + k) * cpb;
+          int m = kBig;
+          for (int c = tid; c < cols; c += nt)
+            if (__ldg(dom + c) > 0) m = min(m, counts[c]);
+          m = warp_min(m);
+          if (lane == 0) wmin[h * nwarps + warp] = m;
+        }
+        __syncthreads();
+        for (int h = tid; h < nh; h += nt) {
+          int m = kBig;
+          for (int q = 0; q < nwarps; ++q) m = min(m, wmin[h * nwarps + q]);
+          int* slot = slot_min + (par_min * nc + rank) * sc + h;
+          for (int q = 0; q < nc; ++q) *cluster.map_shared_rank(slot, q) = m;
+        }
+        cluster_arrive();
+      }
+      // required affinity: the first pod of a group passes anywhere when no
+      // pod matches any of its terms yet and it matches all of them itself
+      bool need_aff = false;
+      if (naff > 0) {
+        if (nh == 0) __syncthreads();  // thread 0's totals of the last commit
+        bool no_any = true;
+        for (int x = 0; x < naff; ++x) no_any = no_any && totals[aff[x]] == 0;
+        need_aff = !(no_any && f[kSelfAll]);
+      }
+
+      // filter (all but the skew check) and score; -inf marks infeasible.
+      // The checks combine with & and the score is computed for every
+      // column, so that a column's loads issue together, not one after
+      // another behind short-circuits.
+      for (int c = tid; c < cols; c += nt) {
+        bool ok = (s_stat[a_valid * cpb + c] > 0) &
+                  (s_state[d_pod_count * cpb + c] < s_stat[a_max_pods * cpb + c]) &
+                  (mask_row[c] > 0);
+        for (int k = 0; k < r; ++k)
+          ok = ok & (s_state[(d_req + k) * cpb + c] + row[k] <= s_stat[k * cpb + c]);
+        for (int x = 0; x < ntf; ++x) {
+          const int k = tf[x];
+          ok = ok & !(row[c_match_by + k] > 0 && s_state[(d_term_owners + k) * cpb + c] > 0) &
+               !(row[c_own_anti + k] > 0 && s_state[(d_term_counts + k) * cpb + c] > 0);
+        }
+        for (int x = 0; need_aff && x < naff; ++x) {
+          const int k = aff[x];
+          ok = ok & (s_state[(d_term_counts + k) * cpb + c] > 0) &
+               (s_stat[(a_term_codes + k) * cpb + c] < v);
+        }
+        for (int h = 0; h < nh; ++h) ok = ok & (s_stat[(a_sc_codes + hard[h]) * cpb + c] < v);
+        const float alloc_cpu = (float)max(s_stat[c], 1);
+        const float alloc_mem = (float)max(s_stat[cpb + c], 1);
+        const float cpu = (float)(s_state[d_nz * cpb + c] + row[c_nz]) / alloc_cpu;
+        const float mem = (float)(s_state[(d_nz + 1) * cpb + c] + row[c_nz + 1]) / alloc_mem;
+        const bool over = cpu >= 1.0f || mem >= 1.0f;
+        const float balanced = over ? 0.0f : (1.0f - fabsf(cpu - mem)) * 100.0f;
+        const float least =
+            (fminf(fmaxf(1.0f - cpu, 0.0f), 1.0f) + fminf(fmaxf(1.0f - mem, 0.0f), 1.0f)) * 50.0f;
+        float spread = 0.0f;
+        if (ns > 0) {
+          float soft_sum = 0.0f;
+          for (int x = 0; x < ns; ++x)
+            soft_sum += (float)s_state[(d_sc_counts + soft[x]) * cpb + c];
+          spread = 100.0f / (1.0f + soft_sum);
+        }
+        float pref_sum = 0.0f;
+        for (int x = 0; x < npref; ++x) {
+          const int k = pref[x];
+          pref_sum += wrow[k] * (float)s_state[(d_term_counts + k) * cpb + c];
+        }
+        float s = w.balanced * balanced;
+        s = s + w.least * least;
+        s = s + w.spread * spread;
+        s = s + w.affinity * pref_sum;
+        s = s + w.stat * static_row[c];
+        s_score[c] = ok ? s : -INFINITY;
+      }
+
+      // the skew check against the cluster's minima, and this block's best
+      if (nh > 0) cluster_wait();
+      const int* mins = slot_min + par_min * nc * sc;
+      float best_s = -INFINITY;
+      int best_j = INT_MAX;
+      for (int c = tid; c < cols; c += nt) {
+        const float s = s_score[c];
+        if (s == -INFINITY) continue;
+        bool ok = true;
+        for (int h = 0; ok && h < nh; ++h) {
+          const int k = hard[h];
+          int m = kBig;
+          for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
+          m = m < kBig ? m : 0;  // 0 when the profile has no eligible domain
+          ok = s_state[(d_sc_counts + k) * cpb + c] + row[c_sc_match + k] - m <= meta[k];
+        }
+        if (ok) better(best_s, best_j, s, lo + c);
+      }
+      warp_best(best_s, best_j);
+      if (lane == 0) {
+        wbest_s[warp] = best_s;
+        wbest_j[warp] = best_j;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float s = -INFINITY;
+        int j = INT_MAX;
+        if (lane < nwarps) {
+          s = wbest_s[lane];
+          j = wbest_j[lane];
+        }
+        warp_best(s, j);
+        s = __shfl_sync(0xffffffffu, s, 0);
+        j = __shfl_sync(0xffffffffu, j, 0);
+        if (lane < nc) {
+          *cluster.map_shared_rank(slot_s + par_best * nc + rank, lane) = s;
+          *cluster.map_shared_rank(slot_j + par_best * nc + rank, lane) = j;
+        }
+      }
+      cluster_arrive();
+      cluster_wait();
+      best_s = -INFINITY;
+      best_j = INT_MAX;
+      for (int q = 0; q < nc; ++q) better(best_s, best_j, slot_s[par_best * nc + q], slot_j[par_best * nc + q]);
+      par_best ^= 1;
+      if (nh > 0) par_min ^= 1;
+      if (best_j == INT_MAX || !(best_s > kFoundThreshold)) {
+        if (rank == 0 && tid == 0) assign[p] = -1;
+        continue;  // uniform: every block reduced the same candidates
+      }
+
+      // commit to node jc, each block on its own columns
+      const int jc = best_j, cj = jc - lo;
+      if (cj >= 0 && cj < cols && cj % nt == tid) {
+        for (int k = 0; k < r; ++k) s_state[(d_req + k) * cpb + cj] += row[k];
+        s_state[d_nz * cpb + cj] += row[c_nz];
+        s_state[(d_nz + 1) * cpb + cj] += row[c_nz + 1];
+        s_state[d_pod_count * cpb + cj] += 1;
+      }
+      for (int x = 0; x < nscc; ++x) {
+        const int k = scc[x];
+        const int inc = row[c_sc_match + k];
+        const int code_j = __ldg(sta + (s_sc_codes + k) * N + jc);
+        const int* codes = s_stat + (a_sc_codes + k) * cpb;
+        int* counts = s_state + (d_sc_counts + k) * cpb;
+        for (int c = tid; c < cols; c += nt)
+          if (codes[c] == code_j) counts[c] += inc;
+      }
+      for (int x = 0; x < ntc; ++x) {
+        const int k = tc[x];
+        const int matched = row[c_match_by + k], anti = row[c_own_anti + k];
+        const int code_j = __ldg(sta + (s_term_codes + k) * N + jc);
+        const int* codes = s_stat + (a_term_codes + k) * cpb;
+        int* tcounts = s_state + (d_term_counts + k) * cpb;
+        int* towners = s_state + (d_term_owners + k) * cpb;
+        for (int c = tid; c < cols; c += nt) {
+          if (codes[c] != code_j) continue;
+          tcounts[c] += matched;
+          towners[c] += anti;
+        }
+        if (tid == 0 && code_j < v) totals[k] += matched;
+      }
+      if (rank == 0 && tid == 0) assign[p] = jc;
+    }
+    __syncthreads();  // the chunk's buffers are free for the next fetch
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int row = 0; row < d_totals; ++row)
+    for (int c = tid; c < cols; c += nt) st[row * N + lo + c] = s_state[row * cpb + c];
+  for (int c = tid; c < cols; c += nt) {
+    const int j = lo + c;
+    st[d_totals * N + j] = j < t ? totals[j] : 0;
+  }
+  // no block leaves while another may still address its shared memory
+  cluster_arrive();
+  cluster_wait();
+}
+
+cudaLaunchConfig_t cluster_config(int cluster, int threads, int smem_bytes, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t set_cluster_attributes(int cluster, int smem_bytes) {
+  cudaError_t e = cudaFuncSetAttribute(solve_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(solve_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
 }  // namespace
 
-// Launch the solve on `stream`: one block, planes updated in place.
-// Returns the CUDA error of the launch (0 when it was accepted).
-extern "C" int ktt_solve_launch(const int* sc_meta, const int* pod_ints, const float* pod_floats,
-                                const int* static_ints, const float* static_f32s, int* state,
-                                int* assign, int r, int sc, int t, int u, int v, int n, int b,
-                                float balanced_w, float least_w, float spread_w, float affinity_w,
-                                float static_w, void* stream) {
-  const int threads = n < kMaxThreads ? ((n + 31) / 32) * 32 : kMaxThreads;
-  const size_t smem = sizeof(int) * (3 * (kMaxWarps + 1) + (size_t)sc + (size_t)t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// Shared-memory bytes of the cluster kernel for a plan.
+extern "C" int ktt_cluster_smem_bytes(int r, int sc, int t, int u, int cluster, int threads,
+                                      int cpb, int chunk) {
+  Dims d{r, sc, t, u, 0, 0, 0};
+  Plan p{cluster, threads, cpb, chunk};
+  return cluster_layout(d, p).words * (int)sizeof(int);
+}
+
+// How many clusters of this shape the card can hold at once (0: none, so
+// the shape cannot launch); a negative value is a CUDA error.
+extern "C" int ktt_cluster_max_active(int cluster, int threads, int smem_bytes) {
+  cudaError_t e = set_cluster_attributes(cluster, smem_bytes);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(cluster, threads, smem_bytes, 0, &attr);
+  int count = 0;
+  e = cudaOccupancyMaxActiveClusters(&count, solve_cluster_kernel, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return count;
+}
+
+// Launch the cluster solve on `stream`: one cluster of `cluster` blocks,
+// planes updated in place. Returns the CUDA error of the launch (0 when it
+// was accepted); a plan the kernel cannot run is refused as an invalid value.
+extern "C" int ktt_solve_cluster_launch(const int* sc_meta, const int* pod_ints,
+                                        const float* pod_floats, const int* static_ints,
+                                        const float* static_f32s, int* state, int* assign, int r,
+                                        int sc, int t, int u, int v, int n, int b, int cluster,
+                                        int threads, int cpb, int chunk, int smem_bytes,
+                                        float balanced_w, float least_w, float spread_w,
+                                        float affinity_w, float static_w, void* stream) {
+  Dims d{r, sc, t, u, v, n, b};
+  Plan p{cluster, threads, cpb, chunk};
+  if (cluster < 1 || cluster > kMaxCluster || threads < 32 || threads % 32 != 0 ||
+      threads > kClusterThreads || chunk < 1 || (long)cluster * cpb < n ||
+      cluster_layout(d, p).words * (int)sizeof(int) != smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_cluster_attributes(cluster, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      cluster_config(cluster, threads, smem_bytes, static_cast<cudaStream_t>(stream), &attr);
+  Weights w{balanced_w, least_w, spread_w, affinity_w, static_w};
+  e = cudaLaunchKernelEx(&cfg, solve_cluster_kernel, sc_meta, pod_ints, pod_floats, static_ints,
+                         static_f32s, state, assign, d, w, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Launch the one-block solve on `stream`, planes updated in place. Returns
+// the CUDA error of the launch (0 when it was accepted).
+extern "C" int ktt_solve_block_launch(const int* sc_meta, const int* pod_ints,
+                                      const float* pod_floats, const int* static_ints,
+                                      const float* static_f32s, int* state, int* assign, int r,
+                                      int sc, int t, int u, int v, int n, int b, int threads,
+                                      int smem_bytes, float balanced_w, float least_w,
+                                      float spread_w, float affinity_w, float static_w,
+                                      void* stream) {
+  if (threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
+      smem_bytes != (int)sizeof(int) * (3 * (kMaxWarps + 1) + sc + t))
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(solve_block_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   Dims d{r, sc, t, u, v, n, b};
   Weights w{balanced_w, least_w, spread_w, affinity_w, static_w};
-  solve_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  solve_block_kernel<<<1, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       sc_meta, pod_ints, pod_floats, static_ints, static_f32s, state, assign, d, w);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,88 @@
+"""Seeded solve problems made directly in the planes layout, at any node
+count and constraint width, for holding the solve kernels against their
+plain version (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+The planes are consistent the way the encoder makes them: topology counts
+are per domain value (every column of a domain holds its count), the
+sentinel value ``v`` marks a node without the key, the eligible domains of
+a profile exclude the sentinel, and the totals are the real-value sums of
+the term counts."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from kubernetes_tpu_torch.ops.planes import PStatic, state_planes, static_planes
+
+
+def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
+                  t: int = 1, u: int = 1, v: int = 10, real: int = None
+                  ) -> Tuple[PStatic, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """(static planes, state, pod ints, pod floats) on the CPU: ``n``
+    columns of which the first ``real`` (all by default) are nodes, ``b``
+    pod rows (about one in eight padding), ``v`` topology values."""
+    rng = np.random.default_rng(seed)
+    real = n if real is None else real
+    so, cs = static_planes(r, sc, t, u)
+    do, cd = state_planes(r, sc, t)
+
+    ints = np.zeros((cs, n), dtype=np.int32)
+    alloc = rng.integers(4000, 32000, (r, n))
+    ints[so["alloc"]:so["alloc"] + r] = alloc
+    ints[so["max_pods"]] = rng.integers(8, 110, n)
+    ints[so["masks"]:so["masks"] + u] = rng.random((u, n)) < 0.9
+    sc_codes = rng.integers(0, v + 1, (sc, n))
+    ints[so["sc_codes"]:so["sc_codes"] + sc] = sc_codes
+    eligible = rng.random((u, sc, v + 1)) < 0.8
+    eligible[:, :, v] = False
+    dom = np.take_along_axis(eligible, np.broadcast_to(sc_codes, (u, sc, n)),
+                             axis=2)
+    ints[so["sc_domain"]:so["sc_domain"] + u * sc] = dom.reshape(u * sc, n)
+    term_codes = rng.integers(0, v + 1, (t, n))
+    ints[so["term_codes"]:so["term_codes"] + t] = term_codes
+    ints[so["node_valid"], :real] = 1
+    f32s = rng.integers(0, 100, (u, n)).astype(np.float32)
+    sc_meta = np.stack([rng.integers(1, 3, sc),
+                        rng.integers(0, 2, sc)]).astype(np.int32)
+
+    state = np.zeros((cd, n), dtype=np.int32)
+    req = (alloc * rng.random((r, n)) * 0.6).astype(np.int32)
+    state[do["requested"]:do["requested"] + r] = req
+    state[do["nonzero"]:do["nonzero"] + 2] = req[:2]
+    state[do["pod_count"]] = rng.integers(0, 6, n)
+    by_value = rng.integers(0, 4, (sc, v + 1))
+    state[do["sc_counts"]:do["sc_counts"] + sc] = np.take_along_axis(
+        by_value, sc_codes, axis=1)
+    term_counts = rng.integers(0, 3, (t, v + 1)) * (rng.random((t, v + 1))
+                                                    < 0.3)
+    state[do["term_counts"]:do["term_counts"] + t] = np.take_along_axis(
+        term_counts, term_codes, axis=1)
+    owners = rng.random((t, v + 1)) < 0.1
+    state[do["term_owners"]:do["term_owners"] + t] = np.take_along_axis(
+        owners, term_codes, axis=1)
+    state[do["totals"], :t] = term_counts[:, :v].sum(axis=1)
+
+    def flags(shape, p):
+        return (rng.random(shape) < p).astype(np.int32)
+
+    pod_req = rng.integers(100, 2500, (b, r))
+    pod_ints = np.concatenate([
+        pod_req, pod_req[:, :2],
+        rng.integers(0, u, (b, 1)),             # profile
+        flags((b, 1), 0.875),                   # valid
+        flags((b, sc), 0.3),                    # pod_sc
+        flags((b, sc), 0.5),                    # sc_match
+        flags((b, t), 0.15),                    # match_by
+        flags((b, t), 0.05),                    # own_aff
+        flags((b, t), 0.05),                    # own_anti
+    ], axis=1).astype(np.int32)
+    pod_floats = (rng.integers(-3, 8, (b, t)) * flags((b, t), 0.2)
+                  ).astype(np.float32)
+    pstatic = PStatic(torch.from_numpy(ints), torch.from_numpy(f32s),
+                      torch.from_numpy(sc_meta), r, sc, t, u, v)
+    return (pstatic, torch.from_numpy(state), torch.from_numpy(pod_ints),
+            torch.from_numpy(pod_floats))

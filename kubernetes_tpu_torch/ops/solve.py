@@ -1,12 +1,18 @@
 """The batch solve over the planes layout: its plain PyTorch version, the
-wrapper of the hand-written CUDA kernel (``csrc/solve_kernel.cu``), and
-the solve backend the session drives.
+wrapper of the hand-written CUDA kernels (``csrc/solve_kernel.cu``), their
+launch plan, and the solve backend the session drives.
 
-``solve`` takes the plain version for CPU tensors and launches the kernel
+``solve`` takes the plain version for CPU tensors and launches a kernel
 for CUDA tensors; it never falls back from one to the other. Both update
 the state planes in place (the state carried to the next batch) and
 return the assignment of each pod row, -1 where no node is feasible or
 the row is padding.
+
+Two kernels run on the card, and ``plan_launch`` picks one by a size
+rule: the cluster kernel (the node axis over a thread-block cluster, each
+block's slice of the planes in its shared memory) whenever that layout
+fits one block's shared memory, the one-block kernel (planes in global
+memory) for wider shapes.
 
 Float scores are computed in the same order, with the same f32
 operations, as the reference solve, so assignments agree exactly:
@@ -24,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -42,8 +48,73 @@ KERNEL_SOURCE = PACKAGE_DIR / "csrc" / "solve_kernel.cu"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# one block's shared memory on Hopper (227 KB), the block sizes and the
+# pod chunk the kernels are written for (csrc/solve_kernel.cu)
+SMEM_LIMIT = 232448
+CLUSTER_THREADS = 512
+BLOCK_THREADS = 1024
+POD_CHUNK = 32
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+
+
+class LaunchPlan(NamedTuple):
+    """How a solve launches: which kernel, its cluster size, threads per
+    block, node columns per block and shared-memory bytes per block."""
+
+    kernel: str             # "cluster" or "block"
+    cluster: int
+    threads: int
+    cols_per_block: int
+    smem_bytes: int
+    chunk: int              # pod rows staged at a time (cluster kernel)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cluster_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
+                       threads: int, cols_per_block: int, chunk: int) -> int:
+    """Shared memory of one block of the cluster kernel, as its layout
+    (``cluster_layout`` in the source) lays it out: the block's slice of
+    every state row but totals and of the static rows each pod reads
+    (alloc, max_pods, node_valid, the codes, the U masks and static
+    scores), a score row, the totals, ``sc_meta``, two pod chunks, the
+    pods' fact lists, the block reduction's warp slots and the cluster
+    exchange's slots (two parities)."""
+    width = r + 4 + 2 * sc + 3 * t
+    rows = (r + 3 + sc + 2 * t) + (r + 2 + sc + t + 2 * u) + 1
+    words = (rows * cols_per_block + t + 2 * sc
+             + 2 * chunk * (width + t) + chunk * (8 + 3 * sc + 4 * t)
+             + (sc + 2) * (threads // 32) + 2 * cluster * (sc + 2))
+    return 4 * words
+
+
+def block_plan(n: int, sc: int, t: int) -> LaunchPlan:
+    """The one-block kernel's launch: up to 1024 threads over all N
+    columns, shared memory for the reductions and the totals only."""
+    return LaunchPlan("block", 1, min(_round_up(n, 32), BLOCK_THREADS), n,
+                      4 * (3 * (BLOCK_THREADS // 32 + 1) + sc + t), 0)
+
+
+def plan_launch(n: int, r: int, sc: int, t: int, u: int,
+                max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
+    """The launch of a solve over ``n`` node columns. The node axis is cut
+    into ``max_cluster`` slices of a multiple of 32 columns (the last one
+    ragged), one block each, at most 512 threads a block; the cluster
+    kernel runs when one block's shared memory holds its slice
+    (``cluster_smem_bytes`` <= 227 KB), and the one-block kernel
+    otherwise."""
+    cols = _round_up(-(-n // max_cluster), 32)
+    cluster = -(-n // cols)
+    threads = min(cols, CLUSTER_THREADS)
+    smem = cluster_smem_bytes(r, sc, t, u, cluster, threads, cols, POD_CHUNK)
+    if smem <= SMEM_LIMIT:
+        return LaunchPlan("cluster", cluster, threads, cols, smem, POD_CHUNK)
+    return block_plan(n, sc, t)
 
 
 def _pod_columns(r: int, sc: int, t: int) -> dict:
@@ -198,7 +269,8 @@ def _nvcc() -> str:
 def build_kernel() -> Path:
     """Compile ``csrc/solve_kernel.cu`` for sm_90a into a shared library
     under ``build/``, named by the hash of the source and flags, so an
-    edited source rebuilds. Returns the library's path."""
+    edited source rebuilds; ptxas's report (registers, shared memory and
+    spills of each kernel) is kept beside it. Returns the library's path."""
     src = KERNEL_SOURCE.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"libsolve_kernel_{digest[:16]}.so"
@@ -211,34 +283,58 @@ def build_kernel() -> Path:
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {KERNEL_SOURCE}:\n{proc.stderr}")
+    ptxas_report_path(lib).write_text(proc.stderr)
     os.replace(tmp, lib)
     return lib
 
 
+def ptxas_report_path(lib: Path) -> Path:
+    """Where ``build_kernel`` keeps ptxas's report for ``lib``."""
+    return lib.with_suffix(".ptxas.txt")
+
+
 class SolveKernel:
-    """ctypes binding of the CUDA solve kernel. ``launches`` counts the
-    kernel launches this wrapper made; the library is built and loaded on
-    the first call."""
+    """ctypes binding of the CUDA solve kernels. ``counts`` holds the
+    launches this wrapper made of each kernel ("cluster", "block");
+    ``launches`` is their sum. The library is built and loaded on the
+    first launch."""
 
     def __init__(self):
-        self.launches = 0
+        self.counts = {"cluster": 0, "block": 0}
         self._lib = None
         self._lock = threading.Lock()
+        self._plans = {}
+
+    @property
+    def launches(self) -> int:
+        return sum(self.counts.values())
+
+    def reset_counts(self) -> None:
+        for k in self.counts:
+            self.counts[k] = 0
 
     def _load(self):
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(build_kernel()))
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-                lib.ktt_solve_launch.argtypes = (
-                    [p] * 7 + [i] * 7 + [f] * 5 + [p])
-                lib.ktt_solve_launch.restype = ctypes.c_int
+                lib.ktt_solve_cluster_launch.argtypes = (
+                    [p] * 7 + [i] * 12 + [f] * 5 + [p])
+                lib.ktt_solve_block_launch.argtypes = (
+                    [p] * 7 + [i] * 9 + [f] * 5 + [p])
+                lib.ktt_cluster_max_active.argtypes = [i] * 3
+                lib.ktt_cluster_smem_bytes.argtypes = [i] * 8
+                for fn in (lib.ktt_solve_cluster_launch,
+                           lib.ktt_solve_block_launch,
+                           lib.ktt_cluster_max_active,
+                           lib.ktt_cluster_smem_bytes):
+                    fn.restype = ctypes.c_int
                 self._lib = lib
         return self._lib
 
-    def __call__(self, params: SolverParams, ps: PStatic,
-                 state: torch.Tensor, pod_ints: torch.Tensor,
-                 pod_floats: torch.Tensor) -> torch.Tensor:
+    def check(self, ps: PStatic, state: torch.Tensor, pod_ints: torch.Tensor,
+              pod_floats: torch.Tensor) -> None:
+        """Raise ValueError on inputs the kernels do not take."""
         r, sc, t, u = ps.r, ps.sc, ps.t, ps.u
         n = ps.ints.shape[1]
         b = pod_ints.shape[0]
@@ -265,18 +361,72 @@ class SolveKernel:
         profiles = pod_ints[:, r + 2]
         if bool(((profiles < 0) | (profiles >= u)).any()):
             raise ValueError(f"pod profile index outside [0, {u})")
+
+    def plan(self, ps: PStatic) -> LaunchPlan:
+        """``plan_launch`` for these planes on this card: a cluster of 16
+        where the card can hold one of that shape, else 8 (the portable
+        size). The shared-memory size is checked against the source's own
+        layout."""
+        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
+        if key not in self._plans:
+            lib = self._load()
+            plan = plan_launch(*key)
+            if plan.kernel == "cluster" and self._active(lib, plan, ps) < 1:
+                plan = plan_launch(*key, max_cluster=PORTABLE_CLUSTER)
+            if plan.kernel == "cluster" and self._active(lib, plan, ps) < 1:
+                raise RuntimeError(f"the card holds no cluster of {plan}")
+            self._plans[key] = plan
+        return self._plans[key]
+
+    @staticmethod
+    def _active(lib, plan: LaunchPlan, ps: PStatic) -> int:
+        """Clusters of ``plan``'s shape the card holds at once."""
+        want = lib.ktt_cluster_smem_bytes(
+            ps.r, ps.sc, ps.t, ps.u, plan.cluster, plan.threads,
+            plan.cols_per_block, plan.chunk)
+        if want != plan.smem_bytes:
+            raise RuntimeError(f"launch plan's shared memory {plan.smem_bytes}"
+                               f" B differs from the kernel's layout, {want} B")
+        active = lib.ktt_cluster_max_active(plan.cluster, plan.threads,
+                                            plan.smem_bytes)
+        if active < 0:
+            raise RuntimeError(f"cluster occupancy query failed: CUDA error "
+                               f"{-active}")
+        return active
+
+    def launch(self, params: SolverParams, ps: PStatic, state: torch.Tensor,
+               pod_ints: torch.Tensor, pod_floats: torch.Tensor,
+               plan: LaunchPlan) -> torch.Tensor:
+        """Launch the kernel ``plan`` names on checked inputs (``check``),
+        on the current stream, without synchronising."""
         lib = self._load()
-        assign = torch.empty(b, dtype=torch.int32, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.ktt_solve_launch(
-            ps.sc_meta.data_ptr(), pod_ints.data_ptr(),
-            pod_floats.data_ptr(), ps.ints.data_ptr(), ps.f32s.data_ptr(),
-            state.data_ptr(), assign.data_ptr(),
-            r, sc, t, u, ps.v, n, b, *params.as_tuple(), stream)
+        n, b = ps.ints.shape[1], pod_ints.shape[0]
+        assign = torch.empty(b, dtype=torch.int32, device=state.device)
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        ptrs = (ps.sc_meta.data_ptr(), pod_ints.data_ptr(),
+                pod_floats.data_ptr(), ps.ints.data_ptr(), ps.f32s.data_ptr(),
+                state.data_ptr(), assign.data_ptr())
+        dims = (ps.r, ps.sc, ps.t, ps.u, ps.v, n, b)
+        if plan.kernel == "cluster":
+            err = lib.ktt_solve_cluster_launch(
+                *ptrs, *dims, plan.cluster, plan.threads, plan.cols_per_block,
+                plan.chunk, plan.smem_bytes, *params.as_tuple(), stream)
+        else:
+            err = lib.ktt_solve_block_launch(
+                *ptrs, *dims, plan.threads, plan.smem_bytes,
+                *params.as_tuple(), stream)
         if err != 0:
-            raise RuntimeError(f"solve kernel launch failed: CUDA error {err}")
-        self.launches += 1
+            raise RuntimeError(f"solve {plan.kernel} kernel launch failed: "
+                               f"CUDA error {err}")
+        self.counts[plan.kernel] += 1
         return assign
+
+    def __call__(self, params: SolverParams, ps: PStatic,
+                 state: torch.Tensor, pod_ints: torch.Tensor,
+                 pod_floats: torch.Tensor) -> torch.Tensor:
+        self.check(ps, state, pod_ints, pod_floats)
+        return self.launch(params, ps, state, pod_ints, pod_floats,
+                           self.plan(ps))
 
 
 solve_kernel = SolveKernel()

@@ -12,9 +12,15 @@ import pytest
 import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.harness.problems import random_planes
 from kubernetes_tpu_torch.ops import solve as solve_mod
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
-from kubernetes_tpu_torch.ops.planes import PStatic, prepare
+from kubernetes_tpu_torch.ops.planes import (
+    PStatic,
+    prepare,
+    state_planes,
+    static_planes,
+)
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 
@@ -84,20 +90,119 @@ def _to(device, ps, state, ints, floats):
     return moved, state.to(device).clone(), ints.to(device), floats.to(device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,n_nodes,n_pods,groups", [
-    (0, 40, 64, 3), (1, 300, 200, 9), (2, 1000, 256, 16)])
-def test_kernel_matches_plain(card, seed, n_nodes, n_pods, groups):
-    args = _problem(seed, n_nodes, n_pods, groups)
+def _card_equals_plain(card, args, plan=None):
+    """Solve ``args`` with a kernel on the card (``plan``'s, or the one
+    the wrapper plans) and with the plain version on the CPU; assignments
+    and final state planes must be equal. Returns (assignments, final
+    state, the kernel that ran)."""
     params = SolverParams()
     on_card = _to(card, *args)
     on_cpu = _to("cpu", *args)
-    before = solve_mod.solve_kernel.launches
-    got = solve_mod.solve(params, *on_card)
+    kernel = solve_mod.solve_kernel
+    before = dict(kernel.counts)
+    if plan is None:
+        got = solve_mod.solve(params, *on_card)
+    else:
+        kernel.check(*on_card)
+        got = kernel.launch(params, *on_card, plan)
     torch.cuda.synchronize()
-    assert solve_mod.solve_kernel.launches == before + 1
+    ran = [k for k in kernel.counts if kernel.counts[k] != before[k]]
+    assert len(ran) == 1 and kernel.launches == sum(before.values()) + 1
     want = solve_mod.solve(params, *on_cpu)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     np.testing.assert_array_equal(on_card[1].cpu().numpy(),
                                   on_cpu[1].numpy())
+    return want, on_cpu[1], ran[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_nodes,n_pods,groups", [
+    (0, 40, 64, 3), (1, 300, 200, 9), (2, 1000, 256, 16)])
+def test_kernel_matches_plain(card, seed, n_nodes, n_pods, groups):
+    want, _, ran = _card_equals_plain(
+        card, _problem(seed, n_nodes, n_pods, groups))
+    assert ran == "cluster"
     assert (want >= 0).any()
+
+
+@pytest.mark.cuda
+def test_ragged_last_slice(card):
+    args = random_planes(3, 1408, 96, sc=2, t=2, u=2, real=1400)
+    plan = solve_mod.solve_kernel.plan(args[0])
+    assert plan.kernel == "cluster"
+    assert 1408 - (plan.cluster - 1) * plan.cols_per_block \
+        < plan.cols_per_block
+    want, _, _ = _card_equals_plain(card, args)
+    assert (want >= 0).any()
+
+
+@pytest.mark.cuda
+def test_only_feasible_node_in_the_last_slice(card):
+    ps, state, ints, floats = random_planes(4, 5120, 40)
+    so, _ = static_planes(ps.r, ps.sc, ps.t, ps.u)
+    do, _ = state_planes(ps.r, ps.sc, ps.t)
+    only = 5100
+    ps.ints[so["masks"]:so["masks"] + ps.u] = 0
+    ps.ints[so["masks"]:so["masks"] + ps.u, only] = 1
+    ps.ints[so["alloc"]:so["alloc"] + ps.r, only] = 10 ** 7
+    ps.ints[so["max_pods"], only] = 1000
+    state[do["requested"]:do["pod_count"] + 1, only] = 0
+    ints[:, ps.r + 4:] = 0          # no constraints or terms
+    want, _, ran = _card_equals_plain(card, (ps, state, ints, floats))
+    assert ran == "cluster"
+    valid = ints[:, ps.r + 3] > 0
+    assert (want[valid] == only).all() and (want[~valid] == -1).all()
+
+
+@pytest.mark.cuda
+def test_ties_across_slice_boundaries(card):
+    """Identical nodes: every block offers an equal best score, so the
+    lowest index has to win across blocks. The first 330 columns are not
+    nodes, so the winners start inside the second slice."""
+    ps, state, ints, floats = random_planes(5, 5120, 64)
+    so, _ = static_planes(ps.r, ps.sc, ps.t, ps.u)
+    for planes in (ps.ints, ps.f32s, state):
+        planes[:] = planes[:, :1].clone()
+    ps.ints[so["node_valid"], :330] = 0
+    ints[:, ps.r + 4:] = 0
+    floats[:] = 0
+    want, _, _ = _card_equals_plain(card, (ps, state, ints, floats))
+    placed = want[ints[:, ps.r + 3] > 0]
+    assert (placed >= 330).all()
+    assert placed.tolist() == sorted(placed.tolist())   # spread in order
+
+
+@pytest.mark.cuda
+def test_wide_space_at_5k_nodes(card):
+    args = random_planes(6, 5120, 128, sc=16, t=16, u=16, real=5000)
+    assert solve_mod.solve_kernel.plan(args[0]).kernel == "cluster"
+    want, _, ran = _card_equals_plain(card, args)
+    assert ran == "cluster" and (want >= 0).sum() > 64
+
+
+@pytest.mark.cuda
+def test_two_batches_carry_state(card):
+    ps, state, ints, floats = random_planes(7, 2048, 128, sc=3, t=3, u=2)
+    _, carried, _ = _card_equals_plain(card, (ps, state, ints[:64],
+                                              floats[:64]))
+    want, _, _ = _card_equals_plain(card, (ps, carried, ints[64:].clone(),
+                                           floats[64:].clone()))
+    assert (want >= 0).any()
+
+
+@pytest.mark.cuda
+def test_past_the_budget_runs_the_one_block_kernel(card):
+    args = random_planes(8, 5120, 32, sc=40, t=40, u=2)
+    assert solve_mod.solve_kernel.plan(args[0]).kernel == "block"
+    want, _, ran = _card_equals_plain(card, args)
+    assert ran == "block" and (want >= 0).any()
+
+
+@pytest.mark.cuda
+def test_portable_cluster_of_eight(card):
+    """A cluster of 8 at 5,120 columns: some threads own two columns."""
+    args = random_planes(9, 5120, 96, sc=2, t=2, u=2)
+    plan = solve_mod.plan_launch(5120, 3, 2, 2, 2, max_cluster=8)
+    assert plan.kernel == "cluster" and plan.cols_per_block > plan.threads
+    _, _, ran = _card_equals_plain(card, args, plan)
+    assert ran == "cluster"
