@@ -18,9 +18,10 @@ prints no result):
    assignments and state planes must be equal. Each case runs on the
    kernel the launch plan picks, and again on the one-block kernel;
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
-   4,096, through ``run_workload`` on the card. Every pod bound, the
-   cluster kernel launched once per solve, the one-block kernel and the
-   plain version never;
+   4,096, through ``run_workload`` on the card, in the default arms
+   (pipelined, device mirror on). Every pod bound, the cluster kernel
+   launched once per solve, the one-block kernel and the plain version
+   never;
 5. TopologySpreading, 5,000 nodes / 5,000 pods: the same, and zone skew
    at most one;
 6. small SchedulingBasic and TopologySpreading runs on the card and on
@@ -31,15 +32,33 @@ prints no result):
    (the wrapper's input checks outside the window, its whole call timed
    beside it); the cluster kernel on the two largest batches at cluster
    sizes 16, 8, 4 and 2; and the plain version once on each of the two
-   largest batches, which must equal the kernels.
+   largest batches, which must equal the kernels;
+8. SchedulingBasic 5,000 / 30,000 in turns, serialized, pipelined,
+   pipelined, serialized: the same pods bound to the same nodes in all
+   four; each dispatch (``solve_lazy``, host clock, the cyclic GC's
+   pauses taken out) under half its kernel's CUDA-event time, and the
+   card still busy right after some of them;
+9. the churn path (``workloads.churn``: 6 waves of 5,000 pods over 5,000
+   nodes, a seeded 10% of the bound pods deleted and 2% of the nodes
+   given a new allocatable cpu after each wave, one pod deleted while a
+   batch is held) with the mirror on and off: the same bound sets, no
+   pod lost, the held batch discarded, catch-ups in the mirror-on run and
+   its planes equal to a fresh ``prepare`` after each;
+10. the sustained-arrival row (30,000 pods at 5,000 a second, seed 14,
+    32-cpu nodes), pipelined and serialized: no pod lost, every arrival
+    injected.
 
-The second-to-last lines are the kernel table as JSON and the card's
-name and power limit; the last line is the JSON ok line.
+Every main-path run (4, 5, 8, 9, 10) resets the kernels' launch counts
+just before and reads them just after; the kernel table sums them.
+Before the last line come the scatters' counts and times as JSON, the
+kernel table as JSON and the card's name and power limit; the last line
+is the JSON ok line.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -49,8 +68,9 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
-from kubernetes_tpu_torch.harness import perf, workloads
+from kubernetes_tpu_torch.harness import perf, sustained, workloads
 from kubernetes_tpu_torch.harness.problems import random_planes
+from kubernetes_tpu_torch.ops import mirror as mirror_mod
 from kubernetes_tpu_torch.ops import solve as solve_mod
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
 from kubernetes_tpu_torch.ops.planes import (
@@ -59,8 +79,10 @@ from kubernetes_tpu_torch.ops.planes import (
     state_planes,
     static_planes,
 )
+from kubernetes_tpu_torch.ops.solve import CudaPlanesBackend
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
+from kubernetes_tpu_torch.sidecar import BatchScheduler
 
 PARAMS = SolverParams()
 KERNEL_SOURCE = "kubernetes_tpu_torch/csrc/solve_kernel.cu"
@@ -312,25 +334,25 @@ def planes_cases():
 
 # ----------------------------------------------------------------------
 class _Recorder:
-    """Stands in for the kernel wrapper during a run: times each launch
-    with CUDA events and keeps the inputs of the batch with the most
-    pods. The launch itself, and its count, stay the wrapper's."""
+    """Stands in for the kernel wrapper during a run: CUDA events around
+    each launch and, with ``keep``, copies of each launch's inputs, taken
+    on the stream without waiting for it. The launch, and its count,
+    stay the wrapper's."""
 
-    def __init__(self, kernel):
+    def __init__(self, kernel, keep=False):
         self.kernel = kernel
+        self.keep = keep
         self.events = []
-        self.largest = None
-        self._valid = -1
+        self.inputs = []
 
-    def __call__(self, params, ps, state, ints, floats):
-        valid = int((ints[:, ps.r + 3] > 0).sum())
-        if valid > self._valid:
-            self._valid = valid
-            self.largest = (ps, state.clone(), ints.clone(), floats.clone())
+    def __call__(self, params, ps, state, ints, floats, **kw):
+        if self.keep:
+            self.inputs.append((ps, state.clone(), ints.clone(),
+                                floats.clone()))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.kernel(params, ps, state, ints, floats)
+        out = self.kernel(params, ps, state, ints, floats, **kw)
         end.record()
         self.events.append((start, end))
         return out
@@ -339,14 +361,79 @@ class _Recorder:
         torch.cuda.synchronize()
         return [s.elapsed_time(e) for s, e in self.events]
 
+    def largest(self):
+        """The kept inputs of the launch with the most valid pods."""
+        valid = [int((i[2][:, i[0].r + 3] > 0).sum()) for i in self.inputs]
+        return self.inputs[int(np.argmax(valid))]
 
-def run_main_path(name, nodes, pods, max_batch=4096):
-    """One workload on the card through run_workload, with the kernel's
-    launch count reset just before and read just after, and the plain
-    version trapped."""
+
+class _Dispatches:
+    """While entered: every ``CudaPlanesBackend.solve_lazy`` call's host
+    wall time and the cyclic GC's pauses inside it, the waits its
+    staging ring made for a buffer still in use, whether its event still
+    reported the card busy right after it returned, and whether it ran
+    inside a warmup."""
+
+    def __init__(self):
+        self.calls = []
+        self._warming = False
+        self._gc_s = 0.0
+        self._gc_t0 = 0.0
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        else:
+            self._gc_s += time.perf_counter() - self._gc_t0
+
+    def __enter__(self):
+        self._solve = CudaPlanesBackend.solve_lazy
+        self._warmup = BatchScheduler.warmup
+        real_solve, real_warmup = self._solve, self._warmup
+
+        def solve_lazy(backend, *args):
+            waits = backend.staging.waits
+            gc_s = self._gc_s
+            t0 = time.perf_counter()
+            handle = real_solve(backend, *args)
+            wall = (time.perf_counter() - t0) * 1000
+            busy = handle.event is not None and not handle.event.query()
+            self.calls.append({
+                "wall_ms": wall, "gc_ms": (self._gc_s - gc_s) * 1000,
+                "busy": busy, "warming": self._warming,
+                "ring_waits": backend.staging.waits - waits})
+            return handle
+
+        def warmup(bs, pods):
+            self._warming = True
+            try:
+                return real_warmup(bs, pods)
+            finally:
+                self._warming = False
+
+        CudaPlanesBackend.solve_lazy = solve_lazy
+        BatchScheduler.warmup = warmup
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        CudaPlanesBackend.solve_lazy = self._solve
+        BatchScheduler.warmup = self._warmup
+        gc.callbacks.remove(self._on_gc)
+
+
+LAUNCHES = {"cluster": 0, "block": 0}   # main-path launches, every path
+
+
+def run_path(name, run, keep=False):
+    """``run()`` on the card with the kernels' launch counts reset just
+    before and read just after, the plain version trapped, each launch
+    timed with CUDA events and each dispatch with the host clock. Every
+    launch must be the cluster kernel's. Returns (run's result, counts,
+    kernel ms per launch, dispatches, the recorder, wall seconds)."""
     plain_calls = []
     real_plain, real_kernel = solve_mod.solve_plain, solve_mod.solve_kernel
-    recorder = _Recorder(real_kernel)
+    recorder = _Recorder(real_kernel, keep)
 
     def trapped_plain(*args):
         plain_calls.append(1)
@@ -355,27 +442,40 @@ def run_main_path(name, nodes, pods, max_batch=4096):
     solve_mod.solve_plain, solve_mod.solve_kernel = trapped_plain, recorder
     real_kernel.reset_counts()
     try:
-        t0 = time.monotonic()
-        res = perf.run_workload(
-            name, workloads.make_workload(name, nodes, 0, pods),
-            max_batch=max_batch, device="cuda")
-        wall = time.monotonic() - t0
+        with _Dispatches() as dispatches:
+            t0 = time.monotonic()
+            out = run()
+            wall = time.monotonic() - t0
     finally:
         counts = dict(real_kernel.counts)
         solve_mod.solve_plain, solve_mod.solve_kernel = real_plain, real_kernel
-    launches = counts["cluster"]
+    for k in LAUNCHES:
+        LAUNCHES[k] += counts[k]
     kernel_ms = recorder.kernel_ms()
+    check(counts["cluster"] > 0, f"{name}: the cluster kernel launched")
+    check(counts["block"] == 0, f"{name}: one-block kernel launched "
+          f"{counts['block']} times")
+    check(not plain_calls, f"{name}: plain version called on the card")
+    check(len(kernel_ms) == counts["cluster"] == len(dispatches.calls),
+          f"{name}: one timed launch and one dispatch per launch")
+    return out, counts, kernel_ms, dispatches.calls, recorder, wall
+
+
+def run_main_path(name, nodes, pods, max_batch=4096):
+    """One workload on the card through run_workload (default arms:
+    pipelined, mirror on). Every pod bound, the cluster kernel launched
+    once per solve."""
+    res, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: perf.run_workload(
+            name, workloads.make_workload(name, nodes, 0, pods),
+            max_batch=max_batch, device="cuda"), keep=True)
+    launches = counts["cluster"]
     check(res.device.startswith("cuda"), f"{name} ran on the card")
     check(len(res.placements) == pods, f"{name} created {pods} pods")
     unbound = sum(1 for v in res.placements.values() if not v)
     check(unbound == 0, f"{name}: {unbound} pods left unbound")
-    check(launches == res.solves and launches > 0,
-          f"{name}: cluster kernel launches {launches} == solves "
-          f"{res.solves}")
-    check(counts["block"] == 0, f"{name}: one-block kernel launched "
-          f"{counts['block']} times")
-    check(not plain_calls, f"{name}: plain version called on the card")
-    check(len(kernel_ms) == launches, "one timed event pair per launch")
+    check(launches == res.solves, f"{name}: cluster kernel launches "
+          f"{launches} == solves {res.solves}")
     busy = sum(kernel_ms) / 1000
     log(f"  {name} {nodes} nodes / {pods} pods on {res.device}: "
         f"{res.pods_per_second:.1f} pods/s over {res.duration_seconds:.3f} s "
@@ -392,7 +492,7 @@ def run_main_path(name, nodes, pods, max_batch=4096):
         f"max={np.max(kernel_ms):.3f} kernel busy {busy:.3f} s")
     log("    host seconds: " + ", ".join(
         f"{k}={v:.3f}" for k, v in res.seconds.items()))
-    return res, counts, kernel_ms, recorder.largest
+    return res, counts, kernel_ms, recorder.largest()
 
 
 def zone_skew(res):
@@ -595,6 +695,226 @@ def print_ptxas(lib):
                     log(f"    {follow.strip()}")
 
 
+# ----------------------------------------------------------------------
+def _ms_list(xs):
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
+
+
+def phase_pipeline(nodes=5000, pods=30000, max_batch=4096):
+    """SchedulingBasic in turns: serialized, pipelined, pipelined,
+    serialized. Every run binds every pod, to the same nodes; every
+    dispatch returns in under half its kernel's time, and some return
+    while their kernel still runs."""
+    runs = []
+    for pipeline in (False, True, True, False):
+        arm = "pipelined" if pipeline else "serialized"
+        name = f"SchedulingBasic {arm}"
+        res, counts, kernel_ms, calls, _, wall = run_path(
+            name, lambda: perf.run_workload(
+                "SchedulingBasic",
+                workloads.make_workload("SchedulingBasic", nodes, 0, pods),
+                max_batch=max_batch, device="cuda", pipeline=pipeline))
+        check(res.pipeline == pipeline, f"{name} ran the {arm} arm")
+        check(len(res.placements) == pods and all(res.placements.values()),
+              f"{name}: every pod bound")
+        check(counts["cluster"] == res.solves,
+              f"{name}: one cluster launch per solve")
+        measured = [(c, k) for c, k in zip(calls, kernel_ms)
+                    if not c["warming"]]
+        # the cyclic GC's pauses are host time, not a wait for the card
+        slow = [(round(c["wall_ms"], 3), round(c["gc_ms"], 3), round(k, 3))
+                for c, k in measured if c["wall_ms"] - c["gc_ms"] > 0.5 * k]
+        check(not slow, f"{name}: dispatches over half their kernel's time "
+              f"(a hidden wait for the card; wall ms, GC ms, kernel ms): "
+              f"{slow}")
+        waits = sum(c["ring_waits"] for c, _ in measured)
+        check(waits == 0, f"{name}: {waits} staging buffers still in use")
+        check(any(c["busy"] for c, _ in measured),
+              f"{name}: every dispatch returned after its kernel ended")
+        depth = (res.pipeline_info or {}).get("depth", 0)
+        log(f"  {name}: {res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+            f"enqueue->bind p99 {res.latency['Perc99']:.1f} ms; solves "
+            f"{res.solves} rebuilds {res.rebuilds} carry_chained "
+            f"{res.carry_chained} pipeline depth {depth}")
+        log(f"    dispatch ms {_ms_list(c['wall_ms'] for c, _ in measured)}"
+            f" (GC in them {_ms_list(c['gc_ms'] for c, _ in measured)}) "
+            f"against kernel ms {_ms_list(k for _, k in measured)}; busy "
+            f"after dispatch {[c['busy'] for c, _ in measured]}")
+        log("    host s from dispatch to materialize "
+            f"{_ms_list(h[0] for h in res.handoffs)}, waited "
+            f"{_ms_list(h[1] for h in res.handoffs)}")
+        log("    host seconds: " + ", ".join(
+            f"{k}={v:.3f}" for k, v in res.seconds.items()))
+        runs.append({
+            "arm": arm, "pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "enqueue_to_bind_ms": res.latency,
+            "solve_to_bind_ms": res.metrics, "solves": res.solves,
+            "rebuilds": res.rebuilds, "carry_chained": res.carry_chained,
+            "pipeline_depth_max": depth, "handoffs_s": res.handoffs,
+            "dispatch_ms": [c["wall_ms"] for c, _ in measured],
+            "dispatch_gc_ms": [c["gc_ms"] for c, _ in measured],
+            "kernel_ms": [k for _, k in measured],
+            "busy_after_dispatch": [c["busy"] for c, _ in measured],
+            "host_seconds": res.seconds, "placements": res.placements})
+    first = runs[0].pop("placements")
+    for r in runs[1:]:
+        check(r.pop("placements") == first,
+              f"{r['arm']} run binds like the first serialized run")
+    log(f"  all four runs bound the same {len(first)} pods to the same "
+        "nodes")
+    return runs
+
+
+class _ScatterTimer:
+    """While entered: CUDA events around each of the backend's scatters;
+    ``ms()`` their device times."""
+
+    def __enter__(self):
+        self.events = {"add": [], "set": []}
+        self._real = {"add": CudaPlanesBackend.scatter_state_add,
+                      "set": CudaPlanesBackend.scatter_static_set}
+
+        def timed(kind):
+            real = self._real[kind]
+
+            def scatter(backend, planes, *entries):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = real(backend, planes, *entries)
+                end.record()
+                self.events[kind].append((start, end))
+                return out
+            return scatter
+
+        CudaPlanesBackend.scatter_state_add = timed("add")
+        CudaPlanesBackend.scatter_static_set = timed("set")
+        return self
+
+    def __exit__(self, *exc):
+        CudaPlanesBackend.scatter_state_add = self._real["add"]
+        CudaPlanesBackend.scatter_static_set = self._real["set"]
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: [s.elapsed_time(e) for s, e in v]
+                for k, v in self.events.items()}
+
+
+def phase_churn(nodes=5000, waves=6, per_wave=5000, max_batch=4096):
+    """The churn path (``workloads.churn``: bulk pod deletes and
+    allocatable-only node updates after each wave, a pod deleted while a
+    batch is held) with the mirror on and off: the same pods bound to
+    the same nodes, none lost; the mirror-on run catches up, and after
+    every catch-up its planes equal a fresh prepare from the cache."""
+    sample = [Pod.from_dict(workloads.basic_pod(0))]
+    real_catch_up = mirror_mod.DeviceClusterMirror.catch_up
+    compared = []
+
+    def catch_up(mirror, lo, hi):
+        out = real_catch_up(mirror, lo, hi)
+        if out is not None:
+            sess = mirror._session
+            ps, state = sess.fresh_planes(sample, 8)
+            same = (torch.equal(sess._state, state)
+                    and torch.equal(sess._static.ints, ps.ints)
+                    and torch.equal(sess._static.f32s, ps.f32s))
+            check(same, "planes after a catch-up equal a fresh prepare")
+            compared.append(hi - lo)
+        return out
+
+    runs = {}
+    mirror_mod.DeviceClusterMirror.catch_up = catch_up
+    try:
+        for mirror in (True, False):
+            arm = "on" if mirror else "off"
+            name = f"churn mirror {arm}"
+            with _ScatterTimer() as timer:
+                res, counts, kernel_ms, _, _, wall = run_path(
+                    name, lambda: perf.run_workload(
+                        "churn", workloads.churn(nodes, waves, per_wave,
+                                                 seed=9),
+                        max_batch=max_batch, device="cuda", mirror=mirror))
+            scatter_ms = timer.ms()
+            left = res.total_pods - res.deleted_pods
+            check(len(res.placements) == left
+                  and all(res.placements.values()),
+                  f"{name}: every pod not deleted is bound ({left})")
+            check(counts["cluster"] == res.solves,
+                  f"{name}: one cluster launch per solve")
+            check(res.pipeline_info["discards"] >= 1,
+                  f"{name}: the held batch was discarded")
+            info = res.mirror_info or {}
+            if mirror:
+                check(info["catch_ups"] > 0 and info["events"] > 0,
+                      f"{name}: catch-ups scattered the churn")
+                check(len(compared) == info["catch_ups"],
+                      f"{name}: every catch-up compared")
+            log(f"  {name}: {res.pods_per_second:.1f} pods/s over "
+                f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+                f"{res.total_pods} created, {res.deleted_pods} deleted; "
+                f"solves {res.solves} rebuilds {res.rebuilds} "
+                f"discards {res.pipeline_info['discards']}")
+            log(f"    mirror {info}; scatters {res.scatters}; scatter host "
+                f"s {res.seconds['scatter']:.4f}; scatter device ms add "
+                f"{_ms_list(scatter_ms['add'])} set "
+                f"{_ms_list(scatter_ms['set'])}")
+            runs[arm] = {
+                "pods_per_s": res.pods_per_second,
+                "duration_s": res.duration_seconds, "wall_s": wall,
+                "created": res.total_pods, "deleted": res.deleted_pods,
+                "solves": res.solves, "rebuilds": res.rebuilds,
+                "mirror": res.mirror_info, "pipeline": res.pipeline_info,
+                "scatters": res.scatters, "scatter_device_ms": scatter_ms,
+                "host_seconds": res.seconds,
+                "enqueue_to_bind_ms": res.latency,
+                "kernel_ms": kernel_ms, "placements": res.placements}
+    finally:
+        mirror_mod.DeviceClusterMirror.catch_up = real_catch_up
+    check(runs["on"].pop("placements") == runs["off"].pop("placements"),
+          "churn: mirror on and off bind the same pods to the same nodes")
+    log(f"  mirror on == off; {len(compared)} catch-ups (windows of "
+        f"{compared} mutations) equal a fresh prepare")
+    return runs
+
+
+def phase_sustained(pods=30000, qps=5000.0, seed=14, max_batch=4096):
+    """The sustained-arrival row, pipelined and serialized: no pod lost,
+    every arrival injected."""
+    rows = {}
+    for pipeline in (True, False):
+        arm = "pipelined" if pipeline else "serialized"
+        name = f"sustained {arm}"
+        row, counts, kernel_ms, _, _, wall = run_path(
+            name, lambda: sustained.run_sustained_row(
+                pods=pods, qps=qps, seed=seed, node_cpu=32,
+                max_batch=max_batch, device="cuda", pipeline=pipeline))
+        check(row["device"].startswith("cuda"), f"{name} ran on the card")
+        check(row["lost_pods"] == 0 and row["injected"] == row["expected"]
+              == pods and not row["send_errors"],
+              f"{name}: {row['lost_pods']} lost, {row['injected']} of "
+              f"{row['expected']} injected")
+        check(counts["cluster"] == row["session"]["solves"],
+              f"{name}: one cluster launch per solve")
+        depth = (row["pipeline"] or {}).get("depth", 0)
+        log(f"  {name}: {row['metric']}: arrival->bind p50 "
+            f"{row['p50_arrival_to_bind_ms']:.1f} ms p99 "
+            f"{row['p99_arrival_to_bind_ms']:.1f} ms; {row['value']:.1f} "
+            f"pods/s, rate-normalized {row['rate_normalized_throughput']:.4f}"
+            f"; pipeline depth {depth}; solves {row['session']['solves']} "
+            f"carry_chained {row['session']['carry_chained']}; kernel busy "
+            f"{sum(kernel_ms) / 1000:.3f} s of {row['wall_s']:.3f} s")
+        session = row["session"]
+        log(f"    rebuilds {session['rebuilds']} incremental "
+            f"{session['incremental_hits']}; host seconds " + ", ".join(
+                f"{k}={v:.3f}" for k, v in session["seconds"].items()))
+        row["kernel_ms"] = kernel_ms
+        rows[arm] = row
+    return rows
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -623,7 +943,7 @@ def main() -> None:
     log("[3] kernels against plain on seeded problems")
     errs = phase_compare()
 
-    log("[4] main path: SchedulingBasic")
+    log("[4] main path: SchedulingBasic (pipelined, mirror on)")
     res, counts, kernel_ms, largest = run_main_path(
         "SchedulingBasic", 5000, 30000)
 
@@ -662,9 +982,24 @@ def main() -> None:
         for k in errs:
             errs[k] = max(errs[k], t["err"])
 
+    log("[8] pipelined against serialized: SchedulingBasic, in turns")
+    pipeline_runs = phase_pipeline()
+
+    log("[9] the churn path, mirror on and off")
+    churn = phase_churn()
+
+    log("[10] the sustained-arrival row, pipelined and serialized")
+    sustained_rows = phase_sustained()
+    log(f"  main-path launches over phases 4, 5, 8, 9 and 10: {LAUNCHES}")
+
+    scatters = {"scatters": {
+        arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
+              "device_ms": {k: sum(v) for k, v in
+                            r["scatter_device_ms"].items()}}
+        for arm, r in churn.items()}}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": counts[k],
+        "replaces": REPLACES, "launches": LAUNCHES[k],
         "max_abs_err": float(errs[k]), "ms": sb["ms"][k],
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
@@ -687,10 +1022,14 @@ def main() -> None:
             "enqueue_to_bind_ms": spread.latency, "zone_skew": skew,
             "solves": spread.solves, "launches": spread_counts,
             "kernel_ms": spread_ms, "host_seconds": spread.seconds},
+        "launches_by_path": LAUNCHES, "pipeline_runs": pipeline_runs,
+        "churn": churn, "sustained": sustained_rows,
+        "scatters": scatters["scatters"],
     }
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(report, f, indent=1)
+            json.dump(report, f, indent=1, default=str)
+    print(json.dumps(scatters), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

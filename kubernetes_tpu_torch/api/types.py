@@ -23,6 +23,7 @@ NO_SCHEDULE = "NoSchedule"
 PREFER_NO_SCHEDULE = "PreferNoSchedule"
 NO_EXECUTE = "NoExecute"
 TAINT_NODE_UNSCHEDULABLE = "node.kubernetes.io/unschedulable"
+TAINT_NODE_UNREACHABLE = "node.kubernetes.io/unreachable"
 
 PENDING, RUNNING, SUCCEEDED, FAILED = (
     "Pending", "Running", "Succeeded", "Failed")

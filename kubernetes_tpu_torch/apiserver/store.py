@@ -1,7 +1,7 @@
 """In-process cluster store for pods and nodes, with synchronous watch
 delivery, plus the scheduler's event handlers that turn watch events
 into cache and queue updates (assigned pods feed the cache, pending pods
-feed the queue, new nodes feed the cache and wake parked pods)."""
+feed the queue, node changes feed the cache and wake parked pods)."""
 
 from __future__ import annotations
 
@@ -16,8 +16,9 @@ from kubernetes_tpu_torch.api.types import (
     Pod,
     shallow_copy,
 )
+from kubernetes_tpu_torch.scheduler import queue as q
 
-ADDED, MODIFIED = "ADDED", "MODIFIED"
+ADDED, MODIFIED, DELETED = "ADDED", "MODIFIED", "DELETED"
 
 
 @dataclass
@@ -51,8 +52,18 @@ class ClusterStore:
         return str(self._rv)
 
     def _dispatch(self, events: List[Event]) -> None:
+        if not events:
+            return
         for w in list(self._watches):
             w.batch_fn(events)
+
+    def _deletion_copy(self, obj):
+        """The object as its deletion event carries it: a copy stamped
+        with a new resource version (lock held)."""
+        final = shallow_copy(obj)
+        final.metadata = shallow_copy(obj.metadata)
+        final.metadata.resource_version = self._next_rv()
+        return final
 
     def watch(self, batch_fn: Callable[[List[Event]], None]) -> WatchHandle:
         """Every later mutation batch is delivered to ``batch_fn``
@@ -68,7 +79,9 @@ class ClusterStore:
                 self._watches.remove(handle)
 
     # ------------------------------------------------------------------
+    # nodes
     def add_node(self, node: Node) -> None:
+        """Create the node, or replace it (a MODIFIED event)."""
         with self._lock:
             old = self._nodes.get(node.name)
             node.metadata.resource_version = self._next_rv()
@@ -76,10 +89,25 @@ class ClusterStore:
             self._dispatch([Event(MODIFIED if old else ADDED, "Node", node,
                                   old)])
 
+    update_node = add_node
+
+    def delete_node(self, name: str) -> None:
+        with self._lock:
+            old = self._nodes.pop(name, None)
+            if old is not None:
+                self._dispatch([Event(DELETED, "Node",
+                                      self._deletion_copy(old))])
+
+    def get_node(self, name: str) -> Optional[Node]:
+        with self._lock:
+            return self._nodes.get(name)
+
     def list_nodes(self) -> List[Node]:
         with self._lock:
             return list(self._nodes.values())
 
+    # ------------------------------------------------------------------
+    # pods
     def create_pods(self, pods: List[Pod]) -> List[Pod]:
         """Admit pods in bulk: one lock and one batched watch delivery, one
         resource version and one ADDED event per pod. The batch is
@@ -98,6 +126,37 @@ class ClusterStore:
                 events.append(Event(ADDED, "Pod", pod))
             self._dispatch(events)
         return pods
+
+    def update_pod(self, pod: Pod) -> Pod:
+        """Replace a stored pod with ``pod`` (a MODIFIED event)."""
+        with self._lock:
+            key = pod.full_name()
+            old = self._pods.get(key)
+            if old is None:
+                raise KeyError(f"pod {key} not found")
+            pod.metadata.resource_version = self._next_rv()
+            self._pods[key] = pod
+            self._dispatch([Event(MODIFIED, "Pod", pod, old)])
+            return pod
+
+    def delete_pod(self, namespace: str, name: str) -> None:
+        self.delete_pods([(namespace, name)])
+
+    def delete_pods(self, keys: List[Tuple[str, str]]) -> None:
+        """Delete (namespace, name) pods in bulk: one lock and one batched
+        watch delivery; names not stored are skipped."""
+        events: List[Event] = []
+        with self._lock:
+            for namespace, name in keys:
+                old = self._pods.pop(f"{namespace}/{name}", None)
+                if old is not None:
+                    events.append(Event(DELETED, "Pod",
+                                        self._deletion_copy(old)))
+            self._dispatch(events)
+
+    def get_pod(self, namespace: str, name: str) -> Optional[Pod]:
+        with self._lock:
+            return self._pods.get(f"{namespace}/{name}")
 
     def list_pods(self) -> List[Pod]:
         with self._lock:
@@ -155,8 +214,9 @@ def schedulable(pod: Pod) -> bool:
 
 class EventHandlers:
     """Watch batches -> cache and queue. Runs of pod events of one kind
-    collapse into one cache or queue call; their order relative to other
-    events is kept by flushing the run before any other event."""
+    (bind transitions, pending adds, deletions of assigned pods) collapse
+    into one cache or queue call; their order relative to other events is
+    kept by flushing the run before any other event."""
 
     def __init__(self, scheduler):
         self.sched = scheduler
@@ -166,8 +226,10 @@ class EventHandlers:
 
     def handle_many(self, events: List[Event]) -> None:
         sched = self.sched
-        bind_run: List[Pod] = []   # pods newly assigned
-        add_run: List[Pod] = []    # pending pods added
+        bind_run: List[Pod] = []    # pods newly assigned
+        add_run: List[Pod] = []     # pending pods added
+        delete_run: List[Pod] = []  # assigned pods deleted
+        runs = (bind_run, add_run, delete_run)
 
         def flush():
             if bind_run:
@@ -178,6 +240,18 @@ class EventHandlers:
             if add_run:
                 sched.queue.add_many(add_run)
                 add_run.clear()
+            if delete_run:
+                for pod in delete_run:
+                    sched.cache.remove_pod(pod)
+                # one wakeup for the whole run
+                sched.queue.move_all_to_active_or_backoff_queue(
+                    q.ASSIGNED_POD_DELETE)
+                delete_run.clear()
+
+        def run_for(target):
+            if any(r for r in runs if r is not target):
+                flush()
+            return target
 
         for event in events:
             pod = event.obj
@@ -185,28 +259,86 @@ class EventHandlers:
                 if (event.type == MODIFIED and assigned(pod)
                         and event.old_obj is not None
                         and not assigned(event.old_obj)):
-                    if add_run:
-                        flush()
-                    bind_run.append(pod)
+                    run_for(bind_run).append(pod)
                     continue
                 if (event.type == ADDED and not assigned(pod)
                         and schedulable(pod) and self.responsible_for(pod)):
-                    if bind_run:
-                        flush()
-                    add_run.append(pod)
+                    run_for(add_run).append(pod)
+                    continue
+                if event.type == DELETED and assigned(pod):
+                    run_for(delete_run).append(pod)
                     continue
             flush()
             self._handle_one(event)
         flush()
 
     def _handle_one(self, event: Event) -> None:
+        if event.kind == "Pod":
+            self._handle_pod(event)
+        elif event.kind == "Node":
+            self._handle_node(event)
+
+    def _handle_pod(self, event: Event) -> None:
         sched = self.sched
-        obj = event.obj
-        if event.kind == "Node":
-            # node updates, like deletions, are outside this slice: the
-            # store emits only additions and re-additions
-            sched.cache.add_node(obj)
-            sched.queue.move_all_to_active_or_backoff_queue()
-        elif event.kind == "Pod" and event.type == ADDED and assigned(obj):
-            sched.cache.add_pods([obj])
-            sched.queue.assigned_pods_updated([obj])
+        pod, old = event.obj, event.old_obj
+        if event.type == ADDED:
+            if assigned(pod):
+                sched.cache.add_pods([pod])
+                sched.queue.assigned_pods_updated([pod])
+        elif event.type == MODIFIED:
+            if assigned(pod):
+                if old is not None and not assigned(old):
+                    sched.cache.add_pods([pod])
+                    sched.queue.delete(pod)
+                else:
+                    sched.cache.update_pod(old or pod, pod)
+                sched.queue.assigned_pods_updated([pod])
+            elif schedulable(pod) and self.responsible_for(pod):
+                if not self._skip_pod_update(old, pod):
+                    sched.queue.update(old, pod)
+        elif event.type == DELETED:
+            if assigned(pod):
+                sched.cache.remove_pod(pod)
+                sched.queue.move_all_to_active_or_backoff_queue(
+                    q.ASSIGNED_POD_DELETE)
+            else:
+                sched.queue.delete(pod)
+
+    def _skip_pod_update(self, old: Optional[Pod], new: Pod) -> bool:
+        """An update of an assumed pod that leaves its spec and labels
+        alone does not touch the queue."""
+        if old is None or not self.sched.cache.is_assumed_pod(new):
+            return False
+        return (old.spec == new.spec
+                and old.metadata.labels == new.metadata.labels)
+
+    def _handle_node(self, event: Event) -> None:
+        sched = self.sched
+        node, old = event.obj, event.old_obj
+        if event.type == ADDED:
+            sched.cache.add_node(node)
+            sched.queue.move_all_to_active_or_backoff_queue(q.NODE_ADD)
+        elif event.type == MODIFIED:
+            sched.cache.update_node(old or node, node)
+            change = self._node_scheduling_properties_change(old, node)
+            if change:
+                sched.queue.move_all_to_active_or_backoff_queue(change)
+        elif event.type == DELETED:
+            sched.cache.remove_node(node)
+
+    @staticmethod
+    def _node_scheduling_properties_change(old: Optional[Node], new: Node
+                                           ) -> Optional[str]:
+        """The event a node update is, if it could make a parked pod
+        schedulable; None otherwise."""
+        if old is None:
+            return q.NODE_ADD
+        if old.spec.unschedulable != new.spec.unschedulable:
+            return q.NODE_SPEC_UNSCHEDULABLE_CHANGE
+        if old.status.allocatable != new.status.allocatable:
+            return q.NODE_ALLOCATABLE_CHANGE
+        if old.metadata.labels != new.metadata.labels:
+            return q.NODE_LABEL_CHANGE
+        if old.spec.taints != new.spec.taints:
+            return q.NODE_TAINT_CHANGE
+        return None

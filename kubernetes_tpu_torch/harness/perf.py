@@ -1,20 +1,29 @@
 """scheduler_perf-style runner: executes an op list against an in-process
 store and the batch scheduler (binding is the finish line), samples the
-bound-pod count at 1 Hz and reports throughput and per-pod latency."""
+bound-pod count at 1 Hz and reports throughput and per-pod latency.
+
+Besides creating nodes and pods, an op list can churn the cluster
+between pumps (``workloads.churn``): delete a seeded share of the bound
+pods, change a seeded share of the nodes' allocatable cpu, and delete a
+pod while a solved batch waits for its commit."""
 
 from __future__ import annotations
 
+import gc
 import math
+import random
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
-from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.api.resource import parse_quantity
+from kubernetes_tpu_torch.api.types import Node, Pod, shallow_copy
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
 from kubernetes_tpu_torch.sidecar import BatchScheduler
+from kubernetes_tpu_torch.utils.gctune import tune_for_throughput
 
 # an op's pods must all be bound within this long
 WAIT_TIMEOUT_S = 600.0
@@ -84,20 +93,73 @@ class BenchmarkResult:
     latency: Dict[str, float] = field(default_factory=dict)
     solves: int = 0
     rebuilds: int = 0
+    pipeline: bool = True
+    mirror: bool = True
+    # lazy solves dispatched while the previous batch was in flight
+    carry_chained: int = 0
+    # the pipelined arm's depth and discards, the mirror's counters, the
+    # backend's scatters (None where the arm is off)
+    pipeline_info: Optional[Dict[str, int]] = None
+    mirror_info: Optional[Dict[str, int]] = None
+    scatters: Dict[str, int] = field(default_factory=dict)
+    # per lazy solve: host seconds from dispatch to materialize, and the
+    # seconds materialize waited for the card
+    handoffs: List[Tuple[float, float]] = field(default_factory=list)
+    # pods the op list deleted (churn)
+    deleted_pods: int = 0
     # host seconds per phase of the batch path
     seconds: Dict[str, float] = field(default_factory=dict)
     # pod name -> node name of every pod the run created
     placements: Dict[str, str] = field(default_factory=dict)
 
 
+def _bound_pods(store: ClusterStore) -> List[Pod]:
+    return sorted((p for p in store.list_pods() if p.spec.node_name),
+                  key=lambda p: p.metadata.name)
+
+
+def delete_bound_share(store: ClusterStore, fraction: float, seed: int,
+                       at_least: int = 0) -> int:
+    """Delete a seeded ``fraction`` of the bound pods (``at_least`` of
+    them) in one bulk call. Returns how many."""
+    bound = _bound_pods(store)
+    picks = random.Random(seed).sample(
+        bound, min(len(bound), max(at_least, int(len(bound) * fraction))))
+    store.delete_pods([(p.namespace, p.name) for p in picks])
+    return len(picks)
+
+
+def update_node_cpu_share(store: ClusterStore, fraction: float, seed: int
+                          ) -> int:
+    """Give a seeded ``fraction`` of the nodes a new allocatable cpu (a
+    seeded pick of 28 to 36), nothing else changed. Returns how many."""
+    rng = random.Random(seed)
+    nodes = sorted(store.list_nodes(), key=lambda n: n.name)
+    picks = rng.sample(nodes, int(len(nodes) * fraction))
+    for node in picks:
+        new = shallow_copy(node)
+        new.metadata = shallow_copy(node.metadata)
+        new.status = shallow_copy(node.status)
+        new.status.allocatable = dict(node.status.allocatable,
+                                      cpu=parse_quantity(rng.choice(
+                                          ("28", "30", "34", "36"))))
+        store.update_node(new)
+    return len(picks)
+
+
 def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
-                 device=None) -> BenchmarkResult:
+                 device=None, pipeline: Optional[bool] = None,
+                 mirror: Optional[bool] = None) -> BenchmarkResult:
     """Execute one workload on ``device`` (the CUDA card unless "cpu" is
-    passed; raises when no card is available)."""
+    passed; raises when no card is available). ``pipeline`` and
+    ``mirror`` switch the batch path's arms (default: the environment's
+    ``KTPU_PIPELINE`` and ``KTPU_MIRROR``, both on)."""
     dev = resolve_device(device)
+    tune_for_throughput()
     store = ClusterStore()
     sched = Scheduler(store)
-    bs = BatchScheduler(sched, max_batch=max_batch, device=dev)
+    bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
+                        pipeline=pipeline, mirror=mirror)
     sched.start()
 
     def pump(deadline: float, wait_names=None) -> None:
@@ -118,6 +180,7 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                 continue
             if sched.queue.pending_active_count() == 0 and (
                     wait_names is None or op_done()):
+                bs.flush()
                 return
             time.sleep(0.005)
         raise TimeoutError(
@@ -128,6 +191,7 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
     measured_pods = 0
     created_nodes = 0
     created_pods = 0
+    deleted_pods = 0
     try:
         for op in ops:
             opcode = op["opcode"]
@@ -141,29 +205,48 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                 offset = op.get("offset", 0)
                 if op["count"] == 0:
                     continue
-                if op.get("collectMetrics", False):
+                if op.get("collectMetrics", False) and collector is None:
                     # build and load the kernel outside the measured window
                     bs.warmup([Pod.from_dict(template(offset + i))
                                for i in range(min(200, op["count"]))])
                     collector = ThroughputCollector(store)
                     measure_start = time.monotonic()
-                    measured_pods = op["count"]
                     collector.start()
+                if op.get("collectMetrics", False):
+                    measured_pods += op["count"]
                 new_pods = [Pod.from_dict(template(offset + i))
                             for i in range(op["count"])]
                 store.create_pods(new_pods)
                 created_pods += len(new_pods)
+                if "deleteWhilePending" in op:
+                    # one cycle leaves a solved batch held; a bound pod
+                    # deleted now lands while it waits
+                    bs.run_batch(pop_timeout=0.01)
+                    if bs.holding:
+                        deleted_pods += delete_bound_share(
+                            store, 0.0, op["deleteWhilePending"], 1)
                 pump(time.monotonic() + WAIT_TIMEOUT_S,
                      wait_names={p.metadata.name for p in new_pods})
+            elif opcode == "deletePods":
+                deleted_pods += delete_bound_share(store, op["fraction"],
+                                                   op["seed"])
+                pump(time.monotonic() + WAIT_TIMEOUT_S)
+            elif opcode == "updateNodes":
+                update_node_cpu_share(store, op["fraction"], op["seed"])
+                pump(time.monotonic() + WAIT_TIMEOUT_S)
             elif opcode == "barrier":
                 pump(time.monotonic() + WAIT_TIMEOUT_S)
             else:
                 raise ValueError(f"unknown opcode {opcode!r}")
+        bs.flush()
         duration = time.monotonic() - measure_start if measure_start else 0.0
     finally:
         if collector:
             collector.stop()
         sched.stop()
+        # the collector runs rarely (tune_for_throughput): reclaim this
+        # run's garbage now, not inside whatever runs next
+        gc.collect()
 
     session = bs.session
     return BenchmarkResult(
@@ -179,6 +262,15 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         solves=session.backend.solves,
         rebuilds=session.rebuilds,
         seconds={**session.seconds, "commit": bs.seconds_commit},
+        pipeline=bs.pipeline_enabled,
+        mirror=session.mirror is not None,
+        carry_chained=session.carry_chained,
+        pipeline_info=bs.pipeline_info(),
+        mirror_info=bs.mirror_info(),
+        scatters={**session.backend.scatters,
+                  "bytes": session.backend.scatter_bytes},
+        handoffs=list(session.handoffs),
+        deleted_pods=deleted_pods,
         placements={p.metadata.name: p.spec.node_name
                     for p in store.list_pods()},
     )

@@ -98,6 +98,29 @@ def topology_spreading(nodes: int, init_pods: int, measure_pods: int
     ]
 
 
+def churn(nodes: int, waves: int, per_wave: int, delete_fraction: float = 0.10,
+          update_fraction: float = 0.02, seed: int = 0,
+          pending_delete_after: int = 3) -> List[dict]:
+    """SchedulingBasic nodes and pods in ``waves`` waves of ``per_wave``;
+    after each wave a seeded ``delete_fraction`` of the bound pods is
+    deleted in bulk and a seeded ``update_fraction`` of the nodes gets a
+    new allocatable cpu. The wave after wave ``pending_delete_after``
+    (counting from 1) also deletes one bound pod while its first solved
+    batch waits for its commit. Every wave is measured."""
+    ops = [_nodes_op(nodes)]
+    for w in range(waves):
+        op = _pods_op(per_wave, lambda i: basic_pod(i), collect=True,
+                      offset=w * per_wave)
+        if w == pending_delete_after:
+            op["deleteWhilePending"] = seed * 1000 + w
+        ops += [op,
+                {"opcode": "deletePods", "fraction": delete_fraction,
+                 "seed": seed * 1000 + 2 * w},
+                {"opcode": "updateNodes", "fraction": update_fraction,
+                 "seed": seed * 1000 + 2 * w + 1}]
+    return ops
+
+
 WORKLOADS = {
     "SchedulingBasic": scheduling_basic,
     "TopologySpreading": topology_spreading,

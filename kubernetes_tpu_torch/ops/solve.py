@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import NamedTuple, Tuple
 
@@ -333,8 +334,11 @@ class SolveKernel:
         return self._lib
 
     def check(self, ps: PStatic, state: torch.Tensor, pod_ints: torch.Tensor,
-              pod_floats: torch.Tensor) -> None:
-        """Raise ValueError on inputs the kernels do not take."""
+              pod_floats: torch.Tensor, profiles: bool = True) -> None:
+        """Raise ValueError on inputs the kernels do not take. With
+        ``profiles`` False the caller has checked the pods' profile
+        indices on the host (``check_profiles``), and nothing here waits
+        on the card."""
         r, sc, t, u = ps.r, ps.sc, ps.t, ps.u
         n = ps.ints.shape[1]
         b = pod_ints.shape[0]
@@ -358,9 +362,9 @@ class SolveKernel:
                     f"{tensor.device}")
         if n % 128 != 0 or t > n:
             raise ValueError(f"bad plane width {n} for {t} terms")
-        profiles = pod_ints[:, r + 2]
-        if bool(((profiles < 0) | (profiles >= u)).any()):
-            raise ValueError(f"pod profile index outside [0, {u})")
+        if profiles:
+            # reads the pod rows: on the card, a wait for the stream
+            check_profiles(pod_ints[:, r + 2], u)
 
     def plan(self, ps: PStatic) -> LaunchPlan:
         """``plan_launch`` for these planes on this card: a cluster of 16
@@ -423,8 +427,10 @@ class SolveKernel:
 
     def __call__(self, params: SolverParams, ps: PStatic,
                  state: torch.Tensor, pod_ints: torch.Tensor,
-                 pod_floats: torch.Tensor) -> torch.Tensor:
-        self.check(ps, state, pod_ints, pod_floats)
+                 pod_floats: torch.Tensor,
+                 profiles_checked: bool = False) -> torch.Tensor:
+        self.check(ps, state, pod_ints, pod_floats,
+                   profiles=not profiles_checked)
         return self.launch(params, ps, state, pod_ints, pod_floats,
                            self.plan(ps))
 
@@ -432,36 +438,175 @@ class SolveKernel:
 solve_kernel = SolveKernel()
 
 
+def check_profiles(profiles, u: int) -> None:
+    """Raise ValueError when a pod's profile index is outside [0, u)."""
+    if bool(((profiles < 0) | (profiles >= u)).any()):
+        raise ValueError(f"pod profile index outside [0, {u})")
+
+
 def solve(params: SolverParams, ps: PStatic, state: torch.Tensor,
-          pod_ints: torch.Tensor, pod_floats: torch.Tensor) -> torch.Tensor:
+          pod_ints: torch.Tensor, pod_floats: torch.Tensor,
+          profiles_checked: bool = False) -> torch.Tensor:
     """Solve one batch: the plain version on CPU tensors, the CUDA kernel
     on CUDA tensors."""
     if state.device.type == "cpu":
         return solve_plain(params, ps, state, pod_ints, pod_floats)
     if state.device.type == "cuda":
-        return solve_kernel(params, ps, state, pod_ints, pod_floats)
+        return solve_kernel(params, ps, state, pod_ints, pod_floats,
+                            profiles_checked=profiles_checked)
     raise ValueError(f"no solve for device {state.device}")
+
+
+class SolveHandle(NamedTuple):
+    """A dispatched solve: the assignments on the device, the host buffer
+    a copy fills, the event recorded after that copy (None on the CPU),
+    and the host clock at the end of the dispatch."""
+
+    assign: torch.Tensor
+    host: torch.Tensor
+    event: object
+    dispatched_at: float
+
+
+# pinned buffers kept per shape: the solves in flight at once (two, in
+# the pipelined loop) plus one
+STAGING_DEPTH = 3
+
+
+class PinnedRing:
+    """Pinned host buffers per (shape, dtype), reused round-robin, so a
+    dispatch allocates no pinned memory (an allocation can wait for the
+    card). A buffer is refilled only after the event of its last use has
+    fired; it has, unless more than ``depth - 1`` uses are still in
+    flight, and then the refill waits for it (``waits`` counts those)."""
+
+    def __init__(self, depth: int = STAGING_DEPTH):
+        self.depth = depth
+        self.waits = 0
+        self._rings = {}   # (shape, dtype) -> [slots, next index]
+
+    def take(self, shape, dtype) -> list:
+        """A slot, ``[pinned tensor, event of its last use or None]``,
+        whose buffer nothing in flight still reads."""
+        key = (tuple(shape), dtype)
+        ring = self._rings.get(key)
+        if ring is None:
+            ring = self._rings[key] = [[
+                [torch.empty(shape, dtype=dtype, pin_memory=True), None]
+                for _ in range(self.depth)], 0]
+        slots, i = ring
+        ring[1] = (i + 1) % self.depth
+        slot = slots[i]
+        if slot[1] is not None and not slot[1].query():
+            self.waits += 1
+            slot[1].synchronize()
+        return slot
 
 
 class CudaPlanesBackend:
     """Solve backend of the session: planes on ``device``, the state
-    carried between batches on it, one ``solve`` per batch."""
+    carried between batches on it and updated in place. On the card
+    everything runs on the current stream, in order: uploads, scatters,
+    kernel, the copy back, through pinned buffers reused from a ring.
+    ``solve_lazy`` returns without waiting for the card; ``materialize``
+    waits for its batch alone."""
 
     name = "cuda-planes"
 
     def __init__(self, device: torch.device):
         self.device = device
         self.solves = 0
+        self.scatters = {"add": 0, "set": 0}
+        self.scatter_bytes = 0
+        self.staging = PinnedRing()
 
     def prepare(self, cluster, batch) -> Tuple[PStatic, torch.Tensor]:
         return prepare(cluster, batch, self.device)
 
+    def _upload(self, a: np.ndarray) -> Tuple[torch.Tensor, list]:
+        """``a`` on the device, and the staging slot it went through (on
+        the card a pinned buffer, copied from without waiting; None on
+        the CPU)."""
+        host = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cpu":
+            return host, None
+        slot = self.staging.take(host.shape, host.dtype)
+        # numpy's copy: one thread (torch's CPU copy of a large tensor
+        # wakes its thread pool, which can take milliseconds)
+        np.copyto(slot[0].numpy(), a)
+        return slot[0].to(self.device, non_blocking=True), slot
+
+    def _fence(self, slots):
+        """Record an event after the work just queued and mark ``slots``
+        in use until it fires. Returns the event (None on the CPU)."""
+        if self.device.type == "cpu":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        for slot in slots:
+            slot[1] = event
+        return event
+
+    def solve_lazy(self, params: SolverParams, ps: PStatic,
+                   state: torch.Tensor, pod_ints: np.ndarray,
+                   pod_floats: np.ndarray) -> SolveHandle:
+        """Upload the pod stream and start the solve, which updates
+        ``state`` in place; the assignments come back through
+        ``materialize``."""
+        check_profiles(pod_ints[:, ps.r + 2], ps.u)
+        ints, ints_slot = self._upload(pod_ints)
+        floats, floats_slot = self._upload(pod_floats)
+        assign = solve(params, ps, state, ints, floats,
+                       profiles_checked=True)
+        self.solves += 1
+        if self.device.type == "cpu":
+            return SolveHandle(assign, assign, None, time.monotonic())
+        host_slot = self.staging.take(assign.shape, assign.dtype)
+        host_slot[0].copy_(assign, non_blocking=True)
+        event = self._fence((ints_slot, floats_slot, host_slot))
+        return SolveHandle(assign, host_slot[0], event, time.monotonic())
+
+    @staticmethod
+    def materialize(handle: SolveHandle) -> np.ndarray:
+        """Wait for the handle's batch and return its assignments (a
+        copy: the host buffer serves a later solve)."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        return handle.host.numpy().copy()
+
     def solve(self, params: SolverParams, ps: PStatic, state: torch.Tensor,
               pod_ints: np.ndarray, pod_floats: np.ndarray) -> np.ndarray:
-        """Upload the pod stream, solve (updating ``state`` in place) and
-        return the assignments on the host."""
-        ints = torch.from_numpy(pod_ints).to(self.device)
-        floats = torch.from_numpy(pod_floats).to(self.device)
-        assign = solve(params, ps, state, ints, floats)
-        self.solves += 1
-        return assign.cpu().numpy()
+        """``solve_lazy`` and ``materialize`` in one call."""
+        return self.materialize(self.solve_lazy(params, ps, state,
+                                                pod_ints, pod_floats))
+
+    def _scatter(self, planes: torch.Tensor, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray, accumulate: bool
+                 ) -> int:
+        """``vals`` put at (rows, cols) of ``planes`` in place, added with
+        ``accumulate``; returns the bytes the entries took to the
+        device."""
+        flat = rows.astype(np.int64) * planes.shape[1] + cols
+        idx, idx_slot = self._upload(flat)
+        values, vals_slot = self._upload(vals.astype(np.int32))
+        planes.view(-1).index_put_((idx,), values, accumulate=accumulate)
+        self._fence((idx_slot, vals_slot))
+        nbytes = flat.nbytes + 4 * vals.size
+        self.scatter_bytes += nbytes
+        return nbytes
+
+    def scatter_state_add(self, state: torch.Tensor, rows: np.ndarray,
+                          cols: np.ndarray, vals: np.ndarray) -> int:
+        """Add ``vals`` at (rows, cols) of the state planes, in place.
+        Targets are distinct but for (0, 0, 0) pads, which add nothing.
+        Returns the bytes the entries took to the device."""
+        self.scatters["add"] += 1
+        return self._scatter(state, rows, cols, vals, accumulate=True)
+
+    def scatter_static_set(self, ps: PStatic, rows: np.ndarray,
+                           cols: np.ndarray, vals: np.ndarray) -> int:
+        """Set the static int planes to ``vals`` at (rows, cols), in
+        place. Pads repeat the last entry with its value, so the order of
+        writes does not matter. Returns the bytes taken to the device."""
+        self.scatters["set"] += 1
+        return self._scatter(ps.ints, rows, cols, vals, accumulate=False)

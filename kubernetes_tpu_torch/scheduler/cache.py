@@ -1,10 +1,15 @@
 """Assume-aware cluster cache with incremental snapshots.
 
 A committed pod is *assumed* onto its node before its bind is visible;
-the bind event later confirms it. ``mutation_seq`` counts every change to
-what the solver mirrors (node capacity, pods, labels) and
-``node_set_seq`` counts only nodes appearing, so the solver session can
-tell whether the device state it carries still matches the cache.
+the bind event later confirms it, and an assumed pod whose bind never
+shows up expires ``ASSUME_TTL`` seconds after its bind was sent.
+``mutation_seq`` counts every change to what the solver mirrors (node
+capacity, pods, labels) and ``node_set_seq`` counts only nodes appearing
+or vanishing, so the solver session can tell whether the device state it
+carries still matches the cache. With a delta journal attached, every
+``mutation_seq`` bump is also noted as one record (under the cache lock,
+so record order is seq order), which lets the session scatter the
+changes into its device planes instead of rebuilding them.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Set
 
-from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.api.types import TAINT_NODE_UNREACHABLE, Node, Pod
 from kubernetes_tpu_torch.scheduler.snapshot import NodeTree, Snapshot
 from kubernetes_tpu_torch.scheduler.types import (
     ImageStateSummary,
@@ -22,6 +27,26 @@ from kubernetes_tpu_torch.scheduler.types import (
 )
 
 ASSUME_TTL = 30.0
+
+
+def _pod_mirror_changed(old: Pod, new: Pod) -> bool:
+    """Whether a pod update changes anything the solver mirrors
+    (requests, affinity, node, labels, deletion); status-only updates do
+    not."""
+    return (old.spec != new.spec
+            or old.metadata.labels != new.metadata.labels
+            or old.metadata.deletion_timestamp
+            != new.metadata.deletion_timestamp)
+
+
+def _node_mirror_changed(old: Optional[Node], new: Node) -> bool:
+    """Whether a node update changes anything the solver mirrors
+    (allocatable, images, taints, unschedulable, labels)."""
+    return (old is None
+            or old.status.allocatable != new.status.allocatable
+            or old.status.images != new.status.images
+            or old.spec != new.spec
+            or old.metadata.labels != new.metadata.labels)
 
 
 class _PodState:
@@ -45,6 +70,7 @@ class SchedulerCache:
         # image name -> (size, names of the nodes holding it)
         self._image_nodes: Dict[str, Set[str]] = {}
         self._image_size: Dict[str, int] = {}
+        self._journal = None
 
     @property
     def mutation_seq(self) -> int:
@@ -56,22 +82,72 @@ class SchedulerCache:
         with self._lock:
             return self._node_set_seq
 
+    def attach_delta_journal(self, journal) -> None:
+        """Note every later ``mutation_seq`` bump in ``journal``
+        (``ops.mirror.DeltaJournal``). Attaching another replaces it."""
+        with self._lock:
+            self._journal = journal
+
+    def _bump(self, kind: str, a=None, b=None) -> None:
+        """One mutation: advance the seq and journal it (lock held)."""
+        self._mutation_seq += 1
+        if self._journal is not None:
+            self._journal.note(self._mutation_seq, kind, a, b)
+
     def _info(self, name: str) -> NodeInfo:
         info = self._nodes.get(name)
         if info is None:
             info = self._nodes[name] = NodeInfo()
         return info
 
+    def commit_target_flags(self, names) -> Dict[str, Optional[Node]]:
+        """The suspect entries among a batch's bind targets, under one
+        lock: ``name -> None`` for a node the cache no longer holds,
+        ``name -> Node`` for one that is cordoned or unreachable. Names
+        left out may be bound to."""
+        flagged: Dict[str, Optional[Node]] = {}
+        with self._lock:
+            for name in names:
+                info = self._nodes.get(name)
+                node = info.node if info is not None else None
+                if node is None:
+                    flagged[name] = None
+                elif node.spec.unschedulable or any(
+                        t.key == TAINT_NODE_UNREACHABLE
+                        for t in node.spec.taints):
+                    flagged[name] = node
+        return flagged
+
     # ------------------------------------------------------------------
     # pods
+    def _add_pod_locked(self, pod: Pod) -> None:
+        self._info(pod.spec.node_name).add_pod(pod)
+
+    def _remove_pod_locked(self, pod: Pod) -> None:
+        info = self._nodes.get(pod.spec.node_name)
+        if info is not None:
+            info.remove_pod(pod)
+            if info.node is None and not info.pods:
+                del self._nodes[pod.spec.node_name]
+
     def assume_pod(self, pod: Pod) -> None:
-        err = self.assume_pods([pod])[0]
-        if err is not None:
-            raise ValueError(err)
+        """Assume one pod the device solve did not place (journaled as
+        ``assume``: the mirror scatters it)."""
+        key = get_pod_key(pod)
+        with self._lock:
+            if key in self._pod_states:
+                raise ValueError(f"pod {key} is in the cache, so can't be "
+                                 "assumed")
+            self._bump("assume", pod)
+            self._add_pod_locked(pod)
+            self._pod_states[key] = _PodState(pod)
+            self._assumed_pods.add(key)
 
     def assume_pods(self, pods: List[Pod]) -> List[Optional[str]]:
         """Assume a committed batch under one lock; one mutation per
-        assumed pod. Returns a positional error (or None) per pod."""
+        assumed pod, journaled as ``assume_bulk`` (the solve already
+        counted these pods in the device state). Returns a positional
+        error (or None) per pod."""
         errors: List[Optional[str]] = [None] * len(pods)
         with self._lock:
             for i, pod in enumerate(pods):
@@ -79,8 +155,8 @@ class SchedulerCache:
                 if key in self._pod_states:
                     errors[i] = f"pod {key} is in the cache, so can't be assumed"
                     continue
-                self._mutation_seq += 1
-                self._info(pod.spec.node_name).add_pod(pod)
+                self._bump("assume_bulk", pod)
+                self._add_pod_locked(pod)
                 self._pod_states[key] = _PodState(pod)
                 self._assumed_pods.add(key)
         return errors
@@ -101,9 +177,9 @@ class SchedulerCache:
         with self._lock:
             if key not in self._assumed_pods:
                 raise ValueError(f"pod {key} wasn't assumed")
-            self._mutation_seq += 1
             state = self._pod_states.pop(key)
-            self._nodes[state.pod.spec.node_name].remove_pod(state.pod)
+            self._bump("pod_del", state.pod)
+            self._remove_pod_locked(state.pod)
             self._assumed_pods.discard(key)
 
     def add_pods(self, pods: List[Pod]) -> None:
@@ -116,46 +192,131 @@ class SchedulerCache:
                 state = self._pod_states.get(key)
                 if key in self._assumed_pods:
                     if state.pod.spec.node_name != pod.spec.node_name:
-                        self._mutation_seq += 1
-                        self._nodes[state.pod.spec.node_name].remove_pod(
-                            state.pod)
-                        self._info(pod.spec.node_name).add_pod(pod)
+                        self._bump("pod_move", state.pod, pod)
+                        self._remove_pod_locked(state.pod)
+                        self._add_pod_locked(pod)
                     self._assumed_pods.discard(key)
+                elif state is not None:
+                    self._bump("pod_update", state.pod, pod)
+                    self._remove_pod_locked(state.pod)
+                    self._add_pod_locked(pod)
                 else:
-                    self._mutation_seq += 1
-                    if state is not None:
-                        self._nodes[state.pod.spec.node_name].remove_pod(
-                            state.pod)
-                    self._info(pod.spec.node_name).add_pod(pod)
+                    self._bump("pod_add", pod)
+                    self._add_pod_locked(pod)
                 self._pod_states[key] = _PodState(pod)
 
     def add_pod(self, pod: Pod) -> None:
         self.add_pods([pod])
 
+    def update_pod(self, old: Pod, new: Pod) -> None:
+        """An update of an assigned, confirmed pod."""
+        key = get_pod_key(old)
+        with self._lock:
+            if key in self._assumed_pods:
+                raise ValueError(f"assumed pod {key} shouldn't be updated")
+            if _pod_mirror_changed(old, new):
+                self._bump("pod_update", old, new)
+            self._remove_pod_locked(old)
+            self._add_pod_locked(new)
+            self._pod_states[key] = _PodState(new)
+
+    def remove_pod(self, pod: Pod) -> None:
+        key = get_pod_key(pod)
+        with self._lock:
+            state = self._pod_states.pop(key, None)
+            if state is None:
+                return
+            self._bump("pod_del", state.pod)
+            self._remove_pod_locked(state.pod)
+            self._assumed_pods.discard(key)
+
     def is_assumed_pod(self, pod: Pod) -> bool:
         with self._lock:
             return get_pod_key(pod) in self._assumed_pods
 
+    def cleanup_expired_assumed_pods(self, now: Optional[float] = None
+                                     ) -> None:
+        """Drop assumed pods whose bind was sent over ``ASSUME_TTL`` ago
+        and never confirmed."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            for key in list(self._assumed_pods):
+                state = self._pod_states.get(key)
+                if state is None:
+                    self._assumed_pods.discard(key)
+                    continue
+                if (state.binding_finished and state.deadline is not None
+                        and now >= state.deadline):
+                    self._bump("pod_del", state.pod)
+                    self._remove_pod_locked(state.pod)
+                    del self._pod_states[key]
+                    self._assumed_pods.discard(key)
+
     # ------------------------------------------------------------------
     # nodes
+    def _add_images(self, node: Node) -> None:
+        for img in node.status.images:
+            for name in img.names:
+                self._image_nodes.setdefault(name, set()).add(node.name)
+                self._image_size[name] = img.size_bytes
+
+    def _remove_images(self, node: Optional[Node]) -> None:
+        if node is None:
+            return
+        for img in node.status.images:
+            for name in img.names:
+                holders = self._image_nodes.get(name)
+                if holders is not None:
+                    holders.discard(node.name)
+                    if not holders:
+                        del self._image_nodes[name]
+                        del self._image_size[name]
+
     def add_node(self, node: Node) -> None:
         with self._lock:
-            self._mutation_seq += 1
             info = self._info(node.name)
             if info.node is None:
                 self._node_set_seq += 1
+                self._bump("node_add", node)
+            else:
+                # a known node added again is an update in mirror terms
+                self._bump("node_update", info.node, node)
+            self._remove_images(info.node)
             info.set_node(node)
-            for img in node.status.images:
-                for name in img.names:
-                    self._image_nodes.setdefault(name, set()).add(node.name)
-                    self._image_size[name] = img.size_bytes
+            self._add_images(node)
             self._node_tree.add_node(node)
+
+    def update_node(self, old: Node, new: Node) -> None:
+        with self._lock:
+            if _node_mirror_changed(old, new):
+                self._bump("node_update", old, new)
+            info = self._info(new.name)
+            self._remove_images(info.node)
+            info.set_node(new)
+            self._add_images(new)
+            self._node_tree.update_node(old, new)
+
+    def remove_node(self, node: Node) -> None:
+        """The node leaves the node set (``node_set_seq`` advances); its
+        pods stay cached until their own deletions arrive."""
+        with self._lock:
+            info = self._nodes.get(node.name)
+            if info is None:
+                return
+            self._bump("node_del", node)
+            if info.node is not None:
+                self._node_set_seq += 1
+            self._remove_images(info.node)
+            info.remove_node()
+            if not info.pods:
+                del self._nodes[node.name]
+            self._node_tree.remove_node(node)
 
     # ------------------------------------------------------------------
     def update_snapshot(self, snapshot: Snapshot) -> None:
-        """Copy every NodeInfo newer than the snapshot into it; rebuild the
-        ordered lists (zone-interleaved node-tree order) when anything
-        changed."""
+        """Copy every NodeInfo newer than the snapshot into it, drop nodes
+        that left, and rebuild the ordered lists (zone-interleaved
+        node-tree order) when anything changed."""
         with self._lock:
             changed = False
             newest = snapshot.generation
@@ -174,6 +335,12 @@ class SchedulerCache:
                     for i in info.node.status.images for img in i.names
                 }
             snapshot.generation = newest
+            if len(snapshot.node_info_map) > self._node_tree.num_nodes:
+                for name in [n for n in snapshot.node_info_map
+                             if n not in self._nodes
+                             or self._nodes[n].node is None]:
+                    del snapshot.node_info_map[name]
+                changed = True
             if changed or len(snapshot.node_info_list) != len(
                     snapshot.node_info_map):
                 snapshot.node_info_list = [

@@ -24,6 +24,15 @@ POD_INITIAL_BACKOFF = 1.0
 POD_MAX_BACKOFF = 10.0
 UNSCHEDULABLE_Q_TIME_INTERVAL = 60.0
 
+# the cluster events that move unschedulable pods back to an attempt
+NODE_ADD = "NodeAdd"
+NODE_ALLOCATABLE_CHANGE = "NodeAllocatableChange"
+NODE_LABEL_CHANGE = "NodeLabelChange"
+NODE_TAINT_CHANGE = "NodeTaintChange"
+NODE_SPEC_UNSCHEDULABLE_CHANGE = "NodeSpecUnschedulableChange"
+ASSIGNED_POD_DELETE = "AssignedPodDelete"
+UNSCHEDULABLE_TIMEOUT = "UnschedulableTimeout"
+
 
 def queue_sort_key(qpi: QueuedPodInfo) -> tuple:
     """PrioritySort as a total order: higher priority first, then the
@@ -145,6 +154,8 @@ class SchedulingQueue:
         self._unschedulable_q: Dict[str, QueuedPodInfo] = {}
         self.scheduling_cycle = 0
         self._move_request_cycle = -1
+        # event -> pods it moved out of the unschedulable set
+        self.pods_moved: Dict[str, int] = {}
 
     # ------------------------------------------------------------------
     def _backoff_time(self, qpi: QueuedPodInfo) -> float:
@@ -187,6 +198,36 @@ class SchedulingQueue:
                 self._unschedulable_q.pop(key, None)
                 self._backoff_q.delete_by_key(key)
             self._cond.notify_all()
+
+    def update(self, old: Optional[Pod], new: Pod) -> None:
+        """A pending pod changed: refresh it where it waits. A parked pod
+        whose update may make it schedulable goes back to an attempt; a
+        pod in no queue is added."""
+        with self._cond:
+            key = get_pod_key(new)
+            if old is not None:
+                for q in (self._active_q, self._backoff_q):
+                    existing = q.get_by_key(key)
+                    if existing is not None:
+                        existing.pod_info = PodInfo(new)
+                        q.add(existing)
+                        return
+            existing = self._unschedulable_q.get(key)
+            if existing is not None:
+                existing.pod_info = PodInfo(new)
+                if old is not None and _pod_updated_may_help(old, new):
+                    del self._unschedulable_q[key]
+                    if self._backoff_complete(existing):
+                        self._active_q.add(existing)
+                        self._cond.notify_all()
+                    else:
+                        self._backoff_q.add(existing)
+                return
+            self._active_q.add(self._new_queued_pod_info(new))
+            self._cond.notify_all()
+
+    def delete(self, pod: Pod) -> None:
+        self.delete_many([pod])
 
     def delete_many(self, pods: List[Pod]) -> None:
         with self._cond:
@@ -236,9 +277,12 @@ class SchedulingQueue:
         return items, first_cycle
 
     # ------------------------------------------------------------------
-    def move_all_to_active_or_backoff_queue(self) -> None:
+    def move_all_to_active_or_backoff_queue(self, event: str) -> None:
+        """Every unschedulable pod gets another attempt after ``event``
+        (to backoff while its backoff runs)."""
         with self._cond:
-            self._move_pods_locked(list(self._unschedulable_q.values()))
+            self._move_pods_locked(list(self._unschedulable_q.values()),
+                                   event)
 
     def assigned_pods_updated(self, pods: List[Pod]) -> None:
         """Wake unschedulable pods whose (anti-)affinity terms match a
@@ -250,7 +294,8 @@ class SchedulingQueue:
                 return
             for pod in pods:
                 self._move_pods_locked(
-                    self._unschedulable_pods_with_matching_affinity(pod))
+                    self._unschedulable_pods_with_matching_affinity(pod),
+                    "AssignedPodUpdate")
 
     def _unschedulable_pods_with_matching_affinity(
             self, pod: Pod) -> List[QueuedPodInfo]:
@@ -265,7 +310,10 @@ class SchedulingQueue:
                 out.append(qpi)
         return out
 
-    def _move_pods_locked(self, pods: List[QueuedPodInfo]) -> None:
+    def _move_pods_locked(self, pods: List[QueuedPodInfo],
+                          event: str) -> None:
+        if pods:
+            self.pods_moved[event] = self.pods_moved.get(event, 0) + len(pods)
         for qpi in pods:
             if self._backoff_complete(qpi):
                 self._active_q.add(qpi)
@@ -294,9 +342,32 @@ class SchedulingQueue:
             stale = [qpi for qpi in self._unschedulable_q.values()
                      if now - qpi.timestamp >= UNSCHEDULABLE_Q_TIME_INTERVAL]
             if stale:
-                self._move_pods_locked(stale)
+                self._move_pods_locked(stale, UNSCHEDULABLE_TIMEOUT)
 
     def pending_active_count(self) -> int:
         """Pods still due an attempt (active + backoff)."""
         with self._cond:
             return len(self._active_q) + len(self._backoff_q)
+
+    def num_active(self) -> int:
+        with self._cond:
+            return len(self._active_q)
+
+    def pending_hint(self) -> Tuple[int, Optional[int]]:
+        """Without popping or waiting: the active queue's size and the
+        priority of the pod a pop would return first ((0, None) when
+        empty). Advisory only; the queue may change before the caller
+        acts on it."""
+        with self._cond:
+            if not len(self._active_q):
+                return 0, None
+            return len(self._active_q), self._active_q.peek().pod.priority()
+
+
+def _pod_updated_may_help(old: Pod, new: Pod) -> bool:
+    """Whether a pending pod's update may change its verdict."""
+    return (old.metadata.labels != new.metadata.labels
+            or old.spec.node_selector != new.spec.node_selector
+            or old.spec.tolerations != new.spec.tolerations
+            or old.spec.priority != new.spec.priority
+            or old.spec.affinity != new.spec.affinity)

@@ -7,18 +7,45 @@ preemption are not part of this package."""
 from __future__ import annotations
 
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from kubernetes_tpu_torch.apiserver.store import (
     ClusterStore,
     EventHandlers,
     assigned,
 )
-from kubernetes_tpu_torch.api.types import Pod, shallow_copy
+from kubernetes_tpu_torch.api.types import (
+    NO_SCHEDULE,
+    TAINT_NODE_UNREACHABLE,
+    TAINT_NODE_UNSCHEDULABLE,
+    Node,
+    Pod,
+    Taint,
+    shallow_copy,
+)
 from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
 from kubernetes_tpu_torch.scheduler.queue import SchedulingQueue
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
 from kubernetes_tpu_torch.scheduler.types import PodInfo, QueuedPodInfo
+
+
+def commit_target_stale(pod: Pod, node: Optional[Node]) -> Optional[str]:
+    """Why binding ``pod`` to a node ``SchedulerCache.commit_target_flags``
+    flagged would bind into the void ("deleted", "cordoned",
+    "unreachable"), or None when the pod may still go there (it tolerates
+    the taint)."""
+    if node is None:
+        return "deleted"
+    tolerations = pod.spec.tolerations
+    if node.spec.unschedulable:
+        cordon = Taint(TAINT_NODE_UNSCHEDULABLE, "", NO_SCHEDULE)
+        if not any(t.tolerates(cordon) for t in tolerations):
+            return "cordoned"
+    for taint in node.spec.taints:
+        if taint.key == TAINT_NODE_UNREACHABLE and not any(
+                t.tolerates(taint) for t in tolerations):
+            return "unreachable"
+    return None
 
 
 class Scheduler:

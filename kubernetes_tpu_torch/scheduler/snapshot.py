@@ -48,6 +48,23 @@ class NodeTree:
         self._tree[zone].append(node.name)
         self.num_nodes += 1
 
+    def remove_node(self, node: Node) -> bool:
+        zone = get_zone_key(node)
+        names = self._tree.get(zone)
+        if not names or node.name not in names:
+            return False
+        names.remove(node.name)
+        if not names:
+            del self._tree[zone]
+            self._zones.remove(zone)
+        self.num_nodes -= 1
+        return True
+
+    def update_node(self, old: Node, new: Node) -> None:
+        if get_zone_key(old) != get_zone_key(new):
+            self.remove_node(old)
+            self.add_node(new)
+
     def list(self) -> List[str]:
         out: List[str] = []
         idx = [0] * len(self._zones)

@@ -249,6 +249,11 @@ class NodeInfo:
         self.allocatable = Resource.from_resource_list(node.status.allocatable)
         self.generation = next_generation()
 
+    def remove_node(self) -> None:
+        """The node is gone; its pods stay until their own deletions."""
+        self.node = None
+        self.generation = next_generation()
+
     def add_pod(self, pod: Pod) -> None:
         pi = PodInfo.of(pod)
         self.pods.append(pi)

@@ -1,4 +1,6 @@
-"""The CUDA solve kernel against its plain PyTorch version, on the card.
+"""The CUDA solve kernel against its plain PyTorch version, on the card,
+and the backend's lazy solve and scatters on the card against the same
+calls on CPU tensors.
 
 These tests need an NVIDIA card and nvcc (the kernel has no CPU mode) and
 skip without one. This file imports neither JAX nor the kubernetes_tpu
@@ -21,6 +23,7 @@ from kubernetes_tpu_torch.ops.planes import (
     state_planes,
     static_planes,
 )
+from kubernetes_tpu_torch.ops.solve import CudaPlanesBackend
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 
@@ -206,3 +209,86 @@ def test_portable_cluster_of_eight(card):
     assert plan.kernel == "cluster" and plan.cols_per_block > plan.threads
     _, _, ran = _card_equals_plain(card, args, plan)
     assert ran == "cluster"
+
+
+def _backend_args(device, seed, n, b, **kw):
+    ps, state, ints, floats = random_planes(seed, n, b, **kw)
+    moved = _to(device, ps, state, ints, floats)
+    return moved[0], moved[1], ints.numpy(), floats.numpy()
+
+
+@pytest.mark.cuda
+def test_solve_lazy_returns_before_the_kernel_ends(card):
+    """At 5,120 columns and 4,096 pods the kernel runs for milliseconds;
+    the dispatch does not wait for it, and the materialized assignments
+    equal an eager solve of the same inputs."""
+    backend = CudaPlanesBackend(card)
+    ps, state, ints, floats = _backend_args(card, 10, 5120, 4096)
+    eager_state = state.clone()
+    torch.cuda.synchronize()
+    handle = backend.solve_lazy(SolverParams(), ps, state, ints, floats)
+    assert not handle.event.query()
+    got = backend.materialize(handle)
+    assert handle.event.query()
+    want = backend.solve(SolverParams(), ps, eager_state, ints, floats)
+    np.testing.assert_array_equal(got, want)
+    assert torch.equal(state, eager_state)
+    assert (got >= 0).sum() > 1000
+
+
+@pytest.mark.cuda
+def test_chained_lazy_solves_equal_eager_ones_and_the_cpu(card):
+    params = SolverParams()
+    backend = CudaPlanesBackend(card)
+    ps, state, ints, floats = _backend_args(card, 11, 2048, 256, sc=2, t=2,
+                                            u=2)
+    eager = state.clone()
+    first = backend.solve_lazy(params, ps, state, ints[:128], floats[:128])
+    second = backend.solve_lazy(params, ps, state, ints[128:], floats[128:])
+    got = np.concatenate([backend.materialize(first),
+                          backend.materialize(second)])
+    want = np.concatenate([
+        backend.solve(params, ps, eager, ints[:128], floats[:128]),
+        backend.solve(params, ps, eager, ints[128:], floats[128:])])
+    np.testing.assert_array_equal(got, want)
+    assert torch.equal(state, eager)
+    cpu = CudaPlanesBackend(torch.device("cpu"))
+    cps, cstate, _, _ = _backend_args("cpu", 11, 2048, 256, sc=2, t=2, u=2)
+    plain = np.concatenate([
+        cpu.solve(params, cps, cstate, ints[:128], floats[:128]),
+        cpu.solve(params, cps, cstate, ints[128:], floats[128:])])
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(state.cpu().numpy(), cstate.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scatters_on_the_card_equal_the_cpu(card, seed):
+    """Adds with duplicate targets and (0, 0, 0) pads; sets with distinct
+    targets padded by repeating the last entry."""
+    rng = np.random.default_rng(seed)
+    ps, state, _, _ = random_planes(seed, 1024, 8, sc=2, t=2, u=2)
+    dev = _to(card, ps, state, torch.zeros(1), torch.zeros(1))
+    m = int(rng.integers(20, 200))
+    rows = rng.integers(0, state.shape[0], m).astype(np.int32)
+    cols = rng.integers(0, 1024, m).astype(np.int32)
+    vals = rng.integers(-1000, 1000, m).astype(np.int32)
+    rows[m // 2:m // 2 + 5], cols[m // 2:m // 2 + 5] = rows[0], cols[0]
+    pad = 256 - m
+    add = [np.concatenate([a, np.zeros(pad, np.int32)])
+           for a in (rows, cols, vals)]
+    flat = rng.choice(ps.ints.shape[0] * 1024, m, replace=False)
+    sets = [(flat // 1024).astype(np.int32), (flat % 1024).astype(np.int32),
+            rng.integers(0, 10 ** 6, m).astype(np.int32)]
+    sets = [np.concatenate([a, np.full(pad, a[-1], np.int32)]) for a in sets]
+    on_card = CudaPlanesBackend(card)
+    on_cpu = CudaPlanesBackend(torch.device("cpu"))
+    assert on_card.scatter_state_add(dev[1], *add) == \
+        on_cpu.scatter_state_add(state, *add) == 256 * 12
+    on_card.scatter_static_set(dev[0], *sets)
+    on_cpu.scatter_static_set(ps, *sets)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(dev[1].cpu().numpy(), state.numpy())
+    np.testing.assert_array_equal(dev[0].ints.cpu().numpy(),
+                                  ps.ints.numpy())
+    assert on_card.scatters == {"add": 1, "set": 1}

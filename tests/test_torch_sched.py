@@ -82,7 +82,7 @@ def test_queue_order_matches_reference(seed):
     first = pop(25)
     requeue(first[::2])                  # parked: no move request yet
     ref.move_all_to_active_or_backoff_queue("test")
-    port.move_all_to_active_or_backoff_queue()   # -> backoff (1 s)
+    port.move_all_to_active_or_backoff_queue("test")   # -> backoff (1 s)
     second = pop(20)
     requeue(second[1::3])                # a move came in: straight to backoff
     clock.t += 0.5
