@@ -46,9 +46,25 @@ prints no result):
    its planes equal to a fresh ``prepare`` after each;
 10. the sustained-arrival row (30,000 pods at 5,000 a second, seed 14,
     32-cpu nodes), pipelined and serialized: no pod lost, every arrival
-    injected.
+    injected;
+11. the Preemption row (``workloads.preemption``: 5,000 nodes of 4 cpu,
+    5,000 priority-1 pods of 3 cpu, then 5,000 priority-100 pods of 3
+    cpu) in the default arms and again serialized: every measured pod
+    bound, exactly one priority-1 pod deleted per measured pod, no other
+    pod lost, the same bound pods on the same nodes and the same victims
+    in both arms; the host seconds of the preemption screen, the victim
+    planner, plan execution and the serial path;
+12. the Unschedulable row (5,000 nodes, 1,000 pods whose node selector
+    no node matches, their op not waited for, then 10,000 plain pods):
+    the 10,000 bound, each of the 1,000 pending with ``PodScheduled=
+    False`` and the FitError message built from the static masks, and
+    PostFilter run for none;
+13. a small Preemption row (50 nodes / 50 / 50) and a small mixed row
+    (host-port pods, which take the serial path, among plain ones) on
+    the card and on the CPU: the same pod -> node maps and the same
+    victims.
 
-Every main-path run (4, 5, 8, 9, 10) resets the kernels' launch counts
+Every main-path run (4, 5, 8 to 13) resets the kernels' launch counts
 just before and reads them just after; the kernel table sums them.
 Before the last line come the scatters' counts and times as JSON, the
 kernel table as JSON and the card's name and power limit; the last line
@@ -767,12 +783,23 @@ def phase_pipeline(nodes=5000, pods=30000, max_batch=4096):
     return runs
 
 
+def scatter_bound_ms(kind, entries):
+    """The least time of one scatter of ``entries`` (row, column, value)
+    int32 triples: the triples read once, each target cell read and
+    written once (an add) or written once (a set), over the card's
+    memory rate."""
+    nbytes = entries * (12 + (8 if kind == "add" else 4))
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
 class _ScatterTimer:
-    """While entered: CUDA events around each of the backend's scatters;
-    ``ms()`` their device times."""
+    """While entered: CUDA events around each of the backend's scatters
+    and each one's bound (``scatter_bound_ms``); ``ms()`` their device
+    times."""
 
     def __enter__(self):
         self.events = {"add": [], "set": []}
+        self.bounds = {"add": [], "set": []}
         self._real = {"add": CudaPlanesBackend.scatter_state_add,
                       "set": CudaPlanesBackend.scatter_static_set}
 
@@ -780,6 +807,8 @@ class _ScatterTimer:
             real = self._real[kind]
 
             def scatter(backend, planes, *entries):
+                self.bounds[kind].append(
+                    scatter_bound_ms(kind, len(entries[0])))
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -838,6 +867,7 @@ def phase_churn(nodes=5000, waves=6, per_wave=5000, max_batch=4096):
                                                  seed=9),
                         max_batch=max_batch, device="cuda", mirror=mirror))
             scatter_ms = timer.ms()
+            scatter_bounds = timer.bounds
             left = res.total_pods - res.deleted_pods
             check(len(res.placements) == left
                   and all(res.placements.values()),
@@ -860,7 +890,9 @@ def phase_churn(nodes=5000, waves=6, per_wave=5000, max_batch=4096):
             log(f"    mirror {info}; scatters {res.scatters}; scatter host "
                 f"s {res.seconds['scatter']:.4f}; scatter device ms add "
                 f"{_ms_list(scatter_ms['add'])} set "
-                f"{_ms_list(scatter_ms['set'])}")
+                f"{_ms_list(scatter_ms['set'])}; bound ms add "
+                f"{[f'{x:.6f}' for x in scatter_bounds['add']]} set "
+                f"{[f'{x:.6f}' for x in scatter_bounds['set']]}")
             runs[arm] = {
                 "pods_per_s": res.pods_per_second,
                 "duration_s": res.duration_seconds, "wall_s": wall,
@@ -868,6 +900,7 @@ def phase_churn(nodes=5000, waves=6, per_wave=5000, max_batch=4096):
                 "solves": res.solves, "rebuilds": res.rebuilds,
                 "mirror": res.mirror_info, "pipeline": res.pipeline_info,
                 "scatters": res.scatters, "scatter_device_ms": scatter_ms,
+                "scatter_bound_ms": scatter_bounds,
                 "host_seconds": res.seconds,
                 "enqueue_to_bind_ms": res.latency,
                 "kernel_ms": kernel_ms, "placements": res.placements}
@@ -913,6 +946,156 @@ def phase_sustained(pods=30000, qps=5000.0, seed=14, max_batch=4096):
         row["kernel_ms"] = kernel_ms
         rows[arm] = row
     return rows
+
+
+def _host_split(res):
+    """The host seconds of the paths behind the solve, and the batch
+    path's own."""
+    return (", ".join(f"{k}={v:.3f}" for k, v in res.host_paths.items())
+            + "; " + ", ".join(f"{k}={v:.3f}" for k, v in res.seconds.items()))
+
+
+def check_preemption_row(name, res, nodes):
+    """Every measured pod bound, exactly one priority-1 pod deleted per
+    measured pod, every other pod still there and bound, one pod a node.
+    Returns (pod -> node map, victim names)."""
+    init = {f"pod-{i}" for i in range(nodes)}
+    measured = {f"pod-{nodes + i}" for i in range(nodes)}
+    unbound = sorted(n for n in measured if not res.placements.get(n))
+    check(not unbound, f"{name}: {len(unbound)} measured pods unbound "
+          f"({unbound[:5]})")
+    victims = init - set(res.placements)
+    check(len(victims) == nodes == res.victims,
+          f"{name}: {len(victims)} priority-1 pods deleted ({res.victims} "
+          f"gone in all) for {nodes} measured pods")
+    check(set(res.placements) == measured | (init - victims)
+          and all(res.placements.values()),
+          f"{name}: every pod left is bound and none is lost")
+    per_node = {}
+    for node in res.placements.values():
+        per_node[node] = per_node.get(node, 0) + 1
+    check(len(per_node) == nodes and max(per_node.values()) == 1,
+          f"{name}: one pod a node")
+    return res.placements, victims
+
+
+def phase_preemption(nodes=5000, seed=11, max_batch=4096):
+    """The Preemption row in the default arms (pipelined, mirror on) and
+    serialized: checked, and both arms bind alike and evict alike."""
+    runs = {}
+    for pipeline in (True, False):
+        arm = "pipelined" if pipeline else "serialized"
+        name = f"Preemption {arm}"
+        res, counts, kernel_ms, _, _, wall = run_path(
+            name, lambda: perf.run_workload(
+                "Preemption", workloads.preemption(nodes, nodes, nodes),
+                max_batch=max_batch, device="cuda", pipeline=pipeline,
+                seed=seed))
+        check(res.pipeline == pipeline, f"{name} ran the {arm} arm")
+        check(counts["cluster"] == res.solves,
+              f"{name}: cluster kernel launches {counts['cluster']} == "
+              f"solves {res.solves}")
+        placements, victims = check_preemption_row(name, res, nodes)
+        log(f"  {name} {nodes} nodes / {nodes} / {nodes} on {res.device}: "
+            f"{res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+            f"{len(victims)} victims, PostFilter runs "
+            f"{res.post_filter_runs}; solves {res.solves} rebuilds "
+            f"{res.rebuilds}; kernel busy {sum(kernel_ms) / 1000:.3f} s")
+        log(f"    host seconds: {_host_split(res)}")
+        runs[arm] = {
+            "pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "victims": len(victims), "solves": res.solves,
+            "rebuilds": res.rebuilds, "launches": counts,
+            "post_filter_runs": res.post_filter_runs,
+            "host_paths_s": res.host_paths, "host_seconds": res.seconds,
+            "enqueue_to_bind_ms": res.latency, "kernel_ms": kernel_ms,
+            "placements": placements, "victim_set": victims}
+    piped, serial = runs["pipelined"], runs["serialized"]
+    check(piped.pop("placements") == serial.pop("placements"),
+          "Preemption: both arms bind the same pods to the same nodes")
+    check(piped.pop("victim_set") == serial.pop("victim_set"),
+          "Preemption: both arms evict the same pods")
+    log("  pipelined == serialized: bound set and victim set")
+    return runs
+
+
+def phase_unschedulable(nodes=5000, impossible=1000, pods=10000,
+                        max_batch=4096):
+    """The Unschedulable row: the measured pods bound around pods no node
+    can take, which carry the FitError status of the static masks and
+    never ran PostFilter."""
+    name = "Unschedulable"
+    res, counts, kernel_ms, _, _, wall = run_path(
+        name, lambda: perf.run_workload(
+            name, workloads.unschedulable(nodes, impossible, pods),
+            max_batch=max_batch, device="cuda"))
+    check(counts["cluster"] == res.solves,
+          f"{name}: cluster kernel launches {counts['cluster']} == solves "
+          f"{res.solves}")
+    unbound = [f"pod-{impossible + i}" for i in range(pods)
+               if not res.placements.get(f"pod-{impossible + i}")]
+    check(not unbound, f"{name}: {len(unbound)} measured pods unbound")
+    msg = (f"0/{nodes} nodes are available: {nodes} node(s) didn't satisfy "
+           "the pod's node-static predicates.")
+    wrong = [n for n in (f"pod-{i}" for i in range(impossible))
+             if res.placements.get(n) != ""
+             or res.conditions.get(n) != ("False", "Unschedulable", msg)]
+    check(not wrong, f"{name}: {len(wrong)} impossible pods without the "
+          f"FitError condition (first {wrong[:3]}: "
+          f"{[res.conditions.get(n) for n in wrong[:3]]})")
+    check(res.post_filter_runs == 0,
+          f"{name}: PostFilter ran {res.post_filter_runs} times")
+    log(f"  {name} {nodes} nodes, {impossible} impossible + {pods} pods on "
+        f"{res.device}: {res.pods_per_second:.1f} pods/s over "
+        f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); the "
+        f"{impossible} carry \"{msg}\"; PostFilter runs 0; solves "
+        f"{res.solves} rebuilds {res.rebuilds}; kernel busy "
+        f"{sum(kernel_ms) / 1000:.3f} s")
+    log(f"    host seconds: {_host_split(res)}")
+    return {"pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "solves": res.solves, "rebuilds": res.rebuilds,
+            "launches": counts, "post_filter_runs": res.post_filter_runs,
+            "host_paths_s": res.host_paths, "host_seconds": res.seconds,
+            "enqueue_to_bind_ms": res.latency, "kernel_ms": kernel_ms}
+
+
+def host_port_mix(nodes, pods):
+    """Plain pods on 8-cpu nodes, every fifth asking for one of two host
+    ports (the serial path places those)."""
+    def pod(i):
+        d = workloads.basic_pod(i)
+        if i % 5 == 0:
+            d["spec"]["containers"][0]["ports"] = [
+                {"containerPort": 80, "hostPort": 8080 + (i // 5) % 2}]
+        return d
+
+    return [{"opcode": "createNodes", "count": nodes,
+             "nodeTemplate": lambda i: workloads.node_template(i, cpu="8")},
+            {"opcode": "createPods", "count": pods, "podTemplate": pod,
+             "collectMetrics": True}]
+
+
+def phase_small_rows(seed=13):
+    """Small Preemption and mixed serial rows on the card and on the CPU:
+    the same maps and victims."""
+    rows = (("Preemption", lambda: workloads.preemption(50, 50, 50), 64),
+            ("host-port mix", lambda: host_port_mix(50, 200), 64))
+    for name, ops, max_batch in rows:
+        card, _, _, _, _, _ = run_path(
+            f"{name} small", lambda: perf.run_workload(
+                name, ops(), max_batch=max_batch, device="cuda", seed=seed))
+        cpu = perf.run_workload(name, ops(), max_batch=max_batch,
+                                device="cpu", seed=seed)
+        check(all(card.placements.values()), f"{name} small: all bound")
+        check(card.placements == cpu.placements,
+              f"{name} small: card and CPU place every pod alike")
+        check(card.victims == cpu.victims,
+              f"{name} small: card and CPU evict alike")
+        log(f"  {name} small: card == CPU on {len(card.placements)} "
+            f"placements, {card.victims} victims")
 
 
 def gpu_name_and_power() -> str:
@@ -990,12 +1173,23 @@ def main() -> None:
 
     log("[10] the sustained-arrival row, pipelined and serialized")
     sustained_rows = phase_sustained()
-    log(f"  main-path launches over phases 4, 5, 8, 9 and 10: {LAUNCHES}")
+
+    log("[11] the Preemption row, pipelined and serialized")
+    preemption = phase_preemption()
+
+    log("[12] the Unschedulable row")
+    unschedulable = phase_unschedulable()
+
+    log("[13] small Preemption and mixed serial rows: card against CPU")
+    phase_small_rows()
+    log(f"  main-path launches over phases 4, 5 and 8 to 13: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
               "device_ms": {k: sum(v) for k, v in
-                            r["scatter_device_ms"].items()}}
+                            r["scatter_device_ms"].items()},
+              "bound_ms": {k: sum(v) for k, v in
+                           r["scatter_bound_ms"].items()}}
         for arm, r in churn.items()}}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1024,6 +1218,7 @@ def main() -> None:
             "kernel_ms": spread_ms, "host_seconds": spread.seconds},
         "launches_by_path": LAUNCHES, "pipeline_runs": pipeline_runs,
         "churn": churn, "sustained": sustained_rows,
+        "preemption": preemption, "unschedulable": unschedulable,
         "scatters": scatters["scatters"],
     }
     if args.out:

@@ -67,11 +67,20 @@ class Selector:
     def nothing(cls) -> "Selector":
         return cls((), _nothing=True)
 
+    @classmethod
+    def from_map(cls, m: Optional[Mapping[str, str]]) -> "Selector":
+        """Equality on every pair; an empty map matches everything."""
+        return cls(tuple(Requirement(k, IN, (v,))
+                         for k, v in sorted((m or {}).items())))
+
     def matches(self, labels: Optional[Mapping[str, str]]) -> bool:
         if self._nothing:
             return False
         labels = labels or {}
         return all(r.matches(labels) for r in self.requirements)
+
+    def is_empty(self) -> bool:
+        return not self._nothing and not self.requirements
 
 
 @dataclass

@@ -8,7 +8,7 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional
 
-from kubernetes_tpu_torch.api.labels import LabelSelector, Requirement
+from kubernetes_tpu_torch.api.labels import LabelSelector, Requirement, Selector
 from kubernetes_tpu_torch.api.resource import Quantity, parse_quantity
 
 CPU = "cpu"
@@ -52,8 +52,10 @@ class ObjectMeta:
     namespace: str = "default"
     uid: str = field(default_factory=new_uid)
     labels: Dict[str, str] = field(default_factory=dict)
+    annotations: Dict[str, str] = field(default_factory=dict)
     resource_version: str = ""
     deletion_timestamp: Optional[float] = None
+    owner_references: List[dict] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "ObjectMeta":
@@ -62,6 +64,8 @@ class ObjectMeta:
             namespace=d.get("namespace", "default"),
             uid=d.get("uid") or new_uid(),
             labels=dict(d.get("labels") or ()),
+            annotations=dict(d.get("annotations") or ()),
+            owner_references=list(d.get("ownerReferences") or ()),
         )
 
 
@@ -69,11 +73,15 @@ class ObjectMeta:
 class ContainerPort:
     container_port: int = 0
     host_port: int = 0
+    protocol: str = "TCP"
+    host_ip: str = ""
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "ContainerPort":
         return cls(int(d.get("containerPort") or 0),
-                   int(d.get("hostPort") or 0))
+                   int(d.get("hostPort") or 0),
+                   d.get("protocol") or "TCP",
+                   d.get("hostIP") or "")
 
 
 @dataclass
@@ -302,6 +310,7 @@ class PodSpec:
     tolerations: List[Toleration] = field(default_factory=list)
     scheduler_name: str = "default-scheduler"
     priority: Optional[int] = None
+    preemption_policy: str = "PreemptLowerPriority"  # or "Never"
     topology_spread_constraints: List[TopologySpreadConstraint] = field(
         default_factory=list)
     # names of the node-bound volume sources the pod's volumes use
@@ -323,6 +332,8 @@ class PodSpec:
                          for t in d.get("tolerations") or ()],
             scheduler_name=d.get("schedulerName") or "default-scheduler",
             priority=d.get("priority"),
+            preemption_policy=(d.get("preemptionPolicy")
+                               or "PreemptLowerPriority"),
             topology_spread_constraints=[
                 TopologySpreadConstraint.from_dict(t)
                 for t in d.get("topologySpreadConstraints") or ()],
@@ -333,12 +344,24 @@ class PodSpec:
 
 
 @dataclass
+class PodCondition:
+    type: str
+    status: str
+    reason: str = ""
+    message: str = ""
+
+
+@dataclass
 class PodStatus:
     phase: str = PENDING
+    conditions: List[PodCondition] = field(default_factory=list)
+    nominated_node_name: str = ""
 
     @classmethod
     def from_dict(cls, d: Optional[Mapping]) -> "PodStatus":
-        return cls((d or {}).get("phase", PENDING))
+        d = d or {}
+        return cls(d.get("phase", PENDING), [],
+                   d.get("nominatedNodeName", ""))
 
 
 @dataclass
@@ -423,3 +446,60 @@ class Node:
         return cls(ObjectMeta.from_dict(d.get("metadata") or {}),
                    NodeSpec.from_dict(d.get("spec")),
                    NodeStatus.from_dict(d.get("status")))
+
+
+@dataclass
+class PodDisruptionBudgetStatus:
+    """What preemption reads: how many disruptions are allowed now."""
+
+    disruptions_allowed: int = 0
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
+
+
+@dataclass
+class PodDisruptionBudget:
+    """policy/v1beta1 PodDisruptionBudget: a selector over pods and the
+    budget's live status."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    label_selector: Optional[LabelSelector] = None
+    min_available: Optional[object] = None     # int or "N%"
+    max_unavailable: Optional[object] = None   # int or "N%"
+    status: PodDisruptionBudgetStatus = field(
+        default_factory=PodDisruptionBudgetStatus)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+    @property
+    def disruptions_allowed(self) -> int:
+        return self.status.disruptions_allowed
+
+    @property
+    def selector(self) -> Selector:
+        if self.label_selector is None:
+            return Selector.nothing()
+        return self.label_selector.to_selector()
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "PodDisruptionBudget":
+        spec = d.get("spec") or {}
+        status = d.get("status") or {}
+        return cls(
+            ObjectMeta.from_dict(d.get("metadata") or {}),
+            LabelSelector.from_dict(spec.get("selector")),
+            spec.get("minAvailable"),
+            spec.get("maxUnavailable"),
+            PodDisruptionBudgetStatus(
+                int(status.get("disruptionsAllowed") or 0),
+                int(status.get("currentHealthy") or 0),
+                int(status.get("desiredHealthy") or 0),
+                int(status.get("expectedPods") or 0)),
+        )

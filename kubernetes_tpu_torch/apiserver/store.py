@@ -1,10 +1,17 @@
-"""In-process cluster store for pods and nodes, with synchronous watch
-delivery, plus the scheduler's event handlers that turn watch events
-into cache and queue updates (assigned pods feed the cache, pending pods
-feed the queue, node changes feed the cache and wake parked pods)."""
+"""In-process cluster store for pods, nodes and PodDisruptionBudgets,
+with synchronous watch delivery, plus the scheduler's event handlers that
+turn watch events into cache and queue updates (assigned pods feed the
+cache, pending pods feed the queue, node changes feed the cache and wake
+parked pods).
+
+A pod's status writes (its ``PodScheduled`` condition, its nominated
+node) change the stored object in place and send no watch event, as the
+JAX package's in-process store does: nothing the scheduler caches or
+queues reads them."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -14,6 +21,8 @@ from kubernetes_tpu_torch.api.types import (
     SUCCEEDED,
     Node,
     Pod,
+    PodCondition,
+    PodDisruptionBudget,
     shallow_copy,
 )
 from kubernetes_tpu_torch.scheduler import queue as q
@@ -45,6 +54,8 @@ class ClusterStore:
         self._rv = 0
         self._pods: Dict[str, Pod] = {}
         self._nodes: Dict[str, Node] = {}
+        self._pdbs: Dict[str, PodDisruptionBudget] = {}
+        self._bound = 0   # stored pods with a node
         self._watches: List[WatchHandle] = []
 
     def _next_rv(self) -> str:
@@ -123,6 +134,7 @@ class ClusterStore:
             for pod in pods:
                 pod.metadata.resource_version = self._next_rv()
                 self._pods[pod.full_name()] = pod
+                self._bound += bool(pod.spec.node_name)
                 events.append(Event(ADDED, "Pod", pod))
             self._dispatch(events)
         return pods
@@ -136,6 +148,7 @@ class ClusterStore:
                 raise KeyError(f"pod {key} not found")
             pod.metadata.resource_version = self._next_rv()
             self._pods[key] = pod
+            self._bound += bool(pod.spec.node_name) - bool(old.spec.node_name)
             self._dispatch([Event(MODIFIED, "Pod", pod, old)])
             return pod
 
@@ -150,6 +163,7 @@ class ClusterStore:
             for namespace, name in keys:
                 old = self._pods.pop(f"{namespace}/{name}", None)
                 if old is not None:
+                    self._bound -= bool(old.spec.node_name)
                     events.append(Event(DELETED, "Pod",
                                         self._deletion_copy(old)))
             self._dispatch(events)
@@ -161,6 +175,37 @@ class ClusterStore:
     def list_pods(self) -> List[Pod]:
         with self._lock:
             return list(self._pods.values())
+
+    def count_bound(self) -> int:
+        """Stored pods with a node, without scanning them."""
+        with self._lock:
+            return self._bound
+
+    def patch_pod_condition(self, namespace: str, name: str,
+                            condition: PodCondition) -> None:
+        """Set the pod's condition of ``condition.type``."""
+        with self._lock:
+            pod = self._pods.get(f"{namespace}/{name}")
+            if pod is None:
+                return
+            pod.status.conditions = [
+                c for c in pod.status.conditions if c.type != condition.type
+            ] + [condition]
+
+    def set_nominated_node_name(self, namespace: str, name: str,
+                                node: str) -> None:
+        with self._lock:
+            pod = self._pods.get(f"{namespace}/{name}")
+            if pod is not None:
+                pod.status.nominated_node_name = node
+
+    def clear_nominated_node_name(self, namespace: str, name: str) -> None:
+        self.set_nominated_node_name(namespace, name, "")
+
+    def batched_status_writes(self):
+        """A scope for many status writes; each store call is already one
+        lock acquisition, so there is nothing to collapse."""
+        return contextlib.nullcontext()
 
     def bind(self, namespace: str, name: str, uid: str, node_name: str
              ) -> None:
@@ -197,9 +242,35 @@ class ClusterStore:
                 new_pod.metadata = shallow_copy(pod.metadata)
                 new_pod.metadata.resource_version = self._next_rv()
                 self._pods[key] = new_pod
+                self._bound += not pod.spec.node_name
                 events.append(Event(MODIFIED, "Pod", new_pod, pod))
             self._dispatch(events)
         return errors
+
+    # ------------------------------------------------------------------
+    # PodDisruptionBudgets; the controller objects SelectorSpread reads
+    # (Services, ReplicationControllers, ReplicaSets, StatefulSets) are
+    # not stored yet, so their listers return nothing
+    def add_pdb(self, pdb: PodDisruptionBudget) -> None:
+        with self._lock:
+            pdb.metadata.resource_version = self._next_rv()
+            self._pdbs[f"{pdb.namespace}/{pdb.name}"] = pdb
+
+    def list_pdbs(self) -> List[PodDisruptionBudget]:
+        with self._lock:
+            return list(self._pdbs.values())
+
+    def list_services(self, namespace: str) -> List:
+        return []
+
+    def list_replication_controllers(self, namespace: str) -> List:
+        return []
+
+    def list_replica_sets(self, namespace: str) -> List:
+        return []
+
+    def list_stateful_sets(self, namespace: str) -> List:
+        return []
 
 
 # ----------------------------------------------------------------------

@@ -5,7 +5,12 @@ bound-pod count at 1 Hz and reports throughput and per-pod latency.
 Besides creating nodes and pods, an op list can churn the cluster
 between pumps (``workloads.churn``): delete a seeded share of the bound
 pods, change a seeded share of the nodes' allocatable cpu, and delete a
-pod while a solved batch waits for its commit."""
+pod while a solved batch waits for its commit.
+
+A ``createPods`` op waits for its own pods to be bound (none when it
+sets ``skipWaitToCompletion``), not for every pod: pods of earlier ops
+may pend for good (Unschedulable) or be deleted by preemption (victims),
+and neither is a lost pod."""
 
 from __future__ import annotations
 
@@ -54,7 +59,9 @@ class ThroughputCollector:
         self._thread: Optional[threading.Thread] = None
 
     def _count_scheduled(self) -> int:
-        return sum(1 for p in self.store.list_pods() if p.spec.node_name)
+        # a counter, not a scan: the sampling thread must not hold the
+        # interpreter for milliseconds while the batch loop dispatches
+        return self.store.count_bound()
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -107,6 +114,16 @@ class BenchmarkResult:
     handoffs: List[Tuple[float, float]] = field(default_factory=list)
     # pods the op list deleted (churn)
     deleted_pods: int = 0
+    # pods preemption deleted (created, not deleted by the op list, and
+    # gone at the end)
+    victims: int = 0
+    # PostFilter runs, and the host seconds of the paths behind the
+    # solve (``BatchScheduler.seconds``)
+    post_filter_runs: int = 0
+    host_paths: Dict[str, float] = field(default_factory=dict)
+    # pod name -> (status, reason, message) of its PodScheduled condition,
+    # for every pod left with one
+    conditions: Dict[str, Tuple[str, str, str]] = field(default_factory=dict)
     # host seconds per phase of the batch path
     seconds: Dict[str, float] = field(default_factory=dict)
     # pod name -> node name of every pod the run created
@@ -149,15 +166,18 @@ def update_node_cpu_share(store: ClusterStore, fraction: float, seed: int
 
 def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                  device=None, pipeline: Optional[bool] = None,
-                 mirror: Optional[bool] = None) -> BenchmarkResult:
+                 mirror: Optional[bool] = None,
+                 seed: Optional[int] = None) -> BenchmarkResult:
     """Execute one workload on ``device`` (the CUDA card unless "cpu" is
     passed; raises when no card is available). ``pipeline`` and
     ``mirror`` switch the batch path's arms (default: the environment's
-    ``KTPU_PIPELINE`` and ``KTPU_MIRROR``, both on)."""
+    ``KTPU_PIPELINE`` and ``KTPU_MIRROR``, both on); ``seed`` seeds the
+    scheduler's random draws (ties of the serial path, the preemption
+    candidate offset)."""
     dev = resolve_device(device)
     tune_for_throughput()
     store = ClusterStore()
-    sched = Scheduler(store)
+    sched = Scheduler(store, rng=random.Random(seed))
     bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
                         pipeline=pipeline, mirror=mirror)
     sched.start()
@@ -218,6 +238,8 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                             for i in range(op["count"])]
                 store.create_pods(new_pods)
                 created_pods += len(new_pods)
+                if op.get("skipWaitToCompletion", False):
+                    continue
                 if "deleteWhilePending" in op:
                     # one cycle leaves a solved batch held; a bound pod
                     # deleted now lands while it waits
@@ -249,6 +271,7 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         gc.collect()
 
     session = bs.session
+    pods = store.list_pods()
     return BenchmarkResult(
         name=name,
         device=str(dev),
@@ -271,6 +294,11 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                   "bytes": session.backend.scatter_bytes},
         handoffs=list(session.handoffs),
         deleted_pods=deleted_pods,
-        placements={p.metadata.name: p.spec.node_name
-                    for p in store.list_pods()},
+        victims=created_pods - deleted_pods - len(pods),
+        post_filter_runs=sched.framework.post_filter_runs,
+        host_paths=dict(bs.seconds),
+        conditions={p.metadata.name: (c.status, c.reason, c.message)
+                    for p in pods for c in p.status.conditions
+                    if c.type == "PodScheduled"},
+        placements={p.metadata.name: p.spec.node_name for p in pods},
     )

@@ -1,6 +1,7 @@
 """Benchmark workloads as op lists (the scheduler_perf op DSL):
 ``{"opcode": "createNodes" | "createPods" | "barrier", ...}``, at any
-node and pod count."""
+node and pod count. A ``createPods`` op with ``skipWaitToCompletion``
+does not wait for its pods to be bound."""
 
 from __future__ import annotations
 
@@ -55,14 +56,16 @@ def _spread(max_skew: int, key: str, action: str,
 
 
 def _pods_op(count: int, pod_fn, collect: bool = False,
-             offset: int = 0) -> dict:
+             offset: int = 0, skip_wait: bool = False) -> dict:
     return {"opcode": "createPods", "count": count, "podTemplate": pod_fn,
-            "collectMetrics": collect, "offset": offset}
+            "collectMetrics": collect, "offset": offset,
+            "skipWaitToCompletion": skip_wait}
 
 
-def _nodes_op(count: int) -> dict:
+def _nodes_op(count: int, cpu: str = "32", memory: str = "64Gi") -> dict:
     return {"opcode": "createNodes", "count": count,
-            "nodeTemplate": node_template}
+            "nodeTemplate": lambda i: node_template(i, cpu=cpu,
+                                                    memory=memory)}
 
 
 def _barrier() -> dict:
@@ -121,9 +124,47 @@ def churn(nodes: int, waves: int, per_wave: int, delete_fraction: float = 0.10,
     return ops
 
 
+def _prio(pod: dict, priority: int) -> dict:
+    pod["spec"]["priority"] = priority
+    return pod
+
+
+def preemption(nodes: int, init_pods: int, measure_pods: int
+               ) -> List[dict]:
+    """Nodes of 4 cpu filled by priority-1 pods of 3 cpu, one a node when
+    ``init_pods == nodes``; then priority-100 pods of 3 cpu, each of which
+    must preempt one."""
+    return [
+        _nodes_op(nodes, cpu="4", memory="8Gi"),
+        _pods_op(init_pods, lambda i: _prio(basic_pod(i, cpu="3"), 1)),
+        _barrier(),
+        _pods_op(measure_pods, lambda i: _prio(basic_pod(i, cpu="3"), 100),
+                 collect=True, offset=init_pods),
+    ]
+
+
+def unschedulable(nodes: int, init_pods: int, measure_pods: int
+                  ) -> List[dict]:
+    """``init_pods`` pods whose node selector no node matches stay pending
+    (their op does not wait) while the measured pods schedule."""
+    def impossible(i):
+        p = basic_pod(i)
+        p["spec"]["nodeSelector"] = {"no-such-label": "true"}
+        return p
+
+    return [
+        _nodes_op(nodes),
+        _pods_op(init_pods, impossible, skip_wait=True),
+        _pods_op(measure_pods, lambda i: basic_pod(i), collect=True,
+                 offset=init_pods),
+    ]
+
+
 WORKLOADS = {
     "SchedulingBasic": scheduling_basic,
     "TopologySpreading": topology_spreading,
+    "Preemption": preemption,
+    "Unschedulable": unschedulable,
 }
 
 

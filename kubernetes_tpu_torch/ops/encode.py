@@ -19,7 +19,9 @@ so later batches that fit it are encoded pod-side only
 (``encode_pods_only``) against the state the device carries.
 
 Pods this batch path cannot express (persistent or inline cloud volumes,
-host ports, mesh-block placement) raise ``InexpressiblePodError``.
+host ports, mesh-block placement) raise ``InexpressiblePodError``. The
+batch loop asks ``is_host_only`` first and sends host-port pods to the
+serial path; the rest stay refused.
 """
 
 from __future__ import annotations
@@ -50,16 +52,26 @@ class InexpressiblePodError(ValueError):
 
 
 def check_expressible(pod: Pod) -> None:
+    if is_host_only(pod):
+        raise InexpressiblePodError(
+            f"pod {pod.full_name()} requests host ports")
+
+
+def is_host_only(pod: Pod) -> bool:
+    """True for a pod the serial path takes and the batch path cannot
+    express: host ports (the NodePorts filter tracks them per node).
+    Raises ``InexpressiblePodError`` for a pod neither path takes: one
+    with volumes (a claim needs VolumeBinding; an inline cloud disk needs
+    VolumeRestrictions and the attach limits, none of them ported) or
+    mesh-block placement (MeshLocality)."""
     if pod.spec.node_bound_volumes:
         raise InexpressiblePodError(
             f"pod {pod.full_name()} uses node-bound volumes "
             f"{pod.spec.node_bound_volumes}")
-    if any(p.host_port > 0 for c in pod.spec.containers for p in c.ports):
-        raise InexpressiblePodError(
-            f"pod {pod.full_name()} requests host ports")
     if pod.metadata.labels.get(MESH_BLOCK_LABEL):
         raise InexpressiblePodError(
             f"pod {pod.full_name()} asks for mesh-block placement")
+    return any(p.host_port > 0 for c in pod.spec.containers for p in c.ports)
 
 
 def _kib(b: int) -> int:

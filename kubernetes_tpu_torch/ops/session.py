@@ -14,7 +14,12 @@ incremental path.
 
 A solve is dispatched lazily: ``solve(..., lazy=True)`` returns a handle
 whose assignments ``last_materializer`` fetches later, so host work
-overlaps the device's.
+overlaps the device's. Each solve also leaves, for its caller to capture
+at once, the batch's per-pod profile index and inexpressible flags and
+its epoch's node-static masks (``last_profile_idx``,
+``last_inexpressible``, ``static_masks_host``): the batch loop builds the
+statuses of declined pods from them, and by the time a held batch
+commits the session may describe the next one.
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ class SolverSession:
         # per lazy solve: (host seconds from dispatch to materialize,
         # seconds materialize waited for the card)
         self.handoffs: List[Tuple[float, float]] = []
+        self.static_masks_host: Optional[np.ndarray] = None  # [U, N] bool
+        self.last_profile_idx: Optional[np.ndarray] = None   # [B] int32
+        self.last_inexpressible: Optional[np.ndarray] = None  # [B] bool
         self._mirror: Optional[DeviceClusterMirror] = None
         if mirror_enabled() if mirror is None else mirror:
             journal = DeltaJournal()
@@ -133,6 +141,8 @@ class SolverSession:
             t0 = time.monotonic()
             pb = self._encoder.encode_pods_only(pods, pad)
             if pb is not None:
+                self.last_profile_idx = pb.profile_idx
+                self.last_inexpressible = pb.inexpressible
                 ints, floats = pack_podin(pb)
                 t1 = time.monotonic()
                 chained = self._dispatch_seq > self._materialize_seq
@@ -205,6 +215,9 @@ class SolverSession:
         self._node_epoch = self.sched.cache.node_set_seq
         self._encoder = BatchEncoder(self.sched.update_snapshot())
         cluster, batch = self._encoder.encode(pods, pad_pods=pad)
+        self.static_masks_host = batch.static_masks
+        self.last_profile_idx = batch.profile_idx
+        self.last_inexpressible = batch.inexpressible
         ints, floats = pack_podin(batch)
         t1 = time.monotonic()
         self._static, self._state = self.backend.prepare(cluster, batch)

@@ -143,19 +143,22 @@ class SchedulerCache:
             self._pod_states[key] = _PodState(pod)
             self._assumed_pods.add(key)
 
-    def assume_pods(self, pods: List[Pod]) -> List[Optional[str]]:
+    def assume_pods(self, pods: List[Pod], solved: bool = True
+                    ) -> List[Optional[str]]:
         """Assume a committed batch under one lock; one mutation per
-        assumed pod, journaled as ``assume_bulk`` (the solve already
-        counted these pods in the device state). Returns a positional
-        error (or None) per pod."""
+        assumed pod, journaled as ``assume_bulk`` when the device solve
+        placed them (its state already counts them), else as ``assume``
+        (the mirror scatters them). Returns a positional error (or None)
+        per pod."""
         errors: List[Optional[str]] = [None] * len(pods)
+        kind = "assume_bulk" if solved else "assume"
         with self._lock:
             for i, pod in enumerate(pods):
                 key = get_pod_key(pod)
                 if key in self._pod_states:
                     errors[i] = f"pod {key} is in the cache, so can't be assumed"
                     continue
-                self._bump("assume_bulk", pod)
+                self._bump(kind, pod)
                 self._add_pod_locked(pod)
                 self._pod_states[key] = _PodState(pod)
                 self._assumed_pods.add(key)
@@ -345,6 +348,9 @@ class SchedulerCache:
                     snapshot.node_info_map):
                 snapshot.node_info_list = [
                     snapshot.node_info_map[n] for n in self._node_tree.list()]
+                snapshot.have_pods_with_affinity_node_info_list = [
+                    ni for ni in snapshot.node_info_list
+                    if ni.pods_with_affinity]
                 snapshot.have_pods_with_required_anti_affinity_node_info_list = [
                     ni for ni in snapshot.node_info_list
                     if ni.pods_with_required_anti_affinity]

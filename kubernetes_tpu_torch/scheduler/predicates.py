@@ -1,7 +1,8 @@
 """The node-static predicates the encoder evaluates once per (static
-profile, node): node selector and required node affinity, taints and
-tolerations, the unschedulable flag, and the node-affinity term match
-that preferred node affinity scores with."""
+profile, node), and the filter plugins evaluate per node: node selector
+and required node affinity, taints and tolerations, the unschedulable
+flag, and the node-affinity term match that preferred node affinity
+scores with."""
 
 from __future__ import annotations
 
@@ -57,13 +58,27 @@ def pod_matches_node_selector_and_affinity(pod: Pod, node: Node) -> bool:
     return True
 
 
+def is_hard_taint(taint: Taint) -> bool:
+    """A taint filtering pods out (NoSchedule, NoExecute)."""
+    return taint.effect in (NO_SCHEDULE, NO_EXECUTE)
+
+
+def find_untolerated_taint(taints, tolerations, effect_filter
+                           ) -> Optional[Taint]:
+    """The first taint passing ``effect_filter`` that no toleration
+    tolerates, or None."""
+    for taint in taints:
+        if not effect_filter(taint):
+            continue
+        if not any(t.tolerates(taint) for t in tolerations):
+            return taint
+    return None
+
+
 def tolerates_node_taints(pod: Pod, node: Node) -> bool:
     """Every NoSchedule / NoExecute taint is tolerated."""
-    return all(
-        any(t.tolerates(taint) for t in pod.spec.tolerations)
-        for taint in node.spec.taints
-        if taint.effect in (NO_SCHEDULE, NO_EXECUTE)
-    )
+    return find_untolerated_taint(node.spec.taints, pod.spec.tolerations,
+                                  is_hard_taint) is None
 
 
 def passes_unschedulable(pod: Pod, node: Node) -> bool:

@@ -1,0 +1,35 @@
+"""The default provider's plugin wiring: per extension point, the plugins
+in order, and each score plugin's weight.
+
+The JAX package's default provider also runs the volume plugins
+(VolumeBinding, VolumeRestrictions, VolumeZone, the volume-limit
+filters) and MeshLocality. The port has none of them yet: a pod that
+needs one is refused before it reaches the framework (see
+``ops.encode.is_host_only``), and for every other pod they pass every
+node and add the same score to every node, so leaving them out changes
+no placement and no status."""
+
+from typing import Dict, List, Tuple
+
+Wiring = Dict[str, List[Tuple[str, int]]]
+
+
+def default_plugins() -> Wiring:
+    return {
+        "queue_sort": [("PrioritySort", 1)],
+        "pre_filter": [("NodeResourcesFit", 1), ("NodePorts", 1),
+                       ("PodTopologySpread", 1), ("InterPodAffinity", 1)],
+        "filter": [("NodeUnschedulable", 1), ("NodeName", 1),
+                   ("TaintToleration", 1), ("NodeAffinity", 1),
+                   ("NodePorts", 1), ("NodeResourcesFit", 1),
+                   ("PodTopologySpread", 1), ("InterPodAffinity", 1)],
+        "post_filter": [("DefaultPreemption", 1)],
+        "pre_score": [("InterPodAffinity", 1), ("PodTopologySpread", 1),
+                      ("TaintToleration", 1), ("SelectorSpread", 1)],
+        "score": [("NodeResourcesBalancedAllocation", 1),
+                  ("ImageLocality", 1), ("InterPodAffinity", 1),
+                  ("NodeResourcesLeastAllocated", 1), ("NodeAffinity", 1),
+                  ("NodePreferAvoidPods", 10000), ("PodTopologySpread", 2),
+                  ("TaintToleration", 1), ("SelectorSpread", 1)],
+        "bind": [("DefaultBinder", 1)],
+    }

@@ -1,7 +1,8 @@
 """The scheduling queue: an active heap ordered by priority then enqueue
 time, a backoff heap (exponential 1 s to 10 s) and the unschedulable set,
 with the scheduling-cycle / move-request-cycle protocol that decides
-whether a failed pod parks or backs off.
+whether a failed pod parks or backs off, and the pod nominator that
+holds preemption's nominations.
 
 The heap orders by a cached total-order key, (-priority, enqueue
 timestamp); equal keys keep the heap's own array order, and the batch
@@ -32,6 +33,51 @@ NODE_TAINT_CHANGE = "NodeTaintChange"
 NODE_SPEC_UNSCHEDULABLE_CHANGE = "NodeSpecUnschedulableChange"
 ASSIGNED_POD_DELETE = "AssignedPodDelete"
 UNSCHEDULABLE_TIMEOUT = "UnschedulableTimeout"
+
+
+class PodNominator:
+    """Node name -> the pods nominated to it by preemption. The queue's
+    add, update, delete and requeue paths keep it current."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._nominated: Dict[str, List[PodInfo]] = {}
+        self._pod_to_node: Dict[str, str] = {}
+
+    def add_nominated_pod(self, pod: Pod, node_name: str = "") -> None:
+        """Nominate ``pod`` to ``node_name`` (default: the pod's own
+        ``status.nominated_node_name``; none drops the nomination)."""
+        with self._lock:
+            self._delete_locked(pod)
+            nn = node_name or pod.status.nominated_node_name
+            if not nn:
+                return
+            self._pod_to_node[get_pod_key(pod)] = nn
+            self._nominated.setdefault(nn, []).append(PodInfo(pod))
+
+    def delete_nominated_pod_if_exists(self, pod: Pod) -> None:
+        with self._lock:
+            self._delete_locked(pod)
+
+    def update_nominated_pod(self, old: Pod, new: Pod) -> None:
+        with self._lock:
+            # an update that drops the status field keeps the nomination
+            nn = self._pod_to_node.get(get_pod_key(old), "")
+            self._delete_locked(old)
+            self.add_nominated_pod(new, new.status.nominated_node_name or nn)
+
+    def nominated_pods_for_node(self, node_name: str) -> List[PodInfo]:
+        with self._lock:
+            return list(self._nominated.get(node_name, ()))
+
+    def _delete_locked(self, pod: Pod) -> None:
+        key = get_pod_key(pod)
+        nn = self._pod_to_node.pop(key, None)
+        if nn is not None and nn in self._nominated:
+            self._nominated[nn] = [pi for pi in self._nominated[nn]
+                                   if get_pod_key(pi.pod) != key]
+            if not self._nominated[nn]:
+                del self._nominated[nn]
 
 
 def queue_sort_key(qpi: QueuedPodInfo) -> tuple:
@@ -141,8 +187,9 @@ class Heap:
             i = smallest
 
 
-class SchedulingQueue:
+class SchedulingQueue(PodNominator):
     def __init__(self):
+        super().__init__()
         self._now = time.monotonic
         self._cond = threading.Condition(threading.RLock())
 
@@ -197,6 +244,7 @@ class SchedulingQueue:
                 key = get_pod_key(pod)
                 self._unschedulable_q.pop(key, None)
                 self._backoff_q.delete_by_key(key)
+                self.add_nominated_pod(pod)
             self._cond.notify_all()
 
     def update(self, old: Optional[Pod], new: Pod) -> None:
@@ -211,9 +259,11 @@ class SchedulingQueue:
                     if existing is not None:
                         existing.pod_info = PodInfo(new)
                         q.add(existing)
+                        self.update_nominated_pod(old, new)
                         return
             existing = self._unschedulable_q.get(key)
             if existing is not None:
+                self.update_nominated_pod(old or existing.pod, new)
                 existing.pod_info = PodInfo(new)
                 if old is not None and _pod_updated_may_help(old, new):
                     del self._unschedulable_q[key]
@@ -224,6 +274,7 @@ class SchedulingQueue:
                         self._backoff_q.add(existing)
                 return
             self._active_q.add(self._new_queued_pod_info(new))
+            self.add_nominated_pod(new)
             self._cond.notify_all()
 
     def delete(self, pod: Pod) -> None:
@@ -233,25 +284,32 @@ class SchedulingQueue:
         with self._cond:
             for pod in pods:
                 key = get_pod_key(pod)
+                self.delete_nominated_pod_if_exists(pod)
                 self._active_q.delete_by_key(key)
                 self._backoff_q.delete_by_key(key)
                 self._unschedulable_q.pop(key, None)
 
     def add_unschedulable_if_not_present(self, qpi: QueuedPodInfo,
-                                         pod_scheduling_cycle: int) -> None:
+                                         pod_scheduling_cycle: int,
+                                         prefer_backoff: bool = False
+                                         ) -> None:
         """Requeue a pod whose cycle failed: to backoff when a move request
-        arrived during that cycle (the cluster may already have changed),
-        else to the unschedulable set until an event moves it."""
+        arrived during that cycle (the cluster may already have changed)
+        or when ``prefer_backoff`` (a scheduler error is no evidence the
+        pod does not fit), else to the unschedulable set until an event
+        moves it."""
         with self._cond:
             key = get_pod_key(qpi.pod)
             if (key in self._unschedulable_q or self._active_q.has_key(key)
                     or self._backoff_q.has_key(key)):
                 raise ValueError(f"pod {key} already present in a queue")
             qpi.timestamp = self._now()
-            if self._move_request_cycle >= pod_scheduling_cycle:
+            if prefer_backoff \
+                    or self._move_request_cycle >= pod_scheduling_cycle:
                 self._backoff_q.add(qpi)
             else:
                 self._unschedulable_q[key] = qpi
+            self.add_nominated_pod(qpi.pod)
             self._cond.notify_all()
 
     def pop_batch(self, max_n: int, timeout: Optional[float] = None

@@ -5,7 +5,7 @@ anti-affinity."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.scheduler.types import ImageStateSummary, NodeInfo
@@ -83,6 +83,7 @@ class Snapshot:
     def __init__(self):
         self.node_info_map: Dict[str, NodeInfo] = {}
         self.node_info_list: List[NodeInfo] = []
+        self.have_pods_with_affinity_node_info_list: List[NodeInfo] = []
         self.have_pods_with_required_anti_affinity_node_info_list: List[
             NodeInfo] = []
         self.generation: int = 0
@@ -90,8 +91,17 @@ class Snapshot:
     def list(self) -> List[NodeInfo]:
         return self.node_info_list
 
+    def have_pods_with_affinity_list(self) -> List[NodeInfo]:
+        return self.have_pods_with_affinity_node_info_list
+
     def have_pods_with_required_anti_affinity_list(self) -> List[NodeInfo]:
         return self.have_pods_with_required_anti_affinity_node_info_list
+
+    def get(self, node_name: str) -> Optional[NodeInfo]:
+        return self.node_info_map.get(node_name)
+
+    def num_nodes(self) -> int:
+        return len(self.node_info_list)
 
 
 def new_snapshot(pods: Iterable[Pod], nodes: Iterable[Node]) -> Snapshot:
@@ -121,6 +131,8 @@ def new_snapshot(pods: Iterable[Pod], nodes: Iterable[Node]) -> Snapshot:
                     image_size[name], len(image_nodes[name]))
     s.node_info_map = by_name
     s.node_info_list = list(by_name.values())
+    s.have_pods_with_affinity_node_info_list = [
+        ni for ni in s.node_info_list if ni.pods_with_affinity]
     s.have_pods_with_required_anti_affinity_node_info_list = [
         ni for ni in s.node_info_list if ni.pods_with_required_anti_affinity]
     return s

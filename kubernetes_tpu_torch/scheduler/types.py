@@ -8,7 +8,7 @@ import itertools
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set, Tuple
 
 from kubernetes_tpu_torch.api import labels as labelslib
 from kubernetes_tpu_torch.api.types import (
@@ -226,18 +226,47 @@ class ImageStateSummary:
     num_nodes: int = 0
 
 
+# a used host port: (host IP, protocol, port)
+PortKey = Tuple[str, str, int]
+
+
+def pod_host_ports(pod: Pod) -> List[PortKey]:
+    out = []
+    for c in pod.spec.containers:
+        for p in c.ports:
+            if p.host_port > 0:
+                out.append((p.host_ip or "0.0.0.0", p.protocol or "TCP",
+                            p.host_port))
+    return out
+
+
+def ports_conflict(used: Set[PortKey], wanted: List[PortKey]) -> bool:
+    """0.0.0.0 conflicts with any IP on the same (protocol, port)."""
+    if not wanted or not used:
+        return False
+    for ip, proto, port in wanted:
+        for uip, uproto, uport in used:
+            if proto == uproto and port == uport:
+                if ip == "0.0.0.0" or uip == "0.0.0.0" or ip == uip:
+                    return True
+    return False
+
+
 class NodeInfo:
     """Aggregated per-node scheduling state."""
 
     __slots__ = (
-        "node", "pods", "pods_with_required_anti_affinity", "requested",
+        "node", "pods", "pods_with_affinity",
+        "pods_with_required_anti_affinity", "used_ports", "requested",
         "non_zero_requested", "allocatable", "image_states", "generation",
     )
 
     def __init__(self):
         self.node: Optional[Node] = None
         self.pods: List[PodInfo] = []
+        self.pods_with_affinity: List[PodInfo] = []
         self.pods_with_required_anti_affinity: List[PodInfo] = []
+        self.used_ports: Set[PortKey] = set()
         self.requested = Resource()
         self.non_zero_requested = Resource()
         self.allocatable = Resource()
@@ -255,39 +284,63 @@ class NodeInfo:
         self.generation = next_generation()
 
     def add_pod(self, pod: Pod) -> None:
-        pi = PodInfo.of(pod)
+        self.add_pod_info(PodInfo.of(pod))
+
+    def add_pod_info(self, pi: PodInfo) -> None:
         self.pods.append(pi)
+        if _pod_with_affinity(pi):
+            self.pods_with_affinity.append(pi)
         if pi.required_anti_affinity_terms:
             self.pods_with_required_anti_affinity.append(pi)
         self.requested.add(pi.resource_request)
         self.non_zero_requested.add(pi.non_zero_request)
+        self.used_ports.update(pod_host_ports(pi.pod))
         self.generation = next_generation()
 
     def remove_pod(self, pod: Pod) -> bool:
         for i, pi in enumerate(self.pods):
             if pi.pod.uid == pod.uid:
                 self.pods.pop(i)
+                self.pods_with_affinity = [
+                    x for x in self.pods_with_affinity
+                    if x.pod.uid != pod.uid]
                 self.pods_with_required_anti_affinity = [
                     x for x in self.pods_with_required_anti_affinity
                     if x.pod.uid != pod.uid]
                 self.requested.sub(pi.resource_request)
                 self.non_zero_requested.sub(pi.non_zero_request)
+                self.used_ports = set()
+                for x in self.pods:
+                    self.used_ports.update(pod_host_ports(x.pod))
                 self.generation = next_generation()
                 return True
         return False
+
+    def clone(self) -> "NodeInfo":
+        c = NodeInfo()
+        c.copy_from(self)
+        return c
 
     def copy_from(self, other: "NodeInfo") -> None:
         """Overwrite in place: the snapshot's map and ordered list share
         NodeInfo objects, so an incremental update must not replace them."""
         self.node = other.node
         self.pods = list(other.pods)
+        self.pods_with_affinity = list(other.pods_with_affinity)
         self.pods_with_required_anti_affinity = list(
             other.pods_with_required_anti_affinity)
+        self.used_ports = set(other.used_ports)
         self.requested = other.requested.clone()
         self.non_zero_requested = other.non_zero_requested.clone()
         self.allocatable = other.allocatable.clone()
         self.image_states = dict(other.image_states)
         self.generation = other.generation
+
+
+def _pod_with_affinity(pi: PodInfo) -> bool:
+    return bool(pi.required_affinity_terms or pi.required_anti_affinity_terms
+                or pi.preferred_affinity_terms
+                or pi.preferred_anti_affinity_terms)
 
 
 def get_pod_key(pod: Pod) -> str:

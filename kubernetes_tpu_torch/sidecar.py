@@ -1,8 +1,27 @@
 """The batch scheduling loop: drain the queue, solve the batch on the
 device, commit. A placed pod is assumed in the cache and bound in the
-store; a pod with no feasible node, or placed on a node that died or was
-cordoned since the solve's encoding, goes back to the queue as
-unschedulable.
+store through the framework's Reserve and Bind plugins.
+
+Not every pod goes through the solve, and not every verdict of the solve
+is final:
+
+- the partition sends a pod the batch path cannot express (host ports,
+  ``ops.encode.is_host_only``) or of another scheduler profile to the
+  serial path (``Scheduler.schedule_pod_serial``); a pod neither path
+  takes (volumes, mesh-block placement) is refused with
+  ``InexpressiblePodError``;
+- a placement on a node that died or was cordoned since the encoding
+  goes to the serial path for a fresh verdict;
+- the pods the solve declines go to the serial path when a batch
+  declines ``DECLINED_SERIAL_LIMIT`` or fewer, for its exact statuses
+  and preemption. Past that (mass decline), each declined pod fails
+  with a status built from the node-static masks of its profile: a
+  profile no node passes statically fails without PostFilter; runs of
+  equally shaped preemptors get a (node, victims) plan each from the
+  victim planner, whose victims are evicted in bulk and whose
+  preemptors are validated with the real filters and bound in the same
+  cycle; the rest run PostFilter with the preemption screen's candidate
+  hints.
 
 Two arms, switched by ``pipeline`` (default: the ``KTPU_PIPELINE``
 environment variable, on unless off, 0 or false):
@@ -11,13 +30,15 @@ environment variable, on unless off, 0 or false):
   holds pods, without waiting, while batch N is pending), dispatches its
   solve without waiting for the card, and then commits batch N while the
   card solves. A solved batch is held at most one call, and is committed
-  in the same call when the queue has nothing more;
+  in the same call when the queue has nothing more and nothing but the
+  batch path's own commits changed the cache since its solve;
 - serialized: drain, solve, commit, one batch per call.
 
 Both arms commit through the same code and bind the same pods to the
-same nodes. A batch held while the cache changed under it is discarded
-and its pods are solved again from a rebuilt state (the solve already
-counted the discarded placements in the device state, in place).
+same nodes. A batch held while the cache changed under it (a deleted
+pod, a preemption's evictions and placements, a serial bind) is
+discarded and its pods are solved again from a rebuilt state (the solve
+already counted the discarded placements in the device state, in place).
 """
 
 from __future__ import annotations
@@ -26,14 +47,41 @@ import os
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
+
+from kubernetes_tpu_torch.ops.encode import is_host_only
 from kubernetes_tpu_torch.ops.session import SolverSession
+from kubernetes_tpu_torch.scheduler.framework import interface as fw
+from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
+from kubernetes_tpu_torch.scheduler.framework.plugins.default_preemption import (  # noqa: E501
+    pod_eligible_to_preempt_others,
+)
+from kubernetes_tpu_torch.scheduler.preemption_screen import (
+    build_screen,
+    build_victim_planner,
+)
 from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     commit_target_stale,
 )
-from kubernetes_tpu_torch.scheduler.types import PodInfo
+from kubernetes_tpu_torch.scheduler.types import (
+    PodInfo,
+    QueuedPodInfo,
+    compute_pod_resource_request,
+)
 
 PIPELINE_ENV = "KTPU_PIPELINE"
+
+# the statuses a mass-declined pod's FitError is built from, per node:
+# the node fails one of the pod's node-static predicates, or only the
+# resource and topology ones
+STATUS_STATIC = fw.Status(
+    fw.UNSCHEDULABLE_AND_UNRESOLVABLE,
+    "node(s) didn't satisfy the pod's node-static predicates")
+STATUS_DYNAMIC = fw.Status(
+    fw.UNSCHEDULABLE,
+    "node(s) had insufficient resources or violated topology/affinity "
+    "constraints")
 
 
 def pipeline_enabled() -> bool:
@@ -43,15 +91,28 @@ def pipeline_enabled() -> bool:
 
 
 class BatchScheduler:
+    # declined pods a batch sends to the serial path; past it, mass decline
+    DECLINED_SERIAL_LIMIT = 32
+
     def __init__(self, scheduler: Scheduler, max_batch: int = 4096,
                  device=None, pipeline: Optional[bool] = None,
-                 mirror: Optional[bool] = None):
+                 mirror: Optional[bool] = None, validate: bool = False):
         self.sched = scheduler
         self.max_batch = max_batch
         self.pipeline_enabled = (pipeline_enabled() if pipeline is None
                                  else bool(pipeline))
+        # re-check every placement with the host's filters before binding
+        self.validate = validate
         self.session = SolverSession(scheduler, device=device, mirror=mirror)
         self.seconds_commit = 0.0
+        # host seconds of the paths behind the solve: the preemption
+        # screen and victim planner builds, plan execution (evictions,
+        # validation, bulk bind), the failed statuses and PostFilter of
+        # mass-declined pods, and the serial path
+        self.seconds = {"screen": 0.0, "plan": 0.0, "execute": 0.0,
+                        "fail": 0.0, "serial": 0.0}
+        self.preempted = 0      # victims evicted by executed plans
+        self.planned = 0        # preemptors bound by executed plans
         # most batches in flight at once: a solve dispatched while the
         # previous batch waits for its commit is two
         self.pipeline_depth_max = 0
@@ -62,8 +123,9 @@ class BatchScheduler:
     def warmup(self, sample_pods: List) -> float:
         """Solve a sample batch once, building and loading the kernels
         (``SolverSession.warm``), and drop the resulting device state.
-        Returns the seconds spent."""
+        Host-only samples are left out. Returns the seconds spent."""
         t0 = time.monotonic()
+        sample_pods = [p for p in sample_pods if not is_host_only(p)]
         if sample_pods and self.sched.update_snapshot().list():
             self.session.warm(sample_pods, self.max_batch)
         return time.monotonic() - t0
@@ -102,28 +164,68 @@ class BatchScheduler:
 
     # ------------------------------------------------------------------
     def _drain(self, pop_timeout: Optional[float]):
-        """Pop up to max_batch pods with the cycle each was popped in.
-        Returns (pods popped, the ones to solve)."""
+        """Pop up to max_batch pods, each with the cycle it was popped
+        in."""
+        items, first_cycle = self.sched.queue.pop_batch(self.max_batch,
+                                                        timeout=pop_timeout)
+        return [(qpi, first_cycle + i) for i, qpi in enumerate(items)]
+
+    def _partition(self, qpis):
+        """(batchable (qpi, cycle) pairs, serial qpis); pods to skip and
+        pods of other profiles drop out."""
         sched = self.sched
-        items, first_cycle = sched.queue.pop_batch(self.max_batch,
-                                                   timeout=pop_timeout)
-        return len(items), [
-            (qpi, first_cycle + i) for i, qpi in enumerate(items)
-            if not sched.skip_pod_schedule(qpi.pod)]
+        batchable, serial = [], []
+        for qpi, cycle in qpis:
+            pod = qpi.pod
+            if sched.framework_for_pod(pod) is None \
+                    or sched.skip_pod_schedule(pod):
+                continue
+            if is_host_only(pod):
+                serial.append(qpi)
+            else:
+                batchable.append((qpi, cycle))
+        return batchable, serial
+
+    def _run_serial(self, serial: List[QueuedPodInfo]) -> None:
+        sched = self.sched
+        t0 = time.monotonic()
+        seen = set()
+        for qpi in serial:
+            if qpi.pod.full_name() in seen:
+                continue
+            seen.add(qpi.pod.full_name())
+            # a batch commit may already have assumed it
+            if sched.skip_pod_schedule(qpi.pod):
+                continue
+            sched.schedule_pod_serial(qpi)
+        self.seconds["serial"] += time.monotonic() - t0
+
+    def _solved(self, batchable, handle, materializer, cluster,
+                start: float) -> dict:
+        """A solved batch with what its commit needs from this solve,
+        captured now: the session's fields may describe a later batch by
+        the time this one commits."""
+        session = self.session
+        return {"batch": batchable, "handle": handle,
+                "materializer": materializer, "cluster": cluster,
+                "profiles": session.last_profile_idx,
+                "inexpressible": session.last_inexpressible,
+                "masks": session.static_masks_host, "start": start}
 
     def _run_batch_serialized(self, pop_timeout: Optional[float]) -> int:
-        processed, batch = self._drain(pop_timeout)
+        qpis = self._drain(pop_timeout)
+        batchable, serial = self._partition(qpis)
         self._cycle_mutations = 0
         seq_anchor = self.sched.cache.mutation_seq
-        if batch:
+        if batchable:
             start = time.monotonic()
             assignments, cluster, _ = self.session.solve(
-                [q.pod for q, _ in batch], self.max_batch)
-            self._commit({"batch": batch, "handle": assignments,
-                          "materializer": None, "cluster": cluster,
-                          "start": start})
+                [q.pod for q, _ in batchable], self.max_batch)
+            self._commit(self._solved(batchable, assignments, None, cluster,
+                                      start), serial)
+        self._run_serial(serial)
         self.session.note_committed(self._cycle_mutations, seq_anchor)
-        return processed
+        return len(qpis)
 
     def _run_batch_pipelined(self, pop_timeout: Optional[float]) -> int:
         sched = self.sched
@@ -134,7 +236,7 @@ class BatchScheduler:
             # pods again, as the store holds them now, from a rebuild.
             self.session.invalidate()
             self.discards += 1
-            batch = []
+            qpis = []
             for qpi, cycle in prev["batch"]:
                 pod = qpi.pod
                 live = sched.client.get_pod(pod.namespace, pod.name)
@@ -142,32 +244,31 @@ class BatchScheduler:
                     continue   # deleted (and maybe recreated) meanwhile
                 if live is not pod:
                     qpi.pod_info = PodInfo.of(live)
-                batch.append((qpi, cycle))
-            processed = len(batch)
-            batch = [(qpi, cycle) for qpi, cycle in batch
-                     if not sched.skip_pod_schedule(qpi.pod)]
+                qpis.append((qpi, cycle))
             prev = None
         else:
             # drain only when the queue holds pods; wait for them only
             # when nothing is held
             waiting, _ = sched.queue.pending_hint()
             if prev is not None and waiting == 0:
-                processed, batch = 0, []
+                qpis = []
             else:
-                processed, batch = self._drain(
+                qpis = self._drain(
                     0.0 if (prev is not None or waiting) else pop_timeout)
+        processed = len(qpis)
+        batchable, serial = self._partition(qpis)
 
         self._cycle_mutations = 0
         seq_anchor = sched.cache.mutation_seq
-        if batch:
-            pods = [q.pod for q, _ in batch]
+        if batchable:
+            pods = [q.pod for q, _ in batchable]
             start = time.monotonic()
             res = self.session.solve(pods, self.max_batch, lazy=True,
                                      incremental_only=prev is not None)
             if res is None:
                 # a rebuild must see prev's pods in the snapshot: commit
                 # prev first and settle its mutations before re-anchoring
-                self._commit(prev)
+                self._commit(prev, serial)
                 self.session.note_committed(self._cycle_mutations,
                                             seq_anchor)
                 self._cycle_mutations = 0
@@ -176,29 +277,36 @@ class BatchScheduler:
                 seq_anchor = sched.cache.mutation_seq
                 res = self.session.solve(pods, self.max_batch, lazy=True)
             handle, cluster, _ = res
-            self._pending = {"batch": batch, "handle": handle,
-                             "materializer": self.session.last_materializer,
-                             "cluster": cluster, "start": start}
+            self._pending = self._solved(batchable, handle,
+                                         self.session.last_materializer,
+                                         cluster, start)
             self.pipeline_depth_max = max(self.pipeline_depth_max,
                                           1 + (prev is not None))
 
         # commit the previous batch while the card solves this one
         if prev is not None:
-            self._commit(prev)
+            self._commit(prev, serial)
             processed += len(prev["batch"])
 
-        # nothing more queued: nothing to overlap, commit now
-        if self._pending is not None and sched.queue.num_active() == 0:
+        # nothing more queued: nothing to overlap, commit now, unless
+        # something besides the batch path's own commits (a preemption's
+        # evictions and placements) changed the cache since the solve:
+        # then the batch stays held, and the next cycle discards it
+        if (self._pending is not None and sched.queue.num_active() == 0
+                and sched.cache.mutation_seq
+                == seq_anchor + self._cycle_mutations):
             pending, self._pending = self._pending, None
-            self._commit(pending)
+            self._commit(pending, serial)
+        self._run_serial(serial)
         self.session.note_committed(self._cycle_mutations, seq_anchor)
         return processed
 
-    def _commit(self, pending: dict) -> int:
-        """Materialize and commit one solved batch: refuse placements on
-        nodes that died or were cordoned since the encoding, requeue the
-        pods with no node, assume and bind the rest. Returns the pods
-        committed."""
+    # ------------------------------------------------------------------
+    def _commit(self, pending: dict, serial: List[QueuedPodInfo]) -> int:
+        """Materialize and commit one solved batch: route placements on
+        nodes that died or were cordoned since the encoding to the serial
+        path, assume and bind the rest, and route or fail the declined
+        pods. Returns the pods committed."""
         sched = self.sched
         mat = pending["materializer"]
         assignments = mat(pending["handle"]) if mat else pending["handle"]
@@ -207,18 +315,23 @@ class BatchScheduler:
         assignments = assignments[:len(batch)]
         stale = sched.cache.commit_target_flags(
             {cluster.node_names[a] for a in assignments if a >= 0})
-        commits = []
+        commits, declined = [], []
         stale_routed = False
-        for (qpi, cycle), a in zip(batch, assignments):
+        for bi, ((qpi, cycle), a) in enumerate(zip(batch, assignments)):
             if a < 0:
-                sched.fail_unschedulable(qpi, cycle)
+                declined.append((bi, qpi, cycle))
                 continue
             node_name = cluster.node_names[a]
             flag = stale.get(node_name, False)
             if flag is not False and \
                     commit_target_stale(qpi.pod, flag) is not None:
                 stale_routed = True
-                sched.fail_unschedulable(qpi, cycle)
+                serial.append(qpi)
+                continue
+            if self.validate and not self._host_validates(qpi, node_name):
+                # the device state counts a pod the host refused
+                self.session.invalidate()
+                serial.append(qpi)
                 continue
             commits.append((qpi, node_name, cycle, pending["start"]))
         if stale_routed:
@@ -232,4 +345,215 @@ class BatchScheduler:
                 # the device state counts pods the host refused
                 self.session.invalidate()
         self.seconds_commit += time.monotonic() - t0
+        if len(declined) <= self.DECLINED_SERIAL_LIMIT:
+            serial.extend(qpi for _, qpi, _ in declined)
+        else:
+            committed += self._mass_decline(pending, declined, serial)
         return committed
+
+    def _mass_decline(self, pending: dict, declined: List[tuple],
+                      serial: List[QueuedPodInfo]) -> int:
+        """Past ``DECLINED_SERIAL_LIMIT`` declines: plan and execute the
+        preemptions of equally shaped preemptors, and fail the rest with
+        statuses built once per profile from the static masks (PostFilter
+        with the screen's hints where preemption can help). Returns the
+        preemptors bound."""
+        sched = self.sched
+        fwk = sched.framework
+        cluster = pending["cluster"]
+        profiles, masks = pending["profiles"], pending["masks"]
+        inexpressible = pending["inexpressible"]
+        screen = planner = None
+        t0 = time.monotonic()
+        if fwk.has_post_filter_plugins() and any(
+                q.pod.priority() > 0 for _, q, _ in declined):
+            snapshot = sched.update_snapshot()
+            screen = build_screen(snapshot)
+            t1 = time.monotonic()
+            self.seconds["screen"] += t1 - t0
+            planner = build_victim_planner(snapshot,
+                                           pdbs=sched.client.list_pdbs())
+            self.seconds["plan"] += time.monotonic() - t1
+        screen_masks: dict = {}
+
+        def screen_mask(bi: int):
+            """Pod ``bi``'s static mask in the screen's node order (the
+            encoder's order may differ); one per profile."""
+            if profiles is None or masks is None or bi >= len(profiles):
+                return None
+            ui = int(profiles[bi])
+            if ui not in screen_masks:
+                if ui >= len(masks):
+                    screen_masks[ui] = None
+                else:
+                    by_name = dict(zip(cluster.node_names, masks[ui]))
+                    screen_masks[ui] = np.array(
+                        [bool(by_name.get(name, False))
+                         for name in screen.node_names], dtype=bool)
+            return screen_masks[ui]
+
+        # runs of equally shaped preemptors (priority, requests, static
+        # profile) are planned together; the rest fail with statuses
+        t0 = time.monotonic()
+        groups: dict = {}
+        rest: List[tuple] = []
+        for bi, qpi, cycle in declined:
+            if inexpressible is not None and bi < len(inexpressible) \
+                    and inexpressible[bi]:
+                serial.append(qpi)
+                continue
+            if planner is not None and qpi.pod.priority() > 0 and \
+                    pod_eligible_to_preempt_others(qpi.pod, sched.snapshot):
+                req = compute_pod_resource_request(qpi.pod)
+                ui = int(profiles[bi]) if profiles is not None and \
+                    bi < len(profiles) else -1
+                key = (qpi.pod.priority(), req.milli_cpu, req.memory, ui)
+                groups.setdefault(key, []).append((bi, qpi, cycle))
+            else:
+                rest.append((bi, qpi, cycle))
+        plans: List[tuple] = []   # (qpi, cycle, node name, victims)
+        for members in groups.values():
+            got = planner.plan_group(members[0][1].pod, len(members),
+                                     static_mask=screen_mask(members[0][0]))
+            for (bi, qpi, cycle), (node_name, victims) in zip(members, got):
+                plans.append((qpi, cycle, node_name, victims))
+            rest.extend(members[len(got):])
+        self.seconds["plan"] += time.monotonic() - t0
+
+        t0 = time.monotonic()
+        statuses_by_profile: dict = {}
+        with sched.client.batched_status_writes():
+            for bi, qpi, cycle in rest:
+                hints = None
+                if screen is not None and qpi.pod.priority() > 0:
+                    # rotated by position, so a uniform batch spreads
+                    # over distinct candidates
+                    hints = screen.candidates_for(
+                        qpi.pod, static_mask=screen_mask(bi), rotation=bi)
+                if not self._fail_declined(qpi, cycle, cluster, bi,
+                                           profiles, masks,
+                                           statuses_by_profile, hints):
+                    serial.append(qpi)
+        self.seconds["fail"] += time.monotonic() - t0
+        if not plans:
+            return 0
+        t0 = time.monotonic()
+        committed = self._execute_preemption_plans(plans, pending["start"],
+                                                   serial)
+        self.seconds["execute"] += time.monotonic() - t0
+        return committed
+
+    def _execute_preemption_plans(self, plans: List[tuple], start: float,
+                                  serial: List[QueuedPodInfo]) -> int:
+        """Evict every plan's victims in one store call, refresh the
+        snapshot, validate each preemptor on its planned node with the
+        real filters (on clones carrying the batch's earlier placements)
+        and bind the validated ones in bulk; a preemptor that fails
+        validation goes to the serial path. Lower-priority pods nominated
+        to a node a preemptor took lose the nomination. Returns the
+        preemptors bound."""
+        sched = self.sched
+        fwk = sched.framework
+        doomed = []
+        for qpi, _cycle, _node, victims in plans:
+            for victim in victims:
+                if fwk.reject_waiting_pod(victim.uid):
+                    continue
+                doomed.append((victim.namespace, victim.name))
+        if doomed:
+            sched.client.delete_pods(doomed)
+            self.preempted += len(doomed)
+        snapshot = sched.update_snapshot()
+        clones: dict = {}
+        commits = []
+        for qpi, cycle, node_name, _victims in plans:
+            ni = clones.get(node_name)
+            if ni is None:
+                base = snapshot.get(node_name)
+                if base is None or base.node is None:
+                    serial.append(qpi)
+                    continue
+                ni = clones[node_name] = base.clone()
+            state = CycleState()
+            ok = fw.Status.is_ok(fwk.run_pre_filter_plugins(state, qpi.pod))
+            if ok:
+                ok = fw.Status.is_ok(fwk.run_filter_plugins_with_nominated_pods(
+                    state, qpi.pod, ni))
+            if not ok:
+                # the resource model said yes, the filters said no
+                serial.append(qpi)
+                continue
+            ni.add_pod(qpi.pod)
+            commits.append((qpi, node_name, cycle, start))
+        committed = 0
+        if commits:
+            # host placements: the device state does not count them, so
+            # they are not the batch's own mutations (the mirror scatters
+            # them, or the session rebuilds)
+            committed, _ = sched.commit_assignments_bulk(commits,
+                                                         solved=False)
+            self.planned += committed
+        max_prio_by_node: dict = {}
+        for qpi, _cycle, node_name, _victims in plans:
+            prio = qpi.pod.priority()
+            if prio > max_prio_by_node.get(node_name, prio - 1):
+                max_prio_by_node[node_name] = prio
+        nominator = fwk.pod_nominator
+        for node_name, prio in max_prio_by_node.items():
+            for pi in nominator.nominated_pods_for_node(node_name):
+                if pi.pod.priority() < prio:
+                    nominator.delete_nominated_pod_if_exists(pi.pod)
+                    sched.client.clear_nominated_node_name(pi.pod.namespace,
+                                                           pi.pod.name)
+        return committed
+
+    def _fail_declined(self, qpi: QueuedPodInfo, cycle: int, cluster,
+                       batch_index: int, profiles, masks,
+                       statuses_by_profile: dict,
+                       candidate_hints=None) -> bool:
+        """Mark a declined pod unschedulable without the serial path:
+        per node, ``STATUS_STATIC`` where the node fails the pod's
+        profile's static mask, else ``STATUS_DYNAMIC``; the statuses, the
+        message and whether every node failed statically are built once
+        per profile. False when the batch's static context is missing
+        (the caller then uses the serial path)."""
+        if profiles is None or batch_index >= len(profiles):
+            return False
+        ui = int(profiles[batch_index])
+        cached = statuses_by_profile.get(ui)
+        if cached is None:
+            if masks is None or ui >= len(masks):
+                return False
+            mask = masks[ui][:cluster.num_real_nodes]
+            statuses = {name: (STATUS_DYNAMIC if ok else STATUS_STATIC)
+                        for name, ok in zip(cluster.node_names, mask)}
+            probe = fw.FitError(num_all_nodes=cluster.num_real_nodes,
+                                filtered_nodes_statuses=statuses)
+            cached = (statuses, str(probe), not bool(mask.any()))
+            statuses_by_profile[ui] = cached
+        statuses, message, all_static = cached
+        fit_err = fw.FitError(pod=qpi.pod,
+                              num_all_nodes=cluster.num_real_nodes,
+                              filtered_nodes_statuses=statuses,
+                              message=message)
+        # every node failed a node-static predicate: preemption cannot
+        # help, so PostFilter does not run
+        self.sched.fail_unschedulable(qpi, fit_err, cycle,
+                                      candidate_hints=candidate_hints,
+                                      run_post_filter=not all_static)
+        return True
+
+    def _host_validates(self, qpi: QueuedPodInfo, node_name: str) -> bool:
+        """The host's PreFilter and Filter accept ``node_name`` for the
+        pod, on a snapshot that includes this batch's earlier commits."""
+        sched = self.sched
+        fwk = sched.framework
+        snapshot = sched.update_snapshot()
+        state = CycleState()
+        if not fw.Status.is_ok(fwk.run_pre_filter_plugins(state, qpi.pod)):
+            return False
+        ni = snapshot.get(node_name)
+        if ni is None:
+            return False
+        return fw.Status.is_ok(fwk.run_filter_plugins_with_nominated_pods(
+            state, qpi.pod, ni))

@@ -12,6 +12,7 @@ The helpers drive either package through the same calls (``port_arm``,
 import contextlib
 import copy
 import os
+import random
 import time
 from types import SimpleNamespace
 
@@ -21,6 +22,7 @@ from kubernetes_tpu.api.resource import parse_quantity as jax_quantity
 from kubernetes_tpu.api.types import Node as JaxNode, Pod as JaxPod
 from kubernetes_tpu.apiserver.store import ClusterStore as JaxStore
 from kubernetes_tpu.config.feature_gates import FeatureGates
+from kubernetes_tpu.config.types import KubeSchedulerConfiguration
 from kubernetes_tpu.ops.pallas_solver import XlaPlanesBackend
 from kubernetes_tpu.scheduler.scheduler import Scheduler as JaxScheduler
 from kubernetes_tpu.sidecar import attach_batch_scheduler
@@ -74,31 +76,40 @@ def _jax_set_cpu(store, name, cpu):
     store.update_node(node)
 
 
-def port_arm(nodes, pipeline=True, mirror=True, max_batch=32):
-    """The port's scheduler and batch loop on the CPU over ``nodes``."""
+def port_arm(nodes, pipeline=True, mirror=True, max_batch=32, seed=None,
+             validate=False):
+    """The port's scheduler and batch loop on the CPU over ``nodes``;
+    ``seed`` seeds its random draws."""
     store = ClusterStore()
     for d in nodes:
         store.add_node(Node.from_dict(d))
-    sched = Scheduler(store)
+    sched = Scheduler(store, rng=random.Random(seed))
     bs = BatchScheduler(sched, max_batch=max_batch, device="cpu",
-                        pipeline=pipeline, mirror=mirror)
+                        pipeline=pipeline, mirror=mirror, validate=validate)
     sched.start()
     return SimpleNamespace(store=store, sched=sched, bs=bs, pod=Pod.from_dict,
                            set_cpu=lambda n, c: _port_set_cpu(store, n, c))
 
 
-def jax_arm(nodes, pipeline=True, mirror=True, max_batch=32):
+def jax_arm(nodes, pipeline=True, mirror=True, max_batch=32, seed=None,
+            validate=False):
     """The JAX package's scheduler and batch loop (planes scan, fixed
-    batch size) over ``nodes``; ``mirror`` sets its KTPU_MIRROR."""
+    batch size, filters in node order: ``parallelism=1``) over
+    ``nodes``; ``mirror`` sets its KTPU_MIRROR, ``seed`` seeds the
+    module-level ``random`` its serial path draws from."""
     store = JaxStore()
     for d in nodes:
         store.add_node(JaxNode.from_dict(d))
     sched = JaxScheduler.create(
-        store, feature_gates=FeatureGates({"TPUBatchScheduler": True}))
+        store, config=KubeSchedulerConfiguration(parallelism=1),
+        feature_gates=FeatureGates({"TPUBatchScheduler": True}))
     with _env(mirror_mod.MIRROR_ENV, "on" if mirror else "off"):
         bs = attach_batch_scheduler(sched, max_batch=max_batch,
                                     backend=XlaPlanesBackend(),
-                                    adaptive_chunk=False, pipeline=pipeline)
+                                    adaptive_chunk=False, pipeline=pipeline,
+                                    validate=validate)
+    if seed is not None:
+        random.seed(seed)
     sched.start()
     return SimpleNamespace(store=store, sched=sched, bs=bs,
                            pod=JaxPod.from_dict,
@@ -254,8 +265,9 @@ def test_switches_read_the_environment(monkeypatch):
 def test_commit_refuses_placements_on_a_node_gone_since_the_solve(
         monkeypatch):
     """The stale-node guard: a held batch committed after its node died
-    (the discard check blinded here) binds nothing there, requeues those
-    pods as unschedulable and drops the carried state."""
+    (the discard check blinded here) binds nothing there, sends those
+    pods to the serial path (which binds them elsewhere) and drops the
+    carried state."""
     arm = port_arm([node_dict(i) for i in range(4)], max_batch=8)
     try:
         arm.store.create_pods([arm.pod(pod_dict(f"p{i}", "1"))
@@ -274,8 +286,8 @@ def test_commit_refuses_placements_on_a_node_gone_since_the_solve(
         assert arm.bs.session.rebuilds == 2
         assert not any(p.spec.node_name == "n0"
                        for p in arm.store.list_pods())
-        parked = {q.pod.name
-                  for q in arm.sched.queue._unschedulable_q.values()}
-        assert on_n0 <= parked
+        rerouted = {p.name: p.spec.node_name for p in arm.store.list_pods()
+                    if p.name in on_n0}
+        assert all(rerouted.values()), rerouted
     finally:
         stop(arm)
