@@ -62,9 +62,25 @@ prints no result):
 13. a small Preemption row (50 nodes / 50 / 50) and a small mixed row
     (host-port pods, which take the serial path, among plain ones) on
     the card and on the CPU: the same pod -> node maps and the same
-    victims.
+    victims;
+14. the GangScheduling row (``workloads.gang_scheduling``: 5,000 nodes,
+    30,000 pods in coscheduling gangs of 10 with a hard zone spread of
+    skew 5), pipelined and serialized: every pod bound, every gang whole,
+    zone skew at most 5, no pod left waiting at Permit and none rejected
+    there (no ``PodScheduled=False`` condition), the cluster kernel
+    launched once per solve, the same pods on the same nodes in both
+    arms; the binding pool's cycles, Permit waits, rebuilds and
+    catch-ups;
+15. the SchedulingPodAntiAffinity row (5,000 nodes, 1,000 plain pods,
+    then 30,000 pods in 100 colours, each with a required hostname
+    anti-affinity to its own colour: T = 100): every measured pod bound,
+    no node with two measured pods of one colour, each launch on the
+    kernel ``plan_launch`` picks for its batch (the one-block kernel at
+    T = 100, where the cluster's layout outgrows a block's shared
+    memory); on the largest batch the one-block kernel timed and held
+    against the plain version.
 
-Every main-path run (4, 5, 8 to 13) resets the kernels' launch counts
+Every main-path run (4, 5, 8 to 15) resets the kernels' launch counts
 just before and reads them just after; the kernel table sums them.
 Before the last line come the scatters' counts and times as JSON, the
 kernel table as JSON and the card's name and power limit; the last line
@@ -441,12 +457,13 @@ class _Dispatches:
 LAUNCHES = {"cluster": 0, "block": 0}   # main-path launches, every path
 
 
-def run_path(name, run, keep=False):
+def run_path(name, run, keep=False, kernel="cluster"):
     """``run()`` on the card with the kernels' launch counts reset just
     before and read just after, the plain version trapped, each launch
     timed with CUDA events and each dispatch with the host clock. Every
-    launch must be the cluster kernel's. Returns (run's result, counts,
-    kernel ms per launch, dispatches, the recorder, wall seconds)."""
+    launch must be ``kernel``'s (None: the caller checks the launch plan
+    of each). Returns (run's result, counts, kernel ms per launch,
+    dispatches, the recorder, wall seconds)."""
     plain_calls = []
     real_plain, real_kernel = solve_mod.solve_plain, solve_mod.solve_kernel
     recorder = _Recorder(real_kernel, keep)
@@ -468,11 +485,12 @@ def run_path(name, run, keep=False):
     for k in LAUNCHES:
         LAUNCHES[k] += counts[k]
     kernel_ms = recorder.kernel_ms()
-    check(counts["cluster"] > 0, f"{name}: the cluster kernel launched")
-    check(counts["block"] == 0, f"{name}: one-block kernel launched "
-          f"{counts['block']} times")
+    if kernel is not None:
+        check(counts[kernel] > 0, f"{name}: the {kernel} kernel launched")
+        others = {k: v for k, v in counts.items() if k != kernel and v}
+        check(not others, f"{name}: other kernels launched: {others}")
     check(not plain_calls, f"{name}: plain version called on the card")
-    check(len(kernel_ms) == counts["cluster"] == len(dispatches.calls),
+    check(len(kernel_ms) == sum(counts.values()) == len(dispatches.calls),
           f"{name}: one timed launch and one dispatch per launch")
     return out, counts, kernel_ms, dispatches.calls, recorder, wall
 
@@ -666,7 +684,7 @@ def cluster_sweep(name, batch, repeats=10):
     return out
 
 
-def plain_against(name, batch, got):
+def plain_against(name, batch, got, kernel="cluster"):
     """One run of the plain version on the card (host clock) against the
     kernel's (assignments, final state) on the same batch. Returns (ms,
     largest absolute difference), which must be 0."""
@@ -679,7 +697,7 @@ def plain_against(name, batch, got):
     ms = (time.perf_counter() - t0) * 1000
     err = max(int((got[0] - want).abs().max()),
               int((got[1] - st).abs().max()))
-    check(err == 0, f"cluster kernel equals plain on the {name} batch")
+    check(err == 0, f"{kernel} kernel equals plain on the {name} batch")
     log(f"  plain version on the {name} batch {ms:.1f} ms, max_abs_err "
         f"{err}")
     return ms, err
@@ -1098,6 +1116,159 @@ def phase_small_rows(seed=13):
             f"placements, {card.victims} victims")
 
 
+def phase_gang(nodes=5000, pods=30000, gang=10, max_batch=4096):
+    """The GangScheduling row pipelined and serialized: checked, and both
+    arms bind alike."""
+    runs = {}
+    for pipeline in (True, False):
+        arm = "pipelined" if pipeline else "serialized"
+        name = f"GangScheduling {arm}"
+        res, counts, kernel_ms, _, _, wall = run_path(
+            name, lambda: perf.run_workload(
+                "GangScheduling",
+                workloads.gang_scheduling(nodes, 0, pods, gang_size=gang),
+                max_batch=max_batch, device="cuda", pipeline=pipeline))
+        check(res.pipeline == pipeline, f"{name} ran the {arm} arm")
+        check(len(res.placements) == pods, f"{name} created {pods} pods")
+        unbound = sum(1 for v in res.placements.values() if not v)
+        check(unbound == 0, f"{name}: {unbound} pods left unbound")
+        whole = {}
+        for pod, node in res.placements.items():
+            g = int(pod.split("-")[1]) // gang
+            whole[g] = whole.get(g, 0) + bool(node)
+        partial = sorted(g for g, n in whole.items() if n != gang)
+        check(len(whole) == pods // gang and not partial,
+              f"{name}: gangs not bound whole: {partial[:5]}")
+        skew = zone_skew(res)
+        check(skew <= 5, f"{name}: zone skew {skew} <= 5")
+        check(res.waiting_at_end == 0,
+              f"{name}: {res.waiting_at_end} pods still waiting at Permit")
+        check(not res.conditions, f"{name}: pods failed on the way: "
+              f"{list(res.conditions.items())[:3]}")
+        check(res.binding["cycles"] == pods - pods // gang
+              and res.binding["errors"] == 0,
+              f"{name}: binding cycles {res.binding}")
+        check(counts["cluster"] == res.solves,
+              f"{name}: cluster kernel launches {counts['cluster']} == "
+              f"solves {res.solves}")
+        mirror = res.mirror_info or {}
+        b = res.binding
+        busy = sum(kernel_ms) / 1000
+        log(f"  {name} {nodes} nodes / {pods} pods in gangs of {gang} on "
+            f"{res.device}: {res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+            f"zone skew {skew}")
+        log("    enqueue->bind ms p50/p90/p99: " + "/".join(
+            f"{res.latency[k]:.1f}" for k in ("Perc50", "Perc90", "Perc99")))
+        log(f"    solves {res.solves} rebuilds {res.rebuilds} catch-ups "
+            f"{mirror.get('catch_ups', 0)} discards "
+            f"{(res.pipeline_info or {}).get('discards', 0)}; kernel busy "
+            f"{busy:.3f} s; binding pool: {b['cycles']} cycles, "
+            f"{b['wait_s']:.3f} s waiting at Permit, {b['bind_s']:.3f} s "
+            f"binding (summed over cycles)")
+        log(f"    host seconds: {_host_split(res)}")
+        runs[arm] = {
+            "pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "enqueue_to_bind_ms": res.latency,
+            "solve_to_bind_ms": res.metrics, "zone_skew": skew,
+            "solves": res.solves, "rebuilds": res.rebuilds,
+            "mirror": res.mirror_info, "pipeline": res.pipeline_info,
+            "launches": counts, "kernel_ms": kernel_ms,
+            "kernel_busy_s": busy, "binding": b,
+            "host_paths_s": res.host_paths, "host_seconds": res.seconds,
+            "placements": res.placements}
+    check(runs["pipelined"].pop("placements")
+          == runs["serialized"].pop("placements"),
+          "GangScheduling: both arms bind the same pods to the same nodes")
+    log("  pipelined == serialized: bound set")
+    return runs
+
+
+def phase_anti_affinity(nodes=5000, init=1000, pods=30000, colours=100,
+                        max_batch=4096):
+    """The SchedulingPodAntiAffinity row: checked, each launch on the
+    kernel ``plan_launch`` picks; then the one-block kernel on the
+    largest batch, timed and held against the plain version. Returns the
+    row, the kernel numbers and the largest batch's bound."""
+    name = "SchedulingPodAntiAffinity"
+    res, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: perf.run_workload(
+            name, workloads.scheduling_pod_anti_affinity(nodes, init, pods),
+            max_batch=max_batch, device="cuda"), keep=True, kernel=None)
+    measured = [f"pod-{init + i}" for i in range(pods)]
+    unbound = [n for n in measured if not res.placements.get(n)]
+    check(not unbound, f"{name}: {len(unbound)} measured pods unbound")
+    pairs = {(res.placements[f"pod-{init + i}"], (init + i) % colours)
+             for i in range(pods)}
+    check(len(pairs) == pods, f"{name}: {pods - len(pairs)} nodes hold two "
+          "measured pods of one colour")
+    predicted = {"cluster": 0, "block": 0}
+    shapes = {}
+    for ps, _, _, _ in recorder.inputs:
+        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
+        plan = solve_mod.plan_launch(*key)
+        predicted[plan.kernel] += 1
+        shapes.setdefault(key, [plan, 0])[1] += 1
+    for (n, r, sc, t, u), (plan, launches) in shapes.items():
+        cand = solve_mod.cluster_candidate(n, r, sc, t, u)
+        log(f"  plan N={n} R={r} SC={sc} T={t} U={u}: {plan.kernel} kernel "
+            f"x {launches} launches; the cluster layout of {cand.cluster} "
+            f"needs {cand.smem_bytes} B a block against "
+            f"{solve_mod.SMEM_LIMIT} B")
+    check(counts == predicted, f"{name}: launches {counts} == plan_launch's "
+          f"{predicted}")
+    check(counts["block"] > 0 and all(
+        solve_mod.plan_launch(ps.ints.shape[1], ps.r, ps.sc, ps.t,
+                              ps.u).kernel == "block"
+        for ps, _, _, _ in recorder.inputs if ps.t >= colours),
+        f"{name}: the T = {colours} batches ran the one-block kernel")
+    busy = sum(kernel_ms) / 1000
+    log(f"  {name} {nodes} nodes / {init} / {pods} on {res.device}: "
+        f"{res.pods_per_second:.1f} pods/s over {res.duration_seconds:.3f} s "
+        f"(whole run {wall:.1f} s); launches {counts}; kernel busy "
+        f"{busy:.3f} s")
+    log("    enqueue->bind ms p50/p90/p99: " + "/".join(
+        f"{res.latency[k]:.1f}" for k in ("Perc50", "Perc90", "Perc99")))
+    log(f"    solves {res.solves} rebuilds {res.rebuilds} catch-ups "
+        f"{(res.mirror_info or {}).get('catch_ups', 0)}; host seconds: "
+        f"{_host_split(res)}")
+
+    batch = recorder.largest()
+    ps, state, ints, floats = batch
+    kernel = solve_mod.solve_kernel
+    kernel.check(ps, state, ints, floats)
+    plan = kernel.plan(ps)
+    check(plan.kernel == "block", f"{name}: the largest batch plans the "
+          "one-block kernel")
+    got = {}
+
+    def bare(st):
+        got["a"] = (kernel.launch(PARAMS, ps, st, ints, floats, plan), st)
+
+    _event_ms(bare, state, 1)
+    ms = _event_ms(bare, state, 10)
+    valid = int((ints[:, ps.r + 3] > 0).sum())
+    log(f"  {name} largest batch: N={ps.ints.shape[1]} B={ints.shape[0]} "
+        f"valid={valid} T={ps.t}; one-block kernel {ms:.3f} ms a launch, "
+        f"{ms / valid * 1000:.3f} us a pod")
+    plain_ms, err = plain_against(name, batch, got["a"], kernel="block")
+    b_ms, b_by = bound_ms(*batch)
+    log(f"  bound on the {name} batch {b_ms:.6f} ms ({b_by})")
+    return {
+        "pods_per_s": res.pods_per_second,
+        "duration_s": res.duration_seconds, "wall_s": wall,
+        "enqueue_to_bind_ms": res.latency, "solve_to_bind_ms": res.metrics,
+        "solves": res.solves, "rebuilds": res.rebuilds,
+        "mirror": res.mirror_info, "launches": counts,
+        "kernel_ms": kernel_ms, "kernel_busy_s": busy,
+        "host_paths_s": res.host_paths, "host_seconds": res.seconds,
+        "plans": {str(k): v[0]._asdict() for k, v in shapes.items()},
+    }, {"ms": ms, "us_per_pod": ms / valid * 1000, "valid_pods": valid,
+        "t": ps.t, "n": ps.ints.shape[1], "plain_ms": plain_ms,
+        "err": err, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1182,7 +1353,14 @@ def main() -> None:
 
     log("[13] small Preemption and mixed serial rows: card against CPU")
     phase_small_rows()
-    log(f"  main-path launches over phases 4, 5 and 8 to 13: {LAUNCHES}")
+
+    log("[14] the GangScheduling row, pipelined and serialized")
+    gang = phase_gang()
+
+    log("[15] the SchedulingPodAntiAffinity row")
+    anti, block = phase_anti_affinity()
+    errs["block"] = max(errs["block"], block["err"])
+    log(f"  main-path launches over phases 4, 5 and 8 to 15: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -1191,12 +1369,20 @@ def main() -> None:
               "bound_ms": {k: sum(v) for k, v in
                            r["scatter_bound_ms"].items()}}
         for arm, r in churn.items()}}
+    # each kernel on the largest batch of a main path it runs on
+    timed = {
+        "cluster": {"ms": sb["ms"]["cluster"], "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "batch": "SchedulingBasic largest batch"},
+        "block": {"ms": block["ms"], "plain_ms": block["plain_ms"],
+                  "bound_ms": block["bound_ms"],
+                  "bound_by": block["bound_by"],
+                  "batch": f"SchedulingPodAntiAffinity largest batch "
+                           f"(T={block['t']})"}}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": LAUNCHES[k],
-        "max_abs_err": float(errs[k]), "ms": sb["ms"][k],
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "max_abs_err": float(errs[k]), **timed[k], "library_ms": None,
         "library_ms_reason": "no single PyTorch call computes the solve",
     } for k, name in (("cluster", "solve_cluster_kernel"),
                       ("block", "solve_block_kernel"))]}
@@ -1219,6 +1405,7 @@ def main() -> None:
         "launches_by_path": LAUNCHES, "pipeline_runs": pipeline_runs,
         "churn": churn, "sustained": sustained_rows,
         "preemption": preemption, "unschedulable": unschedulable,
+        "gang": gang, "anti_affinity": anti, "block_kernel": block,
         "scatters": scatters["scatters"],
     }
     if args.out:

@@ -26,6 +26,9 @@ from kubernetes_tpu_torch.api.types import (
     shallow_copy,
 )
 from kubernetes_tpu_torch.scheduler import queue as q
+from kubernetes_tpu_torch.scheduler.framework.plugins.coscheduling import (
+    GROUP_NAME_LABEL,
+)
 
 ADDED, MODIFIED, DELETED = "ADDED", "MODIFIED", "DELETED"
 
@@ -287,7 +290,12 @@ class EventHandlers:
     """Watch batches -> cache and queue. Runs of pod events of one kind
     (bind transitions, pending adds, deletions of assigned pods) collapse
     into one cache or queue call; their order relative to other events is
-    kept by flushing the run before any other event."""
+    kept by flushing the run before any other event.
+
+    Gangs: a pending member added wakes its gang's parked siblings; a
+    bound member deleted releases its arrival slot at Coscheduling's
+    Permit; a pending pod deleted while it waits at Permit is rejected
+    there."""
 
     def __init__(self, scheduler):
         self.sched = scheduler
@@ -310,10 +318,14 @@ class EventHandlers:
                 bind_run.clear()
             if add_run:
                 sched.queue.add_many(add_run)
+                sched.queue.gang_members_added({
+                    g for p in add_run
+                    if (g := p.metadata.labels.get(GROUP_NAME_LABEL))})
                 add_run.clear()
             if delete_run:
                 for pod in delete_run:
                     sched.cache.remove_pod(pod)
+                    self._gang_member_deleted(pod)
                 # one wakeup for the whole run
                 sched.queue.move_all_to_active_or_backoff_queue(
                     q.ASSIGNED_POD_DELETE)
@@ -372,8 +384,18 @@ class EventHandlers:
                 sched.cache.remove_pod(pod)
                 sched.queue.move_all_to_active_or_backoff_queue(
                     q.ASSIGNED_POD_DELETE)
+                self._gang_member_deleted(pod)
             else:
                 sched.queue.delete(pod)
+                # a pod parked at Permit gives back its assume and its
+                # gang slot
+                sched.framework.reject_waiting_pod(pod.uid)
+
+    def _gang_member_deleted(self, pod: Pod) -> None:
+        if pod.metadata.labels.get(GROUP_NAME_LABEL):
+            gang = self.sched.framework.get_plugin("Coscheduling")
+            if gang is not None:
+                gang.note_member_deleted(pod)
 
     def _skip_pod_update(self, old: Optional[Pod], new: Pod) -> bool:
         """An update of an assumed pod that leaves its spec and labels

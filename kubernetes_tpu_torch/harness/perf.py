@@ -7,10 +7,16 @@ between pumps (``workloads.churn``): delete a seeded share of the bound
 pods, change a seeded share of the nodes' allocatable cpu, and delete a
 pod while a solved batch waits for its commit.
 
-A ``createPods`` op waits for its own pods to be bound (none when it
-sets ``skipWaitToCompletion``), not for every pod: pods of earlier ops
-may pend for good (Unschedulable) or be deleted by preemption (victims),
-and neither is a lost pod."""
+A ``createPods`` op waits for its own pods to be bound in the store (none
+when it sets ``skipWaitToCompletion``), not for every pod: pods of
+earlier ops may pend for good (Unschedulable) or be deleted by
+preemption (victims), and neither is a lost pod. A pod assumed and
+waiting at Permit for its gang is not bound yet; a run ends when no
+binding cycle is in flight.
+
+Every row runs the gang scheduling provider: its queue sort is
+PrioritySort's order for pods of no gang, and its Permit lets them
+through at once."""
 
 from __future__ import annotations
 
@@ -26,7 +32,10 @@ from kubernetes_tpu_torch.api.resource import parse_quantity
 from kubernetes_tpu_torch.api.types import Node, Pod, shallow_copy
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.device import resolve_device
-from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+from kubernetes_tpu_torch.scheduler.scheduler import (
+    Scheduler,
+    SchedulerConfiguration,
+)
 from kubernetes_tpu_torch.sidecar import BatchScheduler
 from kubernetes_tpu_torch.utils.gctune import tune_for_throughput
 
@@ -128,6 +137,10 @@ class BenchmarkResult:
     seconds: Dict[str, float] = field(default_factory=dict)
     # pod name -> node name of every pod the run created
     placements: Dict[str, str] = field(default_factory=dict)
+    # binding cycles of pods parked at Permit (``Scheduler.binding_stats``)
+    # and the pods still waiting at Permit when the run ended
+    binding: Dict[str, float] = field(default_factory=dict)
+    waiting_at_end: int = 0
 
 
 def _bound_pods(store: ClusterStore) -> List[Pod]:
@@ -177,14 +190,18 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
     dev = resolve_device(device)
     tune_for_throughput()
     store = ClusterStore()
-    sched = Scheduler(store, rng=random.Random(seed))
+    sched = Scheduler(
+        store, config=SchedulerConfiguration(
+            provider="GangSchedulingProvider"),
+        rng=random.Random(seed))
     bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
                         pipeline=pipeline, mirror=mirror)
     sched.start()
 
     def pump(deadline: float, wait_names=None) -> None:
         """Schedule until every pod in ``wait_names`` is bound, or, without
-        names, until no pod is due an attempt."""
+        names, until no pod is due an attempt and no binding cycle is in
+        flight."""
         def op_done() -> bool:
             bound = sum(1 for p in store.list_pods()
                         if p.spec.node_name and p.metadata.name in wait_names)
@@ -198,10 +215,14 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                 return
             if progressed:
                 continue
-            if sched.queue.pending_active_count() == 0 and (
-                    wait_names is None or op_done()):
-                bs.flush()
-                return
+            if sched.queue.pending_active_count() == 0:
+                # a failed binding cycle requeues its pod: settle them
+                sched.wait_for_inflight_bindings(timeout=10.0)
+                sched.queue.flush_backoff_completed()
+                if sched.queue.pending_active_count() == 0 and (
+                        wait_names is None or op_done()):
+                    bs.flush()
+                    return
             time.sleep(0.005)
         raise TimeoutError(
             f"workload {name}: not all pods scheduled before deadline")
@@ -261,7 +282,11 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
             else:
                 raise ValueError(f"unknown opcode {opcode!r}")
         bs.flush()
+        if not sched.wait_for_inflight_bindings(timeout=30.0):
+            raise TimeoutError(f"workload {name}: bindings still in flight")
         duration = time.monotonic() - measure_start if measure_start else 0.0
+        waiting: List = []
+        sched.framework.iterate_waiting_pods(waiting.append)
     finally:
         if collector:
             collector.stop()
@@ -301,4 +326,6 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                     for p in pods for c in p.status.conditions
                     if c.type == "PodScheduled"},
         placements={p.metadata.name: p.spec.node_name for p in pods},
+        binding=dict(sched.binding_stats),
+        waiting_at_end=len(waiting),
     )

@@ -19,7 +19,10 @@ from kubernetes_tpu_torch.api.types import Node
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.harness.workloads import node_template
-from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+from kubernetes_tpu_torch.scheduler.scheduler import (
+    Scheduler,
+    SchedulerConfiguration,
+)
 from kubernetes_tpu_torch.sidecar import BatchScheduler
 from kubernetes_tpu_torch.utils.gctune import tune_for_throughput
 from kubernetes_tpu_torch.workloads.replay import ReplayEngine
@@ -91,7 +94,8 @@ def run_sustained_once(trace: Trace, *, node_cpu: int = 32,
     store = ClusterStore()
     for d in sustained_nodes(trace, node_cpu=node_cpu):
         store.add_node(Node.from_dict(d))
-    sched = Scheduler(store)
+    sched = Scheduler(store, config=SchedulerConfiguration(
+        provider="GangSchedulingProvider"))
     bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
                         pipeline=pipeline, mirror=mirror)
     sched.start()
@@ -106,6 +110,7 @@ def run_sustained_once(trace: Trace, *, node_cpu: int = 32,
         engine.start()
         _pump_to_quiesce(sched, bs, engine, time.monotonic() + wait_timeout)
         bs.flush()
+        sched.wait_for_inflight_bindings(timeout=30.0)
         wall = time.monotonic() - t0
         stats = engine.finish()
         engine = None

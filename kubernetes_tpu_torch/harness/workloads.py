@@ -55,6 +55,24 @@ def _spread(max_skew: int, key: str, action: str,
     }
 
 
+def _affinity(kind: str, key: str, values: List[str], topo: str,
+              weight: int = 0) -> dict:
+    """A ``podAffinity`` or ``podAntiAffinity`` block (``kind``) with one
+    term matching ``key`` In ``values`` over ``topo``: required, or
+    preferred with ``weight``."""
+    term = {
+        "labelSelector": {"matchExpressions": [
+            {"key": key, "operator": "In", "values": values}]},
+        "topologyKey": topo,
+    }
+    if weight:
+        block = {"preferredDuringSchedulingIgnoredDuringExecution": [
+            {"weight": weight, "podAffinityTerm": term}]}
+    else:
+        block = {"requiredDuringSchedulingIgnoredDuringExecution": [term]}
+    return {"affinity": {kind: block}}
+
+
 def _pods_op(count: int, pod_fn, collect: bool = False,
              offset: int = 0, skip_wait: bool = False) -> dict:
     return {"opcode": "createPods", "count": count, "podTemplate": pod_fn,
@@ -80,6 +98,48 @@ def scheduling_basic(nodes: int, init_pods: int, measure_pods: int
         _barrier(),
         _pods_op(measure_pods, lambda i: basic_pod(i), collect=True,
                  offset=init_pods),
+    ]
+
+
+def scheduling_pod_anti_affinity(nodes: int, init_pods: int,
+                                 measure_pods: int) -> List[dict]:
+    """Measured pods in 100 colours, each with a required hostname
+    anti-affinity to its own colour: no node holds two pods of one
+    colour."""
+    def pod(i):
+        p = basic_pod(i, labels={"color": f"blue-{i % 100}"})
+        p["spec"].update(_affinity("podAntiAffinity", "color",
+                                   [f"blue-{i % 100}"],
+                                   "kubernetes.io/hostname"))
+        return p
+
+    return [
+        _nodes_op(nodes),
+        _pods_op(init_pods, lambda i: basic_pod(i)),
+        _barrier(),
+        _pods_op(measure_pods, pod, collect=True, offset=init_pods),
+    ]
+
+
+def gang_scheduling(nodes: int, init_pods: int, measure_pods: int,
+                    gang_size: int = 10) -> List[dict]:
+    """Measured pods in coscheduling gangs of ``gang_size`` (each binds
+    whole or not at all), spread over zones with a hard skew of 5."""
+    def pod(i):
+        p = basic_pod(i, labels={
+            "app": "gang",
+            "pod-group.scheduling.k8s.io/name": f"gang-{i // gang_size}",
+            "pod-group.scheduling.k8s.io/min-available": str(gang_size),
+        })
+        p["spec"].update(_spread(5, "topology.kubernetes.io/zone",
+                                 "DoNotSchedule", {"app": "gang"}))
+        return p
+
+    return [
+        _nodes_op(nodes),
+        _pods_op(init_pods, lambda i: basic_pod(i)),
+        _barrier(),
+        _pods_op(measure_pods, pod, collect=True, offset=init_pods),
     ]
 
 
@@ -162,9 +222,11 @@ def unschedulable(nodes: int, init_pods: int, measure_pods: int
 
 WORKLOADS = {
     "SchedulingBasic": scheduling_basic,
+    "SchedulingPodAntiAffinity": scheduling_pod_anti_affinity,
     "TopologySpreading": topology_spreading,
     "Preemption": preemption,
     "Unschedulable": unschedulable,
+    "GangScheduling": gang_scheduling,
 }
 
 

@@ -101,21 +101,27 @@ def block_plan(n: int, sc: int, t: int) -> LaunchPlan:
                       4 * (3 * (BLOCK_THREADS // 32 + 1) + sc + t), 0)
 
 
-def plan_launch(n: int, r: int, sc: int, t: int, u: int,
-                max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
-    """The launch of a solve over ``n`` node columns. The node axis is cut
-    into ``max_cluster`` slices of a multiple of 32 columns (the last one
-    ragged), one block each, at most 512 threads a block; the cluster
-    kernel runs when one block's shared memory holds its slice
-    (``cluster_smem_bytes`` <= 227 KB), and the one-block kernel
-    otherwise."""
+def cluster_candidate(n: int, r: int, sc: int, t: int, u: int,
+                      max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
+    """The cluster kernel's launch over ``n`` node columns, whether or not
+    it fits: the node axis cut into ``max_cluster`` slices of a multiple
+    of 32 columns (the last one ragged), one block each, at most 512
+    threads a block."""
     cols = _round_up(-(-n // max_cluster), 32)
     cluster = -(-n // cols)
     threads = min(cols, CLUSTER_THREADS)
     smem = cluster_smem_bytes(r, sc, t, u, cluster, threads, cols, POD_CHUNK)
-    if smem <= SMEM_LIMIT:
-        return LaunchPlan("cluster", cluster, threads, cols, smem, POD_CHUNK)
-    return block_plan(n, sc, t)
+    return LaunchPlan("cluster", cluster, threads, cols, smem, POD_CHUNK)
+
+
+def plan_launch(n: int, r: int, sc: int, t: int, u: int,
+                max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
+    """The launch of a solve over ``n`` node columns: the cluster kernel
+    (``cluster_candidate``) when one block's shared memory holds its
+    slice (``cluster_smem_bytes`` <= 227 KB), and the one-block kernel
+    otherwise."""
+    plan = cluster_candidate(n, r, sc, t, u, max_cluster)
+    return plan if plan.smem_bytes <= SMEM_LIMIT else block_plan(n, sc, t)
 
 
 def _pod_columns(r: int, sc: int, t: int) -> dict:

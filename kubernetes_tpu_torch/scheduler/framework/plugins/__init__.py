@@ -1,11 +1,13 @@
 """The in-tree plugins of the default provider that need no volume
-state, and their registry (plugin name -> factory)."""
+state, the coscheduling plugins, and their registry (plugin name ->
+factory)."""
 
 from typing import Callable, Dict
 
 
 def new_in_tree_registry() -> Dict[str, Callable]:
     from kubernetes_tpu_torch.scheduler.framework.plugins import (
+        coscheduling,
         default_binder,
         default_preemption,
         image_locality,
@@ -39,4 +41,6 @@ def new_in_tree_registry() -> Dict[str, Callable]:
         image_locality.ImageLocality,
         default_preemption.DefaultPreemption,
         default_binder.DefaultBinder,
+        coscheduling.Coscheduling,
+        coscheduling.CoschedulingSort,
     )}

@@ -7,12 +7,16 @@ come from the scheduler that built it. Filter and Score run over the
 nodes in order, one at a time, so the feasible set and the next start
 index never depend on thread timing.
 
-Permit may allow or reject; a pod waiting at Permit (the gang path) is
-not part of this port, so a plugin that returns Wait is an error.
+Permit may allow, reject or ask the pod to wait: a waiting pod is
+parked as a ``WaitingPod`` until every waiting plugin allows it, one
+rejects it, or the earliest of their timeouts passes (``wait_on_permit``,
+called by the binding cycle).
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.api.types import Pod
@@ -26,20 +30,68 @@ EXTENSION_POINTS = (
 )
 
 
-class PermitWaitError(RuntimeError):
-    """A Permit plugin asked the pod to wait."""
+MAX_TIMEOUT = 15 * 60.0  # the longest a pod may wait at Permit
+
+
+class WaitingPod:
+    """A pod parked at Permit: the plugins that asked it to wait, and the
+    verdict once every one of them allowed it or one rejected it. It is
+    rejected when the earliest plugin timeout passes."""
+
+    def __init__(self, pod: Pod, plugin_timeouts: Dict[str, float]):
+        self.pod = pod
+        self._lock = threading.Lock()
+        self._pending = set(plugin_timeouts)
+        self._event = threading.Event()
+        self._status: Optional[fw.Status] = None
+        self._deadline = time.monotonic() + (
+            min(plugin_timeouts.values()) if plugin_timeouts else 0.0)
+
+    def pending_plugins(self) -> List[str]:
+        with self._lock:
+            return sorted(self._pending)
+
+    def allow(self, plugin_name: str) -> None:
+        with self._lock:
+            self._pending.discard(plugin_name)
+            if self._pending and self._status is None:
+                return
+            if self._status is None:
+                self._status = fw.Status(fw.SUCCESS)
+        self._event.set()
+
+    def reject(self, plugin_name: str, msg: str = "") -> None:
+        with self._lock:
+            if self._status is None:
+                self._status = fw.Status(
+                    fw.UNSCHEDULABLE, msg or f"rejected by {plugin_name}",
+                    failed_plugin=plugin_name)
+        self._event.set()
+
+    def wait(self) -> fw.Status:
+        """Block until the verdict, or until the deadline rejects it."""
+        remaining = self._deadline - time.monotonic()
+        if not self._event.wait(timeout=max(0.0, remaining)):
+            return fw.Status(
+                fw.UNSCHEDULABLE,
+                f"pod {self.pod.full_name()} rejected: timed out waiting "
+                "at Permit")
+        with self._lock:
+            return self._status or fw.Status(fw.SUCCESS)
 
 
 class Framework:
     """``plugins`` maps each extension point to its (plugin name, weight)
     entries in order (weights count for Score only); ``registry`` maps a
-    plugin name to ``factory(args, handle)``. Each named plugin is built
-    once."""
+    plugin name to ``factory(args, handle)``; ``plugin_args`` maps a
+    plugin name to its arguments (default: none). Each named plugin is
+    built once."""
 
     def __init__(self, registry: Dict[str, Callable],
                  plugins: Dict[str, List[Tuple[str, int]]],
                  snapshot: Callable, client, pod_nominator=None, rng=None,
-                 profile_name: str = "default-scheduler"):
+                 profile_name: str = "default-scheduler",
+                 plugin_args: Optional[Dict[str, dict]] = None):
         self.profile_name = profile_name
         self._snapshot = snapshot
         self.client = client
@@ -55,8 +107,8 @@ class Framework:
                 factory = registry.get(name)
                 if factory is None:
                     raise ValueError(f"plugin {name!r} not in registry")
-                # every plugin runs with its default arguments
-                instances[name] = factory({}, self)
+                instances[name] = factory(
+                    dict((plugin_args or {}).get(name, {})), self)
         self._instances = instances
 
         def plugin_list(point: str) -> List[fw.Plugin]:
@@ -79,6 +131,9 @@ class Framework:
                 raise ValueError(f"score plugin {name} has non-positive weight")
         # PostFilter runs, for the batch path's all-static declines
         self.post_filter_runs = 0
+        # pods parked at Permit, by uid
+        self._waiting_lock = threading.Lock()
+        self._waiting_pods: Dict[str, WaitingPod] = {}
 
     # ------------------------------------------------------------------
     def snapshot(self):
@@ -274,27 +329,63 @@ class Framework:
 
     def run_permit_plugins(self, state: CycleState, pod: Pod,
                            node_name: str) -> Optional[fw.Status]:
-        """None when every plugin allows, the rejection otherwise. Raises
-        ``PermitWaitError`` when a plugin returns Wait."""
+        """None when every plugin allows; the rejection or error
+        otherwise; a Wait status when a plugin asked the pod to wait,
+        which parks it as a ``WaitingPod`` until ``wait_on_permit``."""
+        plugin_timeouts: Dict[str, float] = {}
         for p in self.permit_plugins:
-            status, _timeout = p.permit(state, pod, node_name)
+            status, timeout = p.permit(state, pod, node_name)
             if fw.Status.is_ok(status):
                 continue
             if status.is_unschedulable():
                 return status.with_failed_plugin(p.name())
             if status.code == fw.WAIT:
-                raise PermitWaitError(
-                    f"Permit plugin {p.name()} asked pod {pod.full_name()} "
-                    "to wait; waiting at Permit is not supported")
+                plugin_timeouts[p.name()] = min(
+                    timeout if timeout and timeout > 0 else MAX_TIMEOUT,
+                    MAX_TIMEOUT)
+                continue
             return fw.Status(
                 fw.ERROR,
                 f"running Permit plugin {p.name()}: {status.message()}")
+        if plugin_timeouts:
+            with self._waiting_lock:
+                self._waiting_pods[pod.uid] = WaitingPod(pod,
+                                                         plugin_timeouts)
+            return fw.Status(
+                fw.WAIT, f"pod waiting at permit: {sorted(plugin_timeouts)}")
         return None
 
+    def wait_on_permit(self, pod: Pod) -> Optional[fw.Status]:
+        """Block while the pod waits at Permit; None once allowed (or
+        when it never waited), the rejection otherwise."""
+        with self._waiting_lock:
+            wp = self._waiting_pods.get(pod.uid)
+        if wp is None:
+            return None
+        try:
+            status = wp.wait()
+        finally:
+            with self._waiting_lock:
+                self._waiting_pods.pop(pod.uid, None)
+        return None if status.is_success() else status
+
+    def get_waiting_pod(self, uid: str) -> Optional[WaitingPod]:
+        with self._waiting_lock:
+            return self._waiting_pods.get(uid)
+
+    def iterate_waiting_pods(self, fn: Callable[[WaitingPod], None]) -> None:
+        with self._waiting_lock:
+            pods = list(self._waiting_pods.values())
+        for wp in pods:
+            fn(wp)
+
     def reject_waiting_pod(self, uid: str) -> bool:
-        """Reject a pod waiting at Permit; False when it is not waiting,
-        which is always the case here (no pod waits at Permit)."""
-        return False
+        """Reject a pod waiting at Permit; False when it is not waiting."""
+        wp = self.get_waiting_pod(uid)
+        if wp is None:
+            return False
+        wp.reject("", "removed from waiting")
+        return True
 
     def run_pre_bind_plugins(self, state: CycleState, pod: Pod,
                              node_name: str) -> Optional[fw.Status]:

@@ -1,5 +1,6 @@
-"""The default provider's plugin wiring: per extension point, the plugins
-in order, and each score plugin's weight.
+"""The providers' plugin wiring: per extension point, the plugins in
+order, and each score plugin's weight. ``PROVIDERS`` maps a provider's
+name to its wiring.
 
 The JAX package's default provider also runs the volume plugins
 (VolumeBinding, VolumeRestrictions, VolumeZone, the volume-limit
@@ -33,3 +34,20 @@ def default_plugins() -> Wiring:
                   ("TaintToleration", 1), ("SelectorSpread", 1)],
         "bind": [("DefaultBinder", 1)],
     }
+
+
+def gang_scheduling_plugins() -> Wiring:
+    """The default wiring plus coscheduling: the gang-aware queue sort
+    (PrioritySort's order for pods of no gang), the gang backoff at
+    PreFilter and the Permit gate."""
+    p = default_plugins()
+    p["queue_sort"] = [("CoschedulingSort", 1)]
+    p["pre_filter"] = p["pre_filter"] + [("Coscheduling", 1)]
+    p["permit"] = [("Coscheduling", 1)]
+    return p
+
+
+PROVIDERS = {
+    "DefaultProvider": default_plugins,
+    "GangSchedulingProvider": gang_scheduling_plugins,
+}

@@ -1,12 +1,14 @@
-"""The scheduling queue: an active heap ordered by priority then enqueue
-time, a backoff heap (exponential 1 s to 10 s) and the unschedulable set,
+"""The scheduling queue: an active heap in the QueueSort plugin's order,
+a backoff heap (exponential 1 s to 10 s) and the unschedulable set,
 with the scheduling-cycle / move-request-cycle protocol that decides
 whether a failed pod parks or backs off, and the pod nominator that
 holds preemption's nominations.
 
-The heap orders by a cached total-order key, (-priority, enqueue
-timestamp); equal keys keep the heap's own array order, and the batch
-drain sorts the whole heap stably by the same key."""
+The heap orders by a cached total-order key, the QueueSort plugin's
+(PrioritySort's (-priority, enqueue timestamp) until the scheduler sets
+its profile's); equal keys keep the heap's own array order, and the
+batch drain sorts the whole heap stably by the same key. A new member of
+a coscheduling gang wakes its parked siblings (``gang_members_added``)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,12 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.scheduler.framework.plugins.coscheduling import (
+    GROUP_NAME_LABEL,
+)
+from kubernetes_tpu_torch.scheduler.framework.plugins.queue_sort import (
+    PrioritySort,
+)
 from kubernetes_tpu_torch.scheduler.types import (
     PodInfo,
     QueuedPodInfo,
@@ -80,12 +88,6 @@ class PodNominator:
                 del self._nominated[nn]
 
 
-def queue_sort_key(qpi: QueuedPodInfo) -> tuple:
-    """PrioritySort as a total order: higher priority first, then the
-    earlier enqueue timestamp."""
-    return (-qpi.pod.priority(), qpi.timestamp)
-
-
 class Heap:
     """Keyed binary heap over a cached total-order key."""
 
@@ -102,6 +104,16 @@ class Heap:
 
     def has_key(self, key: str) -> bool:
         return key in self._index
+
+    def list(self) -> List[Any]:
+        return list(self._items)
+
+    def set_sort_key(self, sort_key: Callable[[Any], Any]) -> None:
+        """Order by ``sort_key`` from now on; only on an empty heap (the
+        items held were sifted by the old key)."""
+        if self._items:
+            raise ValueError("set_sort_key requires an empty heap")
+        self._sort_key = sort_key
 
     def get_by_key(self, key: str) -> Optional[Any]:
         i = self._index.get(key)
@@ -196,13 +208,22 @@ class SchedulingQueue(PodNominator):
         def key(qpi: QueuedPodInfo) -> str:
             return get_pod_key(qpi.pod)
 
-        self._active_q = Heap(key, queue_sort_key)
+        self.sort_key: Callable[[QueuedPodInfo], Any] = PrioritySort.sort_key
+        self._active_q = Heap(key, self.sort_key)
         self._backoff_q = Heap(key, self._backoff_time)
         self._unschedulable_q: Dict[str, QueuedPodInfo] = {}
         self.scheduling_cycle = 0
         self._move_request_cycle = -1
         # event -> pods it moved out of the unschedulable set
         self.pods_moved: Dict[str, int] = {}
+
+    def set_sort_key(self, sort_key: Callable[[QueuedPodInfo], Any]
+                     ) -> None:
+        """Order the active queue by the QueueSort plugin's total-order
+        key; only while it is empty."""
+        with self._cond:
+            self._active_q.set_sort_key(sort_key)
+            self.sort_key = sort_key
 
     # ------------------------------------------------------------------
     def _backoff_time(self, qpi: QueuedPodInfo) -> float:
@@ -315,8 +336,9 @@ class SchedulingQueue(PodNominator):
     def pop_batch(self, max_n: int, timeout: Optional[float] = None
                   ) -> Tuple[List[QueuedPodInfo], int]:
         """Pop up to ``max_n`` pods in queue order under one lock: the
-        whole active heap is drained and sorted by the queue key, the
-        remainder goes back. Each popped pod consumes one scheduling
+        whole active heap is drained and sorted by the queue key
+        (computed afresh: ``CoschedulingSort`` notes each group it sees),
+        the remainder goes back. Each popped pod consumes one scheduling
         cycle; returns (pods, cycle of the first pop)."""
         with self._cond:
             while len(self._active_q) == 0:
@@ -324,7 +346,7 @@ class SchedulingQueue(PodNominator):
                     return [], self.scheduling_cycle
             n = min(max_n, len(self._active_q))
             items = self._active_q.pop_all()
-            items.sort(key=queue_sort_key)
+            items.sort(key=self.sort_key)
             if len(items) > n:
                 self._active_q.replace_all(items[n:])
                 items = items[:n]
@@ -341,6 +363,35 @@ class SchedulingQueue(PodNominator):
         with self._cond:
             self._move_pods_locked(list(self._unschedulable_q.values()),
                                    event)
+
+    def gang_members_added(self, groups) -> None:
+        """A new (or requeued) member of a coscheduling gang wakes its
+        siblings: members of ``groups`` (group names) parked unschedulable
+        or in backoff go straight to the active queue, backoff or not,
+        since a gang completes only when its members overlap at Permit.
+        The move-request cycle advances, so a member failing in a cycle
+        under way backs off instead of parking."""
+        if not groups:
+            return
+
+        def in_groups(qpi: QueuedPodInfo) -> bool:
+            return qpi.pod.metadata.labels.get(GROUP_NAME_LABEL, "") \
+                in groups
+
+        with self._cond:
+            moved = False
+            for qpi in [q for q in self._unschedulable_q.values()
+                        if in_groups(q)]:
+                self._unschedulable_q.pop(get_pod_key(qpi.pod), None)
+                self._active_q.add(qpi)
+                moved = True
+            for qpi in [q for q in self._backoff_q.list() if in_groups(q)]:
+                self._backoff_q.delete_by_key(get_pod_key(qpi.pod))
+                self._active_q.add(qpi)
+                moved = True
+            self._move_request_cycle = self.scheduling_cycle
+            if moved:
+                self._cond.notify_all()
 
     def assigned_pods_updated(self, pods: List[Pod]) -> None:
         """Wake unschedulable pods whose (anti-)affinity terms match a

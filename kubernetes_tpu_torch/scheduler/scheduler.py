@@ -1,6 +1,7 @@
 """The scheduler: it owns the cache, the queue, the snapshot and one
-default-scheduler ``Framework``, wires the store's watch into the cache
-and the queue, and commits placements.
+``Framework`` (its provider's wiring: the default one, or the gang
+scheduling one), wires the store's watch into the cache and the queue,
+and commits placements.
 
 Two ways in:
 
@@ -14,7 +15,11 @@ Two ways in:
   plugins, and the pods it declines come back through
   ``fail_unschedulable`` or the serial path.
 
-Binding is synchronous: the store is in process. One ``random.Random``
+A pod that Permit asks to wait (a gang member) is assumed and parked,
+and its binding cycle (wait at Permit, PreBind, Bind, PostBind) runs on
+a pool of 64 binding threads, host code only; every other pod binds
+synchronously in the committing call, since the store is in process.
+``wait_for_inflight_bindings`` waits for the pool. One ``random.Random``
 (``rng``) makes every random draw of the serial path, in the order the
 JAX package's scheduler makes them from the module-level ``random``: one
 plugin-metrics draw per serial attempt, the tie draws of ``select_host``
@@ -23,10 +28,13 @@ and the preemption candidate offset.
 
 from __future__ import annotations
 
+import logging
 import random
+import threading
 import time
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.apiserver.store import (
     ClusterStore,
@@ -54,12 +62,15 @@ from kubernetes_tpu_torch.scheduler.framework.plugins.default_preemption import 
     DefaultPreemption,
 )
 from kubernetes_tpu_torch.scheduler.framework.runtime import Framework
-from kubernetes_tpu_torch.scheduler.provider import default_plugins
+from kubernetes_tpu_torch.scheduler.provider import PROVIDERS
 from kubernetes_tpu_torch.scheduler.queue import SchedulingQueue
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
 from kubernetes_tpu_torch.scheduler.types import PodInfo, QueuedPodInfo
 
 PLUGIN_METRICS_SAMPLE_PERCENT = 10
+BIND_WORKERS = 64
+
+_logger = logging.getLogger(__name__)
 
 
 def commit_target_stale(pod: Pod, node: Optional[Node]) -> Optional[str]:
@@ -84,9 +95,14 @@ def commit_target_stale(pod: Pod, node: Optional[Node]) -> Optional[str]:
 @dataclass
 class SchedulerConfiguration:
     """``percentage_of_nodes_to_score``: the share of nodes the serial
-    path filters before it stops looking (0: the adaptive default)."""
+    path filters before it stops looking (0: the adaptive default);
+    ``provider``: a name in ``provider.PROVIDERS``; ``plugin_config``:
+    plugin name -> its arguments (for instance ``{"Coscheduling":
+    {"permitWaitSeconds": 1.0}}``)."""
 
     percentage_of_nodes_to_score: int = 0
+    provider: str = "DefaultProvider"
+    plugin_config: Dict[str, dict] = field(default_factory=dict)
 
 
 class Scheduler:
@@ -105,10 +121,21 @@ class Scheduler:
             self.cache, self.snapshot, self.rng,
             config.percentage_of_nodes_to_score)
         self.framework = Framework(
-            new_in_tree_registry(), default_plugins(),
+            new_in_tree_registry(), PROVIDERS[config.provider](),
             snapshot=lambda: self.snapshot, client=store,
             pod_nominator=self.queue, rng=self.rng,
-            profile_name=self.scheduler_name)
+            profile_name=self.scheduler_name,
+            plugin_args=config.plugin_config)
+        self.queue.set_sort_key(self.framework.queue_sort_plugins[0].sort_key)
+        self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS,
+                                             thread_name_prefix="binder")
+        self._inflight_bindings = 0
+        self._inflight_zero = threading.Condition()
+        # binding cycles run on the pool, those that raised, and their
+        # seconds waiting at Permit and binding (PreBind to PostBind),
+        # summed over cycles
+        self.binding_stats = {"cycles": 0, "errors": 0, "wait_s": 0.0,
+                              "bind_s": 0.0}
         self.event_handlers = EventHandlers(self)
         self._watch_handle = None
         # per bound pod: seconds from its batch's solve start (or its
@@ -133,9 +160,26 @@ class Scheduler:
         self.queue.add_many(pending)
 
     def stop(self) -> None:
+        """Stop watching; pods still waiting at Permit are rejected, so no
+        binding thread outlives the scheduler."""
         if self._watch_handle is not None:
             self._watch_handle.stop()
             self._watch_handle = None
+        self.framework.iterate_waiting_pods(
+            lambda wp: wp.reject("", "scheduler stopped"))
+        self._bind_pool.shutdown(wait=False)
+
+    def wait_for_inflight_bindings(self, timeout: float = 30.0) -> bool:
+        """Wait until no binding cycle runs on the pool; False on
+        timeout."""
+        deadline = time.monotonic() + timeout
+        with self._inflight_zero:
+            while self._inflight_bindings > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._inflight_zero.wait(remaining)
+            return True
 
     def update_snapshot(self) -> Snapshot:
         self.algorithm.update_snapshot()
@@ -215,8 +259,9 @@ class Scheduler:
                           result: ScheduleResult, cycle: int,
                           start: float) -> bool:
         """Assume, Reserve, Permit and Bind one pod the serial path
-        placed; a failure unreserves, forgets the assume and requeues.
-        Returns True when the pod was bound."""
+        placed; a failure unreserves, forgets the assume and requeues. A
+        pod Permit asks to wait binds on the pool. Returns True when the
+        pod was bound in this call."""
         pod = qpi.pod
         host = result.suggested_host
         flagged = self.cache.commit_target_flags((host,))
@@ -238,6 +283,10 @@ class Scheduler:
             self._forget_and_fail(qpi, assumed, status.as_error(), cycle)
             return False
         status = fwk.run_permit_plugins(state, assumed, host)
+        if status is not None and status.code == fw.WAIT:
+            self._submit_binding_cycle(state, qpi, assumed, host, cycle,
+                                       start)
+            return False
         if status is None:
             status = fwk.run_pre_bind_plugins(state, assumed, host)
         if status is None:
@@ -256,17 +305,22 @@ class Scheduler:
     # the batch path's commit
     def commit_assignments_bulk(
             self, commits: List[Tuple[QueuedPodInfo, str, int, float]],
-            solved: bool = True) -> Tuple[int, int]:
+            solved: bool = True) -> Tuple[int, int, int]:
         """Commit (qpi, node name, cycle, start) placements in bulk: one
         cache call assumes them, Reserve, Permit and PreBind run per pod,
         one store call binds them (the bind plugin's ``bind_many``),
         PostBind runs per pod. A placement on a node that died or was
         cordoned is refused before the assume; a pod refused later is
-        unreserved, forgotten and requeued. ``solved``: the device solve placed these
-        pods (its state already counts them); False for placements the
-        host made (preemption plans), which the device mirror must
-        scatter. Returns (committed, cache mutations made)."""
+        unreserved, forgotten and requeued. A pod Permit asks to wait
+        stays assumed and binds on the pool: its assume is one of this
+        call's mutations, and it is neither committed nor failed here.
+        ``solved``: the device solve placed these pods (its state already
+        counts them); False for placements the host made (preemption
+        plans), which the device mirror must scatter. Returns (committed,
+        failed, cache mutations made), failed counting the pods refused
+        after the solve counted them."""
         fwk = self.framework
+        failed = 0
         flagged = self.cache.commit_target_flags(
             {node for _, node, _, _ in commits})
         if flagged:
@@ -280,6 +334,7 @@ class Scheduler:
                 else:
                     self._reject_stale_commit(item[0], item[1], reason,
                                               item[2])
+            failed += len(commits) - len(live_commits)
             commits = live_commits
         assumed_pods = [self._assumed_copy(qpi, node)
                         for qpi, node, _, _ in commits]
@@ -292,6 +347,8 @@ class Scheduler:
             else:
                 self._record_failure(item[0], ValueError(err),
                                      "SchedulerError", "", item[2])
+                failed += 1
+        # one assume per live pod; each refusal below adds its forget
         mutations = len(live)
         bindable = []
         for (qpi, node, cycle, start), assumed in live:
@@ -301,21 +358,27 @@ class Scheduler:
                 if not fw.Status.is_ok(status):
                     self._forget_and_fail(qpi, assumed, status.as_error(),
                                           cycle)
+                    failed += 1
                     mutations += 1
                     continue
             status = None
             if fwk.permit_plugins:
                 status = fwk.run_permit_plugins(state, assumed, node)
+                if status is not None and status.code == fw.WAIT:
+                    self._submit_binding_cycle(state, qpi, assumed, node,
+                                               cycle, start)
+                    continue
             if status is None and fwk.pre_bind_plugins:
                 status = fwk.run_pre_bind_plugins(state, assumed, node)
             if not fw.Status.is_ok(status):
                 self._unreserve_forget_fail(state, qpi, assumed, node,
                                             status.as_error(), cycle)
+                failed += 1
                 mutations += 1
                 continue
             bindable.append((qpi, node, cycle, start, assumed, state))
         if not bindable:
-            return 0, mutations
+            return 0, failed, mutations
         statuses = fwk.run_bind_plugins_bulk(
             [b[5] for b in bindable], [b[4] for b in bindable],
             [b[1] for b in bindable])
@@ -326,13 +389,84 @@ class Scheduler:
             if not fw.Status.is_ok(status):
                 self._unreserve_forget_fail(state, qpi, assumed, node,
                                             status.as_error(), cycle)
+                failed += 1
                 mutations += 1
                 continue
             self.cache.finish_binding(assumed, now)
             fwk.run_post_bind_plugins(state, assumed, node)
             self._observe_bound(qpi, start, now)
             committed += 1
-        return committed, mutations
+        return committed, failed, mutations
+
+    # ------------------------------------------------------------------
+    # the binding pool
+    def _submit_binding_cycle(self, state: CycleState, qpi: QueuedPodInfo,
+                              assumed: Pod, node_name: str, cycle: int,
+                              start: float) -> None:
+        """Run the binding cycle of a pod parked at Permit on the pool."""
+        with self._inflight_zero:
+            self._inflight_bindings += 1
+        try:
+            future = self._bind_pool.submit(self._binding_cycle, state, qpi,
+                                            assumed, node_name, cycle, start)
+        except RuntimeError:
+            # the pool is shut down (the scheduler stopped): the pod's
+            # state dies with this scheduler
+            self._binding_done()
+            return
+        future.add_done_callback(self._binding_raised)
+
+    def _binding_raised(self, future) -> None:
+        """Log and count a binding cycle that raised (its pod stays
+        assumed until the assume expires)."""
+        if future.cancelled() or future.exception() is None:
+            return
+        _logger.error("binding cycle failed", exc_info=future.exception())
+        with self._inflight_zero:
+            self.binding_stats["errors"] += 1
+
+    def _binding_done(self) -> None:
+        with self._inflight_zero:
+            self._inflight_bindings -= 1
+            if self._inflight_bindings == 0:
+                self._inflight_zero.notify_all()
+
+    def _binding_cycle(self, state: CycleState, qpi: QueuedPodInfo,
+                       assumed: Pod, node_name: str, cycle: int,
+                       start: float) -> bool:
+        """Wait at Permit, then PreBind, Bind and PostBind; a rejection or
+        a failure unreserves (rejecting the rest of a waiting gang),
+        forgets the assume and requeues. Host code only."""
+        fwk = self.framework
+        t0 = time.monotonic()
+        t1 = None
+        try:
+            status = fwk.wait_on_permit(assumed)
+            t1 = time.monotonic()
+            if status is None:
+                status = fwk.run_pre_bind_plugins(state, assumed, node_name)
+            if status is None:
+                try:
+                    status = fwk.run_bind_plugins(state, assumed, node_name)
+                except Exception as err:  # noqa: BLE001 - the pod requeues
+                    status = fw.Status(fw.ERROR, str(err))
+            if not fw.Status.is_ok(status):
+                self._unreserve_forget_fail(state, qpi, assumed, node_name,
+                                            status.as_error(), cycle)
+                return False
+            now = time.monotonic()
+            self.cache.finish_binding(assumed, now)
+            fwk.run_post_bind_plugins(state, assumed, node_name)
+            self._observe_bound(qpi, start, now)
+            return True
+        finally:
+            t2 = time.monotonic()
+            with self._inflight_zero:
+                stats = self.binding_stats
+                stats["cycles"] += 1
+                stats["wait_s"] += (t1 or t2) - t0
+                stats["bind_s"] += t2 - (t1 or t2)
+            self._binding_done()
 
     # ------------------------------------------------------------------
     def _assumed_copy(self, qpi: QueuedPodInfo, node_name: str) -> Pod:
@@ -374,6 +508,9 @@ class Scheduler:
                                cycle: int) -> None:
         self.framework.run_reserve_plugins_unreserve(state, assumed,
                                                      node_name)
+        gang = self.framework.get_plugin("Coscheduling")
+        if gang is not None:
+            gang.unreserve_group(assumed)
         self._forget_and_fail(qpi, assumed, err, cycle)
 
     def _reject_stale_commit(self, qpi: QueuedPodInfo, node_name: str,

@@ -1,6 +1,9 @@
 """The batch scheduling loop: drain the queue, solve the batch on the
 device, commit. A placed pod is assumed in the cache and bound in the
-store through the framework's Reserve and Bind plugins.
+store through the framework's Reserve and Bind plugins; a pod Permit
+asks to wait (a gang member) stays assumed and binds later on the
+scheduler's binding pool, and its assume counts as one of the batch's
+own cache mutations, so the carried device state stays valid.
 
 Not every pod goes through the solve, and not every verdict of the solve
 is final:
@@ -339,9 +342,12 @@ class BatchScheduler:
             self.session.note_drift()
         committed = 0
         if commits:
-            committed, mutations = sched.commit_assignments_bulk(commits)
+            # pods parked at Permit count as mutations through their
+            # assumes, and bind later on the binding pool
+            committed, failed, mutations = sched.commit_assignments_bulk(
+                commits)
             self._cycle_mutations += mutations
-            if committed < len(commits):
+            if failed:
                 # the device state counts pods the host refused
                 self.session.invalidate()
         self.seconds_commit += time.monotonic() - t0
@@ -490,8 +496,8 @@ class BatchScheduler:
             # host placements: the device state does not count them, so
             # they are not the batch's own mutations (the mirror scatters
             # them, or the session rebuilds)
-            committed, _ = sched.commit_assignments_bulk(commits,
-                                                         solved=False)
+            committed, _, _ = sched.commit_assignments_bulk(commits,
+                                                            solved=False)
             self.planned += committed
         max_prio_by_node: dict = {}
         for qpi, _cycle, node_name, _victims in plans:

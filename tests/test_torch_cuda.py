@@ -1,6 +1,7 @@
 """The CUDA solve kernel against its plain PyTorch version, on the card,
-and the backend's lazy solve and scatters on the card against the same
-calls on CPU tensors.
+the backend's lazy solve and scatters on the card against the same calls
+on CPU tensors, and small GangScheduling and SchedulingPodAntiAffinity
+rows through ``run_workload`` on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc (the kernel has no CPU mode) and
 skip without one. This file imports neither JAX nor the kubernetes_tpu
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.harness import perf, workloads
 from kubernetes_tpu_torch.harness.problems import random_planes
 from kubernetes_tpu_torch.ops import solve as solve_mod
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
@@ -292,3 +294,29 @@ def test_scatters_on_the_card_equal_the_cpu(card, seed):
     np.testing.assert_array_equal(dev[0].ints.cpu().numpy(),
                                   ps.ints.numpy())
     assert on_card.scatters == {"add": 1, "set": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,nodes,init,pods,kernel", [
+    ("GangScheduling", 100, 0, 600, "cluster"),
+    ("SchedulingPodAntiAffinity", 3000, 0, 300, "block"),
+])
+def test_small_rows_on_the_card_equal_the_cpu(card, name, nodes, init, pods,
+                                              kernel):
+    """The gang row (hard zone spread: the cluster kernel) and the
+    anti-affinity row (T = 100 over 3,000 nodes, past the cluster's shared
+    memory: the one-block kernel) bind every pod to the same node on the
+    card as on the CPU, and the card ran the kernel the launch plan
+    picks."""
+    kernel_fn = solve_mod.solve_kernel
+    kernel_fn.reset_counts()
+    on_card = perf.run_workload(
+        name, workloads.make_workload(name, nodes, init, pods),
+        max_batch=128, device="cuda")
+    counts = dict(kernel_fn.counts)
+    on_cpu = perf.run_workload(
+        name, workloads.make_workload(name, nodes, init, pods),
+        max_batch=128, device="cpu")
+    assert all(on_card.placements.values())
+    assert on_card.placements == on_cpu.placements
+    assert counts[kernel] == on_card.solves > 0

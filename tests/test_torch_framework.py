@@ -27,7 +27,6 @@ from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.scheduler.framework import interface as fw
 from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
-from kubernetes_tpu_torch.scheduler.framework.runtime import PermitWaitError
 from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     SchedulerConfiguration,
@@ -332,24 +331,6 @@ def test_fit_error_message_equals_the_reference(seed):
                 pst[pni.node.name] = s
         assert str(fw.FitError(ppod, len(pairs), pst)) == \
             str(jax_fw.FitError(rpod, len(pairs), rst))
-
-
-def test_permit_wait_raises():
-    """Waiting at Permit belongs to the gang path, not ported: a Permit
-    plugin that returns Wait raises instead of parking the pod."""
-
-    class Waiter(fw.PermitPlugin):
-        NAME = "Waiter"
-
-        def permit(self, state, pod, node_name):
-            return fw.Status(fw.WAIT), 5.0
-
-    port = port_scheduler(*cluster_dicts(0, n_nodes=3, n_existing=0))
-    port.framework.permit_plugins = [Waiter()]
-    pod = Pod.from_dict({"metadata": {"name": "w"}, "spec": {
-        "containers": [{"name": "c"}]}})
-    with pytest.raises(PermitWaitError):
-        port.framework.run_permit_plugins(CycleState(), pod, "n0")
 
 
 def test_fit_error_aggregation_counts_and_sorts_reasons():

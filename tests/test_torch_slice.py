@@ -98,3 +98,32 @@ def test_topology_spread_skew_within_one():
         per_zone[zone] = per_zone.get(zone, 0) + 1
     assert sum(per_zone.values()) == 200
     assert max(per_zone.values()) - min(per_zone.values()) <= 1
+
+
+def test_anti_affinity_row_matches_reference():
+    """BASELINE config 4's row cut to 200 nodes / 50 / 400: 100 colours,
+    each measured pod with a required hostname anti-affinity to its own
+    colour (T = 100 tracked terms). Same node per pod as the JAX harness,
+    and no node holds two measured pods of one colour."""
+    name, nodes, init, pods = "SchedulingPodAntiAffinity", 200, 50, 400
+    res = perf.run_workload(name, workloads.make_workload(name, nodes, init,
+                                                          pods),
+                            device="cpu", max_batch=128)
+    placed = {}
+
+    def hook(sched, _bs):
+        placed.update({p.metadata.name: p.spec.node_name
+                       for p in sched.client.list_pods()})
+
+    jax_perf.run_workload(
+        name, jax_workloads.make_workload(name, nodes, init, pods),
+        use_batch=True, backend_factory=XlaPlanesBackend,
+        adaptive_chunk=False, max_batch=128, result_hook=hook)
+    assert len(res.placements) == init + pods
+    assert all(res.placements.values())
+    assert res.placements == placed
+    seen = set()
+    for i in range(init, init + pods):
+        key = (res.placements[f"pod-{i}"], i % 100)
+        assert key not in seen, key
+        seen.add(key)
