@@ -6,17 +6,21 @@ Phases, each raising on failure (the script then exits non-zero and
 prints no result):
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the solve kernels (the cluster kernel and the one-block kernel)
-   from kubernetes_tpu_torch/csrc with nvcc and print ptxas's registers,
-   shared memory and spills for each;
+2. build the solve kernels (the cluster kernel, the slot kernel and the
+   one-block kernel) from kubernetes_tpu_torch/csrc with nvcc and print
+   ptxas's registers, shared memory and spills for each;
 3. hold the kernels against their plain PyTorch version, on the card,
    over seeded problems (the test cases' shapes, forced ties within and
    across the cluster's slices, a ragged last slice, the only feasible
    node in the last slice, two batches carrying state, constraint spaces
    wider than eight, 5,000 nodes x 512 pods with SC, T and U of 16, a
-   cluster of eight, and a shape past the cluster's shared memory):
-   assignments and state planes must be equal. Each case runs on the
-   kernel the launch plan picks, and again on the one-block kernel;
+   cluster of eight, and a shape past the cluster's shared memory with a
+   pod of nine term references): assignments and state planes must be
+   equal. Each case runs on the kernel the launch plan picks, and again
+   on the one-block kernel. Then the slot kernel on slot streams (T of
+   16 to 100, a ragged last slice, a cluster of eight, two batches
+   carrying state) against the plain slot solve, the dense plain solve
+   and the one-block kernel;
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
    4,096, through ``run_workload`` on the card, in the default arms
    (pipelined, device mirror on). Every pod bound, the cluster kernel
@@ -75,12 +79,21 @@ prints no result):
     then 30,000 pods in 100 colours, each with a required hostname
     anti-affinity to its own colour: T = 100): every measured pod bound,
     no node with two measured pods of one colour, each launch on the
-    kernel ``plan_launch`` picks for its batch (the one-block kernel at
-    T = 100, where the cluster's layout outgrows a block's shared
-    memory); on the largest batch the one-block kernel timed and held
-    against the plain version.
+    kernel ``plan_launch`` picks for its batch (the slot kernel for every
+    T = 100 batch, where the cluster's dense layout outgrows a block's
+    shared memory and each pod references one term); on the largest
+    batch the slot kernel, the one-block kernel (forced, on the dense
+    stream the slots were packed from) and the plain versions timed in
+    turns and held against each other;
+16. the three other wide-term families at ``bench.py``'s sizes (5,000
+    nodes, 5,000 init pods, 1,000 measured): SchedulingPodAffinity and
+    SchedulingPreferredPodAffinity (T = 50), SchedulingPreferredPod-
+    AntiAffinity (T = 100): every measured pod bound, each required-
+    affinity pod in a zone holding a pod of its group, the launches as
+    planned, and the slot kernel equal to the plain version on each
+    row's largest batch.
 
-Every main-path run (4, 5, 8 to 15) resets the kernels' launch counts
+Every main-path run (4, 5, 8 to 16) resets the kernels' launch counts
 just before and reads them just after; the kernel table sums them.
 Before the last line come the scatters' counts and times as JSON, the
 kernel table as JSON and the card's name and power limit; the last line
@@ -101,7 +114,10 @@ import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.harness import perf, sustained, workloads
-from kubernetes_tpu_torch.harness.problems import random_planes
+from kubernetes_tpu_torch.harness.problems import (
+    random_planes,
+    random_slot_planes,
+)
 from kubernetes_tpu_torch.ops import mirror as mirror_mod
 from kubernetes_tpu_torch.ops import solve as solve_mod
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
@@ -111,6 +127,7 @@ from kubernetes_tpu_torch.ops.planes import (
     state_planes,
     static_planes,
 )
+from kubernetes_tpu_torch.ops.slots import SPARSE_K, slot_stream
 from kubernetes_tpu_torch.ops.solve import CudaPlanesBackend
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
@@ -119,6 +136,9 @@ from kubernetes_tpu_torch.sidecar import BatchScheduler
 PARAMS = SolverParams()
 KERNEL_SOURCE = "kubernetes_tpu_torch/csrc/solve_kernel.cu"
 REPLACES = "kubernetes_tpu/ops/pallas_solver.py:225"
+# the reference's sparse scan (an XLA program), which it runs instead of its
+# Pallas kernel on wide term axes
+REPLACES_SPARSE = "kubernetes_tpu/ops/pallas_solver.py:754"
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, f32 operations/s outside the
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -235,15 +255,15 @@ def on(device, ps: PStatic, state, ints, floats):
 
 def _solve_on_card(ps, state, ints, floats, plan=None):
     """One kernel launch on copies of the inputs on the card: the kernel
-    the wrapper plans, or ``plan``'s. Returns (assignments, final state,
-    the kernel that ran)."""
+    the wrapper plans, or ``plan``'s (a slot plan takes a slot stream).
+    Returns (assignments, final state, the kernel that ran)."""
     kernel = solve_mod.solve_kernel
     a = on("cuda", ps, state, ints, floats)
     before = dict(kernel.counts)
     if plan is None:
         got = kernel(PARAMS, *a)
     else:
-        kernel.check(*a)
+        kernel.check(*a, slots=plan.kernel == "slots")
         got = kernel.launch(PARAMS, *a, plan)
     torch.cuda.synchronize()
     ran = [k for k in kernel.counts if kernel.counts[k] != before[k]]
@@ -276,8 +296,90 @@ def compare_kernel_plain(name, ps, state, ints, floats, plan=None):
     return errs, final
 
 
+def dense_from_slots(ps: PStatic, ints, floats):
+    """The dense pod stream a slot stream was packed from (the pack loses
+    nothing when it succeeds): base | match_by[T] | own_aff[T] |
+    own_anti[T], and the weights [B, T]. Arrays on the CPU."""
+    rows, w = np.asarray(ints.cpu()), np.asarray(floats.cpu())
+    b, t, c = rows.shape[0], ps.t, ps.r + 4 + 2 * ps.sc
+    idx, fl = rows[:, c:c + SPARSE_K], rows[:, c + SPARSE_K:]
+    dense = np.zeros((b, c + 3 * t), dtype=np.int32)
+    dense[:, :c] = rows[:, :c]
+    dense_w = np.zeros((b, t), dtype=np.float32)
+    pod = np.repeat(np.arange(b), SPARSE_K).reshape(b, SPARSE_K)
+    active = (fl != 0) | (w != 0)
+    for bit in range(3):
+        on_bit = active & (((fl >> bit) & 1) > 0)
+        dense[pod[on_bit], c + bit * t + idx[on_bit]] = 1
+    dense_w[pod[active], idx[active]] = w[active]
+    return torch.from_numpy(dense), torch.from_numpy(dense_w)
+
+
+def _err(a, b, sa, sb):
+    return max(int((a.cpu() - b.cpu()).abs().max()),
+               int((sa.cpu() - sb.cpu()).abs().max()))
+
+
+def compare_slots_plain(name, ps, state, ints, floats, plan=None):
+    """The slot kernel (the wrapper's slot plan, or ``plan``) on the slot
+    stream packed from the dense (ints, floats); the plain slot solve and
+    the dense plain solve on the card; the one-block kernel on the dense
+    stream. All must agree on assignments and final planes. Returns
+    ({kernel: largest absolute difference}, the slot kernel's final
+    state)."""
+    kernel = solve_mod.solve_kernel
+    stream = slot_stream(np.asarray(torch.as_tensor(ints)),
+                         np.asarray(torch.as_tensor(floats)), ps.r, ps.sc,
+                         ps.t)
+    check(stream is not None, f"{name} packs into slots")
+    sints, sfloats = (torch.from_numpy(a) for a in stream)
+    b = on("cuda", ps, state, sints, sfloats)
+    want = solve_mod.solve_plain_slots(PARAMS, *b)
+    d = on("cuda", ps, state, ints, floats)
+    dense = solve_mod.solve_plain(PARAMS, *d)
+    torch.cuda.synchronize()
+    check(_err(want, dense, b[1], d[1]) == 0,
+          f"plain slot solve equals the dense plain solve on {name}")
+    plan = plan or kernel.slots_plan(ps)
+    got, st, ran = _solve_on_card(ps, state, sints, sfloats, plan)
+    check(ran == "slots", f"{name} ran the slot kernel")
+    errs = {ran: _err(got, want, st, b[1])}
+    check(errs[ran] == 0, f"slot kernel equals plain on {name}")
+    got_b, st_b, ran = _solve_on_card(ps, state, ints, floats,
+                                      solve_mod.block_plan(
+                                          ps.ints.shape[1], ps.sc, ps.t))
+    errs[ran] = _err(got_b, want, st_b, b[1])
+    check(errs[ran] == 0, f"one-block kernel equals plain on {name}")
+    log(f"  {name}: N={ps.ints.shape[1]} B={sints.shape[0]} SC={ps.sc} "
+        f"T={ps.t} U={ps.u} placed={int((want >= 0).sum())} slot kernel "
+        f"cluster={plan.cluster}x{plan.cols_per_block} cols, "
+        f"{plan.smem_bytes} B a block; max_abs_err "
+        + " ".join(f"{k}={v}" for k, v in errs.items()))
+    return errs, st
+
+
+def slot_cases():
+    """Seeded slot problems: (name, (planes, state, dense pod ints, pod
+    floats), a forced slot plan or None)."""
+    out = [("slots-anti-5120", random_slot_planes(20, 5120, 256, 100,
+                                                  real=5000), None),
+           ("slots-t50-5120", random_slot_planes(21, 5120, 128, 50, sc=2,
+                                                 u=2), None),
+           ("slots-ragged-1408", random_slot_planes(22, 1408, 96, 40, sc=2,
+                                                    u=2, real=1400), None),
+           ("slots-t16-1024", random_slot_planes(23, 1024, 64, 16, sc=3,
+                                                 u=3, real=1000), None)]
+    check(solve_mod.plan_launch(1024, 3, 3, 16, 3, packs=True).kernel
+          == "cluster", "slots-t16-1024 is a shape the cluster kernel takes")
+    out.append(("slots-portable-8", random_slot_planes(24, 5120, 96, 100,
+                                                       sc=2, u=2),
+                solve_mod.slots_candidate(5120, 3, 2, 100, 2,
+                                          max_cluster=8)))
+    return out
+
+
 def phase_compare():
-    errs = {"cluster": 0, "block": 0}
+    errs = {"cluster": 0, "slots": 0, "block": 0}
 
     def keep(result):
         for k, v in result[0].items():
@@ -325,6 +427,15 @@ def phase_compare():
         ran = (plan or solve_mod.solve_kernel.plan(args[0])).kernel
         check(ran == want, f"{name} plans the {want} kernel")
         keep(compare_kernel_plain(name, *args, plan=plan))
+    for name, args, plan in slot_cases():
+        keep(compare_slots_plain(name, *args, plan=plan))
+    # two slot batches carrying the state
+    ps, state, ints, floats = random_slot_planes(27, 5120, 128, 100, sc=2,
+                                                 u=2)
+    carried = keep(compare_slots_plain("slots-carry-1", ps, state,
+                                       ints[:64], floats[:64]))
+    keep(compare_slots_plain("slots-carry-2", ps, carried.cpu(),
+                             ints[64:].clone(), floats[64:].clone()))
     return errs
 
 
@@ -361,6 +472,13 @@ def planes_cases():
                 "cluster"))
     out.append(("past-budget", random_planes(8, 5120, 32, sc=40, t=40, u=2),
                 None, "block"))
+    # T = 100 with one pod of nine term references: the batch does not
+    # pack, so the dense stream runs on the one-block kernel
+    ps, state, ints, floats = random_slot_planes(25, 5120, 64, 100)
+    ints[3, ps.r + 4 + 2 * ps.sc:ps.r + 4 + 2 * ps.sc + 9] = 1
+    check(slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc, ps.t)
+          is None, "the nine-reference batch does not pack")
+    out.append(("nine-refs-t100", (ps, state, ints, floats), None, "block"))
     return out
 
 
@@ -376,11 +494,16 @@ class _Recorder:
         self.keep = keep
         self.events = []
         self.inputs = []
+        self.slots = []     # per kept launch: a slot stream or not
+
+    def __getattr__(self, name):   # plan, slots_plan: the wrapper's
+        return getattr(self.kernel, name)
 
     def __call__(self, params, ps, state, ints, floats, **kw):
         if self.keep:
             self.inputs.append((ps, state.clone(), ints.clone(),
                                 floats.clone()))
+            self.slots.append(kw.get("slots", False))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -393,10 +516,12 @@ class _Recorder:
         torch.cuda.synchronize()
         return [s.elapsed_time(e) for s, e in self.events]
 
-    def largest(self):
-        """The kept inputs of the launch with the most valid pods."""
-        valid = [int((i[2][:, i[0].r + 3] > 0).sum()) for i in self.inputs]
-        return self.inputs[int(np.argmax(valid))]
+    def largest(self, slots=False):
+        """The kept inputs of the launch with the most valid pods, among
+        the slot-stream launches with ``slots``, else the dense ones."""
+        kept = [i for i, s in zip(self.inputs, self.slots) if s == slots]
+        valid = [int((i[2][:, i[0].r + 3] > 0).sum()) for i in kept]
+        return kept[int(np.argmax(valid))]
 
 
 class _Dispatches:
@@ -454,7 +579,7 @@ class _Dispatches:
         gc.callbacks.remove(self._on_gc)
 
 
-LAUNCHES = {"cluster": 0, "block": 0}   # main-path launches, every path
+LAUNCHES = {"cluster": 0, "slots": 0, "block": 0}   # main-path launches
 
 
 def run_path(name, run, keep=False, kernel="cluster"):
@@ -555,28 +680,56 @@ def bound_ms(ps: PStatic, state, ints, floats):
     once, each output written once) over HBM bandwidth, and the
     operations these pods need (counted per valid pod x node from their
     flags) over the f32 peak; the larger of the two."""
-    n = ps.ints.shape[1]
     nbytes = sum(t.numel() * t.element_size() for t in (
         ps.ints, ps.f32s, ps.sc_meta, ints, floats)) \
         + 2 * state.numel() * state.element_size() + ints.shape[0] * 4
     rows = ints.cpu().numpy()
     w = floats.cpu().numpy()
-    r, sc, t = ps.r, ps.sc, ps.t
+    c, t = ps.r + 4 + 2 * ps.sc, ps.t
+    flags = rows[:, c:c + 3 * t] > 0
+    return _bound(ps, nbytes, rows, (w != 0).sum(1), flags.sum(1),
+                  flags[:, :t].sum(1))
+
+
+def bound_ms_slots(ps: PStatic, state, ints, floats):
+    """``bound_ms`` for a slot stream, counting what these slots need: the
+    term rows no valid pod references are neither read nor written."""
+    n = ps.ints.shape[1]
+    rows = ints.cpu().numpy()
+    w = floats.cpu().numpy()
+    c = ps.r + 4 + 2 * ps.sc
+    idx, fl = rows[:, c:c + SPARSE_K], rows[:, c + SPARSE_K:]
+    active = ((fl != 0) | (w != 0)) & (rows[:, ps.r + 3:ps.r + 4] > 0)
+    unused = ps.t - len(np.unique(idx[active]))
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        ps.ints, ps.f32s, ps.sc_meta, ints, floats)) - unused * n * 4 \
+        + 2 * (state.numel() - 2 * unused * n) * state.element_size() \
+        + ints.shape[0] * 4
+    bits = [(fl >> bit) & 1 for bit in range(3)]
+    return _bound(ps, nbytes, rows, (w != 0).sum(1),
+                  sum(b.sum(1) for b in bits), bits[0].sum(1))
+
+
+def _bound(ps: PStatic, nbytes, rows, weights, flags, matched):
+    """The larger of ``nbytes`` over HBM bandwidth and the pods'
+    operations over the f32 peak, from each pod's counts of preferred
+    weights, term flags and matched terms."""
+    n = ps.ints.shape[1]
+    r, sc = ps.r, ps.sc
     hard = ps.sc_meta[1].cpu().numpy() > 0
     valid = rows[:, r + 3] > 0
     pod_sc = rows[:, r + 4:r + 4 + sc] > 0
     sc_match = rows[:, r + 4 + sc:r + 4 + 2 * sc] != 0
-    flags = rows[:, r + 4 + 2 * sc:r + 4 + 2 * sc + 3 * t] > 0
     per_pod = (
         3 + r                      # validity, pod count, mask, fit
         + 27                       # balanced, least, score sum, argmax
         + 5 * (pod_sc & hard).sum(1)         # domain min, skew check
         + 2 * (pod_sc & ~hard).sum(1)        # soft counts
         + 2 * (pod_sc & ~hard).any(1)        # spread score
-        + 3 * (w != 0).sum(1)                # preferred weights
-        + 2 * flags.sum(1)                   # (anti-)affinity checks
+        + 3 * weights                        # preferred weights
+        + 2 * flags                          # (anti-)affinity checks
         + 2 * sc_match.sum(1)                # domain commits
-        + 3 * flags[:, :t].sum(1)            # term commits
+        + 3 * matched                        # term commits
     )
     ops = float((per_pod * valid).sum()) * n
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1000
@@ -1185,12 +1338,115 @@ def phase_gang(nodes=5000, pods=30000, gang=10, max_batch=4096):
     return runs
 
 
+def planned_kernel(ps: PStatic, ints, floats, slots: bool) -> str:
+    """The kernel the launch plan gives a recorded launch: a slot stream
+    plans with ``packs``; a dense stream plans with ``packs`` when it
+    would have packed (at T >= 12), which must not give the slot kernel,
+    or the backend routed it wrongly."""
+    key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
+    packs = slots or (ps.t >= solve_mod.SPARSE_MIN_T and slot_stream(
+        ints.cpu().numpy(), floats.cpu().numpy(), ps.r, ps.sc, ps.t)
+        is not None)
+    return solve_mod.plan_launch(*key, packs=packs).kernel
+
+
+def check_plans(name, counts, recorder):
+    """Every recorded launch on the kernel the plan gives it; logs each
+    shape's plan. Returns the plans by shape."""
+    predicted = dict.fromkeys(counts, 0)
+    shapes = {}
+    for (ps, _, ints, floats), slots in zip(recorder.inputs,
+                                             recorder.slots):
+        kernel = planned_kernel(ps, ints, floats, slots)
+        check(slots == (kernel == "slots"), f"{name}: a launch took the "
+              f"{'slot' if slots else 'dense'} stream where the plan "
+              f"gives the {kernel} kernel")
+        predicted[kernel] += 1
+        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
+        shapes.setdefault(key, [kernel, 0])[1] += 1
+    for (n, r, sc, t, u), (kernel, launches) in shapes.items():
+        dense = solve_mod.cluster_candidate(n, r, sc, t, u)
+        slots = solve_mod.slots_candidate(n, r, sc, t, u)
+        log(f"  plan N={n} R={r} SC={sc} T={t} U={u}: {kernel} kernel x "
+            f"{launches} launches; a block needs {dense.smem_bytes} B in the "
+            f"cluster layout of {dense.cluster}, {slots.smem_bytes} B in the "
+            f"slot layout, against {solve_mod.SMEM_LIMIT} B")
+    check(counts == predicted, f"{name}: launches {counts} == the plans' "
+          f"{predicted}")
+    return {str(k): v for k, v in shapes.items()}
+
+
+def time_slots_batch(name, batch, block_repeats=3, repeats=10):
+    """On a slot-route batch: the slot kernel and the one-block kernel
+    (forced, on the dense stream the slots were packed from) in turns
+    (slots, one-block, one-block, slots), then the plain slot solve and
+    the dense plain solve once each; both kernels must equal the plain
+    versions. Returns the numbers."""
+    kernel = solve_mod.solve_kernel
+    ps, state, sints, sfloats = batch
+    dints, dfloats = (a.to("cuda") for a in dense_from_slots(ps, sints,
+                                                             sfloats))
+    kernel.check(ps, state, sints, sfloats, slots=True)
+    kernel.check(ps, state, dints, dfloats)
+    plans = {"slots": kernel.slots_plan(ps),
+             "block": solve_mod.block_plan(ps.ints.shape[1], ps.sc, ps.t)}
+    streams = {"slots": (sints, sfloats), "block": (dints, dfloats)}
+    turns, finals = {}, {}
+    for which in ("slots", "block", "block", "slots"):
+        plan, (ints, floats) = plans[which], streams[which]
+
+        def bare(st, plan=plan, ints=ints, floats=floats):
+            finals[plan.kernel] = (kernel.launch(PARAMS, ps, st, ints,
+                                                 floats, plan), st)
+
+        _event_ms(bare, state, 1)
+        turns.setdefault(which, []).append(_event_ms(
+            bare, state, repeats if which == "slots" else block_repeats))
+    plain = {}
+    for which, fn in (("slots", solve_mod.solve_plain_slots),
+                      ("block", solve_mod.solve_plain)):
+        st = state.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(PARAMS, ps, st, *streams[which])
+        torch.cuda.synchronize()
+        plain[which] = ((time.perf_counter() - t0) * 1000, got, st)
+    errs = {k: _err(finals[k][0], plain[k][1], finals[k][1], plain[k][2])
+            for k in finals}
+    errs["plain"] = _err(plain["slots"][1], plain["block"][1],
+                         plain["slots"][2], plain["block"][2])
+    check(not any(errs.values()), f"{name}: both kernels and both plain "
+          f"versions agree bit for bit: {errs}")
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    valid = int((sints[:, ps.r + 3] > 0).sum())
+    p = plans["slots"]
+    b_ms, b_by = bound_ms_slots(*batch)
+    block_bound = bound_ms(ps, state, dints, dfloats)
+    log(f"  {name} largest batch: N={ps.ints.shape[1]} B={sints.shape[0]} "
+        f"valid={valid} T={ps.t}; slot kernel cluster of {p.cluster} x "
+        f"{p.cols_per_block} columns, {p.smem_bytes} B shared a block")
+    us = {k: v / valid * 1000 for k, v in ms.items()}
+    log(f"    slot kernel ms {_ms_list(turns['slots'])}, {us['slots']:.3f} "
+        f"us a pod; one-block kernel ms {_ms_list(turns['block'])}, "
+        f"{us['block']:.3f} us a pod; plain slot solve {plain['slots'][0]:.1f} ms, dense plain "
+        f"{plain['block'][0]:.1f} ms; max_abs_err {errs}; bound "
+        f"{b_ms:.6f} ms ({b_by})")
+    return {"n": ps.ints.shape[1], "t": ps.t, "valid_pods": valid,
+            "ms": ms, "turns": turns,
+            "us_per_pod": us,
+            "plain_ms": {k: v[0] for k, v in plain.items()},
+            "err": max(errs.values()), "bound_ms": b_ms, "bound_by": b_by,
+            "block_bound_ms": block_bound[0],
+            "block_bound_by": block_bound[1], "plan": p._asdict()}
+
+
 def phase_anti_affinity(nodes=5000, init=1000, pods=30000, colours=100,
                         max_batch=4096):
     """The SchedulingPodAntiAffinity row: checked, each launch on the
-    kernel ``plan_launch`` picks; then the one-block kernel on the
-    largest batch, timed and held against the plain version. Returns the
-    row, the kernel numbers and the largest batch's bound."""
+    kernel the plan gives its batch (every T = 100 batch on the slot
+    kernel); then on the largest batch the slot kernel, the one-block
+    kernel and the plain versions, timed and held against each other.
+    Returns the row and the kernel numbers."""
     name = "SchedulingPodAntiAffinity"
     res, counts, kernel_ms, _, recorder, wall = run_path(
         name, lambda: perf.run_workload(
@@ -1203,26 +1459,13 @@ def phase_anti_affinity(nodes=5000, init=1000, pods=30000, colours=100,
              for i in range(pods)}
     check(len(pairs) == pods, f"{name}: {pods - len(pairs)} nodes hold two "
           "measured pods of one colour")
-    predicted = {"cluster": 0, "block": 0}
-    shapes = {}
-    for ps, _, _, _ in recorder.inputs:
-        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
-        plan = solve_mod.plan_launch(*key)
-        predicted[plan.kernel] += 1
-        shapes.setdefault(key, [plan, 0])[1] += 1
-    for (n, r, sc, t, u), (plan, launches) in shapes.items():
-        cand = solve_mod.cluster_candidate(n, r, sc, t, u)
-        log(f"  plan N={n} R={r} SC={sc} T={t} U={u}: {plan.kernel} kernel "
-            f"x {launches} launches; the cluster layout of {cand.cluster} "
-            f"needs {cand.smem_bytes} B a block against "
-            f"{solve_mod.SMEM_LIMIT} B")
-    check(counts == predicted, f"{name}: launches {counts} == plan_launch's "
-          f"{predicted}")
-    check(counts["block"] > 0 and all(
-        solve_mod.plan_launch(ps.ints.shape[1], ps.r, ps.sc, ps.t,
-                              ps.u).kernel == "block"
-        for ps, _, _, _ in recorder.inputs if ps.t >= colours),
-        f"{name}: the T = {colours} batches ran the one-block kernel")
+    plans = check_plans(name, counts, recorder)
+    wide = [slots for (ps, _, _, _), slots in zip(recorder.inputs,
+                                                   recorder.slots)
+            if ps.t >= colours]
+    check(wide and all(wide) and counts["block"] == 0,
+          f"{name}: every T = {colours} batch ran the slot kernel "
+          f"({len(wide)} batches, launches {counts})")
     busy = sum(kernel_ms) / 1000
     log(f"  {name} {nodes} nodes / {init} / {pods} on {res.device}: "
         f"{res.pods_per_second:.1f} pods/s over {res.duration_seconds:.3f} s "
@@ -1230,31 +1473,11 @@ def phase_anti_affinity(nodes=5000, init=1000, pods=30000, colours=100,
         f"{busy:.3f} s")
     log("    enqueue->bind ms p50/p90/p99: " + "/".join(
         f"{res.latency[k]:.1f}" for k in ("Perc50", "Perc90", "Perc99")))
+    log(f"    kernel ms (wrapper call) {_ms_list(kernel_ms)}")
     log(f"    solves {res.solves} rebuilds {res.rebuilds} catch-ups "
         f"{(res.mirror_info or {}).get('catch_ups', 0)}; host seconds: "
         f"{_host_split(res)}")
-
-    batch = recorder.largest()
-    ps, state, ints, floats = batch
-    kernel = solve_mod.solve_kernel
-    kernel.check(ps, state, ints, floats)
-    plan = kernel.plan(ps)
-    check(plan.kernel == "block", f"{name}: the largest batch plans the "
-          "one-block kernel")
-    got = {}
-
-    def bare(st):
-        got["a"] = (kernel.launch(PARAMS, ps, st, ints, floats, plan), st)
-
-    _event_ms(bare, state, 1)
-    ms = _event_ms(bare, state, 10)
-    valid = int((ints[:, ps.r + 3] > 0).sum())
-    log(f"  {name} largest batch: N={ps.ints.shape[1]} B={ints.shape[0]} "
-        f"valid={valid} T={ps.t}; one-block kernel {ms:.3f} ms a launch, "
-        f"{ms / valid * 1000:.3f} us a pod")
-    plain_ms, err = plain_against(name, batch, got["a"], kernel="block")
-    b_ms, b_by = bound_ms(*batch)
-    log(f"  bound on the {name} batch {b_ms:.6f} ms ({b_by})")
+    timed = time_slots_batch(name, recorder.largest(slots=True))
     return {
         "pods_per_s": res.pods_per_second,
         "duration_s": res.duration_seconds, "wall_s": wall,
@@ -1263,10 +1486,68 @@ def phase_anti_affinity(nodes=5000, init=1000, pods=30000, colours=100,
         "mirror": res.mirror_info, "launches": counts,
         "kernel_ms": kernel_ms, "kernel_busy_s": busy,
         "host_paths_s": res.host_paths, "host_seconds": res.seconds,
-        "plans": {str(k): v[0]._asdict() for k, v in shapes.items()},
-    }, {"ms": ms, "us_per_pod": ms / valid * 1000, "valid_pods": valid,
-        "t": ps.t, "n": ps.ints.shape[1], "plain_ms": plain_ms,
-        "err": err, "bound_ms": b_ms, "bound_by": b_by}
+        "plans": plans,
+    }, timed
+
+
+WIDE_FAMILIES = ("SchedulingPodAffinity", "SchedulingPreferredPodAffinity",
+                 "SchedulingPreferredPodAntiAffinity")
+
+
+def phase_wide_terms(nodes=5000, init=5000, pods=1000, max_batch=4096):
+    """The three other wide-term families at bench.py's sizes: every
+    measured pod bound, each required-affinity pod in a zone holding a
+    pod of its group, every launch as planned (the measured batches on
+    the slot kernel), and the slot kernel equal to the plain slot solve
+    on each row's largest batch. Returns the rows and the largest
+    slot-kernel error."""
+    rows, worst = {}, 0
+    for name in WIDE_FAMILIES:
+        res, counts, kernel_ms, _, recorder, wall = run_path(
+            name, lambda: perf.run_workload(
+                name, workloads.make_workload(name, nodes, init, pods),
+                max_batch=max_batch, device="cuda"), keep=True, kernel=None)
+        measured = [init + i for i in range(pods)]
+        unbound = [i for i in measured if not res.placements.get(f"pod-{i}")]
+        check(not unbound, f"{name}: {len(unbound)} measured pods unbound")
+        if name == "SchedulingPodAffinity":
+            zone = {i: int(res.placements[f"pod-{i}"].split("-")[1]) % 10
+                    for i in range(init + pods)}
+            together = {}
+            for i, z in zone.items():
+                together[i % 50, z] = together.get((i % 50, z), 0) + 1
+            apart = [i for i in measured if together[i % 50, zone[i]] < 2]
+            check(not apart, f"{name}: {len(apart)} measured pods in a zone "
+                  "without another pod of their group")
+        plans = check_plans(name, counts, recorder)
+        check(counts["slots"] > 0 and counts["block"] == 0,
+              f"{name}: the measured batches ran the slot kernel: {counts}")
+        ps, state, ints, floats = recorder.largest(slots=True)
+        got, st, _ = _solve_on_card(ps, state, ints, floats,
+                                    solve_mod.solve_kernel.slots_plan(ps))
+        b = on("cuda", ps, state, ints, floats)
+        want = solve_mod.solve_plain_slots(PARAMS, *b)
+        err = _err(got, want, st, b[1])
+        check(err == 0, f"{name}: slot kernel equals plain on its largest "
+              "batch")
+        worst = max(worst, err)
+        busy = sum(kernel_ms) / 1000
+        log(f"  {name} {nodes} nodes / {init} / {pods} on {res.device}: "
+            f"{res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+            f"launches {counts}; kernel ms {_ms_list(kernel_ms)} (busy "
+            f"{busy:.3f} s); max_abs_err {err}")
+        log(f"    enqueue->bind ms p50/p99: {res.latency['Perc50']:.1f}/"
+            f"{res.latency['Perc99']:.1f}; solves {res.solves} rebuilds "
+            f"{res.rebuilds}; host seconds: {_host_split(res)}")
+        rows[name] = {
+            "pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "enqueue_to_bind_ms": res.latency, "solves": res.solves,
+            "rebuilds": res.rebuilds, "launches": counts,
+            "kernel_ms": kernel_ms, "kernel_busy_s": busy, "plans": plans,
+            "host_seconds": res.seconds, "max_abs_err": err}
+    return rows, worst
 
 
 def gpu_name_and_power() -> str:
@@ -1358,9 +1639,15 @@ def main() -> None:
     gang = phase_gang()
 
     log("[15] the SchedulingPodAntiAffinity row")
-    anti, block = phase_anti_affinity()
-    errs["block"] = max(errs["block"], block["err"])
-    log(f"  main-path launches over phases 4, 5 and 8 to 15: {LAUNCHES}")
+    anti, slots = phase_anti_affinity()
+    for k in ("slots", "block"):
+        errs[k] = max(errs[k], slots["err"])
+
+    log("[16] the wide-term families: SchedulingPodAffinity, "
+        "SchedulingPreferredPodAffinity, SchedulingPreferredPodAntiAffinity")
+    wide, wide_err = phase_wide_terms()
+    errs["slots"] = max(errs["slots"], wide_err)
+    log(f"  main-path launches over phases 4, 5 and 8 to 16: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -1374,18 +1661,26 @@ def main() -> None:
         "cluster": {"ms": sb["ms"]["cluster"], "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "batch": "SchedulingBasic largest batch"},
-        "block": {"ms": block["ms"], "plain_ms": block["plain_ms"],
-                  "bound_ms": block["bound_ms"],
-                  "bound_by": block["bound_by"],
+        "slots": {"ms": slots["ms"]["slots"],
+                  "plain_ms": slots["plain_ms"]["slots"],
+                  "bound_ms": slots["bound_ms"], "bound_by": slots["bound_by"],
                   "batch": f"SchedulingPodAntiAffinity largest batch "
-                           f"(T={block['t']})"}}
+                           f"(T={slots['t']}), slot stream"},
+        "block": {"ms": slots["ms"]["block"],
+                  "plain_ms": slots["plain_ms"]["block"],
+                  "bound_ms": slots["block_bound_ms"],
+                  "bound_by": slots["block_bound_by"],
+                  "batch": f"SchedulingPodAntiAffinity largest batch "
+                           f"(T={slots['t']}), dense stream, forced"}}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": LAUNCHES[k],
+        "replaces": replaces, "launches": LAUNCHES[k],
         "max_abs_err": float(errs[k]), **timed[k], "library_ms": None,
         "library_ms_reason": "no single PyTorch call computes the solve",
-    } for k, name in (("cluster", "solve_cluster_kernel"),
-                      ("block", "solve_block_kernel"))]}
+    } for k, name, replaces in (
+        ("cluster", "solve_cluster_kernel", REPLACES),
+        ("slots", "solve_slots_kernel", REPLACES_SPARSE),
+        ("block", "solve_block_kernel", REPLACES))]}
     report = {
         "card": card, "kernels": kernels["kernels"],
         "scheduling_basic": {
@@ -1405,7 +1700,8 @@ def main() -> None:
         "launches_by_path": LAUNCHES, "pipeline_runs": pipeline_runs,
         "churn": churn, "sustained": sustained_rows,
         "preemption": preemption, "unschedulable": unschedulable,
-        "gang": gang, "anti_affinity": anti, "block_kernel": block,
+        "gang": gang, "anti_affinity": anti, "slot_kernel": slots,
+        "wide_terms": wide,
         "scatters": scatters["scatters"],
     }
     if args.out:

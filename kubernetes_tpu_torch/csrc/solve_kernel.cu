@@ -30,9 +30,10 @@
 // width (PERF.md): the per-pod chain of barriers, shuffles and shared-memory
 // round trips, not the columns, is what remains.
 //
-// Two kernels, picked by the wrapper's launch plan (ops/solve.py,
-// plan_launch) by one size rule: the cluster kernel whenever its shared-
-// memory layout fits one block's 227 KB, the one-block kernel otherwise.
+// Three kernels, picked per batch by the wrapper's launch plan (ops/solve.py,
+// plan_launch): the cluster kernel whenever its shared-memory layout fits one
+// block's 227 KB; else the slot kernel when every pod of the batch references
+// at most 8 terms (the slot stream, ops/slots.py); else the one-block kernel.
 //
 // solve_cluster_kernel, the main path. The node axis is spread over a
 // thread-block cluster of up to 16 blocks (one per SM); block q owns columns
@@ -60,9 +61,33 @@
 // the static plane by one broadcast load, and keeps its own copy of the
 // per-term totals.
 //
+// solve_slots_kernel: the cluster kernel for wide term axes. Replaces the
+// reference's sparse scan (pallas_solver.py::_xla_planes_solve_sparse, which
+// the JAX package runs instead of its Pallas kernel when T >= 12 and the batch
+// packs into slots): each pod carries at most K = 8 term slots (index, flags:
+// matched = bit 0, own affinity = bit 1, own anti-affinity = bit 2, and its
+// preferred weight), so a pod's term work is O(K) rows, not O(T). The cluster
+// kernel's structure is kept: node axis over the cluster, each block's slice
+// of the non-term state rows and of the static rows in shared memory, pod
+// chunks double-buffered, fact lists built once a chunk (from the slot flags
+// and weights), one cluster barrier a pod (two with hard spread), local
+// commits, a per-block copy of the term totals. What changes: the term rows
+// (term_counts, term_owners, term_codes: 3*T rows, 6.1 MB at T = 100 over
+// 5,120 columns) stay in global memory, where the 50 MB L2 holds them, and a
+// pod touches them only through its slots, so shared memory does not grow
+// with T but for the totals. Block q's columns of term_counts and term_owners
+// are read and written only by block q (by the thread that owns the column),
+// so no fence across blocks is needed. Those two rows are written by the
+// kernel itself, so they are read at L2 (__ldcg), never through the
+// read-only path (__ldg may return stale data); term_codes is static. Bound,
+// as the cluster kernel, by the per-pod latency chain: the pod's L2 round
+// trips for its term rows (filter, then commit) add about 0.9 us a pod to it
+// on an H100 (PERF.md).
+//
 // solve_block_kernel: the design of the first port, one block of up to 1024
-// threads with the planes in global memory (held in L2), for the shapes
-// whose slices do not fit the cluster's shared memory.
+// threads with the planes in global memory (held in L2), for the batches the
+// other two do not take: a shape past the cluster's shared memory with a pod
+// of more than 8 term references.
 //
 // Exactness: built with --fmad=false and IEEE division; the score is summed
 // in the reference's order, and the (higher score, lower index) rule is
@@ -82,6 +107,8 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kClusterThreads = 512;
 constexpr int kMaxCluster = 16;
+constexpr int kSlots = 8;  // term slots a pod, ops/slots.py::SPARSE_K
+constexpr int kMatched = 1, kOwnAff = 2, kOwnAnti = 4;  // slot flag bits
 constexpr int kBig = 1 << 30;
 constexpr float kFoundThreshold = -5e29f;  // NEG_INF / 2
 
@@ -128,6 +155,47 @@ __host__ __device__ inline Layout cluster_layout(const Dims& d, const Plan& p) {
   w += 2 * p.chunk * d.t;
   l.facts = w;
   w += p.chunk * fact_stride(d.sc, d.t);
+  l.wmin = w;
+  w += d.sc * (p.threads / 32);
+  l.wbest = w;
+  w += 2 * (p.threads / 32);
+  l.slot_min = w;
+  w += 2 * p.cluster * d.sc;
+  l.slot_best = w;
+  w += 2 * 2 * p.cluster;
+  l.words = w;
+  return l;
+}
+
+// Int columns of a slot-stream row: base | slot index[K] | slot flags[K].
+__host__ __device__ inline int slot_width(int r, int sc) { return r + 4 + 2 * sc + 2 * kSlots; }
+
+// The slot kernel's facts: the counts, then hard, soft and domain-commit
+// constraint lists and the filter-and-commit, affinity and preference slot
+// lists.
+__host__ __device__ inline int slot_fact_stride(int sc) { return 8 + 3 * sc + 3 * kSlots; }
+
+// Shared-memory layout of the slot kernel, in 4-byte words: the cluster
+// kernel's without the term rows (ops/solve.py::slots_smem_bytes).
+__host__ __device__ inline Layout slots_layout(const Dims& d, const Plan& p) {
+  Layout l;
+  int w = 0;
+  l.state = w;
+  w += (d.r + 3 + d.sc) * p.cpb;  // requested, nonzero, pod_count, sc_counts
+  l.stat = w;
+  w += (d.r + 2 + d.sc + 2 * d.u) * p.cpb;  // alloc, max_pods, valid, sc_codes, masks, scores
+  l.score = w;
+  w += p.cpb;
+  l.totals = w;
+  w += d.t;
+  l.meta = w;
+  w += 2 * d.sc;
+  l.pod_i = w;
+  w += 2 * p.chunk * slot_width(d.r, d.sc);
+  l.pod_f = w;
+  w += 2 * p.chunk * kSlots;
+  l.facts = w;
+  w += p.chunk * slot_fact_stride(d.sc);
   l.wmin = w;
   w += d.sc * (p.threads / 32);
   l.wbest = w;
@@ -745,6 +813,365 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
   cluster_wait();
 }
 
+// ---------------------------------------------------------------------------
+// The slot kernel (see the note at the top). Pods come as the slot stream:
+// [B, R+4+2*SC+2*K] ints (base | slot index | slot flags) and [B, K] weights.
+__global__ void __launch_bounds__(kClusterThreads, 1)
+solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
+                   const float* __restrict__ pod_floats, const int* __restrict__ sta,
+                   const float* __restrict__ sta_f, int* st, int* __restrict__ assign, Dims d,
+                   Weights w, Plan pl) {
+  extern __shared__ int smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nc = pl.cluster;
+  const Layout L = slots_layout(d, pl);
+
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int r = d.r, sc = d.sc, t = d.t, u = d.u, v = d.v, n = d.n;
+  const size_t N = (size_t)n;
+  const int cpb = pl.cpb, chunk = pl.chunk;
+  const int lo = rank * cpb;
+  const int cols = max(0, min(cpb, n - lo));
+
+  // global static plane rows
+  const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
+  const int s_sc_domain = s_sc_codes + sc, s_term_codes = s_sc_domain + u * sc;
+  const int s_node_valid = s_term_codes + t;
+  // state plane rows; those before the term rows are held in shared memory
+  const int d_req = 0, d_nz = r, d_pod_count = r + 2, d_sc_counts = r + 3;
+  const int d_term_counts = d_sc_counts + sc, d_term_owners = d_term_counts + t;
+  const int d_totals = d_term_owners + t;
+  // shared static rows: alloc[R] | max_pods | node_valid | sc_codes[SC] |
+  // masks[U] | static scores[U] (f32)
+  const int a_max_pods = r, a_valid = r + 1, a_sc_codes = r + 2, a_masks = r + 2 + sc;
+  const int a_scores = a_masks + u;
+  // slot-stream columns
+  const int c_nz = r, c_profile = r + 2, c_valid = r + 3, c_pod_sc = r + 4;
+  const int c_sc_match = c_pod_sc + sc, c_idx = c_sc_match + sc, c_flags = c_idx + kSlots;
+  const int width = c_flags + kSlots;
+  const int fstride = slot_fact_stride(sc);
+
+  // this block's columns of the term rows, in global memory: row k at k * N
+  int* g_counts = st + d_term_counts * N + lo;
+  int* g_owners = st + d_term_owners * N + lo;
+  const int* g_codes = sta + s_term_codes * N + lo;
+
+  int* s_state = smem + L.state;
+  int* s_stat = smem + L.stat;
+  float* s_score = reinterpret_cast<float*>(smem + L.score);
+  int* totals = smem + L.totals;
+  int* meta = smem + L.meta;
+  int* pod_i = smem + L.pod_i;
+  float* pod_f = reinterpret_cast<float*>(smem + L.pod_f);
+  int* facts = smem + L.facts;
+  int* wmin = smem + L.wmin;
+  float* wbest_s = reinterpret_cast<float*>(smem + L.wbest);
+  int* wbest_j = smem + L.wbest + nwarps;
+  int* slot_min = smem + L.slot_min;  // [2][cluster][SC]
+  float* slot_s = reinterpret_cast<float*>(smem + L.slot_best);  // [2][cluster]
+  int* slot_j = smem + L.slot_best + 2 * nc;                    // [2][cluster]
+
+  // the block's slice of the non-term planes, once
+  for (int row = 0; row < d_term_counts; ++row)
+    for (int c = tid; c < cols; c += nt)
+      cp_async4(s_state + row * cpb + c, st + row * N + lo + c);
+  for (int row = 0; row < a_scores; ++row) {
+    const int g = row < a_max_pods    ? s_alloc + row
+                  : row == a_max_pods ? s_max_pods
+                  : row == a_valid    ? s_node_valid
+                  : row < a_masks     ? s_sc_codes + (row - a_sc_codes)
+                                      : s_masks + (row - a_masks);
+    for (int c = tid; c < cols; c += nt) cp_async4(s_stat + row * cpb + c, sta + g * N + lo + c);
+  }
+  for (int k = 0; k < u; ++k)
+    for (int c = tid; c < cols; c += nt)
+      cp_async4(s_stat + (a_scores + k) * cpb + c, sta_f + k * N + lo + c);
+  cp_async_commit();
+  for (int k = tid; k < t; k += nt) totals[k] = st[d_totals * N + k];
+  for (int k = tid; k < 2 * sc; k += nt) meta[k] = sc_meta[k];
+
+  const int nchunks = (d.b + chunk - 1) / chunk;
+  auto fetch = [&](int ch) {
+    const int p0 = ch * chunk, np = min(chunk, d.b - p0), buf = ch & 1;
+    int* di = pod_i + buf * chunk * width;
+    const int* si = pod_ints + (size_t)p0 * width;
+    for (int i = tid; i < np * width; i += nt) cp_async4(di + i, si + i);
+    float* df = pod_f + buf * chunk * kSlots;
+    const float* sf = pod_floats + (size_t)p0 * kSlots;
+    for (int i = tid; i < np * kSlots; i += nt) cp_async4(df + i, sf + i);
+  };
+  if (nchunks > 0) fetch(0);
+  cp_async_commit();
+
+  // every block of the cluster is running before any slot is written
+  cluster_arrive();
+  cluster_wait();
+
+  int par_min = 0, par_best = 0;
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) fetch(ch + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // the slice and this chunk have landed
+    __syncthreads();
+    const int p0 = ch * chunk, np = min(chunk, d.b - p0), buf = ch & 1;
+    const int* rows = pod_i + buf * chunk * width;
+    const float* frows = pod_f + buf * chunk * kSlots;
+
+    // each pod's uniform facts, once. An inactive slot (index 0, flags 0,
+    // weight 0.0) enters no list: its flags and weight say so, not its
+    // index, which is also a real term's.
+    for (int i = tid; i < np; i += nt) {
+      const int* row = rows + i * width;
+      const float* wrow = frows + i * kSlots;
+      int* f = facts + i * fstride;
+      int* hard = f + kHead;
+      int* soft = hard + sc;
+      int* scc = soft + sc;
+      int* tf = scc + sc;
+      int* aff = tf + kSlots;
+      int* pref = aff + kSlots;
+      int nh = 0, ns = 0, nscc = 0, ntf = 0, naff = 0, npref = 0, self_all = 1;
+      for (int k = 0; k < sc; ++k) {
+        if (row[c_pod_sc + k] > 0) {
+          if (meta[sc + k] > 0)
+            hard[nh++] = k;
+          else
+            soft[ns++] = k;
+        }
+        if (row[c_sc_match + k] != 0) scc[nscc++] = k;
+      }
+      for (int s = 0; s < kSlots; ++s) {  // slots are in term order
+        const int fl = row[c_flags + s];
+        if (fl & (kMatched | kOwnAnti)) tf[ntf++] = s;
+        if (fl & kOwnAff) {
+          aff[naff++] = s;
+          self_all = self_all && (fl & kMatched);
+        }
+        if (wrow[s] != 0.0f) pref[npref++] = s;
+      }
+      f[kNHard] = nh;
+      f[kNSoft] = ns;
+      f[kNScc] = nscc;
+      f[kNTf] = ntf;
+      f[kNAff] = naff;
+      f[kNPref] = npref;
+      f[kSelfAll] = self_all;
+    }
+    __syncthreads();
+
+    for (int i = 0; i < np; ++i) {
+      const int p = p0 + i;
+      const int* row = rows + i * width;
+      const float* wrow = frows + i * kSlots;
+      if (row[c_valid] <= 0) {  // padding or inexpressible: no node, no commit
+        if (rank == 0 && tid == 0) assign[p] = -1;
+        continue;
+      }
+      const int* f = facts + i * fstride;
+      const int nh = f[kNHard], ns = f[kNSoft], nscc = f[kNScc], ntf = f[kNTf];
+      const int naff = f[kNAff], npref = f[kNPref];
+      const int* hard = f + kHead;
+      const int* soft = hard + sc;
+      const int* scc = soft + sc;
+      const int* tf = scc + sc;
+      const int* aff = tf + kSlots;
+      const int* pref = aff + kSlots;
+      const int* idx = row + c_idx;
+      const int* flags = row + c_flags;
+      const int profile = row[c_profile];
+      const int* mask_row = s_stat + (a_masks + profile) * cpb;
+      const float* static_row = reinterpret_cast<const float*>(s_stat + (a_scores + profile) * cpb);
+
+      // hard spread: this block's domain minima of every active constraint,
+      // published to every block; the barrier's wait comes after the filter
+      if (nh > 0) {
+        for (int h = 0; h < nh; ++h) {
+          const int k = hard[h];
+          const int* dom = sta + (s_sc_domain + profile * sc + k) * N + lo;
+          const int* counts = s_state + (d_sc_counts + k) * cpb;
+          int m = kBig;
+          for (int c = tid; c < cols; c += nt)
+            if (__ldg(dom + c) > 0) m = min(m, counts[c]);
+          m = warp_min(m);
+          if (lane == 0) wmin[h * nwarps + warp] = m;
+        }
+        __syncthreads();
+        for (int h = tid; h < nh; h += nt) {
+          int m = kBig;
+          for (int q = 0; q < nwarps; ++q) m = min(m, wmin[h * nwarps + q]);
+          int* slot = slot_min + (par_min * nc + rank) * sc + h;
+          for (int q = 0; q < nc; ++q) *cluster.map_shared_rank(slot, q) = m;
+        }
+        cluster_arrive();
+      }
+      // required affinity: the first pod of a group passes anywhere when no
+      // pod matches any of its terms yet and it matches all of them itself
+      bool need_aff = false;
+      if (naff > 0) {
+        if (nh == 0) __syncthreads();  // thread 0's totals of the last commit
+        bool no_any = true;
+        for (int x = 0; x < naff; ++x) no_any = no_any && totals[idx[aff[x]]] == 0;
+        need_aff = !(no_any && f[kSelfAll]);
+      }
+
+      // filter (all but the skew check) and score; -inf marks infeasible.
+      // The term rows are read at L2, only at this block's columns.
+      for (int c = tid; c < cols; c += nt) {
+        bool ok = (s_stat[a_valid * cpb + c] > 0) &
+                  (s_state[d_pod_count * cpb + c] < s_stat[a_max_pods * cpb + c]) &
+                  (mask_row[c] > 0);
+        for (int k = 0; k < r; ++k)
+          ok = ok & (s_state[(d_req + k) * cpb + c] + row[k] <= s_stat[k * cpb + c]);
+        for (int x = 0; x < ntf; ++x) {
+          const int s = tf[x];
+          const size_t at = (size_t)idx[s] * N + c;
+          const int owners = (flags[s] & kMatched) ? __ldcg(g_owners + at) : 0;
+          const int counts = (flags[s] & kOwnAnti) ? __ldcg(g_counts + at) : 0;
+          ok = ok & (owners <= 0) & (counts <= 0);
+        }
+        for (int x = 0; need_aff && x < naff; ++x) {
+          const size_t at = (size_t)idx[aff[x]] * N + c;
+          ok = ok & (__ldcg(g_counts + at) > 0) & (__ldg(g_codes + at) < v);
+        }
+        for (int h = 0; h < nh; ++h) ok = ok & (s_stat[(a_sc_codes + hard[h]) * cpb + c] < v);
+        const float alloc_cpu = (float)max(s_stat[c], 1);
+        const float alloc_mem = (float)max(s_stat[cpb + c], 1);
+        const float cpu = (float)(s_state[d_nz * cpb + c] + row[c_nz]) / alloc_cpu;
+        const float mem = (float)(s_state[(d_nz + 1) * cpb + c] + row[c_nz + 1]) / alloc_mem;
+        const bool over = cpu >= 1.0f || mem >= 1.0f;
+        const float balanced = over ? 0.0f : (1.0f - fabsf(cpu - mem)) * 100.0f;
+        const float least =
+            (fminf(fmaxf(1.0f - cpu, 0.0f), 1.0f) + fminf(fmaxf(1.0f - mem, 0.0f), 1.0f)) * 50.0f;
+        float spread = 0.0f;
+        if (ns > 0) {
+          float soft_sum = 0.0f;
+          for (int x = 0; x < ns; ++x)
+            soft_sum += (float)s_state[(d_sc_counts + soft[x]) * cpb + c];
+          spread = 100.0f / (1.0f + soft_sum);
+        }
+        // the slots with a weight, in term order from 0.0 as solve_plain
+        // sums them; the reference's sum over all K slots also adds +0.0
+        // for the others, which changes no value, so skipping them is exact
+        float pref_sum = 0.0f;
+        for (int x = 0; x < npref; ++x) {
+          const int s = pref[x];
+          pref_sum += wrow[s] * (float)__ldcg(g_counts + (size_t)idx[s] * N + c);
+        }
+        float s = w.balanced * balanced;
+        s = s + w.least * least;
+        s = s + w.spread * spread;
+        s = s + w.affinity * pref_sum;
+        s = s + w.stat * static_row[c];
+        s_score[c] = ok ? s : -INFINITY;
+      }
+
+      // the skew check against the cluster's minima, and this block's best
+      if (nh > 0) cluster_wait();
+      const int* mins = slot_min + par_min * nc * sc;
+      float best_s = -INFINITY;
+      int best_j = INT_MAX;
+      for (int c = tid; c < cols; c += nt) {
+        const float s = s_score[c];
+        if (s == -INFINITY) continue;
+        bool ok = true;
+        for (int h = 0; ok && h < nh; ++h) {
+          const int k = hard[h];
+          int m = kBig;
+          for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
+          m = m < kBig ? m : 0;  // 0 when the profile has no eligible domain
+          ok = s_state[(d_sc_counts + k) * cpb + c] + row[c_sc_match + k] - m <= meta[k];
+        }
+        if (ok) better(best_s, best_j, s, lo + c);
+      }
+      warp_best(best_s, best_j);
+      if (lane == 0) {
+        wbest_s[warp] = best_s;
+        wbest_j[warp] = best_j;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float s = -INFINITY;
+        int j = INT_MAX;
+        if (lane < nwarps) {
+          s = wbest_s[lane];
+          j = wbest_j[lane];
+        }
+        warp_best(s, j);
+        s = __shfl_sync(0xffffffffu, s, 0);
+        j = __shfl_sync(0xffffffffu, j, 0);
+        if (lane < nc) {
+          *cluster.map_shared_rank(slot_s + par_best * nc + rank, lane) = s;
+          *cluster.map_shared_rank(slot_j + par_best * nc + rank, lane) = j;
+        }
+      }
+      cluster_arrive();
+      cluster_wait();
+      best_s = -INFINITY;
+      best_j = INT_MAX;
+      for (int q = 0; q < nc; ++q) better(best_s, best_j, slot_s[par_best * nc + q], slot_j[par_best * nc + q]);
+      par_best ^= 1;
+      if (nh > 0) par_min ^= 1;
+      if (best_j == INT_MAX || !(best_s > kFoundThreshold)) {
+        if (rank == 0 && tid == 0) assign[p] = -1;
+        continue;  // uniform: every block reduced the same candidates
+      }
+
+      // commit to node jc, each block on its own columns
+      const int jc = best_j, cj = jc - lo;
+      if (cj >= 0 && cj < cols && cj % nt == tid) {
+        for (int k = 0; k < r; ++k) s_state[(d_req + k) * cpb + cj] += row[k];
+        s_state[d_nz * cpb + cj] += row[c_nz];
+        s_state[(d_nz + 1) * cpb + cj] += row[c_nz + 1];
+        s_state[d_pod_count * cpb + cj] += 1;
+      }
+      for (int x = 0; x < nscc; ++x) {
+        const int k = scc[x];
+        const int inc = row[c_sc_match + k];
+        const int code_j = __ldg(sta + (s_sc_codes + k) * N + jc);
+        const int* codes = s_stat + (a_sc_codes + k) * cpb;
+        int* counts = s_state + (d_sc_counts + k) * cpb;
+        for (int c = tid; c < cols; c += nt)
+          if (codes[c] == code_j) counts[c] += inc;
+      }
+      // the term step: slots with the matched or own-anti bit, at L2
+      for (int x = 0; x < ntf; ++x) {
+        const int s = tf[x], k = idx[s];
+        const int matched = flags[s] & kMatched, anti = (flags[s] & kOwnAnti) ? 1 : 0;
+        const int code_j = __ldg(sta + (s_term_codes + k) * N + jc);
+        const int* codes = g_codes + (size_t)k * N;
+        int* counts = g_counts + (size_t)k * N;
+        int* owners = g_owners + (size_t)k * N;
+        for (int c = tid; c < cols; c += nt) {
+          if (__ldg(codes + c) != code_j) continue;
+          if (matched) __stcg(counts + c, __ldcg(counts + c) + 1);
+          if (anti) __stcg(owners + c, __ldcg(owners + c) + 1);
+        }
+        if (tid == 0 && code_j < v) totals[k] += matched;
+      }
+      if (rank == 0 && tid == 0) assign[p] = jc;
+    }
+    __syncthreads();  // the chunk's buffers are free for the next fetch
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int row = 0; row < d_term_counts; ++row)
+    for (int c = tid; c < cols; c += nt) st[row * N + lo + c] = s_state[row * cpb + c];
+  for (int c = tid; c < cols; c += nt) {
+    const int j = lo + c;
+    st[d_totals * N + j] = j < t ? totals[j] : 0;
+  }
+  // no block leaves while another may still address its shared memory
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The two cluster kernels share one signature.
+using ClusterKernel = void (*)(const int*, const int*, const float*, const int*, const float*,
+                               int*, int*, Dims, Weights, Plan);
+
 cudaLaunchConfig_t cluster_config(int cluster, int threads, int smem_bytes, cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -761,13 +1188,41 @@ cudaLaunchConfig_t cluster_config(int cluster, int threads, int smem_bytes, cuda
   return cfg;
 }
 
-cudaError_t set_cluster_attributes(int cluster, int smem_bytes) {
-  cudaError_t e = cudaFuncSetAttribute(solve_cluster_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+cudaError_t set_cluster_attributes(ClusterKernel fn, int cluster, int smem_bytes) {
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e == cudaSuccess && cluster > 8)
-    e = cudaFuncSetAttribute(solve_cluster_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
+}
+
+int max_active(ClusterKernel fn, int cluster, int threads, int smem_bytes) {
+  cudaError_t e = set_cluster_attributes(fn, cluster, smem_bytes);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(cluster, threads, smem_bytes, 0, &attr);
+  int count = 0;
+  e = cudaOccupancyMaxActiveClusters(&count, fn, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return count;
+}
+
+int launch_cluster(ClusterKernel fn, int layout_words, const int* sc_meta, const int* pod_ints,
+                   const float* pod_floats, const int* static_ints, const float* static_f32s,
+                   int* state, int* assign, Dims d, Plan p, int smem_bytes, Weights w,
+                   void* stream) {
+  if (p.cluster < 1 || p.cluster > kMaxCluster || p.threads < 32 || p.threads % 32 != 0 ||
+      p.threads > kClusterThreads || p.chunk < 1 || (long)p.cluster * p.cpb < d.n ||
+      layout_words * (int)sizeof(int) != smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_cluster_attributes(fn, p.cluster, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      cluster_config(p.cluster, p.threads, smem_bytes, static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, fn, sc_meta, pod_ints, pod_floats, static_ints, static_f32s, state,
+                         assign, d, w, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -780,17 +1235,23 @@ extern "C" int ktt_cluster_smem_bytes(int r, int sc, int t, int u, int cluster, 
   return cluster_layout(d, p).words * (int)sizeof(int);
 }
 
+// Shared-memory bytes of the slot kernel for a plan.
+extern "C" int ktt_slots_smem_bytes(int r, int sc, int t, int u, int cluster, int threads, int cpb,
+                                    int chunk) {
+  Dims d{r, sc, t, u, 0, 0, 0};
+  Plan p{cluster, threads, cpb, chunk};
+  return slots_layout(d, p).words * (int)sizeof(int);
+}
+
 // How many clusters of this shape the card can hold at once (0: none, so
 // the shape cannot launch); a negative value is a CUDA error.
 extern "C" int ktt_cluster_max_active(int cluster, int threads, int smem_bytes) {
-  cudaError_t e = set_cluster_attributes(cluster, smem_bytes);
-  if (e != cudaSuccess) return -(int)e;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(cluster, threads, smem_bytes, 0, &attr);
-  int count = 0;
-  e = cudaOccupancyMaxActiveClusters(&count, solve_cluster_kernel, &cfg);
-  if (e != cudaSuccess) return -(int)e;
-  return count;
+  return max_active(solve_cluster_kernel, cluster, threads, smem_bytes);
+}
+
+// The same for the slot kernel.
+extern "C" int ktt_slots_max_active(int cluster, int threads, int smem_bytes) {
+  return max_active(solve_slots_kernel, cluster, threads, smem_bytes);
 }
 
 // Launch the cluster solve on `stream`: one cluster of `cluster` blocks,
@@ -805,20 +1266,25 @@ extern "C" int ktt_solve_cluster_launch(const int* sc_meta, const int* pod_ints,
                                         float affinity_w, float static_w, void* stream) {
   Dims d{r, sc, t, u, v, n, b};
   Plan p{cluster, threads, cpb, chunk};
-  if (cluster < 1 || cluster > kMaxCluster || threads < 32 || threads % 32 != 0 ||
-      threads > kClusterThreads || chunk < 1 || (long)cluster * cpb < n ||
-      cluster_layout(d, p).words * (int)sizeof(int) != smem_bytes)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_cluster_attributes(cluster, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      cluster_config(cluster, threads, smem_bytes, static_cast<cudaStream_t>(stream), &attr);
-  Weights w{balanced_w, least_w, spread_w, affinity_w, static_w};
-  e = cudaLaunchKernelEx(&cfg, solve_cluster_kernel, sc_meta, pod_ints, pod_floats, static_ints,
-                         static_f32s, state, assign, d, w, p);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_cluster(solve_cluster_kernel, cluster_layout(d, p).words, sc_meta, pod_ints,
+                        pod_floats, static_ints, static_f32s, state, assign, d, p, smem_bytes,
+                        Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream);
+}
+
+// Launch the slot solve on `stream` with the slot stream as the pod rows
+// ([B, R+4+2*SC+2*K] ints, [B, K] weights); otherwise as the cluster solve.
+extern "C" int ktt_solve_slots_launch(const int* sc_meta, const int* pod_ints,
+                                      const float* pod_floats, const int* static_ints,
+                                      const float* static_f32s, int* state, int* assign, int r,
+                                      int sc, int t, int u, int v, int n, int b, int cluster,
+                                      int threads, int cpb, int chunk, int smem_bytes,
+                                      float balanced_w, float least_w, float spread_w,
+                                      float affinity_w, float static_w, void* stream) {
+  Dims d{r, sc, t, u, v, n, b};
+  Plan p{cluster, threads, cpb, chunk};
+  return launch_cluster(solve_slots_kernel, slots_layout(d, p).words, sc_meta, pod_ints,
+                        pod_floats, static_ints, static_f32s, state, assign, d, p, smem_bytes,
+                        Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream);
 }
 
 // Launch the one-block solve on `stream`, planes updated in place. Returns

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.ops.planes import PStatic, state_planes, static_planes
+from kubernetes_tpu_torch.ops.slots import SPARSE_K
 
 
 def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
@@ -86,3 +87,41 @@ def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
                       torch.from_numpy(sc_meta), r, sc, t, u, v)
     return (pstatic, torch.from_numpy(state), torch.from_numpy(pod_ints),
             torch.from_numpy(pod_floats))
+
+
+def random_slot_planes(seed: int, n: int, b: int, t: int, r: int = 3,
+                       sc: int = 1, u: int = 1, v: int = 10,
+                       real: int = None) -> Tuple[PStatic, torch.Tensor,
+                                                  torch.Tensor, torch.Tensor]:
+    """``random_planes`` with each pod referencing at most ``SPARSE_K``
+    of the ``t`` terms, so the batch packs into slots: matched, required
+    affinity or anti-affinity and preferred weights of either sign,
+    several a pod. The first two terms start with no pod matching them,
+    and every eighth pod requires affinity to one of them and matches it:
+    the first such pod of a group passes anywhere (the first-pod rule),
+    the next ones must join its domain."""
+    ps, state, ints, floats = random_planes(seed, n, b, r=r, sc=sc, t=t,
+                                            u=u, v=v, real=real)
+    rng = np.random.default_rng(seed + 7919)
+    groups = 2
+    do, _ = state_planes(r, sc, t)
+    state[do["term_counts"]:do["term_counts"] + groups] = 0
+    state[do["totals"], :groups] = 0
+    c = r + 4 + 2 * sc
+    mb, oa, oan = (ints[:, c + i * t:c + (i + 1) * t] for i in range(3))
+    ints[:, c:] = 0
+    floats[:] = 0
+    weights = np.array([-5, -3, -1, 1, 2, 4, 7], dtype=np.float32)
+    for i in range(b):
+        if i % 8 == 0:
+            k = int(rng.integers(groups))
+            mb[i, k] = oa[i, k] = 1
+            continue
+        for k in rng.choice(t, int(rng.integers(0, SPARSE_K + 1)),
+                            replace=False):
+            mb[i, k] = rng.random() < 0.5
+            oa[i, k] = rng.random() < 0.1
+            oan[i, k] = rng.random() < 0.15
+            if rng.random() < 0.6 or not (mb[i, k] | oa[i, k] | oan[i, k]):
+                floats[i, k] = float(rng.choice(weights))
+    return ps, state, ints, floats

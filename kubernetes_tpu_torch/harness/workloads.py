@@ -121,6 +121,64 @@ def scheduling_pod_anti_affinity(nodes: int, init_pods: int,
     ]
 
 
+def scheduling_pod_affinity(nodes: int, init_pods: int, measure_pods: int
+                            ) -> List[dict]:
+    """Pods in 50 groups (the init pods too); each measured pod requires
+    affinity to its own group over zones (T = 50 tracked terms)."""
+    def pod(i):
+        p = basic_pod(i, labels={"group": f"g{i % 50}"})
+        p["spec"].update(_affinity("podAffinity", "group", [f"g{i % 50}"],
+                                   "topology.kubernetes.io/zone"))
+        return p
+
+    return [
+        _nodes_op(nodes),
+        _pods_op(init_pods,
+                 lambda i: basic_pod(i, labels={"group": f"g{i % 50}"})),
+        _barrier(),
+        _pods_op(measure_pods, pod, collect=True, offset=init_pods),
+    ]
+
+
+def scheduling_preferred_pod_affinity(nodes: int, init_pods: int,
+                                      measure_pods: int) -> List[dict]:
+    """Pods in 50 groups; each measured pod prefers (weight 10) a node
+    holding its own group (T = 50)."""
+    def pod(i):
+        p = basic_pod(i, labels={"group": f"g{i % 50}"})
+        p["spec"].update(_affinity("podAffinity", "group", [f"g{i % 50}"],
+                                   "kubernetes.io/hostname", weight=10))
+        return p
+
+    return [
+        _nodes_op(nodes),
+        _pods_op(init_pods,
+                 lambda i: basic_pod(i, labels={"group": f"g{i % 50}"})),
+        _barrier(),
+        _pods_op(measure_pods, pod, collect=True, offset=init_pods),
+    ]
+
+
+def scheduling_preferred_anti_affinity(nodes: int, init_pods: int,
+                                       measure_pods: int) -> List[dict]:
+    """Pods in 100 colours; each measured pod prefers (weight 10, a
+    negative preferred weight) a node without its own colour (T = 100)."""
+    def pod(i):
+        p = basic_pod(i, labels={"color": f"c{i % 100}"})
+        p["spec"].update(_affinity("podAntiAffinity", "color",
+                                   [f"c{i % 100}"], "kubernetes.io/hostname",
+                                   weight=10))
+        return p
+
+    return [
+        _nodes_op(nodes),
+        _pods_op(init_pods,
+                 lambda i: basic_pod(i, labels={"color": f"c{i % 100}"})),
+        _barrier(),
+        _pods_op(measure_pods, pod, collect=True, offset=init_pods),
+    ]
+
+
 def gang_scheduling(nodes: int, init_pods: int, measure_pods: int,
                     gang_size: int = 10) -> List[dict]:
     """Measured pods in coscheduling gangs of ``gang_size`` (each binds
@@ -223,6 +281,9 @@ def unschedulable(nodes: int, init_pods: int, measure_pods: int
 WORKLOADS = {
     "SchedulingBasic": scheduling_basic,
     "SchedulingPodAntiAffinity": scheduling_pod_anti_affinity,
+    "SchedulingPodAffinity": scheduling_pod_affinity,
+    "SchedulingPreferredPodAffinity": scheduling_preferred_pod_affinity,
+    "SchedulingPreferredPodAntiAffinity": scheduling_preferred_anti_affinity,
     "TopologySpreading": topology_spreading,
     "Preemption": preemption,
     "Unschedulable": unschedulable,

@@ -8,11 +8,16 @@ the state planes in place (the state carried to the next batch) and
 return the assignment of each pod row, -1 where no node is feasible or
 the row is padding.
 
-Two kernels run on the card, and ``plan_launch`` picks one by a size
-rule: the cluster kernel (the node axis over a thread-block cluster, each
-block's slice of the planes in its shared memory) whenever that layout
-fits one block's shared memory, the one-block kernel (planes in global
-memory) for wider shapes.
+Three kernels run on the card, and ``plan_launch`` picks one for each
+batch: the cluster kernel (the node axis over a thread-block cluster,
+each block's slice of the planes in its shared memory) whenever that
+layout fits one block's shared memory; else, when every pod of the batch
+references at most ``SPARSE_K`` terms, the slot kernel (the same cluster
+design over the slot stream of ``ops/slots.py``, the term rows in global
+memory); else the one-block kernel (planes in global memory). The
+backend packs the slot stream (``solve_slots``) only for batches of at
+least ``SPARSE_MIN_T`` terms that the cluster kernel does not take, as
+the reference routes its sparse scan.
 
 Float scores are computed in the same order, with the same f32
 operations, as the reference solve, so assignments agree exactly:
@@ -42,6 +47,13 @@ from kubernetes_tpu_torch.ops.planes import (
     state_planes,
     static_planes,
 )
+from kubernetes_tpu_torch.ops.slots import (
+    SPARSE_K,
+    SPARSE_MIN_T,
+    slot_refs,
+    slot_stream,
+    slot_width,
+)
 from kubernetes_tpu_torch.ops.solver import BIG, NEG_INF, SolverParams
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -65,12 +77,12 @@ class LaunchPlan(NamedTuple):
     """How a solve launches: which kernel, its cluster size, threads per
     block, node columns per block and shared-memory bytes per block."""
 
-    kernel: str             # "cluster" or "block"
+    kernel: str             # "cluster", "slots" or "block"
     cluster: int
     threads: int
     cols_per_block: int
     smem_bytes: int
-    chunk: int              # pod rows staged at a time (cluster kernel)
+    chunk: int              # pod rows staged at a time (cluster kernels)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,6 +102,21 @@ def cluster_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
     rows = (r + 3 + sc + 2 * t) + (r + 2 + sc + t + 2 * u) + 1
     words = (rows * cols_per_block + t + 2 * sc
              + 2 * chunk * (width + t) + chunk * (8 + 3 * sc + 4 * t)
+             + (sc + 2) * (threads // 32) + 2 * cluster * (sc + 2))
+    return 4 * words
+
+
+def slots_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
+                     threads: int, cols_per_block: int, chunk: int) -> int:
+    """Shared memory of one block of the slot kernel, as its layout
+    (``slots_layout`` in the source) lays it out: the cluster kernel's
+    without the term rows (they stay in global memory) and with slot-
+    stream pod chunks (``R+4+2*SC+2*K`` ints and ``K`` weights a pod) and
+    slot fact lists. Only the totals grow with T, one word a term."""
+    rows = (r + 3 + sc) + (r + 2 + sc + 2 * u) + 1
+    words = (rows * cols_per_block + t + 2 * sc
+             + 2 * chunk * (slot_width(r, sc) + SPARSE_K)
+             + chunk * (8 + 3 * sc + 3 * SPARSE_K)
              + (sc + 2) * (threads // 32) + 2 * cluster * (sc + 2))
     return 4 * words
 
@@ -114,14 +141,31 @@ def cluster_candidate(n: int, r: int, sc: int, t: int, u: int,
     return LaunchPlan("cluster", cluster, threads, cols, smem, POD_CHUNK)
 
 
+def slots_candidate(n: int, r: int, sc: int, t: int, u: int,
+                    max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
+    """The slot kernel's launch over ``n`` node columns, whether or not
+    it fits: the cluster kernel's cut of the node axis."""
+    c = cluster_candidate(n, r, sc, t, u, max_cluster)
+    smem = slots_smem_bytes(r, sc, t, u, c.cluster, c.threads,
+                            c.cols_per_block, c.chunk)
+    return c._replace(kernel="slots", smem_bytes=smem)
+
+
 def plan_launch(n: int, r: int, sc: int, t: int, u: int,
-                max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
-    """The launch of a solve over ``n`` node columns: the cluster kernel
-    (``cluster_candidate``) when one block's shared memory holds its
-    slice (``cluster_smem_bytes`` <= 227 KB), and the one-block kernel
-    otherwise."""
+                max_cluster: int = MAX_CLUSTER, packs: bool = False
+                ) -> LaunchPlan:
+    """The launch of a solve over ``n`` node columns, the first that fits
+    one block's shared memory (227 KB): the cluster kernel
+    (``cluster_candidate``); the slot kernel (``slots_candidate``) when
+    the batch ``packs`` into slots; the one-block kernel."""
     plan = cluster_candidate(n, r, sc, t, u, max_cluster)
-    return plan if plan.smem_bytes <= SMEM_LIMIT else block_plan(n, sc, t)
+    if plan.smem_bytes <= SMEM_LIMIT:
+        return plan
+    if packs:
+        plan = slots_candidate(n, r, sc, t, u, max_cluster)
+        if plan.smem_bytes <= SMEM_LIMIT:
+            return plan
+    return block_plan(n, sc, t)
 
 
 def _pod_columns(r: int, sc: int, t: int) -> dict:
@@ -140,6 +184,37 @@ def solve_plain(params: SolverParams, ps: PStatic, state: torch.Tensor,
     """The solve as a per-pod loop of tensor operations, on any device.
     Per-pod flags are read on the host, so terms and constraints a pod
     does not use are skipped (adding zero changes nothing)."""
+    r, scn, tn = ps.r, ps.sc, ps.t
+    c = _pod_columns(r, scn, tn)
+    mb, oa, oan = c["match_by"], c["own_aff"], c["own_anti"]
+    pods = []
+    for row, wrow in zip(pod_ints.tolist(), pod_floats.tolist()):
+        pods.append((row, [
+            (k, row[mb + k], row[oa + k], row[oan + k], wrow[k])
+            for k in range(tn)
+            if row[mb + k] or row[oa + k] or row[oan + k] or wrow[k] != 0.0]))
+    return _solve_pods(params, ps, state, pods)
+
+
+def solve_plain_slots(params: SolverParams, ps: PStatic, state: torch.Tensor,
+                      slot_ints: torch.Tensor, slot_floats: torch.Tensor
+                      ) -> torch.Tensor:
+    """``solve_plain`` over the slot stream (``ops/slots.py``): each pod's
+    terms are its active slots, in term order. The same function as
+    ``solve_plain`` on the dense stream the slots were packed from, and
+    as the reference's sparse scan (``_xla_planes_solve_sparse``), whose
+    sum over all K slots adds only +0.0 for inactive ones."""
+    pods = [(row, slot_refs(row, wrow, ps.r, ps.sc))
+            for row, wrow in zip(slot_ints.tolist(), slot_floats.tolist())]
+    return _solve_pods(params, ps, state, pods)
+
+
+def _solve_pods(params: SolverParams, ps: PStatic, state: torch.Tensor,
+                pods: list) -> torch.Tensor:
+    """The per-pod loop of ``solve_plain``: ``pods`` holds each pod's
+    base row (the pod stream's columns before the terms) and its term
+    references (term, matched, own affinity, own anti-affinity, weight)
+    in term order."""
     r, scn, tn, v = ps.r, ps.sc, ps.t, ps.v
     so, _ = static_planes(r, scn, tn, ps.u)
     do, _ = state_planes(r, scn, tn)
@@ -161,10 +236,8 @@ def solve_plain(params: SolverParams, ps: PStatic, state: torch.Tensor,
     max_skew = ps.sc_meta[0].tolist()
     hard = (ps.sc_meta[1] > 0).tolist()
     totals = state[do["totals"], :tn].tolist()
-    rows = pod_ints.tolist()
-    weights = pod_floats.tolist()
     out = []
-    for row, wrow in zip(rows, weights):
+    for row, refs in pods:
         if row[c["valid"]] <= 0:
             out.append(-1)
             continue
@@ -183,19 +256,18 @@ def solve_plain(params: SolverParams, ps: PStatic, state: torch.Tensor,
                 skew = counts + row[c["sc_match"] + sci] - min_c
                 feasible &= (sc_codes[sci] < v) & (skew <= max_skew[sci])
         has_aff, no_any, self_all = False, True, True
-        for ti in range(tn):
-            matched = row[c["match_by"] + ti] > 0
-            if matched:
+        for ti, matched, aff, anti, _ in refs:
+            if matched > 0:
                 feasible &= state[do["term_owners"] + ti] <= 0
-            if row[c["own_anti"] + ti] > 0:
+            if anti > 0:
                 feasible &= state[do["term_counts"] + ti] <= 0
-            if row[c["own_aff"] + ti] > 0:
+            if aff > 0:
                 has_aff = True
                 no_any &= totals[ti] == 0
-                self_all &= matched
+                self_all &= matched > 0
         if has_aff and not (no_any and self_all):
-            for ti in range(tn):
-                if row[c["own_aff"] + ti] > 0:
+            for ti, _, aff, _, _ in refs:
+                if aff > 0:
                     feasible &= (state[do["term_counts"] + ti] > 0) \
                         & t_real[ti]
         # ---- scores
@@ -221,10 +293,9 @@ def solve_plain(params: SolverParams, ps: PStatic, state: torch.Tensor,
         else:
             spread = torch.zeros(n, dtype=torch.float32, device=dev)
         pref = torch.zeros(n, dtype=torch.float32, device=dev)
-        for ti in range(tn):
-            if wrow[ti] != 0.0:
-                pref += wrow[ti] * state[do["term_counts"] + ti].to(
-                    torch.float32)
+        for ti, _, _, _, w in refs:
+            if w != 0.0:
+                pref += w * state[do["term_counts"] + ti].to(torch.float32)
         score = (bw * balanced + lw * least + sw * spread + aw * pref
                  + stw * ps.f32s[profile])
         score = torch.where(feasible, score, NEG_INF)
@@ -247,9 +318,7 @@ def solve_plain(params: SolverParams, ps: PStatic, state: torch.Tensor,
             if inc:
                 same = sc_codes[sci] == sc_codes[sci, chosen]
                 state[do["sc_counts"] + sci] += same.to(torch.int32) * inc
-        for ti in range(tn):
-            matched = row[c["match_by"] + ti]
-            anti = row[c["own_anti"] + ti]
+        for ti, matched, _, anti, _ in refs:
             if not (matched or anti):
                 continue
             code_j = int(term_codes[ti, chosen])
@@ -302,12 +371,12 @@ def ptxas_report_path(lib: Path) -> Path:
 
 class SolveKernel:
     """ctypes binding of the CUDA solve kernels. ``counts`` holds the
-    launches this wrapper made of each kernel ("cluster", "block");
-    ``launches`` is their sum. The library is built and loaded on the
-    first launch."""
+    launches this wrapper made of each kernel ("cluster", "slots",
+    "block"); ``launches`` is their sum. The library is built and loaded
+    on the first launch."""
 
     def __init__(self):
-        self.counts = {"cluster": 0, "block": 0}
+        self.counts = {"cluster": 0, "slots": 0, "block": 0}
         self._lib = None
         self._lock = threading.Lock()
         self._plans = {}
@@ -325,37 +394,45 @@ class SolveKernel:
             if self._lib is None:
                 lib = ctypes.CDLL(str(build_kernel()))
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-                lib.ktt_solve_cluster_launch.argtypes = (
-                    [p] * 7 + [i] * 12 + [f] * 5 + [p])
+                for name in ("cluster", "slots"):
+                    getattr(lib, f"ktt_solve_{name}_launch").argtypes = (
+                        [p] * 7 + [i] * 12 + [f] * 5 + [p])
+                    getattr(lib, f"ktt_{name}_max_active").argtypes = [i] * 3
+                    getattr(lib, f"ktt_{name}_smem_bytes").argtypes = [i] * 8
                 lib.ktt_solve_block_launch.argtypes = (
                     [p] * 7 + [i] * 9 + [f] * 5 + [p])
-                lib.ktt_cluster_max_active.argtypes = [i] * 3
-                lib.ktt_cluster_smem_bytes.argtypes = [i] * 8
-                for fn in (lib.ktt_solve_cluster_launch,
-                           lib.ktt_solve_block_launch,
-                           lib.ktt_cluster_max_active,
-                           lib.ktt_cluster_smem_bytes):
-                    fn.restype = ctypes.c_int
+                for name in ("ktt_solve_cluster_launch",
+                             "ktt_solve_slots_launch",
+                             "ktt_solve_block_launch",
+                             "ktt_cluster_max_active", "ktt_slots_max_active",
+                             "ktt_cluster_smem_bytes",
+                             "ktt_slots_smem_bytes"):
+                    getattr(lib, name).restype = ctypes.c_int
                 self._lib = lib
         return self._lib
 
     def check(self, ps: PStatic, state: torch.Tensor, pod_ints: torch.Tensor,
-              pod_floats: torch.Tensor, profiles: bool = True) -> None:
-        """Raise ValueError on inputs the kernels do not take. With
-        ``profiles`` False the caller has checked the pods' profile
-        indices on the host (``check_profiles``), and nothing here waits
-        on the card."""
+              pod_floats: torch.Tensor, profiles: bool = True,
+              slots: bool = False) -> None:
+        """Raise ValueError on inputs the kernels do not take: the dense
+        pod stream, or with ``slots`` the slot stream. With ``profiles``
+        False the caller has checked the pods' profile indices on the host
+        (``check_profiles``; a stream from ``slot_stream`` has its slot
+        indices in range), and nothing here waits on the card."""
         r, sc, t, u = ps.r, ps.sc, ps.t, ps.u
         n = ps.ints.shape[1]
         b = pod_ints.shape[0]
-        width = r + 4 + 2 * sc + 3 * t
+        if slots:
+            width, fwidth = slot_width(r, sc), SPARSE_K
+        else:
+            width, fwidth = r + 4 + 2 * sc + 3 * t, t
         expected = (
             (ps.ints, torch.int32, (static_planes(r, sc, t, u)[1], n)),
             (ps.f32s, torch.float32, (u, n)),
             (ps.sc_meta, torch.int32, (2, sc)),
             (state, torch.int32, (state_planes(r, sc, t)[1], n)),
             (pod_ints, torch.int32, (b, width)),
-            (pod_floats, torch.float32, (b, t)),
+            (pod_floats, torch.float32, (b, fwidth)),
         )
         device = state.device
         for tensor, dtype, shape in expected:
@@ -371,34 +448,53 @@ class SolveKernel:
         if profiles:
             # reads the pod rows: on the card, a wait for the stream
             check_profiles(pod_ints[:, r + 2], u)
+            if slots:
+                check_slots(pod_ints, r, sc, t)
 
-    def plan(self, ps: PStatic) -> LaunchPlan:
+    def plan(self, ps: PStatic, packs: bool = False) -> LaunchPlan:
         """``plan_launch`` for these planes on this card: a cluster of 16
         where the card can hold one of that shape, else 8 (the portable
         size). The shared-memory size is checked against the source's own
         layout."""
         key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
-        if key not in self._plans:
-            lib = self._load()
-            plan = plan_launch(*key)
-            if plan.kernel == "cluster" and self._active(lib, plan, ps) < 1:
-                plan = plan_launch(*key, max_cluster=PORTABLE_CLUSTER)
-            if plan.kernel == "cluster" and self._active(lib, plan, ps) < 1:
-                raise RuntimeError(f"the card holds no cluster of {plan}")
-            self._plans[key] = plan
-        return self._plans[key]
+        if (key, packs) not in self._plans:
+            self._plans[key, packs] = self._fitted(
+                lambda size: plan_launch(*key, max_cluster=size, packs=packs),
+                ps)
+        return self._plans[key, packs]
+
+    def slots_plan(self, ps: PStatic) -> LaunchPlan:
+        """The slot kernel's own launch for these planes on this card
+        (``slots_candidate``, 16 blocks or the portable 8), whatever
+        ``plan_launch`` would pick: the kernel a slot stream runs on."""
+        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
+        if (key, "slots") not in self._plans:
+            self._plans[key, "slots"] = self._fitted(
+                lambda size: slots_candidate(*key, max_cluster=size), ps)
+        return self._plans[key, "slots"]
+
+    def _fitted(self, make, ps: PStatic) -> LaunchPlan:
+        """``make(16)``, or ``make(8)`` where the card holds no cluster of
+        the first's shape."""
+        lib = self._load()
+        plan = make(MAX_CLUSTER)
+        if plan.kernel != "block" and self._active(lib, plan, ps) < 1:
+            plan = make(PORTABLE_CLUSTER)
+        if plan.kernel != "block" and self._active(lib, plan, ps) < 1:
+            raise RuntimeError(f"the card holds no cluster of {plan}")
+        return plan
 
     @staticmethod
     def _active(lib, plan: LaunchPlan, ps: PStatic) -> int:
         """Clusters of ``plan``'s shape the card holds at once."""
-        want = lib.ktt_cluster_smem_bytes(
+        want = getattr(lib, f"ktt_{plan.kernel}_smem_bytes")(
             ps.r, ps.sc, ps.t, ps.u, plan.cluster, plan.threads,
             plan.cols_per_block, plan.chunk)
         if want != plan.smem_bytes:
             raise RuntimeError(f"launch plan's shared memory {plan.smem_bytes}"
                                f" B differs from the kernel's layout, {want} B")
-        active = lib.ktt_cluster_max_active(plan.cluster, plan.threads,
-                                            plan.smem_bytes)
+        active = getattr(lib, f"ktt_{plan.kernel}_max_active")(
+            plan.cluster, plan.threads, plan.smem_bytes)
         if active < 0:
             raise RuntimeError(f"cluster occupancy query failed: CUDA error "
                                f"{-active}")
@@ -407,8 +503,9 @@ class SolveKernel:
     def launch(self, params: SolverParams, ps: PStatic, state: torch.Tensor,
                pod_ints: torch.Tensor, pod_floats: torch.Tensor,
                plan: LaunchPlan) -> torch.Tensor:
-        """Launch the kernel ``plan`` names on checked inputs (``check``),
-        on the current stream, without synchronising."""
+        """Launch the kernel ``plan`` names on checked inputs (``check``:
+        the slot stream for the slot kernel, the dense stream for the
+        others), on the current stream, without synchronising."""
         lib = self._load()
         n, b = ps.ints.shape[1], pod_ints.shape[0]
         assign = torch.empty(b, dtype=torch.int32, device=state.device)
@@ -417,14 +514,14 @@ class SolveKernel:
                 pod_floats.data_ptr(), ps.ints.data_ptr(), ps.f32s.data_ptr(),
                 state.data_ptr(), assign.data_ptr())
         dims = (ps.r, ps.sc, ps.t, ps.u, ps.v, n, b)
-        if plan.kernel == "cluster":
-            err = lib.ktt_solve_cluster_launch(
-                *ptrs, *dims, plan.cluster, plan.threads, plan.cols_per_block,
-                plan.chunk, plan.smem_bytes, *params.as_tuple(), stream)
-        else:
+        if plan.kernel == "block":
             err = lib.ktt_solve_block_launch(
                 *ptrs, *dims, plan.threads, plan.smem_bytes,
                 *params.as_tuple(), stream)
+        else:
+            err = getattr(lib, f"ktt_solve_{plan.kernel}_launch")(
+                *ptrs, *dims, plan.cluster, plan.threads, plan.cols_per_block,
+                plan.chunk, plan.smem_bytes, *params.as_tuple(), stream)
         if err != 0:
             raise RuntimeError(f"solve {plan.kernel} kernel launch failed: "
                                f"CUDA error {err}")
@@ -433,12 +530,14 @@ class SolveKernel:
 
     def __call__(self, params: SolverParams, ps: PStatic,
                  state: torch.Tensor, pod_ints: torch.Tensor,
-                 pod_floats: torch.Tensor,
-                 profiles_checked: bool = False) -> torch.Tensor:
+                 pod_floats: torch.Tensor, profiles_checked: bool = False,
+                 slots: bool = False) -> torch.Tensor:
+        """Check and launch: a dense stream on the kernel ``plan`` picks,
+        a slot stream (``slots``) on the slot kernel."""
         self.check(ps, state, pod_ints, pod_floats,
-                   profiles=not profiles_checked)
-        return self.launch(params, ps, state, pod_ints, pod_floats,
-                           self.plan(ps))
+                   profiles=not profiles_checked, slots=slots)
+        plan = self.slots_plan(ps) if slots else self.plan(ps)
+        return self.launch(params, ps, state, pod_ints, pod_floats, plan)
 
 
 solve_kernel = SolveKernel()
@@ -448,6 +547,14 @@ def check_profiles(profiles, u: int) -> None:
     """Raise ValueError when a pod's profile index is outside [0, u)."""
     if bool(((profiles < 0) | (profiles >= u)).any()):
         raise ValueError(f"pod profile index outside [0, {u})")
+
+
+def check_slots(slot_ints, r: int, sc: int, t: int) -> None:
+    """Raise ValueError when a slot's term index is outside [0, t)."""
+    c = r + 4 + 2 * sc
+    idx = slot_ints[:, c:c + SPARSE_K]
+    if bool(((idx < 0) | (idx >= t)).any()):
+        raise ValueError(f"slot term index outside [0, {t})")
 
 
 def solve(params: SolverParams, ps: PStatic, state: torch.Tensor,
@@ -461,6 +568,29 @@ def solve(params: SolverParams, ps: PStatic, state: torch.Tensor,
         return solve_kernel(params, ps, state, pod_ints, pod_floats,
                             profiles_checked=profiles_checked)
     raise ValueError(f"no solve for device {state.device}")
+
+
+def solve_slots(params: SolverParams, ps: PStatic, state: torch.Tensor,
+                slot_ints: torch.Tensor, slot_floats: torch.Tensor,
+                profiles_checked: bool = False) -> torch.Tensor:
+    """Solve one batch given as its slot stream: the plain version on
+    CPU tensors, the slot kernel on CUDA tensors."""
+    if state.device.type == "cpu":
+        return solve_plain_slots(params, ps, state, slot_ints, slot_floats)
+    if state.device.type == "cuda":
+        return solve_kernel(params, ps, state, slot_ints, slot_floats,
+                            profiles_checked=profiles_checked, slots=True)
+    raise ValueError(f"no solve for device {state.device}")
+
+
+def plan_batch(ps: PStatic, packs: bool = False) -> LaunchPlan:
+    """The launch plan of a batch on these planes: the card's
+    (``SolveKernel.plan``) for planes on the card, ``plan_launch``'s for
+    planes on the CPU, whose plain versions route alike."""
+    if ps.ints.device.type == "cuda":
+        return solve_kernel.plan(ps, packs)
+    return plan_launch(ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u,
+                       packs=packs)
 
 
 class SolveHandle(NamedTuple):
@@ -560,10 +690,13 @@ class CudaPlanesBackend:
         ``state`` in place; the assignments come back through
         ``materialize``."""
         check_profiles(pod_ints[:, ps.r + 2], ps.u)
+        run = solve
+        stream = self.slot_route(ps, pod_ints, pod_floats)
+        if stream is not None:
+            run, (pod_ints, pod_floats) = solve_slots, stream
         ints, ints_slot = self._upload(pod_ints)
         floats, floats_slot = self._upload(pod_floats)
-        assign = solve(params, ps, state, ints, floats,
-                       profiles_checked=True)
+        assign = run(params, ps, state, ints, floats, profiles_checked=True)
         self.solves += 1
         if self.device.type == "cpu":
             return SolveHandle(assign, assign, None, time.monotonic())
@@ -571,6 +704,20 @@ class CudaPlanesBackend:
         host_slot[0].copy_(assign, non_blocking=True)
         event = self._fence((ints_slot, floats_slot, host_slot))
         return SolveHandle(assign, host_slot[0], event, time.monotonic())
+
+    @staticmethod
+    def slot_route(ps: PStatic, pod_ints: np.ndarray, pod_floats: np.ndarray
+                   ):
+        """The batch's slot stream (``ops/slots.py::slot_stream``) when it
+        takes the slot kernel: at least ``SPARSE_MIN_T`` terms, a shape
+        the cluster kernel does not take, every pod packed into slots and
+        the slot kernel planned. None: the dense stream."""
+        if ps.t < SPARSE_MIN_T or plan_batch(ps).kernel == "cluster":
+            return None
+        stream = slot_stream(pod_ints, pod_floats, ps.r, ps.sc, ps.t)
+        if stream is None or plan_batch(ps, packs=True).kernel != "slots":
+            return None
+        return stream
 
     @staticmethod
     def materialize(handle: SolveHandle) -> np.ndarray:

@@ -16,7 +16,10 @@ import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.harness import perf, workloads
-from kubernetes_tpu_torch.harness.problems import random_planes
+from kubernetes_tpu_torch.harness.problems import (
+    random_planes,
+    random_slot_planes,
+)
 from kubernetes_tpu_torch.ops import solve as solve_mod
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
 from kubernetes_tpu_torch.ops.planes import (
@@ -26,6 +29,7 @@ from kubernetes_tpu_torch.ops.planes import (
     static_planes,
 )
 from kubernetes_tpu_torch.ops.solve import CudaPlanesBackend
+from kubernetes_tpu_torch.ops.slots import slot_stream
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 
@@ -213,6 +217,109 @@ def test_portable_cluster_of_eight(card):
     assert ran == "cluster"
 
 
+def _slots_equal_plain(card, args, plan=None):
+    """Solve the slot stream packed from ``args`` with the slot kernel on
+    the card (``plan``'s, or the wrapper's slot plan), with
+    ``solve_plain_slots`` on the CPU and with the dense ``solve_plain``:
+    assignments and final state planes must be equal. Returns the
+    assignments and the final state."""
+    params = SolverParams()
+    ps, state, ints, floats = args
+    stream = slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc, ps.t)
+    assert stream is not None
+    sargs = (ps, state, *(torch.from_numpy(a) for a in stream))
+    on_card, on_cpu = _to(card, *sargs), _to("cpu", *sargs)
+    kernel = solve_mod.solve_kernel
+    before = dict(kernel.counts)
+    if plan is None:
+        got = solve_mod.solve_slots(params, *on_card)
+    else:
+        kernel.check(*on_card, slots=True)
+        got = kernel.launch(params, *on_card, plan)
+    torch.cuda.synchronize()
+    assert kernel.counts == dict(before, slots=before["slots"] + 1)
+    want = solve_mod.solve_plain_slots(params, *on_cpu)
+    dense_state = state.clone()
+    dense = solve_mod.solve_plain(params, ps, dense_state, ints, floats)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(on_card[1].cpu().numpy(),
+                                  on_cpu[1].numpy())
+    np.testing.assert_array_equal(want.numpy(), dense.numpy())
+    np.testing.assert_array_equal(on_cpu[1].numpy(), dense_state.numpy())
+    return want, on_cpu[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,b,t,sc,u,real", [
+    (20, 5120, 256, 100, 1, 1, 5000),   # the anti-affinity row's shape
+    (21, 5120, 128, 50, 2, 2, 5120),
+    (22, 1408, 96, 40, 2, 2, 1400),     # a ragged last slice
+    (23, 1024, 64, 16, 3, 3, 1000),     # the dense cluster layout fits
+])
+def test_slot_kernel_matches_plain(card, seed, n, b, t, sc, u, real):
+    args = random_slot_planes(seed, n, b, t, sc=sc, u=u, real=real)
+    want, _ = _slots_equal_plain(card, args)
+    assert (want >= 0).sum() > b // 2
+
+
+@pytest.mark.cuda
+def test_slot_kernel_carries_state_and_runs_a_cluster_of_eight(card):
+    ps, state, ints, floats = random_slot_planes(24, 5120, 128, 100, sc=2,
+                                                 u=2)
+    _, carried = _slots_equal_plain(card, (ps, state, ints[:64],
+                                           floats[:64]))
+    plan = solve_mod.slots_candidate(5120, ps.r, ps.sc, ps.t, ps.u,
+                                     max_cluster=8)
+    assert plan.cluster == 8 and plan.cols_per_block > plan.threads
+    want, _ = _slots_equal_plain(card, (ps, carried, ints[64:].clone(),
+                                        floats[64:].clone()), plan)
+    assert (want >= 0).any()
+
+
+@pytest.mark.cuda
+def test_a_pod_of_nine_references_runs_the_one_block_kernel(card):
+    ps, state, ints, floats = random_slot_planes(25, 5120, 64, 100)
+    ints[3, ps.r + 4 + 2 * ps.sc:ps.r + 4 + 2 * ps.sc + 9] = 1
+    assert slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc,
+                       ps.t) is None
+    backend = CudaPlanesBackend(card)
+    kernel = solve_mod.solve_kernel
+    before = dict(kernel.counts)
+    moved = _to(card, ps, state, ints, floats)
+    got = backend.solve(SolverParams(), moved[0], moved[1], ints.numpy(),
+                        floats.numpy())
+    assert kernel.counts == dict(before, block=before["block"] + 1)
+    want = solve_mod.solve_plain(SolverParams(), ps, state, ints, floats)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(moved[1].cpu().numpy(), state.numpy())
+
+
+@pytest.mark.cuda
+def test_backend_takes_the_slot_kernel_lazily(card):
+    """The backend packs a T = 100 batch into slots and launches the slot
+    kernel without waiting; two chained batches equal the CPU backend."""
+    params = SolverParams()
+    ps, state, ints, floats = random_slot_planes(26, 5120, 256, 100)
+    cpu_state = state.clone()
+    moved = _to(card, ps, state, ints, floats)
+    backend = CudaPlanesBackend(card)
+    kernel = solve_mod.solve_kernel
+    before = kernel.counts["slots"]
+    handles = [backend.solve_lazy(params, moved[0], moved[1],
+                                  ints[lo:lo + 128].numpy(),
+                                  floats[lo:lo + 128].numpy())
+               for lo in (0, 128)]
+    got = np.concatenate([backend.materialize(h) for h in handles])
+    assert kernel.counts["slots"] == before + 2
+    cpu = CudaPlanesBackend(torch.device("cpu"))
+    want = np.concatenate([cpu.solve(params, ps, cpu_state,
+                                     ints[lo:lo + 128].numpy(),
+                                     floats[lo:lo + 128].numpy())
+                           for lo in (0, 128)])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(moved[1].cpu().numpy(), cpu_state.numpy())
+
+
 def _backend_args(device, seed, n, b, **kw):
     ps, state, ints, floats = random_planes(seed, n, b, **kw)
     moved = _to(device, ps, state, ints, floats)
@@ -299,15 +406,15 @@ def test_scatters_on_the_card_equal_the_cpu(card, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,nodes,init,pods,kernel", [
     ("GangScheduling", 100, 0, 600, "cluster"),
-    ("SchedulingPodAntiAffinity", 3000, 0, 300, "block"),
+    ("SchedulingPodAntiAffinity", 3000, 0, 300, "slots"),
 ])
 def test_small_rows_on_the_card_equal_the_cpu(card, name, nodes, init, pods,
                                               kernel):
     """The gang row (hard zone spread: the cluster kernel) and the
-    anti-affinity row (T = 100 over 3,000 nodes, past the cluster's shared
-    memory: the one-block kernel) bind every pod to the same node on the
-    card as on the CPU, and the card ran the kernel the launch plan
-    picks."""
+    anti-affinity row (T = 100 over 3,000 nodes, past the cluster's dense
+    layout, one term a pod: the slot kernel) bind every pod to the same
+    node on the card as on the CPU, and the card ran the kernel the
+    launch plan picks."""
     kernel_fn = solve_mod.solve_kernel
     kernel_fn.reset_counts()
     on_card = perf.run_workload(
