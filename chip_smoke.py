@@ -20,7 +20,11 @@ prints no result):
    on the one-block kernel. Then the slot kernel on slot streams (T of
    16 to 100, a ragged last slice, a cluster of eight, two batches
    carrying state) against the plain slot solve, the dense plain solve
-   and the one-block kernel;
+   and the one-block kernel; and the shared-volume attach planes on the
+   cluster and one-block kernels (SV of 8, 16, 64 and 512, sentinel pods
+   mixed in, full nodes, volumes reused within a batch, a cluster of
+   eight, a shape past the cluster's shared memory, two batches carrying
+   state);
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
    4,096, through ``run_workload`` on the card, in the default arms
    (pipelined, device mirror on). Every pod bound, the cluster kernel
@@ -91,9 +95,28 @@ prints no result):
     AntiAffinity (T = 100): every measured pod bound, each required-
     affinity pod in a zone holding a pod of its group, the launches as
     planned, and the slot kernel equal to the plain version on each
-    row's largest batch.
+    row's largest batch;
+17. the four PV rows at ``bench.py``'s sizes: SchedulingInTreePVs,
+    SchedulingMigratedInTreePVs and SchedulingCSIPVs at 1,000 nodes / 0 /
+    5,000, SchedulingSharedPVs at 1,000 / 0 / 3,000: every measured pod
+    bound, no node over its CSINode limit of 39 ``csi.fake.driver``
+    volumes, each WaitForFirstConsumer claim bound to a PV of its own,
+    the launches as ``plan_launch`` plans them;
+18. PreemptionPVs (``workloads.preemption_pvs``: 5,000 nodes / 5,000 /
+    5,000, a bound claim on every preemptor), pipelined and serialized:
+    every measured pod bound with exactly one victim each, the same bound
+    and victim sets in both arms, every claim still bound to its PV;
+19. the shared-volume attach planes at size (the fixture of the JAX
+    package's shared-volume tests, grown): 1,000 nodes with a CSINode
+    limit of 2 for one driver, 300 shared ReadWriteMany CSI claims, 3,000
+    pods, ten a claim, in batches of 1,024 on the carried state: every
+    pod bound, no node with more than 2 distinct shared volumes, every
+    launch the cluster kernel with SV = 512, and after the run the
+    carried ``sv`` planes equal to a fresh ``prepare``'s; on the largest
+    batch the cluster kernel, the one-block kernel (forced) and the plain
+    version timed in turns and held against each other.
 
-Every main-path run (4, 5, 8 to 16) resets the kernels' launch counts
+Every main-path run (4, 5, 8 to 19) resets the kernels' launch counts
 just before and reads them just after; the kernel table sums them.
 Before the last line come the scatters' counts and times as JSON, the
 kernel table as JSON and the card's name and power limit; the last line
@@ -112,7 +135,18 @@ import time
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.api.resource import parse_quantity
+from kubernetes_tpu_torch.api.types import (
+    CSINode,
+    CSINodeDriver,
+    Node,
+    ObjectMeta,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    Pod,
+    StorageClass,
+)
+from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.harness import perf, sustained, workloads
 from kubernetes_tpu_torch.harness.problems import (
     random_planes,
@@ -130,6 +164,10 @@ from kubernetes_tpu_torch.ops.planes import (
 from kubernetes_tpu_torch.ops.slots import SPARSE_K, slot_stream
 from kubernetes_tpu_torch.ops.solve import CudaPlanesBackend
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
+from kubernetes_tpu_torch.scheduler.scheduler import (
+    Scheduler,
+    SchedulerConfiguration,
+)
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 from kubernetes_tpu_torch.sidecar import BatchScheduler
 
@@ -290,7 +328,8 @@ def compare_kernel_plain(name, ps, state, ints, floats, plan=None):
         check(err == 0, f"{ran} kernel equals plain on {name}")
     planned = plan or solve_mod.solve_kernel.plan(ps)
     log(f"  {name}: N={n} B={ints.shape[0]} SC={ps.sc} T={ps.t} U={ps.u} "
-        f"placed={int((want >= 0).sum())} kernel={planned.kernel} "
+        f"SV={ps.sv} placed={int((want >= 0).sum())} "
+        f"kernel={planned.kernel} "
         f"cluster={planned.cluster}x{planned.cols_per_block} cols "
         f"max_abs_err " + " ".join(f"{k}={v}" for k, v in errs.items()))
     return errs, final
@@ -436,6 +475,13 @@ def phase_compare():
                                        ints[:64], floats[:64]))
     keep(compare_slots_plain("slots-carry-2", ps, carried.cpu(),
                              ints[64:].clone(), floats[64:].clone()))
+    # two shared-volume batches carrying the state (attached bits too)
+    ps, state, ints, floats = random_planes(35, 2048, 256, r=4, sc=2, t=2,
+                                            u=2, sv=32)
+    carried = keep(compare_kernel_plain("sv-carry-1", ps, state, ints[:128],
+                                        floats[:128]))
+    keep(compare_kernel_plain("sv-carry-2", ps, carried.cpu(),
+                              ints[128:].clone(), floats[128:].clone()))
     return errs
 
 
@@ -472,6 +518,21 @@ def planes_cases():
                 "cluster"))
     out.append(("past-budget", random_planes(8, 5120, 32, sc=40, t=40, u=2),
                 None, "block"))
+    # the shared-volume attach planes (the last resource an attach
+    # column): both kernels carry them
+    out += [
+        ("sv8-1024", random_planes(30, 1024, 256, r=4, sc=2, t=2, u=2,
+                                   real=1000, sv=8), None, "cluster"),
+        ("sv64-5120", random_planes(31, 5120, 256, r=4, real=5000, sv=64),
+         None, "cluster"),
+        ("sv512-1024x1024", random_planes(32, 1024, 1024, r=4, real=1000,
+                                          sv=512), None, "cluster"),
+        ("sv16-portable-8", random_planes(33, 5120, 96, r=4, sc=2, t=2, u=2,
+                                          sv=16),
+         solve_mod.plan_launch(5120, 4, 2, 2, 2, max_cluster=8, sv=16),
+         "cluster"),
+        ("sv8-past-budget", random_planes(34, 5120, 32, r=4, sc=40, t=40,
+                                          u=2, sv=8), None, "block")]
     # T = 100 with one pod of nine term references: the batch does not
     # pack, so the dense stream runs on the one-block kernel
     ps, state, ints, floats = random_slot_planes(25, 5120, 64, 100)
@@ -679,16 +740,25 @@ def bound_ms(ps: PStatic, state, ints, floats):
     """Least time for one launch on these inputs: bytes (each input read
     once, each output written once) over HBM bandwidth, and the
     operations these pods need (counted per valid pod x node from their
-    flags) over the f32 peak; the larger of the two."""
-    nbytes = sum(t.numel() * t.element_size() for t in (
-        ps.ints, ps.f32s, ps.sc_meta, ints, floats)) \
-        + 2 * state.numel() * state.element_size() + ints.shape[0] * 4
+    flags) over the f32 peak; the larger of the two. Shared-volume rows
+    no valid pod references are neither read nor written."""
+    n = ps.ints.shape[1]
     rows = ints.cpu().numpy()
     w = floats.cpu().numpy()
     c, t = ps.r + 4 + 2 * ps.sc, ps.t
     flags = rows[:, c:c + 3 * t] > 0
+    slotted = np.zeros(rows.shape[0], dtype=bool)
+    unused_sv = 0
+    if ps.sv:
+        slot = rows[:, c + 3 * t]
+        slotted = (slot < ps.sv) & (rows[:, ps.r + 3] > 0)
+        unused_sv = ps.sv - len(np.unique(slot[slotted]))
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        ps.ints, ps.f32s, ps.sc_meta, ints, floats)) \
+        + 2 * (state.numel() - unused_sv * n) * state.element_size() \
+        + ints.shape[0] * 4
     return _bound(ps, nbytes, rows, (w != 0).sum(1), flags.sum(1),
-                  flags[:, :t].sum(1))
+                  flags[:, :t].sum(1), slotted)
 
 
 def bound_ms_slots(ps: PStatic, state, ints, floats):
@@ -710,10 +780,12 @@ def bound_ms_slots(ps: PStatic, state, ints, floats):
                   sum(b.sum(1) for b in bits), bits[0].sum(1))
 
 
-def _bound(ps: PStatic, nbytes, rows, weights, flags, matched):
+def _bound(ps: PStatic, nbytes, rows, weights, flags, matched,
+           slotted=0):
     """The larger of ``nbytes`` over HBM bandwidth and the pods'
     operations over the f32 peak, from each pod's counts of preferred
-    weights, term flags and matched terms."""
+    weights, term flags and matched terms, and whether it references a
+    shared-volume slot."""
     n = ps.ints.shape[1]
     r, sc = ps.r, ps.sc
     hard = ps.sc_meta[1].cpu().numpy() > 0
@@ -730,6 +802,7 @@ def _bound(ps: PStatic, nbytes, rows, weights, flags, matched):
         + 2 * flags                          # (anti-)affinity checks
         + 2 * sc_match.sum(1)                # domain commits
         + 3 * matched                        # term commits
+        + 4 * slotted                        # attach demand and fit
     )
     ops = float((per_pod * valid).sum()) * n
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1000
@@ -1344,10 +1417,11 @@ def planned_kernel(ps: PStatic, ints, floats, slots: bool) -> str:
     would have packed (at T >= 12), which must not give the slot kernel,
     or the backend routed it wrongly."""
     key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
-    packs = slots or (ps.t >= solve_mod.SPARSE_MIN_T and slot_stream(
-        ints.cpu().numpy(), floats.cpu().numpy(), ps.r, ps.sc, ps.t)
-        is not None)
-    return solve_mod.plan_launch(*key, packs=packs).kernel
+    packs = slots or (ps.t >= solve_mod.SPARSE_MIN_T and not ps.sv
+                      and slot_stream(ints.cpu().numpy(),
+                                      floats.cpu().numpy(), ps.r, ps.sc,
+                                      ps.t) is not None)
+    return solve_mod.plan_launch(*key, packs=packs, sv=ps.sv).kernel
 
 
 def check_plans(name, counts, recorder):
@@ -1362,12 +1436,13 @@ def check_plans(name, counts, recorder):
               f"{'slot' if slots else 'dense'} stream where the plan "
               f"gives the {kernel} kernel")
         predicted[kernel] += 1
-        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
+        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u, ps.sv)
         shapes.setdefault(key, [kernel, 0])[1] += 1
-    for (n, r, sc, t, u), (kernel, launches) in shapes.items():
-        dense = solve_mod.cluster_candidate(n, r, sc, t, u)
+    for (n, r, sc, t, u, sv), (kernel, launches) in shapes.items():
+        dense = solve_mod.cluster_candidate(n, r, sc, t, u, sv=sv)
         slots = solve_mod.slots_candidate(n, r, sc, t, u)
-        log(f"  plan N={n} R={r} SC={sc} T={t} U={u}: {kernel} kernel x "
+        log(f"  plan N={n} R={r} SC={sc} T={t} U={u} SV={sv}: {kernel} "
+            f"kernel x "
             f"{launches} launches; a block needs {dense.smem_bytes} B in the "
             f"cluster layout of {dense.cluster}, {slots.smem_bytes} B in the "
             f"slot layout, against {solve_mod.SMEM_LIMIT} B")
@@ -1550,6 +1625,230 @@ def phase_wide_terms(nodes=5000, init=5000, pods=1000, max_batch=4096):
     return rows, worst
 
 
+PV_ROWS = (("SchedulingInTreePVs", 1000, 0, 5000),
+           ("SchedulingMigratedInTreePVs", 1000, 0, 5000),
+           ("SchedulingCSIPVs", 1000, 0, 5000),
+           ("SchedulingSharedPVs", 1000, 0, 3000))
+
+
+def _row_numbers(res, counts, kernel_ms, wall):
+    busy = sum(kernel_ms) / 1000
+    return {"pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "enqueue_to_bind_ms": res.latency, "solves": res.solves,
+            "rebuilds": res.rebuilds, "launches": counts,
+            "kernel_ms": kernel_ms, "kernel_busy_s": busy,
+            "host_paths_s": res.host_paths, "host_seconds": res.seconds}
+
+
+def phase_pv_rows(max_batch=4096):
+    """The four PV rows at bench.py's sizes: every measured pod bound, no
+    node over the CSINode limit, every WaitForFirstConsumer claim bound to
+    a PV of its own, the launches as planned."""
+    rows = {}
+    for name, nodes, init, pods in PV_ROWS:
+        res, counts, kernel_ms, _, recorder, wall = run_path(
+            name, lambda: perf.run_workload(
+                name, workloads.make_workload(name, nodes, init, pods),
+                max_batch=max_batch, device="cuda"), keep=True, kernel=None)
+        measured = [f"pod-{init + i}" for i in range(pods)]
+        unbound = [n for n in measured if not res.placements.get(n)]
+        check(not unbound, f"{name}: {len(unbound)} measured pods unbound")
+        most = max(len(v) for v in res.node_volumes.values())
+        if name == "SchedulingCSIPVs":
+            # every PV of the row is a csi.fake.driver volume
+            check(most <= 39, f"{name}: a node holds {most} csi.fake.driver "
+                  "volumes, over its limit of 39")
+        wfc = [pv for c, pv in res.claims.items() if c.startswith("claim-")]
+        check(all(wfc) and len(set(wfc)) == len(wfc),
+              f"{name}: every claim bound to a PV of its own")
+        if name == "SchedulingSharedPVs":
+            check(res.volumes_bound == len(wfc) > 0,
+                  f"{name}: {res.volumes_bound} claims bound at commit for "
+                  f"{len(wfc)} WaitForFirstConsumer claims")
+        plans = check_plans(name, counts, recorder)
+        row = _row_numbers(res, counts, kernel_ms, wall)
+        row.update(plans=plans, most_volumes_a_node=most,
+                   volumes_bound_at_commit=res.volumes_bound)
+        log(f"  {name} {nodes} nodes / {init} / {pods} on {res.device}: "
+            f"{res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+            f"launches {counts}; kernel busy {row['kernel_busy_s']:.3f} s; "
+            f"most volumes a node {most}; claims bound at commit "
+            f"{res.volumes_bound}")
+        log("    enqueue->bind ms p50/p90/p99: " + "/".join(
+            f"{res.latency[k]:.1f}" for k in ("Perc50", "Perc90", "Perc99"))
+            + f"; solves {res.solves} rebuilds {res.rebuilds}; host "
+            f"seconds: {_host_split(res)}")
+        rows[name] = row
+    return rows
+
+
+def phase_preemption_pvs(nodes=5000, seed=11, max_batch=4096):
+    """PreemptionPVs in the default arms and serialized: checked as the
+    Preemption row, both arms bind and evict alike, and every claim is
+    still bound to its PV."""
+    runs, sets = {}, {}
+    want_claims = {f"claim-{nodes + i}": f"pv-{nodes + i}"
+                   for i in range(nodes)}
+    for pipeline in (True, False):
+        arm = "pipelined" if pipeline else "serialized"
+        name = f"PreemptionPVs {arm}"
+        res, counts, kernel_ms, _, _, wall = run_path(
+            name, lambda: perf.run_workload(
+                "PreemptionPVs", workloads.preemption_pvs(nodes, nodes,
+                                                          nodes),
+                max_batch=max_batch, device="cuda", pipeline=pipeline,
+                seed=seed))
+        check(res.pipeline == pipeline, f"{name} ran the {arm} arm")
+        check(counts["cluster"] == res.solves,
+              f"{name}: cluster kernel launches {counts['cluster']} == "
+              f"solves {res.solves}")
+        sets[arm] = check_preemption_row(name, res, nodes)
+        check(res.claims == want_claims,
+              f"{name}: every claim still bound to its PV")
+        runs[arm] = _row_numbers(res, counts, kernel_ms, wall)
+        runs[arm].update(victims=res.victims,
+                         post_filter_runs=res.post_filter_runs)
+        log(f"  {name} {nodes} nodes / {nodes} / {nodes} on {res.device}: "
+            f"{res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+            f"{res.victims} victims, PostFilter runs {res.post_filter_runs}; "
+            f"solves {res.solves} rebuilds {res.rebuilds}; kernel busy "
+            f"{runs[arm]['kernel_busy_s']:.3f} s")
+        log("    enqueue->bind ms p50/p99: "
+            f"{res.latency['Perc50']:.1f}/{res.latency['Perc99']:.1f}; host "
+            f"seconds: {_host_split(res)}")
+    check(sets["pipelined"] == sets["serialized"],
+          "PreemptionPVs: both arms bind the same pods to the same nodes and "
+          "evict the same pods")
+    log("  pipelined == serialized: bound set and victim set")
+    return runs
+
+
+SHARED_DRIVER = "rwx.csi.example.com"
+
+
+def shared_volume_store(nodes, claims, limit):
+    """The JAX package's shared-volume test fixture, grown: ``nodes``
+    SchedulingBasic nodes with a CSINode limit of ``limit`` for one
+    driver, and ``claims`` shared ReadWriteMany CSI claims, each bound to
+    its PV."""
+    store = ClusterStore()
+    for i in range(nodes):
+        store.add_node(Node.from_dict(workloads.node_template(i)))
+        store.add_csi_node(CSINode(
+            metadata=ObjectMeta(name=f"node-{i}"),
+            drivers=[CSINodeDriver(name=SHARED_DRIVER, node_id=f"node-{i}",
+                                   allocatable_count=limit)]))
+    store.add_storage_class(StorageClass(
+        metadata=ObjectMeta(name="shared-csi"), provisioner=SHARED_DRIVER))
+    for c in range(claims):
+        store.add_pv(PersistentVolume(
+            metadata=ObjectMeta(name=f"pv-shared-{c}"),
+            capacity={"storage": parse_quantity("10Gi")},
+            access_modes=["ReadWriteMany"], storage_class_name="shared-csi",
+            claim_ref=f"default/shared-{c}", phase="Bound",
+            csi_driver=SHARED_DRIVER))
+        store.add_pvc(PersistentVolumeClaim(
+            metadata=ObjectMeta(name=f"shared-{c}", namespace="default"),
+            storage_class_name="shared-csi", access_modes=["ReadWriteMany"],
+            requests={"storage": parse_quantity("1Gi")},
+            volume_name=f"pv-shared-{c}", phase="Bound"))
+    return store
+
+
+def run_shared_volumes(device, nodes, claims, pods, limit, max_batch):
+    """``pods`` pods, pod i on claim i mod ``claims`` (so once every node
+    holds ``limit`` volumes, the later pods fit only where their volume is
+    already attached), through the batch loop on
+    ``device`` in batches of ``max_batch``. Returns (store, batch loop,
+    pod dicts); the scheduler is stopped."""
+    store = shared_volume_store(nodes, claims, limit)
+    sched = Scheduler(store, config=SchedulerConfiguration(
+        provider="GangSchedulingProvider"))
+    bs = BatchScheduler(sched, max_batch=max_batch, device=device)
+    sched.start()
+    dicts = []
+    for i in range(pods):
+        d = workloads.basic_pod(i)
+        d["spec"]["volumes"] = [{"name": "data", "persistentVolumeClaim": {
+            "claimName": f"shared-{i % claims}"}}]
+        dicts.append(d)
+    try:
+        store.create_pods([Pod.from_dict(d) for d in dicts])
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            sched.queue.flush_backoff_completed()
+            if bs.run_batch(pop_timeout=0.0):
+                continue
+            if sched.queue.pending_active_count() == 0 and not bs.holding:
+                break
+            time.sleep(0.005)
+        bs.flush()
+        check(sched.wait_for_inflight_bindings(timeout=60.0),
+              "shared volumes: bindings settled")
+    finally:
+        sched.stop()
+    return store, bs, dicts
+
+
+def phase_shared_volumes(nodes=1000, claims=300, pods=3000, limit=2,
+                         max_batch=1024):
+    """The shared-volume attach planes at size: checked, the carried
+    planes equal to a fresh prepare's, and the cluster kernel, the
+    one-block kernel and the plain version on the largest batch."""
+    name = "shared volumes"
+    (store, bs, dicts), counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: run_shared_volumes("cuda", nodes, claims, pods, limit,
+                                         max_batch), keep=True)
+    bound = {p.metadata.name: p.spec.node_name for p in store.list_pods()}
+    unbound = [n for n, v in bound.items() if not v]
+    check(len(bound) == pods and not unbound,
+          f"{name}: {len(unbound)} of {pods} pods unbound")
+    per_node = {}
+    for p in store.list_pods():
+        per_node.setdefault(p.spec.node_name, set()).add(
+            p.spec.volumes[0].persistent_volume_claim)
+    most = max(len(v) for v in per_node.values())
+    check(most <= limit, f"{name}: a node holds {most} shared volumes, over "
+          f"its limit of {limit}")
+    svs = {ps.sv for ps, _, _, _ in recorder.inputs}
+    want_sv = max(8, 1 << (claims - 1).bit_length())   # 512 for 300
+    check(svs == {want_sv}, f"{name}: every launch with SV = {want_sv} "
+          f"({svs})")
+    session = bs.session
+    check(session.mirror_current(), f"{name}: the carried state is current")
+    sample = [Pod.from_dict(dicts[0])]
+    fresh_static, fresh = session.fresh_planes(sample, max_batch)
+    ps = session._static
+    do, _ = state_planes(ps.r, ps.sc, ps.t, ps.sv)
+    col = ps.r - 1
+    rows = list(range(do["sv_attached"], do["sv_attached"] + ps.sv)) + [
+        do["requested"] + col]
+    check(fresh_static.sv == ps.sv, f"{name}: fresh planes' SV")
+    err = int((session._state[rows] - fresh[rows]).abs().max())
+    check(err == 0, f"{name}: the carried sv planes and attach column equal "
+          "a fresh prepare's")
+    attached = int(session._state[rows[:-1]].sum())
+    busy = sum(kernel_ms) / 1000
+    log(f"  {name}: {nodes} nodes (limit {limit}), {claims} claims, {pods} "
+        f"pods in batches of {max_batch}: all bound in {wall:.1f} s; "
+        f"launches {counts}; kernel ms {_ms_list(kernel_ms)}; most shared "
+        f"volumes a node {most}; {attached} attachments; carried planes "
+        f"equal a fresh prepare's")
+    largest = recorder.largest()
+    timed, final = time_batch(f"{name} largest batch", largest)
+    plain_ms, plain_err = plain_against(f"{name} largest", largest, final)
+    b_ms, b_by = bound_ms(*largest)
+    log(f"  bound on the shared-volume batch {b_ms:.6f} ms ({b_by})")
+    return {"wall_s": wall, "launches": counts, "kernel_ms": kernel_ms,
+            "kernel_busy_s": busy, "most_volumes_a_node": most,
+            "attachments": attached, "timed": timed, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "err": max(timed["err"], plain_err)}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1647,7 +1946,19 @@ def main() -> None:
         "SchedulingPreferredPodAffinity, SchedulingPreferredPodAntiAffinity")
     wide, wide_err = phase_wide_terms()
     errs["slots"] = max(errs["slots"], wide_err)
-    log(f"  main-path launches over phases 4, 5 and 8 to 16: {LAUNCHES}")
+
+    log("[17] the PV rows: SchedulingInTreePVs, SchedulingMigratedInTreePVs, "
+        "SchedulingCSIPVs, SchedulingSharedPVs")
+    pv_rows = phase_pv_rows()
+
+    log("[18] PreemptionPVs, pipelined and serialized")
+    preemption_pvs = phase_preemption_pvs()
+
+    log("[19] the shared-volume attach planes at size")
+    shared = phase_shared_volumes()
+    for k in ("cluster", "block"):
+        errs[k] = max(errs[k], shared["err"])
+    log(f"  main-path launches over phases 4, 5 and 8 to 19: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -1657,10 +1968,18 @@ def main() -> None:
                            r["scatter_bound_ms"].items()}}
         for arm, r in churn.items()}}
     # each kernel on the largest batch of a main path it runs on
+    sv_timed = shared["timed"]
     timed = {
         "cluster": {"ms": sb["ms"]["cluster"], "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "batch": "SchedulingBasic largest batch"},
+                    "batch": "SchedulingBasic largest batch",
+                    "carries": "the sv attach planes",
+                    "sv_ms": sv_timed["ms"]["cluster"],
+                    "sv_plain_ms": shared["plain_ms"],
+                    "sv_bound_ms": shared["bound_ms"],
+                    "sv_bound_by": shared["bound_by"],
+                    "sv_batch": f"shared-volume phase largest batch "
+                                f"(SV=512, {sv_timed['valid_pods']} pods)"},
         "slots": {"ms": slots["ms"]["slots"],
                   "plain_ms": slots["plain_ms"]["slots"],
                   "bound_ms": slots["bound_ms"], "bound_by": slots["bound_by"],
@@ -1671,7 +1990,10 @@ def main() -> None:
                   "bound_ms": slots["block_bound_ms"],
                   "bound_by": slots["block_bound_by"],
                   "batch": f"SchedulingPodAntiAffinity largest batch "
-                           f"(T={slots['t']}), dense stream, forced"}}
+                           f"(T={slots['t']}), dense stream, forced",
+                  "carries": "the sv attach planes",
+                  "sv_ms": sv_timed["ms"]["block"],
+                  "sv_batch": "shared-volume phase largest batch, forced"}}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": replaces, "launches": LAUNCHES[k],
@@ -1701,7 +2023,8 @@ def main() -> None:
         "churn": churn, "sustained": sustained_rows,
         "preemption": preemption, "unschedulable": unschedulable,
         "gang": gang, "anti_affinity": anti, "slot_kernel": slots,
-        "wide_terms": wide,
+        "wide_terms": wide, "pv_rows": pv_rows,
+        "preemption_pvs": preemption_pvs, "shared_volumes": shared,
         "scatters": scatters["scatters"],
     }
     if args.out:

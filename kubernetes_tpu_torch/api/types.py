@@ -1,6 +1,8 @@
 """The scheduling slice of the core/v1 object model: Pod, Node and what
 scheduling reads from them, as plain dataclasses with ``from_dict``
-constructors that take Kubernetes-manifest-shaped dicts."""
+constructors that take Kubernetes-manifest-shaped dicts; and the storage
+objects the volume plugins read (PersistentVolumeClaim,
+PersistentVolume, StorageClass, CSINode), built in code."""
 
 from __future__ import annotations
 
@@ -291,12 +293,37 @@ class TopologySpreadConstraint:
                    LabelSelector.from_dict(d.get("labelSelector")))
 
 
-# volume sources that tie a pod to per-node volume state; the batch path
-# cannot express them (see ops.encode.InexpressiblePodError)
-NODE_BOUND_VOLUME_SOURCES = (
-    "persistentVolumeClaim", "gcePersistentDisk", "awsElasticBlockStore",
-    "azureDisk", "rbd", "iscsi",
-)
+@dataclass
+class Volume:
+    """A pod volume: its name and the sources scheduling reads (a claim,
+    a host path, an ephemeral volume, the inline cloud disks)."""
+
+    name: str = ""
+    persistent_volume_claim: Optional[str] = None  # claimName
+    host_path: Optional[str] = None
+    ephemeral: bool = False
+    gce_persistent_disk: Optional[str] = None      # pdName
+    aws_elastic_block_store: Optional[str] = None  # volumeID
+    azure_disk: Optional[str] = None               # diskName
+    rbd: Optional[dict] = None
+    iscsi: Optional[dict] = None
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "Volume":
+        return cls(
+            name=d.get("name", ""),
+            persistent_volume_claim=(d.get("persistentVolumeClaim")
+                                     or {}).get("claimName"),
+            host_path=(d.get("hostPath") or {}).get("path"),
+            ephemeral=bool(d.get("ephemeral")),
+            gce_persistent_disk=(d.get("gcePersistentDisk")
+                                 or {}).get("pdName"),
+            aws_elastic_block_store=(d.get("awsElasticBlockStore")
+                                     or {}).get("volumeID"),
+            azure_disk=(d.get("azureDisk") or {}).get("diskName"),
+            rbd=d.get("rbd"),
+            iscsi=d.get("iscsi"),
+        )
 
 
 @dataclass
@@ -313,8 +340,7 @@ class PodSpec:
     preemption_policy: str = "PreemptLowerPriority"  # or "Never"
     topology_spread_constraints: List[TopologySpreadConstraint] = field(
         default_factory=list)
-    # names of the node-bound volume sources the pod's volumes use
-    node_bound_volumes: List[str] = field(default_factory=list)
+    volumes: List[Volume] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "PodSpec":
@@ -337,9 +363,7 @@ class PodSpec:
             topology_spread_constraints=[
                 TopologySpreadConstraint.from_dict(t)
                 for t in d.get("topologySpreadConstraints") or ()],
-            node_bound_volumes=[
-                src for v in d.get("volumes") or ()
-                for src in NODE_BOUND_VOLUME_SOURCES if v.get(src)],
+            volumes=[Volume.from_dict(v) for v in d.get("volumes") or ()],
         )
 
 
@@ -503,3 +527,63 @@ class PodDisruptionBudget:
                 int(status.get("desiredHealthy") or 0),
                 int(status.get("expectedPods") or 0)),
         )
+
+
+# ----------------------------------------------------------------------
+# storage: claims, volumes, classes and the per-node CSI attach limits
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    storage_class_name: Optional[str] = None
+    access_modes: List[str] = field(default_factory=list)
+    requests: Dict[str, Quantity] = field(default_factory=dict)
+    volume_name: str = ""
+    phase: str = "Pending"  # Pending | Bound | Lost
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class PersistentVolume:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    capacity: Dict[str, Quantity] = field(default_factory=dict)
+    access_modes: List[str] = field(default_factory=list)
+    storage_class_name: str = ""
+    node_affinity: Optional[NodeSelector] = None
+    claim_ref: Optional[str] = None  # "namespace/name" of the bound claim
+    phase: str = "Available"
+    csi_driver: str = ""  # the CSI driver serving it, if any
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class StorageClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    provisioner: str = ""
+    volume_binding_mode: str = "Immediate"  # or WaitForFirstConsumer
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class CSINodeDriver:
+    name: str
+    node_id: str = ""
+    allocatable_count: Optional[int] = None  # the attach limit, if any
+
+
+@dataclass
+class CSINode:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    drivers: List[CSINodeDriver] = field(default_factory=list)

@@ -1,8 +1,10 @@
-"""In-process cluster store for pods, nodes and PodDisruptionBudgets,
-with synchronous watch delivery, plus the scheduler's event handlers that
-turn watch events into cache and queue updates (assigned pods feed the
-cache, pending pods feed the queue, node changes feed the cache and wake
-parked pods).
+"""In-process cluster store for pods, nodes, PodDisruptionBudgets and
+the storage objects (PersistentVolumeClaims, PersistentVolumes,
+StorageClasses, CSINodes), with synchronous watch delivery, plus the
+scheduler's event handlers that turn watch events into cache and queue
+updates (assigned pods feed the cache, pending pods feed the queue, node
+changes feed the cache and wake parked pods, storage changes invalidate
+the batch path's device state and wake parked pods).
 
 A pod's status writes (its ``PodScheduled`` condition, its nominated
 node) change the stored object in place and send no watch event, as the
@@ -19,10 +21,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from kubernetes_tpu_torch.api.types import (
     FAILED,
     SUCCEEDED,
+    CSINode,
     Node,
+    PersistentVolume,
+    PersistentVolumeClaim,
     Pod,
     PodCondition,
     PodDisruptionBudget,
+    StorageClass,
     shallow_copy,
 )
 from kubernetes_tpu_torch.scheduler import queue as q
@@ -58,6 +64,12 @@ class ClusterStore:
         self._pods: Dict[str, Pod] = {}
         self._nodes: Dict[str, Node] = {}
         self._pdbs: Dict[str, PodDisruptionBudget] = {}
+        self._pvcs: Dict[str, PersistentVolumeClaim] = {}
+        self._pvs: Dict[str, PersistentVolume] = {}
+        self._storage_classes: Dict[str, StorageClass] = {}
+        self._csi_nodes: Dict[str, CSINode] = {}
+        # PV name -> claim key, assumed by VolumeBinding's Reserve
+        self._assumed_pvs: Dict[str, str] = {}
         self._bound = 0   # stored pods with a node
         self._watches: List[WatchHandle] = []
 
@@ -275,6 +287,110 @@ class ClusterStore:
     def list_stateful_sets(self, namespace: str) -> List:
         return []
 
+    # ------------------------------------------------------------------
+    # storage objects: each create or replace is one ADDED or MODIFIED
+    # event
+    def _upsert(self, table: Dict, kind: str, key: str, obj) -> None:
+        with self._lock:
+            old = table.get(key)
+            obj.metadata.resource_version = self._next_rv()
+            table[key] = obj
+            self._dispatch([Event(MODIFIED if old is not None else ADDED,
+                                  kind, obj, old)])
+
+    def add_pvc(self, pvc: PersistentVolumeClaim) -> None:
+        self._upsert(self._pvcs, "PersistentVolumeClaim",
+                     f"{pvc.namespace}/{pvc.name}", pvc)
+
+    def get_pvc(self, namespace: str, name: str
+                ) -> Optional[PersistentVolumeClaim]:
+        with self._lock:
+            return self._pvcs.get(f"{namespace}/{name}")
+
+    def list_all_pvcs(self) -> List[PersistentVolumeClaim]:
+        with self._lock:
+            return list(self._pvcs.values())
+
+    def add_pv(self, pv: PersistentVolume) -> None:
+        self._upsert(self._pvs, "PersistentVolume", pv.name, pv)
+
+    def get_pv(self, name: str) -> Optional[PersistentVolume]:
+        with self._lock:
+            return self._pvs.get(name)
+
+    def list_pvs(self) -> List[PersistentVolume]:
+        with self._lock:
+            return list(self._pvs.values())
+
+    def add_storage_class(self, sc: StorageClass) -> None:
+        self._upsert(self._storage_classes, "StorageClass", sc.name, sc)
+
+    def get_storage_class(self, name: str) -> Optional[StorageClass]:
+        with self._lock:
+            return self._storage_classes.get(name)
+
+    def list_storage_classes(self) -> List[StorageClass]:
+        with self._lock:
+            return list(self._storage_classes.values())
+
+    def add_csi_node(self, cn: CSINode) -> None:
+        self._upsert(self._csi_nodes, "CSINode", cn.metadata.name, cn)
+
+    def get_csi_node(self, name: str) -> Optional[CSINode]:
+        with self._lock:
+            return self._csi_nodes.get(name)
+
+    def list_csi_nodes(self) -> List[CSINode]:
+        with self._lock:
+            return list(self._csi_nodes.values())
+
+    # the volume binder's assume and commit
+    def assume_pv_bound(self, pv_name: str, pvc_key: str) -> None:
+        with self._lock:
+            self._assumed_pvs[pv_name] = pvc_key
+
+    def revert_assumed_pv(self, pv_name: str) -> None:
+        with self._lock:
+            self._assumed_pvs.pop(pv_name, None)
+
+    def bind_pv(self, pv_name: str, pvc_namespace: str, pvc_name: str
+                ) -> bool:
+        """Bind the PV and the claim to each other, in place (a MODIFIED
+        event each). False when either is missing."""
+        with self._lock:
+            pv = self._pvs.get(pv_name)
+            pvc = self._pvcs.get(f"{pvc_namespace}/{pvc_name}")
+            if pv is None or pvc is None:
+                return False
+            pv.claim_ref = f"{pvc_namespace}/{pvc_name}"
+            pv.phase = "Bound"
+            pvc.volume_name = pv_name
+            pvc.phase = "Bound"
+            self._assumed_pvs.pop(pv_name, None)
+            self._dispatch([Event(MODIFIED, "PersistentVolume", pv),
+                            Event(MODIFIED, "PersistentVolumeClaim", pvc)])
+            return True
+
+    def unbind_pv(self, pv_name: str, pvc_namespace: str, pvc_name: str
+                  ) -> bool:
+        """Undo ``bind_pv`` of a pair bound to each other; False (and
+        nothing changed) for any other pair."""
+        with self._lock:
+            pv = self._pvs.get(pv_name)
+            pvc = self._pvcs.get(f"{pvc_namespace}/{pvc_name}")
+            if pv is None or pvc is None:
+                return False
+            if pv.claim_ref != f"{pvc_namespace}/{pvc_name}" or \
+                    pvc.volume_name != pv_name:
+                return False
+            pv.claim_ref = None
+            pv.phase = "Available"
+            pvc.volume_name = ""
+            pvc.phase = "Pending"
+            self._dispatch([Event(MODIFIED, "PersistentVolume", pv),
+                            Event(MODIFIED, "PersistentVolumeClaim", pvc)])
+            return True
+
 
 # ----------------------------------------------------------------------
 def assigned(pod: Pod) -> bool:
@@ -286,11 +402,25 @@ def schedulable(pod: Pod) -> bool:
     return pod.status.phase not in (SUCCEEDED, FAILED)
 
 
+# storage kind -> the queue events its ADDED and MODIFIED events are
+STORAGE_EVENTS = {
+    "PersistentVolume": {ADDED: q.PV_ADD, MODIFIED: q.PV_UPDATE},
+    "PersistentVolumeClaim": {ADDED: q.PVC_ADD, MODIFIED: q.PVC_UPDATE},
+    "StorageClass": {ADDED: q.STORAGE_CLASS_ADD},
+    "CSINode": {ADDED: q.CSI_NODE_ADD, MODIFIED: q.CSI_NODE_UPDATE},
+}
+
+
 class EventHandlers:
     """Watch batches -> cache and queue. Runs of pod events of one kind
     (bind transitions, pending adds, deletions of assigned pods) collapse
     into one cache or queue call; their order relative to other events is
     kept by flushing the run before any other event.
+
+    Storage: every PV, PVC, StorageClass or CSINode event bumps the
+    cache's mutation sequence (the encoder reads volume masks and attach
+    budgets from those objects, so the batch path's device state is then
+    rebuilt), and an add or update wakes parked pods.
 
     Gangs: a pending member added wakes its gang's parked siblings; a
     bound member deleted releases its arrival slot at Coscheduling's
@@ -360,6 +490,11 @@ class EventHandlers:
             self._handle_pod(event)
         elif event.kind == "Node":
             self._handle_node(event)
+        elif event.kind in STORAGE_EVENTS:
+            self.sched.cache.note_external_mutation()
+            name = STORAGE_EVENTS[event.kind].get(event.type)
+            if name:
+                self.sched.queue.move_all_to_active_or_backoff_queue(name)
 
     def _handle_pod(self, event: Event) -> None:
         sched = self.sched

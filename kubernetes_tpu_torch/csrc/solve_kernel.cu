@@ -16,9 +16,32 @@
 //                sc_domain[U*SC] | term_codes[T] | node_valid
 //   static f32   scores[U]
 //   state        requested[R] | nonzero[2] | pod_count | sc_counts[SC] |
-//                term_counts[T] | term_owners[T] | totals (first T columns)
-//   pod ints     [B, R+4+2*SC+3*T] rows of pack_podin; pod floats [B, T]
-// SC, T and U are runtime loop bounds, so no constraint space is too wide.
+//                term_counts[T] | term_owners[T] | sv_attached[SV] |
+//                totals (first T columns)
+//   pod ints     [B, R+4+2*SC+3*T (+2 when SV > 0)] rows of pack_podin;
+//                pod floats [B, T]
+// SC, T, U and SV are runtime loop bounds, so no constraint space is too wide.
+//
+// Shared volumes (SV > 0; the sv part of the reference's
+// pallas_solver.py::_xla_planes_solve, which the JAX package runs for such
+// epochs since its Pallas kernel has no sv planes): row s of sv_attached is 1
+// on the nodes the shared CSI volume of slot s is attached to, and a pod's last
+// two columns are its slot (SV: none) and its volume driver's attach-limit
+// resource column. Such a pod needs one more attachment only where its volume
+// is not attached yet: the fit gains requested[col] + req[col] + (1 -
+// attached) <= alloc[col], and the winner's column gains the demand and is
+// marked attached. Only the thread that owns a column reads or writes that
+// column of an sv row, in every kernel, so the rows need no fence. The
+// cluster kernel leaves the sv rows in global memory (at SV = 512 over 1,024
+// columns they are 2 MB, which L2 holds) and touches them at L2 (__ldcg,
+// __stcg: the kernel writes them), one row a pod, the one its slot names; its
+// shared memory grows only by the pod chunks' two columns. The one-block
+// kernel carries them too, for sv epochs past the cluster's shared memory
+// (the slot kernel takes no sv epoch, as the reference's sparse scan). Both
+// dense kernels are templates on kSv: the launch takes the instance with the
+// sv code only for an epoch with slots, so the others run no sv code at all
+// (with it compiled in, the cluster kernel took 3-6% longer on the
+// SchedulingBasic batch on an H100; PERF.md).
 //
 // What bounds it on this card: latency. The work is B*N pod-node checks of
 // a few tens of operations each, over planes of a few hundred KB, but the
@@ -113,8 +136,14 @@ constexpr int kBig = 1 << 30;
 constexpr float kFoundThreshold = -5e29f;  // NEG_INF / 2
 
 struct Dims {
-  int r, sc, t, u, v, n, b;
+  int r, sc, t, u, v, sv, n, b;
 };
+
+// Int columns of a dense pod-stream row: the slot and the attach column
+// follow the terms when the epoch has shared-volume slots.
+__host__ __device__ inline int pod_width(const Dims& d) {
+  return d.r + 4 + 2 * d.sc + 3 * d.t + (d.sv > 0 ? 2 : 0);
+}
 
 struct Weights {
   float balanced, least, spread, affinity, stat;
@@ -138,9 +167,9 @@ __host__ __device__ inline int fact_stride(int sc, int t) { return 8 + 3 * sc + 
 __host__ __device__ inline Layout cluster_layout(const Dims& d, const Plan& p) {
   Layout l;
   int w = 0;
-  const int width = d.r + 4 + 2 * d.sc + 3 * d.t;
+  const int width = pod_width(d);
   l.state = w;
-  w += (d.r + 3 + d.sc + 2 * d.t) * p.cpb;  // every state row but totals
+  w += (d.r + 3 + d.sc + 2 * d.t) * p.cpb;  // every state row but sv and totals
   l.stat = w;
   w += (d.r + 2 + d.sc + d.t + 2 * d.u) * p.cpb;  // + masks, static scores
   l.score = w;
@@ -297,7 +326,8 @@ __device__ __forceinline__ void cluster_wait() {
 // ---------------------------------------------------------------------------
 // The one-block kernel: thread k owns node columns k, k+blockDim, ... of
 // every plane, so a thread only ever reads back what it wrote itself and
-// state needs no fence between pods.
+// state needs no fence between pods. kSv as in the cluster kernel.
+template <bool kSv>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
                    const float* __restrict__ pod_floats, const int* __restrict__ sta,
@@ -321,12 +351,13 @@ solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
   // state plane rows
   const int d_req = 0, d_nz = r, d_pod_count = r + 2, d_sc_counts = r + 3;
   const int d_term_counts = d_sc_counts + sc, d_term_owners = d_term_counts + t;
-  const int d_totals = d_term_owners + t;
+  const int d_sv = d_term_owners + t, d_totals = d_sv + (kSv ? d.sv : 0);
   // pod stream columns
   const int c_nz = r, c_profile = r + 2, c_valid = r + 3, c_pod_sc = r + 4;
   const int c_sc_match = c_pod_sc + sc, c_match_by = c_sc_match + sc;
   const int c_own_aff = c_match_by + t, c_own_anti = c_own_aff + t;
-  const int width = c_own_anti + t;
+  const int c_sv = c_own_anti + t;
+  const int width = c_sv + (kSv ? 2 : 0);  // pod_width(d): kSv is d.sv > 0
 
   for (int i = tid; i < t; i += nt) totals[i] = st[d_totals * N + i];
   __syncthreads();
@@ -366,6 +397,9 @@ solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
       self_all = self_all && row[c_match_by + k] > 0;
     }
     const bool need_aff = has_aff && !(no_any && self_all);
+    // the pod's shared volume: slot (d.sv for none) and attach column
+    const int slot = kSv ? row[c_sv] : 0, vcol = kSv ? row[c_sv + 1] : 0;
+    int* att = kSv && slot < d.sv ? st + (size_t)(d_sv + slot) * N : nullptr;
 
     float best_s = -INFINITY;
     int best_j = INT_MAX;
@@ -375,6 +409,9 @@ solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
                 sta[(s_masks + profile) * N + j] > 0;
       for (int k = 0; ok && k < r; ++k)
         ok = st[(d_req + k) * N + j] + row[k] <= sta[(s_alloc + k) * N + j];
+      if (ok && att != nullptr)
+        ok = st[(d_req + vcol) * N + j] + row[vcol] + (1 - att[j]) <=
+             sta[(s_alloc + vcol) * N + j];
       for (int k = 0; ok && k < sc; ++k) {
         if (row[c_pod_sc + k] <= 0 || sc_meta[sc + k] <= 0) continue;
         const int code = sta[(s_sc_codes + k) * N + j];
@@ -432,6 +469,10 @@ solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
       st[d_nz * N + jc] += row[c_nz];
       st[(d_nz + 1) * N + jc] += row[c_nz + 1];
       st[d_pod_count * N + jc] += 1;
+      if (att != nullptr) {  // one more attachment where it was not attached
+        st[(d_req + vcol) * N + jc] += 1 - att[jc];
+        att[jc] = 1;
+      }
     }
     for (int k = 0; k < sc; ++k) {
       const int inc = row[c_sc_match + k];
@@ -466,7 +507,10 @@ solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
 }
 
 // ---------------------------------------------------------------------------
-// The cluster kernel (see the note at the top).
+// The cluster kernel (see the note at the top). kSv: the epoch has
+// shared-volume slots; the instance without them compiles no sv code, so
+// the main path runs as it did before the planes existed.
+template <bool kSv>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
                      const float* __restrict__ pod_floats, const int* __restrict__ sta,
@@ -490,10 +534,11 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
   const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
   const int s_sc_domain = s_sc_codes + sc, s_term_codes = s_sc_domain + u * sc;
   const int s_node_valid = s_term_codes + t;
-  // state plane rows (global and shared alike, totals excepted)
+  // state plane rows (global and shared alike, sv and totals excepted:
+  // the sv rows stay in global memory, L2)
   const int d_req = 0, d_nz = r, d_pod_count = r + 2, d_sc_counts = r + 3;
   const int d_term_counts = d_sc_counts + sc, d_term_owners = d_term_counts + t;
-  const int d_totals = d_term_owners + t;
+  const int d_sv = d_term_owners + t, d_totals = d_sv + (kSv ? d.sv : 0);
   // shared static rows: alloc[R] | max_pods | node_valid | sc_codes[SC] |
   // term_codes[T] | masks[U] | static scores[U] (f32)
   const int a_max_pods = r, a_valid = r + 1, a_sc_codes = r + 2, a_term_codes = r + 2 + sc;
@@ -503,7 +548,8 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
   const int c_nz = r, c_profile = r + 2, c_valid = r + 3, c_pod_sc = r + 4;
   const int c_sc_match = c_pod_sc + sc, c_match_by = c_sc_match + sc;
   const int c_own_aff = c_match_by + t, c_own_anti = c_own_aff + t;
-  const int width = c_own_anti + t;
+  const int c_sv = c_own_anti + t;
+  const int width = c_sv + (kSv ? 2 : 0);  // pod_width(d): kSv is d.sv > 0
   const int fstride = fact_stride(sc, t);
 
   int* s_state = smem + L.state;
@@ -522,7 +568,7 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
   int* slot_j = smem + L.slot_best + 2 * nc;                    // [2][cluster]
 
   // the block's slice of the planes, once
-  for (int row = 0; row < d_totals; ++row)
+  for (int row = 0; row < d_sv; ++row)
     for (int c = tid; c < cols; c += nt)
       cp_async4(s_state + row * cpb + c, st + row * N + lo + c);
   for (int row = 0; row < n_int_stat; ++row) {
@@ -631,6 +677,10 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
       const int profile = row[c_profile];
       const int* mask_row = s_stat + (a_masks + profile) * cpb;
       const float* static_row = reinterpret_cast<const float*>(s_stat + (a_scores + profile) * cpb);
+      // the pod's shared volume: its sv row (this block's columns, in L2,
+      // read at L2 since the kernel writes it) and attach column
+      const int slot = kSv ? row[c_sv] : 0, vcol = kSv ? row[c_sv + 1] : 0;
+      int* att = kSv && slot < d.sv ? st + (size_t)(d_sv + slot) * N + lo : nullptr;
 
       // hard spread: this block's domain minima of every active constraint,
       // published to every block; the barrier's wait comes after the filter
@@ -674,6 +724,9 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
                   (mask_row[c] > 0);
         for (int k = 0; k < r; ++k)
           ok = ok & (s_state[(d_req + k) * cpb + c] + row[k] <= s_stat[k * cpb + c]);
+        if (att != nullptr)
+          ok = ok & (s_state[(d_req + vcol) * cpb + c] + row[vcol] + (1 - __ldcg(att + c)) <=
+                     s_stat[vcol * cpb + c]);
         for (int x = 0; x < ntf; ++x) {
           const int k = tf[x];
           ok = ok & !(row[c_match_by + k] > 0 && s_state[(d_term_owners + k) * cpb + c] > 0) &
@@ -771,6 +824,10 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
         s_state[d_nz * cpb + cj] += row[c_nz];
         s_state[(d_nz + 1) * cpb + cj] += row[c_nz + 1];
         s_state[d_pod_count * cpb + cj] += 1;
+        if (att != nullptr) {  // one more attachment where it was not attached
+          s_state[(d_req + vcol) * cpb + cj] += 1 - __ldcg(att + cj);
+          __stcg(att + cj, 1);
+        }
       }
       for (int x = 0; x < nscc; ++x) {
         const int k = scc[x];
@@ -802,7 +859,7 @@ solve_cluster_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
 
   cp_async_wait<0>();
   __syncthreads();
-  for (int row = 0; row < d_totals; ++row)
+  for (int row = 0; row < d_sv; ++row)
     for (int c = tid; c < cols; c += nt) st[row * N + lo + c] = s_state[row * cpb + c];
   for (int c = tid; c < cols; c += nt) {
     const int j = lo + c;
@@ -1228,17 +1285,17 @@ int launch_cluster(ClusterKernel fn, int layout_words, const int* sc_meta, const
 }  // namespace
 
 // Shared-memory bytes of the cluster kernel for a plan.
-extern "C" int ktt_cluster_smem_bytes(int r, int sc, int t, int u, int cluster, int threads,
-                                      int cpb, int chunk) {
-  Dims d{r, sc, t, u, 0, 0, 0};
+extern "C" int ktt_cluster_smem_bytes(int r, int sc, int t, int u, int sv, int cluster,
+                                      int threads, int cpb, int chunk) {
+  Dims d{r, sc, t, u, 0, sv, 0, 0};
   Plan p{cluster, threads, cpb, chunk};
   return cluster_layout(d, p).words * (int)sizeof(int);
 }
 
 // Shared-memory bytes of the slot kernel for a plan.
-extern "C" int ktt_slots_smem_bytes(int r, int sc, int t, int u, int cluster, int threads, int cpb,
-                                    int chunk) {
-  Dims d{r, sc, t, u, 0, 0, 0};
+extern "C" int ktt_slots_smem_bytes(int r, int sc, int t, int u, int sv, int cluster,
+                                    int threads, int cpb, int chunk) {
+  Dims d{r, sc, t, u, 0, sv, 0, 0};
   Plan p{cluster, threads, cpb, chunk};
   return slots_layout(d, p).words * (int)sizeof(int);
 }
@@ -1246,7 +1303,12 @@ extern "C" int ktt_slots_smem_bytes(int r, int sc, int t, int u, int cluster, in
 // How many clusters of this shape the card can hold at once (0: none, so
 // the shape cannot launch); a negative value is a CUDA error.
 extern "C" int ktt_cluster_max_active(int cluster, int threads, int smem_bytes) {
-  return max_active(solve_cluster_kernel, cluster, threads, smem_bytes);
+  // one plan serves both instances: the fewer clusters either one fits
+  const int with_sv = max_active(solve_cluster_kernel<true>, cluster, threads, smem_bytes);
+  const int without = max_active(solve_cluster_kernel<false>, cluster, threads, smem_bytes);
+  if (with_sv < 0) return with_sv;
+  if (without < 0) return without;
+  return with_sv < without ? with_sv : without;
 }
 
 // The same for the slot kernel.
@@ -1260,27 +1322,33 @@ extern "C" int ktt_slots_max_active(int cluster, int threads, int smem_bytes) {
 extern "C" int ktt_solve_cluster_launch(const int* sc_meta, const int* pod_ints,
                                         const float* pod_floats, const int* static_ints,
                                         const float* static_f32s, int* state, int* assign, int r,
-                                        int sc, int t, int u, int v, int n, int b, int cluster,
-                                        int threads, int cpb, int chunk, int smem_bytes,
-                                        float balanced_w, float least_w, float spread_w,
-                                        float affinity_w, float static_w, void* stream) {
-  Dims d{r, sc, t, u, v, n, b};
+                                        int sc, int t, int u, int v, int sv, int n, int b,
+                                        int cluster, int threads, int cpb, int chunk,
+                                        int smem_bytes, float balanced_w, float least_w,
+                                        float spread_w, float affinity_w, float static_w,
+                                        void* stream) {
+  Dims d{r, sc, t, u, v, sv, n, b};
   Plan p{cluster, threads, cpb, chunk};
-  return launch_cluster(solve_cluster_kernel, cluster_layout(d, p).words, sc_meta, pod_ints,
+  return launch_cluster(sv > 0 ? solve_cluster_kernel<true> : solve_cluster_kernel<false>,
+                        cluster_layout(d, p).words, sc_meta, pod_ints,
                         pod_floats, static_ints, static_f32s, state, assign, d, p, smem_bytes,
                         Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream);
 }
 
 // Launch the slot solve on `stream` with the slot stream as the pod rows
 // ([B, R+4+2*SC+2*K] ints, [B, K] weights); otherwise as the cluster solve.
+// The slot stream has no shared-volume columns: planes with sv > 0 are
+// refused as an invalid value.
 extern "C" int ktt_solve_slots_launch(const int* sc_meta, const int* pod_ints,
                                       const float* pod_floats, const int* static_ints,
                                       const float* static_f32s, int* state, int* assign, int r,
-                                      int sc, int t, int u, int v, int n, int b, int cluster,
-                                      int threads, int cpb, int chunk, int smem_bytes,
-                                      float balanced_w, float least_w, float spread_w,
-                                      float affinity_w, float static_w, void* stream) {
-  Dims d{r, sc, t, u, v, n, b};
+                                      int sc, int t, int u, int v, int sv, int n, int b,
+                                      int cluster, int threads, int cpb, int chunk,
+                                      int smem_bytes, float balanced_w, float least_w,
+                                      float spread_w, float affinity_w, float static_w,
+                                      void* stream) {
+  if (sv != 0) return (int)cudaErrorInvalidValue;
+  Dims d{r, sc, t, u, v, sv, n, b};
   Plan p{cluster, threads, cpb, chunk};
   return launch_cluster(solve_slots_kernel, slots_layout(d, p).words, sc_meta, pod_ints,
                         pod_floats, static_ints, static_f32s, state, assign, d, p, smem_bytes,
@@ -1292,21 +1360,22 @@ extern "C" int ktt_solve_slots_launch(const int* sc_meta, const int* pod_ints,
 extern "C" int ktt_solve_block_launch(const int* sc_meta, const int* pod_ints,
                                       const float* pod_floats, const int* static_ints,
                                       const float* static_f32s, int* state, int* assign, int r,
-                                      int sc, int t, int u, int v, int n, int b, int threads,
-                                      int smem_bytes, float balanced_w, float least_w,
-                                      float spread_w, float affinity_w, float static_w,
-                                      void* stream) {
+                                      int sc, int t, int u, int v, int sv, int n, int b,
+                                      int threads, int smem_bytes, float balanced_w,
+                                      float least_w, float spread_w, float affinity_w,
+                                      float static_w, void* stream) {
   if (threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
       smem_bytes != (int)sizeof(int) * (3 * (kMaxWarps + 1) + sc + t))
     return (int)cudaErrorInvalidValue;
+  auto* fn = sv > 0 ? solve_block_kernel<true> : solve_block_kernel<false>;
   if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(solve_block_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  Dims d{r, sc, t, u, v, n, b};
+  Dims d{r, sc, t, u, v, sv, n, b};
   Weights w{balanced_w, least_w, spread_w, affinity_w, static_w};
-  solve_block_kernel<<<1, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<1, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       sc_meta, pod_ints, pod_floats, static_ints, static_f32s, state, assign, d, w);
   return (int)cudaGetLastError();
 }

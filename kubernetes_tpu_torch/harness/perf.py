@@ -7,6 +7,9 @@ between pumps (``workloads.churn``): delete a seeded share of the bound
 pods, change a seeded share of the nodes' allocatable cpu, and delete a
 pod while a solved batch waits for its commit.
 
+A ``setup`` op calls its ``fn`` with the store (the volume rows' PVs,
+claims, StorageClasses and CSINodes).
+
 A ``createPods`` op waits for its own pods to be bound in the store (none
 when it sets ``skipWaitToCompletion``), not for every pod: pods of
 earlier ops may pend for good (Unschedulable) or be deleted by
@@ -141,6 +144,12 @@ class BenchmarkResult:
     # and the pods still waiting at Permit when the run ended
     binding: Dict[str, float] = field(default_factory=dict)
     waiting_at_end: int = 0
+    # claim name -> the PV bound to it ("" when unbound), for every claim
+    # in the store; node name -> the PVs its bound pods' claims use; the
+    # claims the batch loop bound at commit
+    claims: Dict[str, str] = field(default_factory=dict)
+    node_volumes: Dict[str, List[str]] = field(default_factory=dict)
+    volumes_bound: int = 0
 
 
 def _bound_pods(store: ClusterStore) -> List[Pod]:
@@ -279,6 +288,8 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                 pump(time.monotonic() + WAIT_TIMEOUT_S)
             elif opcode == "barrier":
                 pump(time.monotonic() + WAIT_TIMEOUT_S)
+            elif opcode == "setup":
+                op["fn"](store)
             else:
                 raise ValueError(f"unknown opcode {opcode!r}")
         bs.flush()
@@ -297,6 +308,13 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
 
     session = bs.session
     pods = store.list_pods()
+    claims = {pvc.name: pvc.volume_name for pvc in store.list_all_pvcs()}
+    node_volumes: Dict[str, set] = {}
+    for p in pods:
+        for v in p.spec.volumes:
+            pv = claims.get(v.persistent_volume_claim or "")
+            if p.spec.node_name and pv:
+                node_volumes.setdefault(p.spec.node_name, set()).add(pv)
     return BenchmarkResult(
         name=name,
         device=str(dev),
@@ -328,4 +346,7 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         placements={p.metadata.name: p.spec.node_name for p in pods},
         binding=dict(sched.binding_stats),
         waiting_at_end=len(waiting),
+        claims=claims,
+        node_volumes={n: sorted(v) for n, v in node_volumes.items()},
+        volumes_bound=bs.volumes_bound,
     )

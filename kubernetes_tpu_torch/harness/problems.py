@@ -6,7 +6,9 @@ The planes are consistent the way the encoder makes them: topology counts
 are per domain value (every column of a domain holds its count), the
 sentinel value ``v`` marks a node without the key, the eligible domains of
 a profile exclude the sentinel, and the totals are the real-value sums of
-the term counts."""
+the term counts. With shared-volume slots (``sv``), the last resource is an
+attach-limit column, as the encoder appends one: small limits, in-use counts
+clamped to them (some nodes full), and attached bits clear on full nodes."""
 
 from __future__ import annotations
 
@@ -20,16 +22,20 @@ from kubernetes_tpu_torch.ops.slots import SPARSE_K
 
 
 def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
-                  t: int = 1, u: int = 1, v: int = 10, real: int = None
-                  ) -> Tuple[PStatic, torch.Tensor, torch.Tensor,
-                             torch.Tensor]:
+                  t: int = 1, u: int = 1, v: int = 10, real: int = None,
+                  sv: int = 0) -> Tuple[PStatic, torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
     """(static planes, state, pod ints, pod floats) on the CPU: ``n``
     columns of which the first ``real`` (all by default) are nodes, ``b``
-    pod rows (about one in eight padding), ``v`` topology values."""
+    pod rows (about one in eight padding), ``v`` topology values, and
+    ``sv`` shared-volume slots (then ``r`` is at least 4): about three in
+    four pods reference one of the first ``sv // 2 + 1`` slots, so later
+    pods of the batch reuse volumes earlier ones attached, and one in five
+    also requests a non-shared attachment."""
     rng = np.random.default_rng(seed)
     real = n if real is None else real
     so, cs = static_planes(r, sc, t, u)
-    do, cd = state_planes(r, sc, t)
+    do, cd = state_planes(r, sc, t, sv)
 
     ints = np.zeros((cs, n), dtype=np.int32)
     alloc = rng.integers(4000, 32000, (r, n))
@@ -71,6 +77,23 @@ def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
         return (rng.random(shape) < p).astype(np.int32)
 
     pod_req = rng.integers(100, 2500, (b, r))
+    pod_sv = []
+    if sv:
+        if r < 4:
+            raise ValueError("shared-volume slots need an attach column "
+                             "after cpu, memory and ephemeral storage")
+        col = r - 1
+        limit = rng.integers(1, 5, n)
+        ints[so["alloc"] + col] = limit
+        in_use = np.minimum(rng.integers(0, 5, n), limit)
+        state[do["requested"] + col] = in_use
+        full = in_use >= limit
+        state[do["sv_attached"]:do["sv_attached"] + sv] = (
+            (rng.random((sv, n)) < 0.1) & ~full)
+        pod_req[:, col] = rng.random(b) < 0.2
+        shared = rng.random(b) < 0.75
+        slot = np.where(shared, rng.integers(0, sv // 2 + 1, b), sv)
+        pod_sv = [np.stack([slot, np.where(shared, col, 0)], axis=1)]
     pod_ints = np.concatenate([
         pod_req, pod_req[:, :2],
         rng.integers(0, u, (b, 1)),             # profile
@@ -80,11 +103,12 @@ def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
         flags((b, t), 0.15),                    # match_by
         flags((b, t), 0.05),                    # own_aff
         flags((b, t), 0.05),                    # own_anti
+        *pod_sv,                                # slot, attach column
     ], axis=1).astype(np.int32)
     pod_floats = (rng.integers(-3, 8, (b, t)) * flags((b, t), 0.2)
                   ).astype(np.float32)
     pstatic = PStatic(torch.from_numpy(ints), torch.from_numpy(f32s),
-                      torch.from_numpy(sc_meta), r, sc, t, u, v)
+                      torch.from_numpy(sc_meta), r, sc, t, u, v, sv)
     return (pstatic, torch.from_numpy(state), torch.from_numpy(pod_ints),
             torch.from_numpy(pod_floats))
 

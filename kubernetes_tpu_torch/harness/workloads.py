@@ -1,11 +1,23 @@
 """Benchmark workloads as op lists (the scheduler_perf op DSL):
-``{"opcode": "createNodes" | "createPods" | "barrier", ...}``, at any
-node and pod count. A ``createPods`` op with ``skipWaitToCompletion``
-does not wait for its pods to be bound."""
+``{"opcode": "createNodes" | "createPods" | "barrier" | "setup", ...}``,
+at any node and pod count. A ``createPods`` op with
+``skipWaitToCompletion`` does not wait for its pods to be bound; a
+``setup`` op calls its ``fn`` with the store (the storage objects of the
+volume rows)."""
 
 from __future__ import annotations
 
 from typing import Dict, List
+
+from kubernetes_tpu_torch.api.resource import parse_quantity
+from kubernetes_tpu_torch.api.types import (
+    CSINode,
+    CSINodeDriver,
+    ObjectMeta,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    StorageClass,
+)
 
 
 def _zone(i: int, zones: int = 10) -> str:
@@ -278,6 +290,171 @@ def unschedulable(nodes: int, init_pods: int, measure_pods: int
     ]
 
 
+def _pvc_pod(i: int, claim: str, cpu: str = "500m") -> dict:
+    p = basic_pod(i, cpu=cpu)
+    p["spec"]["volumes"] = [
+        {"name": "data", "persistentVolumeClaim": {"claimName": claim}}]
+    return p
+
+
+def _volumes_setup(count: int, storage_class: str, binding_mode: str,
+                   provisioner: str = "kubernetes.io/fake",
+                   csi_driver: str = "", prebound: bool = True,
+                   offset: int = 0) -> dict:
+    """A StorageClass and one PV and claim a pod (``claim-i``, ``pv-i``
+    for i from ``offset``), bound to each other unless not ``prebound``
+    (then the PVs are Available and the claims Pending). ``csi_driver``
+    marks the PVs as served by that CSI driver, so they count against its
+    CSINode attach limits."""
+    def setup(store):
+        store.add_storage_class(StorageClass(
+            metadata=ObjectMeta(name=storage_class), provisioner=provisioner,
+            volume_binding_mode=binding_mode))
+        for i in range(offset, offset + count):
+            claim = f"claim-{i}"
+            store.add_pv(PersistentVolume(
+                metadata=ObjectMeta(name=f"pv-{i}"),
+                capacity={"storage": parse_quantity("1Gi")},
+                storage_class_name=storage_class,
+                claim_ref=f"default/{claim}" if prebound else None,
+                phase="Bound" if prebound else "Available",
+                csi_driver=csi_driver))
+            store.add_pvc(PersistentVolumeClaim(
+                metadata=ObjectMeta(name=claim, namespace="default"),
+                storage_class_name=storage_class,
+                requests={"storage": parse_quantity("1Gi")},
+                volume_name=f"pv-{i}" if prebound else "",
+                phase="Bound" if prebound else "Pending"))
+    return {"opcode": "setup", "fn": setup}
+
+
+def _pv_workload(storage_class: str, provisioner: str, csi_driver: str = "",
+                 extra_setup=None):
+    """The rows of bound PV claims: each measured pod has a claim of its
+    own, bound to its own PV; ``extra_setup(nodes)`` adds more storage
+    objects."""
+    def build(nodes: int, init_pods: int, measure_pods: int) -> List[dict]:
+        ops = [_nodes_op(nodes)]
+        if extra_setup is not None:
+            ops.append({"opcode": "setup", "fn": extra_setup(nodes)})
+        ops += [
+            _volumes_setup(measure_pods, storage_class, "Immediate",
+                           provisioner=provisioner, csi_driver=csi_driver,
+                           offset=init_pods),
+            _pods_op(init_pods, lambda i: basic_pod(i)),
+            _barrier(),
+            _pods_op(measure_pods, lambda i: _pvc_pod(i, f"claim-{i}"),
+                     collect=True, offset=init_pods),
+        ]
+        return ops
+    return build
+
+
+def _csi_nodes_setup(nodes: int):
+    """A CSINode a node with an attach limit of 39 for
+    ``csi.fake.driver``."""
+    def setup(store):
+        for i in range(nodes):
+            store.add_csi_node(CSINode(
+                metadata=ObjectMeta(name=f"node-{i}"),
+                drivers=[CSINodeDriver(name="csi.fake.driver",
+                                       node_id=f"node-{i}",
+                                       allocatable_count=39)]))
+    return setup
+
+
+def scheduling_shared_pvs(nodes: int, init_pods: int, measure_pods: int
+                          ) -> List[dict]:
+    """Three populations of measured pods:
+
+    - 45%: shared ReadWriteMany claims on PVs of no CSI driver, ten pods
+      a claim, bound;
+    - 45%: unbound WaitForFirstConsumer claims, one a pod, over a pool of
+      Available PVs without node affinity, bound at commit;
+    - 10%: shared ReadWriteMany claims on CSI PVs, ten pods a claim.
+
+    All three take the batch path: no CSINode publishes a limit for the
+    CSI driver, so the last population has no attach column to count
+    in."""
+    n_serial = measure_pods // 10
+    n_batch_shared = (measure_pods - n_serial) // 2
+    n_wfc = measure_pods - n_serial - n_batch_shared
+    n_claims = max(n_batch_shared // 10, 1)
+    n_csi_claims = max(n_serial // 10, 1)
+
+    def setup_shared(store):
+        store.add_storage_class(StorageClass(
+            metadata=ObjectMeta(name="shared-sc"),
+            provisioner="kubernetes.io/fake",
+            volume_binding_mode="Immediate"))
+
+        def shared_pair(prefix: str, count: int, csi_driver: str = ""):
+            for i in range(count):
+                store.add_pv(PersistentVolume(
+                    metadata=ObjectMeta(name=f"{prefix}-pv-{i}"),
+                    capacity={"storage": parse_quantity("10Gi")},
+                    storage_class_name="shared-sc",
+                    access_modes=["ReadWriteMany"],
+                    claim_ref=f"default/{prefix}-claim-{i}", phase="Bound",
+                    csi_driver=csi_driver))
+                store.add_pvc(PersistentVolumeClaim(
+                    metadata=ObjectMeta(name=f"{prefix}-claim-{i}",
+                                        namespace="default"),
+                    storage_class_name="shared-sc",
+                    requests={"storage": parse_quantity("1Gi")},
+                    access_modes=["ReadWriteMany"],
+                    volume_name=f"{prefix}-pv-{i}", phase="Bound"))
+        shared_pair("shared", n_claims)
+        shared_pair("csishared", n_csi_claims,
+                    csi_driver="rwx.csi.example.com")
+
+    def pod(j):
+        k = j - init_pods
+        if k < n_batch_shared:
+            return _pvc_pod(j, f"shared-claim-{k % n_claims}")
+        if k < n_batch_shared + n_wfc:
+            return _pvc_pod(j, f"claim-{j}")
+        return _pvc_pod(j, f"csishared-claim-{k % n_csi_claims}")
+
+    return [
+        _nodes_op(nodes),
+        {"opcode": "setup", "fn": setup_shared},
+        _volumes_setup(n_wfc, "unbound-sc", "WaitForFirstConsumer",
+                       prebound=False, offset=init_pods + n_batch_shared),
+        _pods_op(init_pods, lambda i: basic_pod(i)),
+        _barrier(),
+        _pods_op(measure_pods, pod, collect=True, offset=init_pods),
+    ]
+
+
+# pre-bound PV claims, in-tree
+scheduling_in_tree_pvs = _pv_workload("intree-sc", "kubernetes.io/fake")
+# the same claims served through CSI migration (the PVs name the driver)
+scheduling_migrated_in_tree_pvs = _pv_workload(
+    "migrated-sc", "pd.csi.storage.gke.io",
+    csi_driver="pd.csi.storage.gke.io")
+# CSI claims counted against CSINode attach limits of 39
+scheduling_csi_pvs = _pv_workload(
+    "csi-sc", "csi.fake.driver", csi_driver="csi.fake.driver",
+    extra_setup=_csi_nodes_setup)
+
+
+def preemption_pvs(nodes: int, init_pods: int, measure_pods: int
+                   ) -> List[dict]:
+    """The Preemption row with a bound claim on every preemptor: each
+    evicts one priority-1 pod and keeps its claim bound."""
+    return [
+        _nodes_op(nodes, cpu="4", memory="8Gi"),
+        _volumes_setup(measure_pods, "preempt-sc", "Immediate",
+                       offset=init_pods),
+        _pods_op(init_pods, lambda i: _prio(basic_pod(i, cpu="3"), 1)),
+        _barrier(),
+        _pods_op(measure_pods,
+                 lambda i: _prio(_pvc_pod(i, f"claim-{i}", cpu="3"), 100),
+                 collect=True, offset=init_pods),
+    ]
+
+
 WORKLOADS = {
     "SchedulingBasic": scheduling_basic,
     "SchedulingPodAntiAffinity": scheduling_pod_anti_affinity,
@@ -288,6 +465,11 @@ WORKLOADS = {
     "Preemption": preemption,
     "Unschedulable": unschedulable,
     "GangScheduling": gang_scheduling,
+    "SchedulingInTreePVs": scheduling_in_tree_pvs,
+    "SchedulingSharedPVs": scheduling_shared_pvs,
+    "SchedulingMigratedInTreePVs": scheduling_migrated_in_tree_pvs,
+    "SchedulingCSIPVs": scheduling_csi_pvs,
+    "PreemptionPVs": preemption_pvs,
 }
 
 

@@ -12,20 +12,39 @@
 - tracked (anti-)affinity terms: counts and owners ``[T, V+1]`` and
   per-pod flags and preferred weights.
 
+Volumes, given the store as ``client``: a claim's PV node affinity and
+zone fold into its profile's static mask (computed by the VolumeBinding
+and VolumeZone plugins themselves); each CSI driver with a CSINode
+attach limit gets a resource column after the others (allocatable = the
+limit, requested = the distinct volumes in use, clamped to the limit), so
+a pod's distinct new volumes of that driver are a request like cpu; and
+each shared (RWX or ROX) CSI volume gets a slot, whose row of
+``sv_attached [SV, N]`` marks the nodes it is attached to: a pod of that
+volume costs one attachment only where it is not attached yet
+(``pod_sv``: slot, attach column; the sentinel slot SV for other pods).
+An unbound WaitForFirstConsumer claim over a pool of PVs without node
+affinity is no constraint at all: the batch loop binds a PV at commit.
+
 Node columns are padded to a multiple of 128 (of 512 above 1024 nodes);
 SC and T are at least 1. A full ``encode`` keeps its *encoding space*
-(resource columns, value codes, tracked constraints, terms and profiles)
-so later batches that fit it are encoded pod-side only
-(``encode_pods_only``) against the state the device carries.
+(resource columns, value codes, tracked constraints, terms, profiles,
+attach columns and volume slots) so later batches that fit it are
+encoded pod-side only (``encode_pods_only``) against the state the
+device carries.
 
-Pods this batch path cannot express (persistent or inline cloud volumes,
-host ports, mesh-block placement) raise ``InexpressiblePodError``. The
-batch loop asks ``is_host_only`` first and sends host-port pods to the
-serial path; the rest stay refused.
+``is_host_only`` tells the pods the serial path takes (host ports,
+inline cloud disks, claims other than bound or node-independent
+WaitForFirstConsumer ones, more than one shared CSI volume); the batch
+loop routes them there, and the encoder raises
+``InexpressiblePodError`` if it is handed one. A mesh-block pod is
+refused by both paths. A pod whose non-shared volume is already attached
+somewhere is flagged ``inexpressible`` in its batch and declined, so it
+takes the serial path for the exact set count.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -33,6 +52,17 @@ import numpy as np
 
 from kubernetes_tpu_torch.api import labels as labelslib
 from kubernetes_tpu_torch.api.types import CPU, EPHEMERAL_STORAGE, MEMORY, PODS, Pod
+from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
+from kubernetes_tpu_torch.scheduler.framework.plugins.node_volume_limits import (
+    pod_csi_volumes,
+)
+from kubernetes_tpu_torch.scheduler.framework.plugins.volume_binding import (
+    VolumeBinding,
+)
+from kubernetes_tpu_torch.scheduler.framework.plugins.volume_zone import (
+    TOPOLOGY_LABELS,
+    VolumeZone,
+)
 from kubernetes_tpu_torch.scheduler.predicates import (
     node_selector_term_matches,
     passes_unschedulable,
@@ -45,33 +75,118 @@ from kubernetes_tpu_torch.scheduler.types import PodInfo, Resource
 BASE_RESOURCES = 3  # cpu (milli), memory (KiB), ephemeral (KiB)
 PAD_NODES = 128
 MESH_BLOCK_LABEL = "ktpu.io/mesh-block"
+# attach-limit columns are named in a namespace no extended resource uses
+ATTACH_COL_PREFIX = "attachable#csi#"
+# the attach budget of a node or driver without a limit; it survives a
+# full batch of additions in int32
+NO_LIMIT = 1_000_000_000
+# access modes that let several pods share one volume
+SHARED_ACCESS_MODES = ("ReadWriteMany", "ReadOnlyMany")
 
 
 class InexpressiblePodError(ValueError):
     """A pod needs host-side machinery this batch path does not have."""
 
 
-def check_expressible(pod: Pod) -> None:
-    if is_host_only(pod):
+def check_expressible(pod: Pod, client=None, cache=None) -> None:
+    if is_host_only(pod, client, cache):
         raise InexpressiblePodError(
-            f"pod {pod.full_name()} requests host ports")
+            f"pod {pod.full_name()} needs the serial path (host ports or "
+            "volumes the batch path cannot express)")
 
 
-def is_host_only(pod: Pod) -> bool:
+def wfc_class_batchable(client, sc_name: str, cache=None) -> bool:
+    """True when an unbound claim of class ``sc_name`` needs no per-node
+    check: the class binds WaitForFirstConsumer, its provisioner has no
+    CSINode attach limit anywhere, and no Available unclaimed PV of the
+    class has node affinity (a match is then the same on every node, and
+    the PV can be picked at commit). ``cache`` (a dict) keeps the verdict
+    per class for one drain."""
+    if not sc_name:
+        return False
+    if cache is not None and ("wfc", sc_name) in cache:
+        return cache[("wfc", sc_name)]
+    verdict = False
+    sc = client.get_storage_class(sc_name)
+    if sc is not None and sc.volume_binding_mode == "WaitForFirstConsumer":
+        limited = any(
+            d.name == sc.provisioner and d.allocatable_count is not None
+            for cn in client.list_csi_nodes() for d in cn.drivers)
+        if not limited:
+            verdict = all(
+                pv.node_affinity is None for pv in client.list_pvs()
+                if pv.phase == "Available" and pv.claim_ref is None
+                and pv.storage_class_name == sc_name)
+    if cache is not None:
+        cache[("wfc", sc_name)] = verdict
+    return verdict
+
+
+def pv_is_shared(client, pv) -> bool:
+    """A PV is shared when it, or the claim its ``claim_ref`` names, has
+    a ReadWriteMany or ReadOnlyMany access mode. The one rule for
+    ``is_host_only``, the slot enumeration and the pod-side encoder."""
+    if any(m in SHARED_ACCESS_MODES for m in pv.access_modes):
+        return True
+    if pv.claim_ref:
+        ns, _, nm = pv.claim_ref.partition("/")
+        pvc = client.get_pvc(ns, nm)
+        return pvc is not None and any(
+            m in SHARED_ACCESS_MODES for m in pvc.access_modes)
+    return False
+
+
+def is_host_only(pod: Pod, client=None, cache=None) -> bool:
     """True for a pod the serial path takes and the batch path cannot
-    express: host ports (the NodePorts filter tracks them per node).
-    Raises ``InexpressiblePodError`` for a pod neither path takes: one
-    with volumes (a claim needs VolumeBinding; an inline cloud disk needs
-    VolumeRestrictions and the attach limits, none of them ported) or
-    mesh-block placement (MeshLocality)."""
-    if pod.spec.node_bound_volumes:
-        raise InexpressiblePodError(
-            f"pod {pod.full_name()} uses node-bound volumes "
-            f"{pod.spec.node_bound_volumes}")
+    express: an inline cloud disk (VolumeRestrictions and the in-tree
+    limits scan the node's pods), a host port (NodePorts), a claim that
+    is missing, unbound (but for a node-independent WaitForFirstConsumer
+    class, ``wfc_class_batchable``) or bound to a missing PV, or more
+    than one shared CSI volume (a pod carries one attach-plane slot).
+    Without a ``client`` every claim is host-only. ``cache`` is a dict
+    kept for one drain. Raises ``InexpressiblePodError`` for a pod
+    neither path takes: mesh-block placement (MeshLocality)."""
     if pod.metadata.labels.get(MESH_BLOCK_LABEL):
         raise InexpressiblePodError(
             f"pod {pod.full_name()} asks for mesh-block placement")
-    return any(p.host_port > 0 for c in pod.spec.containers for p in c.ports)
+    for v in pod.spec.volumes:
+        if (v.gce_persistent_disk or v.aws_elastic_block_store
+                or v.azure_disk or v.rbd or v.iscsi):
+            return True
+    if any(p.host_port > 0 for c in pod.spec.containers for p in c.ports):
+        return True
+    shared_csi = 0
+    for v in pod.spec.volumes:
+        if not v.persistent_volume_claim:
+            continue
+        if client is None:
+            return True
+        pvc = client.get_pvc(pod.namespace, v.persistent_volume_claim)
+        if pvc is None:
+            return True
+        if not pvc.volume_name:
+            if not wfc_class_batchable(client, pvc.storage_class_name,
+                                       cache):
+                return True
+            continue
+        pv = client.get_pv(pvc.volume_name)
+        if pv is None:
+            return True
+        if pv.csi_driver and pv_is_shared(client, pv):
+            shared_csi += 1
+            if shared_csi > 1:
+                return True
+    return False
+
+
+class _ClientHandle:
+    """The framework handle the volume plugins need inside the encoder:
+    only ``client``."""
+
+    __slots__ = ("client",)
+
+    def __init__(self, client):
+        self.client = client
 
 
 def _kib(b: int) -> int:
@@ -166,6 +281,10 @@ class EncodedCluster:
     topo_keys: List[str] = field(default_factory=list)
     topo_codes: Optional[np.ndarray] = None       # [N, K] int32, V = missing
     topo_num_values: Optional[np.ndarray] = None  # [K] int32
+    # shared CSI volumes: row s is 1 on the nodes slot s's volume is
+    # attached to; None without shared CSI volumes
+    sv_attached: Optional[np.ndarray] = None      # [SV, N] int32
+    sv_keys: Optional[np.ndarray] = None          # [SV] int64 slot hashes
 
 
 @dataclass
@@ -184,6 +303,9 @@ class EncodedPodBatch:
     own_aff: np.ndarray            # [B, T] bool: pod requires term
     own_anti: np.ndarray           # [B, T] bool: pod forbids term
     pref_weight: np.ndarray        # [B, T] float32: preferred weights
+    # (slot, attach column) of the pod's shared CSI volume, the slot SV
+    # for none; None when the epoch has no slots
+    pod_sv: Optional[np.ndarray] = None  # [B, 2] int32
 
 
 @dataclass
@@ -206,11 +328,30 @@ class EncodedBatch(EncodedPodBatch):
 
 class BatchEncoder:
     """Encodes (snapshot, pod batch) pairs; keeps the encoding space of
-    its last full ``encode`` for ``encode_pods_only``."""
+    its last full ``encode`` for ``encode_pods_only``. ``client`` (the
+    store) serves the storage objects; without it no pod may have a
+    claim."""
 
-    def __init__(self, snapshot: Snapshot):
+    def __init__(self, snapshot: Snapshot, client=None):
         self.snapshot = snapshot
         self.node_infos = [ni for ni in snapshot.list() if ni.node is not None]
+        self._client = client
+        # attach-limit columns, by driver, fixed for the epoch (a CSINode
+        # event rebuilds the session)
+        self._attach_col: Dict[str, int] = {}
+        # pod uid -> its (driver, volume) attach set
+        self._pod_attach_cache: Dict[str, frozenset] = {}
+        # one drain's wfc_class_batchable verdicts
+        self._wfc_cache: Dict = {}
+        # non-shared (driver, volume) pairs attached somewhere, by an
+        # existing pod or an earlier pod of this epoch: a pod reusing one
+        # takes the serial path, which counts the set exactly
+        self._attached_volumes: set = set()
+        # shared CSI volumes: (driver, volume) -> slot, and the slot pad
+        self._sv_slots: Dict[tuple, int] = {}
+        self._sv_keys: List[tuple] = []
+        self._sv_pad = 0
+        self._vol_shared_cache: Dict[str, bool] = {}
         self._resource_names: Optional[List[str]] = None
         self._con_index: Dict[tuple, int] = {}
         self._constraints: List[_TrackedConstraint] = []
@@ -243,6 +384,20 @@ class BatchEncoder:
                               _kib(ni.non_zero_requested.memory))
             pod_count[i] = len(ni.pods)
             max_pods[i] = ni.allocatable.allowed_pod_number or 1_000_000
+        sv_attached = sv_keys = None
+        if self._attach_col:
+            self._collect_shared_volume_slots()
+            if self._sv_slots:
+                # a power of two, at least 8
+                self._sv_pad = max(
+                    8, 1 << (len(self._sv_slots) - 1).bit_length())
+                sv_attached = np.zeros((self._sv_pad, n_pad), dtype=np.int32)
+            self._fill_attach_node_columns(allocatable, requested,
+                                           sv_attached)
+            if sv_attached is not None:
+                sv_keys = np.zeros(self._sv_pad, dtype=np.int64)
+                for i, (d, v) in enumerate(self._sv_keys):
+                    sv_keys[i] = zlib.crc32(f"{d}\x00{v}".encode())
         cluster = EncodedCluster(
             node_names=[ni.node.name for ni in nis],
             num_real_nodes=n_real,
@@ -252,6 +407,8 @@ class BatchEncoder:
             nonzero_requested=nonzero_req,
             pod_count=pod_count,
             max_pods=max_pods,
+            sv_attached=sv_attached,
+            sv_keys=sv_keys,
         )
         batch = self._encode_pods(cluster, pods, pod_infos, n_pad, pad_pods)
         return cluster, batch
@@ -266,7 +423,93 @@ class BatchEncoder:
                 if name not in seen:
                     seen.add(name)
                     names.append(name)
+        # every limited driver gets a column, last, so that a later batch
+        # of any of them fits the space
+        self._attach_col = {}
+        self._attached_volumes = set()  # refilled by the node fill
+        for d in self._attach_limit_drivers():
+            self._attach_col[d] = len(names)
+            names.append(ATTACH_COL_PREFIX + d)
         return names
+
+    def _attach_limit_drivers(self) -> List[str]:
+        """The CSI drivers with an attach limit on some CSINode."""
+        if self._client is None:
+            return []
+        return sorted({d.name for cn in self._client.list_csi_nodes()
+                       for d in cn.drivers if d.allocatable_count is not None})
+
+    def _pod_attach(self, pod: Pod) -> frozenset:
+        """The pod's (driver, volume) attach set, kept per pod."""
+        if not pod.spec.volumes:
+            return frozenset()
+        key = pod.uid or pod.full_name()
+        got = self._pod_attach_cache.get(key)
+        if got is None:
+            got = self._pod_attach_cache[key] = frozenset(
+                pod_csi_volumes(self._client, pod))
+        return got
+
+    def _volume_is_shared(self, driver: str, vol_key: str) -> bool:
+        """``pv_is_shared`` of the PV named ``vol_key``, kept per epoch."""
+        got = self._vol_shared_cache.get(vol_key)
+        if got is None:
+            pv = self._client.get_pv(vol_key)
+            got = self._vol_shared_cache[vol_key] = (
+                pv is not None and pv_is_shared(self._client, pv))
+        return got
+
+    def _collect_shared_volume_slots(self) -> None:
+        """A slot for every shared PV of a limited CSI driver, in PV
+        order, fixed for the epoch."""
+        self._sv_slots = {}
+        self._sv_keys = []
+        self._vol_shared_cache = {}
+        for pv in self._client.list_pvs():
+            driver = pv.csi_driver
+            if not driver or driver not in self._attach_col:
+                continue
+            if pv_is_shared(self._client, pv):
+                key = (driver, pv.name)
+                if key not in self._sv_slots:
+                    self._sv_slots[key] = len(self._sv_keys)
+                    self._sv_keys.append(key)
+
+    def _fill_attach_node_columns(self, allocatable: np.ndarray,
+                                  requested: np.ndarray,
+                                  sv_attached: Optional[np.ndarray]) -> None:
+        """Each node's attach budgets: allocatable is the CSINode limit
+        (``NO_LIMIT`` without one), requested the distinct volumes in use,
+        clamped to the limit, so a node already over it refuses a pod that
+        attaches and takes one that does not. A node over a driver's limit
+        keeps its attached bits clear: a shared pod's demand there is 1,
+        and the clamped column refuses it, as the filter refuses any
+        attaching pod there."""
+        for i, ni in enumerate(self.node_infos):
+            in_use: Dict[str, set] = {}
+            for pi in ni.pods:
+                for d, v in self._pod_attach(pi.pod):
+                    in_use.setdefault(d, set()).add(v)
+                    if d in self._attach_col:
+                        self._attached_volumes.add((d, v))
+            cn = self._client.get_csi_node(ni.node.name)
+            limits: Dict[str, int] = {}
+            if cn is not None:
+                for drv in cn.drivers:
+                    if drv.allocatable_count is not None:
+                        limits[drv.name] = drv.allocatable_count
+            for dname, col in self._attach_col.items():
+                limit = limits.get(dname, NO_LIMIT)
+                allocatable[i, col] = limit
+                requested[i, col] = min(len(in_use.get(dname, ())), limit)
+            if sv_attached is not None:
+                for d, vols in in_use.items():
+                    if len(vols) > limits.get(d, NO_LIMIT):
+                        continue
+                    for v in vols:
+                        slot = self._sv_slots.get((d, v))
+                        if slot is not None:
+                            sv_attached[slot, i] = 1
 
     # ------------------------------------------------------------------
     def _encode_pods(self, cluster: EncodedCluster, pods: List[Pod],
@@ -349,7 +592,7 @@ class BatchEncoder:
         profiles: Dict[tuple, int] = {}
         profile_pods: List[Pod] = []
         for pod in pods:
-            key = _static_profile_key(pod)
+            key = self._static_profile_key(pod)
             if key not in profiles:
                 profiles[key] = len(profile_pods)
                 profile_pods.append(pod)
@@ -444,7 +687,7 @@ class BatchEncoder:
         if self._resource_names is None:
             return None
         for pod in pods:
-            check_expressible(pod)
+            check_expressible(pod, self._client, self._wfc_cache)
         b_real = len(pods)
         b_pad = _round_up(
             pad_pods if b_real <= pad_pods
@@ -464,6 +707,11 @@ class BatchEncoder:
         own_aff = np.zeros((b_pad, t_n), dtype=bool)
         own_anti = np.zeros((b_pad, t_n), dtype=bool)
         pref_weight = np.zeros((b_pad, t_n), dtype=np.float32)
+        inexpressible = np.zeros(b_pad, dtype=bool)
+        pod_sv = None
+        if self._sv_pad:
+            pod_sv = np.zeros((b_pad, 2), dtype=np.int32)
+            pod_sv[:, 0] = self._sv_pad   # the sentinel slot
         simple_cons, complex_cons = self._con_match_idx
         simple_terms, complex_terms = self._term_match_idx
 
@@ -472,13 +720,37 @@ class BatchEncoder:
             if any(name not in known_resources
                    for name in pi.resource_request.scalar_resources):
                 return None
-            ui = self._profiles.get(_static_profile_key(pod))
+            ui = self._profiles.get(self._static_profile_key(pod))
             if ui is None:
                 return None
             profile_idx[bi] = ui
             requests[bi] = _resource_row(pi.resource_request, resource_names)
             nonzero_requests[bi] = (pi.non_zero_request.milli_cpu,
                                     _kib(pi.non_zero_request.memory))
+            if self._attach_col and pod.spec.volumes:
+                relevant = {(d, v) for d, v in self._pod_attach(pod)
+                            if d in self._attach_col}
+                shared = {p for p in relevant if p in self._sv_slots}
+                if any(self._volume_is_shared(d, v)
+                       for d, v in relevant - shared):
+                    # a shared volume created after this epoch's slots
+                    # were enumerated: re-encode in full
+                    return None
+                relevant -= shared
+                if len(shared) > 1:
+                    inexpressible[bi] = True
+                else:
+                    if shared:
+                        d, v = next(iter(shared))
+                        pod_sv[bi] = (self._sv_slots[(d, v)],
+                                      self._attach_col[d])
+                    if relevant & self._attached_volumes:
+                        # a non-shared volume attached elsewhere
+                        inexpressible[bi] = True
+                    else:
+                        self._attached_volumes |= relevant
+                        for d, _v in relevant:
+                            requests[bi, self._attach_col[d]] += 1
 
             for c in pod.spec.topology_spread_constraints:
                 if not c.topology_key:
@@ -523,20 +795,61 @@ class BatchEncoder:
             requests=requests,
             nonzero_requests=nonzero_requests,
             profile_idx=profile_idx,
-            inexpressible=np.zeros(b_pad, dtype=bool),
+            inexpressible=inexpressible,
             pod_sc=pod_sc,
             pod_sc_match=pod_sc_match,
             match_by=match_by,
             own_aff=own_aff,
             own_anti=own_anti,
             pref_weight=pref_weight,
+            pod_sv=pod_sv,
         )
 
     # ------------------------------------------------------------------
+    def _static_profile_key(self, pod: Pod) -> tuple:
+        return _static_profile_key(pod) + (
+            self._volume_profile_identity(pod),)
+
+    def _volume_profile_identity(self, pod: Pod) -> tuple:
+        """The volume part of the profile key: pods share a profile when
+        their claims impose the same node feasibility (the multiset of
+        their PVs' node affinity and zone labels). A node-independent
+        WaitForFirstConsumer claim counts by its class."""
+        if self._client is None:
+            return ()
+        ident = []
+        for v in pod.spec.volumes:
+            if not v.persistent_volume_claim:
+                continue
+            pvc = self._client.get_pvc(pod.namespace,
+                                       v.persistent_volume_claim)
+            if pvc is None:
+                ident.append(("missing", v.persistent_volume_claim))
+                continue
+            if not pvc.volume_name:
+                if wfc_class_batchable(self._client, pvc.storage_class_name,
+                                       self._wfc_cache):
+                    ident.append(("wfc", pvc.storage_class_name))
+                else:
+                    ident.append(("unbound", v.persistent_volume_claim))
+                continue
+            pv = self._client.get_pv(pvc.volume_name)
+            if pv is None:
+                ident.append(("missing-pv", pvc.volume_name))
+                continue
+            zones = tuple((lb, pv.metadata.labels[lb])
+                          for lb in TOPOLOGY_LABELS
+                          if lb in pv.metadata.labels)
+            ident.append(("pv", repr(pv.node_affinity), zones))
+        return tuple(sorted(ident))
+
     def _compute_static(self, pod: Pod, mask: np.ndarray,
                         affinity_mask: np.ndarray,
                         scores: np.ndarray) -> None:
-        """Node-static predicates and scores of one profile, per node."""
+        """Node-static predicates and scores of one profile, per node; a
+        pod with claims also passes VolumeBinding's and VolumeZone's
+        filters (its claims are bound or node-independent, so they are
+        static)."""
         for i, ni in enumerate(self.node_infos):
             node = ni.node
             ok = pod_matches_node_selector_and_affinity(pod, node)
@@ -548,6 +861,19 @@ class BatchEncoder:
             mask[i] = ok
             if ok:
                 scores[i] = _static_score(pod, ni)
+        if self._client is None or not any(
+                v.persistent_volume_claim for v in pod.spec.volumes):
+            return
+        handle = _ClientHandle(self._client)
+        vb, vz = VolumeBinding(handle), VolumeZone(handle)
+        state = CycleState()
+        if vb.pre_filter(state, pod) is not None:
+            mask[:] = False
+            return
+        for i, ni in enumerate(self.node_infos):
+            if mask[i] and (vb.filter(state, pod, ni) is not None
+                            or vz.filter(state, pod, ni) is not None):
+                mask[i] = False
 
 
 def _static_profile_key(pod: Pod) -> tuple:

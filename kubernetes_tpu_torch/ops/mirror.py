@@ -22,8 +22,10 @@ solve rebuild every plane on the host. With it:
   ephemeral requests are whole KiB (the encoder rounds sums up to KiB,
   so per-pod deltas are exact only on aligned values). A node update is
   scattered only when old and new differ in nothing but
-  ``status.allocatable``. The port's encoder takes no volume pods, so
-  no attach-limit columns exist to guard.
+  ``status.allocatable``. While the encoding has CSI attach-limit
+  columns, neither is scattered: a pod with volumes counts in them and in
+  the shared-volume planes as sets, and the columns' allocatable comes
+  from CSINodes, not from the node.
 
 ``MIRROR_ENV`` turns the mirror off (``off``, ``0`` or ``false``).
 """
@@ -165,7 +167,7 @@ class DeviceClusterMirror:
         """Journal window -> (state add-entries, static set-entries), or
         None when a record cannot be expressed bit for bit."""
         static = self._session._static
-        do, _ = state_planes(static.r, static.sc, static.t)
+        do, _ = state_planes(static.r, static.sc, static.t, static.sv)
         so, _ = static_planes(static.r, static.sc, static.t, static.u)
         names = self._session._encoder._resource_names
         nmap = self._node_index()
@@ -203,6 +205,10 @@ class DeviceClusterMirror:
         if col is None:
             return False
         enc = self._session._encoder
+        # a pod's volumes count in the attach columns and shared-volume
+        # planes as sets, which an addition cannot replay
+        if enc._attach_col and pod.spec.volumes:
+            return False
         # pods owning spread constraints or (anti-)affinity terms add to
         # tracked terms and owner counts
         if pod.spec.topology_spread_constraints:
@@ -241,6 +247,10 @@ class DeviceClusterMirror:
             return False
         col = nmap.get(new.name)
         if col is None:
+            return False
+        # the attach columns' allocatable comes from the CSINodes, which a
+        # capacity scatter would overwrite
+        if self._session._encoder._attach_col:
             return False
         if (old.metadata.labels != new.metadata.labels
                 or old.spec.unschedulable != new.spec.unschedulable

@@ -7,8 +7,10 @@ sc_codes[SC] | sc_domain[U*SC] | term_codes[T] | node_valid.
 
 State planes (carried from batch to batch and updated in place by the
 solve): requested[R] | nonzero[2] | pod_count | sc_counts[SC] |
-term_counts[T] | term_owners[T] | totals, whose first T columns hold each
-term's count over real domain values.
+term_counts[T] | term_owners[T] | sv_attached[SV] | totals, whose first
+T columns hold each term's count over real domain values. SV is 0 in an
+epoch without shared CSI volumes; else row s is 1 on the nodes the
+volume of slot s is attached to.
 
 Topology counts are kept per node: column ``j`` of ``sc_counts[c]`` is
 the number of matching pods in node ``j``'s domain, so a commit to node
@@ -38,6 +40,7 @@ class PStatic(NamedTuple):
     t: int
     u: int
     v: int                  # number of real topology values
+    sv: int = 0             # shared-volume slots (rows of sv_attached)
 
 
 def static_planes(r: int, sc: int, t: int, u: int) -> Tuple[Dict[str, int],
@@ -52,12 +55,14 @@ def static_planes(r: int, sc: int, t: int, u: int) -> Tuple[Dict[str, int],
     return o, i
 
 
-def state_planes(r: int, sc: int, t: int) -> Tuple[Dict[str, int], int]:
+def state_planes(r: int, sc: int, t: int, sv: int = 0
+                 ) -> Tuple[Dict[str, int], int]:
     """Row offsets of the state planes, and their count."""
     o, i = {}, 0
     for name, rows in (("requested", r), ("nonzero", 2), ("pod_count", 1),
                        ("sc_counts", sc), ("term_counts", t),
-                       ("term_owners", t), ("totals", 1)):
+                       ("term_owners", t), ("sv_attached", sv),
+                       ("totals", 1)):
         o[name] = i
         i += rows
     return o, i
@@ -109,7 +114,8 @@ def _state_array(cluster: EncodedCluster, batch: EncodedBatch) -> np.ndarray:
             f"the totals plane holds one column per tracked term; {tn} "
             f"terms exceed its {n} columns")
     sc_codes, term_codes = _codes(cluster, batch)
-    do, cd = state_planes(r, scn, tn)
+    svn = _sv_rows(cluster)
+    do, cd = state_planes(r, scn, tn, svn)
     planes = np.zeros((cd, n), dtype=np.int32)
     planes[do["requested"]:do["requested"] + r] = cluster.requested.T
     planes[do["nonzero"]:do["nonzero"] + 2] = cluster.nonzero_requested.T
@@ -120,8 +126,15 @@ def _state_array(cluster: EncodedCluster, batch: EncodedBatch) -> np.ndarray:
         batch.term_counts, term_codes, axis=1)
     planes[do["term_owners"]:do["term_owners"] + tn] = np.take_along_axis(
         batch.term_owners, term_codes, axis=1)
+    if svn:
+        planes[do["sv_attached"]:do["sv_attached"] + svn] = \
+            cluster.sv_attached
     planes[do["totals"], :tn] = batch.term_counts[:, :v].sum(axis=1)
     return planes
+
+
+def _sv_rows(cluster: EncodedCluster) -> int:
+    return 0 if cluster.sv_attached is None else cluster.sv_attached.shape[0]
 
 
 def _put(a: np.ndarray, device) -> torch.Tensor:
@@ -140,7 +153,7 @@ def prepare(cluster: EncodedCluster, batch: EncodedBatch, device
         sc_meta=_put(sc_meta, device),
         r=cluster.allocatable.shape[1], sc=batch.sc_counts.shape[0],
         t=batch.term_counts.shape[0], u=batch.static_masks.shape[0],
-        v=batch.num_values,
+        v=batch.num_values, sv=_sv_rows(cluster),
     )
     return pstatic, prepare_state(cluster, batch, device)
 
@@ -151,7 +164,8 @@ def prepare_state(cluster: EncodedCluster, batch: EncodedBatch, device
     return _put(_state_array(cluster, batch), device)
 
 
-# EncodedCluster / EncodedBatch fields from_reference reads
+# EncodedCluster / EncodedBatch fields from_reference reads (and
+# ``sv_attached`` and ``pod_sv``, where the epoch has them)
 _CLUSTER_FIELDS = ("allocatable", "requested", "nonzero_requested",
                    "pod_count", "max_pods", "topo_codes")
 _BATCH_FIELDS = (
@@ -174,7 +188,11 @@ def from_reference(arrays: Dict[str, object], device
       ``num_real_pods`` and ``num_values``), which are packed here; or
     - packed planes: ``ints`` and ``f32s`` (``[C, N]``, or ``[C, N/128,
       128]``, the same memory), ``sc_meta``, ``planes``, ``pod_ints``,
-      ``pod_floats`` and ``num_values``.
+      ``pod_floats``, ``num_values`` and, for an epoch with shared-volume
+      slots, ``sv`` (the number of ``sv_attached`` rows in ``planes``).
+
+    The fields' form also carries ``sv_attached`` and ``pod_sv`` where
+    present.
 
     Returns (static planes, state, pod ints, pod floats) on ``device``.
     """
@@ -186,12 +204,13 @@ def from_reference(arrays: Dict[str, object], device
         pod_ints = np.asarray(arrays["pod_ints"], dtype=np.int32)
         pod_floats = np.asarray(arrays["pod_floats"], dtype=np.float32)
         sc, u, t = sc_meta.shape[1], f32s.shape[0], pod_floats.shape[1]
-        r = pod_ints.shape[1] - 4 - 2 * sc - 3 * t
+        sv = int(arrays.get("sv", 0))
+        r = pod_ints.shape[1] - 4 - 2 * sc - 3 * t - (2 if sv else 0)
         pstatic = PStatic(
             ints=_put(ints.reshape(ints.shape[0], -1), device),
             f32s=_put(f32s.reshape(u, -1), device),
             sc_meta=_put(sc_meta, device),
-            r=r, sc=sc, t=t, u=u, v=int(arrays["num_values"]),
+            r=r, sc=sc, t=t, u=u, v=int(arrays["num_values"]), sv=sv,
         )
         if pstatic.ints.shape[0] != static_planes(r, sc, t, u)[1]:
             raise ValueError("static planes do not match the pod stream's "
@@ -202,10 +221,14 @@ def from_reference(arrays: Dict[str, object], device
     cluster = EncodedCluster(
         node_names=[], num_real_nodes=int(arrays["num_real_nodes"]),
         resource_names=[],
+        sv_attached=(None if arrays.get("sv_attached") is None
+                     else np.asarray(arrays["sv_attached"])),
         **{k: np.asarray(arrays[k]) for k in _CLUSTER_FIELDS})
+    pod_sv = arrays.get("pod_sv")
     batch = EncodedBatch(
         pods=[], num_real_pods=int(arrays["num_real_pods"]),
         num_values=int(arrays["num_values"]),
+        pod_sv=None if pod_sv is None else np.asarray(pod_sv),
         **{k: np.asarray(arrays[k]) for k in _BATCH_FIELDS})
     pstatic, state = prepare(cluster, batch, device)
     pod_ints, pod_floats = pack_podin(batch)

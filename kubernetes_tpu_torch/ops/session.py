@@ -8,9 +8,11 @@ only cache mutations are the ones the batch path made itself (one assume
 per committed pod). Other mutations (a deleted pod, a node's new
 capacity) are scattered into the planes by the device mirror
 (``ops.mirror``) when it can express them exactly; anything else (a new
-node, a refused bind, a batch discarded after its solve) makes the next
-solve rebuild from a fresh snapshot. Correctness never depends on the
-incremental path.
+node, a refused bind, a batch discarded after its solve, any change of a
+PV, claim, StorageClass or CSINode) makes the next solve rebuild from a
+fresh snapshot. Correctness never depends on the incremental path. The
+shared-volume planes (``sv_attached``) are state planes: the solve marks
+the volumes it attaches, and the carried state keeps them.
 
 A solve is dispatched lazily: ``solve(..., lazy=True)`` returns a handle
 whose assignments ``last_materializer`` fetches later, so host work
@@ -199,7 +201,8 @@ class SolverSession:
         these when ``pods`` span the same encoding space."""
         snapshot = Snapshot()
         self.sched.cache.update_snapshot(snapshot)
-        cluster, batch = BatchEncoder(snapshot).encode(pods, pad_pods=pad)
+        cluster, batch = BatchEncoder(snapshot, self.sched.client).encode(
+            pods, pad_pods=pad)
         return self.backend.prepare(cluster, batch)
 
     def _rebuild_and_solve(self, pods: List, seq_before: int, pad: int):
@@ -213,7 +216,8 @@ class SolverSession:
         # read before the snapshot: a node added meanwhile bumps the
         # mutation seq too, so the next solve revalidates either way
         self._node_epoch = self.sched.cache.node_set_seq
-        self._encoder = BatchEncoder(self.sched.update_snapshot())
+        self._encoder = BatchEncoder(self.sched.update_snapshot(),
+                                     self.sched.client)
         cluster, batch = self._encoder.encode(pods, pad_pods=pad)
         self.static_masks_host = batch.static_masks
         self.last_profile_idx = batch.profile_idx

@@ -17,7 +17,10 @@ design over the slot stream of ``ops/slots.py``, the term rows in global
 memory); else the one-block kernel (planes in global memory). The
 backend packs the slot stream (``solve_slots``) only for batches of at
 least ``SPARSE_MIN_T`` terms that the cluster kernel does not take, as
-the reference routes its sparse scan.
+the reference routes its sparse scan. An epoch with shared-volume slots
+(``PStatic.sv > 0``) never takes the slot kernel, as the reference's
+sparse scan has no attach planes: the cluster and one-block kernels and
+the plain version carry them.
 
 Float scores are computed in the same order, with the same f32
 operations, as the reference solve, so assignments agree exactly:
@@ -89,16 +92,23 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def pod_width(r: int, sc: int, t: int, sv: int = 0) -> int:
+    """Int columns of a dense pod-stream row (``pack_podin``)."""
+    return r + 4 + 2 * sc + 3 * t + (2 if sv else 0)
+
+
 def cluster_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
-                       threads: int, cols_per_block: int, chunk: int) -> int:
+                       threads: int, cols_per_block: int, chunk: int,
+                       sv: int = 0) -> int:
     """Shared memory of one block of the cluster kernel, as its layout
     (``cluster_layout`` in the source) lays it out: the block's slice of
-    every state row but totals and of the static rows each pod reads
-    (alloc, max_pods, node_valid, the codes, the U masks and static
-    scores), a score row, the totals, ``sc_meta``, two pod chunks, the
-    pods' fact lists, the block reduction's warp slots and the cluster
-    exchange's slots (two parities)."""
-    width = r + 4 + 2 * sc + 3 * t
+    every state row but the shared-volume rows (left in global memory)
+    and totals, and of the static rows each pod reads (alloc, max_pods,
+    node_valid, the codes, the U masks and static scores), a score row,
+    the totals, ``sc_meta``, two pod chunks, the pods' fact lists, the
+    block reduction's warp slots and the cluster exchange's slots (two
+    parities). Shared-volume slots add only the two pod columns."""
+    width = pod_width(r, sc, t, sv)
     rows = (r + 3 + sc + 2 * t) + (r + 2 + sc + t + 2 * u) + 1
     words = (rows * cols_per_block + t + 2 * sc
              + 2 * chunk * (width + t) + chunk * (8 + 3 * sc + 4 * t)
@@ -129,7 +139,8 @@ def block_plan(n: int, sc: int, t: int) -> LaunchPlan:
 
 
 def cluster_candidate(n: int, r: int, sc: int, t: int, u: int,
-                      max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
+                      max_cluster: int = MAX_CLUSTER, sv: int = 0
+                      ) -> LaunchPlan:
     """The cluster kernel's launch over ``n`` node columns, whether or not
     it fits: the node axis cut into ``max_cluster`` slices of a multiple
     of 32 columns (the last one ragged), one block each, at most 512
@@ -137,7 +148,8 @@ def cluster_candidate(n: int, r: int, sc: int, t: int, u: int,
     cols = _round_up(-(-n // max_cluster), 32)
     cluster = -(-n // cols)
     threads = min(cols, CLUSTER_THREADS)
-    smem = cluster_smem_bytes(r, sc, t, u, cluster, threads, cols, POD_CHUNK)
+    smem = cluster_smem_bytes(r, sc, t, u, cluster, threads, cols, POD_CHUNK,
+                              sv)
     return LaunchPlan("cluster", cluster, threads, cols, smem, POD_CHUNK)
 
 
@@ -152,16 +164,17 @@ def slots_candidate(n: int, r: int, sc: int, t: int, u: int,
 
 
 def plan_launch(n: int, r: int, sc: int, t: int, u: int,
-                max_cluster: int = MAX_CLUSTER, packs: bool = False
-                ) -> LaunchPlan:
+                max_cluster: int = MAX_CLUSTER, packs: bool = False,
+                sv: int = 0) -> LaunchPlan:
     """The launch of a solve over ``n`` node columns, the first that fits
     one block's shared memory (227 KB): the cluster kernel
     (``cluster_candidate``); the slot kernel (``slots_candidate``) when
-    the batch ``packs`` into slots; the one-block kernel."""
-    plan = cluster_candidate(n, r, sc, t, u, max_cluster)
+    the batch ``packs`` into slots and has no shared-volume slots
+    (``sv``); the one-block kernel."""
+    plan = cluster_candidate(n, r, sc, t, u, max_cluster, sv)
     if plan.smem_bytes <= SMEM_LIMIT:
         return plan
-    if packs:
+    if packs and not sv:
         plan = slots_candidate(n, r, sc, t, u, max_cluster)
         if plan.smem_bytes <= SMEM_LIMIT:
             return plan
@@ -169,12 +182,14 @@ def plan_launch(n: int, r: int, sc: int, t: int, u: int,
 
 
 def _pod_columns(r: int, sc: int, t: int) -> dict:
-    """Column offsets of the packed pod stream (``pack_podin``)."""
+    """Column offsets of the packed pod stream (``pack_podin``); ``sv``
+    holds the slot, ``sv + 1`` the attach column, in an epoch with
+    shared-volume slots."""
     return {
         "req": 0, "nonzero": r, "profile": r + 2, "valid": r + 3,
         "pod_sc": r + 4, "sc_match": r + 4 + sc,
         "match_by": r + 4 + 2 * sc, "own_aff": r + 4 + 2 * sc + t,
-        "own_anti": r + 4 + 2 * sc + 2 * t,
+        "own_anti": r + 4 + 2 * sc + 2 * t, "sv": r + 4 + 2 * sc + 3 * t,
     }
 
 
@@ -203,7 +218,9 @@ def solve_plain_slots(params: SolverParams, ps: PStatic, state: torch.Tensor,
     terms are its active slots, in term order. The same function as
     ``solve_plain`` on the dense stream the slots were packed from, and
     as the reference's sparse scan (``_xla_planes_solve_sparse``), whose
-    sum over all K slots adds only +0.0 for inactive ones."""
+    sum over all K slots adds only +0.0 for inactive ones. Planes with
+    shared-volume slots are refused, as by the slot kernel."""
+    check_no_sv(ps)
     pods = [(row, slot_refs(row, wrow, ps.r, ps.sc))
             for row, wrow in zip(slot_ints.tolist(), slot_floats.tolist())]
     return _solve_pods(params, ps, state, pods)
@@ -212,12 +229,17 @@ def solve_plain_slots(params: SolverParams, ps: PStatic, state: torch.Tensor,
 def _solve_pods(params: SolverParams, ps: PStatic, state: torch.Tensor,
                 pods: list) -> torch.Tensor:
     """The per-pod loop of ``solve_plain``: ``pods`` holds each pod's
-    base row (the pod stream's columns before the terms) and its term
-    references (term, matched, own affinity, own anti-affinity, weight)
-    in term order."""
-    r, scn, tn, v = ps.r, ps.sc, ps.t, ps.v
+    row (the pod stream's columns; the slot stream's base columns) and
+    its term references (term, matched, own affinity, own anti-affinity,
+    weight) in term order.
+
+    Shared volumes (``ps.sv > 0``): a pod whose slot is below SV needs
+    one more attachment of its attach column on every node where the
+    slot's volume is not attached yet, and the winner's column counts it
+    and marks the volume attached there."""
+    r, scn, tn, v, svn = ps.r, ps.sc, ps.t, ps.v, ps.sv
     so, _ = static_planes(r, scn, tn, ps.u)
-    do, _ = state_planes(r, scn, tn)
+    do, _ = state_planes(r, scn, tn, svn)
     c = _pod_columns(r, scn, tn)
     ints, dev = ps.ints, ps.ints.device
     n = ints.shape[1]
@@ -247,6 +269,12 @@ def _solve_pods(params: SolverParams, ps: PStatic, state: torch.Tensor,
         for ri in range(r):
             feasible &= state[do["requested"] + ri] + row[ri] <= alloc[ri]
         feasible &= ints[so["masks"] + profile] > 0
+        slot = row[c["sv"]] if svn else svn
+        if slot < svn:
+            col = row[c["sv"] + 1]
+            demand = 1 - state[do["sv_attached"] + slot]
+            feasible &= (state[do["requested"] + col] + row[col] + demand
+                         <= alloc[col])
         for sci in range(scn):
             if row[c["pod_sc"] + sci] > 0 and hard[sci]:
                 counts = state[do["sc_counts"] + sci]
@@ -313,6 +341,9 @@ def _solve_pods(params: SolverParams, ps: PStatic, state: torch.Tensor,
         state[do["nonzero"], chosen] += row[c["nonzero"]]
         state[do["nonzero"] + 1, chosen] += row[c["nonzero"] + 1]
         state[do["pod_count"], chosen] += 1
+        if slot < svn:
+            state[do["requested"] + col, chosen] += demand[chosen]
+            state[do["sv_attached"] + slot, chosen] = 1
         for sci in range(scn):
             inc = row[c["sc_match"] + sci]
             if inc:
@@ -396,11 +427,11 @@ class SolveKernel:
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 for name in ("cluster", "slots"):
                     getattr(lib, f"ktt_solve_{name}_launch").argtypes = (
-                        [p] * 7 + [i] * 12 + [f] * 5 + [p])
+                        [p] * 7 + [i] * 13 + [f] * 5 + [p])
                     getattr(lib, f"ktt_{name}_max_active").argtypes = [i] * 3
-                    getattr(lib, f"ktt_{name}_smem_bytes").argtypes = [i] * 8
+                    getattr(lib, f"ktt_{name}_smem_bytes").argtypes = [i] * 9
                 lib.ktt_solve_block_launch.argtypes = (
-                    [p] * 7 + [i] * 9 + [f] * 5 + [p])
+                    [p] * 7 + [i] * 10 + [f] * 5 + [p])
                 for name in ("ktt_solve_cluster_launch",
                              "ktt_solve_slots_launch",
                              "ktt_solve_block_launch",
@@ -415,22 +446,25 @@ class SolveKernel:
               pod_floats: torch.Tensor, profiles: bool = True,
               slots: bool = False) -> None:
         """Raise ValueError on inputs the kernels do not take: the dense
-        pod stream, or with ``slots`` the slot stream. With ``profiles``
-        False the caller has checked the pods' profile indices on the host
-        (``check_profiles``; a stream from ``slot_stream`` has its slot
-        indices in range), and nothing here waits on the card."""
-        r, sc, t, u = ps.r, ps.sc, ps.t, ps.u
+        pod stream, or with ``slots`` the slot stream (never with
+        shared-volume slots). With ``profiles`` False the caller has
+        checked the pods' profile indices and volume references on the
+        host (``check_profiles``, ``check_sv``; a stream from
+        ``slot_stream`` has its slot indices in range), and nothing here
+        waits on the card."""
+        r, sc, t, u, sv = ps.r, ps.sc, ps.t, ps.u, ps.sv
         n = ps.ints.shape[1]
         b = pod_ints.shape[0]
         if slots:
+            check_no_sv(ps)
             width, fwidth = slot_width(r, sc), SPARSE_K
         else:
-            width, fwidth = r + 4 + 2 * sc + 3 * t, t
+            width, fwidth = pod_width(r, sc, t, sv), t
         expected = (
             (ps.ints, torch.int32, (static_planes(r, sc, t, u)[1], n)),
             (ps.f32s, torch.float32, (u, n)),
             (ps.sc_meta, torch.int32, (2, sc)),
-            (state, torch.int32, (state_planes(r, sc, t)[1], n)),
+            (state, torch.int32, (state_planes(r, sc, t, sv)[1], n)),
             (pod_ints, torch.int32, (b, width)),
             (pod_floats, torch.float32, (b, fwidth)),
         )
@@ -450,6 +484,8 @@ class SolveKernel:
             check_profiles(pod_ints[:, r + 2], u)
             if slots:
                 check_slots(pod_ints, r, sc, t)
+            else:
+                check_sv(pod_ints, r, sc, t, sv)
 
     def plan(self, ps: PStatic, packs: bool = False) -> LaunchPlan:
         """``plan_launch`` for these planes on this card: a cluster of 16
@@ -457,16 +493,17 @@ class SolveKernel:
         size). The shared-memory size is checked against the source's own
         layout."""
         key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
-        if (key, packs) not in self._plans:
-            self._plans[key, packs] = self._fitted(
-                lambda size: plan_launch(*key, max_cluster=size, packs=packs),
-                ps)
-        return self._plans[key, packs]
+        if (key, packs, ps.sv) not in self._plans:
+            self._plans[key, packs, ps.sv] = self._fitted(
+                lambda size: plan_launch(*key, max_cluster=size, packs=packs,
+                                         sv=ps.sv), ps)
+        return self._plans[key, packs, ps.sv]
 
     def slots_plan(self, ps: PStatic) -> LaunchPlan:
         """The slot kernel's own launch for these planes on this card
         (``slots_candidate``, 16 blocks or the portable 8), whatever
         ``plan_launch`` would pick: the kernel a slot stream runs on."""
+        check_no_sv(ps)
         key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
         if (key, "slots") not in self._plans:
             self._plans[key, "slots"] = self._fitted(
@@ -488,7 +525,7 @@ class SolveKernel:
     def _active(lib, plan: LaunchPlan, ps: PStatic) -> int:
         """Clusters of ``plan``'s shape the card holds at once."""
         want = getattr(lib, f"ktt_{plan.kernel}_smem_bytes")(
-            ps.r, ps.sc, ps.t, ps.u, plan.cluster, plan.threads,
+            ps.r, ps.sc, ps.t, ps.u, ps.sv, plan.cluster, plan.threads,
             plan.cols_per_block, plan.chunk)
         if want != plan.smem_bytes:
             raise RuntimeError(f"launch plan's shared memory {plan.smem_bytes}"
@@ -513,7 +550,7 @@ class SolveKernel:
         ptrs = (ps.sc_meta.data_ptr(), pod_ints.data_ptr(),
                 pod_floats.data_ptr(), ps.ints.data_ptr(), ps.f32s.data_ptr(),
                 state.data_ptr(), assign.data_ptr())
-        dims = (ps.r, ps.sc, ps.t, ps.u, ps.v, n, b)
+        dims = (ps.r, ps.sc, ps.t, ps.u, ps.v, ps.sv, n, b)
         if plan.kernel == "block":
             err = lib.ktt_solve_block_launch(
                 *ptrs, *dims, plan.threads, plan.smem_bytes,
@@ -533,7 +570,8 @@ class SolveKernel:
                  pod_floats: torch.Tensor, profiles_checked: bool = False,
                  slots: bool = False) -> torch.Tensor:
         """Check and launch: a dense stream on the kernel ``plan`` picks,
-        a slot stream (``slots``) on the slot kernel."""
+        a slot stream (``slots``) on the slot kernel (which raises for
+        planes with shared-volume slots)."""
         self.check(ps, state, pod_ints, pod_floats,
                    profiles=not profiles_checked, slots=slots)
         plan = self.slots_plan(ps) if slots else self.plan(ps)
@@ -547,6 +585,26 @@ def check_profiles(profiles, u: int) -> None:
     """Raise ValueError when a pod's profile index is outside [0, u)."""
     if bool(((profiles < 0) | (profiles >= u)).any()):
         raise ValueError(f"pod profile index outside [0, {u})")
+
+
+def check_no_sv(ps: PStatic) -> None:
+    """Raise ValueError for planes with shared-volume slots: the slot
+    stream carries no attach-plane references."""
+    if ps.sv:
+        raise ValueError(f"the slot solve has no shared-volume planes; "
+                         f"these planes have {ps.sv} slots")
+
+
+def check_sv(pod_ints, r: int, sc: int, t: int, sv: int) -> None:
+    """Raise ValueError when a pod's shared-volume slot is outside
+    [0, sv] (sv: none) or its attach column outside [0, r)."""
+    if not sv:
+        return
+    c = r + 4 + 2 * sc + 3 * t
+    slot, col = pod_ints[:, c], pod_ints[:, c + 1]
+    if bool(((slot < 0) | (slot > sv) | (col < 0) | (col >= r)).any()):
+        raise ValueError(f"shared-volume slot outside [0, {sv}] or attach "
+                         f"column outside [0, {r})")
 
 
 def check_slots(slot_ints, r: int, sc: int, t: int) -> None:
@@ -590,7 +648,7 @@ def plan_batch(ps: PStatic, packs: bool = False) -> LaunchPlan:
     if ps.ints.device.type == "cuda":
         return solve_kernel.plan(ps, packs)
     return plan_launch(ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u,
-                       packs=packs)
+                       packs=packs, sv=ps.sv)
 
 
 class SolveHandle(NamedTuple):
@@ -690,6 +748,7 @@ class CudaPlanesBackend:
         ``state`` in place; the assignments come back through
         ``materialize``."""
         check_profiles(pod_ints[:, ps.r + 2], ps.u)
+        check_sv(pod_ints, ps.r, ps.sc, ps.t, ps.sv)
         run = solve
         stream = self.slot_route(ps, pod_ints, pod_floats)
         if stream is not None:
@@ -709,10 +768,12 @@ class CudaPlanesBackend:
     def slot_route(ps: PStatic, pod_ints: np.ndarray, pod_floats: np.ndarray
                    ):
         """The batch's slot stream (``ops/slots.py::slot_stream``) when it
-        takes the slot kernel: at least ``SPARSE_MIN_T`` terms, a shape
-        the cluster kernel does not take, every pod packed into slots and
-        the slot kernel planned. None: the dense stream."""
-        if ps.t < SPARSE_MIN_T or plan_batch(ps).kernel == "cluster":
+        takes the slot kernel: at least ``SPARSE_MIN_T`` terms, no
+        shared-volume slots, a shape the cluster kernel does not take,
+        every pod packed into slots and the slot kernel planned. None: the
+        dense stream."""
+        if (ps.t < SPARSE_MIN_T or ps.sv
+                or plan_batch(ps).kernel == "cluster"):
             return None
         stream = slot_stream(pod_ints, pod_floats, ps.r, ps.sc, ps.t)
         if stream is None or plan_batch(ps, packs=True).kernel != "slots":

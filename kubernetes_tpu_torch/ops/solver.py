@@ -36,13 +36,15 @@ class SolverParams:
 def pack_podin(batch) -> Tuple[np.ndarray, np.ndarray]:
     """The pod stream as two arrays: int32 ``[B, R+4+2*SC+3*T]`` with
     columns request[R] | nonzero[2] | profile | valid | pod_sc[SC] |
-    sc_match[SC] | match_by[T] | own_aff[T] | own_anti[T], and the f32
-    preferred weights ``[B, T]``. Rows past the real pods are invalid."""
+    sc_match[SC] | match_by[T] | own_aff[T] | own_anti[T], then, in an
+    epoch with shared-volume slots (``batch.pod_sv``), two more: the
+    pod's slot and attach column; and the f32 preferred weights
+    ``[B, T]``. Rows past the real pods are invalid."""
     b = batch.requests.shape[0]
     valid = np.zeros(b, dtype=bool)
     valid[: batch.num_real_pods] = True
     valid &= ~batch.inexpressible
-    ints = np.concatenate([
+    cols = [
         batch.requests,
         batch.nonzero_requests,
         batch.profile_idx.reshape(b, 1),
@@ -52,5 +54,8 @@ def pack_podin(batch) -> Tuple[np.ndarray, np.ndarray]:
         batch.match_by.astype(np.int32),
         batch.own_aff.astype(np.int32),
         batch.own_anti.astype(np.int32),
-    ], axis=1, dtype=np.int32)
+    ]
+    if batch.pod_sv is not None:
+        cols.append(batch.pod_sv)
+    ints = np.concatenate(cols, axis=1, dtype=np.int32)
     return ints, np.asarray(batch.pref_weight, dtype=np.float32)

@@ -94,6 +94,15 @@ class SchedulerCache:
         if self._journal is not None:
             self._journal.note(self._mutation_seq, kind, a, b)
 
+    def note_external_mutation(self) -> None:
+        """A change of state the cache does not hold (a PV, PVC,
+        StorageClass or CSINode): the encoder reads volume masks and
+        attach budgets from those objects, so the bump makes the batch
+        path's device state stale, and the journal's record of it makes
+        the mirror rebuild."""
+        with self._lock:
+            self._bump("external")
+
     def _info(self, name: str) -> NodeInfo:
         info = self._nodes.get(name)
         if info is None:

@@ -1,6 +1,5 @@
-"""The in-tree plugins of the default provider that need no volume
-state, the coscheduling plugins, and their registry (plugin name ->
-factory)."""
+"""The in-tree plugins of the default provider, the coscheduling
+plugins, and their registry (plugin name -> factory)."""
 
 from typing import Callable, Dict
 
@@ -14,6 +13,7 @@ def new_in_tree_registry() -> Dict[str, Callable]:
         interpod_affinity,
         node_affinity,
         node_name,
+        node_volume_limits,
         node_ports,
         node_prefer_avoid_pods,
         node_resources,
@@ -22,6 +22,9 @@ def new_in_tree_registry() -> Dict[str, Callable]:
         queue_sort,
         selector_spread,
         taint_toleration,
+        volume_binding,
+        volume_restrictions,
+        volume_zone,
     )
 
     return {cls.NAME: cls.factory for cls in (
@@ -39,6 +42,13 @@ def new_in_tree_registry() -> Dict[str, Callable]:
         pod_topology_spread.PodTopologySpread,
         selector_spread.SelectorSpread,
         image_locality.ImageLocality,
+        volume_binding.VolumeBinding,
+        volume_restrictions.VolumeRestrictions,
+        volume_zone.VolumeZone,
+        node_volume_limits.CSILimits,
+        node_volume_limits.EBSLimits,
+        node_volume_limits.GCEPDLimits,
+        node_volume_limits.AzureDiskLimits,
         default_preemption.DefaultPreemption,
         default_binder.DefaultBinder,
         coscheduling.Coscheduling,

@@ -2,13 +2,11 @@
 order, and each score plugin's weight. ``PROVIDERS`` maps a provider's
 name to its wiring.
 
-The JAX package's default provider also runs the volume plugins
-(VolumeBinding, VolumeRestrictions, VolumeZone, the volume-limit
-filters) and MeshLocality. The port has none of them yet: a pod that
-needs one is refused before it reaches the framework (see
-``ops.encode.is_host_only``), and for every other pod they pass every
-node and add the same score to every node, so leaving them out changes
-no placement and no status."""
+The JAX package's default provider also scores with MeshLocality, which
+the port does not have: a mesh-block pod is refused before it reaches
+the framework (see ``ops.encode.is_host_only``), and for every other pod
+it adds the same score to every node, so leaving it out changes no
+placement and no status."""
 
 from typing import Dict, List, Tuple
 
@@ -19,11 +17,16 @@ def default_plugins() -> Wiring:
     return {
         "queue_sort": [("PrioritySort", 1)],
         "pre_filter": [("NodeResourcesFit", 1), ("NodePorts", 1),
-                       ("PodTopologySpread", 1), ("InterPodAffinity", 1)],
+                       ("PodTopologySpread", 1), ("InterPodAffinity", 1),
+                       ("VolumeBinding", 1)],
         "filter": [("NodeUnschedulable", 1), ("NodeName", 1),
                    ("TaintToleration", 1), ("NodeAffinity", 1),
                    ("NodePorts", 1), ("NodeResourcesFit", 1),
-                   ("PodTopologySpread", 1), ("InterPodAffinity", 1)],
+                   ("VolumeRestrictions", 1), ("EBSLimits", 1),
+                   ("GCEPDLimits", 1), ("NodeVolumeLimits", 1),
+                   ("AzureDiskLimits", 1), ("VolumeBinding", 1),
+                   ("VolumeZone", 1), ("PodTopologySpread", 1),
+                   ("InterPodAffinity", 1)],
         "post_filter": [("DefaultPreemption", 1)],
         "pre_score": [("InterPodAffinity", 1), ("PodTopologySpread", 1),
                       ("TaintToleration", 1), ("SelectorSpread", 1)],
@@ -32,6 +35,8 @@ def default_plugins() -> Wiring:
                   ("NodeResourcesLeastAllocated", 1), ("NodeAffinity", 1),
                   ("NodePreferAvoidPods", 10000), ("PodTopologySpread", 2),
                   ("TaintToleration", 1), ("SelectorSpread", 1)],
+        "reserve": [("VolumeBinding", 1)],
+        "pre_bind": [("VolumeBinding", 1)],
         "bind": [("DefaultBinder", 1)],
     }
 

@@ -41,6 +41,13 @@ NODE_TAINT_CHANGE = "NodeTaintChange"
 NODE_SPEC_UNSCHEDULABLE_CHANGE = "NodeSpecUnschedulableChange"
 ASSIGNED_POD_DELETE = "AssignedPodDelete"
 UNSCHEDULABLE_TIMEOUT = "UnschedulableTimeout"
+PV_ADD = "PvAdd"
+PV_UPDATE = "PvUpdate"
+PVC_ADD = "PvcAdd"
+PVC_UPDATE = "PvcUpdate"
+STORAGE_CLASS_ADD = "StorageClassAdd"
+CSI_NODE_ADD = "CSINodeAdd"
+CSI_NODE_UPDATE = "CSINodeUpdate"
 
 
 class PodNominator:

@@ -9,10 +9,15 @@ Not every pod goes through the solve, and not every verdict of the solve
 is final:
 
 - the partition sends a pod the batch path cannot express (host ports,
+  inline cloud disks, claims that need per-node binding,
   ``ops.encode.is_host_only``) or of another scheduler profile to the
   serial path (``Scheduler.schedule_pod_serial``); a pod neither path
-  takes (volumes, mesh-block placement) is refused with
-  ``InexpressiblePodError``;
+  takes (mesh-block placement) is refused with ``InexpressiblePodError``;
+- a placed pod's unbound WaitForFirstConsumer claims (node-independent,
+  so the solve ignored them) are bound at commit to a PV of the class's
+  free pool, the smallest that fits (``_CommitVolumeBinder``); when the
+  pool is dry and the class has no provisioner, the placement is void
+  and the pod goes to the serial path;
 - a placement on a node that died or was cordoned since the encoding
   goes to the serial path for a fresh verdict;
 - the pods the solve declines go to the serial path when a batch
@@ -46,6 +51,7 @@ already counted the discarded placements in the device state, in place).
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Dict, List, Optional
@@ -75,6 +81,8 @@ from kubernetes_tpu_torch.scheduler.types import (
 
 PIPELINE_ENV = "KTPU_PIPELINE"
 
+_logger = logging.getLogger(__name__)
+
 # the statuses a mass-declined pod's FitError is built from, per node:
 # the node fails one of the pod's node-static predicates, or only the
 # resource and topology ones
@@ -85,6 +93,84 @@ STATUS_DYNAMIC = fw.Status(
     fw.UNSCHEDULABLE,
     "node(s) had insufficient resources or violated topology/affinity "
     "constraints")
+
+
+class _CommitVolumeBinder:
+    """Binds the unbound WaitForFirstConsumer claims of a batch's placed
+    pods at commit, the batch path's Reserve and PreBind: such a claim's
+    class has a pool without node affinity (``wfc_class_batchable``), so
+    the solve ignored it and any PV of the pool fits the chosen node.
+    Each class's pool is read once per commit, smallest PV first."""
+
+    def __init__(self, client):
+        self.client = client
+        self._pools: Dict[str, list] = {}
+        self.bound = 0
+
+    def _pool(self, sc_name: str) -> list:
+        pool = self._pools.get(sc_name)
+        if pool is None:
+            # a PV with node affinity may have become Available since the
+            # drain's verdict: the chosen node may not reach it
+            pool = [pv for pv in self.client.list_pvs()
+                    if pv.phase == "Available" and pv.claim_ref is None
+                    and pv.storage_class_name == sc_name
+                    and pv.node_affinity is None]
+
+            def cap_key(pv):
+                cap = pv.capacity.get("storage")
+                return (cap is None, 0 if cap is None else cap.value())
+
+            pool.sort(key=cap_key)
+            self._pools[sc_name] = pool
+        return pool
+
+    def finalize(self, pod) -> bool:
+        """Bind every unbound claim of the pod. False when a pool ran dry
+        and the class has no provisioner, or a bind failed: the placement
+        is void, and the pod's binds made here are undone."""
+        done: List[tuple] = []  # (PV name, claim name) bound for this pod
+        for v in pod.spec.volumes:
+            if not v.persistent_volume_claim:
+                continue
+            pvc = self.client.get_pvc(pod.namespace,
+                                      v.persistent_volume_claim)
+            if pvc is None or pvc.volume_name:
+                continue
+            sc_name = pvc.storage_class_name or ""
+            pool = self._pool(sc_name)
+            request = pvc.requests.get("storage")
+            chosen = None
+            for i, pv in enumerate(pool):
+                if pvc.access_modes and not \
+                        set(pvc.access_modes) <= set(pv.access_modes):
+                    continue
+                cap = pv.capacity.get("storage")
+                if request is not None and (cap is None or cap < request):
+                    continue
+                chosen = i
+                break
+            if chosen is not None:
+                pv = pool.pop(chosen)
+                if not self.client.bind_pv(pv.name, pod.namespace,
+                                           pvc.name):
+                    self._rollback(pod, done)
+                    return False
+                done.append((pv.name, pvc.name))
+                self.bound += 1
+                continue
+            sc = self.client.get_storage_class(sc_name) if sc_name else None
+            if sc is None or not sc.provisioner:
+                self._rollback(pod, done)
+                return False
+            # dynamic provisioning serves the claim on any node
+        return True
+
+    def _rollback(self, pod, done: List[tuple]) -> None:
+        for pv_name, pvc_name in done:
+            if not self.client.unbind_pv(pv_name, pod.namespace, pvc_name):
+                _logger.error("PV bind rollback failed: %s", pv_name)
+        self.bound -= len(done)
 
 
 def pipeline_enabled() -> bool:
@@ -111,11 +197,13 @@ class BatchScheduler:
         # host seconds of the paths behind the solve: the preemption
         # screen and victim planner builds, plan execution (evictions,
         # validation, bulk bind), the failed statuses and PostFilter of
-        # mass-declined pods, and the serial path
+        # mass-declined pods, the serial path, and the commit-time binds
+        # of WaitForFirstConsumer claims (inside the commit's seconds)
         self.seconds = {"screen": 0.0, "plan": 0.0, "execute": 0.0,
-                        "fail": 0.0, "serial": 0.0}
+                        "fail": 0.0, "serial": 0.0, "volumes": 0.0}
         self.preempted = 0      # victims evicted by executed plans
         self.planned = 0        # preemptors bound by executed plans
+        self.volumes_bound = 0  # claims bound at commit
         # most batches in flight at once: a solve dispatched while the
         # previous batch waits for its commit is two
         self.pipeline_depth_max = 0
@@ -128,7 +216,9 @@ class BatchScheduler:
         (``SolverSession.warm``), and drop the resulting device state.
         Host-only samples are left out. Returns the seconds spent."""
         t0 = time.monotonic()
-        sample_pods = [p for p in sample_pods if not is_host_only(p)]
+        cache: dict = {}
+        sample_pods = [p for p in sample_pods
+                       if not is_host_only(p, self.sched.client, cache)]
         if sample_pods and self.sched.update_snapshot().list():
             self.session.warm(sample_pods, self.max_batch)
         return time.monotonic() - t0
@@ -175,15 +265,17 @@ class BatchScheduler:
 
     def _partition(self, qpis):
         """(batchable (qpi, cycle) pairs, serial qpis); pods to skip and
-        pods of other profiles drop out."""
+        pods of other profiles drop out. One scan of each storage class's
+        pool per drain."""
         sched = self.sched
         batchable, serial = [], []
+        host_only_cache: dict = {}
         for qpi, cycle in qpis:
             pod = qpi.pod
             if sched.framework_for_pod(pod) is None \
                     or sched.skip_pod_schedule(pod):
                 continue
-            if is_host_only(pod):
+            if is_host_only(pod, sched.client, host_only_cache):
                 serial.append(qpi)
             else:
                 batchable.append((qpi, cycle))
@@ -319,6 +411,7 @@ class BatchScheduler:
         stale = sched.cache.commit_target_flags(
             {cluster.node_names[a] for a in assignments if a >= 0})
         commits, declined = [], []
+        vol_binder = _CommitVolumeBinder(sched.client)
         stale_routed = False
         for bi, ((qpi, cycle), a) in enumerate(zip(batch, assignments)):
             if a < 0:
@@ -336,7 +429,17 @@ class BatchScheduler:
                 self.session.invalidate()
                 serial.append(qpi)
                 continue
+            t1 = time.monotonic()
+            finalized = vol_binder.finalize(qpi.pod)
+            self.seconds["volumes"] += time.monotonic() - t1
+            if not finalized:
+                # no PV for a claim: the serial path gives the pod its
+                # status, and the device state counts a void placement
+                self.session.invalidate()
+                serial.append(qpi)
+                continue
             commits.append((qpi, node_name, cycle, pending["start"]))
+        self.volumes_bound += vol_binder.bound
         if stale_routed:
             # the state counts pods on nodes that are gone
             self.session.note_drift()

@@ -1,7 +1,8 @@
 """The CUDA solve kernel against its plain PyTorch version, on the card,
 the backend's lazy solve and scatters on the card against the same calls
-on CPU tensors, and small GangScheduling and SchedulingPodAntiAffinity
-rows through ``run_workload`` on the card against the CPU.
+on CPU tensors, small GangScheduling, SchedulingPodAntiAffinity and
+volume rows through ``run_workload`` on the card against the CPU, and the
+shared-volume attach planes on the cluster and one-block kernels.
 
 These tests need an NVIDIA card and nvcc (the kernel has no CPU mode) and
 skip without one. This file imports neither JAX nor the kubernetes_tpu
@@ -404,9 +405,45 @@ def test_scatters_on_the_card_equal_the_cpu(card, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,b,sv,sc,t,u,real", [
+    (40, 1024, 256, 8, 2, 2, 2, 1000),
+    (41, 5120, 256, 64, 1, 1, 1, 5000),
+    (42, 1024, 1024, 512, 1, 1, 1, 1000),   # the shared-volume phase's SV
+    (43, 1408, 96, 8, 3, 2, 2, 1400),       # a ragged last slice
+])
+def test_sv_cluster_kernel_matches_plain(card, seed, n, b, sv, sc, t, u,
+                                         real):
+    args = random_planes(seed, n, b, r=4, sc=sc, t=t, u=u, real=real, sv=sv)
+    want, _, ran = _card_equals_plain(card, args)
+    assert ran == "cluster" and (want >= 0).sum() > b // 4
+
+
+@pytest.mark.cuda
+def test_sv_one_block_kernel_and_carried_state(card):
+    """A shared-volume shape past the cluster's shared memory runs the
+    one-block kernel; two carried batches on the cluster kernel, one of
+    eight, equal the plain version."""
+    args = random_planes(44, 5120, 64, r=4, sc=40, t=40, u=2, sv=8)
+    assert solve_mod.solve_kernel.plan(args[0]).kernel == "block"
+    _, _, ran = _card_equals_plain(card, args)
+    assert ran == "block"
+    ps, state, ints, floats = random_planes(45, 5120, 192, r=4, sc=2, t=2,
+                                            u=2, sv=16)
+    _, carried, _ = _card_equals_plain(card, (ps, state, ints[:96],
+                                              floats[:96]))
+    plan = solve_mod.plan_launch(5120, 4, 2, 2, 2, max_cluster=8, sv=16)
+    assert plan.kernel == "cluster" and plan.cluster == 8
+    want, _, ran = _card_equals_plain(card, (ps, carried, ints[96:].clone(),
+                                             floats[96:].clone()), plan)
+    assert ran == "cluster" and (want >= 0).any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,nodes,init,pods,kernel", [
     ("GangScheduling", 100, 0, 600, "cluster"),
     ("SchedulingPodAntiAffinity", 3000, 0, 300, "slots"),
+    ("SchedulingCSIPVs", 100, 20, 400, "cluster"),
+    ("SchedulingSharedPVs", 100, 0, 300, "cluster"),
 ])
 def test_small_rows_on_the_card_equal_the_cpu(card, name, nodes, init, pods,
                                               kernel):

@@ -5,13 +5,21 @@ EncodedPodBatch arrays."""
 import numpy as np
 import pytest
 
+from kubernetes_tpu.api import types as jax_types
 from kubernetes_tpu.api.types import Node as JaxNode, Pod as JaxPod
-from kubernetes_tpu.ops.encode import BatchEncoder as JaxEncoder
+from kubernetes_tpu.apiserver.store import ClusterStore as JaxStore
+from kubernetes_tpu.ops.encode import (
+    BatchEncoder as JaxEncoder,
+    is_host_only as jax_is_host_only,
+)
 from kubernetes_tpu.scheduler.snapshot import new_snapshot as jax_snapshot
+from kubernetes_tpu_torch.api import types as port_types
 from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.ops.encode import (
     BatchEncoder,
     InexpressiblePodError,
+    is_host_only,
 )
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 from test_torch_cases import mixed_cluster, mixed_pods, pod, wide_pods
@@ -80,15 +88,50 @@ def test_encode_pods_only_matches_reference():
                                 16) is None
 
 
+def _bound_claim(store, types):
+    """Claim ``c`` bound to PV ``pv-c`` in ``store`` (either package's
+    storage ``types``)."""
+    store.add_pv(types.PersistentVolume(
+        metadata=types.ObjectMeta(name="pv-c"), claim_ref="default/c",
+        phase="Bound"))
+    store.add_pvc(types.PersistentVolumeClaim(
+        metadata=types.ObjectMeta(name="c", namespace="default"),
+        volume_name="pv-c", phase="Bound"))
+
+
 @pytest.mark.parametrize("spec", [
     {"volumes": [{"name": "v", "persistentVolumeClaim": {"claimName": "c"}}]},
     {"containers": [{"name": "c", "ports": [{"containerPort": 80,
                                              "hostPort": 8080}]}]},
 ])
 def test_inexpressible_pods_raise(spec):
+    """Without a store every claim is host-only, and so is a host port,
+    in both packages; the port's encoder raises for a host-only pod. With
+    a store holding the claim bound to a PV, the claim pod is not
+    host-only in either package, and both encoders take it alike."""
     nodes, existing = mixed_cluster()
     port, _ = encoders(nodes, existing)
     d = pod("odd")
     d["spec"].update(spec)
+    assert is_host_only(Pod.from_dict(d)) and jax_is_host_only(
+        JaxPod.from_dict(d))
     with pytest.raises(InexpressiblePodError):
         port.encode([Pod.from_dict(d)], pad_pods=8)
+    stores = (ClusterStore(), JaxStore())
+    _bound_claim(stores[0], port_types)
+    _bound_claim(stores[1], jax_types)
+    host_only = is_host_only(Pod.from_dict(d), stores[0])
+    assert host_only == jax_is_host_only(JaxPod.from_dict(d), stores[1]) \
+        == ("containers" in spec)
+    if not host_only:
+        port = BatchEncoder(new_snapshot(
+            [Pod.from_dict(p) for p in existing],
+            [Node.from_dict(n) for n in nodes]), stores[0])
+        ref = JaxEncoder(jax_snapshot(
+            [JaxPod.from_dict(p) for p in existing],
+            [JaxNode.from_dict(n) for n in nodes]), pad_nodes=128,
+            client=stores[1])
+        got = port.encode([Pod.from_dict(d)], pad_pods=8)
+        want = ref.encode([JaxPod.from_dict(d)], pad_pods=8)
+        _assert_fields_equal(got[0], want[0], CLUSTER_FIELDS)
+        _assert_fields_equal(got[1], want[1], BATCH_FIELDS)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from kubernetes_tpu.api.types import Pod as JaxPod
+from kubernetes_tpu.ops.encode import is_host_only as jax_is_host_only
 from kubernetes_tpu_torch.api.types import Pod
 from kubernetes_tpu_torch.ops.encode import InexpressiblePodError, is_host_only
 from test_torch_framework import (
@@ -252,19 +253,48 @@ def _refused_pod(kind):
 
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_pods_neither_path_takes_are_refused(kind):
-    """A pod that needs a volume plugin or MeshLocality, none of them
-    ported, is refused explicitly by the partition, in every arm."""
+    """Of the pods the port once refused, only the mesh-block pod still
+    is (MeshLocality is not ported), explicitly by the partition, in
+    every arm. A claim (one the store does not hold) and an inline cloud
+    disk are host-only, as the JAX package says, and take the serial
+    path, where the volume plugins run (VolumeBinding finds no claim,
+    VolumeRestrictions no conflict): in every arm the same outcome as the
+    JAX batch loop's."""
     d = _refused_pod(kind)
-    with pytest.raises(InexpressiblePodError):
-        is_host_only(Pod.from_dict(d))
+    name = d["metadata"]["name"]
+    if kind == "mesh-block":
+        with pytest.raises(InexpressiblePodError):
+            is_host_only(Pod.from_dict(d))
+        for pipeline in (True, False):
+            arm = batch_arm(mixed_host_port_row(0)[0], False, pipeline, True,
+                            0)
+            try:
+                arm.store.create_pods([arm.pod(d)])
+                with pytest.raises(InexpressiblePodError):
+                    arm.bs.run_batch(pop_timeout=0.0)
+            finally:
+                arm.sched.stop()
+        return
     for pipeline in (True, False):
-        arm = batch_arm(mixed_host_port_row(0)[0], False, pipeline, True, 0)
-        try:
-            arm.store.create_pods([arm.pod(d)])
-            with pytest.raises(InexpressiblePodError):
-                arm.bs.run_batch(pop_timeout=0.0)
-        finally:
-            arm.sched.stop()
+        got = {}
+        for ref in (True, False):
+            arm = batch_arm(mixed_host_port_row(0)[0], ref, pipeline, True, 0)
+            host_only = (jax_is_host_only if ref else is_host_only)(
+                arm.pod(copy.deepcopy(d)), arm.store, {})
+            try:
+                arm.store.create_pods([arm.pod(copy.deepcopy(d))])
+                pump(arm)
+                got[ref] = (host_only, outcome(arm.store, [name])[name])
+            finally:
+                arm.sched.stop()
+        assert got[False] == got[True]
+        host_only, (node, cond, _) = got[False]
+        assert host_only
+        if kind == "inline-disk":
+            assert node
+        else:
+            assert not node and "persistentvolumeclaim not found" in \
+                cond[0][2]
 
 
 def test_host_port_pods_are_host_only():
