@@ -27,9 +27,9 @@ prints no result):
    state);
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
    4,096, through ``run_workload`` on the card, in the default arms
-   (pipelined, device mirror on). Every pod bound, the cluster kernel
-   launched once per solve, the one-block kernel and the plain version
-   never;
+   (pipelined, device mirror on, the latency-budget tuner on). Every pod
+   bound, the cluster kernel launched once per solve, the one-block
+   kernel and the plain version never;
 5. TopologySpreading, 5,000 nodes / 5,000 pods: the same, and zone skew
    at most one;
 6. small SchedulingBasic and TopologySpreading runs on the card and on
@@ -116,7 +116,35 @@ prints no result):
     batch the cluster kernel, the one-block kernel (forced) and the plain
     version timed in turns and held against each other.
 
-Every main-path run (4, 5, 8 to 19) resets the kernels' launch counts
+20. BASELINE configs 1-3 as named rows: SchedulingBasic at 100 / 0 /
+    1,000 and 1,000 / 0 / 10,000, TopologySpreading at 5,000 / 0 /
+    30,000 (zone skew at most one);
+21. the four families ported last at ``bench.py``'s sizes:
+    SchedulingSecrets and SchedulingNodeAffinity at 5,000 / 5,000 /
+    1,000, PreferredTopologySpreading at 5,000 / 5,000 / 2,000,
+    MixedSchedulingBasePod at 5,000 / 1,000 / 30,000: every pod bound,
+    each node-affinity pod in its zone, the launches as planned;
+22. the tracer's cost: SchedulingBasic 5,000 / 30,000 pipelined with the
+    process tracer and device profiler on, off, off, on (``KTPU_TRACE``
+    and ``KTPU_DEVPROF`` off, in process);
+23. the latency-budget tuner forced to shrink: SchedulingBasic 5,000 /
+    12,000 with the budget cut to 1 us after the warm-up: the pad steps
+    down one bucket a batch to 512, 1,024 and 512 warmed by ``warm_pad``
+    between cycles before their first solve; the warm-up (cold) books
+    the pinned staging buffers, and no pad allocates any after it.
+
+Every row any phase runs (through ``run_workload`` or the sustained
+harness; phase 19's batch loop too, which now warms up first) prints its
+``telemetry``, ``critical_path`` and ``freshness`` as a ``row {...}``
+line, and a row on the card fails on a compile inside a measured cycle
+(a library load, a kernel instance's first launch, or the pinned
+staging ring's first allocation of a capacity). The rows whose every cycle
+follows their warm-up (phases 4, 5, 8, 20, 22, 23) start cold: no kernel
+instance counted as launched and the staging ring empty.
+Phase 4 also holds the aggregate unattributed share of the sampled pods'
+windows to at most 0.05.
+
+Every main-path run (4, 5, 8 to 23) resets the kernels' launch counts
 just before and reads them just after; the kernel table sums them.
 Before the last line come the scatters' counts and times as JSON, the
 kernel table as JSON and the card's name and power limit; the last line
@@ -148,6 +176,8 @@ from kubernetes_tpu_torch.api.types import (
 )
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.harness import perf, sustained, workloads
+from kubernetes_tpu_torch.observability.devprof import get_devprof
+from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.harness.problems import (
     random_planes,
     random_slot_planes,
@@ -643,12 +673,15 @@ class _Dispatches:
 LAUNCHES = {"cluster": 0, "slots": 0, "block": 0}   # main-path launches
 
 
-def run_path(name, run, keep=False, kernel="cluster"):
+def run_path(name, run, keep=False, kernel="cluster", cold=False):
     """``run()`` on the card with the kernels' launch counts reset just
     before and read just after, the plain version trapped, each launch
     timed with CUDA events and each dispatch with the host clock. Every
     launch must be ``kernel``'s (None: the caller checks the launch plan
-    of each). Returns (run's result, counts, kernel ms per launch,
+    of each). With ``cold`` (a row whose every cycle follows its warm-up)
+    no kernel instance counts as launched and the pinned staging ring is
+    empty: the warm-up must book each first launch and allocation, or a
+    measured cycle does, and ``row_report`` fails it. Returns (run's result, counts, kernel ms per launch,
     dispatches, the recorder, wall seconds)."""
     plain_calls = []
     real_plain, real_kernel = solve_mod.solve_plain, solve_mod.solve_kernel
@@ -660,6 +693,9 @@ def run_path(name, run, keep=False, kernel="cluster"):
 
     solve_mod.solve_plain, solve_mod.solve_kernel = trapped_plain, recorder
     real_kernel.reset_counts()
+    if cold:
+        real_kernel.launched.clear()
+        solve_mod.STAGING.clear()
     try:
         with _Dispatches() as dispatches:
             t0 = time.monotonic()
@@ -683,12 +719,12 @@ def run_path(name, run, keep=False, kernel="cluster"):
 
 def run_main_path(name, nodes, pods, max_batch=4096):
     """One workload on the card through run_workload (default arms:
-    pipelined, mirror on). Every pod bound, the cluster kernel launched
-    once per solve."""
+    pipelined, mirror on), cold (``run_path``). Every pod bound, the
+    cluster kernel launched once per solve."""
     res, counts, kernel_ms, _, recorder, wall = run_path(
         name, lambda: perf.run_workload(
             name, workloads.make_workload(name, nodes, 0, pods),
-            max_batch=max_batch, device="cuda"), keep=True)
+            max_batch=max_batch, device="cuda"), keep=True, cold=True)
     launches = counts["cluster"]
     check(res.device.startswith("cuda"), f"{name} ran on the card")
     check(len(res.placements) == pods, f"{name} created {pods} pods")
@@ -973,7 +1009,8 @@ def phase_pipeline(nodes=5000, pods=30000, max_batch=4096):
             name, lambda: perf.run_workload(
                 "SchedulingBasic",
                 workloads.make_workload("SchedulingBasic", nodes, 0, pods),
-                max_batch=max_batch, device="cuda", pipeline=pipeline))
+                max_batch=max_batch, device="cuda", pipeline=pipeline),
+            cold=True)
         check(res.pipeline == pipeline, f"{name} ran the {arm} arm")
         check(len(res.placements) == pods and all(res.placements.values()),
               f"{name}: every pod bound")
@@ -1767,6 +1804,9 @@ def run_shared_volumes(device, nodes, claims, pods, limit, max_batch):
     store = shared_volume_store(nodes, claims, limit)
     sched = Scheduler(store, config=SchedulerConfiguration(
         provider="GangSchedulingProvider"))
+    get_tracer().clear()
+    get_devprof().reset(workload="shared volumes")
+    perf.reset_sli_window()
     bs = BatchScheduler(sched, max_batch=max_batch, device=device)
     sched.start()
     dicts = []
@@ -1776,6 +1816,8 @@ def run_shared_volumes(device, nodes, claims, pods, limit, max_batch):
             "claimName": f"shared-{i % claims}"}}]
         dicts.append(d)
     try:
+        # one pod a claim: the warm-up's epoch has every volume's slot
+        bs.warmup([Pod.from_dict(d) for d in dicts[:claims]])
         store.create_pods([Pod.from_dict(d) for d in dicts])
         deadline = time.monotonic() + 300
         while time.monotonic() < deadline:
@@ -1790,6 +1832,11 @@ def run_shared_volumes(device, nodes, claims, pods, limit, max_batch):
               "shared volumes: bindings settled")
     finally:
         sched.stop()
+    telemetry = get_devprof().summary()
+    row_report("shared volumes", str(bs.session.backend.device), {
+        "telemetry": telemetry,
+        "critical_path": perf.collect_critical_path()[0],
+        "freshness": perf.collect_freshness(telemetry)})
     return store, bs, dicts
 
 
@@ -1848,6 +1895,240 @@ def phase_shared_volumes(nodes=1000, claims=300, pods=3000, limit=2,
             "bound_ms": b_ms, "bound_by": b_by,
             "err": max(timed["err"], plain_err)}
 
+# every row's telemetry, critical path and freshness, in the order run
+ROW_REPORTS = []
+
+
+def row_report(name, device, res):
+    """Log a row's ``telemetry``, ``critical_path`` and ``freshness`` (a
+    ``BenchmarkResult`` or a sustained row's dict) as one JSON line; on
+    the card, no compile may land inside a measured cycle."""
+    get = res.get if isinstance(res, dict) else (
+        lambda k: getattr(res, k))
+    report = {"row": name, "device": device,
+              "telemetry": get("telemetry"),
+              "critical_path": get("critical_path"),
+              "freshness": get("freshness"),
+              # the span totals of the row's ring: count, seconds
+              "spans": {k: [v["count"], round(v["total_s"], 6)] for k, v
+                        in sorted(get_tracer().phase_stats().items())}}
+    ROW_REPORTS.append(report)
+    print("row " + json.dumps(report, default=str), flush=True)
+    telemetry = report["telemetry"] or {}
+    if device.startswith("cuda") and telemetry:
+        check(telemetry["unexpected_compiles"] == 0,
+              f"{name}: {telemetry['unexpected_compiles']} compiles inside "
+              "measured cycles")
+    return report
+
+
+def observe_rows():
+    """Wrap ``perf.run_workload`` and ``sustained.run_sustained_row`` so
+    every row any phase runs reports (``row_report``)."""
+    run_workload, run_sustained = perf.run_workload, \
+        sustained.run_sustained_row
+
+    def observed_workload(name, ops, **kw):
+        res = run_workload(name, ops, **kw)
+        row_report(name, res.device, res)
+        return res
+
+    def observed_sustained(**kw):
+        row = run_sustained(**kw)
+        row_report("sustained", row["device"], row)
+        return row
+
+    perf.run_workload = observed_workload
+    sustained.run_sustained_row = observed_sustained
+
+
+def check_attribution(name, res, bar=0.05):
+    """The row's aggregate unattributed share of the sampled pods'
+    windows at most ``bar`` (the JAX package's bar for batch rows)."""
+    cp = res.critical_path
+    check(cp.get("pods", 0) > 0, f"{name}: sampled pods in the critical "
+          "path")
+    share = cp["unattributed_share"]
+    check(share <= bar, f"{name}: unattributed share {share} > {bar}")
+    log(f"    critical path over {cp['pods']} sampled pods: "
+        + ", ".join(f"{k}={v}" for k, v in cp["phase_shares"].items())
+        + f"; unattributed {share}")
+
+
+CONFIG_ROWS = (("SchedulingBasic", 100, 1000),      # BASELINE config 1
+               ("SchedulingBasic", 1000, 10000),    # config 2
+               ("TopologySpreading", 5000, 30000))  # config 3
+
+
+def phase_configs():
+    """BASELINE configs 1-3 as named rows on the card: every pod bound,
+    the cluster kernel once per solve; config 3's zone skew at most
+    one."""
+    rows = {}
+    for name, nodes, pods in CONFIG_ROWS:
+        res, counts, kernel_ms, _ = run_main_path(name, nodes, pods)
+        if name == "TopologySpreading":
+            skew = zone_skew(res)
+            check(skew <= 1, f"{name} zone skew {skew} <= 1")
+            log(f"  zone skew {skew}")
+        rows[f"{name} {nodes}/{pods}"] = {
+            "pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds,
+            "enqueue_to_bind_ms": res.latency, "solves": res.solves,
+            "launches": counts, "kernel_ms": kernel_ms,
+            "host_seconds": res.seconds, "telemetry": res.telemetry,
+            "critical_path": res.critical_path}
+    return rows
+
+
+FAMILIES = (("SchedulingSecrets", 5000, 5000, 1000),
+            ("SchedulingNodeAffinity", 5000, 5000, 1000),
+            ("PreferredTopologySpreading", 5000, 5000, 2000),
+            ("MixedSchedulingBasePod", 5000, 1000, 30000))
+
+
+def phase_families(max_batch=4096):
+    """The four families ported last, at bench.py's sizes: every pod
+    bound (measured and init), each node-affinity pod in its zone, every
+    launch on the kernel its plan gives it."""
+    rows = {}
+    for name, nodes, init, pods in FAMILIES:
+        res, counts, kernel_ms, _, recorder, wall = run_path(
+            name, lambda: perf.run_workload(
+                name, workloads.make_workload(name, nodes, init, pods),
+                max_batch=max_batch, device="cuda"), keep=True, kernel=None)
+        unbound = [k for k, v in res.placements.items() if not v]
+        check(len(res.placements) == init + pods and not unbound,
+              f"{name}: {len(unbound)} of {init + pods} pods unbound")
+        if name == "SchedulingNodeAffinity":
+            off = [i for i in range(init, init + pods)
+                   if int(res.placements[f"pod-{i}"].split("-")[1]) % 10
+                   != i % 10]
+            check(not off, f"{name}: {len(off)} pods outside their zone")
+        plans = check_plans(name, counts, recorder)
+        busy = sum(kernel_ms) / 1000
+        log(f"  {name} {nodes} / {init} / {pods} on {res.device}: "
+            f"{res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+            f"launches {counts}; kernel busy {busy:.3f} s; enqueue->bind "
+            f"p99 {res.latency['Perc99']:.1f} ms; host seconds: "
+            f"{_host_split(res)}")
+        rows[name] = {**_row_numbers(res, counts, kernel_ms, wall),
+                      "plans": plans, "telemetry": res.telemetry,
+                      "critical_path": res.critical_path}
+    return rows
+
+
+def phase_tracing_cost(nodes=5000, pods=30000, max_batch=4096):
+    """SchedulingBasic pipelined with the tracer and the device profiler
+    on and off (``KTPU_TRACE=off``, ``KTPU_DEVPROF=off`` in process), in
+    turns: on, off, off, on. Every pod bound in every turn; the off turns
+    record nothing."""
+    tracer, prof = get_tracer(), get_devprof()
+    turns = []
+    for on_ in (True, False, False, True):
+        tracer.configure(enabled=on_)
+        prof.configure(enabled=on_)
+        try:
+            res, counts, kernel_ms, _ = run_main_path(
+                "SchedulingBasic", nodes, pods, max_batch)
+        finally:
+            tracer.configure(enabled=True)
+            prof.configure(enabled=True)
+        check(bool(res.telemetry) == on_ and bool(res.critical_path) == on_,
+              f"tracing {'on' if on_ else 'off'}: the row's telemetry and "
+              "critical path present only with tracing on")
+        turns.append({"tracing": on_, "pods_per_s": res.pods_per_second,
+                      "duration_s": res.duration_seconds,
+                      "enqueue_to_bind_ms": res.latency,
+                      "solves": res.solves,
+                      "kernel_busy_s": sum(kernel_ms) / 1000})
+        log(f"  tracing {'on ' if on_ else 'off'}: "
+            f"{res.pods_per_second:.1f} pods/s over "
+            f"{res.duration_seconds:.3f} s, enqueue->bind p99 "
+            f"{res.latency['Perc99']:.1f} ms")
+    return turns
+
+
+def phase_tuner(nodes=5000, pods=12000, max_batch=4096):
+    """The latency-budget tuner forced to shrink: SchedulingBasic with
+    the instance's budget cut to 1 µs after its warm-up (which warmed 4096
+    and 2048). The pad steps down one bucket a batch to ``MIN_CHUNK``;
+    each bucket the warm-up did not warm is warmed by ``warm_pad``
+    between cycles before its first solve; no compile lands in a measured
+    cycle. The row starts cold: its warm-up books the kernel's first
+    launch and the pinned staging buffers, and no smaller pad allocates
+    any after it (nor its warm: a smaller pad's streams are views of the
+    buffers held). Every pod bound."""
+    pads, warms, allocated = [], [], []
+
+    def configure(bs):
+        warmup, solve = bs.warmup, bs.session.solve
+        warm_pad = bs.session.warm_pad
+
+        def cut_after_warmup(samples):
+            before = len(solve_mod.STAGING.allocations)
+            out = warmup(samples)
+            bs.LATENCY_BUDGET_S = 1e-6
+            allocated.append(solve_mod.STAGING.allocations[before:])
+            allocated.append(len(solve_mod.STAGING.allocations))
+            return out
+
+        def solve_at(pods_, pad, **kw):
+            if not kw.get("warming"):
+                pads.append(pad)
+            return solve(pods_, pad, **kw)
+
+        def warm_pad_at(pods_, pad):
+            t0 = time.monotonic()
+            got = warm_pad(pods_, pad)
+            warms.append({"pad": pad, "solves_before": len(pads),
+                          "compiles": got,
+                          "ms": (time.monotonic() - t0) * 1000})
+            return got
+
+        bs.warmup, bs.session.solve = cut_after_warmup, solve_at
+        bs.session.warm_pad = warm_pad_at
+
+    name = "SchedulingBasic tuner"
+    res, counts, kernel_ms, _, _, wall = run_path(
+        name, lambda: perf.run_workload(
+            "SchedulingBasic", workloads.make_workload(
+                "SchedulingBasic", nodes, 0, pods),
+            max_batch=max_batch, device="cuda", configure=configure),
+        cold=True)
+    check(all(res.placements.values()), f"{name}: every pod bound")
+    check(all(b in (a, a // 2) for a, b in zip(pads, pads[1:])),
+          f"{name}: the pad moved more than one bucket a batch: {pads}")
+    between = [w for w in warms if w["solves_before"] > 0]
+    for w in between:
+        check(w["pad"] not in pads[:w["solves_before"]],
+              f"{name}: pad {w['pad']} solved before its warm")
+        check(w["compiles"] == 0, f"{name}: the warm of pad {w['pad']} "
+              f"booked {w['compiles']} compiles")
+    check(res.chunk == 512 and {1024, 512} <= {w["pad"] for w in between},
+          f"{name}: chunk {res.chunk}, warms between cycles {between}")
+    check(res.telemetry["unexpected_compiles"] == 0,
+          f"{name}: a compile inside a measured cycle")
+    check(res.telemetry["warm_compiles"] >= 3 and len(allocated[0]) >= 2,
+          f"{name}: the cold warm-up booked {res.telemetry['warm_compiles']}"
+          f" compiles, {len(allocated[0])} staging allocations")
+    after = solve_mod.STAGING.allocations[allocated[1]:]
+    check(not after, f"{name}: staging allocations after the warm-up: "
+          f"{after}")
+    log(f"  {name}: pads {pads}; warms {warms}; chunk {res.chunk}; "
+        f"warmed {res.warmed_pads}; warm-up compiles "
+        f"{res.telemetry['warm_compiles']}, staging allocations "
+        f"{allocated[0]}; {res.pods_per_second:.1f} pods/s over "
+        f"{res.duration_seconds:.3f} s; enqueue->bind p99 "
+        f"{res.latency['Perc99']:.1f} ms")
+    return {"pads": pads, "warms": warms, "chunk": res.chunk,
+            "warmed_pads": res.warmed_pads, "launches": counts,
+            "staging_allocations": allocated[0],
+            "pods_per_s": res.pods_per_second,
+            "enqueue_to_bind_ms": res.latency, "wall_s": wall,
+            "telemetry": res.telemetry}
+
 
 def gpu_name_and_power() -> str:
     out = subprocess.run(
@@ -1877,9 +2158,11 @@ def main() -> None:
     log("[3] kernels against plain on seeded problems")
     errs = phase_compare()
 
+    observe_rows()
     log("[4] main path: SchedulingBasic (pipelined, mirror on)")
     res, counts, kernel_ms, largest = run_main_path(
         "SchedulingBasic", 5000, 30000)
+    check_attribution("SchedulingBasic", res)
 
     log("[5] TopologySpreading")
     spread, spread_counts, spread_ms, spread_largest = run_main_path(
@@ -1958,7 +2241,22 @@ def main() -> None:
     shared = phase_shared_volumes()
     for k in ("cluster", "block"):
         errs[k] = max(errs[k], shared["err"])
-    log(f"  main-path launches over phases 4, 5 and 8 to 19: {LAUNCHES}")
+
+    log("[20] BASELINE configs 1-3: SchedulingBasic 100/1,000 and "
+        "1,000/10,000, TopologySpreading 5,000/30,000")
+    configs = phase_configs()
+
+    log("[21] SchedulingSecrets, SchedulingNodeAffinity, "
+        "PreferredTopologySpreading, MixedSchedulingBasePod")
+    families = phase_families()
+
+    log("[22] the tracer's cost: SchedulingBasic with tracing on, off, off, "
+        "on")
+    tracing = phase_tracing_cost()
+
+    log("[23] the latency-budget tuner forced to shrink")
+    tuner = phase_tuner()
+    log(f"  main-path launches over phases 4, 5 and 8 to 23: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -2025,7 +2323,9 @@ def main() -> None:
         "gang": gang, "anti_affinity": anti, "slot_kernel": slots,
         "wide_terms": wide, "pv_rows": pv_rows,
         "preemption_pvs": preemption_pvs, "shared_volumes": shared,
-        "scatters": scatters["scatters"],
+        "scatters": scatters["scatters"], "configs": configs,
+        "families": families, "tracing_cost": tracing, "tuner": tuner,
+        "rows": ROW_REPORTS,
     }
     if args.out:
         with open(args.out, "w") as f:

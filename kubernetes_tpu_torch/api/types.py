@@ -587,3 +587,38 @@ class CSINodeDriver:
 class CSINode:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     drivers: List[CSINodeDriver] = field(default_factory=list)
+
+
+@dataclass
+class ObjectReference:
+    """A reference to another object: an Event's ``involved_object``."""
+
+    kind: str = ""
+    namespace: str = ""
+    name: str = ""
+    uid: str = ""
+
+
+def object_reference(obj) -> ObjectReference:
+    return ObjectReference(kind=type(obj).__name__,
+                           namespace=getattr(obj.metadata, "namespace", ""),
+                           name=obj.metadata.name, uid=obj.metadata.uid)
+
+
+@dataclass
+class Event:
+    """A core/v1 Event: the scheduler records ``Scheduled`` on a bind,
+    ``FailedScheduling`` on a failed attempt and ``Preempted`` on an
+    eviction. Occurrences with the same object, type, reason and message
+    aggregate into one Event with a bumped ``count``
+    (``client.events.EventRecorder``)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    involved_object: ObjectReference = field(default_factory=ObjectReference)
+    reason: str = ""
+    message: str = ""
+    type: str = "Normal"           # Normal | Warning
+    count: int = 1
+    first_timestamp: float = 0.0
+    last_timestamp: float = 0.0
+    source_component: str = ""

@@ -1,6 +1,7 @@
-"""In-process cluster store for pods, nodes, PodDisruptionBudgets and
-the storage objects (PersistentVolumeClaims, PersistentVolumes,
-StorageClasses, CSINodes), with synchronous watch delivery, plus the
+"""In-process cluster store for pods, nodes, PodDisruptionBudgets, the
+storage objects (PersistentVolumeClaims, PersistentVolumes,
+StorageClasses, CSINodes) and Events, with synchronous watch delivery,
+plus the
 scheduler's event handlers that turn watch events into cache and queue
 updates (assigned pods feed the cache, pending pods feed the queue, node
 changes feed the cache and wake parked pods, storage changes invalidate
@@ -9,12 +10,18 @@ the batch path's device state and wake parked pods).
 A pod's status writes (its ``PodScheduled`` condition, its nominated
 node) change the stored object in place and send no watch event, as the
 JAX package's in-process store does: nothing the scheduler caches or
-queues reads them."""
+queues reads them.
+
+Events (the API kind) have verbs of their own (``create_events``,
+``get_event``, ``update_event``, ``list_events``,
+``prune_expired_events``); their watch events reach no cache or queue, so
+an Event write never moves the cache's mutation sequence."""
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -31,12 +38,15 @@ from kubernetes_tpu_torch.api.types import (
     StorageClass,
     shallow_copy,
 )
+from kubernetes_tpu_torch.api.types import Event as ApiEvent
 from kubernetes_tpu_torch.scheduler import queue as q
 from kubernetes_tpu_torch.scheduler.framework.plugins.coscheduling import (
     GROUP_NAME_LABEL,
 )
 
 ADDED, MODIFIED, DELETED = "ADDED", "MODIFIED", "DELETED"
+# an Event object outlives its last occurrence by this long
+EVENT_TTL_S = 3600.0
 
 
 @dataclass
@@ -71,6 +81,8 @@ class ClusterStore:
         # PV name -> claim key, assumed by VolumeBinding's Reserve
         self._assumed_pvs: Dict[str, str] = {}
         self._bound = 0   # stored pods with a node
+        self._api_events: Dict[str, ApiEvent] = {}
+        self.event_ttl = EVENT_TTL_S
         self._watches: List[WatchHandle] = []
 
     def _next_rv(self) -> str:
@@ -263,6 +275,61 @@ class ClusterStore:
         return errors
 
     # ------------------------------------------------------------------
+    # Events
+    def create_events(self, events: List[ApiEvent]) -> int:
+        """Create ``events`` under one lock and one watch delivery; a name
+        already taken is skipped. Returns how many were created."""
+        delivered: List[Event] = []
+        with self._lock:
+            for ev in events:
+                key = f"{ev.metadata.namespace}/{ev.metadata.name}"
+                if key in self._api_events:
+                    continue
+                ev.metadata.resource_version = self._next_rv()
+                self._api_events[key] = ev
+                delivered.append(Event(ADDED, "Event", ev))
+            self._dispatch(delivered)
+        return len(delivered)
+
+    def get_event(self, namespace: str, name: str) -> Optional[ApiEvent]:
+        with self._lock:
+            return self._api_events.get(f"{namespace}/{name}")
+
+    def update_event(self, ev: ApiEvent) -> ApiEvent:
+        """Replace a stored Event; a missing one raises KeyError."""
+        with self._lock:
+            key = f"{ev.metadata.namespace}/{ev.metadata.name}"
+            old = self._api_events.get(key)
+            if old is None:
+                raise KeyError(f"Event {key!r} not found")
+            ev.metadata.resource_version = self._next_rv()
+            self._api_events[key] = ev
+            self._dispatch([Event(MODIFIED, "Event", ev, old)])
+            return ev
+
+    def list_events(self, namespace: Optional[str] = None,
+                    involved_name: Optional[str] = None) -> List[ApiEvent]:
+        with self._lock:
+            return [ev for ev in self._api_events.values()
+                    if (namespace is None
+                        or ev.metadata.namespace == namespace)
+                    and (involved_name is None
+                         or ev.involved_object.name == involved_name)]
+
+    def prune_expired_events(self, now: Optional[float] = None) -> int:
+        """Delete the Events whose last occurrence is older than
+        ``event_ttl``. Returns how many."""
+        now = time.time() if now is None else now
+        with self._lock:
+            stale = [key for key, ev in self._api_events.items()
+                     if now - ev.last_timestamp > self.event_ttl]
+            events = [Event(DELETED, "Event",
+                            self._deletion_copy(self._api_events.pop(key)))
+                      for key in stale]
+            self._dispatch(events)
+        return len(stale)
+
+    # ------------------------------------------------------------------
     # PodDisruptionBudgets; the controller objects SelectorSpread reads
     # (Services, ReplicationControllers, ReplicaSets, StatefulSets) are
     # not stored yet, so their listers return nothing
@@ -435,6 +502,9 @@ class EventHandlers:
 
     def handle_many(self, events: List[Event]) -> None:
         sched = self.sched
+        if any(e.kind != "Event" for e in events):
+            # delivery is synchronous: the batch commits now
+            sched.cache.note_event_ts(time.time())
         bind_run: List[Pod] = []    # pods newly assigned
         add_run: List[Pod] = []     # pending pods added
         delete_run: List[Pod] = []  # assigned pods deleted

@@ -19,7 +19,14 @@ binding cycle is in flight.
 
 Every row runs the gang scheduling provider: its queue sort is
 PrioritySort's order for pods of no gang, and its Permit lets them
-through at once."""
+through at once.
+
+Each row opens a fresh window of the process tracer, the device profiler
+and the freshness SLIs and SLO engine, and reports what the JAX harness
+reports from them: ``telemetry`` (the profiler's summary),
+``critical_path`` (the per-phase attribution of the sampled pods'
+windows, without the per-pod list) and ``freshness`` (staleness and the
+SLO verdicts)."""
 
 from __future__ import annotations
 
@@ -35,6 +42,14 @@ from kubernetes_tpu_torch.api.resource import parse_quantity
 from kubernetes_tpu_torch.api.types import Node, Pod, shallow_copy
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.metrics.freshness_metrics import (
+    freshness_metrics,
+    freshness_row_summary,
+)
+from kubernetes_tpu_torch.observability.devprof import get_devprof
+from kubernetes_tpu_torch.observability.fleettrace import collect_fleet_trace
+from kubernetes_tpu_torch.observability.slo import get_slo_engine
+from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     SchedulerConfiguration,
@@ -106,7 +121,8 @@ class BenchmarkResult:
     duration_seconds: float
     pods_per_second: float
     throughput: Dict[str, float]
-    # per bound pod, ms from its batch's solve start to its bind
+    # per bound pod, ms from its batch's solve start (pipelined: from its
+    # dispatch's return) to its bind
     metrics: Dict[str, float] = field(default_factory=dict)
     # per bound pod, ms from its first enqueue to its bind
     latency: Dict[str, float] = field(default_factory=dict)
@@ -136,7 +152,8 @@ class BenchmarkResult:
     # pod name -> (status, reason, message) of its PodScheduled condition,
     # for every pod left with one
     conditions: Dict[str, Tuple[str, str, str]] = field(default_factory=dict)
-    # host seconds per phase of the batch path
+    # host seconds per phase of the batch path, and of the measured
+    # window's pod builds (parse) and creates (admit)
     seconds: Dict[str, float] = field(default_factory=dict)
     # pod name -> node name of every pod the run created
     placements: Dict[str, str] = field(default_factory=dict)
@@ -150,6 +167,52 @@ class BenchmarkResult:
     claims: Dict[str, str] = field(default_factory=dict)
     node_volumes: Dict[str, List[str]] = field(default_factory=dict)
     volumes_bound: int = 0
+    # the device profiler's summary, the critical-path aggregate and the
+    # freshness SLIs with the SLO verdicts, of this row's window
+    telemetry: Dict[str, object] = field(default_factory=dict)
+    critical_path: Dict[str, object] = field(default_factory=dict)
+    freshness: Dict[str, object] = field(default_factory=dict)
+    # the drain size the latency-budget tuner ended at, and the pad
+    # buckets warmed
+    chunk: int = 0
+    warmed_pads: List[int] = field(default_factory=list)
+
+
+def reset_sli_window() -> None:
+    """A fresh freshness and SLO window for one row."""
+    freshness_metrics().reset_window()
+    get_slo_engine().reset(extra_registries=[])
+
+
+def attach_slo_baseline(sched) -> None:
+    """Point the SLO engine at the row's scheduler registry and take the
+    baseline sample."""
+    engine = get_slo_engine()
+    if engine.enabled:
+        engine.add_registry(sched.metrics.registry)
+        engine.tick()
+
+
+def collect_freshness(devprof_summary=None) -> dict:
+    """The row's ``freshness``: staleness and the final SLO verdicts of
+    the window ``reset_sli_window`` opened."""
+    engine = get_slo_engine()
+    slos = engine.evaluate().get("slos") if engine.enabled else None
+    return freshness_row_summary(devprof_summary, slos)
+
+
+def collect_critical_path(max_pods: int = 25):
+    """(the row's ``critical_path`` without the per-pod list, the merged
+    trace document); ({}, None) when tracing is off or no pod was
+    sampled."""
+    tracer = get_tracer()
+    if not tracer.enabled:
+        return {}, None
+    doc, cp = collect_fleet_trace(local=[("scheduler", tracer)],
+                                  max_pods=max_pods)
+    if not cp.get("pods"):
+        return {}, None
+    return {k: v for k, v in cp.items() if k != "per_pod"}, doc
 
 
 def _bound_pods(store: ClusterStore) -> List[Pod]:
@@ -189,22 +252,32 @@ def update_node_cpu_share(store: ClusterStore, fraction: float, seed: int
 def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                  device=None, pipeline: Optional[bool] = None,
                  mirror: Optional[bool] = None,
-                 seed: Optional[int] = None) -> BenchmarkResult:
+                 seed: Optional[int] = None, adaptive_chunk: bool = True,
+                 configure=None) -> BenchmarkResult:
     """Execute one workload on ``device`` (the CUDA card unless "cpu" is
     passed; raises when no card is available). ``pipeline`` and
     ``mirror`` switch the batch path's arms (default: the environment's
     ``KTPU_PIPELINE`` and ``KTPU_MIRROR``, both on); ``seed`` seeds the
     scheduler's random draws (ties of the serial path, the preemption
-    candidate offset)."""
+    candidate offset); ``adaptive_chunk`` False pins the drain and pad
+    size at ``max_batch``; ``configure(batch_scheduler)`` runs before the
+    first op."""
     dev = resolve_device(device)
     tune_for_throughput()
+    get_tracer().clear()
+    get_devprof().reset(workload=name)
+    reset_sli_window()
     store = ClusterStore()
     sched = Scheduler(
         store, config=SchedulerConfiguration(
             provider="GangSchedulingProvider"),
         rng=random.Random(seed))
     bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
-                        pipeline=pipeline, mirror=mirror)
+                        pipeline=pipeline, mirror=mirror,
+                        adaptive_chunk=adaptive_chunk)
+    if configure is not None:
+        configure(bs)
+    attach_slo_baseline(sched)
     sched.start()
 
     def pump(deadline: float, wait_names=None) -> None:
@@ -242,6 +315,10 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
     created_nodes = 0
     created_pods = 0
     deleted_pods = 0
+    # seconds of the measured window spent building the op's pods from
+    # their dicts (parse) and in the store's pod creates, their watch
+    # delivery into the queue included (admit)
+    parse_s = admit_s = 0.0
     try:
         for op in ops:
             opcode = op["opcode"]
@@ -264,9 +341,14 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                     collector.start()
                 if op.get("collectMetrics", False):
                     measured_pods += op["count"]
+                t0 = time.monotonic()
                 new_pods = [Pod.from_dict(template(offset + i))
                             for i in range(op["count"])]
+                t1 = time.monotonic()
                 store.create_pods(new_pods)
+                if collector is not None:
+                    parse_s += t1 - t0
+                    admit_s += time.monotonic() - t1
                 created_pods += len(new_pods)
                 if op.get("skipWaitToCompletion", False):
                     continue
@@ -306,6 +388,9 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         # run's garbage now, not inside whatever runs next
         gc.collect()
 
+    dp = get_devprof()
+    telemetry = dp.summary() if dp.enabled else {}
+    critical_path, _ = collect_critical_path()
     session = bs.session
     pods = store.list_pods()
     claims = {pvc.name: pvc.volume_name for pvc in store.list_all_pvcs()}
@@ -327,7 +412,8 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         latency=_percentiles(sched.pending_latencies, 1000.0),
         solves=session.backend.solves,
         rebuilds=session.rebuilds,
-        seconds={**session.seconds, "commit": bs.seconds_commit},
+        seconds={**session.seconds, "commit": bs.seconds_commit,
+                 "parse": parse_s, "admit": admit_s},
         pipeline=bs.pipeline_enabled,
         mirror=session.mirror is not None,
         carry_chained=session.carry_chained,
@@ -349,4 +435,9 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         claims=claims,
         node_volumes={n: sorted(v) for n, v in node_volumes.items()},
         volumes_bound=bs.volumes_bound,
+        telemetry=telemetry,
+        critical_path=critical_path,
+        freshness=collect_freshness(telemetry),
+        chunk=bs._chunk,
+        warmed_pads=sorted(bs._warmed_pads),
     )

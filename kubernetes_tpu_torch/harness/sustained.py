@@ -6,6 +6,8 @@ offered rate, with zero lost pods as the invariant.
 
 ``run_sustained_row`` is the full row (30,000 pods at 5,000 a second);
 ``run_sustained_cell`` is a small, time-compressed cell for the tests.
+Each run opens its own tracer, profiler and SLO window and reports
+``telemetry``, ``critical_path`` and ``freshness`` as a harness row does.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ from typing import Callable, Dict, List, Optional
 from kubernetes_tpu_torch.api.types import Node
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.harness import perf
 from kubernetes_tpu_torch.harness.workloads import node_template
+from kubernetes_tpu_torch.observability.devprof import get_devprof
+from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     SchedulerConfiguration,
@@ -91,6 +96,9 @@ def run_sustained_once(trace: Trace, *, node_cpu: int = 32,
     path's counters."""
     dev = resolve_device(device)
     tune_for_throughput()
+    get_tracer().clear()
+    get_devprof().reset(workload="sustained")
+    perf.reset_sli_window()
     store = ClusterStore()
     for d in sustained_nodes(trace, node_cpu=node_cpu):
         store.add_node(Node.from_dict(d))
@@ -98,6 +106,7 @@ def run_sustained_once(trace: Trace, *, node_cpu: int = 32,
         provider="GangSchedulingProvider"))
     bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
                         pipeline=pipeline, mirror=mirror)
+    perf.attach_slo_baseline(sched)
     sched.start()
     engine = None
     try:
@@ -115,7 +124,12 @@ def run_sustained_once(trace: Trace, *, node_cpu: int = 32,
         stats = engine.finish()
         engine = None
         session = bs.session
+        dp = get_devprof()
+        telemetry = dp.summary() if dp.enabled else {}
         extras: Dict = {
+            "telemetry": telemetry,
+            "critical_path": perf.collect_critical_path()[0],
+            "freshness": perf.collect_freshness(telemetry),
             "wall_s": wall,
             "device": str(dev),
             "pipeline": bs.pipeline_info(),

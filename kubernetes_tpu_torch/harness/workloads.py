@@ -20,6 +20,10 @@ from kubernetes_tpu_torch.api.types import (
 )
 
 
+ZONE = "topology.kubernetes.io/zone"
+HOSTNAME = "kubernetes.io/hostname"
+
+
 def _zone(i: int, zones: int = 10) -> str:
     return f"zone-{i % zones}"
 
@@ -455,6 +459,75 @@ def preemption_pvs(nodes: int, init_pods: int, measure_pods: int
     ]
 
 
+def scheduling_secrets(nodes: int, init_pods: int, measure_pods: int
+                       ) -> List[dict]:
+    """SchedulingBasic's ops: a secret volume does not change where a pod
+    may go, so the row is the basic row's shape."""
+    return scheduling_basic(nodes, init_pods, measure_pods)
+
+
+def scheduling_node_affinity(nodes: int, init_pods: int, measure_pods: int
+                             ) -> List[dict]:
+    """Each measured pod requires (node affinity) the zone ``i mod 10``."""
+    def pod(i):
+        p = basic_pod(i)
+        p["spec"]["affinity"] = {"nodeAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": {
+                "nodeSelectorTerms": [{"matchExpressions": [
+                    {"key": ZONE, "operator": "In",
+                     "values": [f"zone-{i % 10}"]}]}]}}}
+        return p
+
+    return [_nodes_op(nodes), _pods_op(init_pods, basic_pod), _barrier(),
+            _pods_op(measure_pods, pod, collect=True, offset=init_pods)]
+
+
+def preferred_topology_spreading(nodes: int, init_pods: int,
+                                 measure_pods: int) -> List[dict]:
+    """Measured pods spread over zones, at most one pod of skew, as a
+    preference (ScheduleAnyway)."""
+    def pod(i):
+        p = basic_pod(i, labels={"app": "spread"})
+        p["spec"].update(_spread(1, ZONE, "ScheduleAnyway",
+                                 {"app": "spread"}))
+        return p
+
+    return [_nodes_op(nodes), _pods_op(init_pods, basic_pod), _barrier(),
+            _pods_op(measure_pods, pod, collect=True, offset=init_pods)]
+
+
+def mixed_scheduling_base_pod(nodes: int, init_pods: int, measure_pods: int
+                              ) -> List[dict]:
+    """Init pods in turn plain, with a required zone pod affinity to
+    their group of 20, with a required hostname anti-affinity to theirs,
+    and hard-spread over zones (skew 2); then plain measured pods."""
+    builders = [
+        lambda i: basic_pod(i),
+        lambda i: _with(basic_pod(i, labels={"color": f"x{i % 20}"}),
+                        _affinity("podAffinity", "color", [f"x{i % 20}"],
+                                  ZONE)),
+        # hostname-keyed: with 20 groups over 10 zones a zone key would
+        # leave the 11th member of a group unschedulable for good
+        lambda i: _with(basic_pod(i, labels={"color": f"y{i % 20}"}),
+                        _affinity("podAntiAffinity", "color", [f"y{i % 20}"],
+                                  HOSTNAME)),
+        lambda i: _with(basic_pod(i, labels={"app": "mix"}),
+                        _spread(2, ZONE, "DoNotSchedule", {"app": "mix"})),
+    ]
+
+    def init_pod(i):
+        return builders[i % len(builders)](i)
+
+    return [_nodes_op(nodes), _pods_op(init_pods, init_pod), _barrier(),
+            _pods_op(measure_pods, basic_pod, collect=True,
+                     offset=init_pods)]
+
+
+def _with(pod: dict, extra: dict) -> dict:
+    pod["spec"].update(extra)
+    return pod
+
+
 WORKLOADS = {
     "SchedulingBasic": scheduling_basic,
     "SchedulingPodAntiAffinity": scheduling_pod_anti_affinity,
@@ -462,6 +535,10 @@ WORKLOADS = {
     "SchedulingPreferredPodAffinity": scheduling_preferred_pod_affinity,
     "SchedulingPreferredPodAntiAffinity": scheduling_preferred_anti_affinity,
     "TopologySpreading": topology_spreading,
+    "SchedulingSecrets": scheduling_secrets,
+    "SchedulingNodeAffinity": scheduling_node_affinity,
+    "PreferredTopologySpreading": preferred_topology_spreading,
+    "MixedSchedulingBasePod": mixed_scheduling_base_pod,
     "Preemption": preemption,
     "Unschedulable": unschedulable,
     "GangScheduling": gang_scheduling,

@@ -22,6 +22,14 @@ its epoch's node-static masks (``last_profile_idx``,
 ``last_inexpressible``, ``static_masks_host``): the batch loop builds the
 statuses of declined pods from them, and by the time a held batch
 commits the session may describe the next one.
+
+Each solve is one cycle of the device profiler (``observability.devprof``:
+the pod rows' encode, a rebuild's cluster encode, the dispatch, the wait
+at materialization, the launch's timing-event seconds, the ring's bytes,
+the snapshot's staleness), and its phases are spans (``solve.encode``,
+``solve.pack``, ``solve.device``, ``solve.block``, ``solve.scatter``) and
+``batch_solve_duration{phase}`` observations. A ``warming`` solve is
+profiled as a warm-up and neither counted nor observed.
 """
 
 from __future__ import annotations
@@ -32,12 +40,16 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.metrics.freshness_metrics import freshness_metrics
+from kubernetes_tpu_torch.observability.devprof import get_devprof
+from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.ops.encode import BatchEncoder, EncodedCluster
 from kubernetes_tpu_torch.ops.mirror import (
     DeltaJournal,
     DeviceClusterMirror,
     mirror_enabled,
 )
+from kubernetes_tpu_torch.ops.planes import prepare
 from kubernetes_tpu_torch.ops.solve import CudaPlanesBackend
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
@@ -76,6 +88,11 @@ class SolverSession:
         self.static_masks_host: Optional[np.ndarray] = None  # [U, N] bool
         self.last_profile_idx: Optional[np.ndarray] = None   # [B] int32
         self.last_inexpressible: Optional[np.ndarray] = None  # [B] bool
+        # the first pod's scheduling cycle of the batch being solved: the
+        # correlation key of the profiler's record and the solve spans
+        self.trace_cycle = -1
+        self._warming = False
+        self._staleness_anchor = 0.0
         self._mirror: Optional[DeviceClusterMirror] = None
         if mirror_enabled() if mirror is None else mirror:
             journal = DeltaJournal()
@@ -119,7 +136,7 @@ class SolverSession:
             self._last_seq = -1
 
     def solve(self, pods: List, pad: int, lazy: bool = False,
-              incremental_only: bool = False):
+              incremental_only: bool = False, warming: bool = False):
         """Solve one batch, its pod rows padded to ``pad``. Returns
         (assignments, cluster, seq_before): assignment i indexes
         ``cluster.node_names`` (-1 = no node). With ``lazy`` an
@@ -127,72 +144,216 @@ class SolverSession:
         ``last_materializer`` to turn into assignments later (a rebuild
         always solves eagerly, and ``last_materializer`` is then None).
         With ``incremental_only`` the call returns None instead of
-        rebuilding."""
+        rebuilding. ``warming``: a warm-up solve (profiled as one, not
+        observed; rebuilds still count)."""
+        self._warming = warming
         cache = self.sched.cache
         seq_before = cache.mutation_seq
+        scatter = None
         if (self._mirror is not None and self._state is not None
                 and not self._poisoned
                 and 0 <= self._last_seq != seq_before
                 and self._node_epoch == cache.node_set_seq):
             t0 = time.monotonic()
-            if self._mirror.catch_up(self._last_seq, seq_before) is not None:
+            applied = self._mirror.catch_up(self._last_seq, seq_before)
+            if applied is not None:
                 self._last_seq = seq_before
-            self.seconds["scatter"] += time.monotonic() - t0
+            scatter = (time.monotonic() - t0, applied or 0)
+            self.seconds["scatter"] += scatter[0]
         if (self._state is not None and seq_before == self._last_seq
                 and self._node_epoch == cache.node_set_seq):
-            t0 = time.monotonic()
-            pb = self._encoder.encode_pods_only(pods, pad)
-            if pb is not None:
-                self.last_profile_idx = pb.profile_idx
-                self.last_inexpressible = pb.inexpressible
-                ints, floats = pack_podin(pb)
-                t1 = time.monotonic()
-                chained = self._dispatch_seq > self._materialize_seq
-                handle = self.backend.solve_lazy(
-                    self.params, self._static, self._state, ints, floats)
-                if lazy:
-                    self.carry_chained += chained
-                    self.last_materializer = self._materializer()
-                else:
-                    handle = self.backend.materialize(handle)
-                    self.last_materializer = None
-                self.seconds["encode"] += t1 - t0
-                self.seconds["device"] += time.monotonic() - t1
-                self.incremental_hits += 1
-                return handle, self._cluster, seq_before
+            dp = get_devprof()
+            rec = dp.begin_cycle(cycle=self.trace_cycle, pad=pad,
+                                 real=len(pods), warming=warming) \
+                if dp.enabled else None
+            if not warming:
+                self._note_staleness(rec, dp)
+            if scatter is not None:
+                dp.phase("scatter", scatter[0])
+                dp.add_bytes("scatter", scatter[1])
+                self._observe("scatter", scatter[0])
+            try:
+                out = self._solve_incremental(pods, pad, lazy, dp, rec)
+            except BaseException:
+                dp.abort(rec)
+                raise
+            if out is not None:
+                return out[0], self._cluster, seq_before
+            # the pods fall outside the epoch's encoding space: no solve
+            dp.abort(rec)
         if incremental_only:
             return None
         return self._rebuild_and_solve(pods, seq_before, pad)
 
-    def _materializer(self):
+    def _solve_incremental(self, pods: List, pad: int, lazy: bool, dp, rec):
+        """The pod rows encoded against the epoch and solved on the
+        carried state: (handle or assignments,), or None when a pod does
+        not fit the epoch's encoding space."""
+        t0 = time.monotonic()
+        pb = self._encoder.encode_pods_only(pods, pad)
+        if pb is None:
+            return None
+        self.last_profile_idx = pb.profile_idx
+        self.last_inexpressible = pb.inexpressible
+        t_pack = time.monotonic()
+        ints, floats = pack_podin(pb)
+        t1 = time.monotonic()
+        self._observe("encode", t_pack - t0, end_mono=t_pack)
+        self._observe("pack", t1 - t_pack, end_mono=t1)
+        # the pod rows' encode is per-batch work: devprof books it under
+        # pack, and keeps encode for cluster-plane builds
+        dp.phase("pack", t1 - t0)
+        chained = self._dispatch_seq > self._materialize_seq
+        handle = self.backend.solve_lazy(
+            self.params, self._static, self._state, ints, floats)
+        t_disp = time.monotonic()
+        dp.phase("dispatch", t_disp - t1)
+        self._flush_backend_bytes(dp)
+        if lazy:
+            self.carry_chained += chained
+            self.last_materializer = self._materializer(rec)
+        else:
+            out = self.backend.materialize(handle)
+            dp.phase("block", time.monotonic() - t_disp)
+            dp.phase("device", self.backend.device_seconds(handle))
+            self._flush_backend_bytes(dp)
+            handle = out
+            self.last_materializer = None
+        self.seconds["encode"] += t1 - t0
+        self.seconds["device"] += time.monotonic() - t1
+        self._observe("device", time.monotonic() - t1)
+        dp.end_cycle(rec, pending_block=lazy)
+        if not self._warming:
+            self.incremental_hits += 1
+        return (handle,)
+
+    def _materializer(self, rec):
         """The backend's materialize for the handle just dispatched,
-        timed, advancing the dispatch/materialize sequence
-        ``carry_chained`` reads."""
+        timed: the wait completes the profiler's record (with the
+        launch's timing-event seconds) and is a ``solve.block`` span; it
+        advances the dispatch/materialize sequence ``carry_chained``
+        reads."""
         self._dispatch_seq += 1
         token = self._dispatch_seq
+        dp = get_devprof()
+        cycle = self.trace_cycle
 
         def materialize(handle):
             t0 = time.monotonic()
             out = self.backend.materialize(handle)
-            waited = time.monotonic() - t0
+            end = time.monotonic()
+            waited = end - t0
             self.handoffs.append((t0 - handle.dispatched_at, waited))
             self.seconds["device"] += waited
             self._materialize_seq = max(self._materialize_seq, token)
+            dp.note_block(rec, waited,
+                          self.backend.take_transfer_bytes("d2h")["d2h"],
+                          start_mono=t0,
+                          device_s=self.backend.device_seconds(handle))
+            tracer = get_tracer()
+            if tracer.enabled:
+                tracer.record("solve.block", t0, end, cycle=cycle)
             return out
 
         return materialize
 
-    def warm(self, pods: List, pad: int) -> None:
-        """Solve ``pods`` once (building and loading the kernel) and, with
-        the mirror, run each scatter once on the planes it built (loading
-        the card's indexing kernels), then drop the state: the pods were
-        never committed."""
-        self.solve(pods, pad)
+    def _flush_backend_bytes(self, dp) -> None:
+        """Book the bytes the backend moved since the last flush into the
+        open profiler cycle."""
+        for direction, n in self.backend.take_transfer_bytes().items():
+            if n:
+                dp.add_bytes(direction, n)
+
+    def _note_staleness(self, rec, dp) -> None:
+        """The snapshot-staleness SLI, once per cycle whose snapshot
+        advanced since the last sample: the age of the newest watch batch
+        the cache applied (``SchedulerCache.last_event_ts``). Kept on the
+        profiler's record, observed into ``snapshot_staleness_seconds``
+        and a ``solve.staleness`` instant."""
+        ts = self.sched.cache.last_event_ts
+        if not ts or ts == self._staleness_anchor:
+            return
+        self._staleness_anchor = ts
+        stale = max(0.0, time.time() - ts)
+        dp.note_staleness(rec, stale)
+        fm = freshness_metrics()
+        if fm.enabled:
+            fm.snapshot_staleness_seconds.observe(stale)
+            tracer = get_tracer()
+            if tracer.enabled:
+                tracer.event("solve.staleness", cycle=self.trace_cycle,
+                             staleness_ms=round(stale * 1000, 2))
+
+    def _observe(self, segment: str, seconds: float,
+                 end_mono: Optional[float] = None) -> None:
+        """``batch_solve_duration{segment}`` and a ``solve.<segment>``
+        span ending at ``end_mono`` (now by default); not for warm-ups."""
+        if self._warming:
+            return
+        self.sched.metrics.batch_solve_duration.observe(seconds, segment)
+        tracer = get_tracer()
+        if tracer.enabled:
+            end = time.monotonic() if end_mono is None else end_mono
+            tracer.record(f"solve.{segment}", end - seconds, end,
+                          cycle=self.trace_cycle)
+
+    def warm(self, pods: List, pad: int) -> float:
+        """Solve ``pods`` once (building and loading the kernel, a
+        rebuild), then once more on the carried state (the kernel
+        loaded), and, with the mirror, run each scatter once on the
+        planes built (loading the card's indexing kernels); then drop the
+        state: the pods were never committed. Returns the seconds of the
+        second solve."""
+        self.solve(pods, pad, warming=True)
+        t0 = time.monotonic()
+        self.solve(pods, pad, warming=True)
+        seconds = time.monotonic() - t0
         if self._mirror is not None:
             pad_entries = np.zeros(8, dtype=np.int32)
             self.backend.scatter_state_add(self._state, *[pad_entries] * 3)
             self.backend.scatter_static_set(self._static, *[pad_entries] * 3)
+        self.backend.take_transfer_bytes()
+        self._warming = False
         self.invalidate()
+        return seconds
+
+    def warm_pad(self, pods: List, pad: int) -> Optional[int]:
+        """Warm the ``pad``-row shape between cycles: its pinned-ring
+        buffers and each kernel instance it routes to launched once. The
+        solve runs on a copy of the carried state, which it discards: the
+        carried planes and the session's validity are left as they are,
+        and a held batch's handle stays good. Returns the compiles the
+        profiler counted (0: nothing needed a load), or None when no
+        epoch is resident or ``pods`` fall outside its encoding space."""
+        if self._state is None or self._encoder is None:
+            return None
+        dp = get_devprof()
+        rec = dp.begin_cycle(cycle=-1, pad=pad, real=len(pods),
+                             warming=True) if dp.enabled else None
+        try:
+            pb = self._encoder.encode_pods_only(pods, pad)
+            if pb is None:
+                dp.abort(rec)
+                rec = None
+                return None
+            ints, floats = pack_podin(pb)
+            t0 = time.monotonic()
+            handle = self.backend.solve_lazy(self.params, self._static,
+                                             self._state.clone(), ints,
+                                             floats)
+            t_disp = time.monotonic()
+            self.backend.materialize(handle)
+            dp.phase("dispatch", t_disp - t0)
+            dp.phase("block", time.monotonic() - t_disp)
+            dp.phase("device", self.backend.device_seconds(handle))
+            self._flush_backend_bytes(dp)
+            return rec["compiles"] if rec is not None else 0
+        except BaseException:
+            dp.abort(rec)
+            rec = None
+            raise
+        finally:
+            dp.end_cycle(rec)
 
     def fresh_planes(self, pods: List, pad: int):
         """(static planes, state) built from scratch: a new snapshot of
@@ -203,7 +364,7 @@ class SolverSession:
         self.sched.cache.update_snapshot(snapshot)
         cluster, batch = BatchEncoder(snapshot, self.sched.client).encode(
             pods, pad_pods=pad)
-        return self.backend.prepare(cluster, batch)
+        return prepare(cluster, batch, self.backend.device)
 
     def _rebuild_and_solve(self, pods: List, seq_before: int, pad: int):
         self.rebuilds += 1
@@ -212,6 +373,21 @@ class SolverSession:
         # a handle discarded unmaterialized must not make later
         # dispatches read as chained
         self._materialize_seq = self._dispatch_seq
+        dp = get_devprof()
+        rec = dp.begin_cycle(cycle=self.trace_cycle, pad=pad, real=len(pods),
+                             warming=self._warming, rebuild="full") \
+            if dp.enabled else None
+        if not self._warming:
+            self._note_staleness(rec, dp)
+        try:
+            return self._rebuild_and_solve_inner(pods, seq_before, pad, cold,
+                                                 dp, rec)
+        except BaseException:
+            dp.abort(rec)
+            raise
+
+    def _rebuild_and_solve_inner(self, pods: List, seq_before: int, pad: int,
+                                 cold: bool, dp, rec):
         t0 = time.monotonic()
         # read before the snapshot: a node added meanwhile bumps the
         # mutation seq too, so the next solve revalidates either way
@@ -222,13 +398,26 @@ class SolverSession:
         self.static_masks_host = batch.static_masks
         self.last_profile_idx = batch.profile_idx
         self.last_inexpressible = batch.inexpressible
+        t_pack = time.monotonic()
         ints, floats = pack_podin(batch)
         t1 = time.monotonic()
+        self._observe("encode", t_pack - t0, end_mono=t_pack)
+        self._observe("pack", t1 - t_pack, end_mono=t1)
+        dp.phase("encode", t_pack - t0)
+        dp.phase("pack", t1 - t_pack)
         self._static, self._state = self.backend.prepare(cluster, batch)
-        out = self.backend.solve(self.params, self._static, self._state,
-                                 ints, floats)
+        handle = self.backend.solve_lazy(self.params, self._static,
+                                         self._state, ints, floats)
+        t_disp = time.monotonic()
+        out = self.backend.materialize(handle)
+        dp.phase("dispatch", t_disp - t1)
+        dp.phase("block", time.monotonic() - t_disp)
+        dp.phase("device", self.backend.device_seconds(handle))
+        self._flush_backend_bytes(dp)
         self.seconds["encode"] += t1 - t0
         self.seconds["device"] += time.monotonic() - t1
+        self._observe("device", time.monotonic() - t1)
+        dp.end_cycle(rec)
         self._cluster = cluster
         self._last_seq = seq_before
         self.last_materializer = None

@@ -58,6 +58,7 @@ from kubernetes_tpu_torch.ops.slots import (
     slot_width,
 )
 from kubernetes_tpu_torch.ops.solver import BIG, NEG_INF, SolverParams
+from kubernetes_tpu_torch.observability.devprof import get_devprof
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 KERNEL_SOURCE = PACKAGE_DIR / "csrc" / "solve_kernel.cu"
@@ -404,13 +405,28 @@ class SolveKernel:
     """ctypes binding of the CUDA solve kernels. ``counts`` holds the
     launches this wrapper made of each kernel ("cluster", "slots",
     "block"); ``launches`` is their sum. The library is built and loaded
-    on the first launch."""
+    on the first launch.
+
+    Compiles: the library's build and load, and the first launch of each
+    kernel instance (a kernel with shared-volume planes or without; under
+    lazy module loading that launch loads the module), are timed on the
+    host where they happen and reported to the device profiler
+    (``note_compile``), which books them to the solve cycle open on this
+    thread. ``compiles`` lists them: (what, seconds)."""
 
     def __init__(self):
         self.counts = {"cluster": 0, "slots": 0, "block": 0}
         self._lib = None
         self._lock = threading.Lock()
         self._plans = {}
+        self.launched = set()   # (kernel, with sv) instances launched
+        self.compiles = []
+
+    def note_compile(self, what: str, seconds: float) -> None:
+        """A build and load or a first launch (``what``) took
+        ``seconds``."""
+        self.compiles.append((what, seconds))
+        get_devprof().on_compile(seconds)
 
     @property
     def launches(self) -> int:
@@ -423,6 +439,7 @@ class SolveKernel:
     def _load(self):
         with self._lock:
             if self._lib is None:
+                t0 = time.monotonic()
                 lib = ctypes.CDLL(str(build_kernel()))
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 for name in ("cluster", "slots"):
@@ -440,6 +457,7 @@ class SolveKernel:
                              "ktt_slots_smem_bytes"):
                     getattr(lib, name).restype = ctypes.c_int
                 self._lib = lib
+                self.note_compile("load", time.monotonic() - t0)
         return self._lib
 
     def check(self, ps: PStatic, state: torch.Tensor, pod_ints: torch.Tensor,
@@ -544,6 +562,9 @@ class SolveKernel:
         the slot stream for the slot kernel, the dense stream for the
         others), on the current stream, without synchronising."""
         lib = self._load()
+        instance = (plan.kernel, ps.sv > 0)
+        first = instance not in self.launched
+        t0 = time.monotonic()
         n, b = ps.ints.shape[1], pod_ints.shape[0]
         assign = torch.empty(b, dtype=torch.int32, device=state.device)
         stream = torch.cuda.current_stream(state.device).cuda_stream
@@ -563,6 +584,11 @@ class SolveKernel:
             raise RuntimeError(f"solve {plan.kernel} kernel launch failed: "
                                f"CUDA error {err}")
         self.counts[plan.kernel] += 1
+        if first:
+            self.launched.add(instance)
+            self.note_compile(f"first launch {plan.kernel}"
+                              + (" sv" if instance[1] else ""),
+                              time.monotonic() - t0)
         return assign
 
     def __call__(self, params: SolverParams, ps: PStatic,
@@ -654,47 +680,91 @@ def plan_batch(ps: PStatic, packs: bool = False) -> LaunchPlan:
 class SolveHandle(NamedTuple):
     """A dispatched solve: the assignments on the device, the host buffer
     a copy fills, the event recorded after that copy (None on the CPU),
-    and the host clock at the end of the dispatch."""
+    the host clock at the end of the dispatch, and the timing events
+    recorded just before and just after the launch (None on the CPU)."""
 
     assign: torch.Tensor
     host: torch.Tensor
     event: object
     dispatched_at: float
+    started: object = None
+    ended: object = None
 
 
-# pinned buffers kept per shape: the solves in flight at once (two, in
-# the pipelined loop) plus one
-STAGING_DEPTH = 3
+# a staging slot holds at least this many bytes: the pod stream of a
+# 4,096-pod batch up to 64 columns, so a smaller pad, another term count
+# or another scatter length allocates nothing
+MIN_STAGING_BYTES = 1 << 20
+# slots of each capacity: the takes of the solves in flight at once (two,
+# in the pipelined loop; a cycle takes three for its solve and two for
+# each catch-up scatter) and room
+STAGING_DEPTH = 16
 
 
 class PinnedRing:
-    """Pinned host buffers per (shape, dtype), reused round-robin, so a
-    dispatch allocates no pinned memory (an allocation can wait for the
-    card). A buffer is refilled only after the event of its last use has
-    fired; it has, unless more than ``depth - 1`` uses are still in
-    flight, and then the refill waits for it (``waits`` counts those)."""
+    """Pinned host buffers by capacity (a power of two, at least
+    ``MIN_STAGING_BYTES``), reused round-robin, so a dispatch allocates no
+    pinned memory (an allocation can wait for the card). A take is a view
+    of a slot's buffer at the shape and dtype asked for. Readbacks have
+    rings of their own: their buffers are read on the host after their
+    event, when the batch is materialized. A slot is refilled
+    only after the event of its last use has fired; it has, unless more
+    than ``depth - 1`` takes of its capacity are still in flight, and then
+    the refill waits for it (``waits`` counts those).
+
+    One ring serves the process (``STAGING``), as a compiled program
+    serves every session: a capacity's first use allocates its buffers,
+    timed and reported to the device profiler as a compile
+    (``on_compile``), so one inside a measured cycle is an unexpected
+    compile; ``allocations`` lists them: (capacity bytes, seconds)."""
 
     def __init__(self, depth: int = STAGING_DEPTH):
         self.depth = depth
         self.waits = 0
-        self._rings = {}   # (shape, dtype) -> [slots, next index]
+        self.allocations = []
+        self._rings = {}   # (capacity, readback) -> [slots, next index]
+        self._lock = threading.Lock()
 
-    def take(self, shape, dtype) -> list:
-        """A slot, ``[pinned tensor, event of its last use or None]``,
-        whose buffer nothing in flight still reads."""
-        key = (tuple(shape), dtype)
-        ring = self._rings.get(key)
-        if ring is None:
-            ring = self._rings[key] = [[
-                [torch.empty(shape, dtype=dtype, pin_memory=True), None]
-                for _ in range(self.depth)], 0]
-        slots, i = ring
-        ring[1] = (i + 1) % self.depth
+    def take(self, shape, dtype, readback: bool = False
+             ) -> Tuple[torch.Tensor, list]:
+        """A view of a slot's buffer as ``shape`` and ``dtype``, and the
+        slot, ``[pinned buffer, event of its last use or None]``, whose
+        buffer nothing in flight still reads; the caller marks its own use
+        (``CudaPlanesBackend._fence``)."""
+        shape = tuple(shape)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        cap = max(MIN_STAGING_BYTES, 1 << max(nbytes - 1, 0).bit_length())
+        key = (cap, readback)
+        with self._lock:
+            ring = self._rings.get(key)
+            if ring is None:
+                t0 = time.monotonic()
+                ring = self._rings[key] = [[
+                    [torch.empty(cap, dtype=torch.uint8, pin_memory=True),
+                     None] for _ in range(self.depth)], 0]
+                seconds = time.monotonic() - t0
+                self.allocations.append((cap, seconds))
+                get_devprof().on_compile(seconds)
+            slots, i = ring
+            ring[1] = (i + 1) % self.depth
         slot = slots[i]
         if slot[1] is not None and not slot[1].query():
             self.waits += 1
             slot[1].synchronize()
-        return slot
+        return slot[0][:nbytes].view(dtype).view(shape), slot
+
+    def clear(self) -> None:
+        """Free every buffer once nothing in flight reads it: the next
+        take of each capacity allocates (and books) it again."""
+        with self._lock:
+            rings, self._rings = self._rings, {}
+        for slots, _ in rings.values():
+            for _, event in slots:
+                if event is not None:
+                    event.synchronize()
+
+
+STAGING = PinnedRing()
 
 
 class CudaPlanesBackend:
@@ -703,7 +773,10 @@ class CudaPlanesBackend:
     everything runs on the current stream, in order: uploads, scatters,
     kernel, the copy back, through pinned buffers reused from a ring.
     ``solve_lazy`` returns without waiting for the card; ``materialize``
-    waits for its batch alone."""
+    waits for its batch alone; ``device_seconds`` reads the launch's
+    timing events after it. ``transfer`` counts the bytes the pinned ring moved (``h2d``: pod
+    streams, plane uploads and scatter entries; ``d2h``: assignments);
+    ``take_transfer_bytes`` hands over and clears them."""
 
     name = "cuda-planes"
 
@@ -712,23 +785,37 @@ class CudaPlanesBackend:
         self.solves = 0
         self.scatters = {"add": 0, "set": 0}
         self.scatter_bytes = 0
-        self.staging = PinnedRing()
+        self.staging = STAGING
+        self.transfer = {"h2d": 0, "d2h": 0}
+
+    def take_transfer_bytes(self, *directions) -> dict:
+        """The bytes moved since the last take, by direction (only
+        ``directions``, when given), cleared."""
+        out = {d: self.transfer[d] for d in directions or self.transfer}
+        for d in out:
+            self.transfer[d] = 0
+        return out
 
     def prepare(self, cluster, batch) -> Tuple[PStatic, torch.Tensor]:
-        return prepare(cluster, batch, self.device)
+        ps, state = prepare(cluster, batch, self.device)
+        self.transfer["h2d"] += sum(
+            t.numel() * t.element_size()
+            for t in (ps.ints, ps.f32s, ps.sc_meta, state))
+        return ps, state
 
     def _upload(self, a: np.ndarray) -> Tuple[torch.Tensor, list]:
         """``a`` on the device, and the staging slot it went through (on
         the card a pinned buffer, copied from without waiting; None on
         the CPU)."""
         host = torch.from_numpy(np.ascontiguousarray(a))
+        self.transfer["h2d"] += a.nbytes
         if self.device.type == "cpu":
             return host, None
-        slot = self.staging.take(host.shape, host.dtype)
+        view, slot = self.staging.take(host.shape, host.dtype)
         # numpy's copy: one thread (torch's CPU copy of a large tensor
         # wakes its thread pool, which can take milliseconds)
-        np.copyto(slot[0].numpy(), a)
-        return slot[0].to(self.device, non_blocking=True), slot
+        np.copyto(view.numpy(), a)
+        return view.to(self.device, non_blocking=True), slot
 
     def _fence(self, slots):
         """Record an event after the work just queued and mark ``slots``
@@ -755,14 +842,23 @@ class CudaPlanesBackend:
             run, (pod_ints, pod_floats) = solve_slots, stream
         ints, ints_slot = self._upload(pod_ints)
         floats, floats_slot = self._upload(pod_floats)
-        assign = run(params, ps, state, ints, floats, profiles_checked=True)
-        self.solves += 1
         if self.device.type == "cpu":
+            assign = run(params, ps, state, ints, floats,
+                         profiles_checked=True)
+            self.solves += 1
             return SolveHandle(assign, assign, None, time.monotonic())
-        host_slot = self.staging.take(assign.shape, assign.dtype)
-        host_slot[0].copy_(assign, non_blocking=True)
+        started = torch.cuda.Event(enable_timing=True)
+        ended = torch.cuda.Event(enable_timing=True)
+        started.record()
+        assign = run(params, ps, state, ints, floats, profiles_checked=True)
+        ended.record()
+        self.solves += 1
+        host, host_slot = self.staging.take(assign.shape, assign.dtype,
+                                            readback=True)
+        host.copy_(assign, non_blocking=True)
         event = self._fence((ints_slot, floats_slot, host_slot))
-        return SolveHandle(assign, host_slot[0], event, time.monotonic())
+        return SolveHandle(assign, host, event, time.monotonic(),
+                           started, ended)
 
     @staticmethod
     def slot_route(ps: PStatic, pod_ints: np.ndarray, pod_floats: np.ndarray
@@ -780,13 +876,21 @@ class CudaPlanesBackend:
             return None
         return stream
 
-    @staticmethod
-    def materialize(handle: SolveHandle) -> np.ndarray:
+    def materialize(self, handle: SolveHandle) -> np.ndarray:
         """Wait for the handle's batch and return its assignments (a
         copy: the host buffer serves a later solve)."""
         if handle.event is not None:
             handle.event.synchronize()
-        return handle.host.numpy().copy()
+        out = handle.host.numpy().copy()
+        self.transfer["d2h"] += out.nbytes
+        return out
+
+    def device_seconds(self, handle: SolveHandle) -> float:
+        """The launch's time between its timing events (0 on the CPU);
+        only after ``materialize``."""
+        if handle.started is None:
+            return 0.0
+        return handle.started.elapsed_time(handle.ended) / 1000.0
 
     def solve(self, params: SolverParams, ps: PStatic, state: torch.Tensor,
               pod_ints: np.ndarray, pod_floats: np.ndarray) -> np.ndarray:

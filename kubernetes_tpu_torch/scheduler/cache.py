@@ -71,6 +71,9 @@ class SchedulerCache:
         self._image_nodes: Dict[str, Set[str]] = {}
         self._image_size: Dict[str, int] = {}
         self._journal = None
+        # wall clock of the newest watch batch the handlers applied: the
+        # snapshot-staleness SLI's anchor (a bare float, no lock)
+        self.last_event_ts = 0.0
 
     @property
     def mutation_seq(self) -> int:
@@ -93,6 +96,11 @@ class SchedulerCache:
         self._mutation_seq += 1
         if self._journal is not None:
             self._journal.note(self._mutation_seq, kind, a, b)
+
+    def note_event_ts(self, ts: float) -> None:
+        """The handlers applied a watch batch committed at ``ts``."""
+        if ts > self.last_event_ts:
+            self.last_event_ts = ts
 
     def note_external_mutation(self) -> None:
         """A change of state the cache does not hold (a PV, PVC,

@@ -22,6 +22,7 @@ from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
 from kubernetes_tpu_torch.scheduler.framework.runtime import Framework
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
 from kubernetes_tpu_torch.scheduler.types import NodeInfo
+from kubernetes_tpu_torch.utils.trace import Trace
 
 MIN_FEASIBLE_NODES_TO_FIND = 100
 MIN_FEASIBLE_NODES_PERCENTAGE_TO_FIND = 5
@@ -48,21 +49,32 @@ class GenericScheduler:
 
     def schedule(self, state: CycleState, fwk: Framework, pod: Pod
                  ) -> ScheduleResult:
-        """The host for ``pod``; raises ``FitError`` when no node fits."""
-        self.update_snapshot()
-        if self.snapshot.num_nodes() == 0:
-            raise fw.FitError(pod=pod, num_all_nodes=0)
-        feasible, statuses = self.find_nodes_that_fit_pod(state, fwk, pod)
-        if not feasible:
-            raise fw.FitError(pod=pod,
-                              num_all_nodes=self.snapshot.num_nodes(),
-                              filtered_nodes_statuses=statuses)
-        if len(feasible) == 1:
-            return ScheduleResult(feasible[0].node.name,
-                                  self.snapshot.num_nodes(), 1)
-        priority_list = self.prioritize_nodes(state, fwk, pod, feasible)
-        return ScheduleResult(self.select_host(priority_list),
-                              self.snapshot.num_nodes(), len(feasible))
+        """The host for ``pod``; raises ``FitError`` when no node fits.
+        Each attempt, a failed one too, is a step trace (``Scheduling``)."""
+        trace = Trace("Scheduling", pod=pod.full_name(), uid=pod.uid)
+        try:
+            self.update_snapshot()
+            trace.step("Snapshotting scheduler cache and node infos done")
+            if self.snapshot.num_nodes() == 0:
+                raise fw.FitError(pod=pod, num_all_nodes=0)
+            feasible, statuses = self.find_nodes_that_fit_pod(state, fwk,
+                                                              pod)
+            trace.step("Computing predicates done")
+            if not feasible:
+                raise fw.FitError(pod=pod,
+                                  num_all_nodes=self.snapshot.num_nodes(),
+                                  filtered_nodes_statuses=statuses)
+            if len(feasible) == 1:
+                return ScheduleResult(feasible[0].node.name,
+                                      self.snapshot.num_nodes(), 1)
+            priority_list = self.prioritize_nodes(state, fwk, pod, feasible)
+            trace.step("Prioritizing done")
+            host = self.select_host(priority_list)
+            trace.step("Selecting host done")
+            return ScheduleResult(host, self.snapshot.num_nodes(),
+                                  len(feasible))
+        finally:
+            trace.log_if_long(0.1)
 
     def num_feasible_nodes_to_find(self, num_all_nodes: int) -> int:
         """All nodes below 100 or at 100%; else the configured percentage,

@@ -244,6 +244,7 @@ class DefaultPreemption(PostFilterPlugin):
         """default_preemption.go:698 PrepareCandidate: evict victims, clear
         stale nominations of lower-priority pods on the chosen node."""
         client = self.handle.client
+        recorder = getattr(self.handle, "event_recorder", None)
         for victim in candidate.victims:
             # a waiting (Permit-parked) victim is rejected instead of deleted
             if not self.handle.reject_waiting_pod(victim.uid):
@@ -251,6 +252,11 @@ class DefaultPreemption(PostFilterPlugin):
                     client.delete_pod(victim.namespace, victim.name)
                 except Exception as e:
                     return Status(1, f"deleting victim {victim.full_name()}: {e}")
+            if recorder is not None:
+                recorder.event(
+                    victim, "Normal", "Preempted",
+                    f"Preempted by {pod.namespace}/{pod.metadata.name} on "
+                    f"node {candidate.node_name}")
         nominator = self.handle.pod_nominator
         if nominator is not None:
             for pi in list(nominator.nominated_pods_for_node(candidate.node_name)):

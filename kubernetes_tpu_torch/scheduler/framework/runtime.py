@@ -24,6 +24,29 @@ from kubernetes_tpu_torch.scheduler.framework import interface as fw
 from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
 from kubernetes_tpu_torch.scheduler.types import NodeInfo
 
+
+def _timed(point: str, status_at: Optional[int] = None):
+    """Observe the extension point's duration and status into the
+    framework's ``metrics`` (``observe_extension_point``) on the attempts
+    whose cycle state draws plugin metrics (``record_plugin_metrics``).
+    ``status_at``: the status's index in a tuple result."""
+    def wrap(run):
+        def timed(self, state, *args):
+            if self.metrics is None or not state.record_plugin_metrics:
+                return run(self, state, *args)
+            start = time.monotonic()
+            out = run(self, state, *args)
+            status = out if status_at is None else out[status_at]
+            self.metrics.observe_extension_point(
+                point,
+                "Success" if fw.Status.is_ok(status) else status.code_name(),
+                time.monotonic() - start, profile=self.profile_name)
+            return out
+        timed.__doc__ = run.__doc__
+        timed.__name__ = run.__name__
+        return timed
+    return wrap
+
 EXTENSION_POINTS = (
     "queue_sort", "pre_filter", "filter", "post_filter", "pre_score",
     "score", "reserve", "permit", "pre_bind", "bind", "post_bind",
@@ -85,14 +108,19 @@ class Framework:
     entries in order (weights count for Score only); ``registry`` maps a
     plugin name to ``factory(args, handle)``; ``plugin_args`` maps a
     plugin name to its arguments (default: none). Each named plugin is
-    built once."""
+    built once. ``metrics`` (a ``SchedulerMetrics``) takes the extension
+    points' durations; ``event_recorder`` is the handle's recorder, which
+    preemption writes ``Preempted`` events to."""
 
     def __init__(self, registry: Dict[str, Callable],
                  plugins: Dict[str, List[Tuple[str, int]]],
                  snapshot: Callable, client, pod_nominator=None, rng=None,
                  profile_name: str = "default-scheduler",
-                 plugin_args: Optional[Dict[str, dict]] = None):
+                 plugin_args: Optional[Dict[str, dict]] = None,
+                 metrics=None, event_recorder=None):
         self.profile_name = profile_name
+        self.metrics = metrics
+        self.event_recorder = event_recorder
         self._snapshot = snapshot
         self.client = client
         self.pod_nominator = pod_nominator
@@ -152,6 +180,7 @@ class Framework:
         return bool(self.post_filter_plugins)
 
     # ------------------------------------------------------------------
+    @_timed("PreFilter")
     def run_pre_filter_plugins(self, state: CycleState, pod: Pod
                                ) -> Optional[fw.Status]:
         for p in self.pre_filter_plugins:
@@ -242,6 +271,7 @@ class Framework:
                                                   node_out)
         return True, state_out, node_out
 
+    @_timed("PostFilter", 1)
     def run_post_filter_plugins(self, state: CycleState, pod: Pod,
                                 statuses: fw.NodeToStatusMap
                                 ) -> Tuple[Optional[fw.PostFilterResult],
@@ -260,6 +290,7 @@ class Framework:
             final = status
         return None, final
 
+    @_timed("PreScore")
     def run_pre_score_plugins(self, state: CycleState, pod: Pod,
                               nodes: List) -> Optional[fw.Status]:
         for p in self.pre_score_plugins:
@@ -270,6 +301,7 @@ class Framework:
                     f"running PreScore plugin {p.name()}: {status.message()}")
         return None
 
+    @_timed("Score", 1)
     def run_score_plugins(self, state: CycleState, pod: Pod,
                           node_names: List[str]
                           ) -> Tuple[Dict[str, List[fw.NodeScore]],
@@ -309,6 +341,7 @@ class Framework:
                 ns.score *= weight
         return scores, None
 
+    @_timed("Reserve")
     def run_reserve_plugins_reserve(self, state: CycleState, pod: Pod,
                                     node_name: str) -> Optional[fw.Status]:
         for i, p in enumerate(self.reserve_plugins):
@@ -327,6 +360,7 @@ class Framework:
         for p in reversed(self.reserve_plugins):
             p.unreserve(state, pod, node_name)
 
+    @_timed("Permit")
     def run_permit_plugins(self, state: CycleState, pod: Pod,
                            node_name: str) -> Optional[fw.Status]:
         """None when every plugin allows; the rejection or error
@@ -387,6 +421,7 @@ class Framework:
         wp.reject("", "removed from waiting")
         return True
 
+    @_timed("PreBind")
     def run_pre_bind_plugins(self, state: CycleState, pod: Pod,
                              node_name: str) -> Optional[fw.Status]:
         for p in self.pre_bind_plugins:
@@ -397,6 +432,7 @@ class Framework:
                     f"running PreBind plugin {p.name()}: {status.message()}")
         return None
 
+    @_timed("Bind")
     def run_bind_plugins(self, state: CycleState, pod: Pod,
                          node_name: str) -> Optional[fw.Status]:
         if not self.bind_plugins:

@@ -17,6 +17,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.scheduler.framework.plugins.coscheduling import (
     GROUP_NAME_LABEL,
 )
@@ -207,8 +208,13 @@ class Heap:
 
 
 class SchedulingQueue(PodNominator):
-    def __init__(self):
+    """``metrics`` (a ``SchedulerMetrics``) counts the pods added to each
+    queue and moved by each event; each popped pod that the process
+    tracer samples gets a ``queue.wait`` span (enqueue to pop)."""
+
+    def __init__(self, metrics=None):
         super().__init__()
+        self._metrics = metrics
         self._now = time.monotonic
         self._cond = threading.Condition(threading.RLock())
 
@@ -273,6 +279,9 @@ class SchedulingQueue(PodNominator):
                 self._unschedulable_q.pop(key, None)
                 self._backoff_q.delete_by_key(key)
                 self.add_nominated_pod(pod)
+            if self._metrics:
+                self._metrics.pods_added("active", "PodAdd",
+                                         amount=len(pods))
             self._cond.notify_all()
 
     def update(self, old: Optional[Pod], new: Pod) -> None:
@@ -335,8 +344,14 @@ class SchedulingQueue(PodNominator):
             if prefer_backoff \
                     or self._move_request_cycle >= pod_scheduling_cycle:
                 self._backoff_q.add(qpi)
+                if self._metrics:
+                    self._metrics.pods_added("backoff",
+                                             "ScheduleAttemptFailure")
             else:
                 self._unschedulable_q[key] = qpi
+                if self._metrics:
+                    self._metrics.pods_added("unschedulable",
+                                             "ScheduleAttemptFailure")
             self.add_nominated_pod(qpi.pod)
             self._cond.notify_all()
 
@@ -361,7 +376,21 @@ class SchedulingQueue(PodNominator):
                 qpi.attempts += 1
             first_cycle = self.scheduling_cycle + 1
             self.scheduling_cycle += len(items)
+        self._trace_popped(items)
         return items, first_cycle
+
+    def _trace_popped(self, items: List[QueuedPodInfo]) -> None:
+        """A ``queue.wait`` span (enqueue to pop) for each sampled popped
+        pod, outside the queue lock; both ends on the queue's clock."""
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return
+        now = self._now()
+        for qpi in items:
+            uid = qpi.pod.uid
+            if uid and tracer.sampled(uid):
+                tracer.record("queue.wait", qpi.timestamp, now, trace=uid,
+                              attempts=qpi.attempts)
 
     # ------------------------------------------------------------------
     def move_all_to_active_or_backoff_queue(self, event: str) -> None:
@@ -430,6 +459,8 @@ class SchedulingQueue(PodNominator):
                           event: str) -> None:
         if pods:
             self.pods_moved[event] = self.pods_moved.get(event, 0) + len(pods)
+            if self._metrics:
+                self._metrics.pods_moved(event, amount=len(pods))
         for qpi in pods:
             if self._backoff_complete(qpi):
                 self._active_q.add(qpi)

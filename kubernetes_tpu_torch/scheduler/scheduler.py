@@ -19,7 +19,17 @@ A pod that Permit asks to wait (a gang member) is assumed and parked,
 and its binding cycle (wait at Permit, PreBind, Bind, PostBind) runs on
 a pool of 64 binding threads, host code only; every other pod binds
 synchronously in the committing call, since the store is in process.
-``wait_for_inflight_bindings`` waits for the pool. One ``random.Random``
+``wait_for_inflight_bindings`` waits for the pool.
+
+Each scheduler counts into its own ``SchedulerMetrics`` (attempts by
+result, the e2e and algorithm latency histograms, preemption attempts,
+extension-point durations on the attempts that draw plugin metrics,
+binding threads), records ``Scheduled``, ``FailedScheduling`` and
+``Preempted`` events through its ``EventRecorder`` and the spans of
+sampled pods (``queue.wait`` in the queue, ``sched.bind`` at the bind)
+and of bulk binds (``bind.bulk``) into the process tracer.
+
+One ``random.Random``
 (``rng``) makes every random draw of the serial path, in the order the
 JAX package's scheduler makes them from the module-level ``random``: one
 plugin-metrics draw per serial attempt, the tie draws of ``select_host``
@@ -51,6 +61,9 @@ from kubernetes_tpu_torch.api.types import (
     Taint,
     shallow_copy,
 )
+from kubernetes_tpu_torch.client.events import EventRecorder
+from kubernetes_tpu_torch.metrics.scheduler_metrics import SchedulerMetrics
+from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
 from kubernetes_tpu_torch.scheduler.core import GenericScheduler, ScheduleResult
 from kubernetes_tpu_torch.scheduler.framework import interface as fw
@@ -114,8 +127,10 @@ class Scheduler:
         config = config or SchedulerConfiguration()
         self.client = store
         self.rng = rng if rng is not None else random.Random()
+        self.metrics = SchedulerMetrics()
+        self.recorder = EventRecorder(store, self.scheduler_name)
         self.cache = SchedulerCache()
-        self.queue = SchedulingQueue()
+        self.queue = SchedulingQueue(metrics=self.metrics)
         self.snapshot = Snapshot()
         self.algorithm = GenericScheduler(
             self.cache, self.snapshot, self.rng,
@@ -125,7 +140,8 @@ class Scheduler:
             snapshot=lambda: self.snapshot, client=store,
             pod_nominator=self.queue, rng=self.rng,
             profile_name=self.scheduler_name,
-            plugin_args=config.plugin_config)
+            plugin_args=config.plugin_config, metrics=self.metrics,
+            event_recorder=self.recorder)
         self.queue.set_sort_key(self.framework.queue_sort_plugins[0].sort_key)
         self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS,
                                              thread_name_prefix="binder")
@@ -138,9 +154,10 @@ class Scheduler:
                               "bind_s": 0.0}
         self.event_handlers = EventHandlers(self)
         self._watch_handle = None
-        # per bound pod: seconds from its batch's solve start (or its
-        # serial attempt's start) to the bind, and from its first enqueue
-        # to the bind
+        # per bound pod: seconds from its batch's solve start (the
+        # pipelined arm: the dispatch's return; the serial path: the
+        # attempt's start) to the bind, and from its first enqueue to the
+        # bind
         self.cycle_latencies: List[float] = []
         self.pending_latencies: List[float] = []
 
@@ -158,6 +175,7 @@ class Scheduler:
             elif self.event_handlers.responsible_for(pod):
                 pending.append(pod)
         self.queue.add_many(pending)
+        self.recorder.start()
 
     def stop(self) -> None:
         """Stop watching; pods still waiting at Permit are rejected, so no
@@ -168,6 +186,7 @@ class Scheduler:
         self.framework.iterate_waiting_pods(
             lambda wp: wp.reject("", "scheduler stopped"))
         self._bind_pool.shutdown(wait=False)
+        self.recorder.stop()
 
     def wait_for_inflight_bindings(self, timeout: float = 30.0) -> bool:
         """Wait until no binding cycle runs on the pool; False on
@@ -227,10 +246,15 @@ class Scheduler:
             result = self.algorithm.schedule(state, fwk, pod)
         except fw.FitError as fit_err:
             self._handle_fit_error(state, qpi, fit_err, cycle)
+            self.metrics.schedule_attempts.inc("unschedulable",
+                                               fwk.profile_name)
             return
         except Exception as err:  # noqa: BLE001 - the pod is requeued
             self._record_failure(qpi, err, "SchedulerError", "", cycle)
+            self.metrics.schedule_attempts.inc("error", fwk.profile_name)
             return
+        self.metrics.scheduling_algorithm_duration.observe(
+            time.monotonic() - start)
         self.commit_assignment(state, qpi, result, cycle, start)
 
     def fail_unschedulable(self, qpi: QueuedPodInfo, fit_err: fw.FitError,
@@ -254,6 +278,7 @@ class Scheduler:
             self._handle_fit_error(state, qpi, fit_err, cycle)
         else:
             self._record_failure(qpi, fit_err, "Unschedulable", "", cycle)
+        self.metrics.schedule_attempts.inc("unschedulable", fwk.profile_name)
 
     def commit_assignment(self, state: CycleState, qpi: QueuedPodInfo,
                           result: ScheduleResult, cycle: int,
@@ -298,14 +323,15 @@ class Scheduler:
         now = time.monotonic()
         self.cache.finish_binding(assumed, now)
         fwk.run_post_bind_plugins(state, assumed, host)
-        self._observe_bound(qpi, start, now)
+        self._observe_bound(qpi, start, now, host)
         return True
 
     # ------------------------------------------------------------------
     # the batch path's commit
     def commit_assignments_bulk(
             self, commits: List[Tuple[QueuedPodInfo, str, int, float]],
-            solved: bool = True) -> Tuple[int, int, int]:
+            solved: bool = True,
+            observed_from: Optional[float] = None) -> Tuple[int, int, int]:
         """Commit (qpi, node name, cycle, start) placements in bulk: one
         cache call assumes them, Reserve, Permit and PreBind run per pod,
         one store call binds them (the bind plugin's ``bind_many``),
@@ -316,7 +342,10 @@ class Scheduler:
         call's mutations, and it is neither committed nor failed here.
         ``solved``: the device solve placed these pods (its state already
         counts them); False for placements the host made (preemption
-        plans), which the device mirror must scatter. Returns (committed,
+        plans), which the device mirror must scatter. ``observed_from``:
+        where given, the e2e histogram and the ``sched.bind`` spans run
+        from it rather than from each placement's start (the pipelined
+        batch's dispatch; ``cycle_latencies`` keep the start). Returns (committed,
         failed, cache mutations made), failed counting the pods refused
         after the solve counted them."""
         fwk = self.framework
@@ -379,11 +408,13 @@ class Scheduler:
             bindable.append((qpi, node, cycle, start, assumed, state))
         if not bindable:
             return 0, failed, mutations
+        t_bind = time.monotonic()
         statuses = fwk.run_bind_plugins_bulk(
             [b[5] for b in bindable], [b[4] for b in bindable],
             [b[1] for b in bindable])
         now = time.monotonic()
-        committed = 0
+        get_tracer().record("bind.bulk", t_bind, now, pods=len(bindable))
+        observed = []
         for (qpi, node, cycle, start, assumed, state), status in zip(
                 bindable, statuses):
             if not fw.Status.is_ok(status):
@@ -394,9 +425,9 @@ class Scheduler:
                 continue
             self.cache.finish_binding(assumed, now)
             fwk.run_post_bind_plugins(state, assumed, node)
-            self._observe_bound(qpi, start, now)
-            committed += 1
-        return committed, failed, mutations
+            observed.append((qpi, start, node))
+        self._observe_bound_bulk(observed, now, observed_from)
+        return len(observed), failed, mutations
 
     # ------------------------------------------------------------------
     # the binding pool
@@ -406,6 +437,7 @@ class Scheduler:
         """Run the binding cycle of a pod parked at Permit on the pool."""
         with self._inflight_zero:
             self._inflight_bindings += 1
+        self.metrics.goroutines.inc("binding")
         try:
             future = self._bind_pool.submit(self._binding_cycle, state, qpi,
                                             assumed, node_name, cycle, start)
@@ -426,6 +458,7 @@ class Scheduler:
             self.binding_stats["errors"] += 1
 
     def _binding_done(self) -> None:
+        self.metrics.goroutines.dec("binding")
         with self._inflight_zero:
             self._inflight_bindings -= 1
             if self._inflight_bindings == 0:
@@ -457,7 +490,7 @@ class Scheduler:
             now = time.monotonic()
             self.cache.finish_binding(assumed, now)
             fwk.run_post_bind_plugins(state, assumed, node_name)
-            self._observe_bound(qpi, start, now)
+            self._observe_bound(qpi, start, now, node_name)
             return True
         finally:
             t2 = time.monotonic()
@@ -477,10 +510,52 @@ class Scheduler:
         PodInfo.derived(assumed, qpi.pod_info)
         return assumed
 
-    def _observe_bound(self, qpi: QueuedPodInfo, start: float,
-                       now: float) -> None:
-        self.cycle_latencies.append(now - start)
-        self.pending_latencies.append(now - qpi.initial_attempt_timestamp)
+    def _observe_bound(self, qpi: QueuedPodInfo, start: float, now: float,
+                       node_name: str) -> None:
+        self._observe_bound_bulk([(qpi, start, node_name)], now)
+
+    def _observe_bound_bulk(self, observed: List[Tuple[QueuedPodInfo, float,
+                                                       str]],
+                            now: float,
+                            observed_from: Optional[float] = None) -> None:
+        """The latencies, metrics, ``sched.bind`` spans and ``Scheduled``
+        events of (qpi, start, node name) pods bound at ``now``; each
+        metric's lock is taken once for the lot. ``cycle_latencies`` run
+        from each start; the e2e histogram and the spans from
+        ``observed_from`` where given."""
+        if not observed:
+            return
+        m = self.metrics
+        e2e = [now - start for _, start, _ in observed]
+        self.cycle_latencies.extend(e2e)
+        if observed_from is not None:
+            e2e = [now - observed_from] * len(observed)
+        m.e2e_scheduling_duration.observe_many(e2e, "scheduled")
+        m.schedule_attempts.inc("scheduled", self.framework.profile_name,
+                                amount=len(observed))
+        m.pod_scheduling_attempts.observe_many(
+            [qpi.attempts for qpi, _, _ in observed])
+        by_attempts: Dict[int, List[float]] = {}
+        for qpi, _, _ in observed:
+            pending = now - qpi.initial_attempt_timestamp
+            self.pending_latencies.append(pending)
+            by_attempts.setdefault(qpi.attempts, []).append(pending)
+        for attempts, values in by_attempts.items():
+            m.pod_scheduling_duration.observe_many(values, str(attempts))
+        tracer = get_tracer()
+        if tracer.enabled:
+            for qpi, start, node_name in observed:
+                uid = qpi.pod.uid
+                if uid and tracer.sampled(uid):
+                    tracer.record("sched.bind",
+                                  start if observed_from is None
+                                  else observed_from, now, trace=uid,
+                                  node=node_name, attempts=qpi.attempts)
+        for qpi, _, node_name in observed:
+            pod = qpi.pod
+            self.recorder.eventf(pod, "Normal", "Scheduled",
+                                 "Successfully assigned %s/%s to %s",
+                                 pod.namespace, pod.name, node_name)
 
     def _handle_fit_error(self, state: CycleState, qpi: QueuedPodInfo,
                           fit_err: fw.FitError, cycle: int) -> None:
@@ -488,6 +563,7 @@ class Scheduler:
         nominated_node = ""
         fwk = self.framework
         if fwk.has_post_filter_plugins():
+            self.metrics.preemption_attempts.inc()
             result, status = fwk.run_post_filter_plugins(
                 state, qpi.pod, fit_err.filtered_nodes_statuses)
             if fw.Status.is_ok(status) and result is not None:
@@ -530,6 +606,7 @@ class Scheduler:
         still exists unassigned: a scheduler error to backoff, a fit
         failure to the unschedulable set."""
         pod = qpi.pod
+        self.recorder.event(pod, "Warning", "FailedScheduling", str(err))
         self.client.patch_pod_condition(
             pod.namespace, pod.name,
             PodCondition("PodScheduled", "False", reason, str(err)))

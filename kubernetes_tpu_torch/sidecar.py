@@ -42,6 +42,22 @@ environment variable, on unless off, 0 or false):
   batch path's own commits changed the cache since its solve;
 - serialized: drain, solve, commit, one batch per call.
 
+Latency-budget batch sizing (``adaptive_chunk``, on by default): a
+pod's latency is about one batch cycle, so after each commit the drain
+size (``_chunk``) moves one power-of-two bucket down when the cycle's
+cost per padded pod times the chunk overruns 70% of
+``LATENCY_BUDGET_S``, and up when it would fit twice, between
+``MIN_CHUNK`` (never above ``max_batch``) and ``max_batch``. A batch pads
+to the smallest warmed bucket that holds it (``_select_pad``); a bucket
+the tuner moves to that was never warmed is warmed between cycles
+(``SolverSession.warm_pad``, on a copy of the carried state), never
+inside a measured one.
+
+Each cycle with work is a ``queue.cycle`` span (drain to commit); each
+commit is a ``solve.commit`` span and a ``batch_solve_duration{commit}``
+observation; victims of an executed preemption plan get a ``Preempted``
+event.
+
 Both arms commit through the same code and bind the same pods to the
 same nodes. A batch held while the cache changed under it (a deleted
 pod, a preemption's evictions and placements, a serial bind) is
@@ -58,6 +74,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from kubernetes_tpu_torch.observability.slo import get_slo_engine
+from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.ops.encode import is_host_only
 from kubernetes_tpu_torch.ops.session import SolverSession
 from kubernetes_tpu_torch.scheduler.framework import interface as fw
@@ -182,14 +200,27 @@ def pipeline_enabled() -> bool:
 class BatchScheduler:
     # declined pods a batch sends to the serial path; past it, mass decline
     DECLINED_SERIAL_LIMIT = 32
+    # seconds a batch cycle (solve to commit) may take: the drain size
+    # adapts to keep a pod's latency, about one cycle, under it
+    LATENCY_BUDGET_S = 1.5
+    MIN_CHUNK = 512
 
     def __init__(self, scheduler: Scheduler, max_batch: int = 4096,
                  device=None, pipeline: Optional[bool] = None,
-                 mirror: Optional[bool] = None, validate: bool = False):
+                 mirror: Optional[bool] = None, validate: bool = False,
+                 adaptive_chunk: bool = True):
         self.sched = scheduler
         self.max_batch = max_batch
         self.pipeline_enabled = (pipeline_enabled() if pipeline is None
                                  else bool(pipeline))
+        # False pins the drain and pad size at max_batch
+        self.adaptive_chunk = adaptive_chunk
+        self._chunk = max_batch
+        # pad sizes whose shapes are warmed, the shrink waiting for its
+        # warm, and pods of a recent batch to warm it with
+        self._warmed_pads: set = set()
+        self._need_warm_pad: Optional[int] = None
+        self._warm_samples: List = []
         # re-check every placement with the host's filters before binding
         self.validate = validate
         self.session = SolverSession(scheduler, device=device, mirror=mirror)
@@ -198,9 +229,11 @@ class BatchScheduler:
         # screen and victim planner builds, plan execution (evictions,
         # validation, bulk bind), the failed statuses and PostFilter of
         # mass-declined pods, the serial path, and the commit-time binds
-        # of WaitForFirstConsumer claims (inside the commit's seconds)
+        # of WaitForFirstConsumer claims (inside the commit's seconds);
+        # and the drains that popped pods (the queue's sort included)
         self.seconds = {"screen": 0.0, "plan": 0.0, "execute": 0.0,
-                        "fail": 0.0, "serial": 0.0, "volumes": 0.0}
+                        "fail": 0.0, "serial": 0.0, "volumes": 0.0,
+                        "drain": 0.0}
         self.preempted = 0      # victims evicted by executed plans
         self.planned = 0        # preemptors bound by executed plans
         self.volumes_bound = 0  # claims bound at commit
@@ -210,18 +243,97 @@ class BatchScheduler:
         self.discards = 0       # held batches dropped and solved again
         self._pending: Optional[dict] = None
         self._cycle_mutations = 0
+        # the schedule-latency SLO reads this scheduler's e2e histogram
+        get_slo_engine().add_registry(scheduler.metrics.registry)
 
     def warmup(self, sample_pods: List) -> float:
-        """Solve a sample batch once, building and loading the kernels
-        (``SolverSession.warm``), and drop the resulting device state.
-        Host-only samples are left out. Returns the seconds spent."""
+        """Solve a sample batch, building and loading the kernels
+        (``SolverSession.warm``), and drop the resulting device state;
+        settle the chunk on the timed second solve's cost, and warm the
+        settled chunk and the bucket below it, so the tuner's first
+        shrink needs no warm. Host-only samples are left out. Returns the
+        seconds spent."""
         t0 = time.monotonic()
         cache: dict = {}
         sample_pods = [p for p in sample_pods
                        if not is_host_only(p, self.sched.client, cache)]
-        if sample_pods and self.sched.update_snapshot().list():
-            self.session.warm(sample_pods, self.max_batch)
+        if not (sample_pods and self.sched.update_snapshot().list()):
+            return time.monotonic() - t0
+        est = self.session.warm(sample_pods, self.max_batch)
+        self._warmed_pads.add(self.max_batch)
+        self._warm_samples = list(sample_pods[:8])
+        per_pod = est / self.max_batch
+        prev = None
+        while prev != self._chunk:
+            prev = self._chunk
+            self._tune_chunk(self._chunk, per_pod * self._chunk)
+        self._need_warm_pad = None
+        half = max(self.MIN_CHUNK, self._chunk // 2)
+        for pad in (self._chunk, half):
+            if pad <= self._chunk and pad not in self._warmed_pads and \
+                    self.session.warm_pad(sample_pods, pad) is not None:
+                self._warmed_pads.add(pad)
         return time.monotonic() - t0
+
+    def _tune_chunk(self, padded_pods: int, cycle_seconds: float) -> None:
+        """After a committed batch: the cost per padded pod times the
+        chunk must stay under 70% of the budget. One power-of-two bucket
+        a batch in either direction; a bucket not warmed yet is warmed
+        before the next cycle."""
+        if not self.adaptive_chunk:
+            return
+        if padded_pods <= 0 or cycle_seconds <= 0:
+            return
+        per_pod = cycle_seconds / padded_pods
+        target = int(0.7 * self.LATENCY_BUDGET_S / max(per_pod, 1e-9))
+        if target < self._chunk and self._chunk > self.MIN_CHUNK:
+            new = self._chunk // 2
+        elif target >= 2 * self._chunk and self._chunk < self.max_batch:
+            new = self._chunk * 2
+        else:
+            return
+        self._chunk = min(self.max_batch, max(self.MIN_CHUNK, new))
+        if self._chunk not in self._warmed_pads:
+            self._need_warm_pad = self._chunk
+
+    def _select_pad(self, n_batch: int) -> int:
+        """The smallest warmed bucket that holds ``n_batch`` pods, below
+        the chunk; else the chunk."""
+        pad = self._chunk
+        for b in sorted(self._warmed_pads):
+            if n_batch <= b < pad:
+                return b
+        return pad
+
+    def _service_warm_pad(self) -> None:
+        """Warm the bucket the tuner moved to, between cycles (on a copy
+        of the carried state: a held batch stays good)."""
+        if self._need_warm_pad is None:
+            return
+        pad = self._need_warm_pad
+        self._need_warm_pad = None
+        if pad not in self._warmed_pads and self._warm_samples and \
+                self.session.warm_pad(self._warm_samples, pad) is not None:
+            self._warmed_pads.add(pad)
+
+    def _solve_started(self, batchable, pad: int) -> None:
+        """The pad's shape is live and these pods are samples for later
+        pad warms."""
+        self._warmed_pads.add(pad)
+        self._warm_samples = [q.pod for q, _ in batchable[:8]]
+
+    def _trace_cycle(self, start: float, processed: int,
+                     committed: int) -> None:
+        """A ``queue.cycle`` span from the drain to the commit: it covers
+        the gaps between a pod's own spans and the solve spans (the
+        lowest priority in critical-path attribution). Idle cycles record
+        nothing."""
+        if processed == 0 and committed == 0:
+            return
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.record("queue.cycle", start, time.monotonic(),
+                          pods=processed, committed=committed)
 
     def run_batch(self, pop_timeout: Optional[float] = 0.2) -> int:
         """One cycle of the active arm. Returns the pods worked on."""
@@ -257,10 +369,13 @@ class BatchScheduler:
 
     # ------------------------------------------------------------------
     def _drain(self, pop_timeout: Optional[float]):
-        """Pop up to max_batch pods, each with the cycle it was popped
+        """Pop up to the chunk's pods, each with the cycle it was popped
         in."""
-        items, first_cycle = self.sched.queue.pop_batch(self.max_batch,
+        t0 = time.monotonic()
+        items, first_cycle = self.sched.queue.pop_batch(self._chunk,
                                                         timeout=pop_timeout)
+        if items:
+            self.seconds["drain"] += time.monotonic() - t0
         return [(qpi, first_cycle + i) for i, qpi in enumerate(items)]
 
     def _partition(self, qpis):
@@ -296,7 +411,8 @@ class BatchScheduler:
         self.seconds["serial"] += time.monotonic() - t0
 
     def _solved(self, batchable, handle, materializer, cluster,
-                start: float) -> dict:
+                start: float, pad: int,
+                observed_from: Optional[float] = None) -> dict:
         """A solved batch with what its commit needs from this solve,
         captured now: the session's fields may describe a later batch by
         the time this one commits."""
@@ -305,26 +421,36 @@ class BatchScheduler:
                 "materializer": materializer, "cluster": cluster,
                 "profiles": session.last_profile_idx,
                 "inexpressible": session.last_inexpressible,
-                "masks": session.static_masks_host, "start": start}
+                "masks": session.static_masks_host, "start": start,
+                "pad": pad, "observed_from": observed_from}
 
     def _run_batch_serialized(self, pop_timeout: Optional[float]) -> int:
+        t_cycle = time.monotonic()
+        self._service_warm_pad()
         qpis = self._drain(pop_timeout)
         batchable, serial = self._partition(qpis)
         self._cycle_mutations = 0
         seq_anchor = self.sched.cache.mutation_seq
+        committed = 0
         if batchable:
+            pad = self._select_pad(len(batchable))
+            self.session.trace_cycle = batchable[0][1]
             start = time.monotonic()
             assignments, cluster, _ = self.session.solve(
-                [q.pod for q, _ in batchable], self.max_batch)
-            self._commit(self._solved(batchable, assignments, None, cluster,
-                                      start), serial)
+                [q.pod for q, _ in batchable], pad)
+            self._solve_started(batchable, pad)
+            committed = self._commit(self._solved(
+                batchable, assignments, None, cluster, start, pad), serial)
         self._run_serial(serial)
         self.session.note_committed(self._cycle_mutations, seq_anchor)
+        self._trace_cycle(t_cycle, len(qpis), committed)
         return len(qpis)
 
     def _run_batch_pipelined(self, pop_timeout: Optional[float]) -> int:
         sched = self.sched
+        t_cycle = time.monotonic()
         prev, self._pending = self._pending, None
+        self._service_warm_pad()
         if prev is not None and not self.session.mirror_current():
             # the cache changed while prev was held: its placements are
             # suspect, and the state counts them, in place. Solve its
@@ -355,32 +481,41 @@ class BatchScheduler:
 
         self._cycle_mutations = 0
         seq_anchor = sched.cache.mutation_seq
+        committed = 0
         if batchable:
             pods = [q.pod for q, _ in batchable]
+            # sized from the batchable pods, not the drain
+            pad = self._select_pad(len(batchable))
+            self.session.trace_cycle = batchable[0][1]
             start = time.monotonic()
-            res = self.session.solve(pods, self.max_batch, lazy=True,
+            res = self.session.solve(pods, pad, lazy=True,
                                      incremental_only=prev is not None)
             if res is None:
                 # a rebuild must see prev's pods in the snapshot: commit
                 # prev first and settle its mutations before re-anchoring
-                self._commit(prev, serial)
+                committed += self._commit(prev, serial)
                 self.session.note_committed(self._cycle_mutations,
                                             seq_anchor)
                 self._cycle_mutations = 0
                 processed += len(prev["batch"])
                 prev = None
                 seq_anchor = sched.cache.mutation_seq
-                res = self.session.solve(pods, self.max_batch, lazy=True)
+                res = self.session.solve(pods, pad, lazy=True)
             handle, cluster, _ = res
+            self._solve_started(batchable, pad)
+            # the e2e histogram and the pods' spans from here, as the
+            # JAX package's: the solve's own spans attribute the time
+            # before the dispatch returned
             self._pending = self._solved(batchable, handle,
                                          self.session.last_materializer,
-                                         cluster, start)
+                                         cluster, start, pad,
+                                         observed_from=time.monotonic())
             self.pipeline_depth_max = max(self.pipeline_depth_max,
                                           1 + (prev is not None))
 
         # commit the previous batch while the card solves this one
         if prev is not None:
-            self._commit(prev, serial)
+            committed += self._commit(prev, serial)
             processed += len(prev["batch"])
 
         # nothing more queued: nothing to overlap, commit now, unless
@@ -391,9 +526,10 @@ class BatchScheduler:
                 and sched.cache.mutation_seq
                 == seq_anchor + self._cycle_mutations):
             pending, self._pending = self._pending, None
-            self._commit(pending, serial)
+            committed += self._commit(pending, serial)
         self._run_serial(serial)
         self.session.note_committed(self._cycle_mutations, seq_anchor)
+        self._trace_cycle(t_cycle, processed, committed)
         return processed
 
     # ------------------------------------------------------------------
@@ -448,7 +584,7 @@ class BatchScheduler:
             # pods parked at Permit count as mutations through their
             # assumes, and bind later on the binding pool
             committed, failed, mutations = sched.commit_assignments_bulk(
-                commits)
+                commits, observed_from=pending["observed_from"])
             self._cycle_mutations += mutations
             if failed:
                 # the device state counts pods the host refused
@@ -458,6 +594,15 @@ class BatchScheduler:
             serial.extend(qpi for _, qpi, _ in declined)
         else:
             committed += self._mass_decline(pending, declined, serial)
+        now = time.monotonic()
+        sched.metrics.batch_solve_duration.observe(now - t0, "commit")
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.record("solve.commit", t0, now, pods=len(batch),
+                          committed=committed,
+                          cycle=batch[0][1] if batch else -1,
+                          pad=pending["pad"])
+        self._tune_chunk(pending["pad"], now - pending["start"])
         return committed
 
     def _mass_decline(self, pending: dict, declined: List[tuple],
@@ -554,7 +699,8 @@ class BatchScheduler:
 
     def _execute_preemption_plans(self, plans: List[tuple], start: float,
                                   serial: List[QueuedPodInfo]) -> int:
-        """Evict every plan's victims in one store call, refresh the
+        """Evict every plan's victims in one store call (a ``Preempted``
+        event each), refresh the
         snapshot, validate each preemptor on its planned node with the
         real filters (on clones carrying the batch's earlier placements)
         and bind the validated ones in bulk; a preemptor that fails
@@ -564,11 +710,17 @@ class BatchScheduler:
         sched = self.sched
         fwk = sched.framework
         doomed = []
-        for qpi, _cycle, _node, victims in plans:
+        recorder = fwk.event_recorder
+        for qpi, _cycle, node_name, victims in plans:
             for victim in victims:
                 if fwk.reject_waiting_pod(victim.uid):
                     continue
                 doomed.append((victim.namespace, victim.name))
+                if recorder is not None:
+                    recorder.event(
+                        victim, "Normal", "Preempted",
+                        f"Preempted by {qpi.pod.namespace}/"
+                        f"{qpi.pod.metadata.name} on node {node_name}")
         if doomed:
             sched.client.delete_pods(doomed)
             self.preempted += len(doomed)

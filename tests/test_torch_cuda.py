@@ -464,3 +464,82 @@ def test_small_rows_on_the_card_equal_the_cpu(card, name, nodes, init, pods,
     assert all(on_card.placements.values())
     assert on_card.placements == on_cpu.placements
     assert counts[kernel] == on_card.solves > 0
+
+
+@pytest.mark.cuda
+def test_devprof_device_time_within_events_of_its_own(card):
+    """A synchronous solve after a row, timed by an event pair of the
+    test's own around the whole call (uploads, launch, readback):
+    devprof's ``device_s`` for its cycle (the backend's pair around the
+    launch alone) is positive and at most that time. The row's telemetry
+    carries its measured cycles' sum, and every cycle has device time."""
+    from kubernetes_tpu_torch.observability.devprof import get_devprof
+
+    held = {}
+    ops = workloads.make_workload("SchedulingBasic", 200, 0, 1000)
+    res = perf.run_workload("SchedulingBasic", ops, max_batch=128,
+                            device="cuda",
+                            configure=lambda bs: held.update(bs=bs))
+    dp = get_devprof()
+    assert all(c["device_s"] > 0 for c in dp.cycles(include_warming=True))
+    measured = sum(c["device_s"] for c in dp.cycles())
+    assert res.telemetry["device_s"] == pytest.approx(measured, abs=1e-6)
+    assert res.telemetry["d2h_bytes"] > 0 and res.telemetry["h2d_bytes"] > 0
+    (op,) = [o for o in ops if o.get("collectMetrics")]
+    pods = [Pod.from_dict(op["podTemplate"](5000 + i)) for i in range(100)]
+    session = held["bs"].session
+    before = len(dp.cycles())
+    torch.cuda.synchronize()
+    started = torch.cuda.Event(enable_timing=True)
+    ended = torch.cuda.Event(enable_timing=True)
+    started.record()
+    session.solve(pods, 128)
+    ended.record()
+    ended.synchronize()
+    outer_s = started.elapsed_time(ended) / 1000.0
+    cycles = dp.cycles()
+    assert len(cycles) == before + 1
+    assert 0 < cycles[-1]["device_s"] <= outer_s
+
+
+@pytest.mark.cuda
+def test_a_warmed_pad_triggers_no_first_load(card):
+    """With every kernel instance counted as not yet launched, a row
+    whose budget is cut after its warm-up books each first launch to a
+    warm-up (the warm-up's solves, or a pad warm between cycles), never
+    to a measured cycle, while its pad steps down to 512. With the pinned
+    staging ring emptied too, the warm-up books its allocations, and no
+    smaller pad allocates after it."""
+    kernel = solve_mod.solve_kernel
+    kernel.launched.clear()
+    solve_mod.STAGING.clear()
+    warms, allocated = [], []
+
+    def configure(bs):
+        warmup, warm_pad = bs.warmup, bs.session.warm_pad
+
+        def cut_after_warmup(samples):
+            out = warmup(samples)
+            bs.LATENCY_BUDGET_S = 1e-6
+            allocated.append(len(solve_mod.STAGING.allocations))
+            return out
+
+        def warm_pad_at(pods, pad):
+            got = warm_pad(pods, pad)
+            warms.append((pad, got))
+            return got
+
+        bs.warmup, bs.session.warm_pad = cut_after_warmup, warm_pad_at
+
+    res = perf.run_workload(
+        "SchedulingBasic", workloads.make_workload("SchedulingBasic", 200, 0,
+                                                   6000),
+        max_batch=2048, device="cuda", configure=configure)
+    assert all(res.placements.values())
+    assert res.chunk == 512 and 512 in [pad for pad, _ in warms]
+    assert all(got is not None for _, got in warms), warms
+    assert allocated[0] >= 2   # the upload and readback capacities
+    assert len(solve_mod.STAGING.allocations) == allocated[0]
+    assert kernel.launched and res.telemetry["warm_compiles"] >= 1
+    assert res.telemetry["unexpected_compiles"] == 0
+    assert res.telemetry["compiles"] == 0

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of kubernetes_tpu_torch, nor
-chip_smoke.py, imports JAX or the kubernetes_tpu package, and its entry
+chip_smoke.py or tools/torch_ab.py, imports JAX or the kubernetes_tpu package, and its entry
 points refuse to run without a CUDA card unless asked for the CPU."""
 
 import ast
@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "kubernetes_tpu")
 
 def _port_sources():
     files = sorted((REPO / "kubernetes_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "tools" / "torch_ab.py"]
 
 
 def _imported_modules(path: Path):
@@ -64,3 +64,24 @@ def test_run_workload_on_cpu_binds_everything():
     assert res.total_pods == 12
     assert all(res.placements.values())
     assert res.solves > 0
+
+
+SLICE_8_MODULES = (
+    "utils/trace.py", "metrics/__init__.py", "metrics/registry.py",
+    "metrics/scheduler_metrics.py", "metrics/solver_metrics.py",
+    "metrics/freshness_metrics.py", "observability/__init__.py",
+    "observability/tracer.py", "observability/devprof.py",
+    "observability/slo.py", "observability/fleettrace.py",
+    "client/__init__.py", "client/events.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_8_MODULES)
+def test_observability_modules_are_checked_and_import(rel):
+    """The observability, metrics and event modules are among the sources
+    the import rule checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module.removesuffix(".__init__"))
