@@ -6,9 +6,10 @@ Phases, each raising on failure (the script then exits non-zero and
 prints no result):
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the solve kernels (the cluster kernel, the slot kernel and the
-   one-block kernel) from kubernetes_tpu_torch/csrc with nvcc and print
-   ptxas's registers, shared memory and spills for each;
+2. build the kernels from kubernetes_tpu_torch/csrc, one nvcc a source,
+   all started together: the solve kernels (the cluster kernel, the slot
+   kernel and the one-block kernel) and the scan kernel; print ptxas's
+   registers, shared memory and spills for each;
 3. hold the kernels against their plain PyTorch version, on the card,
    over seeded problems (the test cases' shapes, forced ties within and
    across the cluster's slices, a ragged last slice, the only feasible
@@ -132,6 +133,28 @@ prints no result):
     down one bucket a batch to 512, 1,024 and 512 warmed by ``warm_pad``
     between cycles before their first solve; the warm-up (cold) books
     the pinned staging buffers, and no pad allocates any after it.
+24. the scan kernel (``solve_scan_kernel``, the cluster autoscaler's
+    what-if) against the plain scan, bit for bit (assignments and every
+    final table), on seeded what-ifs (``whatif_problem``): hostname keys
+    (V = N) and zone keys only, hard and soft spread, (anti-)affinity,
+    preferred weights, graded penalty tiers 300 upcoming and 256 virtual
+    columns deep over 2,000 pods, more than 1,024 columns, the tables
+    forced out of shared memory, two batches carrying the state, padded
+    rows;
+25. ``bench.py``'s autoscale row (30,000 pods of 500m on 32-cpu nodes,
+    94 of the 469 needed up at the start, boot latency 1 s, batches of
+    4,096): every pod bound within needed + 2 nodes, at least one
+    what-if, every what-if one scan-kernel launch (none on the plain
+    scan), every batch solve one cluster-kernel launch; pods/s, time to
+    all bound, scale-ups, nodes provisioned and each what-if's ms (CUDA
+    events on its own stream); the compiles booked in measured cycles
+    reported (node columns grow by design). Then ten bare launches of
+    the scan kernel on the row's largest what-if batch, and the plain
+    scan once on it, which must agree;
+26. mesh-block gangs on the batch path: 256 nodes labelled 16 x 16, 24
+    gangs of 8 one-cpu pods, a mesh block each: every pod bound, the same
+    map as on the CPU, and the members' mean ring from their anchors less
+    than half of the adjacency-blind arm's (MeshLocality off).
 
 Every row any phase runs (through ``run_workload`` or the sustained
 harness; phase 19's batch loop too, which now warms up first) prints its
@@ -144,8 +167,9 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23) resets the kernels' launch counts
-just before and reads them just after; the kernel table sums them.
+Every main-path run (4, 5, 8 to 23, 25 and 26) resets the kernels'
+launch counts just before and reads them just after; the kernel table
+sums them.
 Before the last line come the scatters' counts and times as JSON, the
 kernel table as JSON and the card's name and power limit; the last line
 is the JSON ok line.
@@ -175,15 +199,18 @@ from kubernetes_tpu_torch.api.types import (
     StorageClass,
 )
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
-from kubernetes_tpu_torch.harness import perf, sustained, workloads
+from kubernetes_tpu_torch.harness import elastic, perf, sustained, workloads
 from kubernetes_tpu_torch.observability.devprof import get_devprof
 from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.harness.problems import (
     random_planes,
     random_slot_planes,
+    whatif_problem,
 )
+from kubernetes_tpu_torch.ops import build
 from kubernetes_tpu_torch.ops import mirror as mirror_mod
 from kubernetes_tpu_torch.ops import solve as solve_mod
+from kubernetes_tpu_torch.ops import solver as solver_mod
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
 from kubernetes_tpu_torch.ops.planes import (
     PStatic,
@@ -194,6 +221,7 @@ from kubernetes_tpu_torch.ops.planes import (
 from kubernetes_tpu_torch.ops.slots import SPARSE_K, slot_stream
 from kubernetes_tpu_torch.ops.solve import CudaPlanesBackend
 from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
+from kubernetes_tpu_torch.scheduler.framework.plugins import mesh_locality
 from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     SchedulerConfiguration,
@@ -203,7 +231,10 @@ from kubernetes_tpu_torch.sidecar import BatchScheduler
 
 PARAMS = SolverParams()
 KERNEL_SOURCE = "kubernetes_tpu_torch/csrc/solve_kernel.cu"
+SCAN_SOURCE = "kubernetes_tpu_torch/csrc/scan_kernel.cu"
 REPLACES = "kubernetes_tpu/ops/pallas_solver.py:225"
+# the legacy scan's step (an XLA lax.scan program, _solve_packed at :351)
+REPLACES_SCAN = "kubernetes_tpu/ops/solver.py:88"
 # the reference's sparse scan (an XLA program), which it runs instead of its
 # Pallas kernel on wide term axes
 REPLACES_SPARSE = "kubernetes_tpu/ops/pallas_solver.py:754"
@@ -670,7 +701,8 @@ class _Dispatches:
         gc.callbacks.remove(self._on_gc)
 
 
-LAUNCHES = {"cluster": 0, "slots": 0, "block": 0}   # main-path launches
+# main-path launches of each kernel
+LAUNCHES = {"cluster": 0, "slots": 0, "block": 0, "scan": 0}
 
 
 def run_path(name, run, keep=False, kernel="cluster", cold=False):
@@ -704,7 +736,7 @@ def run_path(name, run, keep=False, kernel="cluster", cold=False):
     finally:
         counts = dict(real_kernel.counts)
         solve_mod.solve_plain, solve_mod.solve_kernel = real_plain, real_kernel
-    for k in LAUNCHES:
+    for k in counts:
         LAUNCHES[k] += counts[k]
     kernel_ms = recorder.kernel_ms()
     if kernel is not None:
@@ -982,7 +1014,7 @@ def split_per_pod(big, small):
 
 def print_ptxas(lib):
     """ptxas's registers, shared memory and spills of each kernel."""
-    report = solve_mod.ptxas_report_path(lib).read_text().splitlines()
+    report = build.ptxas_report_path(lib).read_text().splitlines()
     for i, line in enumerate(report):
         if "Compiling entry function" in line:
             log(f"  {line.strip()}")
@@ -2130,6 +2162,311 @@ def phase_tuner(nodes=5000, pods=12000, max_batch=4096):
             "telemetry": res.telemetry}
 
 
+# ----------------------------------------------------------------------
+# the legacy scan: the cluster autoscaler's what-if
+def scan_batch(cluster, batch, pen, dis, device):
+    """(static, state, pod ints, pod floats) of a what-if on ``device``,
+    its penalties and disabled columns applied."""
+    scores, valid = solver_mod.whatif_overrides(cluster, batch, pen, dis)
+    return solver_mod.scan_inputs(cluster, batch, device, scores, valid)
+
+
+def scan_against_plain(name, cuda_batch, tables=None):
+    """The scan kernel on the card (``tables``: force the tables into or
+    out of shared memory) against the plain scan on CPU copies of the
+    same inputs: the assignments and every final table. Returns the
+    largest absolute difference, which must be 0."""
+    static, state, ints, floats = cuda_batch
+    cpu = [solver_mod.ScanStatic(*(t.cpu() for t in static)),
+           solver_mod.ScanState(*(t.to("cpu", copy=True) for t in state)),
+           ints.cpu(), floats.cpu()]
+    st = solver_mod.ScanState(*(t.clone() for t in state))
+    got = solver_mod.scan_kernel(PARAMS, static, st, ints, floats,
+                                 tables=tables)
+    torch.cuda.synchronize()
+    want = solver_mod.solve_scan_plain(PARAMS, *cpu)
+    err = max(int((x.cpu() - y).abs().max()) for x, y in zip(
+        [got, *st], [want, *cpu[1]]))
+    check(err == 0, f"scan kernel equals plain on {name}")
+    placed = int((want >= 0).sum())
+    check(placed > 0, f"{name}: some pod placed")
+    log(f"  {name}: N={static.allocatable.shape[0]} "
+        f"B={ints.shape[0]} SC={static.sc_codes.shape[0]} "
+        f"T={static.term_codes.shape[0]} V={static.sc_domain.shape[2] - 1} "
+        f"tables {'shared' if tables is not False else 'global'}: "
+        f"{placed} placed, max_abs_err {err}")
+    return err
+
+
+def phase_scan_compare():
+    """The scan kernel against the plain scan, bit for bit, on seeded
+    what-ifs (``whatif_problem``): hostname keys (V = N) and zone keys
+    only; graded tiers hundreds of columns deep; more than 1,024 columns
+    (threads strided); the tables forced out of shared memory; two
+    batches carrying the state; padded rows in every case."""
+    cases = [
+        ("host keys", whatif_problem(0), None),
+        ("zone keys", whatif_problem(1, host_key=False), None),
+        ("deep tiers", whatif_problem(2, n_nodes=94, n_bound=200,
+                                      n_pods=2000, n_upcoming=300,
+                                      n_virtual=256, pad=2048), None),
+        ("strided columns", whatif_problem(3, n_nodes=900, n_bound=1500,
+                                           n_pods=1000, n_upcoming=100,
+                                           n_virtual=200, pad=1024), None),
+        ("global tables", whatif_problem(4, n_nodes=300, n_pods=500,
+                                         pad=512), False)]
+    err = 0
+    for name, (cluster, batch, pen, dis), tables in cases:
+        err = max(err, scan_against_plain(
+            name, scan_batch(cluster, batch, pen, dis, "cuda"), tables))
+    # two batches on one carried state
+    cluster, batch, pen, dis = whatif_problem(5, n_pods=300, pad=512)
+    static, state, ints, floats = scan_batch(cluster, batch, pen, dis,
+                                             "cuda")
+    half = ints.shape[0] // 2
+    cst = solver_mod.ScanState(*(t.to("cpu", copy=True) for t in state))
+    cs = solver_mod.ScanStatic(*(t.cpu() for t in static))
+    got = [solver_mod.scan_kernel(PARAMS, static, state, ints[a:b], floats[
+        a:b]) for a, b in ((0, half), (half, ints.shape[0]))]
+    want = [solver_mod.solve_scan_plain(PARAMS, cs, cst, ints[a:b].cpu(),
+                                        floats[a:b].cpu())
+            for a, b in ((0, half), (half, ints.shape[0]))]
+    torch.cuda.synchronize()
+    e = max(int((x.cpu() - y).abs().max()) for x, y in zip(
+        [*got, *state], [*want, *cst]))
+    check(e == 0, "scan kernel equals plain over two carried batches")
+    log(f"  two carried batches: max_abs_err {e}")
+    return max(err, e)
+
+
+def scan_bound_ms(static, state, ints, floats):
+    """Least time for one scan launch on these inputs: bytes (each input
+    read once, the state and the assignments written once) over HBM
+    bandwidth, and the operations these pods need (per valid pod and
+    column, from its flags) over the f32 peak; the larger."""
+    tensors = (*static, *state, ints, floats)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+        + sum(t.numel() * t.element_size() for t in state) + ints.shape[0] * 4
+    n, r = static.allocatable.shape
+    sc, t = static.sc_codes.shape[0], static.term_codes.shape[0]
+    rows, w = ints.cpu().numpy(), floats.cpu().numpy()
+    hard = static.sc_hard.cpu().numpy() > 0
+    valid = rows[:, r + 3] > 0
+    pod_sc = rows[:, r + 4:r + 4 + sc] > 0
+    flags = rows[:, r + 4 + 2 * sc:r + 4 + 2 * sc + 3 * t] > 0
+    per_pod = (3 + r + 27 + 5 * (pod_sc & hard).sum(1)
+               + 2 * (pod_sc & ~hard).sum(1) + 2 * (pod_sc & ~hard).any(1)
+               + 3 * (w != 0).sum(1) + 2 * flags.sum(1))
+    ops = float((per_pod * valid).sum()) * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1000
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1000
+    log(f"  scan bound inputs: {nbytes} bytes -> {t_bytes:.6f} ms, "
+        f"{ops:.0f} operations -> {t_ops:.6f} ms")
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_scan(name, batch, repeats=10):
+    """Ten bare launches of the scan kernel (CUDA events around the
+    launch only, a fresh copy of the state each), and one run of the
+    plain version on the card (host clock), which must agree. Returns
+    (kernel ms, plain ms, max abs err)."""
+    static, state, ints, floats = batch
+    plan = solver_mod.scan_kernel.plan(static)
+    times = []
+    for _ in range(repeats + 1):
+        st = solver_mod.ScanState(*(t.clone() for t in state))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = solver_mod.scan_kernel.launch(PARAMS, static, st, ints, floats,
+                                            plan)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = float(np.mean(times[1:]))
+    pst = solver_mod.ScanState(*(t.clone() for t in state))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = solver_mod.solve_scan_plain(PARAMS, static, pst, ints, floats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000
+    err = max(int((x - y).abs().max()) for x, y in zip([got, *st],
+                                                       [want, *pst]))
+    check(err == 0, f"scan kernel equals plain on the {name}")
+    valid = int((ints[:, static.allocatable.shape[1] + 3] > 0).sum())
+    log(f"  scan kernel on the {name} ({valid} pods, N="
+        f"{static.allocatable.shape[0]}, plan {plan}): {ms:.3f} ms a "
+        f"launch ({1000 * ms / max(valid, 1):.3f} us a pod), plain "
+        f"{plain_ms:.1f} ms, max_abs_err {err}")
+    return ms, plain_ms, err, valid
+
+
+def phase_autoscale(burst=30000, node_cpu=32, boot_latency=1.0,
+                    max_batch=4096, wait_timeout=1800.0):
+    """``bench.py``'s autoscale row on the card: 94 of the 469 nodes a
+    30,000-pod burst needs, the autoscaler buying the rest (boot latency
+    1 s) while the batch loop binds. Every pod bound within needed + 2
+    nodes; at least one what-if; every what-if on the scan kernel (one
+    launch a solve, none on the plain version); every batch solve on the
+    cluster kernel. The what-ifs' launches are timed with CUDA events on
+    their own stream, and the largest what-if batch is kept for the
+    kernel timing. Node columns grow during the row, so the compiles
+    booked in its measured cycles are reported, not gated."""
+    scan = solver_mod.scan_kernel
+    real_plain = solver_mod.solve_scan_plain
+    events, plain_calls = [], []
+    largest = {"work": -1, "batch": None}
+
+    class ScanRecorder:
+        """Stands in for the scan wrapper during the row: CUDA events
+        around each launch (on the what-if's stream) and a copy of the
+        inputs of the launch with the most pod x column work."""
+
+        def __getattr__(self, name):
+            return getattr(scan, name)
+
+        def __call__(self, params, static, state, ints, floats, **kw):
+            n, r = static.allocatable.shape
+            work = int((ints[:, r + 3] > 0).sum()) * n
+            if work > largest["work"]:
+                largest.update(work=work, batch=(
+                    static, solver_mod.ScanState(*(t.clone() for t in state)),
+                    ints.clone(), floats.clone()))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = scan(params, static, state, ints, floats, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+
+    def trapped_plain(*args):
+        plain_calls.append(1)
+        return real_plain(*args)
+
+    holder = {}
+
+    def configure(ca, bs):
+        holder["ca"], holder["bs"] = ca, bs
+
+    solver_mod.scan_kernel = ScanRecorder()
+    solver_mod.solve_scan_plain = trapped_plain
+    scan.reset_counts()
+    get_devprof().reset(workload="autoscale")
+    try:
+        row, counts, kernel_ms, _, _, wall = run_path(
+            "autoscale", lambda: elastic.run_autoscale_bench(
+                burst=burst, node_cpu=node_cpu, boot_latency=boot_latency,
+                max_batch=max_batch, wait_timeout=wait_timeout,
+                device="cuda", configure=configure, progress=log))
+    finally:
+        solver_mod.scan_kernel, solver_mod.solve_scan_plain = scan, \
+            real_plain
+    launches = scan.launches
+    LAUNCHES["scan"] += launches
+    torch.cuda.synchronize()
+    whatif_ms = [a.elapsed_time(b) for a, b in events]
+    ca, bs = holder["ca"], holder["bs"]
+    check(row["bound"] == burst and "error" not in row,
+          f"autoscale: {row['bound']}/{burst} bound ({row.get('error')})")
+    check(row["nodes_end"] <= row["needed"] + 2,
+          f"autoscale: {row['nodes_end']} nodes > needed + 2")
+    check(row["whatif_solves"] >= 1, "autoscale: no what-if solve")
+    check(launches == row["whatif_solves"] == len(events),
+          f"autoscale: scan launches {launches}, what-ifs "
+          f"{row['whatif_solves']}, on the card {len(events)}")
+    check(not plain_calls, "autoscale: the plain scan ran on the card path")
+    check(counts["cluster"] == row["batch_solves"],
+          f"autoscale: cluster launches {counts['cluster']} == batch "
+          f"solves {row['batch_solves']}")
+    telemetry = get_devprof().summary()
+    log(f"  autoscale row: {row['value']} pods/s, time to all bound "
+        f"{row['time_to_all_bound_s']} s, nodes {row['nodes_start']} -> "
+        f"{row['nodes_end']} (needed {row['needed']}), scale-ups "
+        f"{row['scaleup_decisions']}, provisioned "
+        f"{row['nodes_provisioned']}, what-ifs {row['whatif_solves']}, "
+        f"batch solves {row['batch_solves']} (whole run {wall:.1f} s)")
+    log("    host seconds: " + ", ".join(
+        f"{k}={v:.3f}" for k, v in row["host_seconds"].items()))
+    q = np.percentile(whatif_ms, [50, 90, 100]) if whatif_ms else [0] * 3
+    log(f"    what-if spans on their stream (CUDA events around the "
+        f"wrapper: its input checks, host waits and the launch), ms: "
+        f"n={len(whatif_ms)} p50={q[0]:.3f} p90={q[1]:.3f} "
+        f"max={q[2]:.3f}; batch kernel ms a launch mean "
+        f"{np.mean(kernel_ms):.3f}; compiles in measured cycles "
+        f"{telemetry.get('unexpected_compiles')}")
+    return {"row": row, "whatif_ms": whatif_ms, "batch_launches": counts,
+            "batch_kernel_ms_mean": float(np.mean(kernel_ms)),
+            "unexpected_compiles": telemetry.get("unexpected_compiles"),
+            "wall_s": wall}, largest["batch"]
+
+
+def mesh_node(i, cols, rows):
+    labels = {HOST: f"node-{i}", ZONE: f"zone-{i % 10}"}
+    labels.update(mesh_locality.mesh_node_labels(i, cols, rows))
+    return {"metadata": {"name": f"node-{i}", "labels": labels},
+            "status": {"capacity": {"cpu": "4", "memory": "32Gi",
+                                    "pods": "110"}}}
+
+
+def mesh_pod(i, size):
+    g = i // size
+    return {"metadata": {"name": f"mesh-{i}", "labels": {
+        "pod-group.scheduling.k8s.io/name": f"gang-{g}",
+        "pod-group.scheduling.k8s.io/min-available": str(size),
+        mesh_locality.MESH_BLOCK_LABEL: f"block-{g}"}},
+        "spec": {"containers": [{"name": "c", "resources": {"requests": {
+            "cpu": "1", "memory": "1Gi"}}}]}}
+
+
+def phase_mesh(cols=16, rows=16, gangs=24, size=8, max_batch=256):
+    """Mesh-block gangs through the batch path on the card: 256 nodes
+    labelled 16 x 16 (``mesh_node_labels``), 24 gangs of 8 one-cpu pods,
+    each gang a mesh block. Every pod bound, the same pod -> node map as
+    the same row on the CPU (the plain solve), and the members on average
+    less than half as far from their blocks' anchors (Manhattan rings) as
+    with MeshLocality off (also on the card): the reference's criterion,
+    the scored arm beating the adjacency-blind one."""
+    ops = [{"opcode": "createNodes", "count": cols * rows,
+            "nodeTemplate": lambda i: mesh_node(i, cols, rows)},
+           {"opcode": "createPods", "count": gangs * size,
+            "podTemplate": lambda i: mesh_pod(i, size),
+            "collectMetrics": True}]
+    res, counts, _, _, _, _ = run_path(
+        "mesh gangs", lambda: perf.run_workload(
+            "MeshGangs", ops, max_batch=max_batch, device="cuda"))
+    cpu = perf.run_workload("MeshGangs", ops, max_batch=max_batch,
+                            device="cpu")
+    mesh_locality.configure(False)
+    try:
+        blind = perf.run_workload("MeshGangs", ops, max_batch=max_batch,
+                                  device="cuda")
+    finally:
+        mesh_locality.configure(True)
+
+    def rings(placements):
+        out = []
+        for pod, node in placements.items():
+            i = int(node.split("-")[1])
+            ax, ay = mesh_locality.block_anchor(
+                f"block-{int(pod.split('-')[1]) // size}", cols, rows)
+            out.append(abs(i % cols - ax) + abs(i // cols - ay))
+        return out
+
+    check(all(res.placements.values()), "mesh gangs: every pod bound")
+    check(res.placements == cpu.placements,
+          "mesh gangs: card and CPU bind alike")
+    got, off = rings(res.placements), rings(blind.placements)
+    check(np.mean(got) < np.mean(off) / 2,
+          f"mesh gangs: mean ring {np.mean(got)} not under half the "
+          f"blind arm's {np.mean(off)}")
+    log(f"  mesh gangs: {gangs} x {size} on {cols}x{rows}: mean ring "
+        f"{np.mean(got):.3f} (max {max(got)}), MeshLocality off "
+        f"{np.mean(off):.3f}; launches {counts}")
+    return {"mean_ring": float(np.mean(got)), "max_ring": int(max(got)),
+            "blind_mean_ring": float(np.mean(off)), "launches": counts}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2150,10 +2487,13 @@ def main() -> None:
         f"{torch.version.cuda}; devices {torch.cuda.device_count()}")
 
     t0 = time.monotonic()
-    lib = solve_mod.build_kernel()
-    log(f"[2] built {lib.name} from {KERNEL_SOURCE} in "
-        f"{time.monotonic() - t0:.1f} s")
-    print_ptxas(lib)
+    libs = build.build_kernels([solve_mod.KERNEL_SOURCE,
+                                solver_mod.SCAN_SOURCE])
+    log(f"[2] built {', '.join(lib.name for lib in libs)} from "
+        f"{KERNEL_SOURCE} and {SCAN_SOURCE} in "
+        f"{time.monotonic() - t0:.1f} s (one nvcc each, together)")
+    for lib in libs:
+        print_ptxas(lib)
 
     log("[3] kernels against plain on seeded problems")
     errs = phase_compare()
@@ -2256,7 +2596,20 @@ def main() -> None:
 
     log("[23] the latency-budget tuner forced to shrink")
     tuner = phase_tuner()
-    log(f"  main-path launches over phases 4, 5 and 8 to 23: {LAUNCHES}")
+
+    log("[24] the scan kernel against the plain scan on seeded what-ifs")
+    errs["scan"] = phase_scan_compare()
+
+    log("[25] the autoscale row: 30,000 pods from 94 nodes, boot 1 s")
+    autoscale, scan_largest = phase_autoscale()
+    scan_ms, scan_plain_ms, err, scan_pods = time_scan(
+        "autoscale row's largest what-if", scan_largest)
+    errs["scan"] = max(errs["scan"], err)
+    scan_b_ms, scan_b_by = scan_bound_ms(*scan_largest)
+
+    log("[26] mesh-block gangs on the batch path")
+    mesh = phase_mesh()
+    log(f"  main-path launches over phases 4, 5 and 8 to 26: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -2291,16 +2644,22 @@ def main() -> None:
                            f"(T={slots['t']}), dense stream, forced",
                   "carries": "the sv attach planes",
                   "sv_ms": sv_timed["ms"]["block"],
-                  "sv_batch": "shared-volume phase largest batch, forced"}}
+                  "sv_batch": "shared-volume phase largest batch, forced"},
+        "scan": {"ms": scan_ms, "plain_ms": scan_plain_ms,
+                 "bound_ms": scan_b_ms, "bound_by": scan_b_by,
+                 "batch": f"autoscale row's largest what-if "
+                          f"({scan_pods} pods, N="
+                          f"{scan_largest[0].allocatable.shape[0]})"}}
     kernels = {"kernels": [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": LAUNCHES[k],
         "max_abs_err": float(errs[k]), **timed[k], "library_ms": None,
         "library_ms_reason": "no single PyTorch call computes the solve",
-    } for k, name, replaces in (
-        ("cluster", "solve_cluster_kernel", REPLACES),
-        ("slots", "solve_slots_kernel", REPLACES_SPARSE),
-        ("block", "solve_block_kernel", REPLACES))]}
+    } for k, name, source, replaces in (
+        ("cluster", "solve_cluster_kernel", KERNEL_SOURCE, REPLACES),
+        ("slots", "solve_slots_kernel", KERNEL_SOURCE, REPLACES_SPARSE),
+        ("block", "solve_block_kernel", KERNEL_SOURCE, REPLACES),
+        ("scan", "solve_scan_kernel", SCAN_SOURCE, REPLACES_SCAN))]}
     report = {
         "card": card, "kernels": kernels["kernels"],
         "scheduling_basic": {
@@ -2325,6 +2684,7 @@ def main() -> None:
         "preemption_pvs": preemption_pvs, "shared_volumes": shared,
         "scatters": scatters["scatters"], "configs": configs,
         "families": families, "tracing_cost": tracing, "tuner": tuner,
+        "autoscale": autoscale, "mesh": mesh,
         "rows": ROW_REPORTS,
     }
     if args.out:

@@ -2,7 +2,9 @@
 scheduling reads from them, as plain dataclasses with ``from_dict``
 constructors that take Kubernetes-manifest-shaped dicts; and the storage
 objects the volume plugins read (PersistentVolumeClaim,
-PersistentVolume, StorageClass, CSINode), built in code."""
+PersistentVolume, StorageClass, CSINode) and the controller objects
+SelectorSpread reads (Service, ReplicaSet, ReplicationController,
+StatefulSet), built in code."""
 
 from __future__ import annotations
 
@@ -58,6 +60,8 @@ class ObjectMeta:
     resource_version: str = ""
     deletion_timestamp: Optional[float] = None
     owner_references: List[dict] = field(default_factory=list)
+    # wall-clock seconds; the store stamps a pod's on create
+    creation_timestamp: float = 0.0
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "ObjectMeta":
@@ -587,6 +591,81 @@ class CSINodeDriver:
 class CSINode:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     drivers: List[CSINodeDriver] = field(default_factory=list)
+
+
+# ----------------------------------------------------------------------
+# the objects whose selectors SelectorSpread spreads pods by
+@dataclass
+class ServicePort:
+    name: str = ""
+    port: int = 0
+    target_port: int = 0
+    protocol: str = "TCP"
+
+
+@dataclass
+class Service:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Dict[str, str] = field(default_factory=dict)
+    ports: List[ServicePort] = field(default_factory=list)
+    cluster_ip: str = ""
+    session_affinity: str = "None"  # None | ClientIP
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class ReplicaSet:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+    replicas: int = 0
+    template: Optional[dict] = None  # manifest-shaped pod template
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class ReplicationController:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Dict[str, str] = field(default_factory=dict)
+    replicas: int = 0
+    template: Optional[dict] = None
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class StatefulSet:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+    replicas: int = 0
+    template: Optional[dict] = None
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
 
 
 @dataclass

@@ -1,8 +1,9 @@
 """In-process cluster store for pods, nodes, PodDisruptionBudgets, the
-storage objects (PersistentVolumeClaims, PersistentVolumes,
-StorageClasses, CSINodes) and Events, with synchronous watch delivery,
-plus the
-scheduler's event handlers that turn watch events into cache and queue
+controller objects SelectorSpread reads (Services,
+ReplicationControllers, ReplicaSets, StatefulSets), the storage objects
+(PersistentVolumeClaims, PersistentVolumes, StorageClasses, CSINodes)
+and Events, with synchronous watch delivery, plus the scheduler's event
+handlers that turn watch events into cache and queue
 updates (assigned pods feed the cache, pending pods feed the queue, node
 changes feed the cache and wake parked pods, storage changes invalidate
 the batch path's device state and wake parked pods).
@@ -35,6 +36,10 @@ from kubernetes_tpu_torch.api.types import (
     Pod,
     PodCondition,
     PodDisruptionBudget,
+    ReplicaSet,
+    ReplicationController,
+    Service,
+    StatefulSet,
     StorageClass,
     shallow_copy,
 )
@@ -78,6 +83,10 @@ class ClusterStore:
         self._pvs: Dict[str, PersistentVolume] = {}
         self._storage_classes: Dict[str, StorageClass] = {}
         self._csi_nodes: Dict[str, CSINode] = {}
+        self._services: Dict[str, Service] = {}
+        self._rcs: Dict[str, ReplicationController] = {}
+        self._rss: Dict[str, ReplicaSet] = {}
+        self._sss: Dict[str, StatefulSet] = {}
         # PV name -> claim key, assumed by VolumeBinding's Reserve
         self._assumed_pvs: Dict[str, str] = {}
         self._bound = 0   # stored pods with a node
@@ -148,7 +157,8 @@ class ClusterStore:
     # pods
     def create_pods(self, pods: List[Pod]) -> List[Pod]:
         """Admit pods in bulk: one lock and one batched watch delivery, one
-        resource version and one ADDED event per pod. The batch is
+        resource version and one ADDED event per pod, and a creation
+        time for a pod without one. The batch is
         validated whole first, so watchers see all of it or none."""
         with self._lock:
             seen = set()
@@ -158,7 +168,10 @@ class ClusterStore:
                     raise ValueError(f"pod {key} already exists")
                 seen.add(key)
             events = []
+            now = time.time()
             for pod in pods:
+                if not pod.metadata.creation_timestamp:
+                    pod.metadata.creation_timestamp = now
                 pod.metadata.resource_version = self._next_rv()
                 self._pods[pod.full_name()] = pod
                 self._bound += bool(pod.spec.node_name)
@@ -330,9 +343,9 @@ class ClusterStore:
         return len(stale)
 
     # ------------------------------------------------------------------
-    # PodDisruptionBudgets; the controller objects SelectorSpread reads
-    # (Services, ReplicationControllers, ReplicaSets, StatefulSets) are
-    # not stored yet, so their listers return nothing
+    # PodDisruptionBudgets, and the controller objects SelectorSpread
+    # reads (Services, ReplicationControllers, ReplicaSets, StatefulSets):
+    # each create or replace is one ADDED or MODIFIED event
     def add_pdb(self, pdb: PodDisruptionBudget) -> None:
         with self._lock:
             pdb.metadata.resource_version = self._next_rv()
@@ -342,17 +355,38 @@ class ClusterStore:
         with self._lock:
             return list(self._pdbs.values())
 
-    def list_services(self, namespace: str) -> List:
-        return []
+    def add_service(self, svc: Service) -> None:
+        self._upsert(self._services, "Service",
+                     f"{svc.namespace}/{svc.name}", svc)
 
-    def list_replication_controllers(self, namespace: str) -> List:
-        return []
+    def list_services(self, namespace: str) -> List[Service]:
+        return self._in_namespace(self._services, namespace)
 
-    def list_replica_sets(self, namespace: str) -> List:
-        return []
+    def add_replication_controller(self, rc: ReplicationController) -> None:
+        self._upsert(self._rcs, "ReplicationController",
+                     f"{rc.namespace}/{rc.name}", rc)
 
-    def list_stateful_sets(self, namespace: str) -> List:
-        return []
+    def list_replication_controllers(self, namespace: str
+                                     ) -> List[ReplicationController]:
+        return self._in_namespace(self._rcs, namespace)
+
+    def add_replica_set(self, rs: ReplicaSet) -> None:
+        self._upsert(self._rss, "ReplicaSet", f"{rs.namespace}/{rs.name}", rs)
+
+    def list_replica_sets(self, namespace: str) -> List[ReplicaSet]:
+        return self._in_namespace(self._rss, namespace)
+
+    def add_stateful_set(self, ss: StatefulSet) -> None:
+        self._upsert(self._sss, "StatefulSet", f"{ss.namespace}/{ss.name}",
+                     ss)
+
+    def list_stateful_sets(self, namespace: str) -> List[StatefulSet]:
+        return self._in_namespace(self._sss, namespace)
+
+    def _in_namespace(self, table: Dict, namespace: str) -> List:
+        with self._lock:
+            return [o for o in table.values()
+                    if o.metadata.namespace == namespace]
 
     # ------------------------------------------------------------------
     # storage objects: each create or replace is one ADDED or MODIFIED

@@ -1,1 +1,2 @@
-"""Clients of the store: the event recorder."""
+"""Clients of the store: the event recorder, work queues and shared
+informers."""

@@ -1,6 +1,7 @@
 """Seeded solve problems made directly in the planes layout, at any node
 count and constraint width, for holding the solve kernels against their
-plain version (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+plain version (``tests/test_torch_cuda.py``, ``chip_smoke.py``); and
+seeded what-if problems for the legacy scan (``whatif_problem``).
 
 The planes are consistent the way the encoder makes them: topology counts
 are per domain value (every column of a domain holds its count), the
@@ -17,8 +18,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.autoscaler.simulator import (
+    UPCOMING_NODE_PENALTY,
+    VIRTUAL_COLUMN_STEP,
+)
+from kubernetes_tpu_torch.ops.encode import BatchEncoder
 from kubernetes_tpu_torch.ops.planes import PStatic, state_planes, static_planes
 from kubernetes_tpu_torch.ops.slots import SPARSE_K
+from kubernetes_tpu_torch.ops.solver import VIRTUAL_NODE_PENALTY
+from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 
 
 def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
@@ -149,3 +158,102 @@ def random_slot_planes(seed: int, n: int, b: int, t: int, r: int = 3,
             if rng.random() < 0.6 or not (mb[i, k] | oa[i, k] | oan[i, k]):
                 floats[i, k] = float(rng.choice(weights))
     return ps, state, ints, floats
+
+
+# ----------------------------------------------------------------------
+# seeded what-if problems for the legacy scan (``ops/solver.py``)
+ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
+
+
+def whatif_problem(seed: int, n_nodes: int = 40, n_bound: int = 60,
+                   n_pods: int = 200, n_upcoming: int = 8,
+                   n_virtual: int = 16, n_disabled: int = 2,
+                   host_key: bool = True, pad: int = 256):
+    """(cluster, batch, penalties, disabled columns): a seeded cluster of
+    small nodes (more pending pods than they hold) over six zones (one node without a zone label) with bound pods,
+    ``n_pods`` pending pods mixing hard and soft zone spread, hostname
+    spread and anti-affinity when ``host_key`` (so V = N), required zone
+    affinity, preferred (anti-)affinity weights and plain pods, padded to
+    ``pad`` rows; ``n_upcoming`` + ``n_virtual`` template nodes appended
+    as extra columns with the autoscaler's graded penalty tiers, and
+    ``n_disabled`` real columns disabled. Encoded by the port's encoder
+    (numpy arrays, as the reference's)."""
+    rng = np.random.default_rng(seed)
+
+    def node(name, cpu, zone):
+        labels = {HOST: name}
+        if zone is not None:
+            labels[ZONE] = f"z{zone}"
+        return Node.from_dict({"metadata": {"name": name, "labels": labels},
+                               "status": {"capacity": {
+                                   "cpu": str(cpu), "memory": "16Gi",
+                                   "pods": "16"}}})
+
+    def term(app, key):
+        return {"labelSelector": {"matchLabels": {"app": app}},
+                "topologyKey": key}
+
+    def pod(name, app, node_name="", kind=None):
+        spec = {"containers": [{"name": "c", "resources": {"requests": {
+            "cpu": f"{int(rng.choice([250, 500, 1000]))}m",
+            "memory": f"{int(rng.choice([256, 512, 1024]))}Mi"}}}]}
+        if node_name:
+            spec["nodeName"] = node_name
+        keys = [ZONE, HOST] if host_key else [ZONE]
+        if kind == "hard":
+            spec["topologySpreadConstraints"] = [{
+                "maxSkew": int(rng.integers(1, 3)),
+                "topologyKey": str(rng.choice(keys)),
+                "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchLabels": {"app": app}}}]
+        elif kind == "soft":
+            spec["topologySpreadConstraints"] = [{
+                "maxSkew": 1, "topologyKey": str(rng.choice(keys)),
+                "whenUnsatisfiable": "ScheduleAnyway",
+                "labelSelector": {"matchLabels": {"app": app}}}]
+        elif kind == "affinity":
+            spec["affinity"] = {"podAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [
+                    term(f"a{int(rng.integers(3))}", ZONE)]}}
+        elif kind == "anti":
+            spec["affinity"] = {"podAntiAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [
+                    term(app, str(rng.choice(keys)))]}}
+        elif kind == "preferred":
+            spec["affinity"] = {
+                "podAffinity": {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [{
+                        "weight": int(rng.integers(1, 100)),
+                        "podAffinityTerm": term(f"a{int(rng.integers(3))}",
+                                                str(rng.choice(keys)))}]},
+                "podAntiAffinity": {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [{
+                        "weight": int(rng.integers(1, 100)),
+                        "podAffinityTerm": term(app, ZONE)}]}}
+        return Pod.from_dict({"metadata": {"name": name, "uid": f"u-{name}",
+                                           "labels": {"app": app}},
+                              "spec": spec})
+
+    nodes = [node(f"n{i}", int(rng.choice([1, 2, 4])),
+                  None if i == n_nodes - 1 else i % 6)
+             for i in range(n_nodes)]
+    bound = [pod(f"b{i}", f"a{int(rng.integers(3))}",
+                 f"n{int(rng.integers(n_nodes))}") for i in range(n_bound)]
+    kinds = (None, None, "hard", "soft", "affinity", "anti", "preferred")
+    pending = [pod(f"p{i}", f"a{int(rng.integers(3))}",
+                   kind=kinds[int(rng.integers(len(kinds)))])
+               for i in range(n_pods)]
+    extra = [node(f"x{i}", 8, i % 6) for i in range(n_upcoming + n_virtual)]
+    enc = BatchEncoder(new_snapshot(bound, nodes), extra_nodes=extra)
+    cluster, batch = enc.encode(pending, pad_pods=pad)
+    base = enc.num_snapshot_nodes
+    cap = float(VIRTUAL_NODE_PENALTY) - VIRTUAL_COLUMN_STEP
+    penalties = {base + j: min(UPCOMING_NODE_PENALTY
+                               + j * VIRTUAL_COLUMN_STEP, cap)
+                 for j in range(n_upcoming)}
+    penalties.update({base + n_upcoming + j: float(VIRTUAL_NODE_PENALTY)
+                      + j * VIRTUAL_COLUMN_STEP for j in range(n_virtual)})
+    disabled = [int(c) for c in rng.choice(n_nodes, n_disabled,
+                                           replace=False)]
+    return cluster, batch, penalties, disabled

@@ -25,6 +25,10 @@ volume costs one attachment only where it is not attached yet
 An unbound WaitForFirstConsumer claim over a pool of PVs without node
 affinity is no constraint at all: the batch loop binds a PV at commit.
 
+Extra nodes (``extra_nodes``: the cluster autoscaler's hypothetical
+template nodes) are appended as the last columns, after the snapshot's
+``num_snapshot_nodes``, and encoded as if they existed.
+
 Node columns are padded to a multiple of 128 (of 512 above 1024 nodes);
 SC and T are at least 1. A full ``encode`` keeps its *encoding space*
 (resource columns, value codes, tracked constraints, terms, profiles,
@@ -36,10 +40,12 @@ device carries.
 inline cloud disks, claims other than bound or node-independent
 WaitForFirstConsumer ones, more than one shared CSI volume); the batch
 loop routes them there, and the encoder raises
-``InexpressiblePodError`` if it is handed one. A mesh-block pod is
-refused by both paths. A pod whose non-shared volume is already attached
-somewhere is flagged ``inexpressible`` in its batch and declined, so it
-takes the serial path for the exact set count.
+``InexpressiblePodError`` if it is handed one. A mesh-block pod's
+closeness to its block's anchor (MeshLocality) is a static score, and
+its block is part of its static profile key. A pod whose non-shared
+volume is already attached somewhere is flagged ``inexpressible`` in its
+batch and declined, so it takes the serial path for the exact set
+count.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import numpy as np
 from kubernetes_tpu_torch.api import labels as labelslib
 from kubernetes_tpu_torch.api.types import CPU, EPHEMERAL_STORAGE, MEMORY, PODS, Pod
 from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
+from kubernetes_tpu_torch.scheduler.framework.plugins import mesh_locality
 from kubernetes_tpu_torch.scheduler.framework.plugins.node_volume_limits import (
     pod_csi_volumes,
 )
@@ -70,11 +77,10 @@ from kubernetes_tpu_torch.scheduler.predicates import (
     tolerates_node_taints,
 )
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
-from kubernetes_tpu_torch.scheduler.types import PodInfo, Resource
+from kubernetes_tpu_torch.scheduler.types import NodeInfo, PodInfo, Resource
 
 BASE_RESOURCES = 3  # cpu (milli), memory (KiB), ephemeral (KiB)
 PAD_NODES = 128
-MESH_BLOCK_LABEL = "ktpu.io/mesh-block"
 # attach-limit columns are named in a namespace no extended resource uses
 ATTACH_COL_PREFIX = "attachable#csi#"
 # the attach budget of a node or driver without a limit; it survives a
@@ -144,11 +150,7 @@ def is_host_only(pod: Pod, client=None, cache=None) -> bool:
     class, ``wfc_class_batchable``) or bound to a missing PV, or more
     than one shared CSI volume (a pod carries one attach-plane slot).
     Without a ``client`` every claim is host-only. ``cache`` is a dict
-    kept for one drain. Raises ``InexpressiblePodError`` for a pod
-    neither path takes: mesh-block placement (MeshLocality)."""
-    if pod.metadata.labels.get(MESH_BLOCK_LABEL):
-        raise InexpressiblePodError(
-            f"pod {pod.full_name()} asks for mesh-block placement")
+    kept for one drain."""
     for v in pod.spec.volumes:
         if (v.gce_persistent_disk or v.aws_elastic_block_store
                 or v.azure_disk or v.rbd or v.iscsi):
@@ -330,11 +332,18 @@ class BatchEncoder:
     """Encodes (snapshot, pod batch) pairs; keeps the encoding space of
     its last full ``encode`` for ``encode_pods_only``. ``client`` (the
     store) serves the storage objects; without it no pod may have a
-    claim."""
+    claim. ``extra_nodes`` are appended after the snapshot's
+    ``num_snapshot_nodes`` columns, with no pods."""
 
-    def __init__(self, snapshot: Snapshot, client=None):
+    def __init__(self, snapshot: Snapshot, client=None,
+                 extra_nodes: Optional[List] = None):
         self.snapshot = snapshot
         self.node_infos = [ni for ni in snapshot.list() if ni.node is not None]
+        self.num_snapshot_nodes = len(self.node_infos)
+        for node in extra_nodes or ():
+            ni = NodeInfo()
+            ni.set_node(node)
+            self.node_infos.append(ni)
         self._client = client
         # attach-limit columns, by driver, fixed for the epoch (a CSINode
         # event rebuilds the session)
@@ -808,7 +817,8 @@ class BatchEncoder:
     # ------------------------------------------------------------------
     def _static_profile_key(self, pod: Pod) -> tuple:
         return _static_profile_key(pod) + (
-            self._volume_profile_identity(pod),)
+            self._volume_profile_identity(pod),
+            mesh_locality.profile_component(pod))
 
     def _volume_profile_identity(self, pod: Pod) -> tuple:
         """The volume part of the profile key: pods share a profile when
@@ -849,7 +859,12 @@ class BatchEncoder:
         """Node-static predicates and scores of one profile, per node; a
         pod with claims also passes VolumeBinding's and VolumeZone's
         filters (its claims are bound or node-independent, so they are
-        static)."""
+        static). A mesh-block pod adds its closeness to its anchor
+        (``mesh_locality.profile_scorer`` over every column's node)."""
+        mesh_fn = None
+        if mesh_locality.enabled() and mesh_locality.mesh_block(pod):
+            mesh_fn = mesh_locality.profile_scorer(
+                pod, [ni.node for ni in self.node_infos])
         for i, ni in enumerate(self.node_infos):
             node = ni.node
             ok = pod_matches_node_selector_and_affinity(pod, node)
@@ -861,6 +876,8 @@ class BatchEncoder:
             mask[i] = ok
             if ok:
                 scores[i] = _static_score(pod, ni)
+                if mesh_fn is not None:
+                    scores[i] += mesh_fn(node)
         if self._client is None or not any(
                 v.persistent_volume_claim for v in pod.spec.volumes):
             return

@@ -32,10 +32,6 @@ soft-spread counts over constraints.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 import time
 from pathlib import Path
@@ -44,6 +40,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.ops import build
 from kubernetes_tpu_torch.ops.planes import (
     PStatic,
     prepare,
@@ -60,13 +57,7 @@ from kubernetes_tpu_torch.ops.slots import (
 from kubernetes_tpu_torch.ops.solver import BIG, NEG_INF, SolverParams
 from kubernetes_tpu_torch.observability.devprof import get_devprof
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = PACKAGE_DIR / "csrc" / "solve_kernel.cu"
-BUILD_DIR = PACKAGE_DIR / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+KERNEL_SOURCE = build.CSRC_DIR / "solve_kernel.cu"
 # one block's shared memory on Hopper (227 KB), the block sizes and the
 # pod chunk the kernels are written for (csrc/solve_kernel.cu)
 SMEM_LIMIT = 232448
@@ -366,39 +357,11 @@ def _solve_pods(params: SolverParams, ps: PStatic, state: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the solve kernel is built from "
-                           f"{KERNEL_SOURCE} with the CUDA toolkit")
-    return path
-
-
 def build_kernel() -> Path:
     """Compile ``csrc/solve_kernel.cu`` for sm_90a into a shared library
-    under ``build/``, named by the hash of the source and flags, so an
-    edited source rebuilds; ptxas's report (registers, shared memory and
-    spills of each kernel) is kept beside it. Returns the library's path."""
-    src = KERNEL_SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libsolve_kernel_{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCE)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {KERNEL_SOURCE}:\n{proc.stderr}")
-    ptxas_report_path(lib).write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def ptxas_report_path(lib: Path) -> Path:
-    """Where ``build_kernel`` keeps ptxas's report for ``lib``."""
-    return lib.with_suffix(".ptxas.txt")
+    under ``build/`` (``ops/build.py``), unless it is built; returns the
+    library's path."""
+    return build.build_kernel(KERNEL_SOURCE)
 
 
 class SolveKernel:

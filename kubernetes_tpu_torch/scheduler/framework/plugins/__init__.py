@@ -1,5 +1,5 @@
-"""The in-tree plugins of the default provider, the coscheduling
-plugins, and their registry (plugin name -> factory)."""
+"""The in-tree plugins of the default provider (MeshLocality included),
+the coscheduling plugins, and their registry (plugin name -> factory)."""
 
 from typing import Callable, Dict
 
@@ -11,6 +11,7 @@ def new_in_tree_registry() -> Dict[str, Callable]:
         default_preemption,
         image_locality,
         interpod_affinity,
+        mesh_locality,
         node_affinity,
         node_name,
         node_volume_limits,
@@ -32,6 +33,7 @@ def new_in_tree_registry() -> Dict[str, Callable]:
         node_resources.Fit,
         node_resources.BalancedAllocation,
         node_resources.LeastAllocated,
+        node_resources.MostAllocated,
         node_name.NodeName,
         node_ports.NodePorts,
         node_unschedulable.NodeUnschedulable,
@@ -42,6 +44,7 @@ def new_in_tree_registry() -> Dict[str, Callable]:
         pod_topology_spread.PodTopologySpread,
         selector_spread.SelectorSpread,
         image_locality.ImageLocality,
+        mesh_locality.MeshLocality,
         volume_binding.VolumeBinding,
         volume_restrictions.VolumeRestrictions,
         volume_zone.VolumeZone,

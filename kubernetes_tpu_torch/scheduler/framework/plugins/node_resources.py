@@ -180,3 +180,26 @@ class LeastAllocated(_ResourceAllocationScorer):
             total += weight * free * MAX_NODE_SCORE // allocatable[name]
             weight_sum += weight
         return total // weight_sum if weight_sum else 0
+
+
+class MostAllocated(LeastAllocated):
+    """The bin-packing score of the cluster autoscaler provider: the
+    used share of each resource, weighted and averaged."""
+
+    NAME = "NodeResourcesMostAllocated"
+
+    @staticmethod
+    def factory(args, handle):
+        p = MostAllocated(handle)
+        p._load_weights(args)
+        return p
+
+    def _score_from_fractions(self, requested, allocatable) -> int:
+        total, weight_sum = 0, 0
+        for name, weight in self.resources.items():
+            if allocatable[name] == 0:
+                continue
+            used = min(requested[name], allocatable[name])
+            total += weight * used * MAX_NODE_SCORE // allocatable[name]
+            weight_sum += weight
+        return total // weight_sum if weight_sum else 0

@@ -23,9 +23,9 @@ ZONE_WEIGHTING = 2.0 / 3.0
 
 def get_pod_selectors(client, pod: Pod) -> List[Selector]:
     """Selectors of every controller-ish object selecting this pod
-    (reference helper.DefaultSelector). The store's listers of Services,
-    ReplicationControllers, ReplicaSets and StatefulSets hold none yet,
-    so this finds none and every node scores the same."""
+    (reference helper.DefaultSelector): the pod's namespace's Services,
+    ReplicationControllers, ReplicaSets and StatefulSets whose selector
+    matches its labels."""
     selectors: List[Selector] = []
     ns = pod.namespace
     labels = pod.metadata.labels

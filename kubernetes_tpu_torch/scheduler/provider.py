@@ -1,12 +1,8 @@
 """The providers' plugin wiring: per extension point, the plugins in
 order, and each score plugin's weight. ``PROVIDERS`` maps a provider's
-name to its wiring.
-
-The JAX package's default provider also scores with MeshLocality, which
-the port does not have: a mesh-block pod is refused before it reaches
-the framework (see ``ops.encode.is_host_only``), and for every other pod
-it adds the same score to every node, so leaving it out changes no
-placement and no status."""
+name to its wiring. The default wiring scores with MeshLocality at
+weight 1 (0 on every node for a pod without a mesh block); the cluster
+autoscaler's packs pods (MostAllocated in LeastAllocated's place)."""
 
 from typing import Dict, List, Tuple
 
@@ -34,7 +30,8 @@ def default_plugins() -> Wiring:
                   ("ImageLocality", 1), ("InterPodAffinity", 1),
                   ("NodeResourcesLeastAllocated", 1), ("NodeAffinity", 1),
                   ("NodePreferAvoidPods", 10000), ("PodTopologySpread", 2),
-                  ("TaintToleration", 1), ("SelectorSpread", 1)],
+                  ("TaintToleration", 1), ("MeshLocality", 1),
+                  ("SelectorSpread", 1)],
         "reserve": [("VolumeBinding", 1)],
         "pre_bind": [("VolumeBinding", 1)],
         "bind": [("DefaultBinder", 1)],
@@ -52,7 +49,18 @@ def gang_scheduling_plugins() -> Wiring:
     return p
 
 
+def cluster_autoscaler_plugins() -> Wiring:
+    """The default wiring with NodeResourcesMostAllocated scoring in
+    NodeResourcesLeastAllocated's place, at its weight."""
+    p = default_plugins()
+    p["score"] = [("NodeResourcesMostAllocated", w)
+                  if name == "NodeResourcesLeastAllocated" else (name, w)
+                  for name, w in p["score"]]
+    return p
+
+
 PROVIDERS = {
     "DefaultProvider": default_plugins,
+    "ClusterAutoscalerProvider": cluster_autoscaler_plugins,
     "GangSchedulingProvider": gang_scheduling_plugins,
 }

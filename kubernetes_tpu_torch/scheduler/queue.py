@@ -491,6 +491,13 @@ class SchedulingQueue(PodNominator):
             if stale:
                 self._move_pods_locked(stale, UNSCHEDULABLE_TIMEOUT)
 
+    def unschedulable_pods(self) -> List[Pod]:
+        """The parked unschedulable pods: each failed a cycle as
+        Unschedulable and waits for a cluster event (the cluster
+        autoscaler's trigger set)."""
+        with self._cond:
+            return [q.pod for q in self._unschedulable_q.values()]
+
     def pending_active_count(self) -> int:
         """Pods still due an attempt (active + backoff)."""
         with self._cond:

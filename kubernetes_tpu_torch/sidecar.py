@@ -11,8 +11,7 @@ is final:
 - the partition sends a pod the batch path cannot express (host ports,
   inline cloud disks, claims that need per-node binding,
   ``ops.encode.is_host_only``) or of another scheduler profile to the
-  serial path (``Scheduler.schedule_pod_serial``); a pod neither path
-  takes (mesh-block placement) is refused with ``InexpressiblePodError``;
+  serial path (``Scheduler.schedule_pod_serial``);
 - a placed pod's unbound WaitForFirstConsumer claims (node-independent,
   so the solve ignored them) are bound at commit to a PV of the class's
   free pool, the smallest that fits (``_CommitVolumeBinder``); when the

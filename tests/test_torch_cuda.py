@@ -543,3 +543,32 @@ def test_a_warmed_pad_triggers_no_first_load(card):
     assert kernel.launched and res.telemetry["warm_compiles"] >= 1
     assert res.telemetry["unexpected_compiles"] == 0
     assert res.telemetry["compiles"] == 0
+
+
+# ----------------------------------------------------------------------
+# the legacy scan (the cluster autoscaler's what-if)
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,host_key,n_pods", [
+    (0, True, 200), (1, False, 200), (2, True, 600)])
+def test_scan_kernel_matches_plain(card, seed, host_key, n_pods):
+    """``solve_scan_kernel`` against the plain scan on seeded what-ifs
+    (zone and hostname keys, hard and soft spread, (anti-)affinity,
+    preferred weights, graded penalty tiers, disabled columns, padded
+    rows): the assignments and every final table equal."""
+    from kubernetes_tpu_torch.harness.problems import whatif_problem
+    from kubernetes_tpu_torch.ops import solver
+
+    cluster, batch, pen, dis = whatif_problem(seed, host_key=host_key,
+                                              n_pods=n_pods, pad=1024)
+    scores, valid = solver.whatif_overrides(cluster, batch, pen, dis)
+    outs = []
+    before = solver.scan_kernel.launches
+    for device in (card, torch.device("cpu")):
+        static, state, ints, floats = solver.scan_inputs(
+            cluster, batch, device, scores, valid)
+        a = solver.solve_packed(SolverParams(), static, state, ints, floats)
+        outs.append([a.cpu()] + [t.cpu() for t in state])
+    assert solver.scan_kernel.launches == before + 1
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    assert (outs[0][0] >= 0).any()

@@ -85,3 +85,68 @@ def test_observability_modules_are_checked_and_import(rel):
     assert path in _port_sources()
     module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
     importlib.import_module(module.removesuffix(".__init__"))
+
+
+SLICE_9_MODULES = (
+    "ops/build.py", "ops/solver.py", "client/workqueue.py",
+    "client/informers.py", "controllers/__init__.py", "controllers/base.py",
+    "metrics/autoscaler_metrics.py", "autoscaler/__init__.py",
+    "autoscaler/nodegroups.py", "autoscaler/simulator.py",
+    "autoscaler/controller.py", "harness/burst.py", "harness/elastic.py",
+    "scheduler/framework/plugins/mesh_locality.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_9_MODULES)
+def test_autoscaler_modules_are_checked_and_import(rel):
+    """The what-if path's modules are among the sources the import rule
+    checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module.removesuffix(".__init__"))
+
+
+def _whatif_entry_points():
+    """Each what-if entry point, called without a device."""
+    from kubernetes_tpu_torch.apiserver.store import ClusterStore
+    from kubernetes_tpu_torch.autoscaler.controller import ClusterAutoscaler
+    from kubernetes_tpu_torch.autoscaler.nodegroups import NodeGroup
+    from kubernetes_tpu_torch.autoscaler.simulator import (
+        plan_scale_up,
+        run_whatif,
+    )
+    from kubernetes_tpu_torch.client.informers import SharedInformerFactory
+    from kubernetes_tpu_torch.harness.burst import make_burst_pods
+    from kubernetes_tpu_torch.harness.elastic import run_autoscale_bench
+    from kubernetes_tpu_torch.harness.problems import whatif_problem
+    from kubernetes_tpu_torch.ops import solver
+
+    group = NodeGroup("ng", cpu="4")
+    nodes = [group.node_template(0)]
+    pods = make_burst_pods(3)
+    cluster, batch, pen, dis = whatif_problem(0, n_nodes=4, n_bound=2,
+                                              n_pods=4, n_upcoming=1,
+                                              n_virtual=1, n_disabled=1,
+                                              pad=8)
+    store = ClusterStore()
+    return {
+        "solve_scan": lambda: solver.solve_scan(cluster, batch),
+        "solve_whatif": lambda: solver.solve_whatif(
+            cluster, batch, deprioritized_cols=pen, disabled_cols=dis),
+        "run_whatif": lambda: run_whatif(nodes, [], pods),
+        "plan_scale_up": lambda: plan_scale_up(nodes, [], pods,
+                                               [(group, 2)]),
+        "ClusterAutoscaler": lambda: ClusterAutoscaler(
+            store, SharedInformerFactory(store)),
+        "run_autoscale_bench": lambda: run_autoscale_bench(burst=4),
+    }
+
+
+@pytest.mark.parametrize("name", ("solve_scan", "solve_whatif",
+                                  "run_whatif", "plan_scale_up",
+                                  "ClusterAutoscaler", "run_autoscale_bench"))
+def test_whatif_entry_points_without_device_raise(no_cuda, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _whatif_entry_points()[name]()

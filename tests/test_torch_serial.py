@@ -21,7 +21,7 @@ import pytest
 from kubernetes_tpu.api.types import Pod as JaxPod
 from kubernetes_tpu.ops.encode import is_host_only as jax_is_host_only
 from kubernetes_tpu_torch.api.types import Pod
-from kubernetes_tpu_torch.ops.encode import InexpressiblePodError, is_host_only
+from kubernetes_tpu_torch.ops.encode import is_host_only
 from test_torch_framework import (
     cluster_dicts,
     jax_scheduler,
@@ -253,28 +253,15 @@ def _refused_pod(kind):
 
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_pods_neither_path_takes_are_refused(kind):
-    """Of the pods the port once refused, only the mesh-block pod still
-    is (MeshLocality is not ported), explicitly by the partition, in
+    """The pods the port once refused now take the JAX package's path, in
     every arm. A claim (one the store does not hold) and an inline cloud
     disk are host-only, as the JAX package says, and take the serial
     path, where the volume plugins run (VolumeBinding finds no claim,
-    VolumeRestrictions no conflict): in every arm the same outcome as the
-    JAX batch loop's."""
+    VolumeRestrictions no conflict); a mesh-block pod is batchable in
+    both packages (MeshLocality is a static score) and is placed: in
+    every arm the same outcome as the JAX batch loop's."""
     d = _refused_pod(kind)
     name = d["metadata"]["name"]
-    if kind == "mesh-block":
-        with pytest.raises(InexpressiblePodError):
-            is_host_only(Pod.from_dict(d))
-        for pipeline in (True, False):
-            arm = batch_arm(mixed_host_port_row(0)[0], False, pipeline, True,
-                            0)
-            try:
-                arm.store.create_pods([arm.pod(d)])
-                with pytest.raises(InexpressiblePodError):
-                    arm.bs.run_batch(pop_timeout=0.0)
-            finally:
-                arm.sched.stop()
-        return
     for pipeline in (True, False):
         got = {}
         for ref in (True, False):
@@ -289,12 +276,12 @@ def test_pods_neither_path_takes_are_refused(kind):
                 arm.sched.stop()
         assert got[False] == got[True]
         host_only, (node, cond, _) = got[False]
-        assert host_only
-        if kind == "inline-disk":
-            assert node
-        else:
+        assert host_only == (kind != "mesh-block")
+        if kind == "claim":
             assert not node and "persistentvolumeclaim not found" in \
                 cond[0][2]
+        else:
+            assert node
 
 
 def test_host_port_pods_are_host_only():
