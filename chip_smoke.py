@@ -46,7 +46,10 @@ prints no result):
    pipelined, serialized: the same pods bound to the same nodes in all
    four; each dispatch (``solve_lazy``, host clock, the cyclic GC's
    pauses taken out) under half its kernel's CUDA-event time, and the
-   card still busy right after some of them;
+   card still busy right after some of them. A dispatch over that bound
+   passes only as host noise: the card still busy right after it, and
+   the same dispatch of the arm's other run under the bound (a wait for
+   the card lies on the dispatch's code path and recurs in both);
 9. the churn path (``workloads.churn``: 6 waves of 5,000 pods over 5,000
    nodes, a seeded 10% of the bound pods deleted and 2% of the nodes
    given a new allocatable cpu after each wave, one pod deleted while a
@@ -140,7 +143,12 @@ prints no result):
     preferred weights, graded penalty tiers 300 upcoming and 256 virtual
     columns deep over 2,000 pods, more than 1,024 columns, the tables
     forced out of shared memory, two batches carrying the state, padded
-    rows;
+    rows; and ``scan_cases`` (N at each boundary of the columns a thread
+    owns, zone keys, hard spread only, terms only, the tables and the
+    column arrays forced to global memory, B not a multiple of the chunk,
+    all padding, B = 0). Every case is launched ten times on fresh
+    copies of the state, and every result must be identical (a race
+    would show as a difference);
 25. ``bench.py``'s autoscale row (30,000 pods of 500m on 32-cpu nodes,
     94 of the 469 needed up at the start, boot latency 1 s, batches of
     4,096): every pod bound within needed + 2 nodes, at least one
@@ -149,8 +157,9 @@ prints no result):
     all bound, scale-ups, nodes provisioned and each what-if's ms (CUDA
     events on its own stream); the compiles booked in measured cycles
     reported (node columns grow by design). Then ten bare launches of
-    the scan kernel on the row's largest what-if batch, and the plain
-    scan once on it, which must agree;
+    the scan kernel on the row's largest what-if batch and on the fixed
+    yardstick (``SCAN_YARDSTICK``: 2,000 pods with constraints, N =
+    512), and the plain scan once on each, which must agree;
 26. mesh-block gangs on the batch path: 256 nodes labelled 16 x 16, 24
     gangs of 8 one-cpu pods, a mesh block each: every pod bound, the same
     map as on the CPU, and the members' mean ring from their anchors less
@@ -205,6 +214,8 @@ from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.harness.problems import (
     random_planes,
     random_slot_planes,
+    scan_case_inputs,
+    scan_cases,
     whatif_problem,
 )
 from kubernetes_tpu_torch.ops import build
@@ -1028,11 +1039,38 @@ def _ms_list(xs):
     return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
 
+def split_slow_dispatches(run, other):
+    """A phase_pipeline run's dispatches over half their kernel's time,
+    as (slow, noise) lists of (index, wall ms, GC ms, kernel ms). Noise:
+    the card still busy right after the dispatch, and the same dispatch
+    of ``other`` (the arm's other run) under the bound. Slow: the rest."""
+    slow, noise = [], []
+    for i, flagged in enumerate(run["over_half_kernel"]):
+        if not flagged:
+            continue
+        recurs = i >= len(other["over_half_kernel"]) \
+            or other["over_half_kernel"][i]
+        seen = (i, round(run["dispatch_ms"][i], 3),
+                round(run["dispatch_gc_ms"][i], 3),
+                round(run["kernel_ms"][i], 3))
+        if recurs or not run["busy_after_dispatch"][i]:
+            slow.append(seen)
+        else:
+            noise.append(seen)
+    return slow, noise
+
+
 def phase_pipeline(nodes=5000, pods=30000, max_batch=4096):
     """SchedulingBasic in turns: serialized, pipelined, pipelined,
     serialized. Every run binds every pod, to the same nodes; every
     dispatch returns in under half its kernel's time, and some return
-    while their kernel still runs."""
+    while their kernel still runs. The host clock also counts time the
+    thread spent off its core on a shared host, so a dispatch over the
+    bound is host noise, not a hidden wait for the card, only when its
+    kernel was still running when it returned and the same dispatch in
+    the arm's other run (serialized: runs 1 and 4, pipelined: 2 and 3,
+    the same batches) stayed under the bound. Such dispatches are
+    logged and reported."""
     runs = []
     for pipeline in (False, True, True, False):
         arm = "pipelined" if pipeline else "serialized"
@@ -1051,11 +1089,7 @@ def phase_pipeline(nodes=5000, pods=30000, max_batch=4096):
         measured = [(c, k) for c, k in zip(calls, kernel_ms)
                     if not c["warming"]]
         # the cyclic GC's pauses are host time, not a wait for the card
-        slow = [(round(c["wall_ms"], 3), round(c["gc_ms"], 3), round(k, 3))
-                for c, k in measured if c["wall_ms"] - c["gc_ms"] > 0.5 * k]
-        check(not slow, f"{name}: dispatches over half their kernel's time "
-              f"(a hidden wait for the card; wall ms, GC ms, kernel ms): "
-              f"{slow}")
+        over = [c["wall_ms"] - c["gc_ms"] > 0.5 * k for c, k in measured]
         waits = sum(c["ring_waits"] for c, _ in measured)
         check(waits == 0, f"{name}: {waits} staging buffers still in use")
         check(any(c["busy"] for c, _ in measured),
@@ -1086,7 +1120,19 @@ def phase_pipeline(nodes=5000, pods=30000, max_batch=4096):
             "dispatch_gc_ms": [c["gc_ms"] for c, _ in measured],
             "kernel_ms": [k for _, k in measured],
             "busy_after_dispatch": [c["busy"] for c, _ in measured],
+            "over_half_kernel": over,
             "host_seconds": res.seconds, "placements": res.placements})
+    for r, other in zip(runs, runs[::-1]):
+        slow, noise = split_slow_dispatches(r, other)
+        check(not slow, f"SchedulingBasic {r['arm']}: dispatches over half "
+              f"their kernel's time with the card idle after them or in "
+              f"both runs of the arm (a hidden wait for the card; index, "
+              f"wall ms, GC ms, kernel ms): {slow}")
+        if noise:
+            log(f"  SchedulingBasic {r['arm']}: host noise, dispatches over "
+                f"half their kernel's time in this run alone, the card busy "
+                f"after each (index, wall ms, GC ms, kernel ms): {noise}")
+        r["host_noise"] = noise
     first = runs[0].pop("placements")
     for r in runs[1:]:
         check(r.pop("placements") == first,
@@ -2171,54 +2217,76 @@ def scan_batch(cluster, batch, pen, dis, device):
     return solver_mod.scan_inputs(cluster, batch, device, scores, valid)
 
 
-def scan_against_plain(name, cuda_batch, tables=None):
-    """The scan kernel on the card (``tables``: force the tables into or
-    out of shared memory) against the plain scan on CPU copies of the
-    same inputs: the assignments and every final table. Returns the
-    largest absolute difference, which must be 0."""
+SCAN_REPEATS = 10
+# the fixed seeded yardstick: N = 512 with constraints
+SCAN_YARDSTICK = dict(seed=10, n_nodes=94, n_upcoming=162, n_virtual=256,
+                      n_pods=2000, pad=2048)
+
+
+def _max_err(xs, ys):
+    return max((int((x - y).abs().max()) for x, y in zip(xs, ys)
+                if x.numel()), default=0)
+
+
+def scan_against_plain(name, cuda_batch, repeats=SCAN_REPEATS, **plan):
+    """The scan kernel on the card (``plan``: ``tables``, ``cols``
+    forced) ``repeats`` times, on fresh copies of the state, against the
+    plain scan on CPU copies of the same inputs: the assignments and
+    every final table. Every launch must give the same result. Returns
+    the largest absolute difference, which must be 0."""
     static, state, ints, floats = cuda_batch
     cpu = [solver_mod.ScanStatic(*(t.cpu() for t in static)),
            solver_mod.ScanState(*(t.to("cpu", copy=True) for t in state)),
            ints.cpu(), floats.cpu()]
-    st = solver_mod.ScanState(*(t.clone() for t in state))
-    got = solver_mod.scan_kernel(PARAMS, static, st, ints, floats,
-                                 tables=tables)
-    torch.cuda.synchronize()
+    outs = []
+    for _ in range(repeats):
+        st = solver_mod.ScanState(*(t.clone() for t in state))
+        got = solver_mod.scan_kernel(PARAMS, static, st, ints, floats,
+                                     **plan)
+        torch.cuda.synchronize()
+        outs.append([got.cpu(), *(t.cpu() for t in st)])
+    check(all(_max_err(o, outs[0]) == 0 for o in outs[1:]),
+          f"{name}: {repeats} launches give one result")
     want = solver_mod.solve_scan_plain(PARAMS, *cpu)
-    err = max(int((x.cpu() - y).abs().max()) for x, y in zip(
-        [got, *st], [want, *cpu[1]]))
+    err = _max_err(outs[0], [want, *cpu[1]])
     check(err == 0, f"scan kernel equals plain on {name}")
     placed = int((want >= 0).sum())
-    check(placed > 0, f"{name}: some pod placed")
+    r = static.allocatable.shape[1]
+    check(placed > 0 or not bool((ints[:, r + 3] > 0).any()),
+          f"{name}: some pod placed")
     log(f"  {name}: N={static.allocatable.shape[0]} "
         f"B={ints.shape[0]} SC={static.sc_codes.shape[0]} "
         f"T={static.term_codes.shape[0]} V={static.sc_domain.shape[2] - 1} "
-        f"tables {'shared' if tables is not False else 'global'}: "
-        f"{placed} placed, max_abs_err {err}")
+        f"plan {tuple(solver_mod.scan_kernel.plan(static, ints.shape[0], **plan))}"
+        f": {placed} placed, {repeats} launches alike, max_abs_err {err}")
     return err
 
 
 def phase_scan_compare():
     """The scan kernel against the plain scan, bit for bit, on seeded
     what-ifs (``whatif_problem``): hostname keys (V = N) and zone keys
-    only; graded tiers hundreds of columns deep; more than 1,024 columns
-    (threads strided); the tables forced out of shared memory; two
-    batches carrying the state; padded rows in every case."""
+    only; graded tiers hundreds of columns deep; more than 1,024 columns;
+    the tables forced out of shared memory; two batches carrying the
+    state; padded rows in every case; then ``scan_cases``. Each case ten
+    launches, all alike."""
     cases = [
-        ("host keys", whatif_problem(0), None),
-        ("zone keys", whatif_problem(1, host_key=False), None),
+        ("host keys", whatif_problem(0), {}),
+        ("zone keys", whatif_problem(1, host_key=False), {}),
         ("deep tiers", whatif_problem(2, n_nodes=94, n_bound=200,
                                       n_pods=2000, n_upcoming=300,
-                                      n_virtual=256, pad=2048), None),
-        ("strided columns", whatif_problem(3, n_nodes=900, n_bound=1500,
-                                           n_pods=1000, n_upcoming=100,
-                                           n_virtual=200, pad=1024), None),
+                                      n_virtual=256, pad=2048), {}),
+        ("1,536 columns", whatif_problem(3, n_nodes=900, n_bound=1500,
+                                         n_pods=1000, n_upcoming=100,
+                                         n_virtual=200, pad=1024), {}),
         ("global tables", whatif_problem(4, n_nodes=300, n_pods=500,
-                                         pad=512), False)]
+                                         pad=512), {"tables": False})]
     err = 0
-    for name, (cluster, batch, pen, dis), tables in cases:
+    for name, (cluster, batch, pen, dis), plan in cases:
         err = max(err, scan_against_plain(
-            name, scan_batch(cluster, batch, pen, dis, "cuda"), tables))
+            name, scan_batch(cluster, batch, pen, dis, "cuda"), **plan))
+    for case in scan_cases(seed=20, n_pods=600):
+        err = max(err, scan_against_plain(
+            case.name, scan_case_inputs(case, "cuda"), **case.plan))
     # two batches on one carried state
     cluster, batch, pen, dis = whatif_problem(5, n_pods=300, pad=512)
     static, state, ints, floats = scan_batch(cluster, batch, pen, dis,
@@ -2271,7 +2339,7 @@ def time_scan(name, batch, repeats=10):
     plain version on the card (host clock), which must agree. Returns
     (kernel ms, plain ms, max abs err)."""
     static, state, ints, floats = batch
-    plan = solver_mod.scan_kernel.plan(static)
+    plan = solver_mod.scan_kernel.plan(static, ints.shape[0])
     times = []
     for _ in range(repeats + 1):
         st = solver_mod.ScanState(*(t.clone() for t in state))
@@ -2606,6 +2674,12 @@ def main() -> None:
         "autoscale row's largest what-if", scan_largest)
     errs["scan"] = max(errs["scan"], err)
     scan_b_ms, scan_b_by = scan_bound_ms(*scan_largest)
+    yard = whatif_problem(**SCAN_YARDSTICK)
+    yard_batch = scan_batch(*yard, "cuda")
+    yard_ms, yard_plain_ms, err, yard_pods = time_scan(
+        "fixed yardstick", yard_batch)
+    errs["scan"] = max(errs["scan"], err)
+    yard_b_ms, _ = scan_bound_ms(*yard_batch)
 
     log("[26] mesh-block gangs on the batch path")
     mesh = phase_mesh()
@@ -2649,7 +2723,12 @@ def main() -> None:
                  "bound_ms": scan_b_ms, "bound_by": scan_b_by,
                  "batch": f"autoscale row's largest what-if "
                           f"({scan_pods} pods, N="
-                          f"{scan_largest[0].allocatable.shape[0]})"}}
+                          f"{scan_largest[0].allocatable.shape[0]})",
+                 "yardstick_ms": yard_ms, "yardstick_plain_ms": yard_plain_ms,
+                 "yardstick_bound_ms": yard_b_ms,
+                 "yardstick": f"whatif_problem({SCAN_YARDSTICK}) "
+                              f"({yard_pods} pods, N="
+                              f"{yard_batch[0].allocatable.shape[0]})"}}
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": LAUNCHES[k],

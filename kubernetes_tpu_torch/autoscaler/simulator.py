@@ -93,13 +93,13 @@ def run_whatif(
 ) -> WhatIfResult:
     """Encode the cluster with the extra columns and solve on ``device``:
     ``upcoming_nodes`` take the upcoming tier, ``new_nodes`` the virtual
-    one, ``disabled_names`` are removed from the solve. Host-only pods
-    (``is_host_only``: no placement on the scan, as the reference's
-    encoder marks them) are left out of the batch."""
-    batch_pods = [p for p in batch_pods if not is_host_only(p)]
+    one, ``disabled_names`` are removed from the solve. Every pod keeps
+    its row, in the caller's order: a host-only pod (``is_host_only``)
+    is a row flagged ``inexpressible``, which the scan never places, as
+    the reference's encoder marks it."""
     snapshot = new_snapshot(bound_pods, list(nodes))
     extras = list(upcoming_nodes) + list(new_nodes)
-    enc = BatchEncoder(snapshot, extra_nodes=extras)
+    enc = BatchEncoder(snapshot, extra_nodes=extras, host_only_rows=True)
     cluster, batch = enc.encode(list(batch_pods), pad_pods=pad_pods)
     base = enc.num_snapshot_nodes
     upcoming_cols = list(range(base, base + len(upcoming_nodes)))
@@ -273,7 +273,8 @@ def pods_fit_elsewhere(
     """Scale-down: with ``node_name``'s column disabled, does each of its
     pods find a node? Conservative: its pods stay in the usage and the
     topology counts, where they only make a placement harder. A host-only
-    pod never fits (the scan places none)."""
+    pod never fits: the scan never places its row, so the answer is
+    False without a solve."""
     if not its_pods:
         return True
     if any(is_host_only(p) for p in its_pods):

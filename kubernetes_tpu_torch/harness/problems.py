@@ -1,7 +1,8 @@
 """Seeded solve problems made directly in the planes layout, at any node
 count and constraint width, for holding the solve kernels against their
 plain version (``tests/test_torch_cuda.py``, ``chip_smoke.py``); and
-seeded what-if problems for the legacy scan (``whatif_problem``).
+seeded what-if problems for the legacy scan (``whatif_problem``) with
+the cases its kernel is held against (``scan_cases``).
 
 The planes are consistent the way the encoder makes them: topology counts
 are per domain value (every column of a domain holds its count), the
@@ -13,7 +14,7 @@ clamped to them (some nodes full), and attached bits clear on full nodes."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from kubernetes_tpu_torch.autoscaler.simulator import (
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
 from kubernetes_tpu_torch.ops.planes import PStatic, state_planes, static_planes
 from kubernetes_tpu_torch.ops.slots import SPARSE_K
+from kubernetes_tpu_torch.ops import solver
 from kubernetes_tpu_torch.ops.solver import VIRTUAL_NODE_PENALTY
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
 
@@ -166,16 +168,22 @@ ZONE = "topology.kubernetes.io/zone"
 HOST = "kubernetes.io/hostname"
 
 
+# the pending pods' kinds, drawn uniformly (None: a plain pod)
+WHATIF_KINDS = (None, None, "hard", "soft", "affinity", "anti", "preferred")
+
+
 def whatif_problem(seed: int, n_nodes: int = 40, n_bound: int = 60,
                    n_pods: int = 200, n_upcoming: int = 8,
                    n_virtual: int = 16, n_disabled: int = 2,
-                   host_key: bool = True, pad: int = 256):
+                   host_key: bool = True, pad: int = 256,
+                   kinds=WHATIF_KINDS):
     """(cluster, batch, penalties, disabled columns): a seeded cluster of
     small nodes (more pending pods than they hold) over six zones (one node without a zone label) with bound pods,
     ``n_pods`` pending pods mixing hard and soft zone spread, hostname
     spread and anti-affinity when ``host_key`` (so V = N), required zone
     affinity, preferred (anti-)affinity weights and plain pods, padded to
-    ``pad`` rows; ``n_upcoming`` + ``n_virtual`` template nodes appended
+    ``pad`` rows (``kinds``: the kinds drawn, of ``WHATIF_KINDS``);
+    ``n_upcoming`` + ``n_virtual`` template nodes appended
     as extra columns with the autoscaler's graded penalty tiers, and
     ``n_disabled`` real columns disabled. Encoded by the port's encoder
     (numpy arrays, as the reference's)."""
@@ -240,7 +248,6 @@ def whatif_problem(seed: int, n_nodes: int = 40, n_bound: int = 60,
              for i in range(n_nodes)]
     bound = [pod(f"b{i}", f"a{int(rng.integers(3))}",
                  f"n{int(rng.integers(n_nodes))}") for i in range(n_bound)]
-    kinds = (None, None, "hard", "soft", "affinity", "anti", "preferred")
     pending = [pod(f"p{i}", f"a{int(rng.integers(3))}",
                    kind=kinds[int(rng.integers(len(kinds)))])
                for i in range(n_pods)]
@@ -257,3 +264,80 @@ def whatif_problem(seed: int, n_nodes: int = 40, n_bound: int = 60,
     disabled = [int(c) for c in rng.choice(n_nodes, n_disabled,
                                            replace=False)]
     return cluster, batch, penalties, disabled
+
+
+class ScanCase(NamedTuple):
+    """One input of the scan kernel's card checks: a what-if problem
+    (``whatif_problem``'s tuple), cut to its first ``n`` columns and to
+    the pod ``rows`` when given, every row made padding when
+    ``padding``, and the plan choices ``plan`` forces (``tables``,
+    ``cols``)."""
+
+    name: str
+    problem: tuple
+    n: Optional[int] = None
+    rows: Optional[slice] = None
+    padding: bool = False
+    plan: dict = {}
+
+
+def scan_cases(seed: int = 0, n_pods: int = 200) -> List[ScanCase]:
+    """The cases the scan kernel is held against its plain version on:
+    N at 256 x k - 1, 256 x k and 256 x k + 1 for k = 1, 2, 4, 8, so at
+    each boundary of the plan's columns a thread (k steps at 512, 1,024
+    and 2,048 columns) and at 256 threads; zone
+    keys only (V < N, many columns on one code); hard spread only (the
+    domain minimum); required affinity, anti-affinity and preferred
+    weights only; the tables, the column arrays, and both, forced into
+    global memory; B not a multiple of the chunk; a batch that is all
+    padding; and B = 0."""
+    wide = whatif_problem(seed, n_nodes=300, n_bound=400, n_pods=n_pods,
+                          n_upcoming=100, n_virtual=1700, pad=n_pods)
+    base = whatif_problem(seed + 1, n_pods=n_pods, pad=n_pods)
+    cases = [ScanCase(f"N={256 * k + d}", wide, n=256 * k + d)
+             for k in (1, 2, 4, 8) for d in (-1, 0, 1)]
+    return cases + [
+        ScanCase("zone keys", whatif_problem(seed + 2, host_key=False,
+                                             n_pods=n_pods, pad=n_pods)),
+        ScanCase("hard spread", whatif_problem(
+            seed + 3, n_pods=n_pods, pad=n_pods, kinds=("hard",))),
+        ScanCase("terms", whatif_problem(
+            seed + 4, n_pods=n_pods, pad=n_pods,
+            kinds=("affinity", "anti", "preferred"))),
+        ScanCase("global tables", base, plan={"tables": False}),
+        ScanCase("global columns", base, plan={"cols": False}),
+        ScanCase("global tables and columns", base,
+                 plan={"tables": False, "cols": False}),
+        ScanCase("B=37", base, rows=slice(0, 37)),
+        ScanCase("all padding", base, padding=True),
+        ScanCase("B=0", base, rows=slice(0, 0)),
+    ]
+
+
+def scan_case_inputs(case: ScanCase, device):
+    """(static, state, pod ints, pod floats) of ``case`` on ``device``,
+    as ``ops.solver.scan_inputs`` makes them with the what-if's
+    penalties and disabled columns."""
+    cluster, batch, pen, dis = case.problem
+    scores, valid = solver.whatif_overrides(cluster, batch, pen, dis)
+    static, state, ints, floats = solver.scan_inputs(cluster, batch, device,
+                                                     scores, valid)
+    if case.n is not None:
+        cols = slice(0, case.n)
+        static = solver.ScanStatic(
+            static.allocatable[cols], static.max_pods[cols],
+            static.static_masks[:, cols], static.static_scores[:, cols],
+            static.sc_codes[:, cols], static.sc_max_skew, static.sc_hard,
+            static.sc_domain, static.term_codes[:, cols],
+            static.node_valid[cols])
+        state = state._replace(requested=state.requested[cols],
+                               nonzero_requested=state.nonzero_requested[cols],
+                               pod_count=state.pod_count[cols])
+    if case.rows is not None:
+        ints, floats = ints[case.rows], floats[case.rows]
+    if case.padding:
+        ints = ints.clone()
+        ints[:, static.allocatable.shape[1] + 3] = 0
+    return (solver.ScanStatic(*(x.contiguous() for x in static)),
+            solver.ScanState(*(x.contiguous() for x in state)),
+            ints.contiguous(), floats.contiguous())

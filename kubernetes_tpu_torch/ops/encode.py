@@ -40,7 +40,10 @@ device carries.
 inline cloud disks, claims other than bound or node-independent
 WaitForFirstConsumer ones, more than one shared CSI volume); the batch
 loop routes them there, and the encoder raises
-``InexpressiblePodError`` if it is handed one. A mesh-block pod's
+``InexpressiblePodError`` if it is handed one, unless it was built with
+``host_only_rows=True`` (the autoscaler's what-if): then such a pod is a
+row flagged ``inexpressible``, which the scan never places, as the
+reference's encoder marks it. A mesh-block pod's
 closeness to its block's anchor (MeshLocality) is a static score, and
 its block is part of its static profile key. A pod whose non-shared
 volume is already attached somewhere is flagged ``inexpressible`` in its
@@ -298,7 +301,7 @@ class EncodedPodBatch:
     requests: np.ndarray           # [B, R] int32
     nonzero_requests: np.ndarray   # [B, 2] int32
     profile_idx: np.ndarray        # [B] int32 into the static masks
-    inexpressible: np.ndarray      # [B] bool (always False here)
+    inexpressible: np.ndarray      # [B] bool: the row is never placed
     pod_sc: np.ndarray             # [B, SC] bool: constraint is the pod's
     pod_sc_match: np.ndarray       # [B, SC] bool: pod counts toward it
     match_by: np.ndarray           # [B, T] bool: pod matched by term
@@ -333,11 +336,15 @@ class BatchEncoder:
     its last full ``encode`` for ``encode_pods_only``. ``client`` (the
     store) serves the storage objects; without it no pod may have a
     claim. ``extra_nodes`` are appended after the snapshot's
-    ``num_snapshot_nodes`` columns, with no pods."""
+    ``num_snapshot_nodes`` columns, with no pods. ``host_only_rows``
+    encodes a host-only pod as an ``inexpressible`` row instead of
+    raising."""
 
     def __init__(self, snapshot: Snapshot, client=None,
-                 extra_nodes: Optional[List] = None):
+                 extra_nodes: Optional[List] = None,
+                 host_only_rows: bool = False):
         self.snapshot = snapshot
+        self._host_only_rows = host_only_rows
         self.node_infos = [ni for ni in snapshot.list() if ni.node is not None]
         self.num_snapshot_nodes = len(self.node_infos)
         for node in extra_nodes or ():
@@ -695,8 +702,9 @@ class BatchEncoder:
         8."""
         if self._resource_names is None:
             return None
-        for pod in pods:
-            check_expressible(pod, self._client, self._wfc_cache)
+        if not self._host_only_rows:
+            for pod in pods:
+                check_expressible(pod, self._client, self._wfc_cache)
         b_real = len(pods)
         b_pad = _round_up(
             pad_pods if b_real <= pad_pods
@@ -736,7 +744,11 @@ class BatchEncoder:
             requests[bi] = _resource_row(pi.resource_request, resource_names)
             nonzero_requests[bi] = (pi.non_zero_request.milli_cpu,
                                     _kib(pi.non_zero_request.memory))
-            if self._attach_col and pod.spec.volumes:
+            if self._host_only_rows:
+                inexpressible[bi] = is_host_only(pod, self._client,
+                                                 self._wfc_cache)
+            if self._attach_col and not inexpressible[bi] \
+                    and pod.spec.volumes:
                 relevant = {(d, v) for d, v in self._pod_attach(pod)
                             if d in self._attach_col}
                 shared = {p for p in relevant if p in self._sv_slots}

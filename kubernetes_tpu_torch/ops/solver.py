@@ -92,9 +92,89 @@ def pack_podin(batch) -> Tuple[np.ndarray, np.ndarray]:
 # real < upcoming < virtual columns.
 VIRTUAL_NODE_PENALTY = np.float32(1.0e6)
 SCAN_SOURCE = build.CSRC_DIR / "scan_kernel.cu"
-SCAN_THREADS = 1024
+# columns a thread owns, and the block sizes of the kernel's instances:
+# K < 8 with at most 512 threads, K = 8 with up to 1,024 (past 2,048
+# columns)
+SCAN_KS = (1, 2, 4, 8)
+SCAN_SMALL_BLOCK = 512
+SCAN_LARGE_BLOCK = 1024
+SCAN_MAX_CHUNK = 32
+SCAN_WARP_SLOTS = 32
+SCAN_FACTS_HEADER = 16
 # one block's shared memory on Hopper (227 KB)
 SCAN_SMEM_LIMIT = 232448
+
+
+class ScanPlan(NamedTuple):
+    """One launch's shape: ``threads`` threads owning ``k`` columns each,
+    pod rows staged ``chunk`` at a time, where the value-indexed tables
+    and the column-owned arrays live, and the shared-memory bytes."""
+
+    threads: int
+    k: int
+    chunk: int
+    tables_in_smem: bool
+    cols_in_smem: bool
+    smem_bytes: int
+
+
+def scan_col_words(sc: int, t: int, n_cols: int) -> int:
+    """Words of the column-owned arrays over ``n_cols`` (k x threads)
+    columns: the codes and the three tables' counts at them."""
+    return (2 * sc + 3 * t) * n_cols
+
+
+def scan_smem_words(r: int, sc: int, t: int, v: int, n_cols: int,
+                    chunk: int, tables: bool, cols: bool) -> int:
+    """Words of the kernel's shared-memory layout (``scan_layout`` in
+    ``csrc/scan_kernel.cu`` sums the same): the warp winners (two halves
+    of a 64-bit slot a warp); ``chunk`` pods' facts (a header of 16
+    words and five entry lists, rounded up to four words); the tables [SC+2T, V+1] when ``tables``; the totals
+    [T]; the column arrays when ``cols``; two buffers of ``chunk`` pod
+    rows and weights; the domain minima [SC, 32]."""
+    width = r + 4 + 2 * sc + 3 * t
+    return 4 * SCAN_WARP_SLOTS \
+        + ((sc + 2 * t) * (v + 1) if tables else 0) + t \
+        + (scan_col_words(sc, t, n_cols) if cols else 0) \
+        + 2 * chunk * (width + t) \
+        + chunk * (-(-(SCAN_FACTS_HEADER + 3 * sc + 2 * t) // 4) * 4) \
+        + sc * SCAN_WARP_SLOTS
+
+
+def scan_plan(r: int, sc: int, t: int, v: int, n: int, b: int,
+              tables=None, cols=None, k=None) -> ScanPlan:
+    """The scan kernel's launch shape for these dims. ``k`` is the least
+    of ``SCAN_KS`` with which 512 threads cover N (else 8, with up to
+    1,024 threads): more warps with fewer columns each are faster on
+    this latency-bound loop; threads are the warps that cover N. The chunk is 32
+    pod rows (fewer when B is smaller), halved until the layout fits one
+    block's shared memory, trying first the column arrays and the tables
+    both in shared memory, then the tables in global memory, then the
+    column arrays, then both. ``tables``, ``cols`` (True or False) and
+    ``k`` force a choice. Raises ValueError for a shape no layout
+    takes."""
+    if k is None:
+        k = next((x for x in SCAN_KS if n <= SCAN_SMALL_BLOCK * x),
+                 SCAN_KS[-1])
+    elif k not in SCAN_KS:
+        raise ValueError(f"k={k} is not one of {SCAN_KS}")
+    threads = max(32, -(-(-(-n // k)) // 32) * 32)
+    limit = SCAN_LARGE_BLOCK if k == SCAN_KS[-1] else SCAN_SMALL_BLOCK
+    if threads > limit:
+        raise ValueError(f"no scan layout covers N={n} with k={k}: "
+                         f"{threads} threads past {limit}")
+    placements = [(c, tb) for c in (True, False) for tb in (True, False)
+                  if cols in (None, c) and tables in (None, tb)]
+    chunk = min(SCAN_MAX_CHUNK, max(b, 1))
+    while chunk >= 1:
+        for c, tb in placements:
+            nbytes = 4 * scan_smem_words(r, sc, t, v, k * threads, chunk,
+                                         tb, c)
+            if nbytes <= SCAN_SMEM_LIMIT:
+                return ScanPlan(threads, k, chunk, tb, c, nbytes)
+        chunk //= 2
+    raise ValueError(f"no scan layout of R={r} SC={sc} T={t} V={v} N={n} "
+                     "fits one block's shared memory")
 
 
 class ScanStatic(NamedTuple):
@@ -315,10 +395,10 @@ class ScanKernel:
                 lib = ctypes.CDLL(str(build.build_kernel(SCAN_SOURCE)))
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 lib.ktt_solve_scan_launch.argtypes = (
-                    [p] * 19 + [i] * 10 + [f] * 5 + [p])
+                    [p] * 20 + [i] * 13 + [f] * 5 + [p])
                 lib.ktt_solve_scan_launch.restype = ctypes.c_int
-                lib.ktt_scan_smem_bytes.argtypes = [i] * 5
-                lib.ktt_scan_smem_bytes.restype = ctypes.c_int
+                lib.ktt_scan_smem_bytes.argtypes = [i] * 10
+                lib.ktt_scan_smem_bytes.restype = ctypes.c_longlong
                 self._lib = lib
                 self.note_compile("load scan", time.monotonic() - t0)
         return self._lib
@@ -370,44 +450,38 @@ class ScanKernel:
             if bool(((codes < 0) | (codes > v)).any()):
                 raise ValueError(f"topology code outside [0, {v}]")
 
-    def plan(self, static: ScanStatic, tables=None) -> Tuple[int, int, int]:
-        """(threads, tables in shared memory, shared-memory bytes): a
-        thread a column up to 1,024; the tables in shared memory when the
-        layout fits one block's 227 KB (``tables`` True or False forces
-        the choice; shared memory must still fit)."""
+    @staticmethod
+    def plan(static: ScanStatic, b: int, tables=None, cols=None,
+             k=None) -> ScanPlan:
+        """``scan_plan`` of the dims of ``static`` and ``b`` pod rows."""
         r, sc, t, _, v, n = _scan_dims(static)
-        lib = self._load()
-        threads = min(-(-n // 32) * 32, SCAN_THREADS)
-        smem = lib.ktt_scan_smem_bytes(r, sc, t, v, 1)
-        in_smem = smem <= SCAN_SMEM_LIMIT if tables is None else bool(tables)
-        if not in_smem:
-            smem = lib.ktt_scan_smem_bytes(r, sc, t, v, 0)
-        if smem > SCAN_SMEM_LIMIT:
-            raise ValueError(f"scan layout of {smem} B past one block's "
-                             "shared memory")
-        return threads, int(in_smem), smem
+        return scan_plan(r, sc, t, v, n, b, tables, cols, k)
 
     def launch(self, params: SolverParams, static: ScanStatic,
                state: ScanState, pod_ints: torch.Tensor,
-               pod_floats: torch.Tensor, plan: Tuple[int, int, int]
-               ) -> torch.Tensor:
+               pod_floats: torch.Tensor, plan: ScanPlan) -> torch.Tensor:
         """Launch on checked inputs (``check``) with ``plan``, on the
         current stream, without synchronising; ``state`` is updated in
         place. Raises on a refused launch."""
         lib = self._load()
-        threads, in_smem, smem = plan
         r, sc, t, u, v, n = _scan_dims(static)
         b = pod_ints.shape[0]
-        assign = torch.empty(b, dtype=torch.int32,
-                             device=state.pod_count.device)
-        stream = torch.cuda.current_stream(assign.device).cuda_stream
+        device = state.pod_count.device
+        assign = torch.empty(b, dtype=torch.int32, device=device)
+        scratch = None
+        if not plan.cols_in_smem:
+            scratch = torch.empty(scan_col_words(sc, t, plan.k * plan.threads),
+                                  dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
         first = not self.launched
         t0 = time.monotonic()
         ptrs = [x.data_ptr() for x in (pod_ints, pod_floats, *static, *state,
                                        assign)]
+        ptrs.append(None if scratch is None else scratch.data_ptr())
         err = lib.ktt_solve_scan_launch(
-            *ptrs, r, sc, t, u, v, n, b, threads, in_smem, smem,
-            *params.as_tuple(), stream)
+            *ptrs, r, sc, t, u, v, n, b, plan.k, plan.threads, plan.chunk,
+            int(plan.tables_in_smem), int(plan.cols_in_smem),
+            plan.smem_bytes, *params.as_tuple(), stream)
         if err != 0:
             raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -418,11 +492,14 @@ class ScanKernel:
 
     def __call__(self, params: SolverParams, static: ScanStatic,
                  state: ScanState, pod_ints: torch.Tensor,
-                 pod_floats: torch.Tensor, tables=None) -> torch.Tensor:
-        """Check, plan (``tables``: see ``plan``) and launch."""
+                 pod_floats: torch.Tensor, tables=None, cols=None,
+                 k=None) -> torch.Tensor:
+        """Check, plan (``tables``, ``cols``, ``k``: see ``scan_plan``)
+        and launch."""
         self.check(static, state, pod_ints, pod_floats)
         return self.launch(params, static, state, pod_ints, pod_floats,
-                           self.plan(static, tables))
+                           self.plan(static, pod_ints.shape[0], tables,
+                                     cols, k))
 
 
 scan_kernel = ScanKernel()

@@ -5,13 +5,16 @@ candidate's column disabled; the port's batched plan against its own
 per-pod serial oracle; one ``reconcile_once`` scale-up and a PDB-bound
 drain with a ``SimulatedProvisioner`` of zero boot latency; and the
 workqueue and informers it rides on. Inputs are manifest dicts made from
-a seed and read by both packages. Tolerance: exact equality (the waste
-share is the same float arithmetic on the same integers)."""
+a seed and read by both packages. A host-port pod pending among the
+others keeps its what-if row, unplaced, in both packages. Tolerance:
+exact equality (the waste share is the same float arithmetic on the
+same integers)."""
 
 import copy
 import random
 import time
 
+import numpy as np
 import pytest
 
 from kubernetes_tpu.api.types import Node as JaxNode, Pod as JaxPod
@@ -174,6 +177,84 @@ def test_pods_fit_elsewhere_equals_the_reference(fill):
         kw = {"device": "cpu"} if pkg is PORT else {}
         got.append(pkg["sim"].pods_fit_elsewhere(n, b, "m0", its, **kw))
     assert got[0] == got[1] == (fill == "free")
+
+
+def host_port_dict(name, cpu_milli=500):
+    d = pod_dict(name, cpu_milli)
+    d["spec"]["containers"][0]["ports"] = [{"containerPort": 80,
+                                            "hostPort": 8080}]
+    return d
+
+
+@pytest.mark.parametrize("seed", (7, 21, 42))
+def test_whatif_keeps_host_only_rows_as_the_reference(seed):
+    """A host-port pod in the middle of the pending list keeps its row:
+    the port's ``run_whatif`` (scan and serial arms) gives the JAX
+    package's assignments, same length, order and values, -1 on the
+    host-only row, and the same per-column counts."""
+    nodes, bound, pending, groups = world(seed)
+    mid = len(pending) // 2
+    pending = pending[:mid] + [host_port_dict("hp0")] + pending[mid:]
+    got = []
+    for pkg in (PORT, JAX, "serial"):
+        n, b, p, gs = build(PORT if pkg == "serial" else pkg, nodes, bound,
+                            pending, groups)
+        virt = [gs[0][0].node_template(f"whatif-{i}") for i in range(4)]
+        sim = JAX["sim"] if pkg is JAX else simulator
+        kw = {} if pkg is JAX else (
+            {"serial": True} if pkg == "serial" else {"device": "cpu"})
+        got.append(sim.run_whatif(n, b, p, new_nodes=virt, **kw))
+    port, ref, serial = got
+    assert len(port.assignments) == len(ref.assignments) == len(pending)
+    for res in (port, serial):
+        np.testing.assert_array_equal(res.assignments,
+                                      np.asarray(ref.assignments))
+        np.testing.assert_array_equal(res.counts, np.asarray(ref.counts))
+    assert port.assignments[mid] == -1 and port.batch.inexpressible[mid]
+    assert (port.assignments >= 0).sum() >= 10
+
+
+@pytest.mark.parametrize("seed", (7, 21))
+@pytest.mark.parametrize("expander", ("least-waste", "priority"))
+def test_plan_scale_up_with_a_host_only_pod_equals_the_reference(
+        seed, expander):
+    nodes, bound, pending, groups = world(seed)
+    pending = pending[:5] + [host_port_dict("hp0"), host_port_dict(
+        "hp1", 1000)] + pending[5:]
+    plans = []
+    for pkg in (PORT, JAX):
+        n, b, p, gs = build(pkg, nodes, bound, pending, groups)
+        kw = {"device": "cpu"} if pkg is PORT else {}
+        plans.append(pkg["sim"].plan_scale_up(
+            n, b, p, gs, expander=expander, max_virtual=12, max_pods=30,
+            **kw))
+    assert options(plans[0]) == options(plans[1])
+    assert plans[0].chosen is not None
+
+
+@pytest.mark.parametrize("fill", ("free", "full"))
+def test_pods_fit_elsewhere_with_a_host_only_pod_equals_the_reference(fill):
+    """The port answers False without a solve; the reference solves, and
+    its scan leaves the host-only row unplaced: the same verdict, with
+    room elsewhere or not."""
+    nodes = [node_dict(f"m{i}", 4, "z0") for i in range(3)]
+    bound = [pod_dict(f"a{i}", 700, node="m0") for i in range(2)]
+    hp = host_port_dict("hp")
+    hp["spec"]["nodeName"] = "m0"
+    bound.append(hp)
+    if fill == "full":
+        bound += [pod_dict("big1", 3800, node="m1"),
+                  pod_dict("big2", 3800, node="m2")]
+    got = []
+    for pkg in (PORT, JAX):
+        n, b, _, _ = build(pkg, nodes, bound, [], [])
+        its = [p for p in b if p.spec.node_name == "m0"]
+        kw = {"device": "cpu"} if pkg is PORT else {}
+        got.append(pkg["sim"].pods_fit_elsewhere(n, b, "m0", its, **kw))
+        without = [p for p in its if p.metadata.name != "hp"]
+        assert pkg["sim"].pods_fit_elsewhere(n, b, "m0", without, **kw) \
+            == (fill == "free")
+    assert got == [False, False]
 
 
 def _twin_reconcile(pkg, store, condition):

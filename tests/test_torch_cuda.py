@@ -572,3 +572,67 @@ def test_scan_kernel_matches_plain(card, seed, host_key, n_pods):
     for x, y in zip(*outs):
         assert torch.equal(x, y)
     assert (outs[0][0] >= 0).any()
+
+
+def _scan_run(kernel_or_plain, static, state, ints, floats, **plan):
+    st = type(state)(*(t.clone() for t in state))
+    if kernel_or_plain is None:
+        from kubernetes_tpu_torch.ops import solver
+        got = solver.solve_scan_plain(SolverParams(), static, st, ints,
+                                      floats)
+    else:
+        got = kernel_or_plain(SolverParams(), static, st, ints, floats,
+                              **plan)
+    return [got.cpu(), *(t.cpu() for t in st)]
+
+
+@pytest.mark.cuda
+def test_scan_kernel_cases_match_plain_and_repeat(card):
+    """The redesigned kernel on ``scan_cases`` (N at each k boundary,
+    zone keys, hard spread only, terms only, tables and column arrays
+    forced to global memory, B = 37, all padding, B = 0): three launches
+    on fresh copies of the state give the same assignments and state,
+    equal bit for bit to the plain scan on CPU copies."""
+    from kubernetes_tpu_torch.harness.problems import (
+        scan_case_inputs,
+        scan_cases,
+    )
+    from kubernetes_tpu_torch.ops import solver
+
+    for case in scan_cases(seed=11, n_pods=160):
+        static, state, ints, floats = scan_case_inputs(case, card)
+        cpu = scan_case_inputs(case, "cpu")
+        want = _scan_run(None, *cpu)
+        for _ in range(3):
+            got = _scan_run(solver.scan_kernel, static, state, ints, floats,
+                            **case.plan)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), case.name
+
+
+@pytest.mark.cuda
+def test_scan_kernel_layout_agrees_and_refuses_a_wrong_byte_count(card):
+    """The C side's layout bytes equal ``scan_smem_words`` over plan
+    shapes; a launch whose byte count disagrees is refused."""
+    from kubernetes_tpu_torch.harness.problems import whatif_problem
+    from kubernetes_tpu_torch.ops import solver
+
+    lib = solver.scan_kernel._load()
+    for n in (1, 31, 512, 1025, 1536, 5400):
+        for tables in (True, False):
+            for cols in (True, False):
+                try:
+                    plan = solver.scan_plan(3, 2, 3, n, n, 64, tables=tables,
+                                            cols=cols)
+                except ValueError:   # no chunk fits this placement
+                    continue
+                assert lib.ktt_scan_smem_bytes(
+                    3, 2, 3, n, n, plan.k, plan.threads, plan.chunk,
+                    int(tables), int(cols)) == plan.smem_bytes
+    cluster, batch, pen, dis = whatif_problem(0, n_pods=20, pad=32)
+    static, state, ints, floats = solver.scan_inputs(cluster, batch, card)
+    plan = solver.scan_kernel.plan(static, ints.shape[0])
+    bad = plan._replace(smem_bytes=plan.smem_bytes + 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        solver.scan_kernel.launch(SolverParams(), static, state, ints,
+                                  floats, bad)

@@ -226,3 +226,91 @@ def test_sv_batches_are_refused():
     batch.pod_sv = np.zeros((batch.requests.shape[0], 2), dtype=np.int32)
     with pytest.raises(ValueError, match="shared-volume"):
         solver.solve_scan(cluster, batch, device="cpu")
+
+
+# ----------------------------------------------------------------------
+# the kernel's launch plan (plain Python; the kernel refuses a launch
+# whose byte count disagrees with its own layout)
+LIMIT = 232448
+
+
+def layout_words(r, sc, t, v, n_cols, chunk, tables, cols):
+    """The layout's arithmetic, spelled out: the warp winners' two
+    halves (64-bit slots), tables, totals, column arrays, two buffers of
+    pod rows and weights, the facts, the domain minima."""
+    width = r + 4 + 2 * sc + 3 * t
+    return (2 * 32 * 2 + (sc + 2 * t) * (v + 1) * tables + t
+            + (2 * sc + 3 * t) * n_cols * cols
+            + 2 * chunk * width + 2 * chunk * t
+            + chunk * ((16 + 3 * sc + 2 * t + 3) // 4 * 4)
+            + sc * 32)
+
+
+@pytest.mark.parametrize("n", (1, 31, 512, 1024, 1025, 1536, 5400))
+@pytest.mark.parametrize("tables", (None, True, False))
+@pytest.mark.parametrize("b", (0, 64, 2048))
+@pytest.mark.parametrize("dims", ((3, 1, 1), (3, 18, 15)),
+                         ids=("plain", "constrained"))
+def test_scan_plan_covers_n_and_fits(n, tables, b, dims):
+    """threads x k covers N with no spare warp, the block sizes are the
+    instances', the chunk is the largest that fits (at most 32 and B),
+    and the bytes equal the layout's arithmetic, within one block's
+    shared memory; with hostname keys (V = N). A forced placement that
+    no chunk fits raises ValueError."""
+    r, sc, t = dims
+    v = n
+    try:
+        plan = solver.scan_plan(r, sc, t, v, n, b, tables=tables)
+    except ValueError:
+        # even N columns (at most k x threads) and one pod do not fit
+        assert tables is not None
+        assert all(4 * layout_words(r, sc, t, v, n, 1, tables, cols) > LIMIT
+                   for cols in (True, False))
+        return
+    assert plan.k in (1, 2, 4, 8)
+    assert plan.threads % 32 == 0 and plan.threads >= 32
+    assert plan.threads * plan.k >= n > (plan.threads - 32) * plan.k
+    assert plan.threads <= (1024 if plan.k == 8 else 512)
+    assert plan.k == 8 or n <= 512 * plan.k
+    assert plan.k == 1 or n > 512 * (plan.k // 2)
+    assert tables is None or plan.tables_in_smem == tables
+    assert 1 <= plan.chunk <= min(32, max(b, 1))
+    n_cols = plan.k * plan.threads
+    words = layout_words(r, sc, t, v, n_cols, plan.chunk,
+                         plan.tables_in_smem, plan.cols_in_smem)
+    assert plan.smem_bytes == 4 * words <= LIMIT
+    # nothing larger fits: not the next chunk, not a placement tried first
+    if plan.chunk < min(32, max(b, 1)):
+        assert all(4 * layout_words(r, sc, t, v, n_cols, 2 * plan.chunk,
+                                    tb, c) > LIMIT
+                   for c in (True, False) for tb in (True, False)
+                   if tables in (None, tb))
+    if tables is None and not plan.tables_in_smem:
+        assert 4 * layout_words(r, sc, t, v, n_cols, plan.chunk,
+                                True, plan.cols_in_smem) > LIMIT
+    if not plan.cols_in_smem:
+        assert all(4 * layout_words(r, sc, t, v, n_cols, plan.chunk, tb,
+                                    True) > LIMIT
+                   for tb in (True, False) if tables in (None, tb))
+
+
+def test_scan_plan_refuses_what_no_instance_takes():
+    with pytest.raises(ValueError, match="covers"):
+        solver.scan_plan(3, 1, 1, 8, 8193, 64)
+    with pytest.raises(ValueError, match="covers"):
+        solver.scan_plan(3, 1, 1, 8, 513, 64, k=1)
+    with pytest.raises(ValueError, match="one of"):
+        solver.scan_plan(3, 1, 1, 8, 512, 64, k=3)
+    with pytest.raises(ValueError, match="fits"):
+        solver.scan_plan(3, 4000, 4000, 8, 512, 64)
+    plan = solver.scan_plan(3, 1, 1, 8, 512, 64, k=4)
+    assert (plan.k, plan.threads) == (4, 128)
+
+
+def test_scan_plan_of_the_kernel_wrapper_reads_the_dims():
+    cluster, batch, pen, dis = whatif_problem(0, n_pods=20, pad=32)
+    static, state, ints, floats = solver.scan_inputs(cluster, batch, "cpu")
+    r, sc, t, _, v, n = solver._scan_dims(static)
+    assert solver.ScanKernel.plan(static, ints.shape[0]) == \
+        solver.scan_plan(r, sc, t, v, n, ints.shape[0])
+    assert solver.ScanKernel.plan(static, 5, tables=False).chunk == 5

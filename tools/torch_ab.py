@@ -9,6 +9,16 @@ every measured pod is bound (and, on the sustained row, none lost), and
 prints one JSON line: the card, and per row pods/s and latency
 percentiles. The kernels are built before the first row.
 
+The ``scan`` row times the scan kernel (the autoscaler's what-if) with
+ten bare launches, CUDA events around each, on two inputs: the fixed
+yardstick ``whatif_problem(10, n_nodes=94, n_upcoming=162,
+n_virtual=256, n_pods=2000, pad=2048)`` (N = 512, with constraints) and
+the autoscale row's largest what-if shape (94 full nodes of 32 cpu, 162
+booting and 256 new ones, 2,048 pending pods of 500m; N = 512, no
+constraints), its inputs taken as ``run_whatif`` hands them to the
+kernel. Every launch must give the same result; its digest (sha256 of
+the assignments and final state) lets two trees be held bit for bit.
+
 Compare two commits in one call, in turns, one process a run:
 
     git archive <parent> | tar -x -C chip_proof/parent
@@ -21,13 +31,18 @@ Imports ``torch`` and the package under ``--tree`` only.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
 
-ROWS = ("basic", "sustained", "preemption")
+ROWS = ("basic", "sustained", "preemption", "scan")
+YARDSTICK = dict(n_nodes=94, n_upcoming=162, n_virtual=256, n_pods=2000,
+                 pad=2048)
+YARDSTICK_SEED = 10
+SCAN_REPEATS = 10
 
 
 def _card() -> str:
@@ -41,12 +56,83 @@ def _percentiles(p: dict) -> dict:
     return {k: p[k] for k in ("Perc50", "Perc90", "Perc99") if k in p}
 
 
+def _autoscale_whatif(solver):
+    """The scan inputs of the autoscale row's largest what-if shape, as
+    ``run_whatif`` hands them to the kernel (recorded on the way)."""
+    from kubernetes_tpu_torch.autoscaler import simulator
+    from kubernetes_tpu_torch.autoscaler.nodegroups import NodeGroup
+    from kubernetes_tpu_torch.harness.burst import make_burst_pods
+
+    group = NodeGroup("ng-elastic", cpu="32", memory="64Gi")
+    nodes = [group.node_template(i) for i in range(94)]
+    bound = make_burst_pods(94 * 64, name_prefix="b-", uid_prefix="bu-")
+    for i, pod in enumerate(bound):
+        pod.spec.node_name = nodes[i // 64].name
+    pending = make_burst_pods(2048, name_prefix="p-", uid_prefix="pu-")
+    kernel, seen = solver.scan_kernel, []
+
+    def record(params, static, state, ints, floats, **kw):
+        seen.append((static, type(state)(*(t.clone() for t in state)),
+                     ints.clone(), floats.clone()))
+        return kernel(params, static, state, ints, floats, **kw)
+
+    solver.scan_kernel = record
+    try:
+        simulator.run_whatif(
+            nodes, bound, pending,
+            upcoming_nodes=[group.node_template(94 + i) for i in range(162)],
+            new_nodes=[group.node_template(256 + i) for i in range(256)],
+            pad_pods=2048, device="cuda")
+    finally:
+        solver.scan_kernel = kernel
+    return seen[0]
+
+
+def _time_scan(torch, solver, batch, k=None) -> dict:
+    """Ten bare launches (and one before them), each on a fresh copy of
+    the state; every result equal. ``k`` forces the columns a thread owns
+    (a tree with ``scan_plan``)."""
+    static, state, ints, floats = batch
+    kernel = solver.scan_kernel
+    b = ints.shape[0]
+    plan = kernel.plan(static, b, k=k) if hasattr(solver, "scan_plan") \
+        else kernel.plan(static)
+    params = solver.SolverParams()
+    times, outs = [], []
+    for _ in range(SCAN_REPEATS + 1):
+        st = type(state)(*(t.clone() for t in state))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = kernel.launch(params, static, st, ints, floats, plan)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        outs.append([got.cpu(), *(t.cpu() for t in st)])
+    if any(not all(torch.equal(x, y) for x, y in zip(o, outs[0]))
+           for o in outs[1:]):
+        sys.exit("scan: repeated launches disagree")
+    digest = hashlib.sha256(b"".join(
+        t.numpy().tobytes() for t in outs[0])).hexdigest()
+    r = static.allocatable.shape[1]
+    valid = int((ints[:, r + 3] > 0).sum())
+    ms = sum(times[1:]) / SCAN_REPEATS
+    return {"ms": ms, "ms_each": times[1:],
+            "us_per_pod": 1000 * ms / max(valid, 1),
+            "pods": valid, "n": static.allocatable.shape[0],
+            "placed": int((outs[0][0] >= 0).sum()), "plan": list(plan),
+            "digest": digest}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=".",
                     help="the checkout whose package runs")
     ap.add_argument("--rows", default=",".join(ROWS),
                     help="comma-separated, of " + ", ".join(ROWS))
+    ap.add_argument("--scan-k", default="",
+                    help="scan row: comma-separated columns a thread owns "
+                         "to force, each timed (default: the plan's)")
     ap.add_argument("--pin-chunk", action="store_true",
                     help="run_workload(..., adaptive_chunk=False): drains "
                          "and pads at max_batch, on the basic and "
@@ -63,12 +149,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("torch_ab: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
+    from kubernetes_tpu_torch.ops import build, solver
+
     assert solve_mod.__file__.startswith(tree), solve_mod.__file__
+    rows = args.rows.split(",")
     t0 = time.monotonic()
-    solve_mod.build_kernel()
+    build.build_kernels([solve_mod.KERNEL_SOURCE] * any(
+        r != "scan" for r in rows) + [solver.SCAN_SOURCE] * ("scan" in rows))
     out = {"tree": args.tree, "pin_chunk": args.pin_chunk, "card": _card(),
            "build_s": time.monotonic() - t0}
-    for row in args.rows.split(","):
+    for row in rows:
         t0 = time.monotonic()
         if row == "basic":
             res = perf.run_workload(
@@ -112,6 +202,21 @@ def main() -> None:
                         "victims": res.victims, "solves": res.solves,
                         "host_paths": res.host_paths,
                         "chunk": getattr(res, "chunk", None)}
+        elif row == "scan":
+            from kubernetes_tpu_torch.harness.problems import whatif_problem
+
+            cluster, batch, pen, dis = whatif_problem(YARDSTICK_SEED,
+                                                      **YARDSTICK)
+            scores, valid = solver.whatif_overrides(cluster, batch, pen, dis)
+            inputs = {"yardstick": solver.scan_inputs(
+                cluster, batch, "cuda", scores, valid),
+                "autoscale_whatif": _autoscale_whatif(solver)}
+            out[row] = {name: _time_scan(torch, solver, x)
+                        for name, x in inputs.items()}
+            for k in filter(None, args.scan_k.split(",")):
+                out[row][f"k={k}"] = {
+                    name: _time_scan(torch, solver, x, k=int(k))
+                    for name, x in inputs.items()}
         else:
             sys.exit(f"unknown row {row!r}")
         out[row]["wall_s"] = time.monotonic() - t0
