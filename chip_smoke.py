@@ -146,24 +146,48 @@ prints no result):
     rows; and ``scan_cases`` (N at each boundary of the columns a thread
     owns, zone keys, hard spread only, terms only, the tables and the
     column arrays forced to global memory, B not a multiple of the chunk,
-    all padding, B = 0). Every case is launched ten times on fresh
+    all padding, B = 0, the federation's what-ifs at N = 1-3 and as
+    encoded: one column enabled, none, a column with both penalty
+    tiers). Every case is launched ten times on fresh
     copies of the state, and every result must be identical (a race
     would show as a difference);
-25. ``bench.py``'s autoscale row (30,000 pods of 500m on 32-cpu nodes,
-    94 of the 469 needed up at the start, boot latency 1 s, batches of
-    4,096): every pod bound within needed + 2 nodes, at least one
-    what-if, every what-if one scan-kernel launch (none on the plain
-    scan), every batch solve one cluster-kernel launch; pods/s, time to
-    all bound, scale-ups, nodes provisioned and each what-if's ms (CUDA
-    events on its own stream); the compiles booked in measured cycles
-    reported (node columns grow by design). Then ten bare launches of
-    the scan kernel on the row's largest what-if batch and on the fixed
-    yardstick (``SCAN_YARDSTICK``: 2,000 pods with constraints, N =
-    512), and the plain scan once on each, which must agree;
+25. ``bench.py``'s autoscale row at a burst of 10,000 pods (its own is
+    30,000: ``phase_autoscale(burst=AUTOSCALE_ROW_BURST)``; every shape
+    kept: 500m pods on 32-cpu
+    nodes, a fifth of the needed nodes up at the start, the group's max
+    at needed + 2, boot latency 1 s, K = 256, at most 2,048 pods a
+    what-if, batches of 4,096): every pod bound within needed + 2 nodes,
+    at least one what-if, every what-if one scan-kernel launch (none on
+    the plain scan), every batch solve one cluster-kernel launch;
+    pods/s, time to all bound, scale-ups, nodes provisioned and each
+    what-if's ms (CUDA events on its own stream); the compiles booked in
+    measured cycles reported (node columns grow by design). Then ten
+    bare launches of the scan kernel on the row's what-if shape
+    (``autoscale_whatif``: 94 full nodes, 162 booting, 256 new, 2,048
+    pods of 500m, N = 512) and on the fixed yardstick
+    (``SCAN_YARDSTICK``: 2,000 pods with constraints, N = 512), and the
+    plain scan once on each, which must agree;
 26. mesh-block gangs on the batch path: 256 nodes labelled 16 x 16, 24
     gangs of 8 one-cpu pods, a mesh block each: every pod bound, the same
     map as on the CPU, and the members' mean ring from their anchors less
-    than half of the adjacency-blind arm's (MeshLocality off).
+    than half of the adjacency-blind arm's (MeshLocality off);
+27. the federation cells at ``bench.py``'s federation row's sizes (3
+    clusters, 900 pods open loop at 300 a second, 16-cpu nodes, batches
+    of 256, seed 18), in process: ``spill`` and ``loss-mid`` with the
+    reference's policy (the numpy oracle decides) and with the scan
+    kernel deciding (one launch a decision, none on the plain scan),
+    every cell's batch solves on the cluster kernel; zero lost, gangs
+    whole on one cluster, each cluster's p99 arrival -> bind within
+    budget, on loss a failover with 80% of the orphans bound again in
+    time, on spill pods spilled and every cluster loaded; every decision
+    replayed on the oracle (host clock), the plain scan and the kernel
+    (CUDA events), all equal; then the degradation differential (the
+    layer up and down bind the identical set).
+
+Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
+bytes each; at the first state-only rebuilds (the static planes kept on
+the card) the resident static planes must equal a fresh ``prepare``'s,
+and at least one must happen.
 
 Every row any phase runs (through ``run_workload`` or the sustained
 harness; phase 19's batch loop too, which now warms up first) prints its
@@ -176,12 +200,12 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23, 25 and 26) resets the kernels'
+Every main-path run (4, 5, 8 to 23 and 25 to 27) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
-Before the last line come the scatters' counts and times as JSON, the
-kernel table as JSON and the card's name and power limit; the last line
-is the JSON ok line.
+Before the last line come the script's wall time, the scatters' counts
+and times as JSON, the kernel table as JSON and the card's name and
+power limit; the last line is the JSON ok line.
 """
 
 from __future__ import annotations
@@ -208,10 +232,14 @@ from kubernetes_tpu_torch.api.types import (
     StorageClass,
 )
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
+from kubernetes_tpu_torch.autoscaler.simulator import _serial_whatif
+from kubernetes_tpu_torch.federation import FederationPolicy
 from kubernetes_tpu_torch.harness import elastic, perf, sustained, workloads
+from kubernetes_tpu_torch.harness import federation as fed_harness
 from kubernetes_tpu_torch.observability.devprof import get_devprof
 from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.harness.problems import (
+    autoscale_whatif,
     random_planes,
     random_slot_planes,
     scan_case_inputs,
@@ -760,6 +788,62 @@ def run_path(name, run, keep=False, kernel="cluster", cold=False):
     return out, counts, kernel_ms, dispatches.calls, recorder, wall
 
 
+# state-only rebuilds checked against a fresh prepare, over the script
+STATE_ONLY = {"checked": 0, "equal": 0}
+
+
+def trap_state_only(bs, limit=2):
+    """Wrap the session backend's ``prepare_state_only``: at each of the
+    first ``limit`` state-only rebuilds the resident static planes must
+    equal those ``prepare`` builds from the same encoding, bit for bit
+    (the fresh planes go straight to the card, outside the backend's
+    byte counts)."""
+    session, backend = bs.session, bs.session.backend
+    real = backend.prepare_state_only
+    seen = [0]
+
+    def prepare_state_only(cluster, batch):
+        state = real(cluster, batch)
+        if seen[0] < limit:
+            seen[0] += 1
+            fresh, _ = prepare(cluster, batch, backend.device)
+            ps = session._static
+            same = (ps[3:] == fresh[3:] and all(
+                torch.equal(a, b) for a, b in zip(ps[:3], fresh[:3])))
+            STATE_ONLY["checked"] += 1
+            STATE_ONLY["equal"] += same
+            check(same, "state-only rebuild: the resident static planes "
+                  "equal a fresh prepare's")
+        return state
+
+    backend.prepare_state_only = prepare_state_only
+
+
+def rebuild_report(name, res):
+    """The row's rebuilds by kind from its profiled cycles, the warm-up's
+    apart: count and h2d bytes each (the pod stream included), logged and
+    returned. With the profiler on, the measured state-only rebuilds
+    equal the session's count."""
+    kinds = {}
+    dp = get_devprof()
+    for rec in dp.cycles(include_warming=True):
+        if rec["rebuild"] != "none":
+            kind = rec["rebuild"] + (" (warm-up)" if rec["warming"] else "")
+            k = kinds.setdefault(kind, {"n": 0, "h2d_bytes": 0})
+            k["n"] += 1
+            k["h2d_bytes"] += rec["h2d_bytes"]
+    if dp.enabled:
+        check(kinds.get("state_only", {}).get("n", 0)
+              == res.state_only_rebuilds,
+              f"{name}: profiled state-only rebuilds equal the session's")
+    log(f"    rebuilds {res.rebuilds}, state-only {res.state_only_rebuilds}; "
+        + ", ".join(f"{k}: {v['n']} x {v['h2d_bytes'] / max(v['n'], 1):.0f} "
+                    f"h2d bytes" for k, v in sorted(kinds.items())))
+    return {"rebuilds": res.rebuilds,
+            "state_only_rebuilds": res.state_only_rebuilds,
+            "by_kind": kinds}
+
+
 def run_main_path(name, nodes, pods, max_batch=4096):
     """One workload on the card through run_workload (default arms:
     pipelined, mirror on), cold (``run_path``). Every pod bound, the
@@ -767,7 +851,8 @@ def run_main_path(name, nodes, pods, max_batch=4096):
     res, counts, kernel_ms, _, recorder, wall = run_path(
         name, lambda: perf.run_workload(
             name, workloads.make_workload(name, nodes, 0, pods),
-            max_batch=max_batch, device="cuda"), keep=True, cold=True)
+            max_batch=max_batch, device="cuda", configure=trap_state_only),
+        keep=True, cold=True)
     launches = counts["cluster"]
     check(res.device.startswith("cuda"), f"{name} ran on the card")
     check(len(res.placements) == pods, f"{name} created {pods} pods")
@@ -791,6 +876,7 @@ def run_main_path(name, nodes, pods, max_batch=4096):
         f"max={np.max(kernel_ms):.3f} kernel busy {busy:.3f} s")
     log("    host seconds: " + ", ".join(
         f"{k}={v:.3f}" for k, v in res.seconds.items()))
+    res.rebuild_kinds = rebuild_report(name, res)
     return res, counts, kernel_ms, recorder.largest()
 
 
@@ -1349,12 +1435,13 @@ def phase_preemption(nodes=5000, seed=11, max_batch=4096):
             name, lambda: perf.run_workload(
                 "Preemption", workloads.preemption(nodes, nodes, nodes),
                 max_batch=max_batch, device="cuda", pipeline=pipeline,
-                seed=seed))
+                seed=seed, configure=trap_state_only))
         check(res.pipeline == pipeline, f"{name} ran the {arm} arm")
         check(counts["cluster"] == res.solves,
               f"{name}: cluster kernel launches {counts['cluster']} == "
               f"solves {res.solves}")
         placements, victims = check_preemption_row(name, res, nodes)
+        rebuilds = rebuild_report(name, res)
         log(f"  {name} {nodes} nodes / {nodes} / {nodes} on {res.device}: "
             f"{res.pods_per_second:.1f} pods/s over "
             f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
@@ -1366,7 +1453,7 @@ def phase_preemption(nodes=5000, seed=11, max_batch=4096):
             "pods_per_s": res.pods_per_second,
             "duration_s": res.duration_seconds, "wall_s": wall,
             "victims": len(victims), "solves": res.solves,
-            "rebuilds": res.rebuilds, "launches": counts,
+            "rebuilds": rebuilds, "launches": counts,
             "post_filter_runs": res.post_filter_runs,
             "host_paths_s": res.host_paths, "host_seconds": res.seconds,
             "enqueue_to_bind_ms": res.latency, "kernel_ms": kernel_ms,
@@ -1468,7 +1555,8 @@ def phase_gang(nodes=5000, pods=30000, gang=10, max_batch=4096):
             name, lambda: perf.run_workload(
                 "GangScheduling",
                 workloads.gang_scheduling(nodes, 0, pods, gang_size=gang),
-                max_batch=max_batch, device="cuda", pipeline=pipeline))
+                max_batch=max_batch, device="cuda", pipeline=pipeline,
+                configure=trap_state_only))
         check(res.pipeline == pipeline, f"{name} ran the {arm} arm")
         check(len(res.placements) == pods, f"{name} created {pods} pods")
         unbound = sum(1 for v in res.placements.values() if not v)
@@ -1508,12 +1596,13 @@ def phase_gang(nodes=5000, pods=30000, gang=10, max_batch=4096):
             f"{b['wait_s']:.3f} s waiting at Permit, {b['bind_s']:.3f} s "
             f"binding (summed over cycles)")
         log(f"    host seconds: {_host_split(res)}")
+        rebuilds = rebuild_report(name, res)
         runs[arm] = {
             "pods_per_s": res.pods_per_second,
             "duration_s": res.duration_seconds, "wall_s": wall,
             "enqueue_to_bind_ms": res.latency,
             "solve_to_bind_ms": res.metrics, "zone_skew": skew,
-            "solves": res.solves, "rebuilds": res.rebuilds,
+            "solves": res.solves, "rebuilds": rebuilds,
             "mirror": res.mirror_info, "pipeline": res.pipeline_info,
             "launches": counts, "kernel_ms": kernel_ms,
             "kernel_busy_s": busy, "binding": b,
@@ -2218,6 +2307,9 @@ def scan_batch(cluster, batch, pen, dis, device):
 
 
 SCAN_REPEATS = 10
+# the autoscale row's burst here, and bench.py's
+AUTOSCALE_BURST = 10000
+AUTOSCALE_ROW_BURST = 30000
 # the fixed seeded yardstick: N = 512 with constraints
 SCAN_YARDSTICK = dict(seed=10, n_nodes=94, n_upcoming=162, n_virtual=256,
                       n_pods=2000, pad=2048)
@@ -2252,8 +2344,9 @@ def scan_against_plain(name, cuda_batch, repeats=SCAN_REPEATS, **plan):
     check(err == 0, f"scan kernel equals plain on {name}")
     placed = int((want >= 0).sum())
     r = static.allocatable.shape[1]
-    check(placed > 0 or not bool((ints[:, r + 3] > 0).any()),
-          f"{name}: some pod placed")
+    # something placed, unless no row or no column is valid
+    check(placed > 0 or not bool((ints[:, r + 3] > 0).any())
+          or not bool(static.node_valid.any()), f"{name}: some pod placed")
     log(f"  {name}: N={static.allocatable.shape[0]} "
         f"B={ints.shape[0]} SC={static.sc_codes.shape[0]} "
         f"T={static.term_codes.shape[0]} V={static.sc_domain.shape[2] - 1} "
@@ -2369,37 +2462,31 @@ def time_scan(name, batch, repeats=10):
     return ms, plain_ms, err, valid
 
 
-def phase_autoscale(burst=30000, node_cpu=32, boot_latency=1.0,
+def phase_autoscale(burst=AUTOSCALE_BURST, node_cpu=32, boot_latency=1.0,
                     max_batch=4096, wait_timeout=1800.0):
-    """``bench.py``'s autoscale row on the card: 94 of the 469 nodes a
-    30,000-pod burst needs, the autoscaler buying the rest (boot latency
-    1 s) while the batch loop binds. Every pod bound within needed + 2
-    nodes; at least one what-if; every what-if on the scan kernel (one
-    launch a solve, none on the plain version); every batch solve on the
-    cluster kernel. The what-ifs' launches are timed with CUDA events on
-    their own stream, and the largest what-if batch is kept for the
-    kernel timing. Node columns grow during the row, so the compiles
-    booked in its measured cycles are reported, not gated."""
+    """``bench.py``'s autoscale row on the card at a burst of ``burst``
+    pods (``bench.py``'s is ``AUTOSCALE_ROW_BURST``: the script's depth
+    is cut to keep it inside its time limit, every shape kept): a fifth
+    of the nodes the burst needs up, the autoscaler buying the rest (boot
+    latency 1 s) while the batch loop binds. Every pod bound within
+    needed + 2 nodes; at least one what-if; every what-if on the scan
+    kernel (one launch a solve, none on the plain version); every batch
+    solve on the cluster kernel. The what-ifs' launches are timed with
+    CUDA events on their own stream. Node columns grow during the row,
+    so the compiles booked in its measured cycles are reported, not
+    gated."""
     scan = solver_mod.scan_kernel
     real_plain = solver_mod.solve_scan_plain
     events, plain_calls = [], []
-    largest = {"work": -1, "batch": None}
 
     class ScanRecorder:
         """Stands in for the scan wrapper during the row: CUDA events
-        around each launch (on the what-if's stream) and a copy of the
-        inputs of the launch with the most pod x column work."""
+        around each launch (on the what-if's stream)."""
 
         def __getattr__(self, name):
             return getattr(scan, name)
 
         def __call__(self, params, static, state, ints, floats, **kw):
-            n, r = static.allocatable.shape
-            work = int((ints[:, r + 3] > 0).sum()) * n
-            if work > largest["work"]:
-                largest.update(work=work, batch=(
-                    static, solver_mod.ScanState(*(t.clone() for t in state)),
-                    ints.clone(), floats.clone()))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2466,7 +2553,7 @@ def phase_autoscale(burst=30000, node_cpu=32, boot_latency=1.0,
     return {"row": row, "whatif_ms": whatif_ms, "batch_launches": counts,
             "batch_kernel_ms_mean": float(np.mean(kernel_ms)),
             "unexpected_compiles": telemetry.get("unexpected_compiles"),
-            "wall_s": wall}, largest["batch"]
+            "wall_s": wall}
 
 
 def mesh_node(i, cols, rows):
@@ -2535,6 +2622,159 @@ def phase_mesh(cols=16, rows=16, gangs=24, size=8, max_batch=256):
             "blind_mean_ring": float(np.mean(off)), "launches": counts}
 
 
+# ----------------------------------------------------------------------
+# the federation tier: clusters as what-if columns
+FED_SCENARIOS = ("spill", "loss-mid")
+
+
+def check_federation_cell(name, res, scenario, clusters):
+    """The verdicts the reference's cell tests hold: zero lost, every
+    arrival bound, gangs whole and on one cluster, each cluster's p99
+    arrival -> bind within budget; on loss a failover with the orphans
+    bound again in time; on spill pods spilled and every cluster
+    loaded."""
+    check(res["lost"] == 0 and res["ever_bound"] == res["injected"] > 0
+          and not res["send_errors"],
+          f"{name}: {res['lost']} lost, {res['ever_bound']} of "
+          f"{res['injected']} bound ({res['send_errors'][:2]})")
+    check(res["gang_splits"] == 0 and res["gangs_partial"] == 0,
+          f"{name}: gangs split {res['gang_splits']}, partial "
+          f"{res['gangs_partial']}")
+    check(res["per_cluster_slo_ok"], f"{name}: a cluster's p99 over "
+          f"{fed_harness.P99_PER_CLUSTER_BUDGET_MS} ms: {res['per_cluster']}")
+    if scenario.startswith("loss"):
+        check(res["victim"] is not None and res["failovers"] >= 1
+              and "failover" in res["rebalancer_actions"],
+              f"{name}: no cluster failed over")
+        check(res["recovery_ratio"] >= fed_harness.RECOVERY_RATIO_FLOOR,
+              f"{name}: recovery ratio {res['recovery_ratio']}")
+    else:
+        bound = {k: v["bound"] for k, v in res["per_cluster"].items()}
+        check(res["spilled"] > 0 and len(bound) == clusters
+              and all(v > 0 for v in bound.values()),
+              f"{name}: spilled {res['spilled']}, per cluster {bound}")
+
+
+def replay_decisions(name, decisions):
+    """Each recorded federation decision again: the numpy oracle (host
+    clock), the plain scan on the CPU and a bare launch of the scan
+    kernel (CUDA events) on the same encoded inputs, all equal to the
+    decision the run took. Returns (card ms, oracle ms) lists."""
+    card_ms, oracle_ms = [], []
+    for cluster, batch, pen, dis, got in decisions:
+        t0 = time.perf_counter()
+        want, _ = _serial_whatif(cluster, batch, PARAMS,
+                                 deprioritized_cols=pen, disabled_cols=dis)
+        oracle_ms.append((time.perf_counter() - t0) * 1000)
+        static, state, ints, floats = scan_batch(cluster, batch, pen, dis,
+                                                 "cuda")
+        cpu = [solver_mod.ScanStatic(*(t.cpu() for t in static)),
+               solver_mod.ScanState(*(t.to("cpu", copy=True)
+                                      for t in state)),
+               ints.cpu(), floats.cpu()]
+        plain = solver_mod.solve_scan_plain(PARAMS, *cpu).numpy()
+        plan = solver_mod.scan_kernel.plan(static, ints.shape[0])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kern = solver_mod.scan_kernel.launch(PARAMS, static, state, ints,
+                                             floats, plan)
+        end.record()
+        torch.cuda.synchronize()
+        card_ms.append(start.elapsed_time(end))
+        b = batch.num_real_pods
+        kern = kern.cpu().numpy()[:b]
+        check(np.array_equal(got, want) and np.array_equal(got, plain[:b])
+              and np.array_equal(got, kern),
+              f"{name}: a decision differs from the oracle, the plain "
+              f"scan or the kernel")
+    return card_ms, oracle_ms
+
+
+def phase_federation(card, pods=900, qps=300.0, seed=18, clusters=3,
+                     node_cpu=16, max_batch=256):
+    """The federation cells at ``bench.py``'s federation row's sizes (3
+    clusters, 900 pods open loop at 300 a second, 16-cpu nodes, batches
+    of 256, seed 18), in process: ``spill`` and ``loss-mid`` with the
+    reference's policy (the numpy oracle decides) and with
+    ``serial=False`` (the scan kernel decides), every cell's batch
+    solves on the cluster kernel; then the degradation differential at
+    900 pods."""
+    out = {}
+    for serial in (True, False):
+        arm = "oracle" if serial else "scan kernel"
+        for scenario in FED_SCENARIOS:
+            name = f"federation {scenario}, {arm}"
+            scan, real_plain = solver_mod.scan_kernel, \
+                solver_mod.solve_scan_plain
+            plain_calls = []
+
+            def trapped_plain(*a):
+                plain_calls.append(1)
+                return real_plain(*a)
+
+            solver_mod.solve_scan_plain = trapped_plain
+            scan.reset_counts()
+            try:
+                res, counts, kernel_ms, _, _, wall = run_path(
+                    name, lambda: fed_harness.run_federation_mini_cell(
+                        clusters=clusters, pods=pods, qps=qps, seed=seed,
+                        scenario=scenario, node_cpu=node_cpu,
+                        max_batch=max_batch, device="cuda",
+                        policy=FederationPolicy(serial=serial),
+                        record_decisions=True, wait_timeout=300.0))
+            finally:
+                solver_mod.solve_scan_plain = real_plain
+            launches = scan.launches
+            LAUNCHES["scan"] += launches
+            check(res["device"].startswith("cuda"), f"{name} on the card")
+            check_federation_cell(name, res, scenario, clusters)
+            check(counts["cluster"] == res["batch_solves"],
+                  f"{name}: cluster launches {counts['cluster']} == batch "
+                  f"solves {res['batch_solves']}")
+            check(not plain_calls, f"{name}: the plain scan ran")
+            want = 0 if serial else res["fed_solves"]
+            check(launches == want and res["fed_solves"] > 0,
+                  f"{name}: scan launches {launches}, want {want} "
+                  f"(decisions {res['fed_solves']})")
+            decisions = res.pop("decisions")
+            card_ms, oracle_ms = replay_decisions(name, decisions)
+            log(f"  {name} ({card}): {res['pods_per_s']:.1f} pods/s over "
+                f"{res['wall_s']:.3f} s, arrival->bind p50 "
+                f"{res['p50_arrival_to_bind_ms']} ms p99 "
+                f"{res['p99_arrival_to_bind_ms']} ms; per cluster "
+                f"{res['per_cluster']}; spilled {res['spilled']}, victim "
+                f"{res['victim']}, failed over {res['failover_replaced']}, "
+                f"recovery {res['recovery_ratio']:.3f}; gangs "
+                f"{res['gangs_total']} whole")
+            log(f"    decisions {res['fed_solves']}, scan launches "
+                f"{launches}, batch solves {res['batch_solves']}; replayed: "
+                f"kernel ms p50 {np.median(card_ms):.4f} mean "
+                f"{np.mean(card_ms):.4f} (CUDA events), oracle ms p50 "
+                f"{np.median(oracle_ms):.4f} mean {np.mean(oracle_ms):.4f} "
+                f"(host clock); every decision equal to the oracle, the "
+                f"plain scan and the kernel")
+            res.update(launches=counts, scan_launches=launches, wall=wall,
+                       replay_kernel_ms=card_ms, replay_oracle_ms=oracle_ms)
+            out[name] = res
+    name = "federation degradation differential"
+    deg, counts, _, _, _, wall = run_path(
+        name, lambda: fed_harness.run_degradation_differential(
+            pods=pods, qps=qps, seed=seed, node_cpu=node_cpu,
+            max_batch=max_batch, device="cuda"))
+    check(deg["identical"] and deg["on"]["lost"] == 0
+          and deg["down"]["lost"] == 0 and deg["down"]["fallbacks"] > 0
+          and deg["on"]["fallbacks"] == 0,
+          f"{name}: on {len(deg['bound_on'])} bound {deg['on']}, down "
+          f"{len(deg['bound_down'])} {deg['down']}")
+    log(f"  {name}: {len(deg['bound_on'])} bound in both arms, identical; "
+        f"fallbacks up {deg['on']['fallbacks']}, down "
+        f"{deg['down']['fallbacks']}; launches {counts} ({wall:.1f} s)")
+    out[name] = {"bound": len(deg["bound_on"]), "on": deg["on"],
+                 "down": deg["down"], "launches": counts}
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2550,6 +2790,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
+    t_start = time.monotonic()
     card = gpu_name_and_power()
     log(f"[1] card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; devices {torch.cuda.device_count()}")
@@ -2668,12 +2909,14 @@ def main() -> None:
     log("[24] the scan kernel against the plain scan on seeded what-ifs")
     errs["scan"] = phase_scan_compare()
 
-    log("[25] the autoscale row: 30,000 pods from 94 nodes, boot 1 s")
-    autoscale, scan_largest = phase_autoscale()
+    log(f"[25] the autoscale row: {AUTOSCALE_BURST:,} pods from a fifth "
+        f"of the nodes, boot 1 s")
+    autoscale = phase_autoscale()
+    scan_fixed = scan_batch(*autoscale_whatif(), "cuda")
     scan_ms, scan_plain_ms, err, scan_pods = time_scan(
-        "autoscale row's largest what-if", scan_largest)
+        "autoscale what-if shape", scan_fixed)
     errs["scan"] = max(errs["scan"], err)
-    scan_b_ms, scan_b_by = scan_bound_ms(*scan_largest)
+    scan_b_ms, scan_b_by = scan_bound_ms(*scan_fixed)
     yard = whatif_problem(**SCAN_YARDSTICK)
     yard_batch = scan_batch(*yard, "cuda")
     yard_ms, yard_plain_ms, err, yard_pods = time_scan(
@@ -2683,7 +2926,15 @@ def main() -> None:
 
     log("[26] mesh-block gangs on the batch path")
     mesh = phase_mesh()
-    log(f"  main-path launches over phases 4, 5 and 8 to 26: {LAUNCHES}")
+
+    log("[27] federation cells: spill and loss-mid, oracle and scan-kernel "
+        "decisions; the degradation differential")
+    federation = phase_federation(card)
+    check(STATE_ONLY["checked"] >= 1,
+          "no state-only rebuild on phases 4, 5, 11 or 14")
+    log(f"  state-only rebuilds checked against a fresh prepare: "
+        f"{STATE_ONLY['checked']}, equal {STATE_ONLY['equal']}")
+    log(f"  main-path launches over phases 4, 5 and 8 to 27: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -2721,9 +2972,8 @@ def main() -> None:
                   "sv_batch": "shared-volume phase largest batch, forced"},
         "scan": {"ms": scan_ms, "plain_ms": scan_plain_ms,
                  "bound_ms": scan_b_ms, "bound_by": scan_b_by,
-                 "batch": f"autoscale row's largest what-if "
-                          f"({scan_pods} pods, N="
-                          f"{scan_largest[0].allocatable.shape[0]})",
+                 "batch": f"autoscale_whatif() ({scan_pods} pods, N="
+                          f"{scan_fixed[0].allocatable.shape[0]})",
                  "yardstick_ms": yard_ms, "yardstick_plain_ms": yard_plain_ms,
                  "yardstick_bound_ms": yard_b_ms,
                  "yardstick": f"whatif_problem({SCAN_YARDSTICK}) "
@@ -2745,7 +2995,7 @@ def main() -> None:
             "pods_per_s": res.pods_per_second,
             "duration_s": res.duration_seconds,
             "enqueue_to_bind_ms": res.latency, "solve_to_bind_ms": res.metrics,
-            "solves": res.solves, "rebuilds": res.rebuilds,
+            "solves": res.solves, "rebuilds": res.rebuild_kinds,
             "kernel_ms": kernel_ms, "host_seconds": res.seconds},
         "timings": timings, "per_pod_split_us_ns": split,
         "cluster_sweep_ms": sweep,
@@ -2763,12 +3013,14 @@ def main() -> None:
         "preemption_pvs": preemption_pvs, "shared_volumes": shared,
         "scatters": scatters["scatters"], "configs": configs,
         "families": families, "tracing_cost": tracing, "tuner": tuner,
-        "autoscale": autoscale, "mesh": mesh,
-        "rows": ROW_REPORTS,
+        "autoscale": autoscale, "mesh": mesh, "federation": federation,
+        "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
+        "wall_s": time.monotonic() - t_start,
     }
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1, default=str)
+    log(f"chip_smoke wall time {time.monotonic() - t_start:.1f} s")
     print(json.dumps(scatters), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

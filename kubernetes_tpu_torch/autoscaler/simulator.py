@@ -91,12 +91,43 @@ def run_whatif(
     pad_pods: int = 64,
     device=None,
 ) -> WhatIfResult:
-    """Encode the cluster with the extra columns and solve on ``device``:
-    ``upcoming_nodes`` take the upcoming tier, ``new_nodes`` the virtual
-    one, ``disabled_names`` are removed from the solve. Every pod keeps
-    its row, in the caller's order: a host-only pod (``is_host_only``)
-    is a row flagged ``inexpressible``, which the scan never places, as
-    the reference's encoder marks it."""
+    """Encode the cluster with the extra columns (``encode_whatif``) and
+    solve on ``device``."""
+    cluster, batch, penalties, disabled, upcoming_cols, virtual_cols = \
+        encode_whatif(nodes, bound_pods, batch_pods, new_nodes=new_nodes,
+                      upcoming_nodes=upcoming_nodes,
+                      disabled_names=disabled_names, pad_pods=pad_pods)
+    if serial:
+        assignments, counts = _serial_whatif(
+            cluster, batch, params, deprioritized_cols=penalties,
+            disabled_cols=disabled)
+    else:
+        assignments, counts = solve_whatif(
+            cluster, batch, params, deprioritized_cols=penalties,
+            disabled_cols=disabled, device=device)
+    return WhatIfResult(assignments=assignments, counts=counts,
+                        cluster=cluster, batch=batch,
+                        virtual_cols=virtual_cols,
+                        upcoming_cols=upcoming_cols)
+
+
+def encode_whatif(
+    nodes: Sequence[Node],
+    bound_pods: Sequence[Pod],
+    batch_pods: Sequence[Pod],
+    *,
+    new_nodes: Sequence[Node] = (),
+    upcoming_nodes: Sequence[Node] = (),
+    disabled_names: Sequence[str] = (),
+    pad_pods: int = 64,
+):
+    """A what-if's solve inputs: (cluster, batch, penalties, disabled
+    columns, upcoming columns, virtual columns). ``upcoming_nodes`` take
+    the upcoming tier, ``new_nodes`` the virtual one, ``disabled_names``
+    are removed from the solve. Every pod keeps its row, in the caller's
+    order: a host-only pod (``is_host_only``) is a row flagged
+    ``inexpressible``, which the scan never places, as the reference's
+    encoder marks it."""
     snapshot = new_snapshot(bound_pods, list(nodes))
     extras = list(upcoming_nodes) + list(new_nodes)
     enc = BatchEncoder(snapshot, extra_nodes=extras, host_only_rows=True)
@@ -118,18 +149,7 @@ def run_whatif(
     })
     col_of = {name: i for i, name in enumerate(cluster.node_names)}
     disabled = [col_of[n] for n in disabled_names if n in col_of]
-    if serial:
-        assignments, counts = _serial_whatif(
-            cluster, batch, params, deprioritized_cols=penalties,
-            disabled_cols=disabled)
-    else:
-        assignments, counts = solve_whatif(
-            cluster, batch, params, deprioritized_cols=penalties,
-            disabled_cols=disabled, device=device)
-    return WhatIfResult(assignments=assignments, counts=counts,
-                        cluster=cluster, batch=batch,
-                        virtual_cols=virtual_cols,
-                        upcoming_cols=upcoming_cols)
+    return cluster, batch, penalties, disabled, upcoming_cols, virtual_cols
 
 
 def _pending_order(pods: Sequence[Pod]) -> List[Pod]:

@@ -128,6 +128,8 @@ class BenchmarkResult:
     latency: Dict[str, float] = field(default_factory=dict)
     solves: int = 0
     rebuilds: int = 0
+    # of those, rebuilds that kept the resident static planes
+    state_only_rebuilds: int = 0
     pipeline: bool = True
     mirror: bool = True
     # lazy solves dispatched while the previous batch was in flight
@@ -412,6 +414,7 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         latency=_percentiles(sched.pending_latencies, 1000.0),
         solves=session.backend.solves,
         rebuilds=session.rebuilds,
+        state_only_rebuilds=session.state_only_rebuilds,
         seconds={**session.seconds, "commit": bs.seconds_commit,
                  "parse": parse_s, "admit": admit_s},
         pipeline=bs.pipeline_enabled,

@@ -20,10 +20,22 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.autoscaler.nodegroups import NodeGroup
 from kubernetes_tpu_torch.autoscaler.simulator import (
     UPCOMING_NODE_PENALTY,
     VIRTUAL_COLUMN_STEP,
+    encode_whatif,
 )
+from kubernetes_tpu_torch.federation.ledger import CapacityLedger
+from kubernetes_tpu_torch.federation.scheduler import (
+    GANG_NAME_LABEL,
+    REMOTE_CLUSTER_PENALTY,
+    SATURATION_PENALTY,
+    FederationPolicy,
+    FederationScheduler,
+    group_units,
+)
+from kubernetes_tpu_torch.harness.burst import make_burst_pods
 from kubernetes_tpu_torch.ops.encode import BatchEncoder
 from kubernetes_tpu_torch.ops.planes import PStatic, state_planes, static_planes
 from kubernetes_tpu_torch.ops.slots import SPARSE_K
@@ -266,6 +278,89 @@ def whatif_problem(seed: int, n_nodes: int = 40, n_bound: int = 60,
     return cluster, batch, penalties, disabled
 
 
+def autoscale_whatif():
+    """The autoscale row's largest what-if shape, as ``run_whatif``
+    encodes it: 94 full nodes of 32 cpu (64 bound pods of 500m each),
+    162 booting and 256 new nodes of the group's template, 2,048 pending
+    pods of 500m; N = 512, no constraints. (cluster, batch, penalties,
+    disabled columns)."""
+    group = NodeGroup("ng-elastic", cpu="32", memory="64Gi")
+    nodes = [group.node_template(i) for i in range(94)]
+    bound = make_burst_pods(94 * 64, name_prefix="b-", uid_prefix="bu-")
+    for i, pod in enumerate(bound):
+        pod.spec.node_name = nodes[i // 64].name
+    pending = make_burst_pods(2048, name_prefix="p-", uid_prefix="pu-")
+    return encode_whatif(
+        nodes, bound, pending,
+        upcoming_nodes=[group.node_template(94 + i) for i in range(162)],
+        new_nodes=[group.node_template(256 + i) for i in range(256)],
+        pad_pods=2048)[:4]
+
+
+def federation_whatif(seed: int, clusters: int = 3, units: int = 40,
+                      remote=(), saturated=(), disabled=(), pad: int = 64):
+    """A federation decision's what-if, as ``FederationScheduler``
+    encodes it: one column per cluster (a seeded remaining capacity of
+    2-64 cpu and 8-256 GiB), ``units`` seeded pods of 100m-4 cpu, every
+    fifth pair folded into a gang; the remote penalty on the columns in
+    ``remote``, the saturation penalty on those in ``saturated`` (both
+    where in both, added as the scheduler adds them), ``disabled``
+    columns removed. (cluster, batch, penalties, disabled columns)."""
+    rng = np.random.default_rng(seed)
+    ledger = CapacityLedger()
+    for cid in range(clusters):
+        ledger.register(cid)
+        ledger.refresh_from(cid, [Node.from_dict({
+            "metadata": {"name": f"c{cid}-node-0"},
+            "status": {"capacity": {
+                "cpu": str(int(rng.choice([2, 8, 16, 64]))),
+                "memory": f"{int(rng.choice([8, 64, 256]))}Gi",
+                "pods": "110"}}})], [])
+    pods = []
+    for i in range(units):
+        labels = {GANG_NAME_LABEL: f"g{i // 2}"} if i % 10 < 2 else {}
+        pods.append(Pod.from_dict({
+            "metadata": {"name": f"u{i}", "uid": f"fu-{i}",
+                         "namespace": f"ns{i % 3}", "labels": labels},
+            "spec": {"containers": [{"name": "c", "resources": {
+                "requests": {
+                    "cpu": f"{int(rng.choice([100, 500, 1000, 4000]))}m",
+                    "memory": f"{int(rng.choice([128, 1024, 4096]))}Mi"}}}]}}))
+    fed = FederationScheduler(ledger, policy=FederationPolicy(pad_pods=pad),
+                              device="cpu")
+    cluster, batch, _ = fed._encode(list(range(clusters)), group_units(pods))
+    penalties = {}
+    for col in range(clusters):
+        pen = 0.0
+        if col in remote:
+            pen += REMOTE_CLUSTER_PENALTY
+        if col in saturated:
+            pen += SATURATION_PENALTY
+        if pen:
+            penalties[col] = pen
+    return cluster, batch, penalties, list(disabled)
+
+
+def federation_cases(seed: int = 0) -> list:
+    """(name, what-if, columns) of the federation's tiny column counts:
+    one cluster; every column disabled but one; every column disabled
+    (every unit unplaced); a column with both the remote and the
+    saturation penalty beside a remote one and home. ``columns``: the
+    real column count (the encoder pads N to 128)."""
+    return [
+        ("fed N=1", federation_whatif(seed, clusters=1), 1),
+        ("fed N=2, one enabled", federation_whatif(
+            seed + 1, clusters=2, disabled=[1]), 2),
+        ("fed N=3, one enabled", federation_whatif(
+            seed + 2, clusters=3, remote=[0, 2], disabled=[0, 2]), 3),
+        ("fed N=3, all disabled", federation_whatif(
+            seed + 3, clusters=3, disabled=[0, 1, 2]), 3),
+        ("fed N=3, remote and saturated", federation_whatif(
+            seed + 4, clusters=3, units=60, remote=[1, 2],
+            saturated=[0, 2]), 3),
+    ]
+
+
 class ScanCase(NamedTuple):
     """One input of the scan kernel's card checks: a what-if problem
     (``whatif_problem``'s tuple), cut to its first ``n`` columns and to
@@ -290,7 +385,8 @@ def scan_cases(seed: int = 0, n_pods: int = 200) -> List[ScanCase]:
     domain minimum); required affinity, anti-affinity and preferred
     weights only; the tables, the column arrays, and both, forced into
     global memory; B not a multiple of the chunk; a batch that is all
-    padding; and B = 0."""
+    padding; B = 0; and the federation's what-ifs (``federation_cases``)
+    as encoded (N = 128) and cut to their real columns (N = 1-3)."""
     wide = whatif_problem(seed, n_nodes=300, n_bound=400, n_pods=n_pods,
                           n_upcoming=100, n_virtual=1700, pad=n_pods)
     base = whatif_problem(seed + 1, n_pods=n_pods, pad=n_pods)
@@ -311,7 +407,9 @@ def scan_cases(seed: int = 0, n_pods: int = 200) -> List[ScanCase]:
         ScanCase("B=37", base, rows=slice(0, 37)),
         ScanCase("all padding", base, padding=True),
         ScanCase("B=0", base, rows=slice(0, 0)),
-    ]
+    ] + [case for name, problem, cols in federation_cases(seed)
+         for case in (ScanCase(name, problem),
+                      ScanCase(f"{name} cut", problem, n=cols))]
 
 
 def scan_case_inputs(case: ScanCase, device):

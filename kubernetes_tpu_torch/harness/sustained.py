@@ -137,6 +137,7 @@ def run_sustained_once(trace: Trace, *, node_cpu: int = 32,
             "session": {
                 "incremental_hits": session.incremental_hits,
                 "rebuilds": session.rebuilds,
+                "state_only_rebuilds": session.state_only_rebuilds,
                 "carry_chained": session.carry_chained,
                 "solves": session.backend.solves,
                 "seconds": {**session.seconds, "commit": bs.seconds_commit},

@@ -284,6 +284,7 @@ class DeviceClusterMirror:
             items = [(rc[0], rc[1], v) for rc, v in sets.items()]
             total += sess.backend.scatter_static_set(
                 sess._static, *_pack_entries(items, pad_with_zero=False))
+            sess.static_scattered()
         return total
 
 

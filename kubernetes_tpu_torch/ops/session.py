@@ -14,6 +14,15 @@ fresh snapshot. Correctness never depends on the incremental path. The
 shared-volume planes (``sv_attached``) are state planes: the solve marks
 the volumes it attaches, and the carried state keeps them.
 
+A rebuild whose static inputs equal the resident epoch's (the static
+fingerprint: allocatable, pod caps, topology codes, the batch's profile
+masks and scores, spread and term keys, shared-volume slot keys) is a
+state-only rebuild: only the state planes are uploaded, and the static
+planes stay on the device. A failure there propagates, as every solve
+failure does. The mirror's writes into the resident static planes (a
+node's new allocatable) and a drift drop the fingerprint, so the next
+rebuild uploads everything.
+
 A solve is dispatched lazily: ``solve(..., lazy=True)`` returns a handle
 whose assignments ``last_materializer`` fetches later, so host work
 overlaps the device's. Each solve also leaves, for its caller to capture
@@ -73,6 +82,10 @@ class SolverSession:
         self._poisoned = False
         self.incremental_hits = 0
         self.rebuilds = 0
+        # rebuilds that kept the resident static planes (counted in
+        # ``rebuilds`` too)
+        self.state_only_rebuilds = 0
+        self._static_fp = None   # fingerprint of the resident static planes
         # lazy solves dispatched while the previous one was still
         # unmaterialized: the card ran them back to back
         self.carry_chained = 0
@@ -112,8 +125,9 @@ class SolverSession:
     def note_drift(self) -> None:
         """A commit refused assignments to nodes that died or were
         cordoned after this encoding was built: the node planes drifted,
-        so the next solve re-encodes."""
+        so the next solve re-encodes them and uploads them again."""
         self.invalidate()
+        self._static_fp = None
 
     def mirror_current(self) -> bool:
         """True while the device state still matches the cache."""
@@ -301,9 +315,10 @@ class SolverSession:
         """Solve ``pods`` once (building and loading the kernel, a
         rebuild), then once more on the carried state (the kernel
         loaded), and, with the mirror, run each scatter once on the
-        planes built (loading the card's indexing kernels); then drop the
-        state: the pods were never committed. Returns the seconds of the
-        second solve."""
+        planes built (loading the card's indexing kernels; the set writes
+        back the value it finds, so the static planes and their
+        fingerprint stay good); then drop the state: the pods were never
+        committed. Returns the seconds of the second solve."""
         self.solve(pods, pad, warming=True)
         t0 = time.monotonic()
         self.solve(pods, pad, warming=True)
@@ -311,7 +326,9 @@ class SolverSession:
         if self._mirror is not None:
             pad_entries = np.zeros(8, dtype=np.int32)
             self.backend.scatter_state_add(self._state, *[pad_entries] * 3)
-            self.backend.scatter_static_set(self._static, *[pad_entries] * 3)
+            same = np.full(8, int(self._static.ints[0, 0]), dtype=np.int32)
+            self.backend.scatter_static_set(self._static, pad_entries,
+                                            pad_entries, same)
         self.backend.take_transfer_bytes()
         self._warming = False
         self.invalidate()
@@ -366,6 +383,35 @@ class SolverSession:
             pods, pad_pods=pad)
         return prepare(cluster, batch, self.backend.device)
 
+    # the inputs whose equality makes the static planes bit for bit equal
+    _STATIC_FP_CLUSTER = ("allocatable", "max_pods", "topo_codes")
+    _STATIC_FP_BATCH = ("static_masks", "static_scores", "sc_key_idx",
+                        "sc_max_skew", "sc_hard", "sc_domain", "term_key_idx")
+
+    def _static_fingerprint(self, cluster: EncodedCluster, batch):
+        # the shared-volume slot keys too: a new slot order re-keys
+        # every pod's slot index
+        sv_keys = cluster.sv_keys if cluster.sv_keys is not None \
+            else np.empty(0, dtype=np.int64)
+        return (
+            [np.asarray(getattr(cluster, k)) for k in self._STATIC_FP_CLUSTER]
+            + [np.asarray(getattr(batch, k)) for k in self._STATIC_FP_BATCH]
+            + [sv_keys],
+            (cluster.resource_names, batch.num_values,
+             cluster.num_real_nodes))
+
+    @staticmethod
+    def _fingerprints_equal(a, b) -> bool:
+        if a is None or b is None or a[1] != b[1]:
+            return False
+        return all(x.shape == y.shape and np.array_equal(x, y)
+                   for x, y in zip(a[0], b[0]))
+
+    def static_scattered(self) -> None:
+        """The resident static planes were written in place: drop their
+        fingerprint."""
+        self._static_fp = None
+
     def _rebuild_and_solve(self, pods: List, seq_before: int, pad: int):
         self.rebuilds += 1
         self._poisoned = False
@@ -405,7 +451,19 @@ class SolverSession:
         self._observe("pack", t1 - t_pack, end_mono=t1)
         dp.phase("encode", t_pack - t0)
         dp.phase("pack", t1 - t_pack)
-        self._static, self._state = self.backend.prepare(cluster, batch)
+        fp = self._static_fingerprint(cluster, batch)
+        if self._static is not None and self._fingerprints_equal(
+                fp, self._static_fp):
+            if rec is not None:
+                rec["rebuild"] = "state_only"
+            self._state = self.backend.prepare_state_only(cluster, batch)
+            if not self._warming:
+                self.state_only_rebuilds += 1
+        else:
+            # dropped first: an upload that fails leaves no fingerprint
+            self._static_fp = None
+            self._static, self._state = self.backend.prepare(cluster, batch)
+            self._static_fp = fp
         handle = self.backend.solve_lazy(self.params, self._static,
                                          self._state, ints, floats)
         t_disp = time.monotonic()

@@ -44,6 +44,7 @@ from kubernetes_tpu_torch.ops import build
 from kubernetes_tpu_torch.ops.planes import (
     PStatic,
     prepare,
+    prepare_state,
     state_planes,
     static_planes,
 )
@@ -765,6 +766,13 @@ class CudaPlanesBackend:
             t.numel() * t.element_size()
             for t in (ps.ints, ps.f32s, ps.sc_meta, state))
         return ps, state
+
+    def prepare_state_only(self, cluster, batch) -> torch.Tensor:
+        """Fresh state planes alone: the static planes of the same
+        fingerprint stay resident."""
+        state = prepare_state(cluster, batch, self.device)
+        self.transfer["h2d"] += state.numel() * state.element_size()
+        return state
 
     def _upload(self, a: np.ndarray) -> Tuple[torch.Tensor, list]:
         """``a`` on the device, and the staging slot it went through (on

@@ -13,11 +13,15 @@ its requests, from a seeded generator.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from random import Random
 from typing import Dict, Iterable, List, Optional
 
 from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.scheduler.framework.plugins.coscheduling import (
+    GROUP_NAME_LABEL,
+    MIN_AVAILABLE_LABEL,
+)
 
 
 def bounded_pareto(rng: Random, alpha: float, lo: float, hi: float) -> float:
@@ -81,7 +85,10 @@ def arrivals_exactly(rng: Random, count: int, span_s: float,
 @dataclass
 class TraceEvent:
     """One pod arrival ``t`` seconds after the trace starts. A bound pod
-    runs ``lifetime_s`` seconds before it is deleted (None: forever)."""
+    runs ``lifetime_s`` seconds before it is deleted (None: forever).
+    ``gang`` and ``gang_size`` make the pod a member of a coscheduled
+    gang: ``pod_dict`` stamps the ``pod-group.scheduling.k8s.io``
+    labels."""
 
     t: float
     name: str
@@ -89,12 +96,41 @@ class TraceEvent:
     memory_mib: int
     priority: int = 0
     lifetime_s: Optional[float] = None
+    gang: str = ""
+    gang_size: int = 0
     labels: Dict[str, str] = field(default_factory=dict)
     namespace: str = "default"
 
+    def to_dict(self) -> dict:
+        """The event as a dict, fields at their defaults left out."""
+        d = asdict(self)
+        for k, default in (("priority", 0), ("lifetime_s", None),
+                           ("gang", ""), ("gang_size", 0), ("labels", {}),
+                           ("namespace", "default")):
+            if d[k] == default:
+                del d[k]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TraceEvent":
+        return cls(
+            t=float(d["t"]), name=d["name"],
+            cpu_milli=int(d["cpu_milli"]),
+            memory_mib=int(d["memory_mib"]),
+            priority=int(d.get("priority", 0)),
+            lifetime_s=d.get("lifetime_s"),
+            gang=d.get("gang", ""),
+            gang_size=int(d.get("gang_size", 0)),
+            labels=dict(d.get("labels", {})),
+            namespace=d.get("namespace", "default"))
+
     def pod_dict(self) -> dict:
         """The arrival's pod manifest: one container with cpu and memory
-        requests."""
+        requests, and a gang member's coscheduling labels."""
+        labels = dict(self.labels)
+        if self.gang and self.gang_size > 1:
+            labels.setdefault(GROUP_NAME_LABEL, self.gang)
+            labels.setdefault(MIN_AVAILABLE_LABEL, str(self.gang_size))
         spec: dict = {"containers": [
             {"name": "c", "image": "registry/fake:1",
              "resources": {"requests": {
@@ -103,7 +139,7 @@ class TraceEvent:
         if self.priority:
             spec["priority"] = self.priority
         return {"metadata": {"name": self.name, "namespace": self.namespace,
-                             "labels": dict(self.labels)},
+                             "labels": labels},
                 "spec": spec}
 
 

@@ -611,6 +611,86 @@ def test_scan_kernel_cases_match_plain_and_repeat(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cut", [False, True],
+                         ids=["as-encoded", "real-columns"])
+def test_scan_kernel_on_the_federations_tiny_column_counts(card, cut):
+    """The federation's what-ifs (``federation_cases``: one column per
+    cluster, N = 128 as encoded or cut to the 1-3 real columns): one
+    column enabled, every column disabled (every unit unplaced), a column
+    with both the remote and the saturation penalty. Three launches
+    alike, equal to the plain scan; as encoded, ``solve_whatif`` on the
+    card equals the numpy oracle."""
+    from kubernetes_tpu_torch.autoscaler.simulator import _serial_whatif
+    from kubernetes_tpu_torch.harness.problems import (
+        ScanCase,
+        federation_cases,
+        scan_case_inputs,
+    )
+    from kubernetes_tpu_torch.ops import solver
+
+    for name, problem, cols in federation_cases(seed=4):
+        case = ScanCase(name, problem, n=cols if cut else None)
+        static, state, ints, floats = scan_case_inputs(case, card)
+        want = _scan_run(None, *scan_case_inputs(case, "cpu"))
+        for _ in range(3):
+            got = _scan_run(solver.scan_kernel, static, state, ints, floats)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), name
+        if "all disabled" in name:
+            assert bool((want[0] == -1).all())
+        if not cut:
+            cluster, batch, pen, dis = problem
+            before = solver.scan_kernel.launches
+            a, _ = solver.solve_whatif(cluster, batch, deprioritized_cols=pen,
+                                       disabled_cols=dis, device=card)
+            assert solver.scan_kernel.launches == before + 1
+            oracle, _ = _serial_whatif(cluster, batch, SolverParams(),
+                                       deprioritized_cols=pen,
+                                       disabled_cols=dis)
+            assert np.array_equal(a, oracle), name
+
+
+@pytest.mark.cuda
+def test_federation_scheduler_on_the_card_places_like_the_oracle(card):
+    """The same placements through ``FederationScheduler`` with the scan
+    kernel deciding (one launch a solve) and with the numpy oracle."""
+    from kubernetes_tpu_torch import federation as fed
+    from kubernetes_tpu_torch.ops import solver
+
+    def place(serial):
+        ledger = fed.CapacityLedger()
+        for cid, milli in enumerate((16000, 16000, 6000)):
+            ledger.register(cid)
+            ledger.refresh_from(cid, [Node.from_dict({
+                "metadata": {"name": f"c{cid}-node-0"},
+                "status": {"capacity": {"cpu": f"{milli}m",
+                                        "memory": "64Gi",
+                                        "pods": "110"}}})], [])
+        ledger.note_admitted(1, [Pod.from_dict({
+            "metadata": {"name": "fat", "uid": "fat"},
+            "spec": {"containers": [{"name": "c", "resources": {
+                "requests": {"cpu": "14"}}}]}})])
+        sched = fed.FederationScheduler(
+            ledger, policy=fed.FederationPolicy(serial=serial),
+            home_of=lambda ns: {"a": 0, "b": 1}.get(ns), device=card)
+        pods = [Pod.from_dict({
+            "metadata": {"name": f"p{i}", "uid": f"u{i}",
+                         "namespace": "abc"[i % 3], "labels": (
+                             {fed.GANG_NAME_LABEL: f"g{i // 4}"}
+                             if i % 8 < 4 else {})},
+            "spec": {"containers": [{"name": "c", "resources": {
+                "requests": {"cpu": "900m"}}}]}}) for i in range(40)]
+        before = solver.scan_kernel.launches
+        out = [(pl.unit.namespace, pl.cluster) for pl in sched.place(pods)]
+        return out, sched.solves, solver.scan_kernel.launches - before
+
+    got, solves, launches = place(False)
+    want, _, oracle_launches = place(True)
+    assert got == want
+    assert launches == solves > 0 and oracle_launches == 0
+
+
+@pytest.mark.cuda
 def test_scan_kernel_layout_agrees_and_refuses_a_wrong_byte_count(card):
     """The C side's layout bytes equal ``scan_smem_words`` over plan
     shapes; a launch whose byte count disagrees is refused."""

@@ -418,7 +418,7 @@ def test_recreated_gang_regates_at_permit():
         return first, slots, regated, bound_set(arm)
 
     got, want = both(scenario, nodes=[node_dict(i, cpu="8")
-                                      for i in range(4)])
+                                      for i in range(4)], args=PATIENT_ARGS)
     assert got == want
     assert got[1] == {} and got[2] == ""
     assert all(n for _, n in got[0] + got[3])

@@ -150,3 +150,50 @@ def _whatif_entry_points():
 def test_whatif_entry_points_without_device_raise(no_cuda, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _whatif_entry_points()[name]()
+
+
+SLICE_11_MODULES = (
+    "federation/__init__.py", "federation/ledger.py",
+    "federation/scheduler.py", "federation/client.py",
+    "federation/rebalancer.py", "autoscaler/partitions.py",
+    "harness/federation.py", "workloads/trace.py", "workloads/replay.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_11_MODULES)
+def test_federation_modules_are_checked_and_import(rel):
+    """The federation tier's modules are among the sources the import rule
+    checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module.removesuffix(".__init__"))
+
+
+def _federation_entry_points():
+    """Each federation entry point, called without a device."""
+    from kubernetes_tpu_torch.federation import (
+        CapacityLedger,
+        FederationScheduler,
+    )
+    from kubernetes_tpu_torch.harness.federation import (
+        run_degradation_differential,
+        run_federation_mini_cell,
+    )
+
+    return {
+        "FederationScheduler": lambda: FederationScheduler(CapacityLedger()),
+        "run_federation_mini_cell": lambda: run_federation_mini_cell(
+            pods=8),
+        "run_degradation_differential": lambda: run_degradation_differential(
+            pods=8),
+    }
+
+
+@pytest.mark.parametrize("name", ("FederationScheduler",
+                                  "run_federation_mini_cell",
+                                  "run_degradation_differential"))
+def test_federation_entry_points_without_device_raise(no_cuda, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _federation_entry_points()[name]()

@@ -15,8 +15,8 @@ yardstick ``whatif_problem(10, n_nodes=94, n_upcoming=162,
 n_virtual=256, n_pods=2000, pad=2048)`` (N = 512, with constraints) and
 the autoscale row's largest what-if shape (94 full nodes of 32 cpu, 162
 booting and 256 new ones, 2,048 pending pods of 500m; N = 512, no
-constraints), its inputs taken as ``run_whatif`` hands them to the
-kernel. Every launch must give the same result; its digest (sha256 of
+constraints; ``harness/problems.py::autoscale_whatif``, so a tree from
+before that function cannot run this row). Every launch must give the same result; its digest (sha256 of
 the assignments and final state) lets two trees be held bit for bit.
 
 Compare two commits in one call, in turns, one process a run:
@@ -54,38 +54,6 @@ def _card() -> str:
 
 def _percentiles(p: dict) -> dict:
     return {k: p[k] for k in ("Perc50", "Perc90", "Perc99") if k in p}
-
-
-def _autoscale_whatif(solver):
-    """The scan inputs of the autoscale row's largest what-if shape, as
-    ``run_whatif`` hands them to the kernel (recorded on the way)."""
-    from kubernetes_tpu_torch.autoscaler import simulator
-    from kubernetes_tpu_torch.autoscaler.nodegroups import NodeGroup
-    from kubernetes_tpu_torch.harness.burst import make_burst_pods
-
-    group = NodeGroup("ng-elastic", cpu="32", memory="64Gi")
-    nodes = [group.node_template(i) for i in range(94)]
-    bound = make_burst_pods(94 * 64, name_prefix="b-", uid_prefix="bu-")
-    for i, pod in enumerate(bound):
-        pod.spec.node_name = nodes[i // 64].name
-    pending = make_burst_pods(2048, name_prefix="p-", uid_prefix="pu-")
-    kernel, seen = solver.scan_kernel, []
-
-    def record(params, static, state, ints, floats, **kw):
-        seen.append((static, type(state)(*(t.clone() for t in state)),
-                     ints.clone(), floats.clone()))
-        return kernel(params, static, state, ints, floats, **kw)
-
-    solver.scan_kernel = record
-    try:
-        simulator.run_whatif(
-            nodes, bound, pending,
-            upcoming_nodes=[group.node_template(94 + i) for i in range(162)],
-            new_nodes=[group.node_template(256 + i) for i in range(256)],
-            pad_pods=2048, device="cuda")
-    finally:
-        solver.scan_kernel = kernel
-    return seen[0]
 
 
 def _time_scan(torch, solver, batch, k=None) -> dict:
@@ -203,14 +171,20 @@ def main() -> None:
                         "host_paths": res.host_paths,
                         "chunk": getattr(res, "chunk", None)}
         elif row == "scan":
-            from kubernetes_tpu_torch.harness.problems import whatif_problem
+            from kubernetes_tpu_torch.harness.problems import (
+                autoscale_whatif,
+                whatif_problem,
+            )
 
-            cluster, batch, pen, dis = whatif_problem(YARDSTICK_SEED,
-                                                      **YARDSTICK)
-            scores, valid = solver.whatif_overrides(cluster, batch, pen, dis)
-            inputs = {"yardstick": solver.scan_inputs(
-                cluster, batch, "cuda", scores, valid),
-                "autoscale_whatif": _autoscale_whatif(solver)}
+            def scan_inputs(cluster, batch, pen, dis):
+                scores, valid = solver.whatif_overrides(cluster, batch, pen,
+                                                        dis)
+                return solver.scan_inputs(cluster, batch, "cuda", scores,
+                                          valid)
+
+            inputs = {"yardstick": scan_inputs(*whatif_problem(
+                YARDSTICK_SEED, **YARDSTICK)),
+                "autoscale_whatif": scan_inputs(*autoscale_whatif())}
             out[row] = {name: _time_scan(torch, solver, x)
                         for name, x in inputs.items()}
             for k in filter(None, args.scan_k.split(",")):
