@@ -8,7 +8,8 @@ prints no result):
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the kernels from kubernetes_tpu_torch/csrc, one nvcc a source,
    all started together: the solve kernels (the cluster kernel, the slot
-   kernel and the one-block kernel) and the scan kernel; print ptxas's
+   kernel and the wide kernel, its four instances: with and without sv,
+   slices in shared memory or at L2) and the scan kernel; print ptxas's
    registers, shared memory and spills for each;
 3. hold the kernels against their plain PyTorch version, on the card,
    over seeded problems (the test cases' shapes, forced ties within and
@@ -18,26 +19,35 @@ prints no result):
    cluster of eight, and a shape past the cluster's shared memory with a
    pod of nine term references): assignments and state planes must be
    equal. Each case runs on the kernel the launch plan picks, and again
-   on the one-block kernel. Then the slot kernel on slot streams (T of
+   on the wide kernel. Then the slot kernel on slot streams (T of
    16 to 100, a ragged last slice, a cluster of eight, two batches
    carrying state) against the plain slot solve, the dense plain solve
-   and the one-block kernel; and the shared-volume attach planes on the
-   cluster and one-block kernels (SV of 8, 16, 64 and 512, sentinel pods
+   and the wide kernel; the shared-volume attach planes on the
+   cluster and wide kernels (SV of 8, 16, 64 and 512, sentinel pods
    mixed in, full nodes, volumes reused within a batch, a cluster of
    eight, a shape past the cluster's shared memory, two batches carrying
-   state);
+   state); and the wide kernel's hazards (``wide_cases``): pod chunks of
+   1 and 7 (a buffer refilled every pod; a chunk past the batch's end),
+   rows read in place (chunk 0), B = 0, a batch all padding, pods with
+   no constraint or term and pods of 9 and 13 term references at
+   T = 100, 512 pods mixing hard spread (the exchange slots' parity), a
+   ragged last slice, N = 65,536 at T = 1 (slices at L2) with hard
+   spread and with sv, T = 4,096 (a chunk of one pod), SV of 8, 16, 64
+   and 512 past the cluster's shared memory; each of these launched
+   five times on fresh copies, every result identical;
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
    4,096, through ``run_workload`` on the card, in the default arms
    (pipelined, device mirror on, the latency-budget tuner on). Every pod
-   bound, the cluster kernel launched once per solve, the one-block
-   kernel and the plain version never;
+   bound, the cluster kernel launched once per solve, the other solve
+   kernels and the plain version never;
 5. TopologySpreading, 5,000 nodes / 5,000 pods: the same, and zone skew
    at most one;
 6. small SchedulingBasic and TopologySpreading runs on the card and on
    the CPU (the plain version) give identical pod -> node maps;
-7. time both kernels on the main paths' largest batches and on the
-   SchedulingBasic batch cut to 1,024 columns, in turns (one-block,
-   cluster, cluster, one-block), with CUDA events around the bare launch
+7. time the cluster kernel and the wide kernel (forced) on the main
+   paths' largest batches and on the SchedulingBasic batch cut to 1,024
+   columns, in turns (wide, cluster, cluster, wide), with CUDA events
+   around the bare launch
    (the wrapper's input checks outside the window, its whole call timed
    beside it); the cluster kernel on the two largest batches at cluster
    sizes 16, 8, 4 and 2; and the plain version once on each of the two
@@ -90,9 +100,9 @@ prints no result):
     kernel ``plan_launch`` picks for its batch (the slot kernel for every
     T = 100 batch, where the cluster's dense layout outgrows a block's
     shared memory and each pod references one term); on the largest
-    batch the slot kernel, the one-block kernel (forced, on the dense
-    stream the slots were packed from) and the plain versions timed in
-    turns and held against each other;
+    batch the slot kernel, the wide kernel (forced, on the dense stream
+    the slots were packed from) and the plain versions timed in turns
+    (slots, wide, wide, slots) and held against each other;
 16. the three other wide-term families at ``bench.py``'s sizes (5,000
     nodes, 5,000 init pods, 1,000 measured): SchedulingPodAffinity and
     SchedulingPreferredPodAffinity (T = 50), SchedulingPreferredPod-
@@ -117,7 +127,7 @@ prints no result):
     pod bound, no node with more than 2 distinct shared volumes, every
     launch the cluster kernel with SV = 512, and after the run the
     carried ``sv`` planes equal to a fresh ``prepare``'s; on the largest
-    batch the cluster kernel, the one-block kernel (forced) and the plain
+    batch the cluster kernel, the wide kernel (forced) and the plain
     version timed in turns and held against each other.
 
 20. BASELINE configs 1-3 as named rows: SchedulingBasic at 100 / 0 /
@@ -182,7 +192,19 @@ prints no result):
     time, on spill pods spilled and every cluster loaded; every decision
     replayed on the oracle (host clock), the plain scan and the kernel
     (CUDA events), all equal; then the degradation differential (the
-    layer up and down bind the identical set).
+    layer up and down bind the identical set);
+28. the wide kernel unforced on a main path: the SchedulingPodAntiAffinity
+    row at ``bench.py``'s sizes (5,000 nodes, 1,000 plain pods, 30,000
+    measured pods in 100 colours, batches of 4,096) with every 64th
+    measured pod also carrying 12 weighted preferred pod-affinity terms
+    (weights 1-10) on 12 other colours over the hostname
+    (``wide_pods_workload``): such a pod references 13 terms, so no
+    batch packs into slots and every T = 100 batch runs the wide kernel.
+    Every measured pod bound, no node with two measured pods of one
+    colour, every launch as planned, the wide kernel equal to the plain
+    version on the largest batch and timed there (ten bare launches);
+    pods/s, p50 / p99 enqueue-to-bind, launches and kernel ms beside
+    phase 15's row.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -200,7 +222,7 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23 and 25 to 27) resets the kernels'
+Every main-path run (4, 5, 8 to 23 and 25 to 28) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
 Before the last line come the script's wall time, the scatters' counts
@@ -410,16 +432,16 @@ def _solve_on_card(ps, state, ints, floats, plan=None):
 
 
 def compare_kernel_plain(name, ps, state, ints, floats, plan=None):
-    """The planned kernel (or ``plan``'s), the one-block kernel and the
-    plain version on the card, on the same inputs (the state planes
-    copied for each). Returns ({kernel: largest absolute difference over
+    """The planned kernel (or ``plan``'s), the wide kernel and the plain
+    version on the card, on the same inputs (the state planes copied for
+    each). Returns ({kernel: largest absolute difference over
     assignments and final planes}, the planned kernel's final state)."""
     b = on("cuda", ps, state, ints, floats)
     want = solve_mod.solve_plain(PARAMS, *b)
     torch.cuda.synchronize()
     errs, final = {}, None
     n = ps.ints.shape[1]
-    runs = [plan, solve_mod.block_plan(n, ps.sc, ps.t)]
+    runs = [plan, solve_mod.solve_kernel.wide_plan(ps)]
     for i, p in enumerate(runs):
         got, st, ran = _solve_on_card(ps, state, ints, floats, p)
         err = max(int((got - want).abs().max()), int((st - b[1]).abs().max()))
@@ -455,14 +477,16 @@ def dense_from_slots(ps: PStatic, ints, floats):
 
 
 def _err(a, b, sa, sb):
-    return max(int((a.cpu() - b.cpu()).abs().max()),
+    """The largest absolute difference over assignments (none at B = 0)
+    and final planes."""
+    return max(int((a.cpu() - b.cpu()).abs().max()) if a.numel() else 0,
                int((sa.cpu() - sb.cpu()).abs().max()))
 
 
 def compare_slots_plain(name, ps, state, ints, floats, plan=None):
     """The slot kernel (the wrapper's slot plan, or ``plan``) on the slot
     stream packed from the dense (ints, floats); the plain slot solve and
-    the dense plain solve on the card; the one-block kernel on the dense
+    the dense plain solve on the card; the wide kernel on the dense
     stream. All must agree on assignments and final planes. Returns
     ({kernel: largest absolute difference}, the slot kernel's final
     state)."""
@@ -484,11 +508,10 @@ def compare_slots_plain(name, ps, state, ints, floats, plan=None):
     check(ran == "slots", f"{name} ran the slot kernel")
     errs = {ran: _err(got, want, st, b[1])}
     check(errs[ran] == 0, f"slot kernel equals plain on {name}")
-    got_b, st_b, ran = _solve_on_card(ps, state, ints, floats,
-                                      solve_mod.block_plan(
-                                          ps.ints.shape[1], ps.sc, ps.t))
-    errs[ran] = _err(got_b, want, st_b, b[1])
-    check(errs[ran] == 0, f"one-block kernel equals plain on {name}")
+    got_w, st_w, ran = _solve_on_card(ps, state, ints, floats,
+                                      kernel.wide_plan(ps))
+    errs[ran] = _err(got_w, want, st_w, b[1])
+    check(errs[ran] == 0, f"wide kernel equals plain on {name}")
     log(f"  {name}: N={ps.ints.shape[1]} B={sints.shape[0]} SC={ps.sc} "
         f"T={ps.t} U={ps.u} placed={int((want >= 0).sum())} slot kernel "
         f"cluster={plan.cluster}x{plan.cols_per_block} cols, "
@@ -518,7 +541,7 @@ def slot_cases():
 
 
 def phase_compare():
-    errs = {"cluster": 0, "slots": 0, "block": 0}
+    errs = {"cluster": 0, "slots": 0, "wide": 0}
 
     def keep(result):
         for k, v in result[0].items():
@@ -582,6 +605,8 @@ def phase_compare():
                                         floats[:128]))
     keep(compare_kernel_plain("sv-carry-2", ps, carried.cpu(),
                               ints[128:].clone(), floats[128:].clone()))
+    for name, args, plan in wide_cases():
+        errs["wide"] = max(errs["wide"], compare_wide(name, *args, plan=plan))
     return errs
 
 
@@ -617,9 +642,9 @@ def planes_cases():
                 solve_mod.plan_launch(5120, 3, 2, 2, 2, max_cluster=8),
                 "cluster"))
     out.append(("past-budget", random_planes(8, 5120, 32, sc=40, t=40, u=2),
-                None, "block"))
+                None, "wide"))
     # the shared-volume attach planes (the last resource an attach
-    # column): both kernels carry them
+    # column): both dense kernels carry them
     out += [
         ("sv8-1024", random_planes(30, 1024, 256, r=4, sc=2, t=2, u=2,
                                    real=1000, sv=8), None, "cluster"),
@@ -632,15 +657,124 @@ def planes_cases():
          solve_mod.plan_launch(5120, 4, 2, 2, 2, max_cluster=8, sv=16),
          "cluster"),
         ("sv8-past-budget", random_planes(34, 5120, 32, r=4, sc=40, t=40,
-                                          u=2, sv=8), None, "block")]
+                                          u=2, sv=8), None, "wide")]
     # T = 100 with one pod of nine term references: the batch does not
-    # pack, so the dense stream runs on the one-block kernel
+    # pack, so the dense stream runs on the wide kernel
     ps, state, ints, floats = random_slot_planes(25, 5120, 64, 100)
     ints[3, ps.r + 4 + 2 * ps.sc:ps.r + 4 + 2 * ps.sc + 9] = 1
     check(slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc, ps.t)
           is None, "the nine-reference batch does not pack")
-    out.append(("nine-refs-t100", (ps, state, ints, floats), None, "block"))
+    out.append(("nine-refs-t100", (ps, state, ints, floats), None, "wide"))
     return out
+
+
+def _term_refs(ints, floats, ps: PStatic, pod, refs, rng):
+    """Pod row ``pod`` of a dense stream rewritten to reference exactly
+    ``refs`` terms: each matched, required-affinity, anti-affinity or
+    weighted (both signs), at least one of them."""
+    c, t = ps.r + 4 + 2 * ps.sc, ps.t
+    ints[pod, c:c + 3 * t] = 0
+    floats[pod] = 0
+    for k in rng.choice(t, refs, replace=False):
+        kind = int(rng.integers(4))
+        if kind < 3:
+            ints[pod, c + kind * t + k] = 1
+        else:
+            floats[pod, k] = float(rng.choice([-3.0, 1.0, 2.0, 7.0]))
+
+
+def _fewer_affinities(case):
+    """A ``random_planes`` case with required affinity kept on every
+    eighth pod only (about five affinity terms a pod leave few pods a
+    node): most pods place, so commits and attachments run."""
+    ps, state, ints, floats = case
+    c = ps.r + 4 + 2 * ps.sc + ps.t
+    keep = torch.arange(ints.shape[0]) % 8 == 0
+    ints[~keep, c:c + ps.t] = 0
+    return ps, state, ints, floats
+
+
+def wide_cases():
+    """The wide kernel's hazards: (name, (planes, state, pod ints, pod
+    floats), a forced wide plan or None). Every case runs on the wide
+    kernel."""
+    rng = np.random.default_rng(60)
+    out = []
+    ps, state, ints, floats = _fewer_affinities(random_planes(
+        61, 5120, 100, sc=2, t=100, u=2, real=5000))
+    for chunk in (1, 7, 0):   # a buffer refilled every pod; past the end;
+        out.append((f"wide-chunk{chunk}", (ps, state, ints, floats),
+                    solve_mod.wide_candidate(5120, ps.r, ps.sc, ps.t, ps.u,
+                                             chunk=chunk)))
+    out.append(("wide-b0", (ps, state, ints[:0].clone(), floats[:0].clone()),
+                None))
+    pad = ints.clone()
+    pad[:, ps.r + 3] = 0
+    out.append(("wide-all-padding", (ps, state, pad, floats), None))
+    # pods with no constraint and no term (empty fact lists), and pods of
+    # 9 and 13 term references, in one batch
+    ps, state, ints, floats = random_slot_planes(62, 5120, 96, 100, sc=2,
+                                                 u=2)
+    c = ps.r + 4 + 2 * ps.sc
+    for pod in range(0, 96, 3):
+        ints[pod, ps.r + 4:c + 3 * ps.t] = 0
+        floats[pod] = 0
+    for pod in range(1, 96, 6):
+        _term_refs(ints, floats, ps, pod, 9, rng)
+    for pod in range(4, 96, 6):
+        _term_refs(ints, floats, ps, pod, 13, rng)
+    check(slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc, ps.t)
+          is None, "the 9- and 13-reference batch does not pack")
+    out.append(("wide-empty-9-13-refs", (ps, state, ints, floats), None))
+    # many pods through the exchange slots, hard spread mixed in
+    ps, state, ints, floats = _fewer_affinities(random_planes(
+        63, 5120, 512, sc=3, t=64, u=2))
+    ps.sc_meta[1] = 1
+    out.append(("wide-parity-512", (ps, state, ints, floats), None))
+    out.append(("wide-ragged-1408", _fewer_affinities(random_planes(
+        64, 1408, 128, sc=2, t=100, u=2, real=1400)), None))
+    ps, state, ints, floats = random_planes(65, 65536, 128, sc=2, t=1, u=2,
+                                            real=65000)
+    ps.sc_meta[1] = 1
+    out.append(("wide-65536-hard", (ps, state, ints, floats), None))
+    out.append(("wide-65536-sv8", random_planes(66, 65536, 128, r=4,
+                                                real=65000, sv=8), None))
+    out.append(("wide-t4096", random_planes(67, 5120, 16, t=4096,
+                                            real=5000), None))
+    for seed, sv in ((70, 8), (71, 16), (72, 64), (73, 512)):
+        out.append((f"wide-sv{sv}-t100", _fewer_affinities(random_planes(
+            seed, 1024, 256, r=4, sc=2, t=100, u=2, real=1000, sv=sv)),
+            None))
+    return out
+
+
+def compare_wide(name, ps, state, ints, floats, plan=None, repeats=5):
+    """The wide kernel (the wrapper's plan, which must be the wide
+    kernel's, or ``plan``) launched ``repeats`` times on fresh copies of
+    the inputs, each result equal to the plain version's on the card
+    (a race would show as a difference). Returns the largest absolute
+    difference."""
+    b = on("cuda", ps, state, ints, floats)
+    want = solve_mod.solve_plain(PARAMS, *b)
+    torch.cuda.synchronize()
+    planned = plan or solve_mod.solve_kernel.plan(ps)
+    check(planned.kernel == "wide", f"{name} plans the wide kernel")
+    worst = 0
+    for _ in range(repeats):
+        got, st, ran = _solve_on_card(ps, state, ints, floats, plan)
+        check(ran == "wide", f"{name} ran the wide kernel")
+        err = _err(got, want, st, b[1])
+        worst = max(worst, err)
+        check(err == 0, f"wide kernel equals plain on {name}")
+    slices = solve_mod.wide_slices(planned, ps.r, ps.sc, ps.t, ps.u, ps.sv)
+    log(f"  {name}: N={ps.ints.shape[1]} B={ints.shape[0]} SC={ps.sc} "
+        f"T={ps.t} U={ps.u} SV={ps.sv} placed={int((want >= 0).sum())} "
+        f"wide cluster={planned.cluster}x{planned.cols_per_block} cols "
+        f"chunk={planned.chunk} slices "
+        f"{'in shared memory' if slices else 'at L2'}, "
+        f"{planned.smem_bytes} B a block; {repeats} launches, max_abs_err "
+        f"{worst}")
+    return worst
 
 
 # ----------------------------------------------------------------------
@@ -741,7 +875,7 @@ class _Dispatches:
 
 
 # main-path launches of each kernel
-LAUNCHES = {"cluster": 0, "slots": 0, "block": 0, "scan": 0}
+LAUNCHES = {"cluster": 0, "slots": 0, "wide": 0, "scan": 0}
 
 
 def run_path(name, run, keep=False, kernel="cluster", cold=False):
@@ -871,7 +1005,7 @@ def run_main_path(name, nodes, pods, max_batch=4096):
         + "/".join(f"{res.metrics[k]:.1f}" for k in ("Perc50", "Perc90",
                                                       "Perc99")))
     log(f"    solves={res.solves} rebuilds={res.rebuilds} launches "
-        f"cluster={launches} block={counts['block']} kernel ms/launch "
+        f"cluster={launches} wide={counts['wide']} kernel ms/launch "
         f"(wrapper call) mean={np.mean(kernel_ms):.3f} "
         f"max={np.max(kernel_ms):.3f} kernel busy {busy:.3f} s")
     log("    host seconds: " + ", ".join(
@@ -1002,20 +1136,20 @@ def _event_ms(fn, state, repeats):
 
 
 def time_batch(name, batch, repeats=10):
-    """Both kernels on one batch, in turns (one-block, cluster, cluster,
-    one-block), each a mean over ``repeats`` bare launches after one
-    warm-up, with the wrapper's whole call (input checks included) timed
-    beside them. The two kernels must agree on the batch. Returns the
-    timings and the cluster kernel's (assignments, final state)."""
+    """The cluster kernel and the wide kernel (forced) on one batch, in
+    turns (wide, cluster, cluster, wide), each a mean over ``repeats``
+    bare launches after one warm-up, with the wrapper's whole call
+    (input checks included) timed beside them. The two kernels must
+    agree on the batch. Returns the timings and the cluster kernel's
+    (assignments, final state)."""
     kernel = solve_mod.solve_kernel
     ps, state, ints, floats = batch
     kernel.check(ps, state, ints, floats)
-    plans = {"cluster": kernel.plan(ps),
-             "block": solve_mod.block_plan(ps.ints.shape[1], ps.sc, ps.t)}
+    plans = {"cluster": kernel.plan(ps), "wide": kernel.wide_plan(ps)}
     check(plans["cluster"].kernel == "cluster",
           f"{name} plans the cluster kernel")
     turns, finals = {}, {}
-    for which in ("block", "cluster", "cluster", "block"):
+    for which in ("wide", "cluster", "cluster", "wide"):
         plan = plans[which]
 
         def bare(st, plan=plan):
@@ -1024,9 +1158,9 @@ def time_batch(name, batch, repeats=10):
 
         _event_ms(bare, state, 1)
         turns.setdefault(which, []).append(_event_ms(bare, state, repeats))
-    (a, sa), (b, sb) = finals["cluster"], finals["block"]
+    (a, sa), (b, sb) = finals["cluster"], finals["wide"]
     err = max(int((a - b).abs().max()), int((sa - sb).abs().max()))
-    check(err == 0, f"{name}: cluster kernel equals one-block kernel")
+    check(err == 0, f"{name}: cluster kernel equals wide kernel")
     whole = _event_ms(lambda st: kernel(PARAMS, ps, st, ints, floats), state,
                       repeats)
     ms = {k: float(np.mean(v)) for k, v in turns.items()}
@@ -1035,11 +1169,13 @@ def time_batch(name, batch, repeats=10):
     log(f"  {name}: N={ps.ints.shape[1]} B={ints.shape[0]} valid={valid}; "
         f"cluster of {p.cluster} x {p.cols_per_block} columns, {p.threads} "
         f"threads, {p.smem_bytes} B shared a block")
-    log(f"    one-block ms {turns['block'][0]:.3f} / {turns['block'][1]:.3f};"
+    w = plans["wide"]
+    log(f"    wide ms {turns['wide'][0]:.3f} / {turns['wide'][1]:.3f};"
         f" cluster ms {turns['cluster'][0]:.3f} / {turns['cluster'][1]:.3f};"
-        f" per pod cluster {ms['cluster'] / valid * 1000:.3f} us, one-block "
-        f"{ms['block'] / valid * 1000:.3f} us; wrapper call (cluster, checks "
-        f"included) {whole:.3f} ms")
+        f" per pod cluster {ms['cluster'] / valid * 1000:.3f} us, wide "
+        f"{ms['wide'] / valid * 1000:.3f} us (chunk {w.chunk}, {w.smem_bytes}"
+        f" B a block); wrapper call (cluster, checks included) {whole:.3f} "
+        f"ms")
     return {"n": ps.ints.shape[1], "valid_pods": valid, "ms": ms,
             "turns": turns, "wrapper_ms": whole, "err": err,
             "plan": p._asdict()}, finals["cluster"]
@@ -1655,23 +1791,22 @@ def check_plans(name, counts, recorder):
     return {str(k): v for k, v in shapes.items()}
 
 
-def time_slots_batch(name, batch, block_repeats=3, repeats=10):
-    """On a slot-route batch: the slot kernel and the one-block kernel
+def time_slots_batch(name, batch, repeats=10):
+    """On a slot-route batch: the slot kernel and the wide kernel
     (forced, on the dense stream the slots were packed from) in turns
-    (slots, one-block, one-block, slots), then the plain slot solve and
-    the dense plain solve once each; both kernels must equal the plain
-    versions. Returns the numbers."""
+    (slots, wide, wide, slots), then the plain slot solve and the dense
+    plain solve once each; both kernels must equal the plain versions.
+    Returns the numbers."""
     kernel = solve_mod.solve_kernel
     ps, state, sints, sfloats = batch
     dints, dfloats = (a.to("cuda") for a in dense_from_slots(ps, sints,
                                                              sfloats))
     kernel.check(ps, state, sints, sfloats, slots=True)
     kernel.check(ps, state, dints, dfloats)
-    plans = {"slots": kernel.slots_plan(ps),
-             "block": solve_mod.block_plan(ps.ints.shape[1], ps.sc, ps.t)}
-    streams = {"slots": (sints, sfloats), "block": (dints, dfloats)}
+    plans = {"slots": kernel.slots_plan(ps), "wide": kernel.wide_plan(ps)}
+    streams = {"slots": (sints, sfloats), "wide": (dints, dfloats)}
     turns, finals = {}, {}
-    for which in ("slots", "block", "block", "slots"):
+    for which in ("slots", "wide", "wide", "slots"):
         plan, (ints, floats) = plans[which], streams[which]
 
         def bare(st, plan=plan, ints=ints, floats=floats):
@@ -1679,11 +1814,10 @@ def time_slots_batch(name, batch, block_repeats=3, repeats=10):
                                                  floats, plan), st)
 
         _event_ms(bare, state, 1)
-        turns.setdefault(which, []).append(_event_ms(
-            bare, state, repeats if which == "slots" else block_repeats))
+        turns.setdefault(which, []).append(_event_ms(bare, state, repeats))
     plain = {}
     for which, fn in (("slots", solve_mod.solve_plain_slots),
-                      ("block", solve_mod.solve_plain)):
+                      ("wide", solve_mod.solve_plain)):
         st = state.clone()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1692,40 +1826,43 @@ def time_slots_batch(name, batch, block_repeats=3, repeats=10):
         plain[which] = ((time.perf_counter() - t0) * 1000, got, st)
     errs = {k: _err(finals[k][0], plain[k][1], finals[k][1], plain[k][2])
             for k in finals}
-    errs["plain"] = _err(plain["slots"][1], plain["block"][1],
-                         plain["slots"][2], plain["block"][2])
+    errs["plain"] = _err(plain["slots"][1], plain["wide"][1],
+                         plain["slots"][2], plain["wide"][2])
     check(not any(errs.values()), f"{name}: both kernels and both plain "
           f"versions agree bit for bit: {errs}")
     ms = {k: float(np.mean(v)) for k, v in turns.items()}
     valid = int((sints[:, ps.r + 3] > 0).sum())
     p = plans["slots"]
     b_ms, b_by = bound_ms_slots(*batch)
-    block_bound = bound_ms(ps, state, dints, dfloats)
+    wide_bound = bound_ms(ps, state, dints, dfloats)
     log(f"  {name} largest batch: N={ps.ints.shape[1]} B={sints.shape[0]} "
         f"valid={valid} T={ps.t}; slot kernel cluster of {p.cluster} x "
         f"{p.cols_per_block} columns, {p.smem_bytes} B shared a block")
     us = {k: v / valid * 1000 for k, v in ms.items()}
+    w = plans["wide"]
     log(f"    slot kernel ms {_ms_list(turns['slots'])}, {us['slots']:.3f} "
-        f"us a pod; one-block kernel ms {_ms_list(turns['block'])}, "
-        f"{us['block']:.3f} us a pod; plain slot solve {plain['slots'][0]:.1f} ms, dense plain "
-        f"{plain['block'][0]:.1f} ms; max_abs_err {errs}; bound "
-        f"{b_ms:.6f} ms ({b_by})")
+        f"us a pod; wide kernel ms {_ms_list(turns['wide'])}, "
+        f"{us['wide']:.3f} us a pod (chunk {w.chunk}, {w.smem_bytes} B a "
+        f"block); plain slot solve {plain['slots'][0]:.1f} ms, dense plain "
+        f"{plain['wide'][0]:.1f} ms; max_abs_err {errs}; bound "
+        f"{b_ms:.6f} ms ({b_by}), dense {wide_bound[0]:.6f} ms")
     return {"n": ps.ints.shape[1], "t": ps.t, "valid_pods": valid,
             "ms": ms, "turns": turns,
             "us_per_pod": us,
             "plain_ms": {k: v[0] for k, v in plain.items()},
             "err": max(errs.values()), "bound_ms": b_ms, "bound_by": b_by,
-            "block_bound_ms": block_bound[0],
-            "block_bound_by": block_bound[1], "plan": p._asdict()}
+            "wide_bound_ms": wide_bound[0],
+            "wide_bound_by": wide_bound[1], "plan": p._asdict(),
+            "wide_plan": w._asdict()}
 
 
 def phase_anti_affinity(nodes=5000, init=1000, pods=30000, colours=100,
                         max_batch=4096):
     """The SchedulingPodAntiAffinity row: checked, each launch on the
     kernel the plan gives its batch (every T = 100 batch on the slot
-    kernel); then on the largest batch the slot kernel, the one-block
-    kernel and the plain versions, timed and held against each other.
-    Returns the row and the kernel numbers."""
+    kernel); then on the largest batch the slot kernel, the wide kernel
+    and the plain versions, timed and held against each other. Returns
+    the row and the kernel numbers."""
     name = "SchedulingPodAntiAffinity"
     res, counts, kernel_ms, _, recorder, wall = run_path(
         name, lambda: perf.run_workload(
@@ -1742,7 +1879,7 @@ def phase_anti_affinity(nodes=5000, init=1000, pods=30000, colours=100,
     wide = [slots for (ps, _, _, _), slots in zip(recorder.inputs,
                                                    recorder.slots)
             if ps.t >= colours]
-    check(wide and all(wide) and counts["block"] == 0,
+    check(wide and all(wide) and counts["wide"] == 0,
           f"{name}: every T = {colours} batch ran the slot kernel "
           f"({len(wide)} batches, launches {counts})")
     busy = sum(kernel_ms) / 1000
@@ -1799,7 +1936,7 @@ def phase_wide_terms(nodes=5000, init=5000, pods=1000, max_batch=4096):
             check(not apart, f"{name}: {len(apart)} measured pods in a zone "
                   "without another pod of their group")
         plans = check_plans(name, counts, recorder)
-        check(counts["slots"] > 0 and counts["block"] == 0,
+        check(counts["slots"] > 0 and counts["wide"] == 0,
               f"{name}: the measured batches ran the slot kernel: {counts}")
         ps, state, ints, floats = recorder.largest(slots=True)
         got, st, _ = _solve_on_card(ps, state, ints, floats,
@@ -2010,8 +2147,8 @@ def run_shared_volumes(device, nodes, claims, pods, limit, max_batch):
 def phase_shared_volumes(nodes=1000, claims=300, pods=3000, limit=2,
                          max_batch=1024):
     """The shared-volume attach planes at size: checked, the carried
-    planes equal to a fresh prepare's, and the cluster kernel, the
-    one-block kernel and the plain version on the largest batch."""
+    planes equal to a fresh prepare's, and the cluster kernel, the wide
+    kernel and the plain version on the largest batch."""
     name = "shared volumes"
     (store, bs, dicts), counts, kernel_ms, _, recorder, wall = run_path(
         name, lambda: run_shared_volumes("cuda", nodes, claims, pods, limit,
@@ -2061,6 +2198,121 @@ def phase_shared_volumes(nodes=1000, claims=300, pods=3000, limit=2,
             "attachments": attached, "timed": timed, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "err": max(timed["err"], plain_err)}
+
+# phase 28: every 64th measured pod of the anti-affinity row also carries
+# 12 weighted preferred pod-affinity terms
+WIDE_PODS_EVERY = 64
+WIDE_POD_TERMS = 12
+
+
+def wide_pods_workload(wl, nodes, init, pods, every=WIDE_PODS_EVERY,
+                       terms=WIDE_POD_TERMS, colours=100):
+    """``wl.scheduling_pod_anti_affinity`` (``wl``: a package's harness
+    workloads module) with every ``every``-th measured pod also carrying
+    ``terms`` weighted ``preferredDuringSchedulingIgnoredDuringExecution``
+    pod-affinity terms (weights 1-10) on the next ``terms`` colours over
+    the hostname: one ``podAffinity`` block, each term in the shape
+    ``wl._affinity`` gives a single one, beside the row's
+    ``podAntiAffinity`` block. Such a pod references 13 terms."""
+    ops = wl.scheduling_pod_anti_affinity(nodes, init, pods)
+    template = ops[3]["podTemplate"]
+
+    def pod(i):
+        p = template(i)
+        if (i - init) % every == 0:
+            prefs = [wl._affinity(
+                "podAffinity", "color", [f"blue-{(i + x) % colours}"], HOST,
+                weight=1 + (x - 1) % 10)["affinity"]["podAffinity"][
+                "preferredDuringSchedulingIgnoredDuringExecution"][0]
+                for x in range(1, terms + 1)]
+            p["spec"]["affinity"]["podAffinity"] = {
+                "preferredDuringSchedulingIgnoredDuringExecution": prefs}
+        return p
+
+    ops[3]["podTemplate"] = pod
+    return ops
+
+
+def phase_wide_pods(anti, nodes=5000, init=1000, pods=30000, colours=100,
+                    max_batch=4096, repeats=10):
+    """Phase 28: the anti-affinity row with wide pods (``wide_pods_workload``)
+    on the card: checked, every launch as planned and every T = 100 batch
+    on the wide kernel (the dense stream: no batch packs); on the largest
+    batch the wide kernel against the plain version and timed (``repeats``
+    bare launches). ``anti``: phase 15's row, printed beside. Returns the
+    row and the kernel numbers."""
+    name = "SchedulingPodAntiAffinity with wide pods"
+    res, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: perf.run_workload(
+            name, wide_pods_workload(workloads, nodes, init, pods),
+            max_batch=max_batch, device="cuda"), keep=True, kernel=None)
+    measured = [f"pod-{init + i}" for i in range(pods)]
+    unbound = [n for n in measured if not res.placements.get(n)]
+    check(not unbound, f"{name}: {len(unbound)} measured pods unbound")
+    pairs = {(res.placements[f"pod-{init + i}"], (init + i) % colours)
+             for i in range(pods)}
+    check(len(pairs) == pods, f"{name}: {pods - len(pairs)} nodes hold two "
+          "measured pods of one colour")
+    plans = check_plans(name, counts, recorder)
+    wide = [slots for (ps, _, _, _), slots in zip(recorder.inputs,
+                                                   recorder.slots)
+            if ps.t >= colours]
+    check(wide and not any(wide) and counts["wide"] == len(wide)
+          and counts["slots"] == 0,
+          f"{name}: every T = {colours} batch ran the wide kernel "
+          f"({len(wide)} batches, launches {counts})")
+    busy = sum(kernel_ms) / 1000
+    log(f"  {name} {nodes} nodes / {init} / {pods} on {res.device}: "
+        f"{res.pods_per_second:.1f} pods/s over {res.duration_seconds:.3f} s "
+        f"(whole run {wall:.1f} s); launches {counts}; kernel busy "
+        f"{busy:.3f} s")
+    log("    enqueue->bind ms p50/p99: " + "/".join(
+        f"{res.latency[k]:.1f}" for k in ("Perc50", "Perc99"))
+        + f"; phase 15's row without the wide pods: "
+        f"{anti['pods_per_s']:.1f} pods/s, p50/p99 "
+        f"{anti['enqueue_to_bind_ms']['Perc50']:.1f}/"
+        f"{anti['enqueue_to_bind_ms']['Perc99']:.1f}")
+    log(f"    kernel ms (wrapper call) {_ms_list(kernel_ms)}")
+    log(f"    solves {res.solves} rebuilds {res.rebuilds}; host seconds: "
+        f"{_host_split(res)}")
+    largest = recorder.largest()
+    ps, state, ints, floats = largest
+    plan = solve_mod.solve_kernel.plan(ps)
+    check(plan.kernel == "wide", f"{name}: the largest batch plans the wide "
+          "kernel")
+    got = {}
+
+    def bare(st):
+        got["a"] = (solve_mod.solve_kernel.launch(PARAMS, ps, st, ints,
+                                                  floats, plan), st)
+
+    _event_ms(bare, state, 1)
+    ms = _event_ms(bare, state, repeats)
+    plain_ms, err = plain_against(f"{name} largest", largest, got["a"],
+                                  kernel="wide")
+    b_ms, b_by = bound_ms(*largest)
+    valid = int((ints[:, ps.r + 3] > 0).sum())
+    refs = ints[:, ps.r + 4 + 2 * ps.sc:ps.r + 4 + 2 * ps.sc + 3 * ps.t] > 0
+    wide_pods = int(((refs.reshape(ints.shape[0], 3, ps.t).any(1).sum(1)
+                      + (floats != 0).sum(1)) > 8).sum())
+    log(f"  {name} largest batch: N={ps.ints.shape[1]} B={ints.shape[0]} "
+        f"valid={valid} T={ps.t}, {wide_pods} pods of more than "
+        f"{SPARSE_K} term references; wide kernel {ms:.3f} ms, "
+        f"{ms / valid * 1000:.3f} us a pod (chunk {plan.chunk}, "
+        f"{plan.smem_bytes} B a block); plain {plain_ms:.1f} ms; bound "
+        f"{b_ms:.6f} ms ({b_by}); max_abs_err {err}")
+    return {
+        "pods_per_s": res.pods_per_second,
+        "duration_s": res.duration_seconds, "wall_s": wall,
+        "enqueue_to_bind_ms": res.latency, "solve_to_bind_ms": res.metrics,
+        "solves": res.solves, "rebuilds": res.rebuilds,
+        "launches": counts, "kernel_ms": kernel_ms, "kernel_busy_s": busy,
+        "host_seconds": res.seconds, "plans": plans,
+    }, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "err": err, "valid_pods": valid, "wide_pods": wide_pods,
+        "us_per_pod": ms / valid * 1000, "n": ps.ints.shape[1], "t": ps.t,
+        "plan": plan._asdict()}
+
 
 # every row's telemetry, critical path and freshness, in the order run
 ROW_REPORTS = []
@@ -2871,7 +3123,7 @@ def main() -> None:
 
     log("[15] the SchedulingPodAntiAffinity row")
     anti, slots = phase_anti_affinity()
-    for k in ("slots", "block"):
+    for k in ("slots", "wide"):
         errs[k] = max(errs[k], slots["err"])
 
     log("[16] the wide-term families: SchedulingPodAffinity, "
@@ -2888,7 +3140,7 @@ def main() -> None:
 
     log("[19] the shared-volume attach planes at size")
     shared = phase_shared_volumes()
-    for k in ("cluster", "block"):
+    for k in ("cluster", "wide"):
         errs[k] = max(errs[k], shared["err"])
 
     log("[20] BASELINE configs 1-3: SchedulingBasic 100/1,000 and "
@@ -2934,7 +3186,13 @@ def main() -> None:
           "no state-only rebuild on phases 4, 5, 11 or 14")
     log(f"  state-only rebuilds checked against a fresh prepare: "
         f"{STATE_ONLY['checked']}, equal {STATE_ONLY['equal']}")
-    log(f"  main-path launches over phases 4, 5 and 8 to 27: {LAUNCHES}")
+
+    log(f"[28] the anti-affinity row with every {WIDE_PODS_EVERY}th measured "
+        f"pod carrying {WIDE_POD_TERMS} weighted pod-affinity terms: the "
+        "wide kernel unforced")
+    wide_pods, wide_timed = phase_wide_pods(anti)
+    errs["wide"] = max(errs["wide"], wide_timed["err"])
+    log(f"  main-path launches over phases 4, 5 and 8 to 28: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -2961,15 +3219,22 @@ def main() -> None:
                   "bound_ms": slots["bound_ms"], "bound_by": slots["bound_by"],
                   "batch": f"SchedulingPodAntiAffinity largest batch "
                            f"(T={slots['t']}), slot stream"},
-        "block": {"ms": slots["ms"]["block"],
-                  "plain_ms": slots["plain_ms"]["block"],
-                  "bound_ms": slots["block_bound_ms"],
-                  "bound_by": slots["block_bound_by"],
-                  "batch": f"SchedulingPodAntiAffinity largest batch "
-                           f"(T={slots['t']}), dense stream, forced",
-                  "carries": "the sv attach planes",
-                  "sv_ms": sv_timed["ms"]["block"],
-                  "sv_batch": "shared-volume phase largest batch, forced"},
+        "wide": {"ms": wide_timed["ms"], "plain_ms": wide_timed["plain_ms"],
+                 "bound_ms": wide_timed["bound_ms"],
+                 "bound_by": wide_timed["bound_by"],
+                 "batch": f"phase 28 largest batch (T={wide_timed['t']}, "
+                          f"{wide_timed['valid_pods']} pods, "
+                          f"{wide_timed['wide_pods']} of more than "
+                          f"{SPARSE_K} term references)",
+                 "t100_forced_ms": slots["ms"]["wide"],
+                 "t100_forced_plain_ms": slots["plain_ms"]["wide"],
+                 "t100_forced_bound_ms": slots["wide_bound_ms"],
+                 "t100_forced_batch": f"SchedulingPodAntiAffinity largest "
+                                      f"batch (T={slots['t']}), dense "
+                                      f"stream, forced",
+                 "carries": "the sv attach planes",
+                 "sv_ms": sv_timed["ms"]["wide"],
+                 "sv_batch": "shared-volume phase largest batch, forced"},
         "scan": {"ms": scan_ms, "plain_ms": scan_plain_ms,
                  "bound_ms": scan_b_ms, "bound_by": scan_b_by,
                  "batch": f"autoscale_whatif() ({scan_pods} pods, N="
@@ -2987,7 +3252,7 @@ def main() -> None:
     } for k, name, source, replaces in (
         ("cluster", "solve_cluster_kernel", KERNEL_SOURCE, REPLACES),
         ("slots", "solve_slots_kernel", KERNEL_SOURCE, REPLACES_SPARSE),
-        ("block", "solve_block_kernel", KERNEL_SOURCE, REPLACES),
+        ("wide", "solve_wide_kernel", KERNEL_SOURCE, REPLACES),
         ("scan", "solve_scan_kernel", SCAN_SOURCE, REPLACES_SCAN))]}
     report = {
         "card": card, "kernels": kernels["kernels"],
@@ -3014,6 +3279,7 @@ def main() -> None:
         "scatters": scatters["scatters"], "configs": configs,
         "families": families, "tracing_cost": tracing, "tuner": tuner,
         "autoscale": autoscale, "mesh": mesh, "federation": federation,
+        "wide_pods": wide_pods, "wide_kernel": wide_timed,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

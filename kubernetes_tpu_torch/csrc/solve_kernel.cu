@@ -35,8 +35,8 @@
 // cluster kernel leaves the sv rows in global memory (at SV = 512 over 1,024
 // columns they are 2 MB, which L2 holds) and touches them at L2 (__ldcg,
 // __stcg: the kernel writes them), one row a pod, the one its slot names; its
-// shared memory grows only by the pod chunks' two columns. The one-block
-// kernel carries them too, for sv epochs past the cluster's shared memory
+// shared memory grows only by the pod chunks' two columns. The wide kernel
+// carries them the same way, for sv epochs past the cluster's shared memory
 // (the slot kernel takes no sv epoch, as the reference's sparse scan). Both
 // dense kernels are templates on kSv: the launch takes the instance with the
 // sv code only for an epoch with slots, so the others run no sv code at all
@@ -56,7 +56,8 @@
 // Three kernels, picked per batch by the wrapper's launch plan (ops/solve.py,
 // plan_launch): the cluster kernel whenever its shared-memory layout fits one
 // block's 227 KB; else the slot kernel when every pod of the batch references
-// at most 8 terms (the slot stream, ops/slots.py); else the one-block kernel.
+// at most 8 terms (the slot stream, ops/slots.py) and the epoch has no sv
+// slots; else the wide kernel.
 //
 // solve_cluster_kernel, the main path. The node axis is spread over a
 // thread-block cluster of up to 16 blocks (one per SM); block q owns columns
@@ -107,10 +108,32 @@
 // trips for its term rows (filter, then commit) add about 0.9 us a pod to it
 // on an H100 (PERF.md).
 //
-// solve_block_kernel: the design of the first port, one block of up to 1024
-// threads with the planes in global memory (held in L2), for the batches the
-// other two do not take: a shape past the cluster's shared memory with a pod
-// of more than 8 term references.
+// solve_wide_kernel: the slot kernel's structure over the dense pod stream,
+// for the batches the other two do not take: a shape past the cluster's
+// shared memory with a pod of more than 8 term references, or with sv slots,
+// or a node axis too wide for any slice (N = 65,536). The reference runs its
+// dense XLA scan there (pallas_solver.py::_xla_planes_solve, from
+// XlaPlanesBackend.solve_lazy). Node axis over the cluster, one barrier a pod
+// (two with hard spread), local commits, a per-block copy of the totals; the
+// term rows and the sv rows at L2, each column read and written only by the
+// thread that owns it. The layout is tiered by the plan (wide_layout): each
+// block's slice of the non-term state rows and of the static rows a pod reads
+// lives in shared memory when it fits (kSlices), else those rows too are read
+// at L2 by the owning thread (__ldcg for the state, __ldg for the static
+// rows). Pod rows (R+4+2*SC+3*T ints and T weights, about 1.6 KB at T = 100)
+// are staged by cp.async in double-buffered chunks the plan sizes to what is
+// left (at least one pod); past the point where one pod's rows fit (chunk 0)
+// each pod's row is read where it lies, by uniform loads. Each chunk's facts
+// are built once, a warp a pod, by ballots over the term axis: the pod's
+// hard, soft and domain-commit constraints and one list of its term
+// references (term << 5 | what it does: filter on owners, filter on counts,
+// required affinity, preferred weight, commit), in increasing term order. A
+// column then visits only those references, never T: at T = 100 a pod of the
+// anti-affinity row references 1-13 terms. One pass over the references
+// reads each term's counts once for the anti-affinity filter, the affinity
+// filter and the preferred sum, which it adds in term order from 0.0, as the
+// reference; a reference without a weight adds nothing, so skipping it is
+// exact. Bound, as the slot kernel, by the per-pod latency chain (PERF.md).
 //
 // Exactness: built with --fmad=false and IEEE division; the score is summed
 // in the reference's order, and the (higher score, lower index) rule is
@@ -126,13 +149,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kClusterThreads = 512;
 constexpr int kMaxCluster = 16;
 constexpr int kSlots = 8;  // term slots a pod, ops/slots.py::SPARSE_K
 constexpr int kMatched = 1, kOwnAff = 2, kOwnAnti = 4;  // slot flag bits
 constexpr int kBig = 1 << 30;
+constexpr int kSmemLimit = 232448;  // one block's shared memory on Hopper
 constexpr float kFoundThreshold = -5e29f;  // NEG_INF / 2
 
 struct Dims {
@@ -241,24 +263,66 @@ __host__ __device__ inline Layout slots_layout(const Dims& d, const Plan& p) {
 // constraint or term order (the reference's summation order).
 enum { kNHard, kNSoft, kNScc, kNTf, kNAff, kNPref, kNTc, kSelfAll, kHead };
 
+// The wide kernel's facts: the same eight-word head (kNTf counts the term
+// references), the hard, soft and domain-commit constraint lists, then one
+// list of the pod's term references, each (term << kRefShift) | what the
+// term does for the pod.
+enum {
+  kRefOwners = 1,   // matched: the filter wants no owner in the domain
+  kRefCounts = 2,   // own anti-affinity: the filter wants no match there
+  kRefAff = 4,      // own required affinity
+  kRefPref = 8,     // a preferred weight
+  kRefCommit = 16,  // matched or own anti-affinity: counted at the commit
+};
+constexpr int kRefShift = 5;
+
+__host__ __device__ inline int wide_fact_stride(int sc, int t) { return kHead + 3 * sc + t; }
+
+// Shared-memory layout of the wide kernel, in 4-byte words: with `slices`,
+// the slot kernel's slices of the non-term state and static rows; then the
+// score row, totals, sc_meta, two chunks of dense pod rows and weights (none
+// at chunk 0: rows read in place), one chunk's facts (one pod's at chunk 0),
+// the warp slots and the exchange slots (ops/solve.py::wide_smem_bytes).
+__host__ __device__ inline Layout wide_layout(const Dims& d, const Plan& p, bool slices) {
+  Layout l;
+  int w = 0;
+  l.state = w;
+  if (slices) w += (d.r + 3 + d.sc) * p.cpb;  // requested, nonzero, pod_count, sc_counts
+  l.stat = w;
+  if (slices) w += (d.r + 2 + d.sc + 2 * d.u) * p.cpb;  // alloc, max_pods, valid, sc_codes, masks, scores
+  l.score = w;
+  w += p.cpb;
+  l.totals = w;
+  w += d.t;
+  l.meta = w;
+  w += 2 * d.sc;
+  l.pod_i = w;
+  w += 2 * p.chunk * pod_width(d);
+  l.pod_f = w;
+  w += 2 * p.chunk * d.t;
+  l.facts = w;
+  w += (p.chunk > 0 ? p.chunk : 1) * wide_fact_stride(d.sc, d.t);
+  l.wmin = w;
+  w += d.sc * (p.threads / 32);
+  l.wbest = w;
+  w += 2 * (p.threads / 32);
+  l.slot_min = w;
+  w += 2 * p.cluster * d.sc;
+  l.slot_best = w;
+  w += 2 * 2 * p.cluster;
+  l.words = w;
+  return l;
+}
+
+// The plan's tier: the slices live in shared memory exactly when that
+// layout fits one block's (the wrapper's plan follows the same rule).
+__host__ __device__ inline bool wide_slices(const Dims& d, const Plan& p) {
+  return (long)wide_layout(d, p, true).words * (long)sizeof(int) <= kSmemLimit;
+}
+
 __device__ __forceinline__ int warp_min(int x) {
   for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_down_sync(0xffffffffu, x, o));
   return x;
-}
-
-// Block-wide minimum, returned to every thread. scratch holds kMaxWarps + 1.
-__device__ int block_min(int x, int* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x = warp_min(x);
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    x = lane < (int)(blockDim.x >> 5) ? scratch[lane] : INT_MAX;
-    x = warp_min(x);
-    if (lane == 0) scratch[kMaxWarps] = x;
-  }
-  __syncthreads();
-  return scratch[kMaxWarps];
 }
 
 // (score, index) pair: the higher score wins, the lower index on equal scores.
@@ -272,33 +336,6 @@ __device__ __forceinline__ void better(float& s, int& j, float os, int oj) {
 __device__ __forceinline__ void warp_best(float& s, int& j) {
   for (int o = 16; o > 0; o >>= 1)
     better(s, j, __shfl_down_sync(0xffffffffu, s, o), __shfl_down_sync(0xffffffffu, j, o));
-}
-
-// Block-wide best pair, returned to every thread.
-__device__ void block_best(float& s, int& j, float* fs, int* js) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_best(s, j);
-  if (lane == 0) {
-    fs[warp] = s;
-    js[warp] = j;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    s = -INFINITY;
-    j = INT_MAX;
-    if (lane < (int)(blockDim.x >> 5)) {
-      s = fs[lane];
-      j = js[lane];
-    }
-    warp_best(s, j);
-    if (lane == 0) {
-      fs[kMaxWarps] = s;
-      js[kMaxWarps] = j;
-    }
-  }
-  __syncthreads();
-  s = fs[kMaxWarps];
-  j = js[kMaxWarps];
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -321,189 +358,6 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------------------
-// The one-block kernel: thread k owns node columns k, k+blockDim, ... of
-// every plane, so a thread only ever reads back what it wrote itself and
-// state needs no fence between pods. kSv as in the cluster kernel.
-template <bool kSv>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-solve_block_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
-                   const float* __restrict__ pod_floats, const int* __restrict__ sta,
-                   const float* __restrict__ sta_f, int* __restrict__ st, int* __restrict__ assign,
-                   Dims d, Weights w) {
-  extern __shared__ int smem[];
-  int* red_i = smem;                                               // kMaxWarps + 1
-  int* red_j = red_i + kMaxWarps + 1;                              // kMaxWarps + 1
-  float* red_f = reinterpret_cast<float*>(red_j + kMaxWarps + 1);  // kMaxWarps + 1
-  int* min_c = reinterpret_cast<int*>(red_f + kMaxWarps + 1);      // SC
-  int* totals = min_c + d.sc;                                      // T
-
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int r = d.r, sc = d.sc, t = d.t, u = d.u, v = d.v, n = d.n;
-  const size_t N = (size_t)n;
-
-  // static plane rows
-  const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
-  const int s_sc_domain = s_sc_codes + sc, s_term_codes = s_sc_domain + u * sc;
-  const int s_node_valid = s_term_codes + t;
-  // state plane rows
-  const int d_req = 0, d_nz = r, d_pod_count = r + 2, d_sc_counts = r + 3;
-  const int d_term_counts = d_sc_counts + sc, d_term_owners = d_term_counts + t;
-  const int d_sv = d_term_owners + t, d_totals = d_sv + (kSv ? d.sv : 0);
-  // pod stream columns
-  const int c_nz = r, c_profile = r + 2, c_valid = r + 3, c_pod_sc = r + 4;
-  const int c_sc_match = c_pod_sc + sc, c_match_by = c_sc_match + sc;
-  const int c_own_aff = c_match_by + t, c_own_anti = c_own_aff + t;
-  const int c_sv = c_own_anti + t;
-  const int width = c_sv + (kSv ? 2 : 0);  // pod_width(d): kSv is d.sv > 0
-
-  for (int i = tid; i < t; i += nt) totals[i] = st[d_totals * N + i];
-  __syncthreads();
-
-  for (int p = 0; p < d.b; ++p) {
-    const int* row = pod_ints + (size_t)p * width;
-    const float* wrow = pod_floats + (size_t)p * t;
-    if (row[c_valid] <= 0) {  // padding or inexpressible: no node, no commit
-      if (tid == 0) assign[p] = -1;
-      continue;
-    }
-    const int profile = row[c_profile];
-
-    // hard-spread domain minima (0 when the profile has no eligible domain)
-    bool any_soft = false;
-    for (int k = 0; k < sc; ++k) {
-      if (row[c_pod_sc + k] <= 0) continue;
-      if (sc_meta[sc + k] <= 0) {
-        any_soft = true;
-        continue;
-      }
-      const int* counts = st + (d_sc_counts + k) * N;
-      const int* dom = sta + (s_sc_domain + profile * sc + k) * N;
-      int m = kBig;
-      for (int j = tid; j < n; j += nt)
-        if (dom[j] > 0) m = min(m, counts[j]);
-      m = block_min(m, red_i);
-      min_c[k] = m < kBig ? m : 0;  // every thread writes the same value
-    }
-    // required affinity: the first pod of a group passes anywhere when no
-    // pod matches any of its terms yet and it matches all of them itself
-    bool has_aff = false, no_any = true, self_all = true;
-    for (int k = 0; k < t; ++k) {
-      if (row[c_own_aff + k] <= 0) continue;
-      has_aff = true;
-      no_any = no_any && totals[k] == 0;
-      self_all = self_all && row[c_match_by + k] > 0;
-    }
-    const bool need_aff = has_aff && !(no_any && self_all);
-    // the pod's shared volume: slot (d.sv for none) and attach column
-    const int slot = kSv ? row[c_sv] : 0, vcol = kSv ? row[c_sv + 1] : 0;
-    int* att = kSv && slot < d.sv ? st + (size_t)(d_sv + slot) * N : nullptr;
-
-    float best_s = -INFINITY;
-    int best_j = INT_MAX;
-    for (int j = tid; j < n; j += nt) {
-      bool ok = sta[s_node_valid * N + j] > 0 &&
-                st[d_pod_count * N + j] < sta[s_max_pods * N + j] &&
-                sta[(s_masks + profile) * N + j] > 0;
-      for (int k = 0; ok && k < r; ++k)
-        ok = st[(d_req + k) * N + j] + row[k] <= sta[(s_alloc + k) * N + j];
-      if (ok && att != nullptr)
-        ok = st[(d_req + vcol) * N + j] + row[vcol] + (1 - att[j]) <=
-             sta[(s_alloc + vcol) * N + j];
-      for (int k = 0; ok && k < sc; ++k) {
-        if (row[c_pod_sc + k] <= 0 || sc_meta[sc + k] <= 0) continue;
-        const int code = sta[(s_sc_codes + k) * N + j];
-        const int skew = st[(d_sc_counts + k) * N + j] + row[c_sc_match + k] - min_c[k];
-        ok = code < v && skew <= sc_meta[k];
-      }
-      for (int k = 0; ok && k < t; ++k) {
-        if (row[c_match_by + k] > 0 && st[(d_term_owners + k) * N + j] > 0) ok = false;
-        if (row[c_own_anti + k] > 0 && st[(d_term_counts + k) * N + j] > 0) ok = false;
-        if (need_aff && row[c_own_aff + k] > 0 &&
-            !(st[(d_term_counts + k) * N + j] > 0 && sta[(s_term_codes + k) * N + j] < v))
-          ok = false;
-      }
-      if (!ok) continue;
-
-      const float alloc_cpu = (float)max(sta[s_alloc * N + j], 1);
-      const float alloc_mem = (float)max(sta[(s_alloc + 1) * N + j], 1);
-      const float cpu = (float)(st[d_nz * N + j] + row[c_nz]) / alloc_cpu;
-      const float mem = (float)(st[(d_nz + 1) * N + j] + row[c_nz + 1]) / alloc_mem;
-      const bool over = cpu >= 1.0f || mem >= 1.0f;
-      const float balanced = over ? 0.0f : (1.0f - fabsf(cpu - mem)) * 100.0f;
-      const float least =
-          (fminf(fmaxf(1.0f - cpu, 0.0f), 1.0f) + fminf(fmaxf(1.0f - mem, 0.0f), 1.0f)) * 50.0f;
-      float spread = 0.0f;
-      if (any_soft) {
-        float soft = 0.0f;
-        for (int k = 0; k < sc; ++k)
-          if (row[c_pod_sc + k] > 0 && sc_meta[sc + k] <= 0)
-            soft += (float)st[(d_sc_counts + k) * N + j];
-        spread = 100.0f / (1.0f + soft);
-      }
-      float pref = 0.0f;
-      for (int k = 0; k < t; ++k) {
-        const float wk = wrow[k];
-        if (wk != 0.0f) pref += wk * (float)st[(d_term_counts + k) * N + j];
-      }
-      float s = w.balanced * balanced;
-      s = s + w.least * least;
-      s = s + w.spread * spread;
-      s = s + w.affinity * pref;
-      s = s + w.stat * sta_f[profile * N + j];
-      better(best_s, best_j, s, j);
-    }
-    block_best(best_s, best_j, red_f, red_j);
-    if (best_j == INT_MAX || !(best_s > kFoundThreshold)) {
-      if (tid == 0) assign[p] = -1;
-      continue;  // uniform: every thread took the same branch
-    }
-
-    // commit to node jc: its resources by the thread owning the column,
-    // domain-wide count adds by every thread on its own columns
-    const int jc = best_j;
-    if (jc % nt == tid) {
-      for (int k = 0; k < r; ++k) st[(d_req + k) * N + jc] += row[k];
-      st[d_nz * N + jc] += row[c_nz];
-      st[(d_nz + 1) * N + jc] += row[c_nz + 1];
-      st[d_pod_count * N + jc] += 1;
-      if (att != nullptr) {  // one more attachment where it was not attached
-        st[(d_req + vcol) * N + jc] += 1 - att[jc];
-        att[jc] = 1;
-      }
-    }
-    for (int k = 0; k < sc; ++k) {
-      const int inc = row[c_sc_match + k];
-      if (inc == 0) continue;
-      const int* codes = sta + (s_sc_codes + k) * N;
-      const int code_j = codes[jc];
-      int* counts = st + (d_sc_counts + k) * N;
-      for (int j = tid; j < n; j += nt)
-        if (codes[j] == code_j) counts[j] += inc;
-    }
-    for (int k = 0; k < t; ++k) {
-      const int matched = row[c_match_by + k], anti = row[c_own_anti + k];
-      if (matched == 0 && anti == 0) continue;
-      const int* codes = sta + (s_term_codes + k) * N;
-      const int code_j = codes[jc];
-      int* tcounts = st + (d_term_counts + k) * N;
-      int* towners = st + (d_term_owners + k) * N;
-      for (int j = tid; j < n; j += nt) {
-        if (codes[j] != code_j) continue;
-        tcounts[j] += matched;
-        towners[j] += anti;
-      }
-      if (tid == 0 && code_j < v) totals[k] += matched;
-    }
-    if (tid == 0) assign[p] = jc;
-    __syncthreads();  // totals, minima and reduction scratch for the next pod
-  }
-
-  __syncthreads();
-  int* totals_plane = st + d_totals * N;
-  for (int j = tid; j < n; j += nt) totals_plane[j] = j < t ? totals[j] : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -1225,7 +1079,427 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
   cluster_wait();
 }
 
-// The two cluster kernels share one signature.
+// ---------------------------------------------------------------------------
+// The wide kernel (see the note at the top). Pods come as the dense stream,
+// as for the cluster kernel. kSv as in the cluster kernel; kSlices: the
+// block's slices of the non-term state and static rows are in shared memory
+// (else read at L2 by the owning thread, as the term rows always are).
+template <bool kSv, bool kSlices>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
+                  const float* __restrict__ pod_floats, const int* __restrict__ sta,
+                  const float* __restrict__ sta_f, int* __restrict__ st,
+                  int* __restrict__ assign, Dims d, Weights w, Plan pl) {
+  extern __shared__ int smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nc = pl.cluster;
+  const Layout L = wide_layout(d, pl, kSlices);
+
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int r = d.r, sc = d.sc, t = d.t, u = d.u, v = d.v, n = d.n;
+  const size_t N = (size_t)n;
+  const int cpb = pl.cpb, chunk = pl.chunk;
+  const bool staged = chunk > 0;
+  const int per = staged ? chunk : 1;  // pods a round
+  const int lo = rank * cpb;
+  const int cols = max(0, min(cpb, n - lo));
+
+  // global static plane rows
+  const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
+  const int s_sc_domain = s_sc_codes + sc, s_term_codes = s_sc_domain + u * sc;
+  const int s_node_valid = s_term_codes + t;
+  // state plane rows; those before the term rows are the slices
+  const int d_req = 0, d_nz = r, d_pod_count = r + 2, d_sc_counts = r + 3;
+  const int d_term_counts = d_sc_counts + sc, d_term_owners = d_term_counts + t;
+  const int d_sv = d_term_owners + t, d_totals = d_sv + (kSv ? d.sv : 0);
+  // shared static rows: alloc[R] | max_pods | node_valid | sc_codes[SC] |
+  // masks[U] | static scores[U] (f32)
+  const int a_max_pods = r, a_valid = r + 1, a_sc_codes = r + 2, a_masks = r + 2 + sc;
+  const int a_scores = a_masks + u;
+  // pod stream columns
+  const int c_nz = r, c_profile = r + 2, c_valid = r + 3, c_pod_sc = r + 4;
+  const int c_sc_match = c_pod_sc + sc, c_match_by = c_sc_match + sc;
+  const int c_own_aff = c_match_by + t, c_own_anti = c_own_aff + t;
+  const int c_sv = c_own_anti + t;
+  const int width = c_sv + (kSv ? 2 : 0);  // pod_width(d): kSv is d.sv > 0
+  const int fstride = wide_fact_stride(sc, t);
+
+  // this block's columns of the global rows: row k at k * N
+  int* g_state = st + lo;
+  const int* g_stat = sta + lo;
+  const float* g_score = sta_f + lo;
+  int* g_counts = st + d_term_counts * N + lo;
+  int* g_owners = st + d_term_owners * N + lo;
+  const int* g_codes = sta + s_term_codes * N + lo;
+
+  int* s_state = smem + L.state;
+  int* s_stat = smem + L.stat;
+  float* s_score = reinterpret_cast<float*>(smem + L.score);
+  int* totals = smem + L.totals;
+  int* meta = smem + L.meta;
+  int* pod_i = smem + L.pod_i;
+  float* pod_f = reinterpret_cast<float*>(smem + L.pod_f);
+  int* facts = smem + L.facts;
+  int* wmin = smem + L.wmin;
+  float* wbest_s = reinterpret_cast<float*>(smem + L.wbest);
+  int* wbest_j = smem + L.wbest + nwarps;
+  int* slot_min = smem + L.slot_min;  // [2][cluster][SC]
+  float* slot_s = reinterpret_cast<float*>(smem + L.slot_best);  // [2][cluster]
+  int* slot_j = smem + L.slot_best + 2 * nc;                    // [2][cluster]
+
+  // A non-term state row (global row number) at column c of the slice, and
+  // an add to it by the thread owning c: shared memory, or L2 (the kernel
+  // writes these rows, so never through the read-only path).
+  auto state_at = [&](int row, int c) -> int {
+    if constexpr (kSlices)
+      return s_state[row * cpb + c];
+    else
+      return __ldcg(g_state + row * N + c);
+  };
+  auto state_add = [&](int row, int c, int x) {
+    if constexpr (kSlices) {
+      s_state[row * cpb + c] += x;
+    } else {
+      int* q = g_state + row * N + c;
+      __stcg(q, __ldcg(q) + x);
+    }
+  };
+  // A static int row: its index in the shared layout (a) and in the global
+  // planes (g).
+  auto stat_at = [&](int a, int g, int c) -> int {
+    if constexpr (kSlices)
+      return s_stat[a * cpb + c];
+    else
+      return __ldg(g_stat + g * N + c);
+  };
+
+  // the block's slice of the non-term planes, once
+  if constexpr (kSlices) {
+    for (int row = 0; row < d_term_counts; ++row)
+      for (int c = tid; c < cols; c += nt)
+        cp_async4(s_state + row * cpb + c, st + row * N + lo + c);
+    for (int row = 0; row < a_scores; ++row) {
+      const int g = row < a_max_pods    ? s_alloc + row
+                    : row == a_max_pods ? s_max_pods
+                    : row == a_valid    ? s_node_valid
+                    : row < a_masks     ? s_sc_codes + (row - a_sc_codes)
+                                        : s_masks + (row - a_masks);
+      for (int c = tid; c < cols; c += nt) cp_async4(s_stat + row * cpb + c, sta + g * N + lo + c);
+    }
+    for (int k = 0; k < u; ++k)
+      for (int c = tid; c < cols; c += nt)
+        cp_async4(s_stat + (a_scores + k) * cpb + c, sta_f + k * N + lo + c);
+  }
+  cp_async_commit();
+  for (int k = tid; k < t; k += nt) totals[k] = st[d_totals * N + k];
+  for (int k = tid; k < 2 * sc; k += nt) meta[k] = sc_meta[k];
+
+  const int rounds = (d.b + per - 1) / per;
+  auto fetch = [&](int ch) {
+    const int p0 = ch * chunk, np = min(chunk, d.b - p0), buf = ch & 1;
+    int* di = pod_i + buf * chunk * width;
+    const int* si = pod_ints + (size_t)p0 * width;
+    for (int i = tid; i < np * width; i += nt) cp_async4(di + i, si + i);
+    float* df = pod_f + buf * chunk * t;
+    const float* sf = pod_floats + (size_t)p0 * t;
+    for (int i = tid; i < np * t; i += nt) cp_async4(df + i, sf + i);
+  };
+  if (staged && rounds > 0) fetch(0);
+  cp_async_commit();
+
+  // every block of the cluster is running before any slot is written
+  cluster_arrive();
+  cluster_wait();
+
+  int par_min = 0, par_best = 0;
+  for (int ch = 0; ch < rounds; ++ch) {
+    if (staged && ch + 1 < rounds) fetch(ch + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // the slices and this chunk have landed
+    __syncthreads();
+    const int p0 = ch * per, np = min(per, d.b - p0), buf = ch & 1;
+    // the round's rows: the staged chunk, or (chunk 0) the pod's row where
+    // it lies in global memory
+    const int* rows = staged ? pod_i + buf * chunk * width : pod_ints + (size_t)p0 * width;
+    const float* frows = staged ? pod_f + buf * chunk * t : pod_floats + (size_t)p0 * t;
+
+    // each pod's uniform facts, once: a warp a pod, the term references
+    // compacted by ballots, so the list keeps the increasing term order
+    for (int i = warp; i < np; i += nwarps) {
+      const int* row = rows + i * width;
+      const float* wrow = frows + i * t;
+      int* f = facts + i * fstride;
+      int* hard = f + kHead;
+      int* soft = hard + sc;
+      int* scc = soft + sc;
+      int* refs = scc + sc;
+      if (lane == 0) {
+        int nh = 0, ns = 0, nscc = 0;
+        for (int k = 0; k < sc; ++k) {
+          if (row[c_pod_sc + k] > 0) {
+            if (meta[sc + k] > 0)
+              hard[nh++] = k;
+            else
+              soft[ns++] = k;
+          }
+          if (row[c_sc_match + k] != 0) scc[nscc++] = k;
+        }
+        f[kNHard] = nh;
+        f[kNSoft] = ns;
+        f[kNScc] = nscc;
+      }
+      int nref = 0, naff = 0;
+      bool self_all = true;
+      for (int k0 = 0; k0 < t; k0 += 32) {
+        const int k = k0 + lane;
+        int e = 0;
+        if (k < t) {
+          const int matched = row[c_match_by + k], aff = row[c_own_aff + k];
+          const int anti = row[c_own_anti + k];
+          e = (matched > 0 ? kRefOwners : 0) | (anti > 0 ? kRefCounts : 0) |
+              (aff > 0 ? kRefAff : 0) | (wrow[k] != 0.0f ? kRefPref : 0) |
+              (matched != 0 || anti != 0 ? kRefCommit : 0);
+          if (aff > 0 && !(matched > 0)) self_all = false;
+        }
+        const unsigned any = __ballot_sync(0xffffffffu, e != 0);
+        if (e != 0) refs[nref + __popc(any & ((1u << lane) - 1u))] = (k << kRefShift) | e;
+        nref += __popc(any);
+        naff += __popc(__ballot_sync(0xffffffffu, (e & kRefAff) != 0));
+      }
+      self_all = __all_sync(0xffffffffu, self_all);
+      if (lane == 0) {
+        f[kNTf] = nref;
+        f[kNAff] = naff;
+        f[kSelfAll] = self_all;
+      }
+    }
+    __syncthreads();
+
+    for (int i = 0; i < np; ++i) {
+      const int p = p0 + i;
+      const int* row = rows + i * width;
+      const float* wrow = frows + i * t;
+      if (row[c_valid] <= 0) {  // padding or inexpressible: no node, no commit
+        if (rank == 0 && tid == 0) assign[p] = -1;
+        continue;
+      }
+      const int* f = facts + i * fstride;
+      const int nh = f[kNHard], ns = f[kNSoft], nscc = f[kNScc], nref = f[kNTf];
+      const int naff = f[kNAff];
+      const int* hard = f + kHead;
+      const int* soft = hard + sc;
+      const int* scc = soft + sc;
+      const int* refs = scc + sc;
+      const int profile = row[c_profile];
+      // the pod's shared volume: its sv row (this block's columns, at L2)
+      // and attach column
+      const int slot = kSv ? row[c_sv] : 0, vcol = kSv ? row[c_sv + 1] : 0;
+      int* att = kSv && slot < d.sv ? st + (size_t)(d_sv + slot) * N + lo : nullptr;
+
+      // hard spread: this block's domain minima of every active constraint,
+      // published to every block; the barrier's wait comes after the filter
+      if (nh > 0) {
+        for (int h = 0; h < nh; ++h) {
+          const int k = hard[h];
+          const int* dom = sta + (s_sc_domain + profile * sc + k) * N + lo;
+          int m = kBig;
+          for (int c = tid; c < cols; c += nt)
+            if (__ldg(dom + c) > 0) m = min(m, state_at(d_sc_counts + k, c));
+          m = warp_min(m);
+          if (lane == 0) wmin[h * nwarps + warp] = m;
+        }
+        __syncthreads();
+        for (int h = tid; h < nh; h += nt) {
+          int m = kBig;
+          for (int q = 0; q < nwarps; ++q) m = min(m, wmin[h * nwarps + q]);
+          int* slot = slot_min + (par_min * nc + rank) * sc + h;
+          for (int q = 0; q < nc; ++q) *cluster.map_shared_rank(slot, q) = m;
+        }
+        cluster_arrive();
+      }
+      // required affinity: the first pod of a group passes anywhere when no
+      // pod matches any of its terms yet and it matches all of them itself
+      bool need_aff = false;
+      if (naff > 0) {
+        if (nh == 0) __syncthreads();  // thread 0's totals of the last commit
+        bool no_any = true;
+        for (int x = 0; x < nref; ++x) {
+          const int e = refs[x];
+          if (e & kRefAff) no_any = no_any && totals[e >> kRefShift] == 0;
+        }
+        need_aff = !(no_any && f[kSelfAll]);
+      }
+
+      // filter (all but the skew check) and score; -inf marks infeasible.
+      // The term rows are read at L2, only at this block's columns, each
+      // term's counts once for both filters and the preferred sum.
+      for (int c = tid; c < cols; c += nt) {
+        bool ok = (stat_at(a_valid, s_node_valid, c) > 0) &
+                  (state_at(d_pod_count, c) < stat_at(a_max_pods, s_max_pods, c)) &
+                  (stat_at(a_masks + profile, s_masks + profile, c) > 0);
+        for (int k = 0; k < r; ++k)
+          ok = ok & (state_at(d_req + k, c) + row[k] <= stat_at(k, s_alloc + k, c));
+        if (att != nullptr)
+          ok = ok & (state_at(d_req + vcol, c) + row[vcol] + (1 - __ldcg(att + c)) <=
+                     stat_at(vcol, s_alloc + vcol, c));
+        float pref_sum = 0.0f;
+        for (int x = 0; x < nref; ++x) {
+          const int e = refs[x];
+          const size_t at = (size_t)(e >> kRefShift) * N + c;
+          if (e & kRefOwners) ok = ok & (__ldcg(g_owners + at) <= 0);
+          if (e & (kRefCounts | kRefAff | kRefPref)) {
+            const int counts = __ldcg(g_counts + at);
+            if (e & kRefCounts) ok = ok & (counts <= 0);
+            if (need_aff && (e & kRefAff)) ok = ok & (counts > 0) & (__ldg(g_codes + at) < v);
+            if (e & kRefPref) pref_sum += wrow[e >> kRefShift] * (float)counts;
+          }
+        }
+        for (int h = 0; h < nh; ++h)
+          ok = ok & (stat_at(a_sc_codes + hard[h], s_sc_codes + hard[h], c) < v);
+        const float alloc_cpu = (float)max(stat_at(0, s_alloc, c), 1);
+        const float alloc_mem = (float)max(stat_at(1, s_alloc + 1, c), 1);
+        const float cpu = (float)(state_at(d_nz, c) + row[c_nz]) / alloc_cpu;
+        const float mem = (float)(state_at(d_nz + 1, c) + row[c_nz + 1]) / alloc_mem;
+        const bool over = cpu >= 1.0f || mem >= 1.0f;
+        const float balanced = over ? 0.0f : (1.0f - fabsf(cpu - mem)) * 100.0f;
+        const float least =
+            (fminf(fmaxf(1.0f - cpu, 0.0f), 1.0f) + fminf(fmaxf(1.0f - mem, 0.0f), 1.0f)) * 50.0f;
+        float spread = 0.0f;
+        if (ns > 0) {
+          float soft_sum = 0.0f;
+          for (int x = 0; x < ns; ++x) soft_sum += (float)state_at(d_sc_counts + soft[x], c);
+          spread = 100.0f / (1.0f + soft_sum);
+        }
+        float static_score;
+        if constexpr (kSlices)
+          static_score = reinterpret_cast<const float*>(s_stat + (a_scores + profile) * cpb)[c];
+        else
+          static_score = __ldg(g_score + profile * N + c);
+        float s = w.balanced * balanced;
+        s = s + w.least * least;
+        s = s + w.spread * spread;
+        s = s + w.affinity * pref_sum;
+        s = s + w.stat * static_score;
+        s_score[c] = ok ? s : -INFINITY;
+      }
+
+      // the skew check against the cluster's minima, and this block's best
+      if (nh > 0) cluster_wait();
+      const int* mins = slot_min + par_min * nc * sc;
+      float best_s = -INFINITY;
+      int best_j = INT_MAX;
+      for (int c = tid; c < cols; c += nt) {
+        const float s = s_score[c];
+        if (s == -INFINITY) continue;
+        bool ok = true;
+        for (int h = 0; ok && h < nh; ++h) {
+          const int k = hard[h];
+          int m = kBig;
+          for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
+          m = m < kBig ? m : 0;  // 0 when the profile has no eligible domain
+          ok = state_at(d_sc_counts + k, c) + row[c_sc_match + k] - m <= meta[k];
+        }
+        if (ok) better(best_s, best_j, s, lo + c);
+      }
+      warp_best(best_s, best_j);
+      if (lane == 0) {
+        wbest_s[warp] = best_s;
+        wbest_j[warp] = best_j;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float s = -INFINITY;
+        int j = INT_MAX;
+        if (lane < nwarps) {
+          s = wbest_s[lane];
+          j = wbest_j[lane];
+        }
+        warp_best(s, j);
+        s = __shfl_sync(0xffffffffu, s, 0);
+        j = __shfl_sync(0xffffffffu, j, 0);
+        if (lane < nc) {
+          *cluster.map_shared_rank(slot_s + par_best * nc + rank, lane) = s;
+          *cluster.map_shared_rank(slot_j + par_best * nc + rank, lane) = j;
+        }
+      }
+      cluster_arrive();
+      cluster_wait();
+      best_s = -INFINITY;
+      best_j = INT_MAX;
+      for (int q = 0; q < nc; ++q) better(best_s, best_j, slot_s[par_best * nc + q], slot_j[par_best * nc + q]);
+      par_best ^= 1;
+      if (nh > 0) par_min ^= 1;
+      if (best_j == INT_MAX || !(best_s > kFoundThreshold)) {
+        if (rank == 0 && tid == 0) assign[p] = -1;
+        continue;  // uniform: every block reduced the same candidates
+      }
+
+      // commit to node jc, each block on its own columns
+      const int jc = best_j, cj = jc - lo;
+      if (cj >= 0 && cj < cols && cj % nt == tid) {
+        for (int k = 0; k < r; ++k) state_add(d_req + k, cj, row[k]);
+        state_add(d_nz, cj, row[c_nz]);
+        state_add(d_nz + 1, cj, row[c_nz + 1]);
+        state_add(d_pod_count, cj, 1);
+        if (att != nullptr) {  // one more attachment where it was not attached
+          state_add(d_req + vcol, cj, 1 - __ldcg(att + cj));
+          __stcg(att + cj, 1);
+        }
+      }
+      for (int x = 0; x < nscc; ++x) {
+        const int k = scc[x];
+        const int inc = row[c_sc_match + k];
+        const int code_j = __ldg(sta + (s_sc_codes + k) * N + jc);
+        for (int c = tid; c < cols; c += nt)
+          if (stat_at(a_sc_codes + k, s_sc_codes + k, c) == code_j) state_add(d_sc_counts + k, c, inc);
+      }
+      // the term step: references with the commit bit, at L2; the codes and
+      // the counts are loaded together, the store only where the code
+      // matches the winner's
+      for (int x = 0; x < nref; ++x) {
+        const int e = refs[x];
+        if (!(e & kRefCommit)) continue;
+        const int k = e >> kRefShift;
+        const int matched = row[c_match_by + k], anti = row[c_own_anti + k];
+        const int code_j = __ldg(sta + (s_term_codes + k) * N + jc);
+        const int* codes = g_codes + (size_t)k * N;
+        int* counts = g_counts + (size_t)k * N;
+        int* owners = g_owners + (size_t)k * N;
+        for (int c = tid; c < cols; c += nt) {
+          const int code = __ldg(codes + c);
+          if (matched != 0) {
+            const int x0 = __ldcg(counts + c);
+            if (code == code_j) __stcg(counts + c, x0 + matched);
+          }
+          if (anti != 0) {
+            const int x0 = __ldcg(owners + c);
+            if (code == code_j) __stcg(owners + c, x0 + anti);
+          }
+        }
+        if (tid == 0 && code_j < v) totals[k] += matched;
+      }
+      if (rank == 0 && tid == 0) assign[p] = jc;
+    }
+    __syncthreads();  // the round's buffers and facts are free for the next
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  if constexpr (kSlices)
+    for (int row = 0; row < d_term_counts; ++row)
+      for (int c = tid; c < cols; c += nt) st[row * N + lo + c] = s_state[row * cpb + c];
+  for (int c = tid; c < cols; c += nt) {
+    const int j = lo + c;
+    st[d_totals * N + j] = j < t ? totals[j] : 0;
+  }
+  // no block leaves while another may still address its shared memory
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The three cluster kernels share one signature.
 using ClusterKernel = void (*)(const int*, const int*, const float*, const int*, const float*,
                                int*, int*, Dims, Weights, Plan);
 
@@ -1263,12 +1537,14 @@ int max_active(ClusterKernel fn, int cluster, int threads, int smem_bytes) {
   return count;
 }
 
+// min_chunk: the least pod chunk the kernel takes (the wide kernel reads
+// rows in place at 0).
 int launch_cluster(ClusterKernel fn, int layout_words, const int* sc_meta, const int* pod_ints,
                    const float* pod_floats, const int* static_ints, const float* static_f32s,
                    int* state, int* assign, Dims d, Plan p, int smem_bytes, Weights w,
-                   void* stream) {
+                   void* stream, int min_chunk = 1) {
   if (p.cluster < 1 || p.cluster > kMaxCluster || p.threads < 32 || p.threads % 32 != 0 ||
-      p.threads > kClusterThreads || p.chunk < 1 || (long)p.cluster * p.cpb < d.n ||
+      p.threads > kClusterThreads || p.chunk < min_chunk || (long)p.cluster * p.cpb < d.n ||
       layout_words * (int)sizeof(int) != smem_bytes)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = set_cluster_attributes(fn, p.cluster, smem_bytes);
@@ -1316,6 +1592,29 @@ extern "C" int ktt_slots_max_active(int cluster, int threads, int smem_bytes) {
   return max_active(solve_slots_kernel, cluster, threads, smem_bytes);
 }
 
+// Shared-memory bytes of the wide kernel for a plan, in the tier the plan
+// gets (wide_slices).
+extern "C" int ktt_wide_smem_bytes(int r, int sc, int t, int u, int sv, int cluster, int threads,
+                                   int cpb, int chunk) {
+  Dims d{r, sc, t, u, 0, sv, 0, 0};
+  Plan p{cluster, threads, cpb, chunk};
+  return wide_layout(d, p, wide_slices(d, p)).words * (int)sizeof(int);
+}
+
+// The same for the wide kernel: the fewest clusters any of its four
+// instances fits.
+extern "C" int ktt_wide_max_active(int cluster, int threads, int smem_bytes) {
+  const ClusterKernel fns[] = {solve_wide_kernel<false, true>, solve_wide_kernel<true, true>,
+                               solve_wide_kernel<false, false>, solve_wide_kernel<true, false>};
+  int fewest = INT_MAX;
+  for (ClusterKernel fn : fns) {
+    const int count = max_active(fn, cluster, threads, smem_bytes);
+    if (count < 0) return count;
+    fewest = count < fewest ? count : fewest;
+  }
+  return fewest;
+}
+
 // Launch the cluster solve on `stream`: one cluster of `cluster` blocks,
 // planes updated in place. Returns the CUDA error of the launch (0 when it
 // was accepted); a plan the kernel cannot run is refused as an invalid value.
@@ -1355,27 +1654,22 @@ extern "C" int ktt_solve_slots_launch(const int* sc_meta, const int* pod_ints,
                         Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream);
 }
 
-// Launch the one-block solve on `stream`, planes updated in place. Returns
-// the CUDA error of the launch (0 when it was accepted).
-extern "C" int ktt_solve_block_launch(const int* sc_meta, const int* pod_ints,
-                                      const float* pod_floats, const int* static_ints,
-                                      const float* static_f32s, int* state, int* assign, int r,
-                                      int sc, int t, int u, int v, int sv, int n, int b,
-                                      int threads, int smem_bytes, float balanced_w,
-                                      float least_w, float spread_w, float affinity_w,
-                                      float static_w, void* stream) {
-  if (threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
-      smem_bytes != (int)sizeof(int) * (3 * (kMaxWarps + 1) + sc + t))
-    return (int)cudaErrorInvalidValue;
-  auto* fn = sv > 0 ? solve_block_kernel<true> : solve_block_kernel<false>;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+// Launch the wide solve on `stream` with the dense pod stream, as the
+// cluster solve; the plan's chunk may be 0 (rows read in place), and its
+// byte count says the tier (wide_slices) with the layout's.
+extern "C" int ktt_solve_wide_launch(const int* sc_meta, const int* pod_ints,
+                                     const float* pod_floats, const int* static_ints,
+                                     const float* static_f32s, int* state, int* assign, int r,
+                                     int sc, int t, int u, int v, int sv, int n, int b,
+                                     int cluster, int threads, int cpb, int chunk, int smem_bytes,
+                                     float balanced_w, float least_w, float spread_w,
+                                     float affinity_w, float static_w, void* stream) {
   Dims d{r, sc, t, u, v, sv, n, b};
-  Weights w{balanced_w, least_w, spread_w, affinity_w, static_w};
-  fn<<<1, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      sc_meta, pod_ints, pod_floats, static_ints, static_f32s, state, assign, d, w);
-  return (int)cudaGetLastError();
+  Plan p{cluster, threads, cpb, chunk};
+  const bool slices = wide_slices(d, p);
+  ClusterKernel fn = sv > 0 ? (slices ? solve_wide_kernel<true, true> : solve_wide_kernel<true, false>)
+                            : (slices ? solve_wide_kernel<false, true> : solve_wide_kernel<false, false>);
+  return launch_cluster(fn, wide_layout(d, p, slices).words, sc_meta, pod_ints, pod_floats,
+                        static_ints, static_f32s, state, assign, d, p, smem_bytes,
+                        Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream, 0);
 }

@@ -6,7 +6,7 @@ timed materializer's ``note_block``. Per cycle it keeps:
 
 - **compiles**: on the card, the build and load of the solve kernels'
   library, the first launch of each kernel instance (cluster, slot or
-  one-block, with shared-volume planes or without; under lazy module
+  wide, with shared-volume planes or without; under lazy module
   loading that first launch loads the module), and the pinned staging
   ring's first allocation of a buffer capacity (a pinned allocation can
   wait for the card).

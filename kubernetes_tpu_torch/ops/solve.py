@@ -14,13 +14,15 @@ each block's slice of the planes in its shared memory) whenever that
 layout fits one block's shared memory; else, when every pod of the batch
 references at most ``SPARSE_K`` terms, the slot kernel (the same cluster
 design over the slot stream of ``ops/slots.py``, the term rows in global
-memory); else the one-block kernel (planes in global memory). The
-backend packs the slot stream (``solve_slots``) only for batches of at
-least ``SPARSE_MIN_T`` terms that the cluster kernel does not take, as
-the reference routes its sparse scan. An epoch with shared-volume slots
+memory); else the wide kernel (the slot kernel's design over the dense
+stream, for any width: a pod of more than ``SPARSE_K`` term references,
+shared-volume slots, a node axis too wide for any slice). The backend
+packs the slot stream (``solve_slots``) only for batches of at least
+``SPARSE_MIN_T`` terms that the cluster kernel does not take, as the
+reference routes its sparse scan. An epoch with shared-volume slots
 (``PStatic.sv > 0``) never takes the slot kernel, as the reference's
-sparse scan has no attach planes: the cluster and one-block kernels and
-the plain version carry them.
+sparse scan has no attach planes: the cluster and wide kernels and the
+plain version carry them.
 
 Float scores are computed in the same order, with the same f32
 operations, as the reference solve, so assignments agree exactly:
@@ -59,11 +61,10 @@ from kubernetes_tpu_torch.ops.solver import BIG, NEG_INF, SolverParams
 from kubernetes_tpu_torch.observability.devprof import get_devprof
 
 KERNEL_SOURCE = build.CSRC_DIR / "solve_kernel.cu"
-# one block's shared memory on Hopper (227 KB), the block sizes and the
-# pod chunk the kernels are written for (csrc/solve_kernel.cu)
+# one block's shared memory on Hopper (227 KB), the block size and the
+# largest pod chunk the kernels are written for (csrc/solve_kernel.cu)
 SMEM_LIMIT = 232448
 CLUSTER_THREADS = 512
-BLOCK_THREADS = 1024
 POD_CHUNK = 32
 MAX_CLUSTER = 16
 PORTABLE_CLUSTER = 8
@@ -73,12 +74,13 @@ class LaunchPlan(NamedTuple):
     """How a solve launches: which kernel, its cluster size, threads per
     block, node columns per block and shared-memory bytes per block."""
 
-    kernel: str             # "cluster", "slots" or "block"
+    kernel: str             # "cluster", "slots" or "wide"
     cluster: int
     threads: int
     cols_per_block: int
     smem_bytes: int
-    chunk: int              # pod rows staged at a time (cluster kernels)
+    chunk: int              # pod rows staged at a time (wide: 0 reads
+                            # each row in place)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -124,11 +126,31 @@ def slots_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
     return 4 * words
 
 
-def block_plan(n: int, sc: int, t: int) -> LaunchPlan:
-    """The one-block kernel's launch: up to 1024 threads over all N
-    columns, shared memory for the reductions and the totals only."""
-    return LaunchPlan("block", 1, min(_round_up(n, 32), BLOCK_THREADS), n,
-                      4 * (3 * (BLOCK_THREADS // 32 + 1) + sc + t), 0)
+def wide_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
+                    threads: int, cols_per_block: int, chunk: int,
+                    sv: int = 0, slices: bool = True) -> int:
+    """Shared memory of one block of the wide kernel, as its layout
+    (``wide_layout`` in the source) lays it out: with ``slices`` the slot
+    kernel's slices of the non-term state and static rows (else those
+    rows are read at L2); a score row, the totals, ``sc_meta``, two
+    chunks of dense pod rows and weights (none at ``chunk`` 0, where
+    each row is read in place), one chunk's facts (one pod's at chunk 0:
+    eight counts, three constraint lists and one list of term
+    references), the warp slots and the exchange slots."""
+    rows = (r + 3 + sc) + (r + 2 + sc + 2 * u) if slices else 0
+    words = ((rows + 1) * cols_per_block + t + 2 * sc
+             + 2 * chunk * (pod_width(r, sc, t, sv) + t)
+             + max(chunk, 1) * (8 + 3 * sc + t)
+             + (sc + 2) * (threads // 32) + 2 * cluster * (sc + 2))
+    return 4 * words
+
+
+def wide_slices(plan: LaunchPlan, r: int, sc: int, t: int, u: int,
+                sv: int = 0) -> bool:
+    """Whether a wide plan keeps the slices in shared memory: exactly
+    when that layout fits, the rule the source applies too."""
+    return wide_smem_bytes(r, sc, t, u, plan.cluster, plan.threads,
+                           plan.cols_per_block, plan.chunk, sv) <= SMEM_LIMIT
 
 
 def cluster_candidate(n: int, r: int, sc: int, t: int, u: int,
@@ -156,6 +178,31 @@ def slots_candidate(n: int, r: int, sc: int, t: int, u: int,
     return c._replace(kernel="slots", smem_bytes=smem)
 
 
+def wide_candidate(n: int, r: int, sc: int, t: int, u: int,
+                   max_cluster: int = MAX_CLUSTER, sv: int = 0,
+                   chunk: int = None) -> LaunchPlan:
+    """The wide kernel's launch over ``n`` node columns: the cluster
+    kernel's cut of the node axis, and the first layout that fits one
+    block's shared memory, slices in shared memory before slices at L2,
+    each with the largest pod chunk (``POD_CHUNK`` down to 1, then 0:
+    rows read in place), or ``chunk`` where given. Where none fits, the
+    plan at L2 with ``chunk`` (default 0), which the launch refuses."""
+    c = cluster_candidate(n, r, sc, t, u, max_cluster, sv)
+
+    def plan(ch, slices):
+        return c._replace(kernel="wide", chunk=ch, smem_bytes=wide_smem_bytes(
+            r, sc, t, u, c.cluster, c.threads, c.cols_per_block, ch, sv,
+            slices))
+
+    chunks = range(POD_CHUNK, -1, -1) if chunk is None else (chunk,)
+    for slices in (True, False):
+        for ch in chunks:
+            p = plan(ch, slices)
+            if p.smem_bytes <= SMEM_LIMIT:
+                return p
+    return plan(chunks[-1], False)
+
+
 def plan_launch(n: int, r: int, sc: int, t: int, u: int,
                 max_cluster: int = MAX_CLUSTER, packs: bool = False,
                 sv: int = 0) -> LaunchPlan:
@@ -163,7 +210,7 @@ def plan_launch(n: int, r: int, sc: int, t: int, u: int,
     one block's shared memory (227 KB): the cluster kernel
     (``cluster_candidate``); the slot kernel (``slots_candidate``) when
     the batch ``packs`` into slots and has no shared-volume slots
-    (``sv``); the one-block kernel."""
+    (``sv``); the wide kernel (``wide_candidate``)."""
     plan = cluster_candidate(n, r, sc, t, u, max_cluster, sv)
     if plan.smem_bytes <= SMEM_LIMIT:
         return plan
@@ -171,7 +218,7 @@ def plan_launch(n: int, r: int, sc: int, t: int, u: int,
         plan = slots_candidate(n, r, sc, t, u, max_cluster)
         if plan.smem_bytes <= SMEM_LIMIT:
             return plan
-    return block_plan(n, sc, t)
+    return wide_candidate(n, r, sc, t, u, max_cluster, sv)
 
 
 def _pod_columns(r: int, sc: int, t: int) -> dict:
@@ -368,18 +415,19 @@ def build_kernel() -> Path:
 class SolveKernel:
     """ctypes binding of the CUDA solve kernels. ``counts`` holds the
     launches this wrapper made of each kernel ("cluster", "slots",
-    "block"); ``launches`` is their sum. The library is built and loaded
+    "wide"); ``launches`` is their sum. The library is built and loaded
     on the first launch.
 
     Compiles: the library's build and load, and the first launch of each
-    kernel instance (a kernel with shared-volume planes or without; under
+    kernel instance (a kernel with shared-volume planes or without, the
+    wide kernel with its slices in shared memory or at L2; under
     lazy module loading that launch loads the module), are timed on the
     host where they happen and reported to the device profiler
     (``note_compile``), which books them to the solve cycle open on this
     thread. ``compiles`` lists them: (what, seconds)."""
 
     def __init__(self):
-        self.counts = {"cluster": 0, "slots": 0, "block": 0}
+        self.counts = {"cluster": 0, "slots": 0, "wide": 0}
         self._lib = None
         self._lock = threading.Lock()
         self._plans = {}
@@ -406,20 +454,14 @@ class SolveKernel:
                 t0 = time.monotonic()
                 lib = ctypes.CDLL(str(build_kernel()))
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-                for name in ("cluster", "slots"):
-                    getattr(lib, f"ktt_solve_{name}_launch").argtypes = (
-                        [p] * 7 + [i] * 13 + [f] * 5 + [p])
-                    getattr(lib, f"ktt_{name}_max_active").argtypes = [i] * 3
-                    getattr(lib, f"ktt_{name}_smem_bytes").argtypes = [i] * 9
-                lib.ktt_solve_block_launch.argtypes = (
-                    [p] * 7 + [i] * 10 + [f] * 5 + [p])
-                for name in ("ktt_solve_cluster_launch",
-                             "ktt_solve_slots_launch",
-                             "ktt_solve_block_launch",
-                             "ktt_cluster_max_active", "ktt_slots_max_active",
-                             "ktt_cluster_smem_bytes",
-                             "ktt_slots_smem_bytes"):
-                    getattr(lib, name).restype = ctypes.c_int
+                for name in ("cluster", "slots", "wide"):
+                    for fn, args in (
+                            (f"ktt_solve_{name}_launch",
+                             [p] * 7 + [i] * 13 + [f] * 5 + [p]),
+                            (f"ktt_{name}_max_active", [i] * 3),
+                            (f"ktt_{name}_smem_bytes", [i] * 9)):
+                        getattr(lib, fn).argtypes = args
+                        getattr(lib, fn).restype = ctypes.c_int
                 self._lib = lib
                 self.note_compile("load", time.monotonic() - t0)
         return self._lib
@@ -492,14 +534,25 @@ class SolveKernel:
                 lambda size: slots_candidate(*key, max_cluster=size), ps)
         return self._plans[key, "slots"]
 
+    def wide_plan(self, ps: PStatic) -> LaunchPlan:
+        """The wide kernel's own launch for these planes on this card
+        (``wide_candidate``, 16 blocks or the portable 8), whatever
+        ``plan_launch`` would pick."""
+        key = (ps.ints.shape[1], ps.r, ps.sc, ps.t, ps.u)
+        if (key, "wide", ps.sv) not in self._plans:
+            self._plans[key, "wide", ps.sv] = self._fitted(
+                lambda size: wide_candidate(*key, max_cluster=size,
+                                            sv=ps.sv), ps)
+        return self._plans[key, "wide", ps.sv]
+
     def _fitted(self, make, ps: PStatic) -> LaunchPlan:
         """``make(16)``, or ``make(8)`` where the card holds no cluster of
         the first's shape."""
         lib = self._load()
         plan = make(MAX_CLUSTER)
-        if plan.kernel != "block" and self._active(lib, plan, ps) < 1:
+        if self._active(lib, plan, ps) < 1:
             plan = make(PORTABLE_CLUSTER)
-        if plan.kernel != "block" and self._active(lib, plan, ps) < 1:
+        if self._active(lib, plan, ps) < 1:
             raise RuntimeError(f"the card holds no cluster of {plan}")
         return plan
 
@@ -527,6 +580,9 @@ class SolveKernel:
         others), on the current stream, without synchronising."""
         lib = self._load()
         instance = (plan.kernel, ps.sv > 0)
+        if plan.kernel == "wide" and not wide_slices(plan, ps.r, ps.sc, ps.t,
+                                                     ps.u, ps.sv):
+            instance += ("at L2",)
         first = instance not in self.launched
         t0 = time.monotonic()
         n, b = ps.ints.shape[1], pod_ints.shape[0]
@@ -536,14 +592,9 @@ class SolveKernel:
                 pod_floats.data_ptr(), ps.ints.data_ptr(), ps.f32s.data_ptr(),
                 state.data_ptr(), assign.data_ptr())
         dims = (ps.r, ps.sc, ps.t, ps.u, ps.v, ps.sv, n, b)
-        if plan.kernel == "block":
-            err = lib.ktt_solve_block_launch(
-                *ptrs, *dims, plan.threads, plan.smem_bytes,
-                *params.as_tuple(), stream)
-        else:
-            err = getattr(lib, f"ktt_solve_{plan.kernel}_launch")(
-                *ptrs, *dims, plan.cluster, plan.threads, plan.cols_per_block,
-                plan.chunk, plan.smem_bytes, *params.as_tuple(), stream)
+        err = getattr(lib, f"ktt_solve_{plan.kernel}_launch")(
+            *ptrs, *dims, plan.cluster, plan.threads, plan.cols_per_block,
+            plan.chunk, plan.smem_bytes, *params.as_tuple(), stream)
         if err != 0:
             raise RuntimeError(f"solve {plan.kernel} kernel launch failed: "
                                f"CUDA error {err}")
@@ -551,7 +602,8 @@ class SolveKernel:
         if first:
             self.launched.add(instance)
             self.note_compile(f"first launch {plan.kernel}"
-                              + (" sv" if instance[1] else ""),
+                              + (" sv" if instance[1] else "")
+                              + "".join(f" {x}" for x in instance[2:]),
                               time.monotonic() - t0)
         return assign
 

@@ -212,10 +212,11 @@ def _tensor(a: np.ndarray, dtype, device, copy: bool = False
     return torch.from_numpy(a).to(device)
 
 
-def build_static(cluster, batch, device="cpu", static_scores=None,
+def build_static(cluster, batch, device, static_scores=None,
                  node_valid=None) -> ScanStatic:
-    """The scan's static arrays on ``device``; ``static_scores`` and
-    ``node_valid`` replace the batch's scores and the real-node columns."""
+    """The scan's static arrays on ``device`` (no default: the caller
+    names it); ``static_scores`` and ``node_valid`` replace the batch's
+    scores and the real-node columns."""
     n = cluster.allocatable.shape[0]
     v = batch.num_values
     sc_codes = np.minimum(cluster.topo_codes[:, batch.sc_key_idx].T, v)
@@ -240,9 +241,9 @@ def build_static(cluster, batch, device="cpu", static_scores=None,
     )
 
 
-def build_state(cluster, batch, device="cpu") -> ScanState:
-    """The scan's state on ``device``: copies, updated in place by a
-    solve."""
+def build_state(cluster, batch, device) -> ScanState:
+    """The scan's state on ``device`` (no default: the caller names it):
+    copies, updated in place by a solve."""
     return ScanState(*(_tensor(a, np.int32, device, copy=True) for a in (
         cluster.requested, cluster.nonzero_requested, cluster.pod_count,
         batch.sc_counts, batch.term_counts, batch.term_owners)))

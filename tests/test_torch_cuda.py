@@ -2,7 +2,9 @@
 the backend's lazy solve and scatters on the card against the same calls
 on CPU tensors, small GangScheduling, SchedulingPodAntiAffinity and
 volume rows through ``run_workload`` on the card against the CPU, and the
-shared-volume attach planes on the cluster and one-block kernels.
+shared-volume attach planes on the cluster and wide kernels. The tests
+whose names say "one block" hold the shapes the one-block kernel took
+before the wide kernel replaced it.
 
 These tests need an NVIDIA card and nvcc (the kernel has no CPU mode) and
 skip without one. This file imports neither JAX nor the kubernetes_tpu
@@ -201,11 +203,17 @@ def test_two_batches_carry_state(card):
 
 
 @pytest.mark.cuda
-def test_past_the_budget_runs_the_one_block_kernel(card):
-    args = random_planes(8, 5120, 32, sc=40, t=40, u=2)
-    assert solve_mod.solve_kernel.plan(args[0]).kernel == "block"
+@pytest.mark.parametrize("seed,n,b,sc,t,u,real", [
+    (8, 5120, 32, 40, 40, 2, None),
+    (50, 1408, 96, 2, 100, 2, 1400),    # a ragged last slice
+    (51, 65536, 64, 1, 1, 1, 65000),    # the slices at L2
+])
+def test_past_the_budget_runs_the_one_block_kernel(card, seed, n, b, sc, t,
+                                                   u, real):
+    args = random_planes(seed, n, b, sc=sc, t=t, u=u, real=real)
+    assert solve_mod.solve_kernel.plan(args[0]).kernel == "wide"
     want, _, ran = _card_equals_plain(card, args)
-    assert ran == "block" and (want >= 0).any()
+    assert ran == "wide" and (want >= 0).any()
 
 
 @pytest.mark.cuda
@@ -278,8 +286,15 @@ def test_slot_kernel_carries_state_and_runs_a_cluster_of_eight(card):
 
 
 @pytest.mark.cuda
-def test_a_pod_of_nine_references_runs_the_one_block_kernel(card):
-    ps, state, ints, floats = random_slot_planes(25, 5120, 64, 100)
+@pytest.mark.parametrize("seed,n,real", [
+    (25, 5120, None),
+    (52, 1408, 1400),       # a ragged last slice
+    (53, 65536, 65000),     # the slices at L2
+])
+def test_a_pod_of_nine_references_runs_the_one_block_kernel(card, seed, n,
+                                                            real):
+    ps, state, ints, floats = random_slot_planes(seed, n, 64, 100,
+                                                 real=real)
     ints[3, ps.r + 4 + 2 * ps.sc:ps.r + 4 + 2 * ps.sc + 9] = 1
     assert slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc,
                        ps.t) is None
@@ -289,7 +304,7 @@ def test_a_pod_of_nine_references_runs_the_one_block_kernel(card):
     moved = _to(card, ps, state, ints, floats)
     got = backend.solve(SolverParams(), moved[0], moved[1], ints.numpy(),
                         floats.numpy())
-    assert kernel.counts == dict(before, block=before["block"] + 1)
+    assert kernel.counts == dict(before, wide=before["wide"] + 1)
     want = solve_mod.solve_plain(SolverParams(), ps, state, ints, floats)
     np.testing.assert_array_equal(got, want.numpy())
     np.testing.assert_array_equal(moved[1].cpu().numpy(), state.numpy())
@@ -419,14 +434,21 @@ def test_sv_cluster_kernel_matches_plain(card, seed, n, b, sv, sc, t, u,
 
 
 @pytest.mark.cuda
-def test_sv_one_block_kernel_and_carried_state(card):
+@pytest.mark.parametrize("seed,n,sc,t,u,real,sv", [
+    (44, 5120, 40, 40, 2, None, 8),
+    (54, 1408, 2, 100, 2, 1400, 16),    # a ragged last slice
+    (55, 65536, 1, 1, 1, 65000, 8),     # the slices at L2
+])
+def test_sv_one_block_kernel_and_carried_state(card, seed, n, sc, t, u,
+                                               real, sv):
     """A shared-volume shape past the cluster's shared memory runs the
-    one-block kernel; two carried batches on the cluster kernel, one of
+    wide kernel; two carried batches on the cluster kernel, one of
     eight, equal the plain version."""
-    args = random_planes(44, 5120, 64, r=4, sc=40, t=40, u=2, sv=8)
-    assert solve_mod.solve_kernel.plan(args[0]).kernel == "block"
+    args = random_planes(seed, n, 64, r=4, sc=sc, t=t, u=u, real=real,
+                         sv=sv)
+    assert solve_mod.solve_kernel.plan(args[0]).kernel == "wide"
     _, _, ran = _card_equals_plain(card, args)
-    assert ran == "block"
+    assert ran == "wide"
     ps, state, ints, floats = random_planes(45, 5120, 192, r=4, sc=2, t=2,
                                             u=2, sv=16)
     _, carried, _ = _card_equals_plain(card, (ps, state, ints[:96],

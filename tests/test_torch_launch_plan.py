@@ -1,6 +1,10 @@
 """The solve kernels' launch plan (``ops/solve.py::plan_launch``): which
 kernel runs, on what cluster, and that the plan always covers every node
-column inside one block's shared memory. Pure Python; no card needed."""
+column inside one block's shared memory. Pure Python; no card needed.
+
+The wide kernel took the shapes the one-block kernel (one block over all
+columns, planes in global memory) took before it: the tests whose names
+still say "one block" hold those shapes to the wide plan."""
 
 import numpy as np
 import pytest
@@ -8,12 +12,16 @@ import pytest
 from kubernetes_tpu_torch.ops.slots import SPARSE_K, slot_stream
 from kubernetes_tpu_torch.ops.solve import (
     CLUSTER_THREADS,
+    POD_CHUNK,
     SMEM_LIMIT,
-    block_plan,
     cluster_candidate,
     cluster_smem_bytes,
     plan_launch,
+    slots_candidate,
     slots_smem_bytes,
+    wide_candidate,
+    wide_slices,
+    wide_smem_bytes,
 )
 
 SHAPES = [  # (n, r, sc, t, u)
@@ -62,9 +70,11 @@ def test_past_the_budget_runs_the_one_block_kernel(shape):
     assert cluster_smem_bytes(r, sc, t, u, -(-n // cols), CLUSTER_THREADS,
                               cols, 32) > SMEM_LIMIT
     plan = plan_launch(*shape)
-    assert plan == block_plan(n, sc, t)
-    assert plan.kernel == "block" and plan.cluster == 1
-    assert plan.cols_per_block == n and plan.threads == 1024
+    assert plan == wide_candidate(n, r, sc, t, u)
+    assert plan.kernel == "wide" and plan.cluster == 16
+    assert plan.cols_per_block == cols
+    assert plan.threads == min(cols, CLUSTER_THREADS)
+    assert plan.chunk >= 1 and plan.smem_bytes <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("max_cluster", [16, 8])
@@ -74,14 +84,19 @@ def test_every_plan_covers_every_column(shape, max_cluster):
     plan = plan_launch(*shape, max_cluster=max_cluster)
     assert plan.cluster * plan.cols_per_block >= n
     assert plan.smem_bytes <= SMEM_LIMIT
+    assert 1 <= plan.cluster <= max_cluster
+    assert plan.cols_per_block % 32 == 0
+    assert (plan.cluster - 1) * plan.cols_per_block < n
+    assert plan.threads == min(plan.cols_per_block, CLUSTER_THREADS)
     if plan.kernel == "cluster":
-        assert 1 <= plan.cluster <= max_cluster
-        assert plan.cols_per_block % 32 == 0
-        assert (plan.cluster - 1) * plan.cols_per_block < n
-        assert plan.threads == min(plan.cols_per_block, CLUSTER_THREADS)
         assert plan.smem_bytes == cluster_smem_bytes(
             r, sc, t, u, plan.cluster, plan.threads, plan.cols_per_block,
             plan.chunk)
+    else:
+        assert plan.kernel == "wide"
+        assert plan.smem_bytes == wide_smem_bytes(
+            r, sc, t, u, plan.cluster, plan.threads, plan.cols_per_block,
+            plan.chunk, slices=wide_slices(plan, r, sc, t, u))
 
 
 def test_ragged_last_slice():
@@ -130,7 +145,8 @@ def test_a_pod_of_nine_references_runs_the_one_block_kernel():
     floats[0, 50] = 2.0           # a ninth reference
     assert slot_stream(ints, floats, r, sc, t) is None
     plan = plan_launch(5120, r, sc, t, 1, packs=False)
-    assert plan == block_plan(5120, sc, t)
+    assert plan == wide_candidate(5120, r, sc, t, 1)
+    assert plan.chunk == POD_CHUNK and wide_slices(plan, r, sc, t, 1)
 
 
 @pytest.mark.parametrize("shape", [(5120, 3, 1, 12, 1), (5120, 3, 1, 38, 1),
@@ -151,4 +167,108 @@ def test_every_packed_plan_covers_every_column(shape):
         assert plan.smem_bytes == slots_smem_bytes(
             r, sc, t, u, plan.cluster, plan.threads, plan.cols_per_block,
             plan.chunk)
-        assert plan_launch(*shape).kernel == "block"
+        assert plan_launch(*shape).kernel == "wide"
+
+
+def _one_block_rule(n, r, sc, t, u, max_cluster, packs, sv):
+    """The plan's choice before the wide kernel: the cluster kernel where
+    its layout fits, the slot kernel for a batch that packs (no sv), the
+    one-block kernel for the rest."""
+    if cluster_candidate(n, r, sc, t, u, max_cluster, sv).smem_bytes \
+            <= SMEM_LIMIT:
+        return "cluster"
+    if packs and not sv and slots_candidate(
+            n, r, sc, t, u, max_cluster).smem_bytes <= SMEM_LIMIT:
+        return "slots"
+    return "block"
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+@pytest.mark.parametrize("packs", [False, True])
+@pytest.mark.parametrize("sv", [0, 8, 512])
+def test_only_the_one_block_shapes_move_to_the_wide_kernel(sv, packs,
+                                                             max_cluster):
+    """Over a grid of widths and constraint spaces, ``plan_launch`` gives
+    the cluster and slot kernels every shape it gave them before, and
+    the wide kernel every shape it gave the one-block kernel."""
+    moved = 0
+    for n in (128, 1024, 1408, 5120, 20480, 65536):
+        for r, sc, u in ((3, 1, 1), (4, 2, 2), (3, 16, 16), (3, 40, 40)):
+            for t in (1, 12, 38, 40, 100, 1024):
+                if t > n:
+                    continue
+                was = _one_block_rule(n, r, sc, t, u, max_cluster, packs, sv)
+                plan = plan_launch(n, r, sc, t, u, max_cluster=max_cluster,
+                                   packs=packs, sv=sv)
+                assert plan.kernel == {"block": "wide"}.get(was, was)
+                if was == "block":
+                    moved += 1
+                    assert plan == wide_candidate(n, r, sc, t, u,
+                                                  max_cluster, sv)
+    assert moved > 0
+
+
+WIDE_SHAPES = [  # (n, r, sc, t, u, sv): shapes the one-block kernel took
+    *[(5120, 3, 2, t, 2, 0) for t in (40, 50, 64, 100, 128, 256, 512, 1024,
+                                     2048, 4096)],
+    (5120, 3, 1, 100, 1, 0),        # the anti-affinity row with wide pods
+    (5120, 3, 40, 40, 40, 0),
+    (65536, 3, 1, 1, 1, 0),
+    (65536, 3, 1, 100, 1, 0),
+    (5120, 4, 2, 40, 2, 8),
+    (5120, 4, 40, 40, 2, 8),
+    (5120, 4, 1, 100, 1, 512),
+    (65536, 4, 1, 1, 1, 512),
+]
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_the_wide_plan_fits_what_the_one_block_kernel_took(shape,
+                                                           max_cluster):
+    """Each shape the one-block kernel took gets a wide plan that fits one
+    block's shared memory, covers every column with the cluster kernel's
+    cut, stages at least one pod a chunk, and stages the most pods that
+    fit its tier; its bytes are the layout's, slices in shared memory
+    exactly when that layout fits."""
+    n, r, sc, t, u, sv = shape
+    assert _one_block_rule(n, r, sc, t, u, max_cluster, False, sv) == "block"
+    plan = plan_launch(n, r, sc, t, u, max_cluster=max_cluster, sv=sv)
+    cut = cluster_candidate(n, r, sc, t, u, max_cluster, sv)
+    assert plan.kernel == "wide"
+    assert (plan.cluster, plan.threads, plan.cols_per_block) == (
+        cut.cluster, cut.threads, cut.cols_per_block)
+    assert plan.cluster * plan.cols_per_block >= n
+    assert (plan.cluster - 1) * plan.cols_per_block < n
+    assert 1 <= plan.chunk <= POD_CHUNK
+    assert plan.smem_bytes <= SMEM_LIMIT
+    slices = wide_slices(plan, r, sc, t, u, sv)
+    args = (r, sc, t, u, plan.cluster, plan.threads, plan.cols_per_block)
+    assert plan.smem_bytes == wide_smem_bytes(*args, plan.chunk, sv, slices)
+    if plan.chunk < POD_CHUNK:
+        assert wide_smem_bytes(*args, plan.chunk + 1, sv, slices) \
+            > SMEM_LIMIT
+    if not slices:
+        assert all(wide_smem_bytes(*args, ch, sv, True) > SMEM_LIMIT
+                   for ch in range(POD_CHUNK + 1))
+    # shared memory does not grow with the slices' term rows: at most
+    # the pod chunks, one pod's facts and one word a term for the totals
+    assert plan.smem_bytes < cut.smem_bytes
+
+
+def test_past_one_pod_the_wide_plan_reads_rows_in_place():
+    """Where not even one pod's rows fit beside the totals and its facts
+    (65,536 columns, 20,000 terms), the plan stages none (chunk 0) and
+    keeps every slice at L2; the forced chunk keeps its tier's rule."""
+    plan = wide_candidate(65536, 3, 1, 20000, 1)
+    assert plan.chunk == 0 and plan.smem_bytes <= SMEM_LIMIT
+    assert not wide_slices(plan, 3, 1, 20000, 1)
+    assert wide_smem_bytes(3, 1, 20000, 1, 16, 512, 4096, 1,
+                           slices=False) > SMEM_LIMIT
+    assert plan.smem_bytes == 4 * (4096 + 20000 + 2 + (8 + 3 + 20000)
+                                   + 3 * 16 + 2 * 16 * 3)
+    for chunk in (0, 1, 7):
+        forced = wide_candidate(5120, 3, 1, 100, 1, chunk=chunk)
+        assert forced.chunk == chunk and wide_slices(forced, 3, 1, 100, 1)
+        assert forced.smem_bytes == wide_smem_bytes(3, 1, 100, 1, 16, 320,
+                                                    320, chunk)

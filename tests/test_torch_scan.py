@@ -314,3 +314,20 @@ def test_scan_plan_of_the_kernel_wrapper_reads_the_dims():
     assert solver.ScanKernel.plan(static, ints.shape[0]) == \
         solver.scan_plan(r, sc, t, v, n, ints.shape[0])
     assert solver.ScanKernel.plan(static, 5, tables=False).chunk == 5
+
+
+def test_scan_arrays_want_an_explicit_device():
+    """``build_static`` and ``build_state`` have no default device: a
+    caller that names none fails with TypeError; one that names the CPU
+    gets the same arrays ``scan_inputs`` builds."""
+    cluster, batch, _, _ = whatif_problem(0, n_pods=20, pad=32)
+    with pytest.raises(TypeError):
+        solver.build_static(cluster, batch)
+    with pytest.raises(TypeError):
+        solver.build_state(cluster, batch)
+    static = solver.build_static(cluster, batch, "cpu")
+    state = solver.build_state(cluster, batch, "cpu")
+    want_static, want_state, _, _ = solver.scan_inputs(cluster, batch, "cpu")
+    for got, want in zip((*static, *state), (*want_static, *want_state)):
+        assert got.device.type == "cpu"
+        assert torch.equal(got, want)

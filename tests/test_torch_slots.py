@@ -198,12 +198,12 @@ def test_backend_routes_by_plan_and_pack():
     stream = route(ps, ints.numpy(), floats.numpy())
     assert stream is not None
     assert stream[0].shape == (32, slots_mod.slot_width(ps.r, ps.sc))
-    # a pod of nine references: the dense stream (the one-block kernel)
+    # a pod of nine references: the dense stream (the wide kernel)
     nine = ints.numpy().copy()
     c = ps.r + 4 + 2 * ps.sc
     nine[1, c:c + 9] = 1
     assert route(ps, nine, floats.numpy()) is None
-    assert solve_mod.plan_batch(ps).kernel == "block"
+    assert solve_mod.plan_batch(ps).kernel == "wide"
     # narrow planes the dense cluster layout takes, and few terms
     for args in (random_slot_planes(4, 256, 32, 100),
                  random_slot_planes(5, 5120, 32, 11)):
@@ -241,3 +241,58 @@ def test_discard_of_a_held_slot_batch_loses_nothing(monkeypatch):
         assert len(pairs) == 191
     finally:
         stop(arm)
+
+
+def test_wide_pods_take_the_dense_route_and_match_the_reference(
+        monkeypatch):
+    """``chip_smoke.py``'s phase 28 workload at 600 nodes / 100 / 400,
+    every 16th measured pod with 12 weighted pod-affinity terms beside
+    its anti-affinity (13 references): no measured batch packs, so the
+    port solves them on the dense stream its plan gives the wide kernel
+    (the plain version stands in for it here), as the reference takes
+    its dense scan; every pod on the node the JAX harness picks, no node
+    with two measured pods of one colour."""
+    from chip_smoke import wide_pods_workload
+
+    nodes, init, pods, every = 600, 100, 400, 16
+    dense_jax = []
+    real_dense = jps._xla_planes_solve
+
+    def counted(*a, **kw):
+        dense_jax.append(1)
+        return real_dense(*a, **kw)
+
+    monkeypatch.setattr(jps, "_xla_planes_solve", counted)
+    placed = {}
+
+    def hook(sched, _bs):
+        placed.update({p.metadata.name: p.spec.node_name
+                       for p in sched.client.list_pods()})
+
+    jax_perf.run_workload(
+        "SchedulingPodAntiAffinity",
+        wide_pods_workload(jax_workloads, nodes, init, pods, every=every),
+        use_batch=True, backend_factory=jps.XlaPlanesBackend,
+        adaptive_chunk=False, max_batch=128, result_hook=hook)
+    calls = _routes(monkeypatch)
+    plans = []
+    counted_dense = solve_mod.solve_plain
+
+    def planned(params, ps, *a):
+        if ps.t >= 100:
+            plans.append(solve_mod.plan_batch(ps).kernel)
+        return counted_dense(params, ps, *a)
+
+    monkeypatch.setattr(solve_mod, "solve_plain", planned)
+    res = perf.run_workload(
+        "SchedulingPodAntiAffinity",
+        wide_pods_workload(workloads, nodes, init, pods, every=every),
+        device="cpu", max_batch=128)
+    assert len(res.placements) == init + pods
+    assert all(res.placements.values())
+    assert res.placements == placed
+    assert calls["slots"] == 0 and dense_jax
+    assert len(plans) >= pods // 128 and set(plans) == {"wide"}
+    colours = {(res.placements[f"pod-{i}"], i % 100)
+               for i in range(init, init + pods)}
+    assert len(colours) == pods

@@ -174,13 +174,13 @@ def test_sv_epochs_never_take_the_slot_stream():
     floats[:] = 0
     no_sv = ps._replace(sv=0)
     base = ints[:, :c + 3 * t].contiguous()
-    assert plan_launch(n, ps.r, ps.sc, t, ps.u).kernel == "block"
+    assert plan_launch(n, ps.r, ps.sc, t, ps.u).kernel == "wide"
     assert CudaPlanesBackend.slot_route(no_sv, base.numpy(),
                                         floats.numpy()) is not None
     assert CudaPlanesBackend.slot_route(ps, ints.numpy(),
                                         floats.numpy()) is None
     assert plan_launch(n, ps.r, ps.sc, t, ps.u, packs=True,
-                       sv=8).kernel == "block"
+                       sv=8).kernel == "wide"
     with pytest.raises(ValueError, match="shared-volume"):
         solve_plain_slots(SolverParams(), ps, state, ints, floats)
     with pytest.raises(ValueError, match="shared-volume"):
