@@ -9,7 +9,9 @@ prints no result):
 2. build the kernels from kubernetes_tpu_torch/csrc, one nvcc a source,
    all started together: the solve kernels (the cluster kernel, the slot
    kernel and the wide kernel, its four instances: with and without sv,
-   slices in shared memory or at L2) and the scan kernel; print ptxas's
+   slices in shared memory or at L2; the sharded kernel, its eight: those
+   and with or without the hard-spread round; the feasibility counts
+   kernel) and the scan kernel; print ptxas's
    registers, shared memory and spills for each;
 3. hold the kernels against their plain PyTorch version, on the card,
    over seeded problems (the test cases' shapes, forced ties within and
@@ -34,7 +36,15 @@ prints no result):
    ragged last slice, N = 65,536 at T = 1 (slices at L2) with hard
    spread and with sv, T = 4,096 (a chunk of one pod), SV of 8, 16, 64
    and 512 past the cluster's shared memory; each of these launched
-   five times on fresh copies, every result identical;
+   five times on fresh copies, every result identical; then the sharded
+   kernel at 1, 2, 4 and (where the card holds eight clusters at once) 8
+   shards against its plain version and against the single-card kernel
+   the wrapper plans (assignments, the planes but their totals row, each
+   shard's totals against that row), and the feasibility counts kernel
+   against its plain version on 1 x S and 2 x S meshes, on seeded
+   problems (``sharded_cases``: a hard spread constraint and none,
+   SV = 64, T = 100 dense, identical nodes and pods whose ties cross the
+   shards' boundaries);
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
    4,096, through ``run_workload`` on the card, in the default arms
    (pipelined, device mirror on, the latency-budget tuner on). Every pod
@@ -204,7 +214,19 @@ prints no result):
     colour, every launch as planned, the wide kernel equal to the plain
     version on the largest batch and timed there (ten bare launches);
     pods/s, p50 / p99 enqueue-to-bind, launches and kernel ms beside
-    phase 15's row.
+    phase 15's row;
+29. the sharded tier (``kubernetes_tpu_torch/parallel``): (a) on phase
+    4's largest batch, ten bare launches each of the cluster kernel and
+    the sharded kernel at 1, 2 and 4 shards in turns, ms a launch and us
+    a pod, the counts kernel's launches, the plain versions once, all
+    equal; (b) SchedulingBasic 5,000 / 30,000 through ``run_workload``
+    on ``ShardedBackend(make_mesh(4))``: every pod bound, no node over
+    capacity, one sharded launch a solve and no other solve kernel, the
+    row's largest batch solved again by the kernel and the plain version,
+    equal to the row's assignments; pods/s, p50 / p99 enqueue-to-bind and
+    ms a launch beside phase 4's; (c) ``solve_scan_sharded`` on a
+    4,096-pod SchedulingBasic batch: one launch of each kernel, the
+    assignments equal to the cluster kernel's.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -222,7 +244,7 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23 and 25 to 28) resets the kernels'
+Every main-path run (4, 5, 8 to 23 and 25 to 29) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
 Before the last line come the script's wall time, the scatters' counts
@@ -288,6 +310,13 @@ from kubernetes_tpu_torch.scheduler.scheduler import (
     SchedulerConfiguration,
 )
 from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
+from kubernetes_tpu_torch.parallel import (
+    ShardedBackend,
+    SState,
+    make_mesh,
+    solve_scan_sharded,
+)
+from kubernetes_tpu_torch.parallel import sharded as sharded_mod
 from kubernetes_tpu_torch.sidecar import BatchScheduler
 
 PARAMS = SolverParams()
@@ -299,6 +328,11 @@ REPLACES_SCAN = "kubernetes_tpu/ops/solver.py:88"
 # the reference's sparse scan (an XLA program), which it runs instead of its
 # Pallas kernel on wide term axes
 REPLACES_SPARSE = "kubernetes_tpu/ops/pallas_solver.py:754"
+# the sharded tier: _build_solve's shard_map of lax.scan over _step, and
+# the batched static feasibility counts
+REPLACES_SHARDED = "kubernetes_tpu/parallel/sharded.py:342"
+REPLACES_COUNTS = "kubernetes_tpu/parallel/sharded.py:319"
+SOLVE_REASON = "no single PyTorch call computes the solve"
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, f32 operations/s outside the
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -541,7 +575,7 @@ def slot_cases():
 
 
 def phase_compare():
-    errs = {"cluster": 0, "slots": 0, "wide": 0}
+    errs = {"cluster": 0, "slots": 0, "wide": 0, "sharded": 0, "counts": 0}
 
     def keep(result):
         for k, v in result[0].items():
@@ -607,6 +641,10 @@ def phase_compare():
                               ints[128:].clone(), floats[128:].clone()))
     for name, args, plan in wide_cases():
         errs["wide"] = max(errs["wide"], compare_wide(name, *args, plan=plan))
+    for name, args in sharded_cases():
+        err, counts_err = compare_sharded(name, *args)
+        errs["sharded"] = max(errs["sharded"], err)
+        errs["counts"] = max(errs["counts"], counts_err)
     return errs
 
 
@@ -778,6 +816,99 @@ def compare_wide(name, ps, state, ints, floats, plan=None, repeats=5):
 
 
 # ----------------------------------------------------------------------
+# the sharded tier's kernels against their plain versions
+def sharded_on_card(ps: PStatic, state, shards):
+    """Planes on the CPU as sharded planes on the card (``shard_planes``:
+    each profile's domain existence from the planes, as the single card's
+    rule)."""
+    ss, st = sharded_mod.shard_planes(ps, state, shards)
+    return (ss._replace(sc_meta=ss.sc_meta.cuda(), ints=ss.ints.cuda(),
+                        f32s=ss.f32s.cuda(), has_dom=ss.has_dom.cuda()),
+            SState(st.planes.cuda(), st.totals.cuda()))
+
+
+def sharded_cases():
+    """Seeded problems for the sharded kernel: (name, (planes, state, pod
+    ints, pod floats)) on the CPU: a hard spread constraint and none,
+    SV = 64, T = 100 on the dense stream, and identical nodes and pods
+    (every score ties, across the shards' boundaries too)."""
+    out = []
+    for name, seed, hard in (("sharded-hard-2048", 50, 1),
+                             ("sharded-soft-2048", 51, 0)):
+        case = random_planes(seed, 2048, 512, sc=2, t=3, u=2, real=2000)
+        case[0].sc_meta[1] = hard
+        out.append((name, case))
+    out.append(("sharded-sv64-1024", random_planes(
+        52, 1024, 512, r=4, sc=2, t=2, u=2, sv=64)))
+    out.append(("sharded-t100-5120", _fewer_affinities(random_planes(
+        53, 5120, 256, t=100))))
+    nodes = [workloads.node_template(i) for i in range(300)]
+    cluster, batch = encode(nodes, [workloads.basic_pod(i)
+                                    for i in range(400)], 512)
+    ps, state = prepare(cluster, batch, "cpu")
+    out.append(("sharded-ties-512", (ps, state, *(
+        torch.from_numpy(a) for a in pack_podin(batch)))))
+    return out
+
+
+def compare_sharded(name, ps, state, ints, floats, widths=(1, 2, 4, 8)):
+    """The sharded kernel at each mesh width against its plain version on
+    the card and against the single-card kernel the wrapper plans on the
+    same problem: assignments, planes (all but the totals row, which the
+    sharded solve leaves as found) and each shard's totals (against the
+    single card's totals row); the counts kernel against its plain
+    version on 1 x S and 2 x S meshes. Eight shards only where the card
+    holds eight clusters at once. Returns the largest absolute
+    differences (sharded, counts)."""
+    kernel = solve_mod.solve_kernel
+    single, single_state, ran = _solve_on_card(ps, state, ints, floats)
+    do, _ = state_planes(ps.r, ps.sc, ps.t, ps.sv)
+    rows = [i for i in range(single_state.shape[0]) if i != do["totals"]]
+    ints_c, floats_c = ints.cuda(), floats.cuda()
+    worst = worst_counts = 0
+    for s in widths:
+        ss, st = sharded_on_card(ps, state, s)
+        try:
+            plan = kernel.sharded_plan(ss, s)
+        except RuntimeError as e:
+            check(s == 8, f"{name}: {s} clusters co-reside ({e})")
+            log(f"  {name}: S=8 skipped, the card holds no eight such "
+                f"clusters at once ({e})")
+            continue
+        plain_st = SState(st.planes.clone(), st.totals.clone())
+        want = sharded_mod.solve_sharded_plain(PARAMS, ss, plain_st, ints_c,
+                                               floats_c)
+        got, word = kernel.launch_sharded(PARAMS, ss, st.planes, st.totals,
+                                          ints_c, floats_c, plan)
+        torch.cuda.synchronize()
+        check(int(word[0]) == 0, f"{name}: the exchange at S={s} ran out")
+        err = max(_err(got, want, st.planes, plain_st.planes),
+                  int((st.totals - plain_st.totals).abs().max()))
+        check(err == 0, f"sharded kernel equals plain on {name} at S={s}")
+        same = (torch.equal(got, single)
+                and torch.equal(st.planes[rows], single_state[rows])
+                and all(torch.equal(st.totals[q],
+                                    single_state[do["totals"], :ps.t])
+                        for q in range(s)))
+        check(same, f"sharded kernel at S={s} equals the {ran} kernel on "
+              f"{name}")
+        for axis in (1, 2):
+            c = kernel.launch_counts(ss, ints_c, s, axis)
+            w = sharded_mod.feasible_counts_plain(ss, ints_c, s, axis)
+            e = int((c - w).abs().max()) if len(c) else 0
+            worst_counts = max(worst_counts, e)
+            check(e == 0, f"counts kernel equals plain on {name} at "
+                  f"{axis} x {s}")
+        worst = max(worst, err)
+        log(f"  {name}: N={ps.ints.shape[1]} B={ints.shape[0]} SC={ps.sc} "
+            f"T={ps.t} SV={ps.sv} hard={ss.any_hard} S={s}: "
+            f"{plan.cluster} blocks x {plan.cols_per_block} columns a "
+            f"shard, chunk {plan.chunk}; placed {int((want >= 0).sum())}; "
+            f"equal to plain and to the {ran} kernel; counts equal")
+    return worst, worst_counts
+
+
+# ----------------------------------------------------------------------
 class _Recorder:
     """Stands in for the kernel wrapper during a run: CUDA events around
     each launch and, with ``keep``, copies of each launch's inputs, taken
@@ -875,7 +1006,8 @@ class _Dispatches:
 
 
 # main-path launches of each kernel
-LAUNCHES = {"cluster": 0, "slots": 0, "wide": 0, "scan": 0}
+LAUNCHES = {"cluster": 0, "slots": 0, "wide": 0, "sharded": 0,
+            "counts": 0, "scan": 0}
 
 
 def run_path(name, run, keep=False, kernel="cluster", cold=False):
@@ -3027,6 +3159,275 @@ def phase_federation(card, pods=900, qps=300.0, seed=18, clusters=3,
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 29: the sharded tier
+SHARDED_WIDTHS = (1, 2, 4)
+
+
+def counts_bound_ms(ps: PStatic, ints):
+    """Least time for the feasibility counts on these inputs: the pods'
+    requests and profiles, the alloc, mask and validity rows read once and
+    the counts written once, over HBM bandwidth; a comparison a resource,
+    the mask, the validity and the count's add per pod x node over the f32
+    peak; the larger of the two."""
+    n, b = ps.ints.shape[1], ints.shape[0]
+    nbytes = 4 * (b * (ps.r + 1) + (ps.r + ps.u + 1) * n + b)
+    ops = float(b) * n * (ps.r + 3)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1000
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1000
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _bare_ms(fn, make, repeats):
+    """Mean ms of ``repeats`` calls of ``fn(*make())``, CUDA events around
+    each call only, after one warm-up call."""
+    fn(*make())
+    times = []
+    for _ in range(repeats):
+        args = make()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.mean(times))
+
+
+def time_sharded(batch, repeats=10):
+    """Phase 29 (a): on one batch, ``repeats`` bare launches of the
+    cluster kernel and of the sharded kernel at each of
+    ``SHARDED_WIDTHS``, in turns (cluster, S ascending, S descending,
+    cluster); the counts kernel's launches; the plain versions once each
+    at the widest mesh. Every sharded result equals the cluster kernel's
+    and the plain version's."""
+    kernel = solve_mod.solve_kernel
+    ps, state, ints, floats = batch
+    valid = int((ints[:, ps.r + 3] > 0).sum())
+    cluster_plan = kernel.plan(ps)
+    check(cluster_plan.kernel == "cluster", "phase 29 batch plans the "
+          "cluster kernel")
+    finals, meshes = {}, {}
+    for s in SHARDED_WIDTHS:
+        ss, st = sharded_mod.shard_planes(ps, state, s)
+        meshes[s] = (ss, st, kernel.sharded_plan(ss, s))
+
+    def run_cluster(st):
+        finals["cluster"] = (kernel.launch(PARAMS, ps, st, ints, floats,
+                                           cluster_plan), st)
+
+    def run_sharded(s, st):
+        ss, _, plan = meshes[s]
+        finals[s] = kernel.launch_sharded(PARAMS, ss, st.planes, st.totals,
+                                          ints, floats, plan) + (st,)
+
+    def fresh(s):
+        st = meshes[s][1]
+        return lambda: (s, SState(st.planes.clone(), st.totals.clone()))
+
+    turns = {}
+    order = ["cluster", *SHARDED_WIDTHS, *reversed(SHARDED_WIDTHS),
+             "cluster"]
+    for which in order:
+        if which == "cluster":
+            ms = _bare_ms(run_cluster, lambda: (state.clone(),), repeats)
+        else:
+            ms = _bare_ms(run_sharded, fresh(which), repeats)
+        turns.setdefault(which, []).append(ms)
+    want, want_state = finals["cluster"]
+    do, _ = state_planes(ps.r, ps.sc, ps.t, ps.sv)
+    rows = [i for i in range(state.shape[0]) if i != do["totals"]]
+    err = 0
+    for s in SHARDED_WIDTHS:
+        got, word, st = finals[s]
+        check(int(word[0]) == 0, f"phase 29: the exchange at S={s} ran out")
+        e = max(_err(got, want, st.planes[rows], want_state[rows]),
+                int((st.totals - want_state[do["totals"], :ps.t]).abs()
+                    .max()))
+        err = max(err, e)
+        check(e == 0, f"phase 29: sharded kernel at S={s} equals the "
+              "cluster kernel")
+    widest = SHARDED_WIDTHS[-1]
+    ss, st0, _ = meshes[widest]
+    counts_ms = _bare_ms(
+        lambda: finals.__setitem__("counts", kernel.launch_counts(
+            ss, ints, widest)), tuple, repeats)
+    plain_st = SState(st0.planes.clone(), st0.totals.clone())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = sharded_mod.solve_sharded_plain(PARAMS, ss, plain_st, ints,
+                                            floats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000
+    got, _, st = finals[widest]
+    e = max(_err(got, plain, st.planes, plain_st.planes),
+            int((st.totals - plain_st.totals).abs().max()))
+    check(e == 0, "phase 29: sharded kernel equals plain")
+    t0 = time.perf_counter()
+    counts_plain = sharded_mod.feasible_counts_plain(ss, ints, widest)
+    torch.cuda.synchronize()
+    counts_plain_ms = (time.perf_counter() - t0) * 1000
+    counts_err = int((finals["counts"] - counts_plain).abs().max())
+    check(counts_err == 0, "phase 29: counts kernel equals plain")
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    b_ms, b_by = bound_ms(*batch)
+    c_ms, c_by = counts_bound_ms(ps, ints)
+    log(f"  SchedulingBasic batch N={ps.ints.shape[1]} B={ints.shape[0]} "
+        f"valid={valid}: cluster kernel ms {turns['cluster'][0]:.3f} / "
+        f"{turns['cluster'][1]:.3f} ({ms['cluster'] / valid * 1000:.3f} us "
+        "a pod)")
+    for s in SHARDED_WIDTHS:
+        plan = meshes[s][2]
+        log(f"    sharded S={s} ({plan.cluster} blocks x "
+            f"{plan.cols_per_block} columns a shard): ms "
+            f"{turns[s][0]:.3f} / {turns[s][1]:.3f} "
+            f"({ms[s] / valid * 1000:.3f} us a pod)")
+    log(f"    counts kernel {counts_ms:.4f} ms (bound {c_ms:.6f}, {c_by}), "
+        f"plain {counts_plain_ms:.1f} ms; sharded plain (S={widest}) "
+        f"{plain_ms:.1f} ms; bound {b_ms:.6f} ms ({b_by})")
+    return {"valid_pods": valid, "ms": {str(k): v for k, v in ms.items()},
+            "turns": {str(k): v for k, v in turns.items()},
+            "us_per_pod": {str(k): v / valid * 1000 for k, v in ms.items()},
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "err": max(err, e), "counts_ms": counts_ms,
+            "counts_plain_ms": counts_plain_ms, "counts_bound_ms": c_ms,
+            "counts_bound_by": c_by, "counts_err": counts_err,
+            "plans": {str(s): meshes[s][2]._asdict() for s in meshes}}
+
+
+def phase_sharded(basic, largest, nodes=5000, pods=30000, shards=4,
+                  max_batch=4096, repeats=10):
+    """Phase 29: (a) ``time_sharded`` on phase 4's largest batch; (b)
+    SchedulingBasic at ``nodes`` / ``pods`` through ``run_workload`` on
+    ``ShardedBackend(make_mesh(shards))``, the kernels' counts reset just
+    before and read just after: every pod bound, no node over its
+    capacity, one sharded launch a solve and no other solve kernel; the
+    row's largest batch solved again by the kernel and by the plain
+    version, all equal to the row's own assignments; (c)
+    ``solve_scan_sharded`` on a SchedulingBasic batch of ``max_batch``
+    pods over ``nodes``, counted the same way: one sharded and one counts
+    launch, the assignments equal to the cluster kernel's and the counts
+    to the plain version's."""
+    kernel = solve_mod.solve_kernel
+    timed = time_sharded(largest, repeats)
+    kept, handles = {}, []
+
+    def factory():
+        be = ShardedBackend(make_mesh(shards))
+        real = be.solve_lazy
+
+        def solve_lazy(params, ss, sstate, pod_ints, pod_floats):
+            valid = int((pod_ints[:, ss.r + 3] > 0).sum())
+            largest = valid > kept.get("valid", -1)
+            if largest:
+                kept.update(valid=valid, ss=ss, state=SState(
+                    sstate.planes.clone(), sstate.totals.clone()),
+                    ints=pod_ints.copy(), floats=pod_floats.copy())
+            handle = real(params, ss, sstate, pod_ints, pod_floats)
+            handles.append(handle)
+            if largest:
+                kept["assign"] = handle.assign
+            return handle
+
+        be.solve_lazy = solve_lazy
+        kept["backend"] = be
+        return be
+
+    name = "SchedulingBasic (sharded)"
+    kernel.reset_counts()
+    t0 = time.monotonic()
+    res = perf.run_workload("SchedulingBasic", workloads.make_workload(
+        "SchedulingBasic", nodes, 0, pods), max_batch=max_batch,
+        backend_factory=factory)
+    wall = time.monotonic() - t0
+    counts = dict(kernel.counts)
+    for k in counts:
+        LAUNCHES[k] += counts[k]
+    torch.cuda.synchronize()
+    be = kept["backend"]
+    launch_ms = [be.device_seconds(h) * 1000 for h in handles]
+    check(res.device.startswith("cuda"), f"{name} ran on the card")
+    check(len(res.placements) == pods, f"{name} created {pods} pods")
+    unbound = sum(1 for v in res.placements.values() if not v)
+    check(unbound == 0, f"{name}: {unbound} pods left unbound")
+    check(counts["sharded"] == res.solves == len(handles),
+          f"{name}: sharded launches {counts['sharded']} == solves "
+          f"{res.solves}")
+    others = {k: v for k, v in counts.items() if k != "sharded" and v}
+    check(not others, f"{name}: other kernels launched: {others}")
+    per_node = {}
+    for node in res.placements.values():
+        per_node[node] = per_node.get(node, 0) + 1
+    fullest = max(per_node.values())
+    # node_template: 32 cpu, 64Gi, 110 pods; basic_pod: 500m, 500Mi
+    check(fullest * 500 <= 32000 and fullest * 500 <= 64 * 1024
+          and fullest <= 110, f"{name}: a node over capacity ({fullest} "
+          "pods)")
+    # the largest batch again: the kernel and the plain version on the
+    # row's own inputs must give the row's assignments
+    ss, st = kept["ss"], kept["state"]
+    ints = torch.from_numpy(kept["ints"]).cuda()
+    floats = torch.from_numpy(kept["floats"]).cuda()
+    again = SState(st.planes.clone(), st.totals.clone())
+    got = sharded_mod.solve_sharded(PARAMS, ss, again, ints, floats)
+    plain_st = SState(st.planes.clone(), st.totals.clone())
+    want = sharded_mod.solve_sharded_plain(PARAMS, ss, plain_st, ints,
+                                           floats)
+    row_err = max(_err(got, want, again.planes, plain_st.planes),
+                  int((again.totals - plain_st.totals).abs().max()),
+                  int((kept["assign"] - want).abs().max()))
+    check(row_err == 0, f"{name}: the largest batch's kernel, plain and "
+          "row assignments agree")
+    log(f"  {name} {nodes} nodes / {pods} pods on {res.device}, "
+        f"{shards} shards: {res.pods_per_second:.1f} pods/s over "
+        f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); phase 4 "
+        f"{basic.pods_per_second:.1f} pods/s")
+    log(f"    enqueue->bind ms p50/p99: {res.latency['Perc50']:.1f} / "
+        f"{res.latency['Perc99']:.1f} (phase 4: "
+        f"{basic.latency['Perc50']:.1f} / {basic.latency['Perc99']:.1f}); "
+        f"solves={res.solves} launches={counts['sharded']} ms a launch "
+        f"mean {np.mean(launch_ms):.3f} max {np.max(launch_ms):.3f}; "
+        f"largest batch ({kept['valid']} pods) kernel = plain = row; "
+        f"fullest node {fullest} pods")
+    # (c) the entry point of the reference's tests
+    cluster, batch = encode([workloads.node_template(i)
+                             for i in range(nodes)],
+                            [workloads.basic_pod(i)
+                             for i in range(max_batch)], max_batch)
+    kernel.reset_counts()
+    assign, feasible = solve_scan_sharded(cluster, batch, make_mesh(shards))
+    scan_counts = dict(kernel.counts)
+    for k in scan_counts:
+        LAUNCHES[k] += scan_counts[k]
+    check(scan_counts["sharded"] == 1 and scan_counts["counts"] == 1
+          and sum(scan_counts.values()) == 2,
+          f"solve_scan_sharded launches {scan_counts}")
+    ps, state = prepare(cluster, batch, "cuda")
+    pi, pf = (torch.from_numpy(a).cuda() for a in pack_podin(batch))
+    single = solve_mod.solve_kernel(PARAMS, ps, state, pi, pf)
+    ss, _ = sharded_mod.shard_planes(ps, state, shards)
+    want_counts = sharded_mod.feasible_counts_plain(ss, pi, shards)
+    scan_err = max(int(np.abs(assign - single.cpu().numpy()).max()),
+                   int(np.abs(feasible - want_counts.cpu().numpy()).max()))
+    check(scan_err == 0, "solve_scan_sharded equals the cluster kernel and "
+          "the plain counts")
+    log(f"  solve_scan_sharded on {max_batch} pods x {nodes} nodes, "
+        f"{shards} shards: equal to the cluster kernel, counts to plain; "
+        f"launches {scan_counts}")
+    return {"timed": timed,
+            "row": {"pods_per_s": res.pods_per_second,
+                    "duration_s": res.duration_seconds,
+                    "enqueue_to_bind_ms": res.latency,
+                    "solve_to_bind_ms": res.metrics, "solves": res.solves,
+                    "launches": counts, "launch_ms": launch_ms,
+                    "host_seconds": res.seconds, "wall_s": wall,
+                    "fullest_node": fullest, "err": row_err,
+                    "phase4_pods_per_s": basic.pods_per_second,
+                    "phase4_enqueue_to_bind_ms": basic.latency},
+            "scan": {"launches": scan_counts, "err": scan_err}}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3192,7 +3593,19 @@ def main() -> None:
         "wide kernel unforced")
     wide_pods, wide_timed = phase_wide_pods(anti)
     errs["wide"] = max(errs["wide"], wide_timed["err"])
-    log(f"  main-path launches over phases 4, 5 and 8 to 28: {LAUNCHES}")
+
+    log("[29] the sharded tier: bare timings at 1, 2 and 4 shards, "
+        "SchedulingBasic 5,000 / 30,000 on ShardedBackend(make_mesh(4)), "
+        "solve_scan_sharded")
+    sharded = phase_sharded(res, largest)
+    st_timed = sharded["timed"]
+    errs["sharded"] = max(errs["sharded"], st_timed["err"],
+                          sharded["row"]["err"], sharded["scan"]["err"])
+    errs["counts"] = max(errs["counts"], st_timed["counts_err"],
+                         sharded["scan"]["err"])
+    for k in ("sharded", "counts"):
+        check(LAUNCHES[k] > 0, f"the {k} kernel launched on the main path")
+    log(f"  main-path launches over phases 4, 5 and 8 to 29: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -3235,6 +3648,23 @@ def main() -> None:
                  "carries": "the sv attach planes",
                  "sv_ms": sv_timed["ms"]["wide"],
                  "sv_batch": "shared-volume phase largest batch, forced"},
+        "sharded": {"ms": st_timed["ms"][str(SHARDED_WIDTHS[-1])],
+                    "plain_ms": st_timed["plain_ms"],
+                    "bound_ms": st_timed["bound_ms"],
+                    "bound_by": st_timed["bound_by"],
+                    "batch": f"SchedulingBasic largest batch "
+                             f"({st_timed['valid_pods']} pods), "
+                             f"{SHARDED_WIDTHS[-1]} shards",
+                    "ms_by_shards": st_timed["ms"],
+                    "us_per_pod_by_shards": st_timed["us_per_pod"],
+                    "row_launch_ms_mean": float(np.mean(
+                        sharded["row"]["launch_ms"]))},
+        "counts": {"ms": st_timed["counts_ms"],
+                   "plain_ms": st_timed["counts_plain_ms"],
+                   "bound_ms": st_timed["counts_bound_ms"],
+                   "bound_by": st_timed["counts_bound_by"],
+                   "batch": f"SchedulingBasic largest batch, "
+                            f"{SHARDED_WIDTHS[-1]} shards"},
         "scan": {"ms": scan_ms, "plain_ms": scan_plain_ms,
                  "bound_ms": scan_b_ms, "bound_by": scan_b_by,
                  "batch": f"autoscale_whatif() ({scan_pods} pods, N="
@@ -3248,12 +3678,21 @@ def main() -> None:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": LAUNCHES[k],
         "max_abs_err": float(errs[k]), **timed[k], "library_ms": None,
-        "library_ms_reason": "no single PyTorch call computes the solve",
-    } for k, name, source, replaces in (
-        ("cluster", "solve_cluster_kernel", KERNEL_SOURCE, REPLACES),
-        ("slots", "solve_slots_kernel", KERNEL_SOURCE, REPLACES_SPARSE),
-        ("wide", "solve_wide_kernel", KERNEL_SOURCE, REPLACES),
-        ("scan", "solve_scan_kernel", SCAN_SOURCE, REPLACES_SCAN))]}
+        "library_ms_reason": reason,
+    } for k, name, source, replaces, reason in (
+        ("cluster", "solve_cluster_kernel", KERNEL_SOURCE, REPLACES,
+         SOLVE_REASON),
+        ("slots", "solve_slots_kernel", KERNEL_SOURCE, REPLACES_SPARSE,
+         SOLVE_REASON),
+        ("wide", "solve_wide_kernel", KERNEL_SOURCE, REPLACES,
+         SOLVE_REASON),
+        ("sharded", "solve_sharded_kernel", KERNEL_SOURCE, REPLACES_SHARDED,
+         SOLVE_REASON),
+        ("counts", "feasible_counts_kernel", KERNEL_SOURCE, REPLACES_COUNTS,
+         "no single PyTorch call computes the masked fit counts (a "
+         "comparison, a gather of profile masks, two ands and a sum)"),
+        ("scan", "solve_scan_kernel", SCAN_SOURCE, REPLACES_SCAN,
+         SOLVE_REASON))]}
     report = {
         "card": card, "kernels": kernels["kernels"],
         "scheduling_basic": {
@@ -3280,6 +3719,7 @@ def main() -> None:
         "families": families, "tracing_cost": tracing, "tuner": tuner,
         "autoscale": autoscale, "mesh": mesh, "federation": federation,
         "wide_pods": wide_pods, "wide_kernel": wide_timed,
+        "sharded": sharded,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

@@ -57,7 +57,9 @@
 // plan_launch): the cluster kernel whenever its shared-memory layout fits one
 // block's 227 KB; else the slot kernel when every pod of the batch references
 // at most 8 terms (the slot stream, ops/slots.py) and the epoch has no sv
-// slots; else the wide kernel.
+// slots; else the wide kernel. The sharded tier (kubernetes_tpu_torch/
+// parallel/sharded.py) runs the sharded kernel below on every batch, and
+// the feasibility counts kernel for solve_scan_sharded.
 //
 // solve_cluster_kernel, the main path. The node axis is spread over a
 // thread-block cluster of up to 16 blocks (one per SM); block q owns columns
@@ -135,6 +137,42 @@
 // reference; a reference without a weight adds nothing, so skipping it is
 // exact. Bound, as the slot kernel, by the per-pod latency chain (PERF.md).
 //
+// solve_sharded_kernel: the same solve with the node axis over S shards.
+// Replaces the reference's mesh tier, kubernetes_tpu/parallel/sharded.py::
+// _build_solve (a shard_map of lax.scan over _step: per pod each device
+// filters and scores its node shard, one all_gather carries every shard's
+// best score, its lowest global index at that score and that column's codes,
+// and every device resolves the winner from the gathered rows; a pmin of the
+// hard-spread domain minima first, for a batch with a hard constraint). One
+// card stands in for the mesh: shard s is cluster s of one launch, and the
+// wide kernel's body (wide_solve) runs inside each cluster on columns [s*N/S,
+// (s+1)*N/S). The all_gather becomes an exchange through global memory: the
+// cluster's first block writes the shard's payload (score, index, the SC+T
+// codes of that column) into a slot of the pod's parity and raises the
+// shard's flag to the pod's sequence number with a release store at GPU
+// scope; every block polls the S flags with acquire loads and resolves the
+// winner as the reference does (the higher score, then the lower index), the
+// commit reading the winner's codes from the winning payload. The pmin is a
+// second such round before the skew check, compiled only into the instance
+// for batches with a hard constraint (kHard). Each shard keeps its own copy
+// of the per-term totals ([S, T], outside the planes, whose totals row stays
+// as it was, as in the reference). The workspace is zeroed before every
+// launch, so no launch reads another's flags. A poll is bounded: past 2 s it
+// sets an error word that the wrapper raises on, and every other poll gives
+// up at once. The launch refuses a shape whose S clusters the card cannot
+// hold at once (cudaOccupancyMaxActiveClusters). Bound by the per-pod chain
+// of the wide kernel plus the flag's round trip through L2, one a pod, two
+// with hard spread. A later multi-card build places the slots in peer memory
+// (ROADMAP).
+//
+// feasible_counts_kernel: the reference's _batched_static_feasibility
+// (sharded.py, a psum over the node axis): per pod the nodes that are valid,
+// in its profile's static mask and fit its requests. A block takes 16 pods
+// of one slice of the mesh's batch axis over one shard's columns and adds
+// its sums to the pods' counts with integer atomics (exact in any order).
+// Bound by the bytes of the static rows it reads once a block (L2 serves
+// the repeats).
+//
 // Exactness: built with --fmad=false and IEEE division; the score is summed
 // in the reference's order, and the (higher score, lower index) rule is
 // associative and commutative, so assignments match the reference bit for
@@ -181,13 +219,13 @@ struct Plan {
 // refuses a plan whose byte count differs.
 struct Layout {
   int state, stat, score, totals, meta, pod_i, pod_f, facts, wmin, wbest, slot_min,
-      slot_best, words;
+      slot_best, xwin, words;
 };
 
 __host__ __device__ inline int fact_stride(int sc, int t) { return 8 + 3 * sc + 4 * t; }
 
 __host__ __device__ inline Layout cluster_layout(const Dims& d, const Plan& p) {
-  Layout l;
+  Layout l{};
   int w = 0;
   const int width = pod_width(d);
   l.state = w;
@@ -229,7 +267,7 @@ __host__ __device__ inline int slot_fact_stride(int sc) { return 8 + 3 * sc + 3 
 // Shared-memory layout of the slot kernel, in 4-byte words: the cluster
 // kernel's without the term rows (ops/solve.py::slots_smem_bytes).
 __host__ __device__ inline Layout slots_layout(const Dims& d, const Plan& p) {
-  Layout l;
+  Layout l{};
   int w = 0;
   l.state = w;
   w += (d.r + 3 + d.sc) * p.cpb;  // requested, nonzero, pod_count, sc_counts
@@ -284,7 +322,7 @@ __host__ __device__ inline int wide_fact_stride(int sc, int t) { return kHead + 
 // at chunk 0: rows read in place), one chunk's facts (one pod's at chunk 0),
 // the warp slots and the exchange slots (ops/solve.py::wide_smem_bytes).
 __host__ __device__ inline Layout wide_layout(const Dims& d, const Plan& p, bool slices) {
-  Layout l;
+  Layout l{};
   int w = 0;
   l.state = w;
   if (slices) w += (d.r + 3 + d.sc) * p.cpb;  // requested, nonzero, pod_count, sc_counts
@@ -318,6 +356,51 @@ __host__ __device__ inline Layout wide_layout(const Dims& d, const Plan& p, bool
 // layout fits one block's (the wrapper's plan follows the same rule).
 __host__ __device__ inline bool wide_slices(const Dims& d, const Plan& p) {
   return (long)wide_layout(d, p, true).words * (long)sizeof(int) <= kSmemLimit;
+}
+
+// The sharded kernel's layout: the wide kernel's and the mesh's winner of
+// each pod (score, index), two parities (ops/solve.py::sharded_smem_bytes).
+__host__ __device__ inline Layout sharded_layout(const Dims& d, const Plan& p, bool slices) {
+  Layout l = wide_layout(d, p, slices);
+  l.xwin = l.words;
+  l.words += 2 * 2;
+  return l;
+}
+
+__host__ __device__ inline bool sharded_slices(const Dims& d, const Plan& p) {
+  return (long)sharded_layout(d, p, true).words * (long)sizeof(int) <= kSmemLimit;
+}
+
+// The sharded launch: node shards, columns a shard, the static domain
+// existence [U, SC], the shards' totals [S, T] and the exchange workspace
+// (zeroed before every launch; sharded_workspace lays it out).
+struct Shard {
+  int shards, nl;
+  const int* has_dom;
+  int* totals;
+  int* ws;
+};
+
+// The exchange workspace, in 4-byte words: per parity and shard a flag of
+// the best round and one of the domain-minima round, each on a 128-byte
+// line of its own; the error word; the payloads ([2][S][2+SC+T]: score bits,
+// the lowest global index at that score, that column's SC+T codes); the
+// domain minima ([2][S][SC]).
+constexpr int kFlagStride = 32;
+struct Exchange {
+  int flag_best, flag_min, err, xch, xmin, xw, words;
+};
+
+__host__ __device__ inline Exchange sharded_workspace(int shards, int sc, int t) {
+  Exchange x;
+  x.flag_best = 0;
+  x.flag_min = 2 * shards * kFlagStride;
+  x.err = 4 * shards * kFlagStride;
+  x.xch = x.err + kFlagStride;
+  x.xw = 2 + sc + t;
+  x.xmin = x.xch + 2 * shards * x.xw;
+  x.words = x.xmin + 2 * shards * sc;
+  return x;
 }
 
 __device__ __forceinline__ int warp_min(int x) {
@@ -358,6 +441,47 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A shard's wait for another's flag: the longest a poll spins (about
+// 10^5 pods' exchanges) before it gives up, sets the error word and
+// returns false, and the error codes the wrapper raises on.
+constexpr unsigned long long kPollNs = 2000000000ull;
+enum { kErrPoll = 1, kErrHard = 2 };
+
+// Wait until *flag == seq (acquire). False when the wait ran out (the error
+// word is set) or another wait already had.
+__device__ bool poll_flag(const int* flag, int seq, int* err) {
+  unsigned long long t0 = 0;
+  for (unsigned it = 1;; ++it) {
+    if (ld_acquire(flag) == seq) return true;
+    if ((it & 255u) == 0) {
+      if (__ldcg(err) != 0) return false;
+      const unsigned long long now = global_ns();
+      if (t0 == 0) {
+        t0 = now;
+      } else if (now - t0 > kPollNs) {
+        atomicCAS(err, 0, kErrPoll);
+        return false;
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1080,21 +1204,31 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
 }
 
 // ---------------------------------------------------------------------------
-// The wide kernel (see the note at the top). Pods come as the dense stream,
-// as for the cluster kernel. kSv as in the cluster kernel; kSlices: the
-// block's slices of the non-term state and static rows are in shared memory
-// (else read at L2 by the owning thread, as the term rows always are).
-template <bool kSv, bool kSlices>
-__global__ void __launch_bounds__(kClusterThreads, 1)
-solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
-                  const float* __restrict__ pod_floats, const int* __restrict__ sta,
-                  const float* __restrict__ sta_f, int* __restrict__ st,
-                  int* __restrict__ assign, Dims d, Weights w, Plan pl) {
+// The wide kernel (see the note at the top) and the sharded kernel share this
+// body. Pods come as the dense stream, as for the cluster kernel. kSv as in
+// the cluster kernel; kSlices: the block's slices of the non-term state and
+// static rows are in shared memory (else read at L2 by the owning thread, as
+// the term rows always are). kMode 0: the wide kernel, one cluster over the
+// node axis; 1: the sharded kernel, cluster s of the launch over shard s's
+// columns, each pod's best exchanged through global memory; 2: the same with
+// the round of hard-spread domain minima. Mode 0 compiles none of the mesh's
+// code, so the wide kernel runs as it did before the sharded kernel existed.
+enum { kOneCluster = 0, kMesh = 1, kMeshHard = 2 };
+
+template <bool kSv, bool kSlices, int kMode>
+__device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
+                                           const int* __restrict__ pod_ints,
+                                           const float* __restrict__ pod_floats,
+                                           const int* __restrict__ sta,
+                                           const float* __restrict__ sta_f, int* __restrict__ st,
+                                           int* __restrict__ assign, const Dims& d,
+                                           const Weights& w, const Plan& pl, const Shard& sh) {
   extern __shared__ int smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int nc = pl.cluster;
-  const Layout L = wide_layout(d, pl, kSlices);
+  const Layout L = kMode == kOneCluster ? wide_layout(d, pl, kSlices)
+                                        : sharded_layout(d, pl, kSlices);
 
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = nt >> 5;
@@ -1103,8 +1237,15 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
   const int cpb = pl.cpb, chunk = pl.chunk;
   const bool staged = chunk > 0;
   const int per = staged ? chunk : 1;  // pods a round
-  const int lo = rank * cpb;
-  const int cols = max(0, min(cpb, n - lo));
+  // this cluster's shard of the node axis (all of it for the wide kernel)
+  const int shards = kMode == kOneCluster ? 1 : sh.shards;
+  const int shard = kMode == kOneCluster ? 0 : (int)blockIdx.x / nc;
+  const int nl = kMode == kOneCluster ? n : sh.nl;
+  const int lo = shard * nl + rank * cpb;
+  const int cols = max(0, min(cpb, nl - rank * cpb));
+  const bool lead = rank == 0 && shard == 0;  // writes the assignments
+  const Exchange X = sharded_workspace(shards, sc, t);
+  int* err = kMode == kOneCluster ? nullptr : sh.ws + X.err;
 
   // global static plane rows
   const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
@@ -1148,6 +1289,8 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
   int* slot_min = smem + L.slot_min;  // [2][cluster][SC]
   float* slot_s = reinterpret_cast<float*>(smem + L.slot_best);  // [2][cluster]
   int* slot_j = smem + L.slot_best + 2 * nc;                    // [2][cluster]
+  float* xwin_s = reinterpret_cast<float*>(smem + L.xwin);      // [2], sharded
+  int* xwin_j = smem + L.xwin + 2;                              // [2], sharded
 
   // A non-term state row (global row number) at column c of the slice, and
   // an add to it by the thread owning c: shared memory, or L2 (the kernel
@@ -1193,7 +1336,9 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
         cp_async4(s_stat + (a_scores + k) * cpb + c, sta_f + k * N + lo + c);
   }
   cp_async_commit();
-  for (int k = tid; k < t; k += nt) totals[k] = st[d_totals * N + k];
+  // the totals: the planes' row, or the shard's own copy
+  for (int k = tid; k < t; k += nt)
+    totals[k] = kMode == kOneCluster ? st[d_totals * N + k] : sh.totals[shard * t + k];
   for (int k = tid; k < 2 * sc; k += nt) meta[k] = sc_meta[k];
 
   const int rounds = (d.b + per - 1) / per;
@@ -1282,7 +1427,7 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
       const int* row = rows + i * width;
       const float* wrow = frows + i * t;
       if (row[c_valid] <= 0) {  // padding or inexpressible: no node, no commit
-        if (rank == 0 && tid == 0) assign[p] = -1;
+        if (lead && tid == 0) assign[p] = -1;
         continue;
       }
       const int* f = facts + i * fstride;
@@ -1388,6 +1533,38 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
       // the skew check against the cluster's minima, and this block's best
       if (nh > 0) cluster_wait();
       const int* mins = slot_min + par_min * nc * sc;
+      if constexpr (kMode == kMeshHard) {
+        // the shards' minima: the cluster's goes to global memory, released
+        // by a flag; every block reads all shards' and keeps the least of
+        // each constraint in wmin (free since the cluster's wait)
+        if (nh > 0) {
+          const int par = p & 1;
+          if (rank == 0) {
+            for (int h = tid; h < nh; h += nt) {
+              int m = kBig;
+              for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
+              __stcg(sh.ws + X.xmin + (par * shards + shard) * sc + h, m);
+              __threadfence();
+            }
+            __syncthreads();
+            if (tid == 0) st_release(sh.ws + X.flag_min + (par * shards + shard) * kFlagStride, p + 1);
+          }
+          if (warp == 0) {
+            const bool got =
+                lane < shards &&
+                poll_flag(sh.ws + X.flag_min + (par * shards + lane) * kFlagStride, p + 1, err);
+            for (int h = 0; h < nh; ++h) {
+              int m = got ? __ldcg(sh.ws + X.xmin + (par * shards + lane) * sc + h) : kBig;
+              m = warp_min(m);
+              if (lane == 0) wmin[h] = m;
+            }
+          }
+          __syncthreads();
+        }
+      } else if constexpr (kMode == kMesh) {
+        // an instance without the round took a pod with hard spread
+        if (nh > 0 && lead && tid == 0) atomicCAS(err, 0, kErrHard);
+      }
       float best_s = -INFINITY;
       int best_j = INT_MAX;
       for (int c = tid; c < cols; c += nt) {
@@ -1397,8 +1574,14 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
         for (int h = 0; ok && h < nh; ++h) {
           const int k = hard[h];
           int m = kBig;
-          for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
-          m = m < kBig ? m : 0;  // 0 when the profile has no eligible domain
+          if constexpr (kMode == kOneCluster) {
+            for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
+            m = m < kBig ? m : 0;  // 0 when the profile has no eligible domain
+          } else {
+            // the reference's rule: the mesh's minimum where the profile has
+            // an eligible domain value at all, else 0
+            m = __ldg(sh.has_dom + profile * sc + k) ? wmin[h] : 0;
+          }
           ok = state_at(d_sc_counts + k, c) + row[c_sc_match + k] - m <= meta[k];
         }
         if (ok) better(best_s, best_j, s, lo + c);
@@ -1431,8 +1614,54 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
       for (int q = 0; q < nc; ++q) better(best_s, best_j, slot_s[par_best * nc + q], slot_j[par_best * nc + q]);
       par_best ^= 1;
       if (nh > 0) par_min ^= 1;
+      // the winner's codes: the static planes, or the winning shard's payload
+      const int* wcodes = nullptr;
+      if constexpr (kMode != kOneCluster) {
+        // the exchange: the cluster's first block publishes the shard's best
+        // (score, index, that column's codes) in its parity's payload and
+        // releases its flag with the pod's sequence number; every block reads
+        // all shards' flags and payloads and takes the best, the lowest index
+        // on equal scores. A shard writes parity p & 1 again only at pod
+        // p + 2, after every shard's flag of pod p + 1, which each raises only
+        // once all its blocks are past pod p: two parities suffice.
+        const int par = p & 1;
+        int* xrow = sh.ws + X.xch + (par * shards + shard) * X.xw;
+        if (rank == 0 && warp == 0) {
+          const bool any = best_j != INT_MAX;
+          for (int k = lane; k < sc + t; k += 32) {
+            const int g = k < sc ? s_sc_codes + k : s_term_codes + (k - sc);
+            __stcg(xrow + 2 + k, any ? __ldg(sta + g * N + best_j) : 0);
+          }
+          if (lane == 0) {
+            __stcg(reinterpret_cast<float*>(xrow), best_s);
+            __stcg(xrow + 1, best_j);
+          }
+          __threadfence();
+          __syncwarp();
+          if (lane == 0) st_release(sh.ws + X.flag_best + (par * shards + shard) * kFlagStride, p + 1);
+        }
+        if (warp == 0) {
+          float s = -INFINITY;
+          int j = INT_MAX;
+          if (lane < shards &&
+              poll_flag(sh.ws + X.flag_best + (par * shards + lane) * kFlagStride, p + 1, err)) {
+            const int* row_q = sh.ws + X.xch + (par * shards + lane) * X.xw;
+            s = __ldcg(reinterpret_cast<const float*>(row_q));
+            j = __ldcg(row_q + 1);
+          }
+          warp_best(s, j);
+          if (lane == 0) {
+            xwin_s[par] = s;
+            xwin_j[par] = j;
+          }
+        }
+        __syncthreads();
+        best_s = xwin_s[par];
+        best_j = xwin_j[par];
+        if (best_j != INT_MAX) wcodes = sh.ws + X.xch + (par * shards + best_j / nl) * X.xw + 2;
+      }
       if (best_j == INT_MAX || !(best_s > kFoundThreshold)) {
-        if (rank == 0 && tid == 0) assign[p] = -1;
+        if (lead && tid == 0) assign[p] = -1;
         continue;  // uniform: every block reduced the same candidates
       }
 
@@ -1451,7 +1680,8 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
       for (int x = 0; x < nscc; ++x) {
         const int k = scc[x];
         const int inc = row[c_sc_match + k];
-        const int code_j = __ldg(sta + (s_sc_codes + k) * N + jc);
+        const int code_j = kMode == kOneCluster ? __ldg(sta + (s_sc_codes + k) * N + jc)
+                                                : __ldcg(wcodes + k);
         for (int c = tid; c < cols; c += nt)
           if (stat_at(a_sc_codes + k, s_sc_codes + k, c) == code_j) state_add(d_sc_counts + k, c, inc);
       }
@@ -1463,7 +1693,8 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
         if (!(e & kRefCommit)) continue;
         const int k = e >> kRefShift;
         const int matched = row[c_match_by + k], anti = row[c_own_anti + k];
-        const int code_j = __ldg(sta + (s_term_codes + k) * N + jc);
+        const int code_j = kMode == kOneCluster ? __ldg(sta + (s_term_codes + k) * N + jc)
+                                                : __ldcg(wcodes + sc + k);
         const int* codes = g_codes + (size_t)k * N;
         int* counts = g_counts + (size_t)k * N;
         int* owners = g_owners + (size_t)k * N;
@@ -1480,7 +1711,7 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
         }
         if (tid == 0 && code_j < v) totals[k] += matched;
       }
-      if (rank == 0 && tid == 0) assign[p] = jc;
+      if (lead && tid == 0) assign[p] = jc;
     }
     __syncthreads();  // the round's buffers and facts are free for the next
   }
@@ -1490,23 +1721,110 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
   if constexpr (kSlices)
     for (int row = 0; row < d_term_counts; ++row)
       for (int c = tid; c < cols; c += nt) st[row * N + lo + c] = s_state[row * cpb + c];
-  for (int c = tid; c < cols; c += nt) {
-    const int j = lo + c;
-    st[d_totals * N + j] = j < t ? totals[j] : 0;
+  if constexpr (kMode == kOneCluster) {
+    for (int c = tid; c < cols; c += nt) {
+      const int j = lo + c;
+      st[d_totals * N + j] = j < t ? totals[j] : 0;
+    }
+  } else if (rank == 0) {
+    // the shard's totals; the planes' totals row is left as it was, as the
+    // reference's sharded scan leaves it
+    for (int k = tid; k < t; k += nt) sh.totals[shard * t + k] = totals[k];
   }
   // no block leaves while another may still address its shared memory
   cluster_arrive();
   cluster_wait();
 }
 
+template <bool kSv, bool kSlices>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
+                  const float* __restrict__ pod_floats, const int* __restrict__ sta,
+                  const float* __restrict__ sta_f, int* __restrict__ st,
+                  int* __restrict__ assign, Dims d, Weights w, Plan pl) {
+  wide_solve<kSv, kSlices, kOneCluster>(sc_meta, pod_ints, pod_floats, sta, sta_f, st, assign, d,
+                                        w, pl, Shard{});
+}
+
+// ---------------------------------------------------------------------------
+// The sharded kernel (see the note at the top): the wide kernel's body over
+// S clusters of one launch, cluster s on shard s's columns. kHard: the
+// instance with the round of hard-spread domain minima (a batch whose
+// constraints include a hard one); the other compiles no such round.
+template <bool kSv, bool kSlices, bool kHard>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+solve_sharded_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
+                     const float* __restrict__ pod_floats, const int* __restrict__ sta,
+                     const float* __restrict__ sta_f, int* __restrict__ st,
+                     int* __restrict__ assign, Dims d, Weights w, Plan pl, Shard sh) {
+  wide_solve<kSv, kSlices, kHard ? kMeshHard : kMesh>(sc_meta, pod_ints, pod_floats, sta, sta_f,
+                                                      st, assign, d, w, pl, sh);
+}
+
+// ---------------------------------------------------------------------------
+// The batched static feasibility counts (see the note at the top): per pod,
+// the nodes that are valid, in its profile's static mask and fit its
+// requests. Block (x, s, a): pods [a * per + x * kCountPods, +kCountPods)
+// of the mesh's batch slice a, over shard s's columns; its sums go to the
+// counts by integer atomics, exact in any order.
+constexpr int kCountPods = 16;
+constexpr int kCountThreads = 256;
+
+__global__ void __launch_bounds__(kCountThreads)
+feasible_counts_kernel(const int* __restrict__ pod_ints, const int* __restrict__ sta,
+                       int* __restrict__ counts, Dims d, int width, int nl, int per) {
+  extern __shared__ int smem[];
+  __shared__ int part[kCountPods][kCountThreads / 32];
+  const int r = d.r, u = d.u, sc = d.sc, t = d.t;
+  const size_t N = (size_t)d.n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kCountPods;
+  const int np = min(kCountPods, per - q0);
+  const int p0 = blockIdx.z * per + q0;
+  const int s_masks = r + 1, s_node_valid = r + 1 + u + sc + u * sc + t;
+  int* req = smem;                      // [kCountPods][R]
+  int* prof = smem + kCountPods * r;    // [kCountPods]
+  for (int i = tid; i < np * r; i += blockDim.x) req[i] = pod_ints[(size_t)(p0 + i / r) * width + i % r];
+  for (int i = tid; i < np; i += blockDim.x) prof[i] = pod_ints[(size_t)(p0 + i) * width + r + 2];
+  __syncthreads();
+  int cnt[kCountPods];
+#pragma unroll
+  for (int i = 0; i < kCountPods; ++i) cnt[i] = 0;
+  for (int c = tid; c < nl; c += blockDim.x) {
+    const size_t j = (size_t)blockIdx.y * nl + c;
+    if (__ldg(sta + s_node_valid * N + j) <= 0) continue;
+#pragma unroll
+    for (int i = 0; i < kCountPods; ++i) {
+      if (i < np) {
+        bool ok = __ldg(sta + (s_masks + prof[i]) * N + j) > 0;
+        for (int k = 0; ok && k < r; ++k) ok = req[i * r + k] <= __ldg(sta + k * N + j);
+        cnt[i] += ok;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kCountPods; ++i) {
+    int x = cnt[i];
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+    if (lane == 0) part[i][warp] = x;
+  }
+  __syncthreads();
+  if (tid < np) {
+    int x = 0;
+    for (int q = 0; q < (int)(blockDim.x >> 5); ++q) x += part[tid][q];
+    if (x != 0) atomicAdd(counts + p0 + tid, x);
+  }
+}
+
 // The three cluster kernels share one signature.
 using ClusterKernel = void (*)(const int*, const int*, const float*, const int*, const float*,
                                int*, int*, Dims, Weights, Plan);
 
+// One cluster of `cluster` blocks, or `clusters` of them (the sharded kernel).
 cudaLaunchConfig_t cluster_config(int cluster, int threads, int smem_bytes, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
+                                  cudaLaunchAttribute* attr, int clusters = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.gridDim = dim3(cluster * clusters, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
@@ -1519,14 +1837,16 @@ cudaLaunchConfig_t cluster_config(int cluster, int threads, int smem_bytes, cuda
   return cfg;
 }
 
-cudaError_t set_cluster_attributes(ClusterKernel fn, int cluster, int smem_bytes) {
+template <typename Fn>
+cudaError_t set_cluster_attributes(Fn fn, int cluster, int smem_bytes) {
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e == cudaSuccess && cluster > 8)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
 
-int max_active(ClusterKernel fn, int cluster, int threads, int smem_bytes) {
+template <typename Fn>
+int max_active(Fn fn, int cluster, int threads, int smem_bytes) {
   cudaError_t e = set_cluster_attributes(fn, cluster, smem_bytes);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr;
@@ -1556,6 +1876,30 @@ int launch_cluster(ClusterKernel fn, int layout_words, const int* sc_meta, const
                          assign, d, w, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+using ShardedKernel = void (*)(const int*, const int*, const float*, const int*, const float*,
+                               int*, int*, Dims, Weights, Plan, Shard);
+
+// The sharded kernel's instances: [sv][slices][hard].
+const ShardedKernel kShardedKernels[2][2][2] = {
+    {{solve_sharded_kernel<false, false, false>, solve_sharded_kernel<false, false, true>},
+     {solve_sharded_kernel<false, true, false>, solve_sharded_kernel<false, true, true>}},
+    {{solve_sharded_kernel<true, false, false>, solve_sharded_kernel<true, false, true>},
+     {solve_sharded_kernel<true, true, false>, solve_sharded_kernel<true, true, true>}}};
+
+// The fewest clusters of this shape any instance of the sharded kernel fits
+// at once; a negative value is a CUDA error.
+int sharded_max_active(int cluster, int threads, int smem_bytes) {
+  int fewest = INT_MAX;
+  for (int sv = 0; sv < 2; ++sv)
+    for (int sl = 0; sl < 2; ++sl)
+      for (int h = 0; h < 2; ++h) {
+        const int count = max_active(kShardedKernels[sv][sl][h], cluster, threads, smem_bytes);
+        if (count < 0) return count;
+        fewest = count < fewest ? count : fewest;
+      }
+  return fewest;
 }
 
 }  // namespace
@@ -1672,4 +2016,116 @@ extern "C" int ktt_solve_wide_launch(const int* sc_meta, const int* pod_ints,
   return launch_cluster(fn, wide_layout(d, p, slices).words, sc_meta, pod_ints, pod_floats,
                         static_ints, static_f32s, state, assign, d, p, smem_bytes,
                         Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream, 0);
+}
+
+// Shared-memory bytes of the sharded kernel for a plan over one shard's
+// columns, in the tier the plan gets (sharded_slices).
+extern "C" int ktt_sharded_smem_bytes(int r, int sc, int t, int u, int sv, int cluster,
+                                      int threads, int cpb, int chunk) {
+  Dims d{r, sc, t, u, 0, sv, 0, 0};
+  Plan p{cluster, threads, cpb, chunk};
+  return sharded_layout(d, p, sharded_slices(d, p)).words * (int)sizeof(int);
+}
+
+// The same for the sharded kernel: the fewest clusters of this shape any of
+// its eight instances fits at once.
+extern "C" int ktt_sharded_max_active(int cluster, int threads, int smem_bytes) {
+  return sharded_max_active(cluster, threads, smem_bytes);
+}
+
+// Words of the sharded kernel's exchange workspace (sharded_workspace).
+extern "C" int ktt_sharded_workspace_words(int shards, int sc, int t) {
+  return sharded_workspace(shards, sc, t).words;
+}
+
+// Launch the sharded solve on `stream`: `shards` clusters of the plan's
+// blocks, cluster s over columns [s * n / shards, (s + 1) * n / shards),
+// each pod's best exchanged through `ws` (ktt_sharded_workspace_words
+// words, zeroed by the caller on the stream before the launch). The state
+// planes are updated in place but for their totals row; the shards' totals
+// ([S, T]) are read and written in `totals`. Refused (an invalid value) when
+// the plan or the workspace does not match, and refused
+// (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold all the
+// clusters at once, since a cluster waiting for one not yet running would
+// spin: every launch checks it. `launched` of the clusters run (shards but
+// in the tests' launch below).
+static int sharded_launch(const int* sc_meta, const int* pod_ints, const float* pod_floats,
+                          const int* static_ints, const float* static_f32s, int* state,
+                          int* assign, const int* has_dom, int* totals, int* ws, int ws_words,
+                          int r, int sc, int t, int u, int v, int sv, int n, int b, int shards,
+                          int hard, int cluster, int threads, int cpb, int chunk, int smem_bytes,
+                          Weights w, void* stream, int launched) {
+  Dims d{r, sc, t, u, v, sv, n, b};
+  Plan p{cluster, threads, cpb, chunk};
+  if (shards < 1 || shards > 32 || n % shards != 0) return (int)cudaErrorInvalidValue;
+  const int nl = n / shards;
+  const bool slices = sharded_slices(d, p);
+  if (p.cluster < 1 || p.cluster > kMaxCluster || p.threads < 32 || p.threads % 32 != 0 ||
+      p.threads > kClusterThreads || p.chunk < 0 || (long)p.cluster * p.cpb < nl ||
+      sharded_layout(d, p, slices).words * (int)sizeof(int) != smem_bytes ||
+      sharded_workspace(shards, sc, t).words != ws_words)
+    return (int)cudaErrorInvalidValue;
+  ShardedKernel fn = kShardedKernels[sv > 0][slices][hard != 0];
+  const int active = max_active(fn, p.cluster, p.threads, smem_bytes);
+  if (active < 0) return -active;
+  if (active < shards) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(p.cluster, p.threads, smem_bytes,
+                                          static_cast<cudaStream_t>(stream), &attr, launched);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, fn, sc_meta, pod_ints, pod_floats, static_ints,
+                                     static_f32s, state, assign, d, w, p,
+                                     Shard{shards, nl, has_dom, totals, ws});
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktt_solve_sharded_launch(const int* sc_meta, const int* pod_ints,
+                                        const float* pod_floats, const int* static_ints,
+                                        const float* static_f32s, int* state, int* assign,
+                                        const int* has_dom, int* totals, int* ws, int ws_words,
+                                        int r, int sc, int t, int u, int v, int sv, int n, int b,
+                                        int shards, int hard, int cluster, int threads, int cpb,
+                                        int chunk, int smem_bytes, float balanced_w,
+                                        float least_w, float spread_w, float affinity_w,
+                                        float static_w, void* stream) {
+  return sharded_launch(sc_meta, pod_ints, pod_floats, static_ints, static_f32s, state, assign,
+                        has_dom, totals, ws, ws_words, r, sc, t, u, v, sv, n, b, shards, hard,
+                        cluster, threads, cpb, chunk, smem_bytes,
+                        Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream,
+                        shards);
+}
+
+// The same launch with the last shard's cluster left out of the grid, so
+// that every poll for its flag runs out: the tests' hold on the poll's bound
+// and the error word (needs shards >= 2).
+extern "C" int ktt_solve_sharded_launch_one_short(
+    const int* sc_meta, const int* pod_ints, const float* pod_floats, const int* static_ints,
+    const float* static_f32s, int* state, int* assign, const int* has_dom, int* totals, int* ws,
+    int ws_words, int r, int sc, int t, int u, int v, int sv, int n, int b, int shards, int hard,
+    int cluster, int threads, int cpb, int chunk, int smem_bytes, float balanced_w, float least_w,
+    float spread_w, float affinity_w, float static_w, void* stream) {
+  if (shards < 2) return (int)cudaErrorInvalidValue;
+  return sharded_launch(sc_meta, pod_ints, pod_floats, static_ints, static_f32s, state, assign,
+                        has_dom, totals, ws, ws_words, r, sc, t, u, v, sv, n, b, shards, hard,
+                        cluster, threads, cpb, chunk, smem_bytes,
+                        Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream,
+                        shards - 1);
+}
+
+// Launch the feasibility counts on `stream`: `counts` ([B] int32) must be
+// zeroed by the caller on the stream first; B is `batch_axis` slices of
+// `per` pods, the node axis `shards` slices of n / shards columns.
+extern "C" int ktt_feasible_counts_launch(const int* pod_ints, const int* static_ints, int* counts,
+                                          int r, int sc, int t, int u, int n, int b, int width,
+                                          int shards, int batch_axis, void* stream) {
+  if (shards < 1 || batch_axis < 1 || n % shards != 0 || b % batch_axis != 0 || r < 1)
+    return (int)cudaErrorInvalidValue;
+  const int per = b / batch_axis;
+  if (per == 0) return 0;
+  Dims d{r, sc, t, u, 0, 0, n, b};
+  const dim3 grid((per + kCountPods - 1) / kCountPods, shards, batch_axis);
+  feasible_counts_kernel<<<grid, kCountThreads, kCountPods * (r + 1) * sizeof(int),
+                           static_cast<cudaStream_t>(stream)>>>(pod_ints, static_ints, counts, d,
+                                                                width, n / shards, per);
+  return (int)cudaGetLastError();
 }

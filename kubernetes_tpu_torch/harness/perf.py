@@ -255,7 +255,7 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                  device=None, pipeline: Optional[bool] = None,
                  mirror: Optional[bool] = None,
                  seed: Optional[int] = None, adaptive_chunk: bool = True,
-                 configure=None) -> BenchmarkResult:
+                 configure=None, backend_factory=None) -> BenchmarkResult:
     """Execute one workload on ``device`` (the CUDA card unless "cpu" is
     passed; raises when no card is available). ``pipeline`` and
     ``mirror`` switch the batch path's arms (default: the environment's
@@ -263,8 +263,11 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
     scheduler's random draws (ties of the serial path, the preemption
     candidate offset); ``adaptive_chunk`` False pins the drain and pad
     size at ``max_batch``; ``configure(batch_scheduler)`` runs before the
-    first op."""
-    dev = resolve_device(device)
+    first op. ``backend_factory()``, when given, makes the session's
+    solve backend (the sharded tier's ``ShardedBackend``, say), which
+    then sets the device."""
+    backend = backend_factory() if backend_factory is not None else None
+    dev = backend.device if backend is not None else resolve_device(device)
     tune_for_throughput()
     get_tracer().clear()
     get_devprof().reset(workload=name)
@@ -276,7 +279,7 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         rng=random.Random(seed))
     bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
                         pipeline=pipeline, mirror=mirror,
-                        adaptive_chunk=adaptive_chunk)
+                        adaptive_chunk=adaptive_chunk, backend=backend)
     if configure is not None:
         configure(bs)
     attach_slo_baseline(sched)

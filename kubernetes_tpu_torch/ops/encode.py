@@ -338,12 +338,16 @@ class BatchEncoder:
     claim. ``extra_nodes`` are appended after the snapshot's
     ``num_snapshot_nodes`` columns, with no pods. ``host_only_rows``
     encodes a host-only pod as an ``inexpressible`` row instead of
-    raising."""
+    raising. ``node_shards`` is the sharded tier's mesh width, taken as the
+    reference's encoder takes it; the node-column fill runs in this
+    thread whatever it is (its plugin loops hold the interpreter lock,
+    and a column's values do not depend on the split)."""
 
     def __init__(self, snapshot: Snapshot, client=None,
                  extra_nodes: Optional[List] = None,
-                 host_only_rows: bool = False):
+                 host_only_rows: bool = False, node_shards: int = 1):
         self.snapshot = snapshot
+        self.node_shards = max(1, int(node_shards))
         self._host_only_rows = host_only_rows
         self.node_infos = [ni for ni in snapshot.list() if ni.node is not None]
         self.num_snapshot_nodes = len(self.node_infos)

@@ -39,10 +39,15 @@ the snapshot's staleness), and its phases are spans (``solve.encode``,
 ``solve.pack``, ``solve.device``, ``solve.block``, ``solve.scatter``) and
 ``batch_solve_duration{phase}`` observations. A ``warming`` solve is
 profiled as a warm-up and neither counted nor observed.
+
+The backend is ``CudaPlanesBackend`` unless the caller gives one, or
+``KTPU_SOLVER=sharded`` asks for the sharded tier (``default_backend``):
+the session's calls are the same on either.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional, Tuple
 
@@ -64,15 +69,44 @@ from kubernetes_tpu_torch.ops.solver import SolverParams, pack_podin
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
 
 
+SOLVER_ENV = "KTPU_SOLVER"
+
+
+def _mesh_width(n_devices: int) -> int:
+    """The sharded tier's node-axis width: the largest power of two at most
+    ``n_devices``, which divides every padded node count (a multiple of
+    128)."""
+    width = 1
+    while width * 2 <= n_devices:
+        width *= 2
+    return width
+
+
+def default_backend(device=None):
+    """The session's backend on ``device`` (the card unless "cpu"):
+    ``KTPU_SOLVER=sharded`` forces the sharded tier, one mesh on the card;
+    otherwise ``CudaPlanesBackend``, however many cards are visible (the
+    multi-card tier is ROADMAP §A10). No mesh is built unless forced."""
+    dev = resolve_device(device)
+    if os.environ.get(SOLVER_ENV, "") == "sharded":
+        from kubernetes_tpu_torch import parallel
+
+        return parallel.ShardedBackend(
+            parallel.make_mesh(_mesh_width(1), device=dev))
+    return CudaPlanesBackend(dev)
+
+
 class SolverSession:
     """Owns the device planes of one scheduler's batch path. ``mirror``
-    defaults to the ``KTPU_MIRROR`` switch (on)."""
+    defaults to the ``KTPU_MIRROR`` switch (on); ``backend``, when given,
+    wins over ``default_backend(device)``."""
 
     def __init__(self, scheduler, params: SolverParams = SolverParams(),
-                 device=None, mirror: Optional[bool] = None):
+                 device=None, mirror: Optional[bool] = None, backend=None):
         self.sched = scheduler
         self.params = params
-        self.backend = CudaPlanesBackend(resolve_device(device))
+        self.backend = backend if backend is not None \
+            else default_backend(device)
         self._encoder: Optional[BatchEncoder] = None
         self._cluster: Optional[EncodedCluster] = None
         self._static = None   # static planes on the device
@@ -355,9 +389,9 @@ class SolverSession:
                 return None
             ints, floats = pack_podin(pb)
             t0 = time.monotonic()
-            handle = self.backend.solve_lazy(self.params, self._static,
-                                             self._state.clone(), ints,
-                                             floats)
+            handle = self.backend.solve_lazy(
+                self.params, self._static,
+                self.backend.warm_state(self._state), ints, floats)
             t_disp = time.monotonic()
             self.backend.materialize(handle)
             dp.phase("dispatch", t_disp - t0)
@@ -439,7 +473,8 @@ class SolverSession:
         # mutation seq too, so the next solve revalidates either way
         self._node_epoch = self.sched.cache.node_set_seq
         self._encoder = BatchEncoder(self.sched.update_snapshot(),
-                                     self.sched.client)
+                                     self.sched.client,
+                                     node_shards=self.backend.encode_shards)
         cluster, batch = self._encoder.encode(pods, pad_pods=pad)
         self.static_masks_host = batch.static_masks
         self.last_profile_idx = batch.profile_idx

@@ -24,6 +24,13 @@ reference routes its sparse scan. An epoch with shared-volume slots
 sparse scan has no attach planes: the cluster and wide kernels and the
 plain version carry them.
 
+The sharded tier (``parallel/sharded.py``) launches the sharded kernel
+(the wide kernel's body over S clusters of one launch, one a node shard,
+exchanging each pod's best through global memory) and the feasibility
+counts kernel through the same wrapper: ``sharded_plan`` checks that the
+card holds the S clusters at once before it plans, and the launch checks
+it again.
+
 Float scores are computed in the same order, with the same f32
 operations, as the reference solve, so assignments agree exactly:
 ``score = bw*balanced + lw*least + sw*spread + aw*pref + stw*static``
@@ -72,9 +79,10 @@ PORTABLE_CLUSTER = 8
 
 class LaunchPlan(NamedTuple):
     """How a solve launches: which kernel, its cluster size, threads per
-    block, node columns per block and shared-memory bytes per block."""
+    block, node columns per block (of a shard's, for the sharded kernel)
+    and shared-memory bytes per block."""
 
-    kernel: str             # "cluster", "slots" or "wide"
+    kernel: str             # "cluster", "slots", "wide" or "sharded"
     cluster: int
     threads: int
     cols_per_block: int
@@ -145,12 +153,53 @@ def wide_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
     return 4 * words
 
 
+def sharded_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
+                       threads: int, cols_per_block: int, chunk: int,
+                       sv: int = 0, slices: bool = True) -> int:
+    """Shared memory of one block of the sharded kernel (``sharded_layout``
+    in the source): the wide kernel's, and the mesh's winner of a pod
+    (score and index) in two parities."""
+    return wide_smem_bytes(r, sc, t, u, cluster, threads, cols_per_block,
+                           chunk, sv, slices) + 4 * 4
+
+
 def wide_slices(plan: LaunchPlan, r: int, sc: int, t: int, u: int,
                 sv: int = 0) -> bool:
-    """Whether a wide plan keeps the slices in shared memory: exactly
-    when that layout fits, the rule the source applies too."""
-    return wide_smem_bytes(r, sc, t, u, plan.cluster, plan.threads,
-                           plan.cols_per_block, plan.chunk, sv) <= SMEM_LIMIT
+    """Whether a wide or sharded plan keeps the slices in shared memory:
+    exactly when that layout fits, the rule the source applies too."""
+    smem = sharded_smem_bytes if plan.kernel == "sharded" else \
+        wide_smem_bytes
+    return smem(r, sc, t, u, plan.cluster, plan.threads,
+                plan.cols_per_block, plan.chunk, sv) <= SMEM_LIMIT
+
+
+# the sharded kernel's exchange workspace (``sharded_workspace`` in the
+# source): a flag a parity and shard for each round, on a 128-byte line of
+# its own, the error word, the offers and the domain minima
+FLAG_STRIDE = 32
+EXCHANGE_ERRORS = {
+    1: "a shard's wait for another's offer ran out",
+    2: "a pod with hard spread reached the instance without the round of "
+       "domain minima",
+}
+
+
+def exchange_words(shards: int, sc: int, t: int) -> int:
+    """4-byte words of the sharded kernel's exchange workspace."""
+    return (4 * shards * FLAG_STRIDE + FLAG_STRIDE
+            + 2 * shards * (2 + sc + t) + 2 * shards * sc)
+
+
+def exchange_error_word(shards: int) -> int:
+    """The error word's index in the exchange workspace."""
+    return 4 * shards * FLAG_STRIDE
+
+
+def check_exchange(code: int) -> None:
+    """Raise RuntimeError for a nonzero error word of a sharded launch."""
+    if code:
+        raise RuntimeError("sharded solve kernel failed: "
+                           + EXCHANGE_ERRORS.get(code, f"error {code}"))
 
 
 def cluster_candidate(n: int, r: int, sc: int, t: int, u: int,
@@ -180,17 +229,20 @@ def slots_candidate(n: int, r: int, sc: int, t: int, u: int,
 
 def wide_candidate(n: int, r: int, sc: int, t: int, u: int,
                    max_cluster: int = MAX_CLUSTER, sv: int = 0,
-                   chunk: int = None) -> LaunchPlan:
+                   chunk: int = None, kernel: str = "wide") -> LaunchPlan:
     """The wide kernel's launch over ``n`` node columns: the cluster
     kernel's cut of the node axis, and the first layout that fits one
     block's shared memory, slices in shared memory before slices at L2,
     each with the largest pod chunk (``POD_CHUNK`` down to 1, then 0:
     rows read in place), or ``chunk`` where given. Where none fits, the
-    plan at L2 with ``chunk`` (default 0), which the launch refuses."""
+    plan at L2 with ``chunk`` (default 0), which the launch refuses.
+    ``kernel="sharded"``: the sharded kernel's launch over one shard's
+    ``n`` columns, on its layout (``sharded_smem_bytes``)."""
     c = cluster_candidate(n, r, sc, t, u, max_cluster, sv)
+    smem = sharded_smem_bytes if kernel == "sharded" else wide_smem_bytes
 
     def plan(ch, slices):
-        return c._replace(kernel="wide", chunk=ch, smem_bytes=wide_smem_bytes(
+        return c._replace(kernel=kernel, chunk=ch, smem_bytes=smem(
             r, sc, t, u, c.cluster, c.threads, c.cols_per_block, ch, sv,
             slices))
 
@@ -427,7 +479,8 @@ class SolveKernel:
     thread. ``compiles`` lists them: (what, seconds)."""
 
     def __init__(self):
-        self.counts = {"cluster": 0, "slots": 0, "wide": 0}
+        self.counts = {"cluster": 0, "slots": 0, "wide": 0, "sharded": 0,
+                       "counts": 0}
         self._lib = None
         self._lock = threading.Lock()
         self._plans = {}
@@ -454,14 +507,21 @@ class SolveKernel:
                 t0 = time.monotonic()
                 lib = ctypes.CDLL(str(build_kernel()))
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-                for name in ("cluster", "slots", "wide"):
-                    for fn, args in (
-                            (f"ktt_solve_{name}_launch",
-                             [p] * 7 + [i] * 13 + [f] * 5 + [p]),
-                            (f"ktt_{name}_max_active", [i] * 3),
-                            (f"ktt_{name}_smem_bytes", [i] * 9)):
-                        getattr(lib, fn).argtypes = args
-                        getattr(lib, fn).restype = ctypes.c_int
+                sharded = [p] * 10 + [i] * 16 + [f] * 5 + [p]
+                binds = [("ktt_solve_sharded_launch", sharded),
+                         ("ktt_solve_sharded_launch_one_short", sharded),
+                         ("ktt_sharded_workspace_words", [i] * 3),
+                         ("ktt_feasible_counts_launch",
+                          [p] * 3 + [i] * 9 + [p])]
+                for name in ("cluster", "slots", "wide", "sharded"):
+                    if name != "sharded":
+                        binds.append((f"ktt_solve_{name}_launch",
+                                      [p] * 7 + [i] * 13 + [f] * 5 + [p]))
+                    binds += [(f"ktt_{name}_max_active", [i] * 3),
+                              (f"ktt_{name}_smem_bytes", [i] * 9)]
+                for fn, args in binds:
+                    getattr(lib, fn).argtypes = args
+                    getattr(lib, fn).restype = ctypes.c_int
                 self._lib = lib
                 self.note_compile("load", time.monotonic() - t0)
         return self._lib
@@ -544,6 +604,137 @@ class SolveKernel:
                 lambda size: wide_candidate(*key, max_cluster=size,
                                             sv=ps.sv), ps)
         return self._plans[key, "wide", ps.sv]
+
+    def sharded_plan(self, ss, shards: int) -> LaunchPlan:
+        """The sharded kernel's launch for these planes over ``shards``
+        node shards on this card (``wide_candidate(kernel="sharded")`` over
+        a shard's columns): the largest cluster of 16, 8 or 4 blocks of
+        which the card holds ``shards`` at once. Raises RuntimeError where
+        none does: a cluster waiting for one not yet running would spin."""
+        n = ss.ints.shape[1]
+        if shards < 1 or shards > 32 or n % shards != 0:
+            raise ValueError(f"{n} node columns do not split into {shards} "
+                             "shards (at most 32)")
+        key = (n // shards, ss.r, ss.sc, ss.t, ss.u)
+        if (key, "sharded", ss.sv, shards) not in self._plans:
+            lib = self._load()
+            fits = []
+            for size in (MAX_CLUSTER, PORTABLE_CLUSTER, 4):
+                plan = wide_candidate(*key, max_cluster=size, sv=ss.sv,
+                                      kernel="sharded")
+                if plan.smem_bytes > SMEM_LIMIT:
+                    continue
+                active = self._active(lib, plan, ss)
+                fits.append((plan.cluster, active))
+                if active >= shards:
+                    self._plans[key, "sharded", ss.sv, shards] = plan
+                    break
+            else:
+                raise RuntimeError(
+                    f"the card holds no {shards} clusters of the sharded "
+                    f"kernel at once (cluster size, clusters held: {fits})")
+        return self._plans[key, "sharded", ss.sv, shards]
+
+    def check_sharded(self, ss, planes: torch.Tensor, totals: torch.Tensor,
+                      pod_ints: torch.Tensor, pod_floats: torch.Tensor
+                      ) -> None:
+        """Raise ValueError on inputs the sharded kernel does not take
+        (the dense stream's shapes, as ``check``; the shards' totals
+        ``[S, T]`` and the domain existence ``[U, SC]``)."""
+        shards = totals.shape[0]
+        self.check(ss, planes, pod_ints, pod_floats, profiles=False)
+        for tensor, shape in ((totals, (shards, ss.t)),
+                              (ss.has_dom, (ss.u, ss.sc))):
+            if tensor.device != planes.device or tensor.dtype != torch.int32 \
+                    or tuple(tensor.shape) != shape \
+                    or not tensor.is_contiguous():
+                raise ValueError(
+                    f"sharded kernel wants a contiguous int32 {shape} on "
+                    f"{planes.device}; got {tensor.dtype} "
+                    f"{tuple(tensor.shape)} on {tensor.device}")
+
+    def launch_sharded(self, params: SolverParams, ss, planes: torch.Tensor,
+                       totals: torch.Tensor, pod_ints: torch.Tensor,
+                       pod_floats: torch.Tensor, plan: LaunchPlan = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Check and launch the sharded kernel over ``totals.shape[0]``
+        shards (``plan``, or ``sharded_plan``'s) on the current stream,
+        without synchronising: the planes (but their totals row) and the
+        shards' totals are updated in place. Returns the assignments and
+        the exchange's error word (a one-element tensor; nonzero:
+        ``check_exchange`` raises). The pods' profile indices and volume
+        references are the caller's to check (``check_profiles``,
+        ``check_sv``)."""
+        shards = totals.shape[0]
+        self.check_sharded(ss, planes, totals, pod_ints, pod_floats)
+        plan = plan or self.sharded_plan(ss, shards)
+        lib = self._load()
+        instance = ("sharded", ss.sv > 0)
+        if not wide_slices(plan, ss.r, ss.sc, ss.t, ss.u, ss.sv):
+            instance += ("at L2",)
+        if ss.any_hard:
+            instance += ("hard",)
+        first = instance not in self.launched
+        t0 = time.monotonic()
+        n, b = ss.ints.shape[1], pod_ints.shape[0]
+        dev = planes.device
+        assign = torch.empty(b, dtype=torch.int32, device=dev)
+        words = exchange_words(shards, ss.sc, ss.t)
+        ws = torch.zeros(words, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ktt_solve_sharded_launch(
+            ss.sc_meta.data_ptr(), pod_ints.data_ptr(), pod_floats.data_ptr(),
+            ss.ints.data_ptr(), ss.f32s.data_ptr(), planes.data_ptr(),
+            assign.data_ptr(), ss.has_dom.data_ptr(), totals.data_ptr(),
+            ws.data_ptr(), words, ss.r, ss.sc, ss.t, ss.u, ss.v, ss.sv, n, b,
+            shards, int(ss.any_hard), plan.cluster, plan.threads,
+            plan.cols_per_block, plan.chunk, plan.smem_bytes,
+            *params.as_tuple(), stream)
+        if err != 0:
+            raise RuntimeError(f"solve sharded kernel launch failed: CUDA "
+                               f"error {err}")
+        self.counts["sharded"] += 1
+        if first:
+            self.launched.add(instance)
+            self.note_compile("first launch " + " ".join(
+                [instance[0]] + (["sv"] if instance[1] else [])
+                + list(instance[2:])), time.monotonic() - t0)
+        e = exchange_error_word(shards)
+        return assign, ws[e:e + 1]
+
+    def launch_counts(self, ss, pod_ints: torch.Tensor, shards: int,
+                      batch_axis: int = 1) -> torch.Tensor:
+        """Launch the feasibility counts kernel over a ``batch_axis`` x
+        ``shards`` mesh on the current stream, without synchronising:
+        per pod the nodes that are valid, in its profile's static mask
+        and fit its requests."""
+        r, sc, t, u = ss.r, ss.sc, ss.t, ss.u
+        n, b = ss.ints.shape[1], pod_ints.shape[0]
+        if n % shards != 0 or b % batch_axis != 0:
+            raise ValueError(f"{b} pods x {n} nodes do not split over a "
+                             f"{batch_axis} x {shards} mesh")
+        if pod_ints.device != ss.ints.device or pod_ints.dtype != torch.int32 \
+                or pod_ints.dim() != 2 or not pod_ints.is_contiguous() \
+                or pod_ints.shape[1] < r + 3:
+            raise ValueError("counts kernel wants the contiguous int32 pod "
+                             f"stream on {ss.ints.device}")
+        check_profiles(pod_ints[:, r + 2], u)
+        lib = self._load()
+        first = ("counts",) not in self.launched
+        t0 = time.monotonic()
+        counts = torch.zeros(b, dtype=torch.int32, device=pod_ints.device)
+        stream = torch.cuda.current_stream(pod_ints.device).cuda_stream
+        err = lib.ktt_feasible_counts_launch(
+            pod_ints.data_ptr(), ss.ints.data_ptr(), counts.data_ptr(), r, sc,
+            t, u, n, b, pod_ints.shape[1], shards, batch_axis, stream)
+        if err != 0:
+            raise RuntimeError(f"feasible counts kernel launch failed: CUDA "
+                               f"error {err}")
+        self.counts["counts"] += 1
+        if first:
+            self.launched.add(("counts",))
+            self.note_compile("first launch counts", time.monotonic() - t0)
+        return counts
 
     def _fitted(self, make, ps: PStatic) -> LaunchPlan:
         """``make(16)``, or ``make(8)`` where the card holds no cluster of
@@ -705,6 +896,7 @@ class SolveHandle(NamedTuple):
     dispatched_at: float
     started: object = None
     ended: object = None
+    err: object = None      # the sharded kernel's error word, on the host
 
 
 # a staging slot holds at least this many bytes: the pod stream of a
@@ -795,6 +987,8 @@ class CudaPlanesBackend:
     ``take_transfer_bytes`` hands over and clears them."""
 
     name = "cuda-planes"
+    # node shards the encoder splits its node-column fill into
+    encode_shards = 1
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -825,6 +1019,11 @@ class CudaPlanesBackend:
         state = prepare_state(cluster, batch, self.device)
         self.transfer["h2d"] += state.numel() * state.element_size()
         return state
+
+    @staticmethod
+    def warm_state(state: torch.Tensor) -> torch.Tensor:
+        """A copy of the carried state for a warm solve to consume."""
+        return state.clone()
 
     def _upload(self, a: np.ndarray) -> Tuple[torch.Tensor, list]:
         """``a`` on the device, and the staging slot it went through (on

@@ -207,7 +207,7 @@ class BatchScheduler:
     def __init__(self, scheduler: Scheduler, max_batch: int = 4096,
                  device=None, pipeline: Optional[bool] = None,
                  mirror: Optional[bool] = None, validate: bool = False,
-                 adaptive_chunk: bool = True):
+                 adaptive_chunk: bool = True, backend=None):
         self.sched = scheduler
         self.max_batch = max_batch
         self.pipeline_enabled = (pipeline_enabled() if pipeline is None
@@ -222,7 +222,10 @@ class BatchScheduler:
         self._warm_samples: List = []
         # re-check every placement with the host's filters before binding
         self.validate = validate
-        self.session = SolverSession(scheduler, device=device, mirror=mirror)
+        # ``backend`` overrides the session's default (the sharded tier's
+        # ``ShardedBackend``, say)
+        self.session = SolverSession(scheduler, device=device, mirror=mirror,
+                                     backend=backend)
         self.seconds_commit = 0.0
         # host seconds of the paths behind the solve: the preemption
         # screen and victim planner builds, plan execution (evictions,

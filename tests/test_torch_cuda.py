@@ -1,8 +1,10 @@
 """The CUDA solve kernel against its plain PyTorch version, on the card,
 the backend's lazy solve and scatters on the card against the same calls
 on CPU tensors, small GangScheduling, SchedulingPodAntiAffinity and
-volume rows through ``run_workload`` on the card against the CPU, and the
-shared-volume attach planes on the cluster and wide kernels. The tests
+volume rows through ``run_workload`` on the card against the CPU, the
+shared-volume attach planes on the cluster and wide kernels, and the
+sharded tier's kernels (the sharded solve at 1, 2 and 4 shards, its
+poll's bound, and the feasibility counts) against their plain versions. The tests
 whose names say "one block" hold the shapes the one-block kernel took
 before the wide kernel replaced it.
 
@@ -12,6 +14,8 @@ package, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -738,3 +742,136 @@ def test_scan_kernel_layout_agrees_and_refuses_a_wrong_byte_count(card):
     with pytest.raises(RuntimeError, match="launch failed"):
         solver.scan_kernel.launch(SolverParams(), static, state, ints,
                                   floats, bad)
+
+
+# ----------------------------------------------------------------------
+# the sharded tier
+def _sharded_on(device, ss, st):
+    from kubernetes_tpu_torch.parallel import SState
+
+    return (ss._replace(sc_meta=ss.sc_meta.to(device),
+                        ints=ss.ints.to(device), f32s=ss.f32s.to(device),
+                        has_dom=ss.has_dom.to(device)),
+            SState(st.planes.to(device).clone(), st.totals.to(device).clone()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("seed,kw", [
+    (40, dict(sc=2, t=3, u=2)),                  # hard spread, as drawn
+    (41, dict(sc=2, t=2, u=2, hard=False)),      # no hard constraint
+    (42, dict(r=4, sc=2, t=2, u=2, sv=16)),      # shared-volume slots
+    (43, dict(sc=1, t=40, u=2))])                # a wide term axis
+def test_sharded_kernel_matches_plain(card, shards, seed, kw):
+    """``solve_sharded_kernel`` against ``solve_sharded_plain`` (CPU) and
+    the single-card plain solve: assignments, planes and each shard's
+    totals; the feasibility counts kernel against its plain version on
+    a 2 x ``shards`` mesh."""
+    from kubernetes_tpu_torch.parallel import sharded
+
+    kw = dict(kw)
+    hard = kw.pop("hard", True)
+    ps, state, ints, floats = random_planes(seed, 1024, 256, **kw)
+    ps.sc_meta[1] = 1 if hard else 0
+    ss, st = sharded.shard_planes(ps, state, shards)
+    ssc, stc = _sharded_on(card, ss, st)
+    params = SolverParams()
+    kernel = solve_mod.solve_kernel
+    before = kernel.counts["sharded"]
+    got, err = kernel.launch_sharded(params, ssc, stc.planes, stc.totals,
+                                     ints.to(card), floats.to(card))
+    torch.cuda.synchronize()
+    assert int(err[0]) == 0 and kernel.counts["sharded"] == before + 1
+    want = sharded.solve_sharded_plain(params, ss, st, ints, floats)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.equal(stc.planes.cpu(), st.planes)
+    assert torch.equal(stc.totals.cpu(), st.totals)
+    single = state.clone()
+    assert torch.equal(solve_mod.solve_plain(params, ps, single, ints,
+                                             floats), want)
+    do, _ = state_planes(ps.r, ps.sc, ps.t, ps.sv)
+    assert all(torch.equal(st.totals[s], single[do["totals"], :ps.t])
+               for s in range(shards))
+    counts = kernel.launch_counts(ssc, ints.to(card), shards, 2)
+    np.testing.assert_array_equal(
+        counts.cpu().numpy(),
+        sharded.feasible_counts_plain(ss, ints, shards, 2).numpy())
+    assert (want >= 0).sum() > 0
+
+
+@pytest.mark.cuda
+def test_sharded_launch_refuses_clusters_that_cannot_coreside(card):
+    """16 shards of 16 blocks, each block of 512 threads over more than
+    half an SM's shared memory, are more blocks than the card's 132 SMs
+    hold at once: the launch raises instead of spinning."""
+    from kubernetes_tpu_torch.parallel import sharded
+
+    ps, state, ints, floats = random_planes(44, 16 * 8192, 8, u=25)
+    ss, st = _sharded_on(card, *sharded.shard_planes(ps, state, 16))
+    plan = solve_mod.wide_candidate(8192, ps.r, ps.sc, ps.t, ps.u,
+                                    max_cluster=16, kernel="sharded")
+    assert plan.cluster == 16 and plan.threads == 512
+    assert plan.smem_bytes > solve_mod.SMEM_LIMIT // 2
+    with pytest.raises(RuntimeError, match="launch failed"):
+        solve_mod.solve_kernel.launch_sharded(
+            SolverParams(), ss, st.planes, st.totals, ints.to(card),
+            floats.to(card), plan=plan)
+
+
+@pytest.mark.cuda
+def test_sharded_error_word_raises(card):
+    """A batch with a hard spread constraint launched on the instance
+    without the round of domain minima (``any_hard`` False) sets the
+    exchange's error word; the wrapper raises on it."""
+    from kubernetes_tpu_torch.parallel import sharded
+
+    ps, state, ints, floats = random_planes(45, 1024, 64, sc=2, t=2, u=2)
+    ps.sc_meta[1] = 1
+    ints[:, ps.r + 4:ps.r + 4 + ps.sc] = 1
+    ss, st = _sharded_on(card, *sharded.shard_planes(ps, state, 2))
+    ss = ss._replace(any_hard=False)
+    with pytest.raises(RuntimeError, match="hard spread"):
+        sharded.solve_sharded(SolverParams(), ss, st, ints.to(card),
+                              floats.to(card))
+
+
+@pytest.mark.cuda
+def test_sharded_poll_runs_out_and_the_card_stays_usable(card, monkeypatch):
+    """A launch with the last shard's cluster left out of the grid: the
+    first poll for its flag runs out after its bound, sets the error word,
+    and every later poll gives up at once, so the launch ends and the
+    wrapper raises; a whole launch after it equals the plain version."""
+    from kubernetes_tpu_torch.parallel import sharded
+
+    ps, state, ints, floats = random_planes(46, 1024, 64, sc=2, t=2, u=2)
+    ps.sc_meta[1] = 0
+    ss, st = sharded.shard_planes(ps, state, 2)
+    kernel = solve_mod.solve_kernel
+    lib = kernel._load()
+
+    class OneShort:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+    short = OneShort()
+    short.ktt_solve_sharded_launch = lib.ktt_solve_sharded_launch_one_short
+    ssc, stc = _sharded_on(card, ss, st)
+    with monkeypatch.context() as m:
+        m.setattr(kernel, "_load", lambda: short)
+        t0 = time.monotonic()
+        _, err = kernel.launch_sharded(SolverParams(), ssc, stc.planes,
+                                       stc.totals, ints.to(card),
+                                       floats.to(card))
+        torch.cuda.synchronize()
+        took = time.monotonic() - t0
+    with pytest.raises(RuntimeError, match="ran out"):
+        solve_mod.check_exchange(int(err[0]))
+    assert 2.0 <= took < 30.0
+    ssc, stc = _sharded_on(card, ss, st)
+    got, err = kernel.launch_sharded(SolverParams(), ssc, stc.planes,
+                                     stc.totals, ints.to(card),
+                                     floats.to(card))
+    torch.cuda.synchronize()
+    assert int(err[0]) == 0
+    want = sharded.solve_sharded_plain(SolverParams(), ss, st, ints, floats)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
