@@ -226,7 +226,36 @@ prints no result):
     equal to the row's assignments; pods/s, p50 / p99 enqueue-to-bind and
     ms a launch beside phase 4's; (c) ``solve_scan_sharded`` on a
     4,096-pod SchedulingBasic batch: one launch of each kernel, the
-    assignments equal to the cluster kernel's.
+    assignments equal to the cluster kernel's;
+30. the scheduler's configuration and HA modes (``harness/ha.py``): (a)
+    SchedulingBasic 5,000 / 30,000 through ``Scheduler.create`` from a
+    v1beta1 dict (``parallelism`` 16, the adaptive
+    ``percentageOfNodesToScore``, the profiles ``default-scheduler`` and
+    ``packing`` (MostAllocated in LeastAllocated's place), an HTTP
+    extender on 127.0.0.1 with filter and prioritize verbs managing
+    ``example.com/ext``, which every node advertises): 150 pods request
+    it and take the extender and the serial path, 150 run under
+    ``packing`` (serial), the rest batch on the cluster kernel; every pod
+    bound, every extender pod on a node the extender passed, every
+    packing pod on a node of its attempt's highest total with
+    MostAllocated's scores equal to a plain re-score; (b) the same row on
+    ``SchedulerReplicaSet(count=2, shard_nodes=True, use_batch=True)``
+    (pods sharded by hash) over one store, two sessions and batch paths
+    on the card: zero lost, no pod bound twice, each pod on its replica's pool;
+    (c) the set with ``shard_nodes=False`` at 1,000 nodes of six pod
+    slots and 6,000 pods (the nodes full), pipelined and serialized, and
+    at five slots (1,000 pods more than the slots) serialized: the
+    capacity guard's rejects and the held batches discarded, no node
+    over its allocatable, every pod bound or unschedulable (at five
+    slots every slot filled); (d)
+    two schedulers on one store under ``run_with_leader_election`` (lease
+    2.0 s, renew deadline 1.5 s, retry 0.25 s), each with its batch path,
+    SchedulingBasic 5,000 / 30,000, the leader stopped at 10,000 bound:
+    the time from the stop to the standby's first bind; zero lost, none
+    bound twice, nothing bound by the stopped leader after its stop, the
+    rest bound by the standby on its own session. Each row's launches
+    are the cluster kernel's (and the wide kernel's where a batch plans
+    it), one a solve.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -244,7 +273,7 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23 and 25 to 29) resets the kernels'
+Every main-path run (4, 5, 8 to 23 and 25 to 30) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
 Before the last line come the script's wall time, the scatters' counts
@@ -277,9 +306,11 @@ from kubernetes_tpu_torch.api.types import (
 )
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
 from kubernetes_tpu_torch.autoscaler.simulator import _serial_whatif
+from kubernetes_tpu_torch.config.feature_gates import FeatureGates
 from kubernetes_tpu_torch.federation import FederationPolicy
 from kubernetes_tpu_torch.harness import elastic, perf, sustained, workloads
 from kubernetes_tpu_torch.harness import federation as fed_harness
+from kubernetes_tpu_torch.harness import ha
 from kubernetes_tpu_torch.observability.devprof import get_devprof
 from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.harness.problems import (
@@ -317,7 +348,7 @@ from kubernetes_tpu_torch.parallel import (
     solve_scan_sharded,
 )
 from kubernetes_tpu_torch.parallel import sharded as sharded_mod
-from kubernetes_tpu_torch.sidecar import BatchScheduler
+from kubernetes_tpu_torch.sidecar import BatchScheduler, attach_batch_scheduler
 
 PARAMS = SolverParams()
 KERNEL_SOURCE = "kubernetes_tpu_torch/csrc/solve_kernel.cu"
@@ -2239,11 +2270,12 @@ def run_shared_volumes(device, nodes, claims, pods, limit, max_batch):
     pod dicts); the scheduler is stopped."""
     store = shared_volume_store(nodes, claims, limit)
     sched = Scheduler(store, config=SchedulerConfiguration(
-        provider="GangSchedulingProvider"))
+        provider="GangSchedulingProvider"),
+        feature_gates=FeatureGates({"TPUBatchScheduler": True}))
     get_tracer().clear()
     get_devprof().reset(workload="shared volumes")
     perf.reset_sli_window()
-    bs = BatchScheduler(sched, max_batch=max_batch, device=device)
+    bs = attach_batch_scheduler(sched, max_batch=max_batch, device=device)
     sched.start()
     dicts = []
     for i in range(pods):
@@ -3428,6 +3460,147 @@ def phase_sharded(basic, largest, nodes=5000, pods=30000, shards=4,
             "scan": {"launches": scan_counts, "err": scan_err}}
 
 
+def _launch_check(name, counts, solves):
+    """A row's launches: the cluster kernel's at least once, the cluster
+    and wide kernels' one a solve, no other solve kernel's."""
+    check(counts["cluster"] > 0, f"{name}: the cluster kernel launched")
+    others = {k: v for k, v in counts.items()
+              if k not in ("cluster", "wide") and v}
+    check(not others, f"{name}: other kernels launched: {others}")
+    check(counts["cluster"] + counts["wide"] == solves,
+          f"{name}: launches {counts} == solves {solves}")
+
+
+def _ha_row_log(name, row, counts):
+    lat = row["latency_ms"]
+    log(f"  {name}: {row['pods']:,} pods over {row['nodes']:,} nodes on "
+        f"{row['device']}: {row['pods_per_s']:.1f} pods/s over "
+        f"{row['seconds']:.3f} s; enqueue->bind ms p50/p99 "
+        f"{lat['Perc50']:.1f}/{lat['Perc99']:.1f}; launches cluster="
+        f"{counts['cluster']} wide={counts['wide']}")
+
+
+def phase_config_ha(nodes=5000, pods=30000, every=200, shared_nodes=1000,
+                    shared_pods=6000, stop_after=10000, max_batch=4096):
+    """Phase 30: the configuration and HA rows of ``harness.ha`` on the
+    card, each with the kernels' counts reset just before and read just
+    after (``run_path``): (a) the config row, SchedulingBasic ``nodes`` /
+    ``pods`` through ``Scheduler.create`` from a v1beta1 dict (16
+    workers, two profiles, an HTTP extender on loopback), every
+    ``every``-th pod the extender's and every ``every``-th from
+    ``every // 2`` the packing profile's; (b) the replica row, two
+    node-sharded replicas on one store; (c) two replicas sharing
+    ``shared_nodes`` nodes of six pod slots each, ``shared_pods`` pods,
+    the capacity guard arbitrating, in the pipelined arm (where a held
+    batch a sibling's binds made stale is discarded first) and the
+    serialized one, and at five slots a node (serialized), where the two
+    replicas' solves claim more than the nodes hold; (d) the failover
+    row, the leader
+    stopped once ``stop_after`` pods are bound."""
+    out = {}
+    row, counts, kernel_ms, _, _, wall = run_path(
+        "phase 30a", lambda: ha.config_row(
+            nodes, pods, every=every, device="cuda", max_batch=max_batch),
+        kernel=None)
+    res = row.pop("result")
+    check(res.device.startswith("cuda"), "phase 30a ran on the card")
+    _launch_check("phase 30a", counts, res.solves)
+    check(not row["unbound"], f"phase 30a: {len(row['unbound'])} unbound")
+    for key in ("extender_violations", "packing_violations",
+                "packing_unscored", "rescore_mismatches", "not_serial"):
+        check(not row[key], f"phase 30a: {key}: {row[key][:5]}")
+    check(row["extender_calls"].get("filter", 0) >= row["extender_pods"],
+          "phase 30a: the extender filtered every extender pod")
+    log(f"  30a config row: {pods:,} pods over {nodes:,} nodes on "
+        f"{res.device}: {res.pods_per_second:.1f} pods/s over "
+        f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); "
+        f"enqueue->bind ms p50/p99 {res.latency['Perc50']:.1f}/"
+        f"{res.latency['Perc99']:.1f}; launches cluster={counts['cluster']} "
+        f"wide={counts['wide']}; serial pods {row['serial_pods']} "
+        f"({row['extender_pods']} extender, {row['packing_pods']} packing) "
+        f"in {row['serial_seconds']:.3f} s; "
+        f"extender calls {row['extender_calls']}; packing nodes re-scored "
+        f"{row['packing_nodes_scored']}")
+    out["a_config"] = dict(row, pods_per_s=res.pods_per_second,
+                           duration_s=res.duration_seconds,
+                           enqueue_to_bind_ms=res.latency,
+                           solves=res.solves, launches=counts,
+                           kernel_ms_mean=float(np.mean(kernel_ms)),
+                           host_seconds=res.seconds)
+
+    for key, title, kw in (
+            ("b_replicas", "30b replica row (2 replicas, node pools)",
+             dict(nodes=nodes, pods=pods, shard_nodes=True)),
+            ("c_shared", "30c shared nodes, capacity guard, pipelined",
+             dict(nodes=shared_nodes, pods=shared_pods, shard_nodes=False,
+                  node_pods="6", pipeline=True)),
+            ("c_shared_serialized",
+             "30c shared nodes, capacity guard, serialized",
+             dict(nodes=shared_nodes, pods=shared_pods, shard_nodes=False,
+                  node_pods="6", pipeline=False)),
+            ("c_oversubscribed",
+             "30c shared nodes of five slots, capacity guard, serialized",
+             dict(nodes=shared_nodes, pods=shared_pods, shard_nodes=False,
+                  node_pods="5", pipeline=False))):
+        name = f"phase {title}"
+        row, counts, kernel_ms, _, _, wall = run_path(
+            name, lambda kw=kw: ha.replica_row(
+                device="cuda", max_batch=max_batch, **kw), kernel=None)
+        check(row["device"].startswith("cuda"), f"{name} ran on the card")
+        _launch_check(name, counts, sum(row["solves_by_replica"]))
+        for k in ("lost", "double_binds", "pool_violations",
+                  "over_allocatable"):
+            check(not row[k], f"{name}: {k}: {row[k][:5]}")
+        slots = shared_nodes * int(kw.get("node_pods", "110"))
+        if kw["shard_nodes"] or slots >= kw["pods"]:
+            check(row["unschedulable"] == 0, f"{name}: every pod bound")
+        else:
+            check(sum(row["bound_by_replica"]) == slots,
+                  f"{name}: every slot filled")
+        check(all(n > 0 for n in row["bound_by_replica"]),
+              f"{name}: each replica bound pods")
+        _ha_row_log(title, row, counts)
+        log(f"    bound by replica {row['bound_by_replica']}, solves by "
+            f"replica {row['solves_by_replica']}, held batches discarded "
+            f"{row['discards_by_replica']}, guard rejects "
+            f"{row['capacity_rejects']} (routed serial "
+            f"{row['capacity_routed']}), unschedulable "
+            f"{row['unschedulable']} (whole run {wall:.1f} s)")
+        out[key] = dict(row, launches=counts,
+                        kernel_ms_mean=float(np.mean(kernel_ms)))
+
+    row, counts, kernel_ms, _, _, wall = run_path(
+        "phase 30d", lambda: ha.failover_row(
+            nodes, pods, stop_after=stop_after, device="cuda",
+            max_batch=max_batch), kernel=None)
+    check(row["device"].startswith("cuda"), "phase 30d ran on the card")
+    _launch_check("phase 30d", counts,
+                  row["leader_solves"] + row["standby_solves"])
+    check(not row["lost"] and not row["double_binds"],
+          f"phase 30d: lost {row['lost'][:5]}, bound twice "
+          f"{row['double_binds'][:5]}")
+    check(row["leader_bound_after_stop"] == 0,
+          "phase 30d: the stopped leader bound nothing after its stop")
+    check(row["standby_bound_before_stop"] == 0,
+          "phase 30d: the standby bound nothing while it stood by")
+    check(row["leader_bound"] + row["standby_bound"] == pods,
+          "phase 30d: the leader's binds and the standby's are every pod")
+    check(row["binds_after_stop"] == row["standby_bound"],
+          "phase 30d: every bind after the stop was the standby's")
+    check(row["standby_solves"] > 0 and row["standby_leads"],
+          "phase 30d: the standby leads and solved on its own session")
+    _ha_row_log("30d failover row", row, counts)
+    log(f"    leader bound {row['leader_bound']:,} (stop after "
+        f"{stop_after:,}; its stop took {row['stop_seconds']:.3f} s), "
+        f"standby bound {row['standby_bound']:,}; stop -> standby's first "
+        f"bind {row['failover_gap_s']:.3f} s; solves leader "
+        f"{row['leader_solves']} standby {row['standby_solves']} (whole "
+        f"run {wall:.1f} s)")
+    out["d_failover"] = dict(row, launches=counts,
+                             kernel_ms_mean=float(np.mean(kernel_ms)))
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3605,7 +3778,13 @@ def main() -> None:
                          sharded["scan"]["err"])
     for k in ("sharded", "counts"):
         check(LAUNCHES[k] > 0, f"the {k} kernel launched on the main path")
-    log(f"  main-path launches over phases 4, 5 and 8 to 29: {LAUNCHES}")
+
+    log("[30] the configuration and HA rows: SchedulingBasic 5,000 / "
+        "30,000 from a v1beta1 dict (two profiles, an HTTP extender on "
+        "loopback, 16 workers), on a two-replica set, 1,000 shared nodes "
+        "with the capacity guard, and an elected pair failing over")
+    config_ha = phase_config_ha()
+    log(f"  main-path launches over phases 4, 5 and 8 to 30: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -3719,7 +3898,7 @@ def main() -> None:
         "families": families, "tracing_cost": tracing, "tuner": tuner,
         "autoscale": autoscale, "mesh": mesh, "federation": federation,
         "wide_pods": wide_pods, "wide_kernel": wide_timed,
-        "sharded": sharded,
+        "sharded": sharded, "config_ha": config_ha,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

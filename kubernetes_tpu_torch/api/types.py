@@ -93,10 +93,14 @@ class ContainerPort:
 @dataclass
 class ResourceRequirements:
     requests: Dict[str, Quantity] = field(default_factory=dict)
+    # read only by an extender's ``managedResources`` interest
+    limits: Dict[str, Quantity] = field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Optional[Mapping]) -> "ResourceRequirements":
-        return cls(_parse_resource_list((d or {}).get("requests")))
+        d = d or {}
+        return cls(_parse_resource_list(d.get("requests")),
+                   _parse_resource_list(d.get("limits")))
 
 
 @dataclass

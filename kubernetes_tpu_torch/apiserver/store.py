@@ -93,6 +93,7 @@ class ClusterStore:
         self._api_events: Dict[str, ApiEvent] = {}
         self.event_ttl = EVENT_TTL_S
         self._watches: List[WatchHandle] = []
+        self._leases: Dict[str, "_Lease"] = {}
 
     def _next_rv(self) -> str:
         self._rv += 1
@@ -492,6 +493,34 @@ class ClusterStore:
                             Event(MODIFIED, "PersistentVolumeClaim", pvc)])
             return True
 
+    # ------------------------------------------------------------------
+    # leases (leader election): a holder renews its own lease; another
+    # candidate takes it only once ``duration`` has passed since the
+    # holder's last renewal
+    def try_acquire_or_renew(self, name: str, holder: str, now: float,
+                             duration: float) -> bool:
+        with self._lock:
+            lease = self._leases.get(name)
+            if (lease is None or lease.holder == holder
+                    or now - lease.renew_time > lease.duration):
+                self._leases[name] = _Lease(holder, now, duration)
+                return True
+            return False
+
+    def lease_holder(self, name: str) -> Optional[str]:
+        with self._lock:
+            lease = self._leases.get(name)
+            return lease.holder if lease else None
+
+
+class _Lease:
+    __slots__ = ("holder", "renew_time", "duration")
+
+    def __init__(self, holder: str, renew_time: float, duration: float):
+        self.holder = holder
+        self.renew_time = renew_time
+        self.duration = duration
+
 
 # ----------------------------------------------------------------------
 def assigned(pod: Pod) -> bool:
@@ -510,6 +539,7 @@ STORAGE_EVENTS = {
     "StorageClass": {ADDED: q.STORAGE_CLASS_ADD},
     "CSINode": {ADDED: q.CSI_NODE_ADD, MODIFIED: q.CSI_NODE_UPDATE},
 }
+SERVICE_EVENTS = {ADDED: q.SERVICE_ADD, MODIFIED: q.SERVICE_UPDATE}
 
 
 class EventHandlers:
@@ -526,13 +556,34 @@ class EventHandlers:
     Gangs: a pending member added wakes its gang's parked siblings; a
     bound member deleted releases its arrival slot at Coscheduling's
     Permit; a pending pod deleted while it waits at Permit is rejected
-    there."""
+    there.
+
+    Services: an add or an update wakes parked pods (ServiceAffinity and
+    SelectorSpread read them).
+
+    A replica of a set (``scheduler.replicas``) queues only the pending
+    pods its ``pod_shard`` accepts, and caches only the nodes its
+    ``node_shard`` accepts and the pods bound to them: a pod on another
+    pool's node lies outside its snapshot either way, and caching it
+    would only make the device mirror rebuild after each sibling's
+    bind."""
 
     def __init__(self, scheduler):
         self.sched = scheduler
 
     def responsible_for(self, pod: Pod) -> bool:
-        return pod.spec.scheduler_name == self.sched.scheduler_name
+        """The pod's profile is one this scheduler runs and, for a replica
+        of a set, its hash falls to this replica."""
+        if pod.spec.scheduler_name not in self.sched.profiles:
+            return False
+        shard = self.sched.pod_shard
+        return shard is None or shard(pod)
+
+    def caches_node(self, name: str) -> bool:
+        """The node is in this replica's pool (every node, outside a
+        node-sharded set)."""
+        shard = self.sched.node_shard
+        return shard is None or shard(name)
 
     def handle_many(self, events: List[Event]) -> None:
         sched = self.sched
@@ -546,9 +597,11 @@ class EventHandlers:
 
         def flush():
             if bind_run:
-                sched.cache.add_pods(bind_run)
+                cached = [p for p in bind_run
+                          if self.caches_node(p.spec.node_name)]
+                sched.cache.add_pods(cached)
                 sched.queue.delete_many(bind_run)
-                sched.queue.assigned_pods_updated(bind_run)
+                sched.queue.assigned_pods_updated(cached)
                 bind_run.clear()
             if add_run:
                 sched.queue.add_many(add_run)
@@ -558,6 +611,7 @@ class EventHandlers:
                 add_run.clear()
             if delete_run:
                 for pod in delete_run:
+                    # a no-op for another pool's pod, never cached
                     sched.cache.remove_pod(pod)
                     self._gang_member_deleted(pod)
                 # one wakeup for the whole run
@@ -599,10 +653,19 @@ class EventHandlers:
             name = STORAGE_EVENTS[event.kind].get(event.type)
             if name:
                 self.sched.queue.move_all_to_active_or_backoff_queue(name)
+        elif event.kind == "Service":
+            name = SERVICE_EVENTS.get(event.type)
+            if name:
+                self.sched.queue.move_all_to_active_or_backoff_queue(name)
 
     def _handle_pod(self, event: Event) -> None:
         sched = self.sched
         pod, old = event.obj, event.old_obj
+        if assigned(pod) and not self.caches_node(pod.spec.node_name):
+            if event.type == MODIFIED and old is not None \
+                    and not assigned(old):
+                sched.queue.delete(pod)
+            return   # bound in another replica's pool
         if event.type == ADDED:
             if assigned(pod):
                 sched.cache.add_pods([pod])
@@ -628,13 +691,15 @@ class EventHandlers:
                 sched.queue.delete(pod)
                 # a pod parked at Permit gives back its assume and its
                 # gang slot
-                sched.framework.reject_waiting_pod(pod.uid)
+                for fwk in sched.profiles.values():
+                    fwk.reject_waiting_pod(pod.uid)
 
     def _gang_member_deleted(self, pod: Pod) -> None:
         if pod.metadata.labels.get(GROUP_NAME_LABEL):
-            gang = self.sched.framework.get_plugin("Coscheduling")
-            if gang is not None:
-                gang.note_member_deleted(pod)
+            for fwk in self.sched.profiles.values():
+                gang = fwk.get_plugin("Coscheduling")
+                if gang is not None:
+                    gang.note_member_deleted(pod)
 
     def _skip_pod_update(self, old: Optional[Pod], new: Pod) -> bool:
         """An update of an assumed pod that leaves its spec and labels
@@ -647,6 +712,8 @@ class EventHandlers:
     def _handle_node(self, event: Event) -> None:
         sched = self.sched
         node, old = event.obj, event.old_obj
+        if not self.caches_node(node.name):
+            return   # another replica's pool
         if event.type == ADDED:
             sched.cache.add_node(node)
             sched.queue.move_all_to_active_or_backoff_queue(q.NODE_ADD)

@@ -15,8 +15,10 @@
    PodDisruptionBudgets' published ``disruptions_allowed``) and deleted
    once empty.
 
-The loop runs on the controller scaffolding's tick thread; leader
-election is not ported."""
+The loop runs on the controller scaffolding's tick thread;
+``run_with_leader_election`` runs it only while this instance holds the
+store's lease (one autoscaler a cluster: two would both provision), and
+a lost lease stops the instance for good."""
 
 from __future__ import annotations
 
@@ -85,6 +87,7 @@ class ClusterAutoscaler(Controller):
         # [resource_version, used]; ``disruptions_allowed`` lags this
         # loop's deletions until the budget's status is recomputed
         self._pdb_spent: Dict[str, list] = {}
+        self.elector = None
         super().__init__(store, factory)
 
     def register(self) -> None:
@@ -104,6 +107,33 @@ class ClusterAutoscaler(Controller):
     def stop(self) -> None:
         super().stop()
         self.provisioner.stop()
+        if self.elector is not None:
+            self.elector.stop()
+
+    def run_with_leader_election(
+            self, identity: str = "cluster-autoscaler-0",
+            lease_name: str = "cluster-autoscaler",
+            lease_duration: float = 15.0, renew_deadline: float = 10.0,
+            retry_period: float = 2.0, clock=None):
+        """Run the loop only while this instance holds the lease
+        ``lease_name``; losing it stops the instance for good. Returns the
+        ``LeaderElector``."""
+        from kubernetes_tpu_torch.client.leaderelection import (
+            LeaderElectionConfig,
+            LeaderElector,
+        )
+
+        self.elector = LeaderElector(self.store, LeaderElectionConfig(
+            lock_name=lease_name, identity=identity,
+            lease_duration=lease_duration, renew_deadline=renew_deadline,
+            retry_period=retry_period, on_started_leading=self.run,
+            on_stopped_leading=self._on_lost_lease), clock=clock)
+        self.elector.run_in_thread()
+        return self.elector
+
+    def _on_lost_lease(self) -> None:
+        if not self._stopped:
+            self.stop()
 
     def reconcile_once(self) -> None:
         if not len(self.registry):

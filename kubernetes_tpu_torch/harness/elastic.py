@@ -23,13 +23,14 @@ from kubernetes_tpu_torch.autoscaler.nodegroups import (
     NodeGroupRegistry,
 )
 from kubernetes_tpu_torch.client.informers import SharedInformerFactory
+from kubernetes_tpu_torch.config.feature_gates import FeatureGates
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.harness.burst import (
     make_burst_pods,
     run_pending_burst,
 )
 from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
-from kubernetes_tpu_torch.sidecar import BatchScheduler
+from kubernetes_tpu_torch.sidecar import BatchScheduler, attach_batch_scheduler
 
 
 def _batch_loop(sched: Scheduler, bs: BatchScheduler,
@@ -92,8 +93,9 @@ def run_autoscale_bench(
     ca.max_virtual_per_group = min(256, needed + 2)
     ca.scale_down_enabled = scale_down
 
-    sched = Scheduler(store, rng=random.Random(0))
-    bs = BatchScheduler(sched, max_batch=max_batch, device=dev)
+    sched = Scheduler(store, rng=random.Random(0),
+                      feature_gates=FeatureGates({"TPUBatchScheduler": True}))
+    bs = attach_batch_scheduler(sched, max_batch=max_batch, device=dev)
     ca.queue_introspect = sched.queue
     if configure is not None:
         configure(ca, bs)

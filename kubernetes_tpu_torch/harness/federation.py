@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.api.types import Node
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
+from kubernetes_tpu_torch.config.feature_gates import FeatureGates
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.federation import (
     CapacityLedger,
@@ -52,7 +53,7 @@ from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     SchedulerConfiguration,
 )
-from kubernetes_tpu_torch.sidecar import BatchScheduler
+from kubernetes_tpu_torch.sidecar import attach_batch_scheduler
 from kubernetes_tpu_torch.workloads.replay import ReplayEngine
 from kubernetes_tpu_torch.workloads.trace import (
     Trace,
@@ -206,8 +207,9 @@ def _inproc_cluster(cid: int, sizing: Tuple[int, int], max_batch: int,
     for d in _cluster_nodes(cid, *sizing):
         store.add_node(Node.from_dict(d))
     sched = Scheduler(store, config=SchedulerConfiguration(
-        provider="GangSchedulingProvider"))
-    bs = BatchScheduler(sched, max_batch=max_batch, device=device)
+        provider="GangSchedulingProvider"),
+        feature_gates=FeatureGates({"TPUBatchScheduler": True}))
+    bs = attach_batch_scheduler(sched, max_batch=max_batch, device=device)
     attach_slo_baseline(sched)
     sched.start()
     if samples:

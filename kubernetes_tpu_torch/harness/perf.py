@@ -41,6 +41,8 @@ from typing import Dict, List, Optional, Tuple
 from kubernetes_tpu_torch.api.resource import parse_quantity
 from kubernetes_tpu_torch.api.types import Node, Pod, shallow_copy
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
+from kubernetes_tpu_torch.config.feature_gates import FeatureGates
+from kubernetes_tpu_torch.config.types import KubeSchedulerConfiguration
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.metrics.freshness_metrics import (
     freshness_metrics,
@@ -54,7 +56,7 @@ from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     SchedulerConfiguration,
 )
-from kubernetes_tpu_torch.sidecar import BatchScheduler
+from kubernetes_tpu_torch.sidecar import attach_batch_scheduler
 from kubernetes_tpu_torch.utils.gctune import tune_for_throughput
 
 # an op's pods must all be bound within this long
@@ -255,7 +257,8 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
                  device=None, pipeline: Optional[bool] = None,
                  mirror: Optional[bool] = None,
                  seed: Optional[int] = None, adaptive_chunk: bool = True,
-                 configure=None, backend_factory=None) -> BenchmarkResult:
+                 configure=None, backend_factory=None,
+                 config=None) -> BenchmarkResult:
     """Execute one workload on ``device`` (the CUDA card unless "cpu" is
     passed; raises when no card is available). ``pipeline`` and
     ``mirror`` switch the batch path's arms (default: the environment's
@@ -265,7 +268,11 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
     size at ``max_batch``; ``configure(batch_scheduler)`` runs before the
     first op. ``backend_factory()``, when given, makes the session's
     solve backend (the sharded tier's ``ShardedBackend``, say), which
-    then sets the device."""
+    then sets the device. ``config``, when given (a
+    ``KubeSchedulerConfiguration`` or its v1beta1 dict), builds the
+    scheduler through ``Scheduler.create`` over the gang scheduling
+    provider; by default it is the one-profile ``SchedulerConfiguration``
+    on that provider. Either way the ``TPUBatchScheduler`` gate is on."""
     backend = backend_factory() if backend_factory is not None else None
     dev = backend.device if backend is not None else resolve_device(device)
     tune_for_throughput()
@@ -273,13 +280,24 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
     get_devprof().reset(workload=name)
     reset_sli_window()
     store = ClusterStore()
-    sched = Scheduler(
-        store, config=SchedulerConfiguration(
-            provider="GangSchedulingProvider"),
-        rng=random.Random(seed))
-    bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
-                        pipeline=pipeline, mirror=mirror,
-                        adaptive_chunk=adaptive_chunk, backend=backend)
+    if config is None:
+        sched = Scheduler(
+            store, config=SchedulerConfiguration(
+                provider="GangSchedulingProvider"),
+            rng=random.Random(seed),
+            feature_gates=FeatureGates({"TPUBatchScheduler": True}))
+    else:
+        if isinstance(config, dict):
+            config = KubeSchedulerConfiguration.from_dict(config)
+        sched = Scheduler.create(
+            store, config=config, provider="GangSchedulingProvider",
+            feature_gates=FeatureGates({**config.feature_gates,
+                                        "TPUBatchScheduler": True}),
+            rng=random.Random(seed))
+    bs = attach_batch_scheduler(sched, max_batch=max_batch, device=dev,
+                                pipeline=pipeline, mirror=mirror,
+                                adaptive_chunk=adaptive_chunk,
+                                backend=backend)
     if configure is not None:
         configure(bs)
     attach_slo_baseline(sched)
@@ -384,7 +402,8 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
             raise TimeoutError(f"workload {name}: bindings still in flight")
         duration = time.monotonic() - measure_start if measure_start else 0.0
         waiting: List = []
-        sched.framework.iterate_waiting_pods(waiting.append)
+        for fwk in sched.profiles.values():
+            fwk.iterate_waiting_pods(waiting.append)
     finally:
         if collector:
             collector.stop()
@@ -430,7 +449,8 @@ def run_workload(name: str, ops: List[dict], max_batch: int = 4096,
         handoffs=list(session.handoffs),
         deleted_pods=deleted_pods,
         victims=created_pods - deleted_pods - len(pods),
-        post_filter_runs=sched.framework.post_filter_runs,
+        post_filter_runs=sum(f.post_filter_runs
+                             for f in sched.profiles.values()),
         host_paths=dict(bs.seconds),
         conditions={p.metadata.name: (c.status, c.reason, c.message)
                     for p in pods for c in p.status.conditions

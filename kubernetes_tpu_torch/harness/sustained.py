@@ -19,6 +19,7 @@ from typing import Callable, Dict, List, Optional
 
 from kubernetes_tpu_torch.api.types import Node
 from kubernetes_tpu_torch.apiserver.store import ClusterStore
+from kubernetes_tpu_torch.config.feature_gates import FeatureGates
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.harness import perf
 from kubernetes_tpu_torch.harness.workloads import node_template
@@ -28,7 +29,7 @@ from kubernetes_tpu_torch.scheduler.scheduler import (
     Scheduler,
     SchedulerConfiguration,
 )
-from kubernetes_tpu_torch.sidecar import BatchScheduler
+from kubernetes_tpu_torch.sidecar import attach_batch_scheduler
 from kubernetes_tpu_torch.utils.gctune import tune_for_throughput
 from kubernetes_tpu_torch.workloads.replay import ReplayEngine
 from kubernetes_tpu_torch.workloads.trace import (
@@ -103,9 +104,10 @@ def run_sustained_once(trace: Trace, *, node_cpu: int = 32,
     for d in sustained_nodes(trace, node_cpu=node_cpu):
         store.add_node(Node.from_dict(d))
     sched = Scheduler(store, config=SchedulerConfiguration(
-        provider="GangSchedulingProvider"))
-    bs = BatchScheduler(sched, max_batch=max_batch, device=dev,
-                        pipeline=pipeline, mirror=mirror)
+        provider="GangSchedulingProvider"),
+        feature_gates=FeatureGates({"TPUBatchScheduler": True}))
+    bs = attach_batch_scheduler(sched, max_batch=max_batch, device=dev,
+                                pipeline=pipeline, mirror=mirror)
     perf.attach_slo_baseline(sched)
     sched.start()
     engine = None

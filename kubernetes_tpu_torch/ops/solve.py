@@ -483,6 +483,8 @@ class SolveKernel:
                        "counts": 0}
         self._lib = None
         self._lock = threading.Lock()
+        # sessions on several threads (a replica set) launch at once
+        self._count_lock = threading.Lock()
         self._plans = {}
         self.launched = set()   # (kernel, with sv) instances launched
         self.compiles = []
@@ -498,8 +500,13 @@ class SolveKernel:
         return sum(self.counts.values())
 
     def reset_counts(self) -> None:
-        for k in self.counts:
-            self.counts[k] = 0
+        with self._count_lock:
+            for k in self.counts:
+                self.counts[k] = 0
+
+    def _count(self, kernel: str) -> None:
+        with self._count_lock:
+            self.counts[kernel] += 1
 
     def _load(self):
         with self._lock:
@@ -693,7 +700,7 @@ class SolveKernel:
         if err != 0:
             raise RuntimeError(f"solve sharded kernel launch failed: CUDA "
                                f"error {err}")
-        self.counts["sharded"] += 1
+        self._count("sharded")
         if first:
             self.launched.add(instance)
             self.note_compile("first launch " + " ".join(
@@ -730,7 +737,7 @@ class SolveKernel:
         if err != 0:
             raise RuntimeError(f"feasible counts kernel launch failed: CUDA "
                                f"error {err}")
-        self.counts["counts"] += 1
+        self._count("counts")
         if first:
             self.launched.add(("counts",))
             self.note_compile("first launch counts", time.monotonic() - t0)
@@ -789,7 +796,7 @@ class SolveKernel:
         if err != 0:
             raise RuntimeError(f"solve {plan.kernel} kernel launch failed: "
                                f"CUDA error {err}")
-        self.counts[plan.kernel] += 1
+        self._count(plan.kernel)
         if first:
             self.launched.add(instance)
             self.note_compile(f"first launch {plan.kernel}"

@@ -23,6 +23,7 @@ from kubernetes_tpu_torch.scheduler.snapshot import NodeTree, Snapshot
 from kubernetes_tpu_torch.scheduler.types import (
     ImageStateSummary,
     NodeInfo,
+    compute_pod_resource_request,
     get_pod_key,
 )
 
@@ -134,6 +135,45 @@ class SchedulerCache:
                         for t in node.spec.taints):
                     flagged[name] = node
         return flagged
+
+    def commit_fits(self, items) -> List[Optional[str]]:
+        """The capacity probe of a batch of (pod, node name) bind targets
+        against the live cache, which holds what sibling replicas bound
+        since the batch was solved: per target "capacity" when the pod no
+        longer fits the node's allocatable cpu, memory or pod count, else
+        None. Cumulative within the batch (two pods on one node charge it
+        twice); a node the cache does not hold passes (that is
+        ``commit_target_flags``' verdict)."""
+        out: List[Optional[str]] = [None] * len(items)
+        with self._lock:
+            extra: Dict[str, List[int]] = {}
+            for i, (pod, node_name) in enumerate(items):
+                info = self._nodes.get(node_name)
+                if info is None or info.node is None:
+                    continue
+                req = compute_pod_resource_request(pod)
+                add = extra.setdefault(node_name, [0, 0, 0])
+                alloc = info.allocatable
+                if (alloc.milli_cpu and info.requested.milli_cpu + add[0]
+                        + req.milli_cpu > alloc.milli_cpu) or \
+                   (alloc.memory and info.requested.memory + add[1]
+                        + req.memory > alloc.memory) or \
+                   (alloc.allowed_pod_number and len(info.pods) + add[2]
+                        + 1 > alloc.allowed_pod_number):
+                    out[i] = "capacity"
+                    continue
+                add[0] += req.milli_cpu
+                add[1] += req.memory
+                add[2] += 1
+        return out
+
+    def dump(self) -> dict:
+        """Copies of every NodeInfo (node-less ones, holding pods of nodes
+        the cache lacks, included) and the assumed pods' keys."""
+        with self._lock:
+            return {"nodes": {n: info.clone()
+                              for n, info in self._nodes.items()},
+                    "assumed_pods": set(self._assumed_pods)}
 
     # ------------------------------------------------------------------
     # pods

@@ -1,18 +1,27 @@
 """The generic scheduling algorithm of the serial path: snapshot ->
 PreFilter -> Filter over the nodes from a round-robin start index,
 stopping once enough feasible nodes are found (the adaptive percentage
-of nodes to score) -> PreScore and Score -> the host with the highest
-score, a tie broken by reservoir sampling from the scheduler's
+of nodes to score) -> the extenders' filters -> PreScore and Score, plus
+the extenders' weighted priorities -> the host with the highest score,
+a tie broken by reservoir sampling from the scheduler's
 ``random.Random``.
 
-Filter runs over the nodes in order, one at a time: the feasible set and
-the next start index are the ones the JAX package's scheduler gives with
-``parallelism=1``. Extenders are not part of this port.
+Filter fans out over the nodes through the framework's parallelizer
+(``utils.parallelize``). With ``parallelism=1`` it runs over them in
+order on the calling thread, so the feasible list and the next start
+index are the ones of a plain loop; with more workers the feasible list
+follows the order the workers finish in, as in the JAX package. The
+extenders run one after another, each on the list the last left; a
+failed call is skipped for an ignorable extender and fails the attempt
+otherwise. With the ``PreferNominatedNode`` gate on, a pod with a
+nominated node that passes Filter and the extenders goes there without
+a search.
 """
 
 from __future__ import annotations
 
 import random
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -37,11 +46,14 @@ class ScheduleResult:
 
 class GenericScheduler:
     def __init__(self, cache, snapshot: Snapshot, rng: random.Random,
-                 percentage_of_nodes_to_score: int = 0):
+                 percentage_of_nodes_to_score: int = 0, extenders=(),
+                 feature_gates=None):
         self.cache = cache
         self.snapshot = snapshot
         self.rng = rng
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
+        self.extenders = list(extenders)
+        self.feature_gates = feature_gates
         self.next_start_node_index = 0
 
     def update_snapshot(self) -> None:
@@ -103,8 +115,19 @@ class GenericScheduler:
                         statuses[ni.node.name] = status
                 return [], statuses
             raise status.as_error()
-        return self._find_nodes_that_pass_filters(state, fwk, pod,
-                                                  statuses), statuses
+        if (self.feature_gates is not None
+                and self.feature_gates.enabled("PreferNominatedNode")
+                and pod.status.nominated_node_name):
+            ni = self.snapshot.get(pod.status.nominated_node_name)
+            if ni is not None and ni.node is not None and fw.Status.is_ok(
+                    fwk.run_filter_plugins_with_nominated_pods(state, pod,
+                                                               ni)):
+                feasible = self._extender_filter(pod, [ni], statuses)
+                if feasible:
+                    return feasible, statuses
+        feasible = self._find_nodes_that_pass_filters(state, fwk, pod,
+                                                      statuses)
+        return self._extender_filter(pod, feasible, statuses), statuses
 
     def _find_nodes_that_pass_filters(self, state: CycleState,
                                       fwk: Framework, pod: Pod,
@@ -119,24 +142,50 @@ class GenericScheduler:
             return [all_nodes[(start + i) % num_all]
                     for i in range(num_to_find)]
         feasible: List[NodeInfo] = []
-        processed = 0
-        for i in range(num_all):
-            if len(feasible) >= num_to_find:
-                break
+        lock = threading.Lock()
+        done = [False]
+        processed = [0]
+
+        def check(i: int) -> None:
             ni = all_nodes[(start + i) % num_all]
             status = fwk.run_filter_plugins_with_nominated_pods(state, pod, ni)
-            processed += 1
-            if fw.Status.is_ok(status):
-                feasible.append(ni)
-            elif ni.node is not None:
-                statuses[ni.node.name] = status
-        self.next_start_node_index = (start + processed) % num_all
+            with lock:
+                processed[0] += 1
+                if fw.Status.is_ok(status):
+                    if len(feasible) < num_to_find:
+                        feasible.append(ni)
+                    if len(feasible) >= num_to_find:
+                        done[0] = True
+                elif ni.node is not None:
+                    statuses[ni.node.name] = status
+
+        fwk.parallelizer.until(num_all, check, stop_check=lambda: done[0])
+        self.next_start_node_index = (start + processed[0]) % num_all
+        return feasible
+
+    def _extender_filter(self, pod: Pod, feasible: List[NodeInfo],
+                         statuses: fw.NodeToStatusMap) -> List[NodeInfo]:
+        """Each interested extender's filter in turn, on the list the last
+        left; the nodes it fails get its reason as their status."""
+        for ext in self.extenders:
+            if not feasible:
+                break
+            if not ext.is_interested(pod):
+                continue
+            try:
+                feasible, failed = ext.filter(pod, feasible)
+            except Exception:
+                if ext.is_ignorable():
+                    continue
+                raise
+            for name, reason in failed.items():
+                statuses[name] = fw.Status(fw.UNSCHEDULABLE, reason)
         return feasible
 
     def prioritize_nodes(self, state: CycleState, fwk: Framework, pod: Pod,
                          nodes: List[NodeInfo]) -> List[fw.NodeScore]:
         node_names = [ni.node.name for ni in nodes]
-        if not fwk.has_score_plugins():
+        if not fwk.has_score_plugins() and not self.extenders:
             return [fw.NodeScore(n, 1) for n in node_names]
         status = fwk.run_pre_score_plugins(state, pod, nodes)
         if not fw.Status.is_ok(status):
@@ -148,6 +197,18 @@ class GenericScheduler:
         for per_node in plugin_scores.values():
             for ns in per_node:
                 totals[ns.name] += ns.score
+        for ext in self.extenders:
+            if not ext.is_interested(pod):
+                continue
+            try:
+                contributions = ext.prioritize(pod, nodes)
+            except Exception:
+                if ext.is_ignorable():
+                    continue
+                raise
+            for name, score in contributions.items():
+                if name in totals:
+                    totals[name] += int(score)
         return [fw.NodeScore(n, totals[n]) for n in node_names]
 
     def select_host(self, priority_list: List[fw.NodeScore]) -> str:

@@ -203,3 +203,52 @@ class MostAllocated(LeastAllocated):
             total += weight * used * MAX_NODE_SCORE // allocatable[name]
             weight_sum += weight
         return total // weight_sum if weight_sum else 0
+
+
+class RequestedToCapacityRatio(_ResourceAllocationScorer):
+    """A piecewise-linear score of each resource's utilization (args
+    ``shape``: utilization -> score points on a 0-10 scale; ``resources``:
+    names and weights), weighted, averaged and scaled to [0, 100]. Reached
+    through a Policy's RequestedToCapacityRatioPriority."""
+
+    NAME = "RequestedToCapacityRatio"
+
+    points: List[Tuple[int, int]] = [(0, 0), (100, 10)]
+
+    @staticmethod
+    def factory(args, handle):
+        p = RequestedToCapacityRatio(handle)
+        args = args or {}
+        shape = args.get("shape") or [
+            {"utilization": 0, "score": 0},
+            {"utilization": 100, "score": 10},
+        ]
+        p.points = sorted(
+            (int(s["utilization"]), int(s["score"])) for s in shape)
+        if args.get("resources"):
+            p.resources = {
+                r["name"]: int(r.get("weight", 1)) for r in args["resources"]
+            }
+        return p
+
+    def _piecewise(self, utilization: float) -> float:
+        pts = self.points
+        if utilization <= pts[0][0]:
+            return pts[0][1]
+        for (x0, y0), (x1, y1) in zip(pts, pts[1:]):
+            if utilization <= x1:
+                return y0 + (y1 - y0) * (utilization - x0) / (x1 - x0)
+        return pts[-1][1]
+
+    def _score_from_fractions(self, requested, allocatable) -> int:
+        total, weight_sum = 0.0, 0
+        for name, weight in self.resources.items():
+            if allocatable[name] == 0:
+                continue
+            utilization = min(100.0,
+                              100.0 * requested[name] / allocatable[name])
+            total += weight * self._piecewise(utilization)
+            weight_sum += weight
+        if weight_sum == 0:
+            return 0
+        return int(total / weight_sum * MAX_NODE_SCORE / 10)

@@ -2,10 +2,11 @@
 plugins of each extension point and running them in order.
 
 The framework is the plugins' handle: ``snapshot()``, ``client``,
-``pod_nominator`` and ``rng`` (the scheduler's one ``random.Random``)
-come from the scheduler that built it. Filter and Score run over the
-nodes in order, one at a time, so the feasible set and the next start
-index never depend on thread timing.
+``pod_nominator``, ``rng`` (the scheduler's one ``random.Random``),
+``parallelizer`` and ``extenders`` (the scheduler's HTTP extenders) come
+from the scheduler that built it. Score fans out over the nodes through the
+parallelizer (``utils.parallelize``); with ``parallelism=1`` it runs over
+them in order on the calling thread.
 
 Permit may allow, reject or ask the pod to wait: a waiting pod is
 parked as a ``WaitingPod`` until every waiting plugin allows it, one
@@ -20,9 +21,11 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.config.types import Plugins
 from kubernetes_tpu_torch.scheduler.framework import interface as fw
 from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
 from kubernetes_tpu_torch.scheduler.types import NodeInfo
+from kubernetes_tpu_torch.utils.parallelize import Parallelizer
 
 
 def _timed(point: str, status_at: Optional[int] = None):
@@ -103,21 +106,32 @@ class WaitingPod:
             return self._status or fw.Status(fw.SUCCESS)
 
 
+def wiring_of(plugins: Plugins) -> Dict[str, List[Tuple[str, int]]]:
+    """Extension point -> the enabled (plugin name, weight) entries."""
+    return {p: [(e.name, e.weight) for e in plugins.get(p).enabled]
+            for p in EXTENSION_POINTS}
+
+
 class Framework:
-    """``plugins`` maps each extension point to its (plugin name, weight)
-    entries in order (weights count for Score only); ``registry`` maps a
-    plugin name to ``factory(args, handle)``; ``plugin_args`` maps a
-    plugin name to its arguments (default: none). Each named plugin is
-    built once. ``metrics`` (a ``SchedulerMetrics``) takes the extension
-    points' durations; ``event_recorder`` is the handle's recorder, which
-    preemption writes ``Preempted`` events to."""
+    """``plugins``: the enabled sets of a ``config.types.Plugins``, each
+    extension point's (plugin name, weight) entries in order (weights
+    count for Score only); ``registry`` maps a plugin name
+    to ``factory(args, handle)``; ``plugin_args`` maps a plugin name to
+    its arguments (default: none), which the framework keeps
+    (``plugin_args``). Each named plugin is built once.
+    ``metrics`` (a ``SchedulerMetrics``) takes the extension points'
+    durations; ``event_recorder`` is the handle's recorder, which
+    preemption writes ``Preempted`` events to; ``parallelizer`` fans
+    Score out (default: one worker)."""
 
     def __init__(self, registry: Dict[str, Callable],
-                 plugins: Dict[str, List[Tuple[str, int]]],
-                 snapshot: Callable, client, pod_nominator=None, rng=None,
-                 profile_name: str = "default-scheduler",
+                 plugins: Plugins, snapshot: Callable, client,
+                 pod_nominator=None,
+                 rng=None, profile_name: str = "default-scheduler",
                  plugin_args: Optional[Dict[str, dict]] = None,
-                 metrics=None, event_recorder=None):
+                 metrics=None, event_recorder=None,
+                 parallelizer: Optional[Parallelizer] = None,
+                 extenders=()):
         self.profile_name = profile_name
         self.metrics = metrics
         self.event_recorder = event_recorder
@@ -125,8 +139,12 @@ class Framework:
         self.client = client
         self.pod_nominator = pod_nominator
         self.rng = rng
+        self.parallelizer = parallelizer or Parallelizer(1)
+        self.extenders = extenders
         self.handle = self  # plugins receive the framework as their handle
-        self._plugins = {p: list(plugins.get(p, ())) for p in EXTENSION_POINTS}
+        self._plugins = wiring_of(plugins)
+        # plugin name -> the arguments it was built with (empty: none)
+        self.plugin_args: Dict[str, dict] = {}
         instances: Dict[str, fw.Plugin] = {}
         for point in EXTENSION_POINTS:
             for name, _ in self._plugins[point]:
@@ -135,8 +153,9 @@ class Framework:
                 factory = registry.get(name)
                 if factory is None:
                     raise ValueError(f"plugin {name!r} not in registry")
-                instances[name] = factory(
-                    dict((plugin_args or {}).get(name, {})), self)
+                args = self.plugin_args[name] = dict(
+                    (plugin_args or {}).get(name, {}))
+                instances[name] = factory(dict(args), self)
         self._instances = instances
 
         def plugin_list(point: str) -> List[fw.Plugin]:
@@ -178,6 +197,15 @@ class Framework:
 
     def has_post_filter_plugins(self) -> bool:
         return bool(self.post_filter_plugins)
+
+    def list_plugins(self) -> Dict[str, List[str]]:
+        """Extension point -> its plugins' names, in order."""
+        return {p: [name for name, _ in self._plugins[p]]
+                for p in EXTENSION_POINTS}
+
+    def wiring(self) -> Dict[str, List[Tuple[str, int]]]:
+        """Extension point -> its (plugin name, weight) entries."""
+        return {p: list(v) for p, v in self._plugins.items()}
 
     # ------------------------------------------------------------------
     @_timed("PreFilter")
@@ -306,20 +334,25 @@ class Framework:
                           node_names: List[str]
                           ) -> Tuple[Dict[str, List[fw.NodeScore]],
                                      Optional[fw.Status]]:
-        """Three passes: each plugin scores each node, each plugin
-        normalizes its scores, each score is weighted. Returns plugin
+        """Three passes: each plugin scores each node (the nodes fanned
+        out over the parallelizer), each plugin normalizes its scores,
+        each score is weighted. Returns plugin
         name -> [NodeScore] in node order."""
         scores: Dict[str, List[fw.NodeScore]] = {
             p.name(): [fw.NodeScore(n, 0) for n in node_names]
             for p in self.score_plugins}
         errs: List[str] = []
-        for i, node_name in enumerate(node_names):
+
+        def score_node(i: int) -> None:
+            node_name = node_names[i]
             for p in self.score_plugins:
                 s, status = p.score(state, pod, node_name)
                 if not fw.Status.is_ok(status):
                     errs.append(f"{p.name()}: {status.message()}")
-                    break
+                    return
                 scores[p.name()][i] = fw.NodeScore(node_name, s)
+
+        self.parallelizer.until(len(node_names), score_node)
         if errs:
             return scores, fw.Status(fw.ERROR, *errs)
         for p in self.score_plugins:

@@ -49,6 +49,8 @@ PVC_UPDATE = "PvcUpdate"
 STORAGE_CLASS_ADD = "StorageClassAdd"
 CSI_NODE_ADD = "CSINodeAdd"
 CSI_NODE_UPDATE = "CSINodeUpdate"
+SERVICE_ADD = "ServiceAdd"
+SERVICE_UPDATE = "ServiceUpdate"
 
 
 class PodNominator:
@@ -210,11 +212,17 @@ class Heap:
 class SchedulingQueue(PodNominator):
     """``metrics`` (a ``SchedulerMetrics``) counts the pods added to each
     queue and moved by each event; each popped pod that the process
-    tracer samples gets a ``queue.wait`` span (enqueue to pop)."""
+    tracer samples gets a ``queue.wait`` span (enqueue to pop). A pod's
+    backoff doubles from ``pod_initial_backoff`` seconds each attempt, up
+    to ``pod_max_backoff``."""
 
-    def __init__(self, metrics=None):
+    def __init__(self, metrics=None,
+                 pod_initial_backoff: float = POD_INITIAL_BACKOFF,
+                 pod_max_backoff: float = POD_MAX_BACKOFF):
         super().__init__()
         self._metrics = metrics
+        self.pod_initial_backoff = pod_initial_backoff
+        self.pod_max_backoff = pod_max_backoff
         self._now = time.monotonic
         self._cond = threading.Condition(threading.RLock())
 
@@ -244,12 +252,12 @@ class SchedulingQueue(PodNominator):
 
     def _backoff_duration(self, qpi: QueuedPodInfo) -> float:
         """initial * 2^(attempts-1), capped at the maximum."""
-        d = POD_INITIAL_BACKOFF
+        d, cap = self.pod_initial_backoff, self.pod_max_backoff
         for _ in range(1, qpi.attempts):
             d *= 2
-            if d >= POD_MAX_BACKOFF:
-                return POD_MAX_BACKOFF
-        return min(d, POD_MAX_BACKOFF)
+            if d >= cap:
+                return cap
+        return min(d, cap)
 
     def _backoff_complete(self, qpi: QueuedPodInfo) -> bool:
         return self._now() >= self._backoff_time(qpi)
@@ -497,6 +505,13 @@ class SchedulingQueue(PodNominator):
         autoscaler's trigger set)."""
         with self._cond:
             return [q.pod for q in self._unschedulable_q.values()]
+
+    def pending_pods(self) -> List[Pod]:
+        """Every queued pod: active, backing off and unschedulable."""
+        with self._cond:
+            return ([q.pod for q in self._active_q.list()]
+                    + [q.pod for q in self._backoff_q.list()]
+                    + [q.pod for q in self._unschedulable_q.values()])
 
     def pending_active_count(self) -> int:
         """Pods still due an attempt (active + backoff)."""

@@ -1,7 +1,20 @@
 """The scheduler: it owns the cache, the queue, the snapshot and one
-``Framework`` (its provider's wiring: the default one, or the gang
-scheduling one), wires the store's watch into the cache and the queue,
-and commits placements.
+``Framework`` per profile (``profiles``, keyed by scheduler name: each
+profile's plugins merged over its provider's wiring), the extenders,
+wires the store's watch into the cache and the queue, and commits
+placements.
+
+Two ways to build one:
+
+- ``Scheduler.create(store, config, provider, feature_gates,
+  out_of_tree_registry)`` from a v1beta1 ``KubeSchedulerConfiguration``
+  (or its dict, or a translated legacy Policy): its profiles, plugin
+  sets, weights and args, extenders, ``parallelism``,
+  ``percentageOfNodesToScore``, backoff bounds and feature gates. Every
+  profile must share one QueueSort;
+- ``Scheduler(store, config=SchedulerConfiguration(...))``: one profile
+  (``default-scheduler``) on a provider's wiring with plugin args, one
+  worker, no extenders, every feature gate at its default.
 
 Two ways in:
 
@@ -19,7 +32,18 @@ A pod that Permit asks to wait (a gang member) is assumed and parked,
 and its binding cycle (wait at Permit, PreBind, Bind, PostBind) runs on
 a pool of 64 binding threads, host code only; every other pod binds
 synchronously in the committing call, since the store is in process.
-``wait_for_inflight_bindings`` waits for the pool.
+``wait_for_inflight_bindings`` waits for the pool. A binder extender
+interested in a pod binds it in place of the Bind plugins.
+
+``run()`` schedules on a thread of its own (the batch path's cycles when
+one is attached, else the serial path's); ``run_with_leader_election``
+does so only while this instance holds the store's lease, binds nothing
+once another candidate has taken it, and stops the scheduler for good
+once its renew deadline runs out. A replica of a set
+(``scheduler.replicas``) owns the pending pods ``pod_shard`` accepts and
+caches the nodes ``node_shard`` accepts; ``commit_capacity_guard``
+refuses, at commit, a placement whose node a sibling filled since the
+solve (``SchedulerCache.commit_fits``).
 
 Each scheduler counts into its own ``SchedulerMetrics`` (attempts by
 result, the e2e and algorithm latency histograms, preemption attempts,
@@ -38,13 +62,14 @@ and the preemption candidate offset.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import random
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 from kubernetes_tpu_torch.apiserver.store import (
     ClusterStore,
@@ -62,10 +87,17 @@ from kubernetes_tpu_torch.api.types import (
     shallow_copy,
 )
 from kubernetes_tpu_torch.client.events import EventRecorder
+from kubernetes_tpu_torch.config.feature_gates import FeatureGates
+from kubernetes_tpu_torch.config.types import (
+    KubeSchedulerConfiguration,
+    KubeSchedulerProfile,
+    PluginConfig,
+)
 from kubernetes_tpu_torch.metrics.scheduler_metrics import SchedulerMetrics
 from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
 from kubernetes_tpu_torch.scheduler.core import GenericScheduler, ScheduleResult
+from kubernetes_tpu_torch.scheduler.extender import HTTPExtender
 from kubernetes_tpu_torch.scheduler.framework import interface as fw
 from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
 from kubernetes_tpu_torch.scheduler.framework.plugins import (
@@ -79,9 +111,11 @@ from kubernetes_tpu_torch.scheduler.provider import PROVIDERS
 from kubernetes_tpu_torch.scheduler.queue import SchedulingQueue
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
 from kubernetes_tpu_torch.scheduler.types import PodInfo, QueuedPodInfo
+from kubernetes_tpu_torch.utils.parallelize import Parallelizer
 
 PLUGIN_METRICS_SAMPLE_PERCENT = 10
 BIND_WORKERS = 64
+CAPACITY_REASON = "out of capacity (concurrent replica commits)"
 
 _logger = logging.getLogger(__name__)
 
@@ -107,42 +141,110 @@ def commit_target_stale(pod: Pod, node: Optional[Node]) -> Optional[str]:
 
 @dataclass
 class SchedulerConfiguration:
-    """``percentage_of_nodes_to_score``: the share of nodes the serial
-    path filters before it stops looking (0: the adaptive default);
-    ``provider``: a name in ``provider.PROVIDERS``; ``plugin_config``:
-    plugin name -> its arguments (for instance ``{"Coscheduling":
-    {"permitWaitSeconds": 1.0}}``)."""
+    """The one-profile shorthand: the ``default-scheduler`` profile on
+    ``provider``'s wiring (a name in ``provider.PROVIDERS``) with
+    ``plugin_config`` (plugin name -> its arguments, for instance
+    ``{"Coscheduling": {"permitWaitSeconds": 1.0}}``), one worker
+    (``parallelism=1``), no extenders and the default feature gates.
+    ``percentage_of_nodes_to_score``: the share of nodes the serial path
+    filters before it stops looking (0: the adaptive default). Anything
+    more goes through ``Scheduler.create`` and a
+    ``KubeSchedulerConfiguration``."""
 
     percentage_of_nodes_to_score: int = 0
     provider: str = "DefaultProvider"
     plugin_config: Dict[str, dict] = field(default_factory=dict)
 
+    def component_config(self) -> KubeSchedulerConfiguration:
+        return KubeSchedulerConfiguration(
+            parallelism=1,
+            percentage_of_nodes_to_score=self.percentage_of_nodes_to_score,
+            profiles=[KubeSchedulerProfile(plugin_config=[
+                PluginConfig(name, dict(args))
+                for name, args in self.plugin_config.items()])])
+
 
 class Scheduler:
-    scheduler_name = "default-scheduler"
-
     def __init__(self, store: ClusterStore,
-                 config: Optional[SchedulerConfiguration] = None,
-                 rng: Optional[random.Random] = None):
-        config = config or SchedulerConfiguration()
+                 config: Union[SchedulerConfiguration,
+                               KubeSchedulerConfiguration, None] = None,
+                 rng: Optional[random.Random] = None,
+                 provider: Optional[str] = None,
+                 feature_gates: Optional[FeatureGates] = None,
+                 out_of_tree_registry: Optional[Dict[str, Callable]] = None):
+        if config is None or isinstance(config, SchedulerConfiguration):
+            short = config or SchedulerConfiguration()
+            config = short.component_config()
+            provider = provider or short.provider
+        provider = provider or "DefaultProvider"
+        errs = config.validate()
+        if errs:
+            raise ValueError("invalid scheduler configuration: "
+                             + "; ".join(errs))
+        self.feature_gates = feature_gates or FeatureGates(
+            config.feature_gates)
         self.client = store
         self.rng = rng if rng is not None else random.Random()
         self.metrics = SchedulerMetrics()
-        self.recorder = EventRecorder(store, self.scheduler_name)
         self.cache = SchedulerCache()
-        self.queue = SchedulingQueue(metrics=self.metrics)
+        self.queue = SchedulingQueue(
+            metrics=self.metrics,
+            pod_initial_backoff=config.pod_initial_backoff_seconds,
+            pod_max_backoff=config.pod_max_backoff_seconds)
         self.snapshot = Snapshot()
+        self.extenders = [HTTPExtender(e) for e in config.extenders]
         self.algorithm = GenericScheduler(
             self.cache, self.snapshot, self.rng,
-            config.percentage_of_nodes_to_score)
-        self.framework = Framework(
-            new_in_tree_registry(), PROVIDERS[config.provider](),
-            snapshot=lambda: self.snapshot, client=store,
-            pod_nominator=self.queue, rng=self.rng,
-            profile_name=self.scheduler_name,
-            plugin_args=config.plugin_config, metrics=self.metrics,
-            event_recorder=self.recorder)
+            config.percentage_of_nodes_to_score, extenders=self.extenders,
+            feature_gates=self.feature_gates)
+        self.parallelizer = Parallelizer(config.parallelism)
+        registry = new_in_tree_registry()
+        registry.update(out_of_tree_registry or {})
+        defaults = PROVIDERS[provider](self.feature_gates)
+        # scheduler name -> its framework, and its event recorder
+        self.profiles: Dict[str, Framework] = {}
+        self.recorders: Dict[str, EventRecorder] = {}
+        for profile in config.profiles:
+            name = profile.scheduler_name
+            recorder = self.recorders[name] = EventRecorder(store, name)
+            self.profiles[name] = Framework(
+                registry,
+                profile.plugins.merge_defaults(defaults)
+                if profile.plugins is not None else defaults,
+                snapshot=lambda: self.snapshot, client=store,
+                pod_nominator=self.queue, rng=self.rng, profile_name=name,
+                plugin_args={c.name: c.args for c in profile.plugin_config},
+                metrics=self.metrics, event_recorder=recorder,
+                parallelizer=self.parallelizer, extenders=self.extenders)
+        sorts = {tuple(f.list_plugins()["queue_sort"])
+                 for f in self.profiles.values()}
+        if len(sorts) != 1:
+            raise ValueError("all profiles must use the same QueueSort plugin")
+        # the first profile's: what a caller of one profile reads
+        self.scheduler_name = config.profiles[0].scheduler_name
+        self.framework = self.profiles[self.scheduler_name]
+        self.recorder = self.recorders[self.scheduler_name]
         self.queue.set_sort_key(self.framework.queue_sort_plugins[0].sort_key)
+        # the batch path, when ``sidecar.attach_batch_scheduler`` installed
+        # one: ``run`` drives its cycles
+        self.batch_scheduler = None
+        # a replica of a set (``scheduler.replicas``): the pending pods it
+        # owns, the nodes it caches, and the commit-time capacity probe
+        self.pod_shard: Optional[Callable[[Pod], bool]] = None
+        self.node_shard: Optional[Callable[[str], bool]] = None
+        self.commit_capacity_guard = False
+        self.replica_name = ""
+        # in process, replicas sharing nodes share this lock around the
+        # guard's probe and the bind, so no two probes pass on one slot
+        self.commit_lock = None
+        # placements refused at commit, by path: "serial" and "bulk"
+        # (the node died or was cordoned), "capacity" (the guard),
+        # "lease" (another candidate holds the lease)
+        self.stale_binds_rejected: Dict[str, int] = {}
+        self.elector = None
+        self.lost_lease = False
+        self._stop = threading.Event()
+        self._loop_thread: Optional[threading.Thread] = None
         self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS,
                                              thread_name_prefix="binder")
         self._inflight_bindings = 0
@@ -161,32 +263,137 @@ class Scheduler:
         self.cycle_latencies: List[float] = []
         self.pending_latencies: List[float] = []
 
+    @classmethod
+    def create(cls, store: ClusterStore,
+               config: Union[KubeSchedulerConfiguration, Mapping,
+                             None] = None,
+               provider: str = "DefaultProvider",
+               feature_gates: Optional[FeatureGates] = None,
+               out_of_tree_registry: Optional[Dict[str, Callable]] = None,
+               rng: Optional[random.Random] = None) -> "Scheduler":
+        """A scheduler built from a component configuration (a v1beta1
+        dict is read with ``KubeSchedulerConfiguration.from_dict``; None
+        is the default one: one profile, 16 workers). ``feature_gates``
+        defaults to the configuration's own; ``out_of_tree_registry``
+        (plugin name -> factory) adds plugins to the in-tree ones.
+        Raises ``ValueError`` on an invalid configuration."""
+        if isinstance(config, Mapping):
+            config = KubeSchedulerConfiguration.from_dict(config)
+        return cls(store, config=config or KubeSchedulerConfiguration(),
+                   rng=rng, provider=provider, feature_gates=feature_gates,
+                   out_of_tree_registry=out_of_tree_registry)
+
     def start(self) -> None:
-        """Watch the store, then replay what it already holds."""
-        if self._watch_handle is None:
-            self._watch_handle = self.client.watch(
-                self.event_handlers.handle_many)
+        """Watch the store, then replay what it already holds (a
+        replica's foreign nodes and pods left out). Once only."""
+        if self._watch_handle is not None:
+            return
+        self._watch_handle = self.client.watch(self.event_handlers.handle_many)
+        handlers = self.event_handlers
         for node in self.client.list_nodes():
-            self.cache.add_node(node)
+            if handlers.caches_node(node.name):
+                self.cache.add_node(node)
         pending = []
         for pod in self.client.list_pods():
             if assigned(pod):
-                self.cache.add_pod(pod)
-            elif self.event_handlers.responsible_for(pod):
+                if handlers.caches_node(pod.spec.node_name):
+                    self.cache.add_pod(pod)
+            elif handlers.responsible_for(pod):
                 pending.append(pod)
         self.queue.add_many(pending)
-        self.recorder.start()
+        for recorder in self.recorders.values():
+            recorder.start()
+
+    def run(self) -> threading.Thread:
+        """Start, then schedule on a thread of its own until ``stop``."""
+        self.start()
+        return self._start_loop(f"schedule-{self.replica_name or 'one'}")
+
+    def _start_loop(self, name: str) -> threading.Thread:
+        self._loop_thread = threading.Thread(target=self._loop, daemon=True,
+                                             name=name)
+        self._loop_thread.start()
+        return self._loop_thread
+
+    def _loop(self) -> None:
+        """The batch path's cycles when one is attached, else the serial
+        path's, with the backoff and unschedulable flushes between them;
+        a cycle that raises is logged and the loop goes on. A batch still
+        held at the stop is dropped: a stopped scheduler binds nothing,
+        and its pods stay pending in the store for whoever schedules
+        next."""
+        while not self._stop.is_set():
+            try:
+                self.queue.flush_backoff_completed()
+                self.queue.flush_unschedulable_left_over()
+                if self.batch_scheduler is not None:
+                    self.batch_scheduler.run_batch(pop_timeout=0.05)
+                else:
+                    self.schedule_one(pop_timeout=0.05)
+            except Exception:  # noqa: BLE001 - the loop must survive
+                _logger.exception("scheduling cycle failed; continuing")
+
+    def run_with_leader_election(self, identity: str = "scheduler-0",
+                                 lease_name: str = "kube-scheduler",
+                                 clock=None, lease_duration: float = 15.0,
+                                 renew_deadline: float = 10.0,
+                                 retry_period: float = 2.0):
+        """Start (the cache and queue stay warm on a standby), then
+        schedule only while this instance holds the store's lease
+        ``lease_name``. Losing the lease stops this scheduler for good
+        (``lost_lease``): a deposed leader never binds again. Returns the
+        ``LeaderElector`` (``is_leader``)."""
+        from kubernetes_tpu_torch.client.leaderelection import (
+            LeaderElectionConfig,
+            LeaderElector,
+        )
+
+        self.start()
+        self.lost_lease = False
+
+        def on_started() -> None:
+            if not self._stop.is_set():
+                self._start_loop(f"schedule-{identity}")
+
+        def on_stopped() -> None:
+            self.elector.stop()
+            if not self._stop.is_set():
+                self.lost_lease = True
+                self.stop()
+
+        self.elector = LeaderElector(self.client, LeaderElectionConfig(
+            lock_name=lease_name, identity=identity,
+            lease_duration=lease_duration, renew_deadline=renew_deadline,
+            retry_period=retry_period, on_started_leading=on_started,
+            on_stopped_leading=on_stopped), clock=clock)
+        self.elector.run_in_thread()
+        return self.elector
 
     def stop(self) -> None:
-        """Stop watching; pods still waiting at Permit are rejected, so no
-        binding thread outlives the scheduler."""
+        """Stop the loop (the lease is given up: no renewal outlives the
+        scheduler), stop watching; pods still waiting at Permit are
+        rejected, so no binding thread outlives the scheduler, and the
+        Filter and Score workers are let go."""
+        self._stop.set()
+        if self.elector is not None:
+            self.elector.stop()
+        loop = self._loop_thread
+        if loop is not None and loop is not threading.current_thread():
+            loop.join(timeout=30.0)
         if self._watch_handle is not None:
             self._watch_handle.stop()
             self._watch_handle = None
-        self.framework.iterate_waiting_pods(
-            lambda wp: wp.reject("", "scheduler stopped"))
+        for fwk in self.profiles.values():
+            fwk.iterate_waiting_pods(
+                lambda wp: wp.reject("", "scheduler stopped"))
         self._bind_pool.shutdown(wait=False)
-        self.recorder.stop()
+        self.parallelizer.shutdown()
+        for recorder in self.recorders.values():
+            recorder.stop()
+
+    @property
+    def stopped(self) -> bool:
+        return self._stop.is_set()
 
     def wait_for_inflight_bindings(self, timeout: float = 30.0) -> bool:
         """Wait until no binding cycle runs on the pool; False on
@@ -207,9 +414,7 @@ class Scheduler:
     def framework_for_pod(self, pod: Pod) -> Optional[Framework]:
         """The framework of the pod's scheduler profile; None for a
         profile this scheduler does not run."""
-        if pod.spec.scheduler_name == self.scheduler_name:
-            return self.framework
-        return None
+        return self.profiles.get(pod.spec.scheduler_name)
 
     def skip_pod_schedule(self, pod: Pod) -> bool:
         """Deleting, already-assumed and already-bound pods skip."""
@@ -235,8 +440,8 @@ class Scheduler:
         """The generic algorithm and the commit for one popped pod; also
         where the batch path sends the pods it routes to the serial
         path."""
-        fwk = self.framework
         pod = qpi.pod
+        fwk = self.framework_for_pod(pod)
         cycle = self.queue.scheduling_cycle
         start = time.monotonic()
         state = CycleState()
@@ -268,7 +473,7 @@ class Scheduler:
         ranked node names) bound that dry run. ``run_post_filter=False``
         skips preemption when every node failed a node-static predicate
         (preemption cannot help there)."""
-        fwk = self.framework
+        fwk = self.framework_for_pod(qpi.pod)
         state = CycleState()
         if run_post_filter and fwk.has_post_filter_plugins():
             self.algorithm.update_snapshot()
@@ -287,14 +492,46 @@ class Scheduler:
         placed; a failure unreserves, forgets the assume and requeues. A
         pod Permit asks to wait binds on the pool. Returns True when the
         pod was bound in this call."""
+        if self._stop.is_set():
+            return False   # a stopped scheduler binds nothing
+        if self._lease_lost([(qpi, cycle)]):
+            return False
+        with self.commit_lock or contextlib.nullcontext():
+            return self._commit_one(state, qpi, result, cycle, start)
+
+    def _lease_lost(self, refused: List[Tuple[QueuedPodInfo, int]]) -> bool:
+        """Has another candidate taken the lease this elected scheduler
+        runs under? Then it binds nothing, though its own renew deadline
+        has not run out yet: the ``refused`` (qpi, cycle) pairs go back
+        to its queue's backoff, with nothing written to the store, and
+        are counted under "lease"."""
+        if self.elector is None or self.elector.holds_lease():
+            return False
+        for qpi, cycle in refused:
+            try:
+                self.queue.add_unschedulable_if_not_present(
+                    qpi, cycle, prefer_backoff=True)
+            except ValueError:
+                pass
+        self.note_stale_binds("lease", len(refused))
+        return True
+
+    def _commit_one(self, state: CycleState, qpi: QueuedPodInfo,
+                    result: ScheduleResult, cycle: int,
+                    start: float) -> bool:
         pod = qpi.pod
         host = result.suggested_host
         flagged = self.cache.commit_target_flags((host,))
         if flagged:
             reason = commit_target_stale(pod, flagged[host])
             if reason is not None:
-                self._reject_stale_commit(qpi, host, reason, cycle)
+                self._reject_stale_commit(qpi, host, reason, cycle, "serial")
                 return False
+        if self.commit_capacity_guard and self.cache.commit_fits(
+                ((pod, host),))[0] is not None:
+            self._reject_stale_commit(qpi, host, CAPACITY_REASON, cycle,
+                                      "capacity")
+            return False
         assumed = self._assumed_copy(qpi, host)
         try:
             self.cache.assume_pod(assumed)
@@ -302,7 +539,7 @@ class Scheduler:
             self._record_failure(qpi, err, "SchedulerError", "", cycle)
             return False
         self.queue.delete_nominated_pod_if_exists(pod)
-        fwk = self.framework
+        fwk = self.framework_for_pod(pod)
         status = fwk.run_reserve_plugins_reserve(state, assumed, host)
         if not fw.Status.is_ok(status):
             self._forget_and_fail(qpi, assumed, status.as_error(), cycle)
@@ -315,7 +552,7 @@ class Scheduler:
         if status is None:
             status = fwk.run_pre_bind_plugins(state, assumed, host)
         if status is None:
-            status = fwk.run_bind_plugins(state, assumed, host)
+            status = self._bind(fwk, state, assumed, host)
         if not fw.Status.is_ok(status):
             self._unreserve_forget_fail(state, qpi, assumed, host,
                                         status.as_error(), cycle)
@@ -348,7 +585,15 @@ class Scheduler:
         batch's dispatch; ``cycle_latencies`` keep the start). Returns (committed,
         failed, cache mutations made), failed counting the pods refused
         after the solve counted them."""
-        fwk = self.framework
+        if self._stop.is_set():
+            return 0, len(commits), 0   # a stopped scheduler binds nothing
+        if self._lease_lost([(c[0], c[2]) for c in commits]):
+            return 0, len(commits), 0
+        with self.commit_lock or contextlib.nullcontext():
+            return self._commit_bulk(commits, solved, observed_from)
+
+    def _commit_bulk(self, commits, solved: bool,
+                     observed_from: Optional[float]) -> Tuple[int, int, int]:
         failed = 0
         flagged = self.cache.commit_target_flags(
             {node for _, node, _, _ in commits})
@@ -362,9 +607,25 @@ class Scheduler:
                     live_commits.append(item)
                 else:
                     self._reject_stale_commit(item[0], item[1], reason,
-                                              item[2])
+                                              item[2], "bulk")
             failed += len(commits) - len(live_commits)
             commits = live_commits
+        if self.commit_capacity_guard and commits:
+            # one probe for the batch, cumulative per node: a node a
+            # sibling replica filled since the solve refuses the rest
+            verdicts = self.cache.commit_fits(
+                [(qpi.pod, node) for qpi, node, _, _ in commits])
+            if any(v is not None for v in verdicts):
+                live_commits = []
+                for item, verdict in zip(commits, verdicts):
+                    if verdict is None:
+                        live_commits.append(item)
+                    else:
+                        self._reject_stale_commit(item[0], item[1],
+                                                  CAPACITY_REASON, item[2],
+                                                  "capacity")
+                failed += len(commits) - len(live_commits)
+                commits = live_commits
         assumed_pods = [self._assumed_copy(qpi, node)
                         for qpi, node, _, _ in commits]
         errors = self.cache.assume_pods(assumed_pods, solved=solved)
@@ -379,8 +640,13 @@ class Scheduler:
                 failed += 1
         # one assume per live pod; each refusal below adds its forget
         mutations = len(live)
-        bindable = []
+        # per profile, in commit order: the pods the bind plugins take in
+        # one call
+        bindable: Dict[str, list] = {}
+        observed = []
+        ext_binders = [e for e in self.extenders if e.is_binder()]
         for (qpi, node, cycle, start), assumed in live:
+            fwk = self.framework_for_pod(qpi.pod)
             state = CycleState()
             if fwk.reserve_plugins:
                 status = fwk.run_reserve_plugins_reserve(state, assumed, node)
@@ -399,35 +665,64 @@ class Scheduler:
                     continue
             if status is None and fwk.pre_bind_plugins:
                 status = fwk.run_pre_bind_plugins(state, assumed, node)
+            if status is None and any(e.is_interested(assumed)
+                                      for e in ext_binders):
+                # a binder extender takes the pod on its own
+                status = self._bind(fwk, state, assumed, node)
+                if fw.Status.is_ok(status):
+                    self._finish_bound(fwk, state, qpi, assumed, node,
+                                       start, observed)
+                    continue
             if not fw.Status.is_ok(status):
                 self._unreserve_forget_fail(state, qpi, assumed, node,
                                             status.as_error(), cycle)
                 failed += 1
                 mutations += 1
                 continue
-            bindable.append((qpi, node, cycle, start, assumed, state))
-        if not bindable:
-            return 0, failed, mutations
-        t_bind = time.monotonic()
-        statuses = fwk.run_bind_plugins_bulk(
-            [b[5] for b in bindable], [b[4] for b in bindable],
-            [b[1] for b in bindable])
+            bindable.setdefault(fwk.profile_name, []).append(
+                (qpi, node, cycle, start, assumed, state))
         now = time.monotonic()
-        get_tracer().record("bind.bulk", t_bind, now, pods=len(bindable))
-        observed = []
-        for (qpi, node, cycle, start, assumed, state), status in zip(
-                bindable, statuses):
-            if not fw.Status.is_ok(status):
-                self._unreserve_forget_fail(state, qpi, assumed, node,
-                                            status.as_error(), cycle)
-                failed += 1
-                mutations += 1
-                continue
-            self.cache.finish_binding(assumed, now)
-            fwk.run_post_bind_plugins(state, assumed, node)
-            observed.append((qpi, start, node))
+        for name, group in bindable.items():
+            fwk = self.profiles[name]
+            t_bind = time.monotonic()
+            statuses = fwk.run_bind_plugins_bulk(
+                [b[5] for b in group], [b[4] for b in group],
+                [b[1] for b in group])
+            now = time.monotonic()
+            get_tracer().record("bind.bulk", t_bind, now, pods=len(group))
+            for (qpi, node, cycle, start, assumed, state), status in zip(
+                    group, statuses):
+                if not fw.Status.is_ok(status):
+                    self._unreserve_forget_fail(state, qpi, assumed, node,
+                                                status.as_error(), cycle)
+                    failed += 1
+                    mutations += 1
+                    continue
+                self._finish_bound(fwk, state, qpi, assumed, node, start,
+                                   observed, now)
         self._observe_bound_bulk(observed, now, observed_from)
         return len(observed), failed, mutations
+
+    def _finish_bound(self, fwk: Framework, state: CycleState,
+                      qpi: QueuedPodInfo, assumed: Pod, node: str,
+                      start: float, observed: list,
+                      now: Optional[float] = None) -> None:
+        self.cache.finish_binding(assumed, now)
+        fwk.run_post_bind_plugins(state, assumed, node)
+        observed.append((qpi, start, node))
+
+    def _bind(self, fwk: Framework, state: CycleState, pod: Pod,
+              node_name: str) -> Optional[fw.Status]:
+        """A binder extender interested in the pod binds it; else the
+        profile's Bind plugins do. None on success."""
+        for ext in self.extenders:
+            if ext.is_binder() and ext.is_interested(pod):
+                try:
+                    ext.bind(pod, node_name)
+                except Exception as err:  # noqa: BLE001 - the pod requeues
+                    return fw.Status(fw.ERROR, str(err))
+                return None
+        return fwk.run_bind_plugins(state, pod, node_name)
 
     # ------------------------------------------------------------------
     # the binding pool
@@ -470,17 +765,22 @@ class Scheduler:
         """Wait at Permit, then PreBind, Bind and PostBind; a rejection or
         a failure unreserves (rejecting the rest of a waiting gang),
         forgets the assume and requeues. Host code only."""
-        fwk = self.framework
+        fwk = self.framework_for_pod(assumed)
         t0 = time.monotonic()
         t1 = None
         try:
             status = fwk.wait_on_permit(assumed)
             t1 = time.monotonic()
+            if (status is None and self.elector is not None
+                    and not self.elector.holds_lease()):
+                # another candidate took the lease while the pod waited
+                self.note_stale_binds("lease")
+                status = fw.Status(fw.ERROR, "scheduler lost its lease")
             if status is None:
                 status = fwk.run_pre_bind_plugins(state, assumed, node_name)
             if status is None:
                 try:
-                    status = fwk.run_bind_plugins(state, assumed, node_name)
+                    status = self._bind(fwk, state, assumed, node_name)
                 except Exception as err:  # noqa: BLE001 - the pod requeues
                     status = fw.Status(fw.ERROR, str(err))
             if not fw.Status.is_ok(status):
@@ -531,8 +831,12 @@ class Scheduler:
         if observed_from is not None:
             e2e = [now - observed_from] * len(observed)
         m.e2e_scheduling_duration.observe_many(e2e, "scheduled")
-        m.schedule_attempts.inc("scheduled", self.framework.profile_name,
-                                amount=len(observed))
+        by_profile: Dict[str, int] = {}
+        for qpi, _, _ in observed:
+            name = qpi.pod.spec.scheduler_name
+            by_profile[name] = by_profile.get(name, 0) + 1
+        for name, n in by_profile.items():
+            m.schedule_attempts.inc("scheduled", name, amount=n)
         m.pod_scheduling_attempts.observe_many(
             [qpi.attempts for qpi, _, _ in observed])
         by_attempts: Dict[int, List[float]] = {}
@@ -553,15 +857,16 @@ class Scheduler:
                                   node=node_name, attempts=qpi.attempts)
         for qpi, _, node_name in observed:
             pod = qpi.pod
-            self.recorder.eventf(pod, "Normal", "Scheduled",
-                                 "Successfully assigned %s/%s to %s",
-                                 pod.namespace, pod.name, node_name)
+            self.recorders[pod.spec.scheduler_name].eventf(
+                pod, "Normal", "Scheduled",
+                "Successfully assigned %s/%s to %s",
+                pod.namespace, pod.name, node_name)
 
     def _handle_fit_error(self, state: CycleState, qpi: QueuedPodInfo,
                           fit_err: fw.FitError, cycle: int) -> None:
         """PostFilter (preemption), then record and requeue."""
         nominated_node = ""
-        fwk = self.framework
+        fwk = self.framework_for_pod(qpi.pod)
         if fwk.has_post_filter_plugins():
             self.metrics.preemption_attempts.inc()
             result, status = fwk.run_post_filter_plugins(
@@ -582,21 +887,29 @@ class Scheduler:
     def _unreserve_forget_fail(self, state: CycleState, qpi: QueuedPodInfo,
                                assumed: Pod, node_name: str, err: Exception,
                                cycle: int) -> None:
-        self.framework.run_reserve_plugins_unreserve(state, assumed,
-                                                     node_name)
-        gang = self.framework.get_plugin("Coscheduling")
+        fwk = self.framework_for_pod(assumed)
+        fwk.run_reserve_plugins_unreserve(state, assumed, node_name)
+        gang = fwk.get_plugin("Coscheduling")
         if gang is not None:
             gang.unreserve_group(assumed)
         self._forget_and_fail(qpi, assumed, err, cycle)
 
     def _reject_stale_commit(self, qpi: QueuedPodInfo, node_name: str,
-                             reason: str, cycle: int) -> None:
+                             reason: str, cycle: int, path: str) -> None:
         """Refuse a placement on a node that died or was cordoned since
-        the snapshot; the pod retries on the backoff curve."""
+        the snapshot, or (``path`` "capacity") that a sibling replica
+        filled; count it by path; the pod retries on the backoff
+        curve."""
+        self.note_stale_binds(path)
         err = RuntimeError(
             f"commit target node {node_name!r} is {reason} "
             f"(assignment solved against a stale snapshot)")
         self._record_failure(qpi, err, "SchedulerError", "", cycle)
+
+    def note_stale_binds(self, path: str, amount: int = 1) -> None:
+        with self._inflight_zero:
+            self.stale_binds_rejected[path] = (
+                self.stale_binds_rejected.get(path, 0) + amount)
 
     def _record_failure(self, qpi: QueuedPodInfo, err: Exception,
                         reason: str, nominated_node: str,
@@ -606,7 +919,8 @@ class Scheduler:
         still exists unassigned: a scheduler error to backoff, a fit
         failure to the unschedulable set."""
         pod = qpi.pod
-        self.recorder.event(pod, "Warning", "FailedScheduling", str(err))
+        self.recorders.get(pod.spec.scheduler_name, self.recorder).event(
+            pod, "Warning", "FailedScheduling", str(err))
         self.client.patch_pod_condition(
             pod.namespace, pod.name,
             PodCondition("PodScheduled", "False", reason, str(err)))

@@ -8,17 +8,27 @@ own cache mutations, so the carried device state stays valid.
 Not every pod goes through the solve, and not every verdict of the solve
 is final:
 
-- the partition sends a pod the batch path cannot express (host ports,
-  inline cloud disks, claims that need per-node binding,
-  ``ops.encode.is_host_only``) or of another scheduler profile to the
-  serial path (``Scheduler.schedule_pod_serial``);
+- the partition sends to the serial path
+  (``Scheduler.schedule_pod_serial``) a pod the batch path cannot express
+  (host ports, inline cloud disks, claims that need per-node binding,
+  ``ops.encode.is_host_only``), a pod an extender is interested in, and
+  a pod of a profile whose PreFilter, Filter and Score plugins and Score
+  weights are not the ones the solve computes (``batchable_profile``: the
+  default provider's, or the gang scheduling provider's, under the
+  scheduler's feature gates), or whose solve plugins have arguments the
+  solve does not read; a Policy's profile, say, one that packs with
+  MostAllocated, or one with ``PodTopologySpread.defaultConstraints``, is
+  scheduled serially, as its plugins say;
 - a placed pod's unbound WaitForFirstConsumer claims (node-independent,
   so the solve ignored them) are bound at commit to a PV of the class's
   free pool, the smallest that fits (``_CommitVolumeBinder``); when the
   pool is dry and the class has no provisioner, the placement is void
   and the pod goes to the serial path;
 - a placement on a node that died or was cordoned since the encoding
-  goes to the serial path for a fresh verdict;
+  goes to the serial path for a fresh verdict, and so does, on a replica
+  with the capacity guard (``Scheduler.commit_capacity_guard``), one on
+  a node a sibling replica filled since the solve (counted in
+  ``capacity_routed``);
 - the pods the solve declines go to the serial path when a batch
   declines ``DECLINED_SERIAL_LIMIT`` or fewer, for its exact statuses
   and preemption. Past that (mass decline), each declined pod fails
@@ -82,6 +92,11 @@ from kubernetes_tpu_torch.scheduler.framework.cycle_state import CycleState
 from kubernetes_tpu_torch.scheduler.framework.plugins.default_preemption import (  # noqa: E501
     pod_eligible_to_preempt_others,
 )
+from kubernetes_tpu_torch.scheduler.provider import (
+    default_plugins,
+    gang_scheduling_plugins,
+)
+from kubernetes_tpu_torch.scheduler.framework.runtime import wiring_of
 from kubernetes_tpu_torch.scheduler.preemption_screen import (
     build_screen,
     build_victim_planner,
@@ -190,6 +205,38 @@ class _CommitVolumeBinder:
         self.bound -= len(done)
 
 
+# plugins whose arguments the batch path honours, because it runs the
+# plugin itself: Coscheduling's set its Permit wait and its gang backoff
+ARGS_THE_BATCH_PATH_RUNS = frozenset({"Coscheduling"})
+
+
+def _solve_key(wiring) -> tuple:
+    """What the solve computes of a wiring: its PreFilter and Filter
+    plugins and its Score plugins with their weights."""
+    return (sorted(name for name, _ in wiring.get("pre_filter", ())),
+            sorted(name for name, _ in wiring.get("filter", ())),
+            sorted(wiring.get("score", ())))
+
+
+def batchable_profile(fwk, feature_gates=None) -> bool:
+    """The profile's pods may take the batch path: its PreFilter, Filter
+    and Score plugins and its Score weights are those of the default
+    provider or of the gang scheduling provider (which differs only at
+    QueueSort, PreFilter and Permit), which the solve computes, and none
+    of its PreFilter, Filter, PreScore and Score plugins has arguments
+    (the solve computes each plugin with its defaults), bar those in
+    ``ARGS_THE_BATCH_PATH_RUNS``."""
+    wiring = fwk.wiring()
+    if any(fwk.plugin_args.get(name)
+           for point in ("pre_filter", "filter", "pre_score", "score")
+           for name, _ in wiring.get(point, ())
+           if name not in ARGS_THE_BATCH_PATH_RUNS):
+        return False
+    key = _solve_key(wiring)
+    return any(key == _solve_key(wiring_of(provider(feature_gates)))
+               for provider in (default_plugins, gang_scheduling_plugins))
+
+
 def pipeline_enabled() -> bool:
     """The ``KTPU_PIPELINE`` switch, on unless set to off, 0 or false."""
     return os.environ.get(PIPELINE_ENV, "on").strip().lower() not in (
@@ -212,6 +259,12 @@ class BatchScheduler:
         self.max_batch = max_batch
         self.pipeline_enabled = (pipeline_enabled() if pipeline is None
                                  else bool(pipeline))
+        # profile name -> whether its pods may take the batch path
+        self.batchable_profiles = {
+            name: batchable_profile(fwk, scheduler.feature_gates)
+            for name, fwk in scheduler.profiles.items()}
+        # placements the capacity guard sent to the serial path
+        self.capacity_routed = 0
         # False pins the drain and pad size at max_batch
         self.adaptive_chunk = adaptive_chunk
         self._chunk = max_batch
@@ -382,17 +435,22 @@ class BatchScheduler:
 
     def _partition(self, qpis):
         """(batchable (qpi, cycle) pairs, serial qpis); pods to skip and
-        pods of other profiles drop out. One scan of each storage class's
-        pool per drain."""
+        pods of profiles this scheduler does not run drop out; pods of a
+        profile the solve does not compute, pods an extender is
+        interested in and host-only pods go serial. One scan of each
+        storage class's pool per drain."""
         sched = self.sched
+        extenders = sched.extenders
         batchable, serial = [], []
         host_only_cache: dict = {}
         for qpi, cycle in qpis:
             pod = qpi.pod
-            if sched.framework_for_pod(pod) is None \
-                    or sched.skip_pod_schedule(pod):
+            fwk = sched.framework_for_pod(pod)
+            if fwk is None or sched.skip_pod_schedule(pod):
                 continue
-            if is_host_only(pod, sched.client, host_only_cache):
+            if (not self.batchable_profiles[fwk.profile_name]
+                    or any(e.is_interested(pod) for e in extenders)
+                    or is_host_only(pod, sched.client, host_only_cache)):
                 serial.append(qpi)
             else:
                 batchable.append((qpi, cycle))
@@ -400,6 +458,8 @@ class BatchScheduler:
 
     def _run_serial(self, serial: List[QueuedPodInfo]) -> None:
         sched = self.sched
+        if sched.stopped:
+            return
         t0 = time.monotonic()
         seen = set()
         for qpi in serial:
@@ -543,14 +603,28 @@ class BatchScheduler:
         sched = self.sched
         mat = pending["materializer"]
         assignments = mat(pending["handle"]) if mat else pending["handle"]
+        if sched.stopped:
+            # a stopped scheduler binds nothing; the state counts this
+            # batch's placements
+            self.session.invalidate()
+            return 0
         t0 = time.monotonic()
         batch, cluster = pending["batch"], pending["cluster"]
         assignments = assignments[:len(batch)]
         stale = sched.cache.commit_target_flags(
             {cluster.node_names[a] for a in assignments if a >= 0})
+        # a replica sharing its nodes: one cumulative probe for the batch;
+        # a target a sibling filled since the solve goes to the serial
+        # path, which places the pod against the cache as it is now
+        fits = None
+        if sched.commit_capacity_guard:
+            fits = sched.cache.commit_fits(
+                [(qpi.pod, cluster.node_names[a] if a >= 0 else "")
+                 for (qpi, _), a in zip(batch, assignments)])
         commits, declined = [], []
         vol_binder = _CommitVolumeBinder(sched.client)
         stale_routed = False
+        capacity_routed = 0
         for bi, ((qpi, cycle), a) in enumerate(zip(batch, assignments)):
             if a < 0:
                 declined.append((bi, qpi, cycle))
@@ -560,6 +634,10 @@ class BatchScheduler:
             if flag is not False and \
                     commit_target_stale(qpi.pod, flag) is not None:
                 stale_routed = True
+                serial.append(qpi)
+                continue
+            if fits is not None and fits[bi] is not None:
+                capacity_routed += 1
                 serial.append(qpi)
                 continue
             if self.validate and not self._host_validates(qpi, node_name):
@@ -581,6 +659,11 @@ class BatchScheduler:
         if stale_routed:
             # the state counts pods on nodes that are gone
             self.session.note_drift()
+        if capacity_routed:
+            self.capacity_routed += capacity_routed
+            sched.note_stale_binds("capacity", capacity_routed)
+            # siblings' binds changed the state under the solve
+            self.session.invalidate()
         committed = 0
         if commits:
             # pods parked at Permit count as mutations through their
@@ -615,14 +698,13 @@ class BatchScheduler:
         with the screen's hints where preemption can help). Returns the
         preemptors bound."""
         sched = self.sched
-        fwk = sched.framework
         cluster = pending["cluster"]
         profiles, masks = pending["profiles"], pending["masks"]
         inexpressible = pending["inexpressible"]
         screen = planner = None
         t0 = time.monotonic()
-        if fwk.has_post_filter_plugins() and any(
-                q.pod.priority() > 0 for _, q, _ in declined):
+        if any(q.pod.priority() > 0 and sched.framework_for_pod(
+                q.pod).has_post_filter_plugins() for _, q, _ in declined):
             snapshot = sched.update_snapshot()
             screen = build_screen(snapshot)
             t1 = time.monotonic()
@@ -710,12 +792,13 @@ class BatchScheduler:
         to a node a preemptor took lose the nomination. Returns the
         preemptors bound."""
         sched = self.sched
-        fwk = sched.framework
         doomed = []
-        recorder = fwk.event_recorder
         for qpi, _cycle, node_name, victims in plans:
+            fwk = sched.framework_for_pod(qpi.pod)
+            recorder = fwk.event_recorder
             for victim in victims:
-                if fwk.reject_waiting_pod(victim.uid):
+                if any(f.reject_waiting_pod(victim.uid)
+                       for f in sched.profiles.values()):
                     continue
                 doomed.append((victim.namespace, victim.name))
                 if recorder is not None:
@@ -737,6 +820,7 @@ class BatchScheduler:
                     serial.append(qpi)
                     continue
                 ni = clones[node_name] = base.clone()
+            fwk = sched.framework_for_pod(qpi.pod)
             state = CycleState()
             ok = fw.Status.is_ok(fwk.run_pre_filter_plugins(state, qpi.pod))
             if ok:
@@ -761,7 +845,7 @@ class BatchScheduler:
             prio = qpi.pod.priority()
             if prio > max_prio_by_node.get(node_name, prio - 1):
                 max_prio_by_node[node_name] = prio
-        nominator = fwk.pod_nominator
+        nominator = sched.queue
         for node_name, prio in max_prio_by_node.items():
             for pi in nominator.nominated_pods_for_node(node_name):
                 if pi.pod.priority() < prio:
@@ -810,7 +894,7 @@ class BatchScheduler:
         """The host's PreFilter and Filter accept ``node_name`` for the
         pod, on a snapshot that includes this batch's earlier commits."""
         sched = self.sched
-        fwk = sched.framework
+        fwk = sched.framework_for_pod(qpi.pod)
         snapshot = sched.update_snapshot()
         state = CycleState()
         if not fw.Status.is_ok(fwk.run_pre_filter_plugins(state, qpi.pod)):
@@ -820,3 +904,22 @@ class BatchScheduler:
             return False
         return fw.Status.is_ok(fwk.run_filter_plugins_with_nominated_pods(
             state, qpi.pod, ni))
+
+
+def attach_batch_scheduler(sched: Scheduler, max_batch: int = 4096,
+                           device=None, pipeline: Optional[bool] = None,
+                           mirror: Optional[bool] = None,
+                           validate: bool = False,
+                           adaptive_chunk: bool = True,
+                           backend=None) -> Optional[BatchScheduler]:
+    """Install the batch path on ``sched`` (``sched.run`` then drives its
+    cycles) when the ``TPUBatchScheduler`` feature gate is on; None, and
+    the serial path alone, when it is off. The other arguments are
+    ``BatchScheduler``'s."""
+    if not sched.feature_gates.enabled("TPUBatchScheduler"):
+        return None
+    bs = BatchScheduler(sched, max_batch=max_batch, device=device,
+                        pipeline=pipeline, mirror=mirror, validate=validate,
+                        adaptive_chunk=adaptive_chunk, backend=backend)
+    sched.batch_scheduler = bs
+    return bs
