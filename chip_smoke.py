@@ -226,7 +226,12 @@ prints no result):
     equal to the row's assignments; pods/s, p50 / p99 enqueue-to-bind and
     ms a launch beside phase 4's; (c) ``solve_scan_sharded`` on a
     4,096-pod SchedulingBasic batch: one launch of each kernel, the
-    assignments equal to the cluster kernel's;
+    assignments equal to the cluster kernel's; (d) one batch of capacity
+    deltas forced on ``ShardedBackend``'s scatters on (b)'s largest
+    batch's planes (``time_sharded_scatters``: a set of the cpu
+    allocatable row and adds of five request rows on a seeded quarter
+    of the columns, ten times each, CUDA events), equal to the plain
+    ``index_put_`` on the CPU bit for bit;
 30. the scheduler's configuration and HA modes (``harness/ha.py``): (a)
     SchedulingBasic 5,000 / 30,000 through ``Scheduler.create`` from a
     v1beta1 dict (``parallelism`` 16, the adaptive
@@ -255,7 +260,20 @@ prints no result):
     bound twice, nothing bound by the stopped leader after its stop, the
     rest bound by the standby on its own session. Each row's launches
     are the cluster kernel's (and the wide kernel's where a batch plans
-    it), one a solve.
+    it), one a solve;
+31. ``bench.py``'s rest row once (``harness/rest_perf.py``): SchedulingBasic
+    5,000 / 30,000 with every object crossing the REST fabric: the
+    apiserver process (the WAL, the RBAC bootstrap policy, admission, the
+    watch cache, API Priority and Fairness) and a creator process posting
+    PodLists through two clients at 5,000 QPS each, the scheduler here on
+    watch streams, binding through BindingList on its binding pool: the
+    apiserver's bound count equal to the scheduler's and to 30,000, at
+    least 65,000 WAL lines, every launch the cluster kernel's and one a
+    solve, the kernel equal to the plain version on the row's largest
+    drained batch, two federation instances, watch delivery observed, a
+    ``rest_availability`` verdict, no torch in the children; pods/s, p50
+    / p90 / p99, the critical path with the apiserver's spans, and the
+    fabric overhead against phases 4 and 8's pipelined runs.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -273,7 +291,7 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23 and 25 to 30) resets the kernels'
+Every main-path run (4, 5, 8 to 23 and 25 to 31) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
 Before the last line come the script's wall time, the scatters' counts
@@ -3340,7 +3358,8 @@ def phase_sharded(basic, largest, nodes=5000, pods=30000, shards=4,
     ``solve_scan_sharded`` on a SchedulingBasic batch of ``max_batch``
     pods over ``nodes``, counted the same way: one sharded and one counts
     launch, the assignments equal to the cluster kernel's and the counts
-    to the plain version's."""
+    to the plain version's; (d) ``time_sharded_scatters`` on (b)'s
+    largest batch's planes."""
     kernel = solve_mod.solve_kernel
     timed = time_sharded(largest, repeats)
     kept, handles = {}, []
@@ -3411,6 +3430,7 @@ def phase_sharded(basic, largest, nodes=5000, pods=30000, shards=4,
                   int((kept["assign"] - want).abs().max()))
     check(row_err == 0, f"{name}: the largest batch's kernel, plain and "
           "row assignments agree")
+    scatters = time_sharded_scatters(be, ss, st, repeats=repeats)
     log(f"  {name} {nodes} nodes / {pods} pods on {res.device}, "
         f"{shards} shards: {res.pods_per_second:.1f} pods/s over "
         f"{res.duration_seconds:.3f} s (whole run {wall:.1f} s); phase 4 "
@@ -3457,7 +3477,92 @@ def phase_sharded(basic, largest, nodes=5000, pods=30000, shards=4,
                     "fullest_node": fullest, "err": row_err,
                     "phase4_pods_per_s": basic.pods_per_second,
                     "phase4_enqueue_to_bind_ms": basic.latency},
-            "scan": {"launches": scan_counts, "err": scan_err}}
+            "scan": {"launches": scan_counts, "err": scan_err},
+            "scatters": scatters}
+
+
+def time_sharded_scatters(be, ss, sstate, seed=29, repeats=10):
+    """The ``_scatter_jit`` row (``kubernetes_tpu/parallel/sharded.py:
+    487``): one batch of capacity deltas forced on ``ShardedBackend``'s
+    scatters at phase 29's size (the row's largest batch's planes, four
+    shards of 1,280 columns): a set of the cpu allocatable row on a
+    seeded quarter of the real columns (the static planes), and adds of
+    a deleted pod's requests on the same columns (requested cpu and
+    memory, the two nonzero rows, the pod count: the state planes), each
+    entry landing on the shard that owns its column. Each timed with
+    CUDA events, upload included, ``repeats`` times on fresh copies;
+    every result equal bit for bit to the plain version (the same
+    ``index_put_`` on CPU copies, host clock); the bound is the bytes
+    over the card's memory rate (``scatter_bound_ms``)."""
+    rng = np.random.default_rng(seed)
+    so, _ = static_planes(ss.r, ss.sc, ss.t, ss.u)
+    do, _ = state_planes(ss.r, ss.sc, ss.t, ss.sv)
+    ints_host = ss.ints.cpu()
+    planes_host = sstate.planes.cpu()
+    real = int(ints_host[so["node_valid"]].sum())
+    cols = np.sort(rng.choice(real, size=real // 4, replace=False))
+    set_rows = np.full(len(cols), so["alloc"], np.int64)
+    set_vals = (ints_host[so["alloc"], cols].numpy() + 1000).astype(np.int32)
+    add_rows, add_cols, add_vals = [], [], []
+    for row, delta in ((do["requested"], 500), (do["requested"] + 1, 500),
+                       (do["nonzero"], 500), (do["nonzero"] + 1, 500),
+                       (do["pod_count"], 1)):
+        cur = planes_host[row, cols].numpy()
+        add_rows.append(np.full(len(cols), row, np.int64))
+        add_cols.append(cols)
+        add_vals.append(-np.minimum(cur, delta).astype(np.int32))
+    add_rows, add_cols, add_vals = (np.concatenate(a) for a in (
+        add_rows, add_cols, add_vals))
+    shards = be.encode_shards
+    per_shard = np.bincount(cols // (ss.n // shards), minlength=shards)
+
+    def plain(host, rows, cs, vals, accumulate):
+        out = host.clone()
+        flat = torch.from_numpy(rows * out.shape[1] + cs)
+        t0 = time.perf_counter()
+        out.view(-1).index_put_((flat,), torch.from_numpy(vals),
+                                accumulate=accumulate)
+        return out, (time.perf_counter() - t0) * 1000
+
+    want = {"set": plain(ints_host, set_rows, cols, set_vals, False),
+            "add": plain(planes_host, add_rows, add_cols, add_vals, True)}
+    ms = {"set": [], "add": []}
+    err = 0
+    for _ in range(repeats):
+        for kind in ("set", "add"):
+            if kind == "set":
+                target = ss._replace(ints=ss.ints.clone())
+                args = (target, set_rows, cols, set_vals)
+                scatter = be.scatter_static_set
+            else:
+                target = SState(sstate.planes.clone(),
+                                sstate.totals.clone())
+                args = (target, add_rows, add_cols, add_vals)
+                scatter = be.scatter_state_add
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            scatter(*args)
+            end.record()
+            torch.cuda.synchronize()
+            ms[kind].append(start.elapsed_time(end))
+            got = (target.ints if kind == "set" else target.planes).cpu()
+            err = max(err, int((got - want[kind][0]).abs().max()))
+    check(err == 0, "sharded scatters equal the plain index_put_ bit for bit")
+    out = {}
+    for kind, entries in (("set", len(cols)), ("add", len(add_cols))):
+        out[kind] = {"entries": entries, "ms": float(np.mean(ms[kind])),
+                     "ms_runs": ms[kind], "plain_ms": want[kind][1],
+                     "bound_ms": scatter_bound_ms(kind, entries),
+                     "bound_by": "bytes"}
+        log(f"  sharded {kind}: {entries} entries over {shards} shards "
+            f"(per shard {per_shard.tolist()}): {out[kind]['ms']:.4f} ms "
+            f"mean of {repeats} (CUDA events, upload included), plain "
+            f"{want[kind][1]:.4f} ms, bound {out[kind]['bound_ms']:.3g} ms "
+            f"(bytes), max_abs_err {err}")
+    out.update(per_shard=per_shard.tolist(), err=err)
+    return out
 
 
 def _launch_check(name, counts, solves):
@@ -3599,6 +3704,125 @@ def phase_config_ha(nodes=5000, pods=30000, every=200, shared_nodes=1000,
     out["d_failover"] = dict(row, launches=counts,
                              kernel_ms_mean=float(np.mean(kernel_ms)))
     return out
+
+
+def phase_rest(basic, pipeline_runs, nodes=5000, pods=30000, max_batch=4096,
+               qps=5000.0, creators=2):
+    """Phase 31: ``bench.py``'s rest row once, through
+    ``run_workload_rest`` on the card: the apiserver (WAL, RBAC,
+    admission, watch cache, APF) and the creators as spawned processes,
+    the scheduler here, fed by watch streams and binding through
+    BindingList on the binding pool. The kernels' counts reset just
+    before and read just after (``run_path``, cold): every launch the
+    cluster kernel's, one a solve, and the kernel equal to the plain
+    version on the row's largest drained batch. The apiserver's own
+    bound count equals the scheduler's and the pods created; the WAL
+    holds at least a line per node and two per pod; at least two
+    federation instances; watch delivery observed; a
+    ``rest_availability`` verdict; no torch in the children; no node's
+    bound pods over its allocatable in the apiserver's store; a
+    create-to-bind time for every pod. The fabric
+    overhead is this row's measured window over phase 4's and phase 8's
+    pipelined runs, same size, same process."""
+    from kubernetes_tpu_torch.harness.rest_perf import run_workload_rest
+
+    name = "SchedulingBasic/rest"
+    res, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: run_workload_rest(
+            "SchedulingBasic", nodes=nodes, measure_pods=pods,
+            max_batch=max_batch, qps=qps, n_creator_clients=creators,
+            wal=True, device="cuda"),
+        keep=True, cold=True)
+    row_report(name, res.device, res)
+    m = res.metrics
+    check(res.device.startswith("cuda"), f"{name} ran on the card")
+    check(m["server_pods_bound"] == m["scheduler_bound"] == pods,
+          f"{name}: the apiserver bound {m['server_pods_bound']}, the "
+          f"scheduler {m['scheduler_bound']}, of {pods}")
+    check(m["wal_entries"] >= nodes + 2 * pods,
+          f"{name}: {m['wal_entries']} WAL lines < {nodes + 2 * pods}")
+    check(counts["cluster"] == res.solves,
+          f"{name}: cluster launches {counts['cluster']} == solves "
+          f"{res.solves}")
+    check(len(m["federation_instances"]) >= 2,
+          f"{name}: federation instances {m['federation_instances']}")
+    check(m["watch_delivery_p99_ms"] > 0, f"{name}: no watch delivery "
+          "observed")
+    verdicts = (res.freshness or {}).get("slo") or {}
+    check("rest_availability" in verdicts,
+          f"{name}: no rest_availability verdict ({verdicts})")
+    check(not m["children_import_torch"],
+          f"{name}: a spawned child imported torch")
+    check(m["rv_regressions"] == 0, f"{name}: list resourceVersions went "
+          "backwards")
+    check(not m["overcommitted_nodes"], f"{name}: nodes over their "
+          f"allocatable in the apiserver's store: "
+          f"{m['overcommitted_nodes'][:5]}")
+    c2b = m["create_to_bind"]
+    check(c2b["n"] == pods, f"{name}: create-to-bind over {c2b['n']} of "
+          f"{pods} pods")
+    ps, state, ints, floats = recorder.largest()
+    st = state.clone()
+    assign = solve_mod.solve_kernel(PARAMS, ps, st, ints, floats)
+    plain_ms, err = plain_against(name, (ps, state, ints, floats),
+                                  (assign, st))
+    piped = [r for r in pipeline_runs if r["arm"] == "pipelined"]
+    overhead = {
+        "phase4": res.duration_seconds / basic.duration_seconds,
+        "phase8_pipelined": [res.duration_seconds / r["duration_s"]
+                             for r in piped]}
+    cp = res.critical_path or {}
+    log(f"  {name} {nodes} nodes / {pods} pods on {res.device}: "
+        f"{res.pods_per_second:.1f} pods/s over {res.duration_seconds:.3f} s "
+        f"(whole run {wall:.1f} s); create->bind ms p50/p90/p99 (the "
+        f"apiserver's clock, watch delivery included): "
+        f"{c2b['Perc50']:.1f} / {c2b['Perc90']:.1f} / {c2b['Perc99']:.1f}; "
+        f"the e2e histogram's (from the scheduler's solve start) "
+        f"{m['Perc50']:.1f} / {m['Perc90']:.1f} / {m['Perc99']:.1f}; "
+        f"enqueue->bind p99 {res.latency['Perc99']:.1f} ms")
+    log(f"    fabric overhead (this row's window over the store-direct "
+        f"row's, SchedulingBasic {nodes} / {pods} pipelined, same process): "
+        f"{overhead['phase4']:.3f}x phase 4 ({basic.pods_per_second:.1f} "
+        f"pods/s), "
+        + ", ".join(f"{x:.3f}x" for x in overhead["phase8_pipelined"])
+        + " phase 8's pipelined runs")
+    log(f"    apiserver: bound {m['server_pods_bound']} of "
+        f"{m['server_pods_total']}, WAL {m['wal_entries']} lines; scheduler "
+        f"bound {m['scheduler_bound']}; federation "
+        f"{m['federation_instances']}; watch delivery p50 / p99 "
+        f"{m['watch_delivery_p50_ms']:.2f} / {m['watch_delivery_p99_ms']:.2f}"
+        f" ms over {m['watch_delivery_events']} pod events; SLOs {verdicts}")
+    log(f"    solves={res.solves} launches {counts}; kernel ms a launch "
+        f"mean {np.mean(kernel_ms):.3f} max {np.max(kernel_ms):.3f}; "
+        f"largest batch kernel = plain (max_abs_err {err})")
+    log(f"    critical path over {cp.get('pods', 0)} sampled pods, the "
+        f"apiserver's spans stitched in (skew bound "
+        f"{cp.get('max_skew_ms')} ms): "
+        + ", ".join(f"{k}={v}" for k, v in
+                    (cp.get("phase_shares") or {}).items())
+        + f"; unattributed {cp.get('unattributed_share')}")
+    log("    host seconds: " + ", ".join(
+        f"{k}={v:.3f}" for k, v in res.seconds.items()))
+    apf = m["apf"] or {}
+    return {"pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "create_to_bind_ms": c2b,
+            "e2e_ms": {k: m[k] for k in ("Perc50", "Perc90", "Perc99")},
+            "enqueue_to_bind_ms": res.latency,
+            "server_pods_bound": m["server_pods_bound"],
+            "scheduler_bound": m["scheduler_bound"],
+            "wal_entries": m["wal_entries"],
+            "federation_instances": m["federation_instances"],
+            "watch_delivery_ms": {"p50": m["watch_delivery_p50_ms"],
+                                  "p99": m["watch_delivery_p99_ms"],
+                                  "events": m["watch_delivery_events"]},
+            "slo": verdicts, "fabric_overhead": overhead,
+            "solves": res.solves, "launches": counts,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "err": err,
+            "critical_path": cp, "host_seconds": res.seconds,
+            "apf_levels": {k: {"dispatched": v.get("dispatched_total"),
+                               "rejected": v.get("rejected")}
+                           for k, v in (apf.get("levels") or {}).items()}}
 
 
 def gpu_name_and_power() -> str:
@@ -3784,7 +4008,14 @@ def main() -> None:
         "loopback, 16 workers), on a two-replica set, 1,000 shared nodes "
         "with the capacity guard, and an elected pair failing over")
     config_ha = phase_config_ha()
-    log(f"  main-path launches over phases 4, 5 and 8 to 30: {LAUNCHES}")
+
+    log("[31] the REST row: SchedulingBasic 5,000 / 30,000 through the "
+        "apiserver process (WAL, RBAC, admission, watch cache, APF), two "
+        "creator clients at 5,000 QPS each, the scheduler on watch streams "
+        "binding through BindingList")
+    rest = phase_rest(res, pipeline_runs)
+    errs["cluster"] = max(errs["cluster"], rest["err"])
+    log(f"  main-path launches over phases 4, 5 and 8 to 31: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -3793,6 +4024,9 @@ def main() -> None:
               "bound_ms": {k: sum(v) for k, v in
                            r["scatter_bound_ms"].items()}}
         for arm, r in churn.items()}}
+    scatters["scatters"]["sharded"] = {
+        kind: {k: v for k, v in sharded["scatters"][kind].items()
+               if k != "ms_runs"} for kind in ("add", "set")}
     # each kernel on the largest batch of a main path it runs on
     sv_timed = shared["timed"]
     timed = {
@@ -3898,7 +4132,7 @@ def main() -> None:
         "families": families, "tracing_cost": tracing, "tuner": tuner,
         "autoscale": autoscale, "mesh": mesh, "federation": federation,
         "wide_pods": wide_pods, "wide_kernel": wide_timed,
-        "sharded": sharded, "config_ha": config_ha,
+        "sharded": sharded, "config_ha": config_ha, "rest": rest,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

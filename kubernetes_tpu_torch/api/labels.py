@@ -1,12 +1,13 @@
 """Label selectors: requirements (In, NotIn, Exists, DoesNotExist, and the
 integer node-field operators Gt, Lt), their conjunction, and the
 ``LabelSelector`` (matchLabels AND matchExpressions) that affinity terms
-and topology-spread constraints carry."""
+and topology-spread constraints carry; and ``parse_selector`` for the
+string selectors of list and watch requests."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Mapping, Optional
+from typing import Iterable, Mapping, Optional
 
 IN = "In"
 NOT_IN = "NotIn"
@@ -115,3 +116,56 @@ def selector_from_label_selector(ls: Optional[LabelSelector]) -> Selector:
     if ls is None:
         return Selector.nothing()
     return ls.to_selector()
+
+
+def parse_selector(s: str) -> Selector:
+    """Parse a string selector: "a=b,c!=d,e in (f,g),h notin (i),j,!k"
+    (ValueError on a malformed value list)."""
+    s = s.strip()
+    if not s:
+        return Selector()
+    reqs = []
+    for part in _split_top_level(s):
+        part = part.strip()
+        if part.startswith("!"):
+            reqs.append(Requirement(part[1:].strip(), DOES_NOT_EXIST))
+        elif " notin " in part:
+            key, vals = part.split(" notin ", 1)
+            reqs.append(Requirement(key.strip(), NOT_IN, _parse_values(vals)))
+        elif " in " in part:
+            key, vals = part.split(" in ", 1)
+            reqs.append(Requirement(key.strip(), IN, _parse_values(vals)))
+        elif "!=" in part:
+            key, val = part.split("!=", 1)
+            reqs.append(Requirement(key.strip(), NOT_IN, (val.strip(),)))
+        elif "==" in part:
+            key, val = part.split("==", 1)
+            reqs.append(Requirement(key.strip(), IN, (val.strip(),)))
+        elif "=" in part:
+            key, val = part.split("=", 1)
+            reqs.append(Requirement(key.strip(), IN, (val.strip(),)))
+        else:
+            reqs.append(Requirement(part, EXISTS))
+    return Selector(tuple(reqs))
+
+
+def _parse_values(vals: str) -> tuple:
+    vals = vals.strip()
+    if not (vals.startswith("(") and vals.endswith(")")):
+        raise ValueError(f"expected parenthesized value list, got {vals!r}")
+    return tuple(v.strip() for v in vals[1:-1].split(",") if v.strip())
+
+
+def _split_top_level(s: str) -> Iterable[str]:
+    """Split on the commas outside parentheses."""
+    depth, start, out = 0, 0, []
+    for i, ch in enumerate(s):
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            out.append(s[start:i])
+            start = i + 1
+    out.append(s[start:])
+    return out

@@ -54,6 +54,11 @@ class Quantity:
     def __setattr__(self, name, value):
         raise AttributeError("Quantity is immutable")
 
+    def __reduce__(self):
+        # immutable: unpickle through the constructor (the binary wire
+        # codec pickles API objects)
+        return (Quantity, (self.nano,))
+
     def milli_value(self) -> int:
         """Ceiling milli-units."""
         return -((-self.nano) // 10**6)

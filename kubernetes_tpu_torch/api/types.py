@@ -4,13 +4,15 @@ constructors that take Kubernetes-manifest-shaped dicts; and the storage
 objects the volume plugins read (PersistentVolumeClaim,
 PersistentVolume, StorageClass, CSINode) and the controller objects
 SelectorSpread reads (Service, ReplicaSet, ReplicationController,
-StatefulSet), built in code."""
+StatefulSet), built in code; and the kinds the apiserver's RBAC,
+admission and discovery read (the RBAC roles and bindings, Namespace,
+ServiceAccount, PriorityClass, ResourceQuota, Lease)."""
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 from kubernetes_tpu_torch.api.labels import LabelSelector, Requirement, Selector
 from kubernetes_tpu_torch.api.resource import Quantity, parse_quantity
@@ -62,6 +64,7 @@ class ObjectMeta:
     owner_references: List[dict] = field(default_factory=list)
     # wall-clock seconds; the store stamps a pod's on create
     creation_timestamp: float = 0.0
+    finalizers: List[str] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "ObjectMeta":
@@ -72,6 +75,7 @@ class ObjectMeta:
             labels=dict(d.get("labels") or ()),
             annotations=dict(d.get("annotations") or ()),
             owner_references=list(d.get("ownerReferences") or ()),
+            finalizers=list(d.get("finalizers") or ()),
         )
 
 
@@ -110,6 +114,8 @@ class Container:
     resources: ResourceRequirements = field(
         default_factory=ResourceRequirements)
     ports: List[ContainerPort] = field(default_factory=list)
+    image_pull_policy: str = ""
+    lifecycle: Optional[Dict[str, Any]] = None
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "Container":
@@ -118,6 +124,8 @@ class Container:
             image=d.get("image", ""),
             resources=ResourceRequirements.from_dict(d.get("resources")),
             ports=[ContainerPort.from_dict(p) for p in d.get("ports") or ()],
+            image_pull_policy=d.get("imagePullPolicy", ""),
+            lifecycle=d.get("lifecycle"),
         )
 
 
@@ -259,6 +267,7 @@ class Toleration:
     operator: str = "Equal"  # Equal | Exists
     value: str = ""
     effect: str = ""  # "" matches every effect
+    toleration_seconds: Optional[int] = None
 
     def tolerates(self, taint: "Taint") -> bool:
         if self.effect and self.effect != taint.effect:
@@ -272,7 +281,8 @@ class Toleration:
     @classmethod
     def from_dict(cls, d: Mapping) -> "Toleration":
         return cls(d.get("key", ""), d.get("operator", "Equal"),
-                   d.get("value", ""), d.get("effect", ""))
+                   d.get("value", ""), d.get("effect", ""),
+                   d.get("tolerationSeconds"))
 
 
 @dataclass
@@ -349,6 +359,13 @@ class PodSpec:
     topology_spread_constraints: List[TopologySpreadConstraint] = field(
         default_factory=list)
     volumes: List[Volume] = field(default_factory=list)
+    # what the apiserver's admission reads: the PriorityClass that sets
+    # ``priority``, and the ServiceAccount the pod runs as
+    priority_class_name: str = ""
+    service_account_name: str = ""
+    host_network: bool = False
+    restart_policy: str = "Always"
+    termination_grace_period_seconds: Optional[float] = None
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "PodSpec":
@@ -372,6 +389,14 @@ class PodSpec:
                 TopologySpreadConstraint.from_dict(t)
                 for t in d.get("topologySpreadConstraints") or ()],
             volumes=[Volume.from_dict(v) for v in d.get("volumes") or ()],
+            priority_class_name=d.get("priorityClassName", ""),
+            service_account_name=d.get("serviceAccountName", ""),
+            host_network=bool(d.get("hostNetwork")),
+            restart_policy=d.get("restartPolicy") or "Always",
+            termination_grace_period_seconds=(
+                float(d["terminationGracePeriodSeconds"])
+                if d.get("terminationGracePeriodSeconds") is not None
+                else None),
         )
 
 
@@ -388,12 +413,19 @@ class PodStatus:
     phase: str = PENDING
     conditions: List[PodCondition] = field(default_factory=list)
     nominated_node_name: str = ""
+    # the kubelet's status writes (``set_pod_phase``)
+    pod_ip: str = ""
+    host_ip: str = ""
+    start_time: float = 0.0
+    reason: str = ""
+    message: str = ""
 
     @classmethod
     def from_dict(cls, d: Optional[Mapping]) -> "PodStatus":
         d = d or {}
         return cls(d.get("phase", PENDING), [],
-                   d.get("nominatedNodeName", ""))
+                   d.get("nominatedNodeName", ""),
+                   reason=d.get("reason", ""), message=d.get("message", ""))
 
 
 @dataclass
@@ -438,29 +470,37 @@ class ContainerImage:
 class NodeStatus:
     allocatable: Dict[str, Quantity] = field(default_factory=dict)
     images: List[ContainerImage] = field(default_factory=list)
+    capacity: Dict[str, Quantity] = field(default_factory=dict)
+    conditions: List[PodCondition] = field(default_factory=list)
+    volumes_attached: List[str] = field(default_factory=list)  # PV names
+    volumes_in_use: List[str] = field(default_factory=list)
 
     @classmethod
     def from_dict(cls, d: Optional[Mapping]) -> "NodeStatus":
         d = d or {}
         # allocatable defaults to capacity
-        allocatable = _parse_resource_list(
-            d.get("allocatable") or d.get("capacity"))
+        capacity = _parse_resource_list(d.get("capacity"))
+        allocatable = (_parse_resource_list(d.get("allocatable"))
+                       or dict(capacity))
         return cls(allocatable, [
             ContainerImage(list(i.get("names") or []),
                            int(i.get("sizeBytes") or 0))
-            for i in d.get("images") or ()])
+            for i in d.get("images") or ()], capacity)
 
 
 @dataclass
 class NodeSpec:
     unschedulable: bool = False
     taints: List[Taint] = field(default_factory=list)
+    provider_id: str = ""
+    pod_cidr: str = ""
 
     @classmethod
     def from_dict(cls, d: Optional[Mapping]) -> "NodeSpec":
         d = d or {}
         return cls(bool(d.get("unschedulable")),
-                   [Taint.from_dict(t) for t in d.get("taints") or ()])
+                   [Taint.from_dict(t) for t in d.get("taints") or ()],
+                   d.get("providerID", ""), d.get("podCIDR", ""))
 
 
 @dataclass
@@ -600,6 +640,18 @@ class CSINode:
 # ----------------------------------------------------------------------
 # the objects whose selectors SelectorSpread spreads pods by
 @dataclass
+class WorkloadStatus:
+    """The observed state a workload controller keeps."""
+
+    replicas: int = 0
+    ready_replicas: int = 0
+    observed_generation: int = 0
+    succeeded: int = 0
+    failed: int = 0
+    completion_time: Optional[float] = None
+
+
+@dataclass
 class ServicePort:
     name: str = ""
     port: int = 0
@@ -630,6 +682,7 @@ class ReplicaSet:
     selector: Optional[LabelSelector] = None
     replicas: int = 0
     template: Optional[dict] = None  # manifest-shaped pod template
+    status: WorkloadStatus = field(default_factory=WorkloadStatus)
 
     @property
     def name(self) -> str:
@@ -646,6 +699,7 @@ class ReplicationController:
     selector: Dict[str, str] = field(default_factory=dict)
     replicas: int = 0
     template: Optional[dict] = None
+    status: WorkloadStatus = field(default_factory=WorkloadStatus)
 
     @property
     def name(self) -> str:
@@ -662,6 +716,7 @@ class StatefulSet:
     selector: Optional[LabelSelector] = None
     replicas: int = 0
     template: Optional[dict] = None
+    status: WorkloadStatus = field(default_factory=WorkloadStatus)
 
     @property
     def name(self) -> str:
@@ -705,3 +760,171 @@ class Event:
     first_timestamp: float = 0.0
     last_timestamp: float = 0.0
     source_component: str = ""
+
+
+# ----------------------------------------------------------------------
+# the objects the apiserver's RBAC bootstrap, admission and discovery
+# build and read
+@dataclass
+class PolicyRule:
+    """One grant: the cross-product of verbs and resources (with optional
+    per-object names); "*" is a wildcard on either axis."""
+
+    verbs: List[str] = field(default_factory=list)
+    resources: List[str] = field(default_factory=list)
+    resource_names: List[str] = field(default_factory=list)
+    non_resource_urls: List[str] = field(default_factory=list)
+
+
+@dataclass
+class RBACSubject:
+    """Who a binding grants to."""
+
+    kind: str = "User"  # User | Group | ServiceAccount
+    name: str = ""
+    namespace: str = ""  # ServiceAccount subjects only
+
+
+@dataclass
+class RoleRef:
+    kind: str = "ClusterRole"  # ClusterRole | Role
+    name: str = ""
+
+
+@dataclass
+class Role:
+    """A namespaced rule set."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    rules: List[PolicyRule] = field(default_factory=list)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class ClusterRole:
+    """A cluster-wide rule set; ``aggregation_label_selectors`` (each a
+    matchLabels dict) names the roles whose rules it aggregates."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    rules: List[PolicyRule] = field(default_factory=list)
+    aggregation_label_selectors: List[Dict[str, str]] = field(
+        default_factory=list)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class RoleBinding:
+    """Grants a Role, or a ClusterRole scoped down to this binding's
+    namespace, to subjects."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    subjects: List[RBACSubject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class ClusterRoleBinding:
+    """Grants a ClusterRole cluster-wide."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    subjects: List[RBACSubject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class Namespace:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    phase: str = "Active"  # Active | Terminating
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class ServiceAccount:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    secrets: List[str] = field(default_factory=list)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class PriorityClass:
+    """Maps ``pod.spec.priority_class_name`` to the numeric priority
+    preemption orders by; one class may be the default for pods naming
+    none."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    value: int = 0
+    global_default: bool = False
+    description: str = ""
+    preemption_policy: str = "PreemptLowerPriority"  # or "Never"
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+
+@dataclass
+class ResourceQuota:
+    """``hard`` caps what a namespace's pods may request in sum;
+    ``used`` is its status."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    hard: Dict[str, Quantity] = field(default_factory=dict)
+    used: Dict[str, Quantity] = field(default_factory=dict)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class Lease:
+    """The read-only view of one of the store's leases."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    holder_identity: str = ""
+    lease_duration_seconds: float = 0.0
+    renew_time: float = 0.0
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace

@@ -16,7 +16,18 @@ queues reads them.
 Events (the API kind) have verbs of their own (``create_events``,
 ``get_event``, ``update_event``, ``list_events``,
 ``prune_expired_events``); their watch events reach no cache or queue, so
-an Event write never moves the cache's mutation sequence."""
+an Event write never moves the cache's mutation sequence.
+
+The REST fabric (``apiserver/rest.py``) serves the store through the
+generic verbs (``create_object``, ``get_object``, ``list_objects_with_rv``,
+``update_object`` with a resourceVersion precondition, ``delete_object``)
+over every kind of ``api.serialization.SCHEME``, plus the tables RBAC
+and admission read (roles and bindings, namespaces, service accounts,
+priority classes, resource quotas). Every dispatched event carries its
+commit time (``ts``, the watch-delivery SLI's anchor) and the sampled
+trace context of the request that committed it (``origin``);
+``kind_seq`` counts each kind's mutations, status writes included, for
+the server's pre-encoded list cache."""
 
 from __future__ import annotations
 
@@ -29,7 +40,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from kubernetes_tpu_torch.api.types import (
     FAILED,
     SUCCEEDED,
+    ClusterRole,
+    ClusterRoleBinding,
     CSINode,
+    Lease,
+    Namespace,
+    ObjectMeta,
+    ResourceQuota,
+    Role,
+    RoleBinding,
+    ServiceAccount,
     Node,
     PersistentVolume,
     PersistentVolumeClaim,
@@ -44,6 +64,8 @@ from kubernetes_tpu_torch.api.types import (
     shallow_copy,
 )
 from kubernetes_tpu_torch.api.types import Event as ApiEvent
+from kubernetes_tpu_torch.metrics.freshness_metrics import freshness_metrics
+from kubernetes_tpu_torch.observability.tracer import current_request_context
 from kubernetes_tpu_torch.scheduler import queue as q
 from kubernetes_tpu_torch.scheduler.framework.plugins.coscheduling import (
     GROUP_NAME_LABEL,
@@ -54,12 +76,31 @@ ADDED, MODIFIED, DELETED = "ADDED", "MODIFIED", "DELETED"
 EVENT_TTL_S = 3600.0
 
 
+class ConflictError(Exception):
+    """A resourceVersion precondition failed (HTTP 409)."""
+
+
 @dataclass
 class Event:
     type: str
     kind: str
     obj: Any
     old_obj: Any = None
+    # wall-clock commit time, stamped once at dispatch (0.0: not
+    # stamped, as with ``KTPU_FRESHNESS=off``)
+    ts: float = 0.0
+    # the X-Ktpu-Trace value of the sampled request whose commit
+    # produced the event; None when untraced
+    origin: Any = None
+
+
+def _commit_origin():
+    """The sampled inbound trace context of the request committing on
+    this thread (the REST handler sets it), in its wire form, or None."""
+    ctx = current_request_context()
+    if ctx is not None and ctx.sampled:
+        return ctx.header_value()
+    return None
 
 
 class WatchHandle:
@@ -94,14 +135,42 @@ class ClusterStore:
         self.event_ttl = EVENT_TTL_S
         self._watches: List[WatchHandle] = []
         self._leases: Dict[str, "_Lease"] = {}
+        # the tables RBAC and admission read
+        self._roles: Dict[str, Role] = {}
+        self._cluster_roles: Dict[str, ClusterRole] = {}
+        self._role_bindings: Dict[str, RoleBinding] = {}
+        self._cluster_role_bindings: Dict[str, ClusterRoleBinding] = {}
+        self._namespaces: Dict[str, Namespace] = {}
+        self._quotas: Dict[str, ResourceQuota] = {}
+        self._service_accounts: Dict[str, ServiceAccount] = {}
+        self._priority_classes: Dict[str, Any] = {}
+        # per-kind mutation counters, status writes included
+        self._kind_seq: Dict[str, int] = {}
+        self._freshness = freshness_metrics()
 
     def _next_rv(self) -> str:
         self._rv += 1
         return str(self._rv)
 
+    def kind_seq(self, kind: str) -> int:
+        """Mutations of one kind so far (the REST list cache's key)."""
+        with self._lock:
+            return self._kind_seq.get(kind, 0)
+
+    def _bump_kind(self, kind: str) -> None:
+        self._kind_seq[kind] = self._kind_seq.get(kind, 0) + 1
+
     def _dispatch(self, events: List[Event]) -> None:
         if not events:
             return
+        origin = _commit_origin()
+        now = time.time() if self._freshness.enabled else 0.0
+        for e in events:
+            self._bump_kind(e.kind)
+            if not e.ts:
+                e.ts = now
+            if e.origin is None:
+                e.origin = origin
         for w in list(self._watches):
             w.batch_fn(events)
 
@@ -213,9 +282,38 @@ class ClusterStore:
         with self._lock:
             return self._pods.get(f"{namespace}/{name}")
 
-    def list_pods(self) -> List[Pod]:
+    def list_pods(self, namespace: Optional[str] = None) -> List[Pod]:
         with self._lock:
-            return list(self._pods.values())
+            if namespace is None:
+                return list(self._pods.values())
+            return [p for p in self._pods.values()
+                    if p.namespace == namespace]
+
+    def create_pod(self, pod: Pod) -> Pod:
+        return self.create_pods([pod])[0]
+
+    def set_pod_phase(self, namespace: str, name: str, phase: str,
+                      pod_ip: str = "", host_ip: str = "") -> bool:
+        """The kubelet's status write: phase and addresses on a fresh copy
+        of the pod, one MODIFIED event. False when the pod is gone."""
+        with self._lock:
+            key = f"{namespace}/{name}"
+            pod = self._pods.get(key)
+            if pod is None:
+                return False
+            new_pod = shallow_copy(pod)
+            new_pod.status = shallow_copy(pod.status)
+            if phase:
+                new_pod.status.phase = phase
+            if pod_ip:
+                new_pod.status.pod_ip = pod_ip
+            if host_ip:
+                new_pod.status.host_ip = host_ip
+            new_pod.metadata = shallow_copy(pod.metadata)
+            new_pod.metadata.resource_version = self._next_rv()
+            self._pods[key] = new_pod
+            self._dispatch([Event(MODIFIED, "Pod", new_pod, pod)])
+            return True
 
     def count_bound(self) -> int:
         """Stored pods with a node, without scanning them."""
@@ -232,6 +330,9 @@ class ClusterStore:
             pod.status.conditions = [
                 c for c in pod.status.conditions if c.type != condition.type
             ] + [condition]
+            # no event, but the object changed: the REST list cache
+            # must not serve the old conditions
+            self._bump_kind("Pod")
 
     def set_nominated_node_name(self, namespace: str, name: str,
                                 node: str) -> None:
@@ -239,6 +340,7 @@ class ClusterStore:
             pod = self._pods.get(f"{namespace}/{name}")
             if pod is not None:
                 pod.status.nominated_node_name = node
+                self._bump_kind("Pod")
 
     def clear_nominated_node_name(self, namespace: str, name: str) -> None:
         self.set_nominated_node_name(namespace, name, "")
@@ -351,6 +453,7 @@ class ClusterStore:
         with self._lock:
             pdb.metadata.resource_version = self._next_rv()
             self._pdbs[f"{pdb.namespace}/{pdb.name}"] = pdb
+            self._bump_kind("PodDisruptionBudget")
 
     def list_pdbs(self) -> List[PodDisruptionBudget]:
         with self._lock:
@@ -494,6 +597,253 @@ class ClusterStore:
             return True
 
     # ------------------------------------------------------------------
+    # the tables RBAC and admission read
+    def add_role(self, r: Role) -> None:
+        self._upsert(self._roles, "Role", f"{r.namespace}/{r.name}", r)
+
+    def get_role(self, namespace: str, name: str) -> Optional[Role]:
+        with self._lock:
+            return self._roles.get(f"{namespace}/{name}")
+
+    def list_roles(self, namespace: Optional[str] = None) -> List[Role]:
+        with self._lock:
+            return [r for r in self._roles.values()
+                    if namespace is None or r.namespace == namespace]
+
+    def add_cluster_role(self, r: ClusterRole) -> None:
+        self._upsert(self._cluster_roles, "ClusterRole", r.name, r)
+
+    def get_cluster_role(self, name: str) -> Optional[ClusterRole]:
+        with self._lock:
+            return self._cluster_roles.get(name)
+
+    def list_cluster_roles(self) -> List[ClusterRole]:
+        with self._lock:
+            return list(self._cluster_roles.values())
+
+    def add_role_binding(self, rb: RoleBinding) -> None:
+        self._upsert(self._role_bindings, "RoleBinding",
+                     f"{rb.namespace}/{rb.name}", rb)
+
+    def list_role_bindings(self, namespace: Optional[str] = None
+                           ) -> List[RoleBinding]:
+        with self._lock:
+            return [rb for rb in self._role_bindings.values()
+                    if namespace is None or rb.namespace == namespace]
+
+    def add_cluster_role_binding(self, crb: ClusterRoleBinding) -> None:
+        self._upsert(self._cluster_role_bindings, "ClusterRoleBinding",
+                     crb.name, crb)
+
+    def list_cluster_role_bindings(self) -> List[ClusterRoleBinding]:
+        with self._lock:
+            return list(self._cluster_role_bindings.values())
+
+    def add_namespace(self, ns: Namespace) -> None:
+        self._upsert(self._namespaces, "Namespace", ns.name, ns)
+
+    def get_namespace(self, name: str) -> Optional[Namespace]:
+        with self._lock:
+            return self._namespaces.get(name)
+
+    def list_namespaces(self) -> List[Namespace]:
+        with self._lock:
+            return list(self._namespaces.values())
+
+    def add_resource_quota(self, quota: ResourceQuota) -> None:
+        self._upsert(self._quotas, "ResourceQuota",
+                     f"{quota.namespace}/{quota.name}", quota)
+
+    def list_resource_quotas(self) -> List[ResourceQuota]:
+        with self._lock:
+            return list(self._quotas.values())
+
+    def add_service_account(self, sa: ServiceAccount) -> None:
+        self._upsert(self._service_accounts, "ServiceAccount",
+                     f"{sa.namespace}/{sa.name}", sa)
+
+    def get_service_account(self, namespace: str, name: str
+                            ) -> Optional[ServiceAccount]:
+        with self._lock:
+            return self._service_accounts.get(f"{namespace}/{name}")
+
+    def list_all_services(self) -> List[Service]:
+        with self._lock:
+            return list(self._services.values())
+
+    # ------------------------------------------------------------------
+    # the generic verbs the REST server serves every kind through; pods
+    # and nodes go through their own verbs, so the bound count and the
+    # pod-copy-on-bind rule hold whichever way they are written
+    _KIND_TABLES = {
+        "Pod": ("_pods", True),
+        "Node": ("_nodes", False),
+        "Service": ("_services", True),
+        "ReplicaSet": ("_rss", True),
+        "ReplicationController": ("_rcs", True),
+        "StatefulSet": ("_sss", True),
+        "PersistentVolumeClaim": ("_pvcs", True),
+        "PersistentVolume": ("_pvs", False),
+        "StorageClass": ("_storage_classes", False),
+        "CSINode": ("_csi_nodes", False),
+        "PodDisruptionBudget": ("_pdbs", True),
+        "Event": ("_api_events", True),
+        "Namespace": ("_namespaces", False),
+        "ResourceQuota": ("_quotas", True),
+        "ServiceAccount": ("_service_accounts", True),
+        "Role": ("_roles", True),
+        "ClusterRole": ("_cluster_roles", False),
+        "RoleBinding": ("_role_bindings", True),
+        "ClusterRoleBinding": ("_cluster_role_bindings", False),
+        "PriorityClass": ("_priority_classes", False),
+    }
+
+    def _kind_entry(self, kind: str) -> Tuple[Dict[str, Any], bool]:
+        """(table, namespaced) of a kind; KeyError for one not stored."""
+        entry = self._KIND_TABLES.get(kind)
+        if entry is None:
+            raise KeyError(f"unknown kind {kind!r}")
+        return getattr(self, entry[0]), entry[1]
+
+    def _table_key(self, kind: str, namespace: str, name: str):
+        table, namespaced = self._kind_entry(kind)
+        return table, (f"{namespace}/{name}" if namespaced else name)
+
+    def kind_is_namespaced(self, kind: str) -> bool:
+        return self._kind_entry(kind)[1]
+
+    def known_kinds(self) -> List[str]:
+        return list(self._KIND_TABLES)
+
+    def current_rv(self) -> int:
+        with self._lock:
+            return self._rv
+
+    def create_object(self, kind: str, obj) -> Any:
+        """Create one object; ValueError when its key is taken."""
+        with self._lock:
+            table, key = self._table_key(kind, obj.metadata.namespace,
+                                         obj.metadata.name)
+            if key in table:
+                raise ValueError(f"{kind} {key!r} already exists")
+            if kind == "Pod":
+                return self.create_pod(obj)
+            if not obj.metadata.creation_timestamp:
+                obj.metadata.creation_timestamp = time.time()
+            obj.metadata.resource_version = self._next_rv()
+            table[key] = obj
+            self._dispatch([Event(ADDED, kind, obj)])
+            return obj
+
+    def create_objects_bulk(self, kind: str, objs: List[Any]) -> int:
+        """Create many objects of one kind under one lock and one watch
+        delivery; a taken name is skipped. Returns how many were
+        created."""
+        if kind == "Event":
+            return self.create_events(objs)
+        events: List[Event] = []
+        with self._lock:
+            for obj in objs:
+                table, key = self._table_key(
+                    kind, obj.metadata.namespace, obj.metadata.name)
+                if key in table:
+                    continue
+                if not obj.metadata.creation_timestamp:
+                    obj.metadata.creation_timestamp = time.time()
+                obj.metadata.resource_version = self._next_rv()
+                table[key] = obj
+                if kind == "Pod":
+                    self._bound += bool(obj.spec.node_name)
+                events.append(Event(ADDED, kind, obj))
+            self._dispatch(events)
+        return len(events)
+
+    def update_object(self, kind: str, obj,
+                      expect_rv: Optional[str] = None) -> Any:
+        """Replace a stored object (a MODIFIED event): KeyError when it is
+        missing, ``ConflictError`` when ``expect_rv`` is given and is not
+        its resourceVersion."""
+        with self._lock:
+            table, key = self._table_key(kind, obj.metadata.namespace,
+                                         obj.metadata.name)
+            old = table.get(key)
+            if old is None:
+                raise KeyError(f"{kind} {key!r} not found")
+            if expect_rv and old.metadata.resource_version != expect_rv:
+                raise ConflictError(
+                    f"{kind} {key!r}: resourceVersion conflict "
+                    f"(have {old.metadata.resource_version}, "
+                    f"want {expect_rv})")
+            obj.metadata.resource_version = self._next_rv()
+            table[key] = obj
+            if kind == "Pod":
+                self._bound += (bool(obj.spec.node_name)
+                                - bool(old.spec.node_name))
+            self._dispatch([Event(MODIFIED, kind, obj, old)])
+            return obj
+
+    def delete_object(self, kind: str, namespace: str, name: str) -> bool:
+        """Delete one object (a DELETED event carrying a copy stamped with
+        a new resourceVersion); False when it is not stored."""
+        with self._lock:
+            table, key = self._table_key(kind, namespace, name)
+            old = table.pop(key, None)
+            if old is None:
+                return False
+            if kind == "Pod":
+                self._bound -= bool(old.spec.node_name)
+            self._dispatch([Event(DELETED, kind, self._deletion_copy(old))])
+            return True
+
+    def _lease_object(self, name: str, lease: "_Lease") -> Lease:
+        """The read-only view of an internal lease (kube-system)."""
+        return Lease(metadata=ObjectMeta(name=name, namespace="kube-system"),
+                     holder_identity=lease.holder,
+                     lease_duration_seconds=lease.duration,
+                     renew_time=lease.renew_time)
+
+    def get_object(self, kind: str, namespace: str, name: str):
+        if kind == "Lease":
+            if namespace not in ("", "kube-system"):
+                return None
+            with self._lock:
+                lease = self._leases.get(name)
+                return (self._lease_object(name, lease)
+                        if lease is not None else None)
+        with self._lock:
+            table, key = self._table_key(kind, namespace, name)
+            return table.get(key)
+
+    def list_objects(self, kind: str, namespace: Optional[str] = None
+                     ) -> List[Any]:
+        return self.list_objects_with_rv(kind, namespace)[0]
+
+    def list_objects_with_rv(self, kind: str,
+                             namespace: Optional[str] = None
+                             ) -> Tuple[List[Any], int]:
+        """A list and the resourceVersion it is consistent at, taken
+        together: a watch from that version misses nothing the list
+        lacks."""
+        if kind == "Lease":
+            with self._lock:
+                if namespace is not None and namespace != "kube-system":
+                    return [], self._rv
+                return [self._lease_object(name, lease)
+                        for name, lease in sorted(self._leases.items())
+                        ], self._rv
+        with self._lock:
+            table, namespaced = self._kind_entry(kind)
+            objs = list(table.values())
+            if namespace is not None and namespaced:
+                objs = [o for o in objs if o.metadata.namespace == namespace]
+            return objs, self._rv
+
+    def recount_locked(self) -> None:
+        """Recompute the bound-pod count after the tables were written
+        directly (a WAL restore); the lock is held."""
+        self._bound = sum(1 for p in self._pods.values() if p.spec.node_name)
+
+    # ------------------------------------------------------------------
     # leases (leader election): a holder renews its own lease; another
     # candidate takes it only once ``duration`` has passed since the
     # holder's last renewal
@@ -588,8 +938,12 @@ class EventHandlers:
     def handle_many(self, events: List[Event]) -> None:
         sched = self.sched
         if any(e.kind != "Event" for e in events):
-            # delivery is synchronous: the batch commits now
-            sched.cache.note_event_ts(time.time())
+            # the newest commit the batch carries (the in-process store
+            # delivers at its commit, a remote client later); unstamped
+            # events count as committed now
+            sched.cache.note_event_ts(
+                max(e.ts for e in events if e.kind != "Event")
+                or time.time())
         bind_run: List[Pod] = []    # pods newly assigned
         add_run: List[Pod] = []     # pending pods added
         delete_run: List[Pod] = []  # assigned pods deleted

@@ -78,19 +78,18 @@ def _percentiles(samples: List[float], scale: float = 1.0
 
 
 class ThroughputCollector:
-    """Samples the bound-pod count of the store once per ``interval``."""
+    """Samples the bound-pod count of the store (or ``count_fn()``, where
+    the store is in another process) once per ``interval``."""
 
-    def __init__(self, store: ClusterStore, interval: float = 1.0):
-        self.store = store
+    def __init__(self, store: Optional[ClusterStore] = None,
+                 interval: float = 1.0, count_fn=None):
+        # a counter, not a scan: the sampling thread must not hold the
+        # interpreter for milliseconds while the batch loop dispatches
+        self._count_scheduled = count_fn or store.count_bound
         self.interval = interval
         self.samples: List[float] = []
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-
-    def _count_scheduled(self) -> int:
-        # a counter, not a scan: the sampling thread must not hold the
-        # interpreter for milliseconds while the batch loop dispatches
-        return self.store.count_bound()
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -205,15 +204,19 @@ def collect_freshness(devprof_summary=None) -> dict:
     return freshness_row_summary(devprof_summary, slos)
 
 
-def collect_critical_path(max_pods: int = 25):
+def collect_critical_path(remote=(), token: str = "", max_pods: int = 25):
     """(the row's ``critical_path`` without the per-pod list, the merged
     trace document); ({}, None) when tracing is off or no pod was
-    sampled."""
+    sampled. Always absorbs this process's ring as ``scheduler``;
+    ``remote`` adds (instance, url) pairs, each an apiserver whose
+    ``/debug/trace`` is scraped with the clock-offset handshake
+    (``token`` authenticates the scrape)."""
     tracer = get_tracer()
     if not tracer.enabled:
         return {}, None
-    doc, cp = collect_fleet_trace(local=[("scheduler", tracer)],
-                                  max_pods=max_pods)
+    doc, cp = collect_fleet_trace(remote=remote,
+                                  local=[("scheduler", tracer)],
+                                  token=token, max_pods=max_pods)
     if not cp.get("pods"):
         return {}, None
     return {k: v for k, v in cp.items() if k != "per_pod"}, doc

@@ -1,26 +1,44 @@
-"""Trace federation and critical-path attribution.
+"""Fleet trace federation + cross-process critical-path attribution.
 
-- ``TraceFederation`` keeps a merged timeline of tracer rings: each
-  absorbed Perfetto document is normalized onto the federation's
-  monotonic clock (``absorb_local`` for a tracer of this process, with no
-  offset and no skew), and ``merged()`` renders one Chrome/Perfetto
-  document with a track a process, shifted so the earliest span starts
-  at 0.
-- ``critical_path()`` walks each sampled pod's spans (queue.wait, then
-  the batch-level cycle spans that overlap its window: queue.cycle,
-  solve.encode, solve.pack, solve.device, solve.block, solve.commit,
-  bind.bulk; then sched.bind) and gives each instant of the pod's window
-  to the latest pipeline phase that covers it. The aggregate is a row's
-  ``critical_path``: phase shares, ``top``, ``unattributed_share``,
-  ``fully_attributed``.
+The REST harness spawns real child processes (the apiserver, the
+creators) and each keeps its own flight-recorder ring
+(``observability/tracer.py``). This is the tracing sibling of
+``metrics/federation.py``:
 
-Local rings only: scraping another process's ``/debug/trace`` and its
-clock-skew correction wait for the REST fabric, which the port does not
-have yet.
+- ``TraceFederation.scrape`` pulls each process's ``/debug/trace``
+  Perfetto dump.  The scrape request carries an ``echo_mono`` query
+  parameter (this process's ``time.monotonic()`` at send); the server
+  echoes it next to its own ``server_mono`` stamped at export, so the
+  federation estimates the per-connection clock offset as
+  ``server_mono - (t0 + rtt/2)`` — the classic half-RTT echo.  The
+  correction is *bounded*: the true offset lies within ±rtt/2 of the
+  estimate, and that bound is recorded as ``skew_ms`` on every
+  imported span (the merged timeline is honest about how far two
+  processes' spans may really be apart).
+- ``merged()`` renders ONE Chrome/Perfetto document with a track per
+  process (``pid`` = import order, ``process_name`` = instance), all
+  timestamps skew-corrected onto the federation's own monotonic
+  timeline and shifted so the earliest span starts at 0.
+- ``critical_path()`` is a pure analysis pass over the merged
+  document: it walks each sampled pod's stitched span set
+  (rest.ingest → rest.{verb} → queue.wait → encode → solve → commit →
+  bind, across process boundaries) plus the batch-level cycle spans
+  that overlap the pod's in-flight window, and emits a per-pod critical
+  path and a per-phase fleet aggregate — the ``critical_path``
+  sub-object every harness row carries (phase shares,
+  ``unattributed_share``, ``max_skew_ms``).
+- ``absorb_local`` takes a tracer of this process, with no offset and
+  no skew.
+
+Everything here is best-effort by the same contract as metrics
+federation: a dying child must not fail the row, so scrape failures
+land in ``scrape_errors`` and the analysis runs on whatever was
+imported.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from kubernetes_tpu_torch.observability.tracer import Tracer
@@ -62,8 +80,8 @@ def phase_of(name: str) -> Optional[str]:
 
 
 class TraceFederation:
-    """The merged timeline of the absorbed tracer rings (see the module
-    docstring)."""
+    """Scrapes per-process ``/debug/trace`` dumps and maintains the
+    skew-corrected merged fleet timeline (see module docstring)."""
 
     def __init__(self):
         # instance -> list of normalized records; a record is
@@ -77,6 +95,56 @@ class TraceFederation:
         self.scrape_errors: List[str] = []
 
     # -- ingestion -----------------------------------------------------
+    def scrape(self, url: str, instance: str, token: str = "",
+               timeout: float = 10.0,
+               window_s: Optional[float] = None) -> bool:
+        """HTTP GET a component's ``/debug/trace`` and absorb it with
+        half-RTT clock-offset correction. ``url`` is the server base
+        (``http://host:port``). Best-effort: failures land in
+        ``scrape_errors`` and return False."""
+        import http.client
+        import json as _json
+
+        rest = url.split("://", 1)[-1]
+        hostport = rest.split("/", 1)[0]
+        host, _, port = hostport.partition(":")
+        t0 = time.monotonic()
+        path = f"/debug/trace?echo_mono={t0!r}"
+        if window_s is not None:
+            path += f"&window={float(window_s)!r}"
+        try:
+            conn = http.client.HTTPConnection(
+                host, int(port or 80), timeout=timeout)
+            try:
+                headers = {"Authorization": f"Bearer {token}"} \
+                    if token else {}
+                conn.request("GET", path, headers=headers)
+                resp = conn.getresponse()
+                body = resp.read()
+                t1 = time.monotonic()
+                if resp.status != 200:
+                    raise RuntimeError(f"HTTP {resp.status} from {url}")
+                doc = _json.loads(body)
+            finally:
+                conn.close()
+        except Exception as e:  # noqa: BLE001 — scraping is best-effort
+            self.scrape_errors.append(f"{instance} {url}: {e}")
+            return False
+        other = doc.get("otherData", {})
+        server_mono = other.get("server_mono")
+        rtt = max(0.0, t1 - t0)
+        if server_mono is None:
+            # a server that does not echo: import uncorrected with an
+            # honest worst-case skew bound of the full RTT
+            offset, skew_ms = 0.0, rtt * 1000.0
+        else:
+            # the server stamped server_mono somewhere inside [t0, t1];
+            # midpoint estimate, true offset within ±rtt/2
+            offset = float(server_mono) - (t0 + rtt / 2.0)
+            skew_ms = (rtt / 2.0) * 1000.0
+        self.absorb_doc(doc, instance, offset=offset, skew_ms=skew_ms)
+        return True
+
     def absorb_local(self, tracer: Tracer, instance: str,
                      window_s: Optional[float] = None) -> None:
         """Mirror a LOCAL tracer into the federation (the parent
@@ -124,6 +192,20 @@ class TraceFederation:
                 "attrs": args or None,
                 "skew_ms": skew_ms,
             })
+
+    def forget_instance(self, instance: str) -> None:
+        for table in (self._spans, self._threads, self._offsets,
+                      self._skew_ms, self._meta):
+            table.pop(instance, None)
+
+    def clear(self) -> None:
+        for table in (self._spans, self._threads, self._offsets,
+                      self._skew_ms, self._meta):
+            table.clear()
+        self.scrape_errors = []
+
+    def instances(self) -> List[str]:
+        return list(self._spans)
 
     # -- export --------------------------------------------------------
     def merged(self) -> dict:
@@ -231,7 +313,7 @@ def critical_path(doc: dict, skew_bound_ms: float = 50.0,
     sweep (later pipeline phase wins) yields per-phase seconds and the
     unattributed remainder.
 
-    Returns the aggregate a harness row carries: phase shares
+    Returns the fleet aggregate a harness row carries: phase shares
     over the summed pod windows, ``top``/``top_share``,
     ``unattributed_share``, ``max_skew_ms``, ``fully_attributed``
     (fraction of pods with own unattributed_share ≤ 0.05), and per-pod
@@ -325,12 +407,18 @@ def critical_path(doc: dict, skew_bound_ms: float = 50.0,
 
 
 def collect_fleet_trace(
+        remote: Iterable[Tuple[str, str]] = (),
         local: Iterable[Tuple[str, Tracer]] = (),
+        token: str = "",
         window_s: Optional[float] = None,
         max_pods: int = 0) -> Tuple[dict, dict]:
-    """Absorb ``(instance, tracer)`` pairs of this process and return
-    (merged document, critical-path aggregate)."""
+    """One-call harness entry point: scrape ``(instance, url)`` pairs,
+    absorb ``(instance, tracer)`` locals, return (merged fleet doc,
+    critical-path aggregate). Best-effort end to end — scrape failures
+    are listed in the doc's ``otherData.scrape_errors``."""
     fed = TraceFederation()
+    for instance, url in remote:
+        fed.scrape(url, instance, token=token, window_s=window_s)
     for instance, tracer in local:
         fed.absorb_local(tracer, instance, window_s=window_s)
     doc = fed.merged()

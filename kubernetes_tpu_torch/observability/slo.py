@@ -14,9 +14,10 @@ verdicts are mirrored into ``slo_burn_rate{slo,window}``,
 
 The engine reads the process registry and every registry attached with
 ``add_registry`` (a scheduler's own holds the e2e latency histogram).
-The default SLOs are the JAX package's but for ``rest_availability``:
-its series (the API Priority and Fairness counters) exist only with the
-REST fabric, which the port does not have yet.
+The default SLOs are the JAX package's; ``rest_availability`` reads the
+API Priority and Fairness counters, which the apiserver's flow control
+(``apiserver/flowcontrol.py``) keeps, in its own process or folded into
+this one by the metrics federation.
 """
 
 from __future__ import annotations
@@ -82,6 +83,15 @@ def default_slos() -> List[SLODef]:
                         "no older than 2s",
             metric="snapshot_staleness_seconds",
             threshold_s=2.0, objective=0.99,
+        ),
+        SLODef(
+            name="rest_availability",
+            description="99.9% of admitted API requests are not "
+                        "rejected with 429/503 by flow control",
+            metric="apf_rejected_requests_total",
+            kind="error_ratio",
+            total_metric="apf_dispatched_requests_total",
+            objective=0.999,
         ),
     ]
 

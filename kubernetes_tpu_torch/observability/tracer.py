@@ -15,9 +15,11 @@ in https://ui.perfetto.dev and ``chrome://tracing``.
 
 ``KTPU_TRACE=off`` disables the process tracer, ``KTPU_TRACE_SAMPLE``
 sets its sample rate (a probability, or a denominator such as ``64``),
-and ``KTPU_TRACE_DUMP_DIR`` arms its crash dump. The ``X-Ktpu-Trace``
-header helpers are kept as plain functions: the port has no REST wire
-that would carry the header yet.
+and ``KTPU_TRACE_DUMP_DIR`` arms its crash dump. REST requests carry
+a sampled pod's context in the ``X-Ktpu-Trace`` header; the server sets
+it as the request's context for the handler's thread
+(``set_request_context``), where the store's dispatch stamps it on the
+events the request commits.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from collections import deque
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 # Fleet trace propagation: a request may carry this header so a pod
-# sampled at the ingesting client is sampled in every process it touches. Format: ``<trace>;<parent_span_id>;<0|1>`` —
+# sampled at the ingesting client is sampled in every process it
+# touches. Format: ``<trace>;<parent_span_id>;<0|1>`` —
 # trace id (pod uid where one exists), the sender's span id (kept as a
 # span ATTRIBUTE by the receiver, since span-id counters are
 # per-process and collide across the fleet), and the explicit sampling
@@ -75,6 +78,20 @@ def parse_trace_header(value: Optional[str]) -> Optional[TraceContext]:
         return TraceContext(trace, int(parent), sampled.strip() == "1")
     except (ValueError, AttributeError):
         return None
+
+
+# The inbound request context of the handler running on this thread
+# (one request per thread), read where the store stamps the events a
+# request commits.
+_request_ctx = threading.local()
+
+
+def set_request_context(ctx: Optional[TraceContext]) -> None:
+    _request_ctx.ctx = ctx
+
+
+def current_request_context() -> Optional[TraceContext]:
+    return getattr(_request_ctx, "ctx", None)
 
 
 # record layout (tuples, not objects: ~3x cheaper to build and they
@@ -197,6 +214,21 @@ class Tracer:
                 trace = top.trace
         return Span(self, name, trace, attrs or None,
                     next(self._ids), parent)
+
+    def current_span_id(self) -> int:
+        """The innermost open span's id on this thread (0 when none): what
+        an outgoing request stamps as the wire parent."""
+        stack = getattr(self._local, "stack", None)
+        return stack[-1].span_id if stack else 0
+
+    def annotate_current(self, **attrs) -> bool:
+        """Attach attributes to the innermost open span on this thread;
+        False when none is open."""
+        stack = getattr(self._local, "stack", None)
+        if not stack:
+            return False
+        stack[-1].set(**attrs)
+        return True
 
     def _push(self, span: Span) -> None:
         stack = getattr(self._local, "stack", None)

@@ -372,6 +372,11 @@ class SchedulerCache:
                 del self._nodes[node.name]
             self._node_tree.remove_node(node)
 
+    def node_count(self) -> int:
+        """Nodes in the node set."""
+        with self._lock:
+            return self._node_tree.num_nodes
+
     # ------------------------------------------------------------------
     def update_snapshot(self, snapshot: Snapshot) -> None:
         """Copy every NodeInfo newer than the snapshot into it, drop nodes

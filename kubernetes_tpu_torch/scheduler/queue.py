@@ -51,6 +51,8 @@ CSI_NODE_ADD = "CSINodeAdd"
 CSI_NODE_UPDATE = "CSINodeUpdate"
 SERVICE_ADD = "ServiceAdd"
 SERVICE_UPDATE = "ServiceUpdate"
+# a remote client's circuit breaker closed again (degraded mode ends)
+CLIENT_RECOVERED = "ClientRecovered"
 
 
 class PodNominator:

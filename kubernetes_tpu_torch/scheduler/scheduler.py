@@ -30,10 +30,23 @@ Two ways in:
 
 A pod that Permit asks to wait (a gang member) is assumed and parked,
 and its binding cycle (wait at Permit, PreBind, Bind, PostBind) runs on
-a pool of 64 binding threads, host code only; every other pod binds
-synchronously in the committing call, since the store is in process.
-``wait_for_inflight_bindings`` waits for the pool. A binder extender
-interested in a pod binds it in place of the Bind plugins.
+a pool of 64 binding threads, host code only. Against the in-process
+store every other pod binds synchronously in the committing call.
+Against a remote client (``client.restcluster.RestClusterClient``:
+``async_bulk_bind``) a bulk commit's Bind ships on the same pool, so the
+batch loop never waits on the round trip or the client's token bucket;
+the watch's bind event then confirms the assumed pods whenever it
+arrives, and a bind that fails forgets its pods later, which the device
+mirror reads as an invalidation (the cache's mutation count moves).
+``wait_for_inflight_bindings`` waits for the pool, and ``stop`` waits
+for the binds already on it. A binder extender interested in a pod
+binds it in place of the Bind plugins.
+
+A remote client's circuit breaker drives degraded mode
+(``set_degraded``): while the apiserver is unreachable neither path
+pops a pod, and on recovery every parked pod gets another attempt.
+``Scheduler.create(..., event_client=)`` records Events through a
+client (and token bucket) of their own.
 
 ``run()`` schedules on a thread of its own (the batch path's cycles when
 one is attached, else the serial path's); ``run_with_leader_election``
@@ -93,6 +106,7 @@ from kubernetes_tpu_torch.config.types import (
     KubeSchedulerProfile,
     PluginConfig,
 )
+from kubernetes_tpu_torch.metrics.fabric_metrics import fabric_metrics
 from kubernetes_tpu_torch.metrics.scheduler_metrics import SchedulerMetrics
 from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
@@ -108,7 +122,10 @@ from kubernetes_tpu_torch.scheduler.framework.plugins.default_preemption import 
 )
 from kubernetes_tpu_torch.scheduler.framework.runtime import Framework
 from kubernetes_tpu_torch.scheduler.provider import PROVIDERS
-from kubernetes_tpu_torch.scheduler.queue import SchedulingQueue
+from kubernetes_tpu_torch.scheduler.queue import (
+    CLIENT_RECOVERED,
+    SchedulingQueue,
+)
 from kubernetes_tpu_torch.scheduler.snapshot import Snapshot
 from kubernetes_tpu_torch.scheduler.types import PodInfo, QueuedPodInfo
 from kubernetes_tpu_torch.utils.parallelize import Parallelizer
@@ -171,7 +188,8 @@ class Scheduler:
                  rng: Optional[random.Random] = None,
                  provider: Optional[str] = None,
                  feature_gates: Optional[FeatureGates] = None,
-                 out_of_tree_registry: Optional[Dict[str, Callable]] = None):
+                 out_of_tree_registry: Optional[Dict[str, Callable]] = None,
+                 event_client=None):
         if config is None or isinstance(config, SchedulerConfiguration):
             short = config or SchedulerConfiguration()
             config = short.component_config()
@@ -206,7 +224,8 @@ class Scheduler:
         self.recorders: Dict[str, EventRecorder] = {}
         for profile in config.profiles:
             name = profile.scheduler_name
-            recorder = self.recorders[name] = EventRecorder(store, name)
+            recorder = self.recorders[name] = EventRecorder(
+                event_client or store, name)
             self.profiles[name] = Framework(
                 registry,
                 profile.plugins.merge_defaults(defaults)
@@ -254,6 +273,12 @@ class Scheduler:
         # summed over cycles
         self.binding_stats = {"cycles": 0, "errors": 0, "wait_s": 0.0,
                               "bind_s": 0.0}
+        # a remote client: bulk binds ship on the binding pool
+        self.async_bulk_bind = hasattr(store, "breaker")
+        # degraded mode: set while a remote client's breaker is open
+        self._degraded = threading.Event()
+        self._degraded_since = 0.0
+        self._degraded_lock = threading.Lock()
         self.event_handlers = EventHandlers(self)
         self._watch_handle = None
         # per bound pod: seconds from its batch's solve start (the
@@ -270,37 +295,57 @@ class Scheduler:
                provider: str = "DefaultProvider",
                feature_gates: Optional[FeatureGates] = None,
                out_of_tree_registry: Optional[Dict[str, Callable]] = None,
-               rng: Optional[random.Random] = None) -> "Scheduler":
+               rng: Optional[random.Random] = None,
+               event_client=None) -> "Scheduler":
         """A scheduler built from a component configuration (a v1beta1
         dict is read with ``KubeSchedulerConfiguration.from_dict``; None
         is the default one: one profile, 16 workers). ``feature_gates``
         defaults to the configuration's own; ``out_of_tree_registry``
-        (plugin name -> factory) adds plugins to the in-tree ones.
-        Raises ``ValueError`` on an invalid configuration."""
+        (plugin name -> factory) adds plugins to the in-tree ones;
+        ``event_client`` (default: ``store``) is the client the event
+        recorders write through. Raises ``ValueError`` on an invalid
+        configuration."""
         if isinstance(config, Mapping):
             config = KubeSchedulerConfiguration.from_dict(config)
         return cls(store, config=config or KubeSchedulerConfiguration(),
                    rng=rng, provider=provider, feature_gates=feature_gates,
-                   out_of_tree_registry=out_of_tree_registry)
+                   out_of_tree_registry=out_of_tree_registry,
+                   event_client=event_client)
 
     def start(self) -> None:
         """Watch the store, then replay what it already holds (a
-        replica's foreign nodes and pods left out). Once only."""
+        replica's foreign nodes and pods left out). Once only. A remote
+        client lists first, with the resourceVersion each list is
+        consistent at; the lists are replayed, then the watch streams on
+        from those versions, so nothing is missed or delivered twice.
+        Its circuit breaker drives degraded mode."""
         if self._watch_handle is not None:
             return
-        self._watch_handle = self.client.watch(self.event_handlers.handle_many)
         handlers = self.event_handlers
-        for node in self.client.list_nodes():
+        set_listener = getattr(self.client, "set_degraded_listener", None)
+        if set_listener is not None:
+            set_listener(self.set_degraded)
+        list_for_watch = getattr(self.client, "list_for_watch", None)
+        if list_for_watch is not None:
+            initial = list_for_watch()
+            nodes, pods = initial["Node"][0], initial["Pod"][0]
+        else:
+            self._watch_handle = self.client.watch(handlers.handle_many)
+            nodes, pods = self.client.list_nodes(), self.client.list_pods()
+        for node in nodes:
             if handlers.caches_node(node.name):
                 self.cache.add_node(node)
         pending = []
-        for pod in self.client.list_pods():
+        for pod in pods:
             if assigned(pod):
                 if handlers.caches_node(pod.spec.node_name):
                     self.cache.add_pod(pod)
             elif handlers.responsible_for(pod):
                 pending.append(pod)
         self.queue.add_many(pending)
+        if list_for_watch is not None:
+            self._watch_handle = self.client.watch(handlers.handle_many,
+                                                   resume=initial)
         for recorder in self.recorders.values():
             recorder.start()
 
@@ -372,8 +417,9 @@ class Scheduler:
     def stop(self) -> None:
         """Stop the loop (the lease is given up: no renewal outlives the
         scheduler), stop watching; pods still waiting at Permit are
-        rejected, so no binding thread outlives the scheduler, and the
-        Filter and Score workers are let go."""
+        rejected and the bulk binds already on the pool finish, so no
+        binding thread outlives the scheduler, and the Filter and Score
+        workers are let go."""
         self._stop.set()
         if self.elector is not None:
             self.elector.stop()
@@ -386,6 +432,7 @@ class Scheduler:
         for fwk in self.profiles.values():
             fwk.iterate_waiting_pods(
                 lambda wp: wp.reject("", "scheduler stopped"))
+        self.wait_for_inflight_bindings()
         self._bind_pool.shutdown(wait=False)
         self.parallelizer.shutdown()
         for recorder in self.recorders.values():
@@ -394,6 +441,39 @@ class Scheduler:
     @property
     def stopped(self) -> bool:
         return self._stop.is_set()
+
+    # ------------------------------------------------------------------
+    # degraded mode
+    def is_degraded(self) -> bool:
+        return self._degraded.is_set()
+
+    def set_degraded(self, degraded: bool) -> None:
+        """Enter or leave degraded mode (idempotent; a remote client's
+        circuit-breaker listener). Entering pauses both paths' pops;
+        leaving adds the outage to ``degraded_mode_seconds`` and moves
+        every parked pod back to an attempt, so recovery does not wait
+        out a backoff."""
+        with self._degraded_lock:
+            if degraded == self._degraded.is_set():
+                return
+            if degraded:
+                self._degraded_since = time.monotonic()
+                self._degraded.set()
+                fabric_metrics().degraded_mode.set(1.0)
+            else:
+                self._degraded.clear()
+                fabric_metrics().degraded_mode.set(0.0)
+                fabric_metrics().degraded_mode_seconds.inc(
+                    amount=time.monotonic() - self._degraded_since)
+        if degraded:
+            # the apiserver is unreachable and a crash may follow:
+            # flush the flight recorder now (outside the lock: disk I/O)
+            tracer = get_tracer()
+            tracer.event("sched.degraded_enter")
+            if tracer.enabled and len(tracer):
+                tracer.dump(reason="degraded", min_interval_s=5.0)
+            return
+        self.queue.move_all_to_active_or_backoff_queue(CLIENT_RECOVERED)
 
     def wait_for_inflight_bindings(self, timeout: float = 30.0) -> bool:
         """Wait until no binding cycle runs on the pool; False on
@@ -425,7 +505,11 @@ class Scheduler:
     # the serial path
     def schedule_one(self, pop_timeout: Optional[float] = None) -> bool:
         """One serial scheduling cycle. False when the queue yielded
-        nothing."""
+        nothing, or in degraded mode (no pod is popped: it would only
+        fail its bind)."""
+        if self._degraded.is_set():
+            time.sleep(min(pop_timeout or 0.05, 0.05))
+            return False
         items, _ = self.queue.pop_batch(1, timeout=pop_timeout)
         if not items:
             return False
@@ -684,24 +768,77 @@ class Scheduler:
         now = time.monotonic()
         for name, group in bindable.items():
             fwk = self.profiles[name]
-            t_bind = time.monotonic()
-            statuses = fwk.run_bind_plugins_bulk(
-                [b[5] for b in group], [b[4] for b in group],
-                [b[1] for b in group])
-            now = time.monotonic()
-            get_tracer().record("bind.bulk", t_bind, now, pods=len(group))
-            for (qpi, node, cycle, start, assumed, state), status in zip(
-                    group, statuses):
-                if not fw.Status.is_ok(status):
-                    self._unreserve_forget_fail(state, qpi, assumed, node,
-                                                status.as_error(), cycle)
-                    failed += 1
-                    mutations += 1
-                    continue
-                self._finish_bound(fwk, state, qpi, assumed, node, start,
-                                   observed, now)
+            if self.async_bulk_bind:
+                # the whole group's Bind on the pool: the batch loop
+                # keeps solving while the request is on the wire. Its
+                # pods already count as assumed; a failure there
+                # forgets them later, which moves the cache's mutation
+                # count under the device mirror (an invalidation)
+                self._submit_bulk_bind(fwk, group, observed_from)
+                continue
+            bound, n_failed, now = self._bulk_bind_now(fwk, group)
+            observed.extend(bound)
+            failed += n_failed
+            mutations += n_failed   # one forget a refusal
         self._observe_bound_bulk(observed, now, observed_from)
         return len(observed), failed, mutations
+
+    def _bulk_bind_now(self, fwk: Framework, group: list
+                       ) -> Tuple[list, int, float]:
+        """Bind one profile's (qpi, node, cycle, start, assumed, state)
+        group in one call of its bind plugins, then PostBind the bound
+        and unreserve, forget and requeue the refused. Returns the bound
+        pods' (qpi, start, node), the number refused and the bind's end
+        time."""
+        t_bind = time.monotonic()
+        statuses = fwk.run_bind_plugins_bulk(
+            [b[5] for b in group], [b[4] for b in group],
+            [b[1] for b in group])
+        now = time.monotonic()
+        get_tracer().record("bind.bulk", t_bind, now, pods=len(group))
+        bound: list = []
+        refused = 0
+        for (qpi, node, cycle, start, assumed, state), status in zip(
+                group, statuses):
+            if not fw.Status.is_ok(status):
+                self._unreserve_forget_fail(state, qpi, assumed, node,
+                                            status.as_error(), cycle)
+                refused += 1
+                continue
+            self._finish_bound(fwk, state, qpi, assumed, node, start,
+                               bound, now)
+        return bound, refused, now
+
+    def _submit_bulk_bind(self, fwk: Framework, group: list,
+                          observed_from: Optional[float]) -> None:
+        """Run ``_bulk_bind_now`` for ``group`` on the binding pool."""
+        with self._inflight_zero:
+            self._inflight_bindings += 1
+        self.metrics.goroutines.inc("binding")
+        try:
+            self._bind_pool.submit(self._complete_bulk_bind, fwk, group,
+                                   observed_from)
+        except RuntimeError:
+            # the pool is shut down (the scheduler stopped): the pods
+            # stay assumed until their assume expires
+            self._binding_done()
+
+    def _complete_bulk_bind(self, fwk: Framework, group: list,
+                            observed_from: Optional[float]) -> None:
+        try:
+            try:
+                bound, _, now = self._bulk_bind_now(fwk, group)
+            except Exception as err:  # noqa: BLE001 — the transport died
+                # (retries spent, server gone): every pod unwinds as a
+                # refused bind does, and retries against what the cluster
+                # looks like after the outage
+                for qpi, node, cycle, _start, assumed, state in group:
+                    self._unreserve_forget_fail(state, qpi, assumed, node,
+                                                err, cycle)
+                return
+            self._observe_bound_bulk(bound, now, observed_from)
+        finally:
+            self._binding_done()
 
     def _finish_bound(self, fwk: Framework, state: CycleState,
                       qpi: QueuedPodInfo, assumed: Pod, node: str,

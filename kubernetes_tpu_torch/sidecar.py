@@ -391,7 +391,15 @@ class BatchScheduler:
                           pods=processed, committed=committed)
 
     def run_batch(self, pop_timeout: Optional[float] = 0.2) -> int:
-        """One cycle of the active arm. Returns the pods worked on."""
+        """One cycle of the active arm. Returns the pods worked on. In
+        degraded mode (a remote client's circuit breaker is open) the
+        cycle pauses instead: a held batch stays held and commits on the
+        first cycle after recovery."""
+        if self.sched.is_degraded():
+            # always sleep: flush() calls this with pop_timeout=0.0 in
+            # a loop, which must not spin
+            time.sleep(min(pop_timeout, 0.05) if pop_timeout else 0.01)
+            return 0
         if self.pipeline_enabled:
             return self._run_batch_pipelined(pop_timeout)
         return self._run_batch_serialized(pop_timeout)

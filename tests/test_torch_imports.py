@@ -197,3 +197,61 @@ def _federation_entry_points():
 def test_federation_entry_points_without_device_raise(no_cuda, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _federation_entry_points()[name]()
+
+
+SLICE_15_MODULES = (
+    "api/serialization.py", "api/scheme.py", "apiserver/codec.py",
+    "apiserver/faults.py", "apiserver/flowcontrol.py",
+    "apiserver/admission.py", "apiserver/rbac.py", "apiserver/wal.py",
+    "apiserver/watchcache.py", "apiserver/rest.py", "client/backoff.py",
+    "client/restcluster.py", "metrics/apf_metrics.py",
+    "metrics/fabric_metrics.py", "metrics/federation.py",
+    "harness/rest_perf.py", "harness/__init__.py")
+
+# what the REST harness's spawned apiserver and creator children import
+CHILD_MODULES = (
+    "kubernetes_tpu_torch.harness.rest_perf",
+    "kubernetes_tpu_torch.apiserver.rbac",
+    "kubernetes_tpu_torch.apiserver.rest",
+    "kubernetes_tpu_torch.apiserver.store",
+    "kubernetes_tpu_torch.apiserver.wal",
+    "kubernetes_tpu_torch.api.types",
+    "kubernetes_tpu_torch.client.restcluster",
+    "kubernetes_tpu_torch.harness.burst",
+    "kubernetes_tpu_torch.scheduler.types",
+    "kubernetes_tpu_torch.utils.gctune")
+
+
+@pytest.mark.parametrize("rel", SLICE_15_MODULES)
+def test_fabric_modules_are_checked_and_import(rel):
+    """The REST fabric's modules are among the sources the import rule
+    checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module.removesuffix(".__init__"))
+
+
+def test_rest_children_import_no_torch():
+    """The REST harness's spawned children (``rest_perf._apiserver_main``,
+    ``_creator_main``) import nothing that imports torch or numpy."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in CHILD_MODULES)
+            + "from kubernetes_tpu_torch.harness import make_workload\n"
+            "make_workload('SchedulingBasic', 2, 0, 4)\n"
+            "bad = [m for m in ('torch', 'numpy', 'jax') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   timeout=120)
+
+
+def test_run_workload_rest_without_device_raises(no_cuda):
+    from kubernetes_tpu_torch.harness import run_workload_rest
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_workload_rest("SchedulingBasic", nodes=2, measure_pods=4)

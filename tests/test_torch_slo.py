@@ -1,8 +1,8 @@
 """The port's SLO engine against the JAX package's: the same samples, fed
 to both through their own registries on an injected clock, give the same
 verdicts (``evaluate()`` equal, burn rates and p99s included); the
-default SLOs are the JAX package's but for ``rest_availability``, whose
-APF series the port does not have; the freshness row summary agrees."""
+default SLOs are the JAX package's, ``rest_availability`` (over the
+apiserver's APF counters) included; the freshness row summary agrees."""
 
 import numpy as np
 import pytest
@@ -107,11 +107,13 @@ def test_reset_and_disabled_equal_the_reference():
 def test_default_slos_are_the_reference_s_without_apf():
     want = {s.name: s for s in jax_slo.default_slos()}
     got = {s.name: s for s in slo.default_slos()}
-    assert set(want) - set(got) == {"rest_availability"}
+    assert set(want) == set(got)
     for name, s in got.items():
-        assert (s.metric, s.kind, s.threshold_s, s.objective, s.labels) == (
+        assert (s.metric, s.kind, s.threshold_s, s.objective, s.labels,
+                s.total_metric) == (
             want[name].metric, want[name].kind, want[name].threshold_s,
-            want[name].objective, want[name].labels)
+            want[name].objective, want[name].labels,
+            want[name].total_metric)
 
 
 def test_freshness_row_summary_equals_the_reference(monkeypatch):

@@ -30,9 +30,13 @@ kernel's shared memory, on the kernel the tree's ``plan_launch`` picks
 ``random_planes(30, 5120, 4096, t=100)`` with pod 3 rewritten to nine
 term references (the dense stream: a batch that does not pack), input B
 ``random_planes(31, 1024, 1024, r=4, t=100, sv=64)`` (shared-volume
-slots). The ``widepods`` row runs the SchedulingPodAntiAffinity row at
-5,000 nodes / 1,000 / 30,000 with every 64th measured pod also carrying
-12 weighted preferred pod-affinity terms (built here from the tree's
+slots). The ``config`` row is ``chip_smoke.py``'s phase 30a
+(``harness/ha.py::config_row`` at 5,000 nodes / 30,000 pods, every
+200th pod the extender's or the packing profile's; a tree from before
+that module cannot run it). The ``widepods`` row runs the
+SchedulingPodAntiAffinity row at 5,000 nodes / 1,000 / 30,000 with
+every 64th measured pod also carrying 12 weighted preferred
+pod-affinity terms (built here from the tree's
 ``harness/workloads.py``, as ``chip_smoke.py``'s phase 28 builds it),
 and prints pods/s, latency percentiles, the launches by kernel and each
 launch's ms (CUDA events around the wrapper's call).
@@ -57,7 +61,7 @@ import sys
 import time
 
 ROWS = ("basic", "sustained", "preemption", "scan", "wide", "widepods",
-        "kernels")
+        "kernels", "config")
 WIDE_INPUTS = {"A": (30, 5120, 4096, dict(t=100)),
                "B": (31, 1024, 1024, dict(r=4, t=100, sv=64))}
 WIDE_PODS = dict(nodes=5000, init=1000, pods=30000, every=64, terms=12)
@@ -307,6 +311,18 @@ def main() -> None:
                     ints[3, c:c + 9] = 1
                 out[row][name] = _time_dense(torch, solve_mod,
                                              (ps, state, ints, floats))
+        elif row == "config":
+            from kubernetes_tpu_torch.harness import ha
+            got = ha.config_row(5000, 30000, every=200, device="cuda",
+                                max_batch=4096)
+            res = got["result"]
+            if got["unbound"]:
+                sys.exit(f"config: {len(got['unbound'])} pods unbound")
+            out[row] = {"pods_per_s": res.pods_per_second,
+                        "duration_s": res.duration_seconds,
+                        "enqueue_to_bind_ms": _percentiles(res.latency),
+                        "serial_seconds": got["serial_seconds"],
+                        "solves": res.solves, "host_seconds": res.seconds}
         elif row == "kernels":
             from kubernetes_tpu_torch.harness.problems import (
                 random_planes,
