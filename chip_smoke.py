@@ -273,7 +273,29 @@ prints no result):
     drained batch, two federation instances, watch delivery observed, a
     ``rest_availability`` verdict, no torch in the children; pods/s, p50
     / p90 / p99, the critical path with the apiserver's spans, and the
-    fabric overhead against phases 4 and 8's pipelined runs.
+    fabric overhead against phases 4 and 8's pipelined runs;
+32. ``bench.py``'s qos row (``harness/qos.py``): phase 31's row again
+    while 3 aggressor tenants of 6 threads each (list storms, watch
+    reconnect herds, 200-item ConfigMapList POSTs) hammer the apiserver
+    from the measurement's start, phase 31 standing as the solo arm:
+    every pod bound in the apiserver's store and by the scheduler, the
+    aggressors' requests sent, APF's workload level dispatching, no
+    torch in any child, every launch the cluster kernel's and one a
+    solve, the kernel equal to the plain version on the largest batch;
+    both arms' pods/s and e2e p99, create-to-bind, the p99 ratio and
+    ``qos_ok`` (reported, not gated), APF's counts by level;
+33. ``bench.py``'s three replay rows at its size (``workloads/
+    replay_bench.py``; seed 11, scale 1, time scale 1, batches of at
+    most 1,024) over the REST fabric, pods arriving open loop on the
+    trace's clock and expiring into deletions: the preemption storm
+    (702 pods over 45 s on 120 nodes), the mesh gangs in a scored and an
+    adjacency-blind arm (747 over 30 s on 64), serve and batch tenants
+    with the autoscaler buying nodes from 20 (880 over 45 s): each row's
+    own verdicts (zero lost, gangs whole, no priority inversion, scored
+    beating blind, the serve p99 within 2 s, the SLO gate), every launch
+    of the cluster kernel and of the scan kernel (the tenancy row's
+    what-ifs) held against its plain version; pods/s, arrival-to-bind
+    p50 / p99, preemptions, expiries, launches and device seconds.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -291,7 +313,7 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23 and 25 to 31) resets the kernels'
+Every main-path run (4, 5, 8 to 23 and 25 to 33) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
 Before the last line come the script's wall time, the scatters' counts
@@ -961,8 +983,11 @@ def compare_sharded(name, ps, state, ints, floats, widths=(1, 2, 4, 8)):
 class _Recorder:
     """Stands in for the kernel wrapper during a run: CUDA events around
     each launch and, with ``keep``, copies of each launch's inputs, taken
-    on the stream without waiting for it. The launch, and its count,
-    stay the wrapper's."""
+    on the stream without waiting for it; with ``keep="all"`` also the
+    static planes, the parameters and each launch's outputs (assignments
+    and final state), so every launch can be held against the plain
+    version after the run. The launch, and its count, stay the
+    wrapper's."""
 
     def __init__(self, kernel, keep=False):
         self.kernel = kernel
@@ -970,13 +995,21 @@ class _Recorder:
         self.events = []
         self.inputs = []
         self.slots = []     # per kept launch: a slot stream or not
+        self.params = []    # with keep="all": each launch's parameters
+        self.outputs = []   # with keep="all": (assignments, final state)
 
     def __getattr__(self, name):   # plan, slots_plan: the wrapper's
         return getattr(self.kernel, name)
 
     def __call__(self, params, ps, state, ints, floats, **kw):
         if self.keep:
-            self.inputs.append((ps, state.clone(), ints.clone(),
+            kept = ps
+            if self.keep == "all":
+                kept = ps._replace(ints=ps.ints.clone(),
+                                   f32s=ps.f32s.clone(),
+                                   sc_meta=ps.sc_meta.clone())
+                self.params.append(params)
+            self.inputs.append((kept, state.clone(), ints.clone(),
                                 floats.clone()))
             self.slots.append(kw.get("slots", False))
         start = torch.cuda.Event(enable_timing=True)
@@ -985,6 +1018,8 @@ class _Recorder:
         out = self.kernel(params, ps, state, ints, floats, **kw)
         end.record()
         self.events.append((start, end))
+        if self.keep == "all":
+            self.outputs.append((out.clone(), state.clone()))
         return out
 
     def kernel_ms(self):
@@ -3824,6 +3859,281 @@ def phase_rest(basic, pipeline_runs, nodes=5000, pods=30000, max_batch=4096,
                                "rejected": v.get("rejected")}
                            for k, v in (apf.get("levels") or {}).items()}}
 
+QOS_TENANTS = 3
+QOS_THREADS = 6
+
+
+def phase_qos(rest, nodes=5000, pods=30000, tenants=QOS_TENANTS,
+              threads=QOS_THREADS, qps=5000.0, max_batch=4096,
+              wait_timeout=600.0):
+    """Phase 32: ``bench.py``'s qos row (``harness/qos.py``): the REST
+    row's burst while ``tenants`` aggressor processes of ``threads``
+    threads each (list storms, watch herds, 200-item ConfigMapList
+    POSTs) hammer the apiserver from the measurement's start; the solo
+    arm is phase 31's row of this call (``solo_baseline``), as in
+    ``bench.py``'s default matrix. The kernels' counts reset just before
+    and read just after (``run_path``, cold). Every pod bound in the
+    apiserver's store and by the scheduler, the aggressors' requests
+    sent (their processes without torch), APF's workload level
+    dispatching, every launch the cluster kernel's and one a solve, the
+    kernel equal to the plain version on the largest batch. ``qos_ok``
+    (contended e2e p99 within twice the solo arm's) is reported, not
+    gated."""
+    from kubernetes_tpu_torch.harness.qos import run_noisy_tenant_qos
+
+    name = "SchedulingBasic/qos"
+    solo = {"pods_per_sec": rest["pods_per_s"],
+            "p99_latency_ms": rest["e2e_ms"]["Perc99"]}
+    row, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: run_noisy_tenant_qos(
+            nodes, pods, tenants=tenants, qps=qps, max_batch=max_batch,
+            aggressor_threads=threads, wait_timeout=wait_timeout,
+            progress=log, solo_baseline=solo, device="cuda"),
+        keep=True, cold=True)
+    res = row.pop("contended")
+    row_report(name, res.device, res)
+    m = res.metrics
+    agg = row["aggressors"]
+    apf = row["apf"]
+    workload = apf["levels"]["workload"]
+    check(res.device.startswith("cuda"), f"{name} ran on the card")
+    check(m["server_pods_bound"] == m["scheduler_bound"] == pods,
+          f"{name}: the apiserver bound {m['server_pods_bound']}, the "
+          f"scheduler {m['scheduler_bound']}, of {pods}")
+    check(agg["reported"] == tenants and agg["requests"] > 0,
+          f"{name}: aggressors {agg}")
+    check(not agg["import_torch"] and not m["children_import_torch"],
+          f"{name}: a spawned child imported torch")
+    check(workload["dispatched"] > 0,
+          f"{name}: APF's workload level dispatched nothing ({apf})")
+    check(counts["cluster"] == res.solves,
+          f"{name}: cluster launches {counts['cluster']} == solves "
+          f"{res.solves}")
+    check(not m["overcommitted_nodes"], f"{name}: nodes over their "
+          f"allocatable: {m['overcommitted_nodes'][:5]}")
+    check(m["rv_regressions"] == 0, f"{name}: list resourceVersions went "
+          "backwards")
+    ps, state, ints, floats = recorder.largest()
+    st = state.clone()
+    assign = solve_mod.solve_kernel(PARAMS, ps, st, ints, floats)
+    plain_ms, err = plain_against(name, (ps, state, ints, floats),
+                                  (assign, st))
+    c2b = m["create_to_bind"]
+    log(f"  {name} {nodes} nodes / {pods} pods on {res.device}, "
+        f"{tenants} aggressor tenants x {threads} threads: contended "
+        f"{row['value']} pods/s (solo, phase 31: {row['solo_pods_per_sec']}"
+        f"); e2e p99 (Perc99) contended {m['Perc99']:.1f} ms, solo "
+        f"{solo['p99_latency_ms']:.1f} ms, p99_ratio_vs_solo "
+        f"{row['p99_ratio_vs_solo']}, qos_ok {row['qos_ok']}; create->bind "
+        f"p50 / p99 {c2b['Perc50']:.1f} / {c2b['Perc99']:.1f} ms (whole "
+        f"run {wall:.1f} s)")
+    log(f"    aggressors: {agg['requests']} requests, {agg['throttled']} "
+        f"answered 429; APF rejections {apf['rejections']}; by level "
+        + ", ".join(f"{k}: dispatched {v['dispatched']} rejected "
+                    f"{v['rejected']} peak seats {v['peak_executing_seats']}"
+                    f"/{v['capacity']}" for k, v in apf["levels"].items()))
+    log(f"    solves={res.solves} launches {counts}; kernel ms a launch "
+        f"mean {np.mean(kernel_ms):.3f}; largest batch kernel = plain "
+        f"(max_abs_err {err})")
+    if not row["qos_ok"]:
+        log("    qos_ok is false: the contended p99 is over twice the "
+            "solo arm's (reported, not gated)")
+    return {"row": row, "e2e_ms": {k: m[k] for k in
+                                   ("Perc50", "Perc90", "Perc99")},
+            "create_to_bind_ms": c2b, "pods_per_s": res.pods_per_second,
+            "duration_s": res.duration_seconds, "wall_s": wall,
+            "solves": res.solves, "launches": counts,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "err": err,
+            "host_seconds": res.seconds}
+
+
+REPLAY_ROWS = ("storm", "gangs", "tenancy")
+
+
+class _ScanKeeper:
+    """Stands in for the scan wrapper during a row: CUDA events around
+    each launch (on the what-if's stream) and copies of each launch's
+    inputs and outputs, taken on that stream without waiting for it.
+    The launch, and its count, stay the wrapper's."""
+
+    def __init__(self, scan):
+        self.scan = scan
+        self.events = []
+        self.kept = []
+
+    def __getattr__(self, name):
+        return getattr(self.scan, name)
+
+    def __call__(self, params, static, state, ints, floats, **kw):
+        before = (params, solver_mod.ScanStatic(*(t.clone() for t in static)),
+                  solver_mod.ScanState(*(t.clone() for t in state)),
+                  ints.clone(), floats.clone())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.scan(params, static, state, ints, floats, **kw)
+        end.record()
+        self.events.append((start, end))
+        self.kept.append((before, out.clone(), [t.clone() for t in state]))
+        return out
+
+
+def plain_every_launch(name, recorder):
+    """Each launch of a row (``run_path(..., keep="all")``) against the
+    plain version on the card, on copies of its inputs: assignments and
+    final state. Returns (launches held, valid pods, plain ms summed,
+    largest absolute difference), which must be 0."""
+    err, pods, ms = 0, 0, 0.0
+    for params, (ps, state, ints, floats), (assign, final), slots in zip(
+            recorder.params, recorder.inputs, recorder.outputs,
+            recorder.slots):
+        check(not slots, f"{name}: a slot-stream launch")
+        st = state.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = solve_mod.solve_plain(params, ps, st, ints, floats)
+        torch.cuda.synchronize()
+        ms += (time.perf_counter() - t0) * 1000
+        if want.numel():
+            err = max(err, int((assign - want).abs().max()))
+        err = max(err, int((final - st).abs().max()))
+        pods += int((ints[:, ps.r + 3] > 0).sum())
+    check(err == 0, f"{name}: every launch equals the plain version")
+    return len(recorder.outputs), pods, ms, err
+
+
+def scans_against_plain(name, keeper):
+    """Each what-if launch of a row against the plain scan on CPU copies
+    of its inputs: the assignments and every final table. Returns
+    (launches held, largest absolute difference), which must be 0."""
+    err = 0
+    for (params, static, state, ints, floats), out, final in keeper.kept:
+        cpu_state = solver_mod.ScanState(*(t.cpu() for t in state))
+        want = solver_mod.solve_scan_plain(
+            params, solver_mod.ScanStatic(*(t.cpu() for t in static)),
+            cpu_state, ints.cpu(), floats.cpu())
+        err = max(err, _max_err([out.cpu(), *(t.cpu() for t in final)],
+                                [want, *cpu_state]))
+    check(err == 0, f"{name}: every what-if launch equals the plain scan")
+    return len(keeper.kept), err
+
+
+def replay_row(family, seed=11, scale=1.0, time_scale=1.0, max_batch=1024,
+               wait_timeout=600.0):
+    """One replay row of phase 33 through ``run_replay_row`` on the card,
+    the kernels' counts reset just before and read just after
+    (``run_path``, cold) and every launch kept; the scan kernel's
+    what-if launches kept and counted the same way."""
+    from kubernetes_tpu_torch.workloads import run_replay_row
+
+    name = f"replay:{family}"
+    scan = solver_mod.scan_kernel
+    real_plain_scan = solver_mod.solve_scan_plain
+    keeper, plain_scans = _ScanKeeper(scan), []
+
+    def trapped_plain_scan(*args):
+        plain_scans.append(1)
+        return real_plain_scan(*args)
+
+    solver_mod.scan_kernel = keeper
+    solver_mod.solve_scan_plain = trapped_plain_scan
+    scan.reset_counts()
+    try:
+        row, counts, kernel_ms, _, recorder, wall = run_path(
+            name, lambda: run_replay_row(
+                family, seed=seed, scale=scale, time_scale=time_scale,
+                rest=True, max_batch=max_batch, wait_timeout=wait_timeout,
+                progress=log, device="cuda"),
+            keep="all", cold=True)
+    finally:
+        solver_mod.scan_kernel = scan
+        solver_mod.solve_scan_plain = real_plain_scan
+    scan_launches = scan.launches
+    LAUNCHES["scan"] += scan_launches
+    row_report(name, row["device"], row)
+    check(row["device"].startswith("cuda"), f"{name} ran on the card")
+    failed = [k for k, v in row["invariants"].items() if not v]
+    check(row["invariants_ok"], f"{name}: invariants failed: {failed}")
+    check(row.get("slo_verdicts_ok") is not False,
+          f"{name}: SLO verdicts {row.get('freshness', {}).get('slo')} "
+          f"(gated {row.get('slo_gated')})")
+    check(row["lost_pods"] == 0, f"{name}: lost {row['lost_pods']}")
+    check(len(row.get("federation_instances") or ()) >= 2
+          and "server" in row, f"{name}: not over the REST fabric")
+    check(not row["server"]["import_torch"],
+          f"{name}: the apiserver child imported torch")
+    solves = row["solves"] + row.get("blind", {}).get("solves", 0)
+    check(counts["cluster"] == solves,
+          f"{name}: cluster launches {counts['cluster']} == solves {solves}")
+    held, pods, plain_ms, err = plain_every_launch(name, recorder)
+    check(held == counts["cluster"], f"{name}: {held} launches held of "
+          f"{counts['cluster']}")
+    check(not plain_scans, f"{name}: the plain scan ran on the card path")
+    scan_held, scan_err = scans_against_plain(name, keeper)
+    check(scan_held == scan_launches == len(keeper.events),
+          f"{name}: scan launches {scan_launches}, kept {scan_held}")
+    if family == "storm":
+        check(row["preempted"] > 0, f"{name}: the storm preempted nothing")
+    if family == "tenancy":
+        auto = row["autoscaler"]
+        check(auto["scaleup_decisions"] >= 1 and scan_launches >= 1,
+              f"{name}: the autoscaler bought nothing ({auto})")
+        check(scan_launches == auto["whatif_solves"],
+              f"{name}: scan launches {scan_launches} == what-ifs "
+              f"{auto['whatif_solves']}")
+    else:
+        check(scan_launches == 0, f"{name}: {scan_launches} scan launches")
+    torch.cuda.synchronize()
+    whatif_ms = [a.elapsed_time(b) for a, b in keeper.events]
+    telemetry = row.get("telemetry") or {}
+    lat = row["latency_by_class_ms"]
+    log(f"  {name} on {row['device']}: {row['value']} pods/s against "
+        f"{row['offered_rate_pods_per_sec']} offered ({row['injected']} "
+        f"pods); arrival->bind p50 / p99 {row['p50_arrival_to_bind_ms']} / "
+        f"{row['p99_arrival_to_bind_ms']} ms; by class "
+        + ", ".join(f"{k} {v['p50']}/{v['p99']}" for k, v in lat.items())
+        + f"; preempted {row['preempted']}, expired {row['expired']}, "
+        f"lost {row['lost_pods']}; gangs {row['gangs']}; invariants "
+        f"{row['invariants']}; SLO {row.get('freshness', {}).get('slo')} "
+        f"(gated {row.get('slo_gated')}) (whole run {wall:.1f} s)")
+    log(f"    launches: cluster {counts['cluster']} (solves {solves}), "
+        f"scan {scan_launches}; every launch held against the plain version"
+        f" ({held} launches, {pods} pods, plain {plain_ms:.1f} ms summed; "
+        f"max_abs_err {err}; what-ifs {scan_held}, max_abs_err {scan_err});"
+        f" device seconds: devprof {telemetry.get('device_s', 0.0):.4f} "
+        f"(scored arm), CUDA events {sum(kernel_ms) / 1000:.4f} over every "
+        f"launch; unexpected compiles {telemetry.get('unexpected_compiles')}")
+    if family == "gangs":
+        log(f"    adjacency: {row['adjacency_ab']}; blind arm {row['blind']}")
+    if family == "tenancy":
+        log(f"    autoscaler {row['autoscaler']}; APF {row.get('apf')}; "
+            f"what-if ms {[round(x, 3) for x in whatif_ms]}")
+    return {"row": row, "launches": dict(counts, scan=scan_launches),
+            "kernel_ms": kernel_ms, "whatif_ms": whatif_ms,
+            "plain_ms": plain_ms, "held": held, "pods_held": pods,
+            "err": err, "scan_err": scan_err, "wall_s": wall}
+
+
+def phase_replays(seed=11, scale=1.0, time_scale=1.0, max_batch=1024):
+    """Phase 33: ``bench.py``'s three replay rows (``replay:storm``,
+    ``replay:gangs``, ``replay:tenancy``) at its size (``scale`` 1.0,
+    ``time_scale`` 1.0, seed 11, batches of at most 1,024) over the REST
+    fabric (``workloads/replay_bench.py``): pods arriving open loop on
+    the trace's clock and expiring into deletions. Each row must pass
+    its own verdicts (the family's invariants and the SLO gate): zero
+    lost, gangs whole, no priority inversion (storm), scored beating
+    adjacency-blind (gangs, both arms), the serve class's p99 within
+    budget with the autoscaler buying nodes (tenancy, its what-ifs on
+    the scan kernel); every cluster-kernel and scan-kernel launch held
+    against its plain version."""
+    rows = {family: replay_row(family, seed=seed, scale=scale,
+                               time_scale=time_scale, max_batch=max_batch)
+            for family in REPLAY_ROWS}
+    return {"rows": rows,
+            "err": max(r["err"] for r in rows.values()),
+            "scan_err": max(r["scan_err"] for r in rows.values())}
+
+
 
 def gpu_name_and_power() -> str:
     out = subprocess.run(
@@ -4015,7 +4325,20 @@ def main() -> None:
         "binding through BindingList")
     rest = phase_rest(res, pipeline_runs)
     errs["cluster"] = max(errs["cluster"], rest["err"])
-    log(f"  main-path launches over phases 4, 5 and 8 to 31: {LAUNCHES}")
+
+    log(f"[32] the noisy-tenant QoS row: phase 31's row again while "
+        f"{QOS_TENANTS} aggressor tenants of {QOS_THREADS} threads each "
+        "(list storms, watch herds, bulk ConfigMap abuse) hammer the "
+        "apiserver; phase 31 is the solo arm")
+    qos = phase_qos(rest)
+    errs["cluster"] = max(errs["cluster"], qos["err"])
+
+    log("[33] the replay rows over the REST fabric: storm, gangs (scored "
+        "and adjacency-blind), tenancy (the autoscaler buying nodes)")
+    replays = phase_replays()
+    errs["cluster"] = max(errs["cluster"], replays["err"])
+    errs["scan"] = max(errs["scan"], replays["scan_err"])
+    log(f"  main-path launches over phases 4, 5 and 8 to 33: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -4133,6 +4456,7 @@ def main() -> None:
         "autoscale": autoscale, "mesh": mesh, "federation": federation,
         "wide_pods": wide_pods, "wide_kernel": wide_timed,
         "sharded": sharded, "config_ha": config_ha, "rest": rest,
+        "qos": qos, "replays": replays,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

@@ -49,6 +49,8 @@ SCHEME: Dict[str, type] = {
         "ClusterRole",
         "RoleBinding",
         "ClusterRoleBinding",
+        "Secret",
+        "ConfigMap",
         "PriorityClass",
         "Lease",
     )

@@ -913,6 +913,40 @@ class ResourceQuota:
 
 
 @dataclass
+class Secret:
+    """A named map of secret values, kept as plain strings (the
+    reference carries base64 bytes on the wire)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    type: str = "Opaque"
+    data: Dict[str, str] = field(default_factory=dict)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
+class ConfigMap:
+    """A named map of configuration values."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
 class Lease:
     """The read-only view of one of the store's leases."""
 

@@ -198,7 +198,7 @@ class PodPriorityResolver(AdmissionPlugin):
             pod.spec.priority = value
         elif pod.spec.priority is None and self.store is not None:
             defaults = [
-                pc for pc in self.store.list_objects("PriorityClass")
+                pc for pc in self.store.list_priority_classes()
                 if pc.global_default
             ]
             if defaults:

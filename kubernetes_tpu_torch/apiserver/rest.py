@@ -106,6 +106,8 @@ PLURALS: Dict[str, str] = {
     "clusterroles": "ClusterRole",
     "rolebindings": "RoleBinding",
     "clusterrolebindings": "ClusterRoleBinding",
+    "secrets": "Secret",
+    "configmaps": "ConfigMap",
     "priorityclasses": "PriorityClass",
     "leases": "Lease",
 }
@@ -1372,13 +1374,24 @@ class _Handler(BaseHTTPRequestHandler):
                 # to per-item creates so the conflict is attributed
                 # and the rest of the batch still lands
                 pass
+        if admitted and kind != "Pod":
+            # one lock and one watch delivery for the batch: per-item
+            # creates would let each of a bulk abuser's 200 items queue
+            # every other writer behind it for the store's lock
+            errors = store.create_objects_each(
+                kind, [obj for _, _, obj in admitted])
+            for (i, req, _), err in zip(admitted, errors):
+                if err is None:
+                    created += 1
+                else:
+                    self.server.admission.rollback(req)
+                    failures.append({"index": i, "code": 409,
+                                     "message": err})
+            admitted = []
         for i, req, obj in admitted:
             try:
-                if kind == "Pod":
-                    store.create_pod(obj)
-                    self._trace_ingest([obj])
-                else:
-                    store.create_object(kind, obj)
+                store.create_pod(obj)
+                self._trace_ingest([obj])
                 created += 1
             except ValueError as e:
                 self.server.admission.rollback(req)

@@ -144,6 +144,8 @@ class ClusterStore:
         self._quotas: Dict[str, ResourceQuota] = {}
         self._service_accounts: Dict[str, ServiceAccount] = {}
         self._priority_classes: Dict[str, Any] = {}
+        self._secrets: Dict[str, Any] = {}
+        self._config_maps: Dict[str, Any] = {}
         # per-kind mutation counters, status writes included
         self._kind_seq: Dict[str, int] = {}
         self._freshness = freshness_metrics()
@@ -153,9 +155,12 @@ class ClusterStore:
         return str(self._rv)
 
     def kind_seq(self, kind: str) -> int:
-        """Mutations of one kind so far (the REST list cache's key)."""
-        with self._lock:
-            return self._kind_seq.get(kind, 0)
+        """Mutations of one kind so far (the REST list cache's key). Read
+        without the lock: one dict read is atomic, and a writer bumps the
+        count after its table change, inside the lock, so a reader that
+        then lists sees that change. Under a list storm, the lock's
+        queue would otherwise hold every list behind every writer."""
+        return self._kind_seq.get(kind, 0)
 
     def _bump_kind(self, kind: str) -> None:
         self._kind_seq[kind] = self._kind_seq.get(kind, 0) + 1
@@ -643,8 +648,10 @@ class ClusterStore:
         self._upsert(self._namespaces, "Namespace", ns.name, ns)
 
     def get_namespace(self, name: str) -> Optional[Namespace]:
-        with self._lock:
-            return self._namespaces.get(name)
+        """Read without the lock (one dict read is atomic): admission
+        calls it for every item of a bulk create, and the lock's queue
+        under bulk abuse would cost each item a writer's whole turn."""
+        return self._namespaces.get(name)
 
     def list_namespaces(self) -> List[Namespace]:
         with self._lock:
@@ -655,8 +662,14 @@ class ClusterStore:
                      f"{quota.namespace}/{quota.name}", quota)
 
     def list_resource_quotas(self) -> List[ResourceQuota]:
-        with self._lock:
-            return list(self._quotas.values())
+        """Read without the lock (copying a dict's values is one atomic
+        step): quota admission reads it for every pod of a bulk create."""
+        return list(self._quotas.values())
+
+    def list_priority_classes(self) -> List[Any]:
+        """Read without the lock, as ``list_resource_quotas``: priority
+        admission reads it for every pod without a priority."""
+        return list(self._priority_classes.values())
 
     def add_service_account(self, sa: ServiceAccount) -> None:
         self._upsert(self._service_accounts, "ServiceAccount",
@@ -695,6 +708,8 @@ class ClusterStore:
         "ClusterRole": ("_cluster_roles", False),
         "RoleBinding": ("_role_bindings", True),
         "ClusterRoleBinding": ("_cluster_role_bindings", False),
+        "Secret": ("_secrets", True),
+        "ConfigMap": ("_config_maps", True),
         "PriorityClass": ("_priority_classes", False),
     }
 
@@ -741,12 +756,21 @@ class ClusterStore:
         created."""
         if kind == "Event":
             return self.create_events(objs)
+        return sum(e is None for e in self.create_objects_each(kind, objs))
+
+    def create_objects_each(self, kind: str, objs: List[Any]
+                            ) -> List[Optional[str]]:
+        """``create_object`` for each object, under one lock and one watch
+        delivery: the error of each, None where it was created (a taken
+        name, or one taken earlier in ``objs``, is an error)."""
         events: List[Event] = []
+        errors: List[Optional[str]] = []
         with self._lock:
             for obj in objs:
                 table, key = self._table_key(
                     kind, obj.metadata.namespace, obj.metadata.name)
                 if key in table:
+                    errors.append(f"{kind} {key!r} already exists")
                     continue
                 if not obj.metadata.creation_timestamp:
                     obj.metadata.creation_timestamp = time.time()
@@ -755,8 +779,9 @@ class ClusterStore:
                 if kind == "Pod":
                     self._bound += bool(obj.spec.node_name)
                 events.append(Event(ADDED, kind, obj))
+                errors.append(None)
             self._dispatch(events)
-        return len(events)
+        return errors
 
     def update_object(self, kind: str, obj,
                       expect_rv: Optional[str] = None) -> Any:

@@ -20,7 +20,9 @@ QPS/Burst 5000):
   as ``BindingList`` (POST /bindings), status writes as
   ``PodStatusList`` (POST /statuses, see ``batched_status_writes``);
 - the binary codec (``apiserver/codec.py``) carries every payload but
-  the small status writes (JSON). Watch streams arrive as
+  the small status writes (JSON); a client with ``binary=False`` (an
+  ordinary tenant: the server decodes binary bodies only from the
+  control plane) sends and accepts JSON instead. Watch streams arrive as
   server-coalesced chunks (a batch of per-event pickles per read),
   decoded and delivered batch-at-a-time, to the same batch callback the
   in-process store's watch takes.
@@ -41,11 +43,13 @@ from __future__ import annotations
 
 import http.client
 import json
+import random
 import socket
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from kubernetes_tpu_torch.api.serialization import from_wire, to_wire
 from kubernetes_tpu_torch.apiserver import codec
 from kubernetes_tpu_torch.apiserver.rest import KIND_TO_PLURAL
 from kubernetes_tpu_torch.apiserver.store import ADDED, DELETED, MODIFIED, Event
@@ -283,17 +287,29 @@ class RestClusterClient:
     BREAKER_THRESHOLD = 5
 
     def __init__(self, base_url: str, token: str = "",
-                 qps: Optional[float] = None, max_retries: int = 5):
+                 qps: Optional[float] = None, max_retries: int = 5,
+                 binary: bool = True,
+                 watch_kinds: Tuple[str, ...] = SCHEDULER_WATCH_KINDS,
+                 retry_after_cap: float = RETRY_AFTER_CAP_S,
+                 retry_budget: Optional[RetryBudget] = None,
+                 retry_seed: Optional[int] = None):
         """A client of the apiserver at ``base_url`` authenticating with
         bearer ``token``; ``qps`` (None: unlimited) is the rate and the
         burst of its token bucket, charged an object at a time;
-        ``max_retries`` bounds the retries of one request."""
+        ``max_retries`` bounds the retries of one request. ``binary``
+        False speaks JSON on requests and responses; ``watch_kinds`` are
+        the kinds ``list_for_watch`` and ``watch`` cover;
+        ``retry_after_cap`` caps the wait a Retry-After asks for;
+        ``retry_budget`` replaces the default budget (32 retries,
+        refilled at 4 a second); ``retry_seed`` makes the backoff's
+        jitter repeatable."""
         self.base_url = base_url.rstrip("/")
         rest = self.base_url.split("://", 1)[1]
         host, _, port = rest.partition(":")
         self._host, self._port = host, int(port or 80)
         self.token = token
-        self.watch_kinds = SCHEDULER_WATCH_KINDS
+        self.binary = binary
+        self.watch_kinds = tuple(watch_kinds)
         self.limiter = TokenBucket(qps) if qps else None
         # keep-alive pools per lane (mirroring the server's readonly and
         # mutating in-flight lanes): checked out per request, pre-warmed
@@ -316,8 +332,13 @@ class RestClusterClient:
         # load, and a circuit breaker whose listener the scheduler wires
         # to degraded mode
         self.max_retries = int(max_retries)
-        self._backoff = Backoff(base=0.05, factor=2.0, cap=2.0, jitter=0.4)
-        self._retry_budget = RetryBudget(budget=32.0, refill_per_second=4.0)
+        self.retry_after_cap = float(retry_after_cap)
+        self._backoff = Backoff(
+            base=0.05, factor=2.0, cap=2.0, jitter=0.4,
+            rng=random.Random(retry_seed) if retry_seed is not None
+            else None)
+        self._retry_budget = retry_budget if retry_budget is not None \
+            else RetryBudget(budget=32.0, refill_per_second=4.0)
         self.breaker = CircuitBreaker(
             failure_threshold=self.BREAKER_THRESHOLD)
         # resourceVersion monotonicity watchdog: list RVs per kind must
@@ -357,7 +378,9 @@ class RestClusterClient:
             pool.shutdown(wait=False)
 
     def _headers(self, body_binary: bool) -> Dict[str, str]:
-        h: Dict[str, str] = {"Accept": codec.BINARY_CONTENT_TYPE}
+        h: Dict[str, str] = {}
+        if self.binary:
+            h["Accept"] = codec.BINARY_CONTENT_TYPE
         h["Content-Type"] = codec.BINARY_CONTENT_TYPE if body_binary \
             else "application/json"
         if self.token:
@@ -454,14 +477,17 @@ class RestClusterClient:
                           kind=e.kind)
 
     def _request(self, method: str, path: str, payload: Any = None,
-                 charge: float = 1.0, body_binary: bool = True,
+                 charge: float = 1.0, body_binary: Optional[bool] = None,
                  retries: Optional[int] = None,
                  trace_ctx: Optional[str] = None) -> Tuple[int, Any]:
         """One request with the client's discipline: the token bucket
         charged ``charge`` objects, retries on transport errors and on
         429/503 (honoring Retry-After, capped at ``retry_after_cap``)
-        within the retry budget, the circuit breaker fed. Returns
-        (status, decoded body)."""
+        within the retry budget, the circuit breaker fed. The body goes
+        binary unless ``body_binary`` (default: the client's ``binary``)
+        is False. Returns (status, decoded body)."""
+        if body_binary is None:
+            body_binary = self.binary
         if self.limiter is not None:
             self.limiter.charge(charge)
         data = None
@@ -529,7 +555,7 @@ class RestClusterClient:
                     else f"http_{resp.status}")
                 time.sleep(min(max(advertised,
                                    self._backoff.delay(attempt)),
-                               self.RETRY_AFTER_CAP_S))
+                               self.retry_after_cap))
                 attempt += 1
                 continue
             if resp.status != 503:
@@ -581,13 +607,16 @@ class RestClusterClient:
         code, payload = self._request("GET", self._path(kind, namespace))
         self._raise_for(code, payload)
         rv = int(payload["resourceVersion"])
+        items = payload["items"]
+        if items and isinstance(items[0], dict):   # the JSON wire
+            items = [from_wire(i, kind) for i in items]
         with self._rv_lock:
             last = self._last_rv.get(kind, 0)
             if rv < last:
                 self.rv_regressions.append((kind, last, rv))
             else:
                 self._last_rv[kind] = rv
-        return payload["items"], rv
+        return items, rv
 
     def _get(self, kind: str, namespace: Optional[str],
              name: str) -> Optional[Any]:
@@ -596,6 +625,8 @@ class RestClusterClient:
         if code == 404:
             return None
         self._raise_for(code, payload)
+        if isinstance(payload, dict):   # the JSON wire
+            return from_wire(payload, kind)
         return payload
 
     def _cached(self, key: str, fetch: Callable[[], Any]) -> Any:
@@ -617,6 +648,27 @@ class RestClusterClient:
 
     def get_pod(self, namespace: str, name: str) -> Optional[Any]:
         return self._get("Pod", namespace, name)
+
+    # -- nodes (the autoscaler's provisioner and cordons)
+    def get_node(self, name: str) -> Optional[Any]:
+        return self._get("Node", None, name)
+
+    def add_node(self, node) -> None:
+        """An upsert, as ``store.add_node``: a node registering again
+        after a restart must not conflict."""
+        try:
+            self.create_object("Node", node)
+        except ValueError:
+            self.update_object("Node", node)
+
+    def update_node(self, node) -> None:
+        self.update_object("Node", node)
+
+    def delete_node(self, name: str) -> None:
+        code, payload = self._request("DELETE",
+                                      self._path("Node", None, name))
+        if code >= 400 and code != 404:
+            self._raise_for(code, payload)
 
     def try_acquire_or_renew(self, name: str, holder: str, now: float,
                              duration: float) -> bool:
@@ -710,8 +762,14 @@ class RestClusterClient:
 
     def _bind_chunk(self, bindings: List[Tuple[str, str, str, str]]
                     ) -> List[Optional[Exception]]:
-        payload = {"kind": "BindingList",
-                   "items": [tuple(b) for b in bindings]}
+        if self.binary:
+            payload: Any = {"kind": "BindingList",
+                            "items": [tuple(b) for b in bindings]}
+        else:
+            payload = {"kind": "BindingList", "items": [
+                {"namespace": ns, "name": n, "uid": u,
+                 "target": {"name": node}}
+                for ns, n, u, node in bindings]}
         code, resp = self._request("POST", "/api/v1/bindings", payload,
                                    charge=len(bindings),
                                    trace_ctx=self._trace_ctx_for(
@@ -862,7 +920,9 @@ class RestClusterClient:
                 getattr(o.metadata, "namespace", None) != ns
                 for o in objs):
             ns = None
-        payload = {"kind": f"{kind}List", "items": objs}
+        payload = {"kind": f"{kind}List",
+                   "items": objs if self.binary
+                   else [to_wire(o) for o in objs]}
         code, resp = self._request(
             "POST", self._path(kind, ns), payload, charge=len(objs),
             trace_ctx=self._trace_ctx_for(
@@ -874,7 +934,19 @@ class RestClusterClient:
                       expect_rv: Optional[str] = None) -> Any:
         ns = getattr(obj.metadata, "namespace", None)
         code, payload = self._request(
-            "PUT", self._path(kind, ns, obj.metadata.name), obj)
+            "PUT", self._path(kind, ns, obj.metadata.name),
+            obj if self.binary else to_wire(obj))
+        self._raise_for(code, payload)
+        return obj
+
+    def create_object(self, kind: str, obj) -> Any:
+        ns = getattr(obj.metadata, "namespace", None)
+        code, payload = self._request(
+            "POST", self._path(kind, ns),
+            obj if self.binary else to_wire(obj),
+            trace_ctx=self._trace_ctx_for(
+                [getattr(obj.metadata, "uid", "")
+                 or f"{ns}/{obj.metadata.name}"]))
         self._raise_for(code, payload)
         return obj
 

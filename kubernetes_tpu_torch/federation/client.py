@@ -29,6 +29,7 @@ import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from kubernetes_tpu_torch.api.types import shallow_copy
+from kubernetes_tpu_torch.client.restcluster import elect_trace_uid
 from kubernetes_tpu_torch.federation.ledger import CapacityLedger
 from kubernetes_tpu_torch.federation.scheduler import (
     GANG_NAME_LABEL,
@@ -39,20 +40,6 @@ from kubernetes_tpu_torch.harness.burst import create_chunk
 from kubernetes_tpu_torch.observability.tracer import get_tracer
 
 _logger = logging.getLogger(__name__)
-
-
-def elect_trace_uid(uids) -> Optional[str]:
-    """The trace id every client elects alike: the first uid the tracer
-    samples, or None when tracing is off or none is sampled. (The copy of
-    ``client/restcluster.py::elect_trace_uid`` in the reference package;
-    it moves there when the port has the REST client.)"""
-    tracer = get_tracer()
-    if not tracer.enabled:
-        return None
-    for u in uids:
-        if u and tracer.sampled(u):
-            return u
-    return None
 
 
 class HomeMap:

@@ -59,8 +59,13 @@ def sample_percentile(samples: Sequence[float], q: float) -> float:
 
 
 def create_chunk(store, pods: Sequence[Pod]) -> None:
-    """Admit one chunk of pods in one store call."""
-    store.create_pods(list(pods))
+    """Admit one chunk of pods in one call: the in-process store's
+    ``create_pods``, or a REST client's bulk verb (a ``PodList`` POST)."""
+    create_bulk = getattr(store, "create_pods", None)
+    if create_bulk is not None:
+        create_bulk(list(pods))
+    else:
+        store.create_objects_bulk("Pod", list(pods))
 
 
 def stream_arrivals(

@@ -387,7 +387,7 @@ def run_federation_mini_cell(
             "wall_s": wall,
             "pods_per_s": stats.ever_bound / wall if wall > 0 else 0.0,
             "p50_arrival_to_bind_ms": round(
-                stats.arrival_to_bind.get("p50", 0.0) * 1000),
+                stats.arrival_to_bind["all"]["p50"] * 1000),
             "p99_arrival_to_bind_ms": round(stats.latency_p99_ms()),
             "per_cluster": per_cluster,
             "per_cluster_slo_ok": all(

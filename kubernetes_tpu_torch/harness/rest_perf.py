@@ -41,7 +41,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 from kubernetes_tpu_torch.harness.workloads import make_workload
 
@@ -75,7 +75,40 @@ def _main_hidden():
         main.__dict__.update(saved)
 
 
-def _apiserver_main(conn, wal_dir: Optional[str]) -> None:
+def grant_tenants(store, role: str, extra_tokens: Dict[str, str],
+                  rules) -> None:
+    """A ClusterRole ``role`` of ``rules`` ((verbs, resources) pairs)
+    bound to every user of ``extra_tokens``: authenticated identities
+    outside the control plane and ``system:masters``, so APF routes each
+    to the workload level as a flow of its own."""
+    from kubernetes_tpu_torch.api.types import (
+        ClusterRole,
+        ClusterRoleBinding,
+        ObjectMeta,
+        PolicyRule,
+        RBACSubject,
+        RoleRef,
+    )
+
+    store.add_cluster_role(ClusterRole(
+        metadata=ObjectMeta(name=role),
+        rules=[PolicyRule(verbs=list(verbs), resources=list(resources))
+               for verbs, resources in rules]))
+    store.add_cluster_role_binding(ClusterRoleBinding(
+        metadata=ObjectMeta(name=role + "s"),
+        subjects=[RBACSubject(kind="User", name=u)
+                  for u in extra_tokens.values()],
+        role_ref=RoleRef(kind="ClusterRole", name=role)))
+
+
+# what the noisy-tenant aggressors may do: enough for list storms, watch
+# herds and bulk ConfigMap abuse, nothing privileged
+QOS_TENANT_RULES = ((("get", "list", "watch"), ("pods", "nodes", "services")),
+                    (("get", "list", "watch", "create"), ("configmaps",)))
+
+
+def _apiserver_main(conn, wal_dir: Optional[str],
+                    extra_tokens: Optional[Dict[str, str]] = None) -> None:
     from kubernetes_tpu_torch.apiserver.rbac import provision_bootstrap_policy
     from kubernetes_tpu_torch.apiserver.rest import APIServer
     from kubernetes_tpu_torch.apiserver.store import MODIFIED, ClusterStore
@@ -106,9 +139,13 @@ def _apiserver_main(conn, wal_dir: Optional[str]) -> None:
     bind_watch = store.watch(note_binds)
     authz = provision_bootstrap_policy(store)
     authz.add_user_to_group("perf-creator", "system:masters")
-    server = APIServer(store=store, authorizer=authz,
-                       tokens={SCHEDULER_TOKEN: "system:kube-scheduler",
-                               CREATOR_TOKEN: "perf-creator"}).start()
+    tokens = {SCHEDULER_TOKEN: "system:kube-scheduler",
+              CREATOR_TOKEN: "perf-creator"}
+    if extra_tokens:
+        # the noisy-tenant row's aggressors (``harness/qos.py``)
+        tokens.update(extra_tokens)
+        grant_tenants(store, "qos-tenant", extra_tokens, QOS_TENANT_RULES)
+    server = APIServer(store=store, authorizer=authz, tokens=tokens).start()
     conn.send(server.url)
     while True:
         msg = conn.recv()
@@ -267,6 +304,10 @@ def run_workload_rest(
     wait_timeout: float = 1200.0,
     wal: bool = True,
     device=None,
+    progress: Optional[Callable[[str], None]] = None,
+    result_hook: Optional[Callable[[object, object], None]] = None,
+    extra_tokens: Optional[Dict[str, str]] = None,
+    on_measure_start: Optional[Callable[[str], Callable[[], None]]] = None,
 ):
     """Run one workload with every object crossing the REST fabric, the
     scheduler's solves on ``device`` (the CUDA card unless "cpu" is
@@ -275,7 +316,14 @@ def run_workload_rest(
     own final counts beside the scheduler's (``server_pods_bound``,
     ``scheduler_bound``, ``wal_entries``), the APF snapshot, the
     federation's instances, the watch-delivery percentiles and the
-    ``torch`` check of the children's modules (``children_import_torch``)."""
+    ``torch`` check of the children's modules (``children_import_torch``).
+
+    ``extra_tokens`` (token -> user) adds identities the apiserver
+    grants the ``qos-tenant`` role; ``on_measure_start(url)`` runs as the
+    measurement starts and returns a stopper, called once the measured
+    pods are bound (companion load: the noisy-tenant row's aggressors);
+    ``result_hook(sched, bs)`` runs before the children stop;
+    ``progress`` gets a line at each step."""
     from kubernetes_tpu_torch.api.types import Pod
     from kubernetes_tpu_torch.client.restcluster import RestClusterClient
     from kubernetes_tpu_torch.config.feature_gates import FeatureGates
@@ -312,7 +360,8 @@ def run_workload_rest(
     wal_dir = tempfile.mkdtemp(prefix="ktpu-wal-") if wal else None
 
     api_conn, api_child = ctx.Pipe()
-    api_proc = ctx.Process(target=_apiserver_main, args=(api_child, wal_dir),
+    api_proc = ctx.Process(target=_apiserver_main,
+                           args=(api_child, wal_dir, extra_tokens),
                            daemon=True)
     with _main_hidden():
         api_proc.start()
@@ -405,6 +454,7 @@ def run_workload_rest(
     created_pods = 0
     federation_instances: List[str] = []
     apf_snapshot = None
+    stop_companions: Optional[Callable[[], None]] = None
     critpath: dict = {}
     ops = make_workload(name, nodes, init_pods, measure_pods)
     try:
@@ -419,6 +469,9 @@ def run_workload_rest(
                 while time.monotonic() < deadline and \
                         sched.cache.node_count() < op["count"]:
                     time.sleep(0.02)
+                if progress:
+                    progress(f"{name}/rest: {sched.cache.node_count()} "
+                             f"nodes")
             elif opcode == "createPods":
                 collect = op.get("collectMetrics", False)
                 if collect and collector is None:
@@ -428,14 +481,21 @@ def run_workload_rest(
                                for j in range(min(200, op["count"]))]
                     samples = [p for p in samples
                                if not is_host_only(p, client)]
-                    if samples:
-                        bs.warmup(samples)
+                    warm = bs.warmup(samples) if samples else 0.0
+                    if progress and warm > 0.05:
+                        progress(f"{name}/rest: solver warmup {warm:.1f}s")
+                    if on_measure_start is not None:
+                        # companion load runs through the whole measured
+                        # window, from its first pod
+                        stop_companions = on_measure_start(url)
                     collector = ThroughputCollector(count_fn=bound_count)
                     measure_start = time.monotonic()
                     measure_wall = time.time()
                     collector.start()
                 n = run_op(i)
                 created_pods += n
+                if progress:
+                    progress(f"{name}/rest: {created_pods} pods created")
                 if not op.get("skipWaitToCompletion", False):
                     expected_bound += n
                     pump_until(expected_bound,
@@ -449,6 +509,9 @@ def run_workload_rest(
             raise TimeoutError(f"workload {name}: binds still in flight")
         duration = time.monotonic() - measure_start if measure_start \
             else 0.0
+        if stop_companions is not None:
+            stop, stop_companions = stop_companions, None
+            stop()
         # the apiserver's series folded into this process's same-name
         # counters (the APF counters the rest_availability SLO reads
         # among them), this process mirrored beside it
@@ -472,6 +535,8 @@ def run_workload_rest(
                 json.dump(fleet_doc, f)
         if slo_engine.enabled:
             slo_engine.tick()
+        if result_hook is not None:
+            result_hook(sched, bs)
         api_conn.send(("counts", measure_wall))
         if not api_conn.poll(60.0):
             raise RuntimeError("the apiserver child did not report")
@@ -481,6 +546,8 @@ def run_workload_rest(
             raise RuntimeError("the creator child did not report")
         creator_modules = cre_conn.recv()
     finally:
+        if stop_companions is not None:
+            stop_companions()
         if collector is not None:
             collector.stop()
         sched.stop()

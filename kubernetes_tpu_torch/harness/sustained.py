@@ -189,7 +189,7 @@ def run_sustained_row(pods: int = 30_000, qps: float = SUSTAINED_QPS,
         "offered_rate_pods_per_sec": offered,
         "rate_normalized_throughput": value / offered if offered else 0.0,
         "p99_arrival_to_bind_ms": stats.latency_p99_ms(),
-        "p50_arrival_to_bind_ms": stats.arrival_to_bind["p50"] * 1000,
+        "p50_arrival_to_bind_ms": stats.arrival_to_bind["all"]["p50"] * 1000,
         "nodes": n_nodes,
         "injected": stats.injected,
         "expected": stats.expected,

@@ -152,6 +152,8 @@ class SLOEngine:
         for slo in (slos if slos is not None else default_slos()):
             self._states[slo.name] = _SLOState(slo)
         self._gauges = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
 
     # -- wiring --------------------------------------------------------
     def _registries(self) -> list:
@@ -412,6 +414,33 @@ class SLOEngine:
                 tracer.dump(reason=f"slo-{name}", min_interval_s=5.0)
         except Exception:  # noqa: BLE001 — dumping is best-effort
             pass
+
+    # -- the live tick -------------------------------------------------
+    def start(self, interval_s: float = 1.0) -> None:
+        """Evaluate every ``interval_s`` on a daemon thread until
+        ``stop`` (a second start while it runs does nothing)."""
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+
+        def run() -> None:
+            while not self._stop.wait(interval_s):
+                try:
+                    self.evaluate()
+                except Exception:  # noqa: BLE001 — the loop must survive
+                    pass
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="slo-engine")
+        self._thread.start()
+
+    def stop(self) -> None:
+        """Stop the tick thread and join it."""
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+        self._thread = None
 
 
 _default: Optional[SLOEngine] = None

@@ -8,7 +8,9 @@ accounting.
   (``delete_pods``, in bulk), so capacity recycles;
 - latency from arrival: each pod is stamped when sent and its bind is
   seen on the engine's own watch, so arrival -> bind is what the
-  submitter sees;
+  submitter sees, overall and by the events' workload class;
+- tenants: with ``tenant_targets`` each tenant's arrivals and expiries
+  go through its own client (its own flow under APF);
 - at the end every injected pod is bound, pending, expired or deleted
   after its bind; any other is lost;
 - gangs: a gang with some but not all members ever bound is partial;
@@ -18,8 +20,9 @@ accounting.
 
 The target is anything with the store's surface (``create_pods``,
 ``delete_pods``, ``list_pods``, ``list_nodes``, ``watch``): the
-in-process store, or ``federation.FederatedClusterClient``, which routes
-the creates across clusters and fans the watch in from every cell.
+in-process store, a ``RestClusterClient`` (creates as ``PodList``
+POSTs), or ``federation.FederatedClusterClient``, which routes the
+creates across clusters and fans the watch in from every cell.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ class ReplayStats:
     lost: int
     offered_rate: float      # arrivals a second actually offered
     duration_s: float        # injection start to the end of the run
-    arrival_to_bind: Dict[str, float]   # count, p50, p90, p99, max (s)
+    # class ("all" and each event class) -> count, p50, p90, p99, max (s)
+    arrival_to_bind: Dict[str, Dict[str, float]]
     gangs_total: int = 0
     gangs_placed: int = 0
     gangs_partial: int = 0   # some but not all members ever bound
@@ -80,8 +84,8 @@ class ReplayStats:
     def gangs_intact(self) -> bool:
         return self.gangs_partial == 0
 
-    def latency_p99_ms(self) -> float:
-        return self.arrival_to_bind.get("p99", 0.0) * 1000
+    def latency_p99_ms(self, cls: str = "all") -> float:
+        return self.arrival_to_bind.get(cls, {}).get("p99", 0.0) * 1000
 
 
 class ReplayEngine:
@@ -93,13 +97,17 @@ class ReplayEngine:
         stats = eng.finish()   # stop the threads, account every pod
 
     ``time_scale`` stretches the trace clock (0: everything at once);
-    ``expire`` turns lifetime churn on."""
+    ``expire`` turns lifetime churn on; ``tenant_targets`` maps a tenant
+    to the client its pods are created and deleted through (the others
+    go through ``store``)."""
 
     def __init__(self, store, trace: Trace, *, time_scale: float = 1.0,
                  expire: bool = True, chunk: int = 256,
                  flush_window: float = 0.02,
+                 tenant_targets: Optional[Dict[str, object]] = None,
                  progress: Optional[Callable[[str], None]] = None):
         self.store = store
+        self.tenant_targets = tenant_targets or {}
         self.trace = trace
         self.time_scale = time_scale
         self.expire = expire
@@ -133,6 +141,13 @@ class ReplayEngine:
             t.start()
             self._threads.append(t)
 
+    def due_expiries(self) -> int:
+        """Bound pods whose lifetime has run out but whose delete is not
+        sent yet: what a caller waiting for quiet must wait for."""
+        now = time.monotonic()
+        with self._lock:
+            return sum(1 for t, _ in self._expiry_heap if t <= now)
+
     def finish(self) -> ReplayStats:
         self._stop.set()
         for t in self._threads:
@@ -146,9 +161,7 @@ class ReplayEngine:
         try:
             n = stream_arrivals(
                 ((e.t, e) for e in self.trace.events),
-                lambda events: create_chunk(self.store,
-                                            events_to_pods(events)),
-                chunk=self.chunk, time_scale=self.time_scale,
+                self._send_chunk, chunk=self.chunk, time_scale=self.time_scale,
                 flush_window=self.flush_window, stop=self._stop,
                 on_sent=self._note_sent)
             if self.progress:
@@ -157,6 +170,19 @@ class ReplayEngine:
             self._send_errors.append(f"{type(e).__name__}: {e}")
         finally:
             self.injection_done.set()
+
+    def _target_for(self, tenant: str):
+        return self.tenant_targets.get(tenant, self.store)
+
+    def _send_chunk(self, events: List[TraceEvent]) -> None:
+        if not self.tenant_targets:
+            create_chunk(self.store, events_to_pods(events))
+            return
+        by_tenant: Dict[str, List[TraceEvent]] = {}
+        for e in events:
+            by_tenant.setdefault(e.tenant, []).append(e)
+        for tenant, evs in by_tenant.items():
+            create_chunk(self._target_for(tenant), events_to_pods(evs))
 
     def _note_sent(self, event: TraceEvent, offset_s: float) -> None:
         with self._lock:
@@ -172,19 +198,25 @@ class ReplayEngine:
                     if name not in self._deleted:
                         due.append(name)
                         self._expired_sent.add(name)
-            for lo in range(0, len(due), self.chunk):
-                part = due[lo:lo + self.chunk]
-                try:
-                    self.store.delete_pods([(self._events[n].namespace, n)
+            by_tenant: Dict[str, List[str]] = {}
+            for n in due:
+                by_tenant.setdefault(self._events[n].tenant, []).append(n)
+            for tenant, names in by_tenant.items():
+                target = self._target_for(tenant)
+                for lo in range(0, len(names), self.chunk):
+                    part = names[lo:lo + self.chunk]
+                    try:
+                        target.delete_pods([(self._events[n].namespace, n)
                                             for n in part])
-                except Exception:  # noqa: BLE001 — one pod already gone
-                    # (a cell lost under a federation): the rest expire
-                    for n in part:
-                        try:
-                            self.store.delete_pod(self._events[n].namespace,
+                    except Exception:  # noqa: BLE001 — one pod already
+                        # gone (preempted, or a cell lost under a
+                        # federation): the rest expire one by one
+                        for n in part:
+                            try:
+                                target.delete_pod(self._events[n].namespace,
                                                   n)
-                        except Exception:  # noqa: BLE001
-                            pass
+                            except Exception:  # noqa: BLE001
+                                pass
             self._stop.wait(0.05)
 
     def _on_events(self, events) -> None:
@@ -227,8 +259,15 @@ class ReplayEngine:
                      if n not in live and n not in expired and n in bind]
         lost = [n for n in arrival
                 if n not in live and n not in expired and n not in bind]
-        lat = [max(0.0, t_bind - arrival[n])
-               for n, (t_bind, _) in bind.items() if n in arrival]
+        lat: Dict[str, List[float]] = {"all": []}
+        for n, (t_bind, _) in bind.items():
+            if n not in arrival:
+                continue
+            d = max(0.0, t_bind - arrival[n])
+            lat["all"].append(d)
+            cls = self._events[n].cls
+            if cls:
+                lat.setdefault(cls, []).append(d)
         gangs = self._gang_integrity(bind)
         stats = ReplayStats(
             family=self.trace.family,
@@ -247,12 +286,12 @@ class ReplayEngine:
                 else 0.0),
             duration_s=duration,
             arrival_to_bind={
-                "count": len(lat),
-                "p50": sample_percentile(lat, 0.50),
-                "p90": sample_percentile(lat, 0.90),
-                "p99": sample_percentile(lat, 0.99),
-                "max": max(lat) if lat else 0.0,
-            },
+                cls: {"count": len(vals),
+                      "p50": sample_percentile(vals, 0.50),
+                      "p90": sample_percentile(vals, 0.90),
+                      "p99": sample_percentile(vals, 0.99),
+                      "max": max(vals) if vals else 0.0}
+                for cls, vals in lat.items()},
             gangs_total=gangs[0],
             gangs_placed=gangs[1],
             gangs_partial=gangs[2],

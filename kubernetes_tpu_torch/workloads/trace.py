@@ -7,11 +7,15 @@ its requests, from a seeded generator.
 - lifetimes, when asked for, are a two-mode lognormal mixture.
 
 ``generate_trace`` is a pure function of its seed and parameters: only
-``random.Random`` is used, so the same call gives the same events.
+``random.Random`` is used, so the same call gives the same events. A
+trace round-trips exactly through JSONL (``write_trace_jsonl``,
+``load_trace_jsonl``), one header line and one line an event, the JAX
+package's format.
 """
 
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import asdict, dataclass, field
 from random import Random
@@ -86,9 +90,11 @@ def arrivals_exactly(rng: Random, count: int, span_s: float,
 class TraceEvent:
     """One pod arrival ``t`` seconds after the trace starts. A bound pod
     runs ``lifetime_s`` seconds before it is deleted (None: forever).
-    ``gang`` and ``gang_size`` make the pod a member of a coscheduled
-    gang: ``pod_dict`` stamps the ``pod-group.scheduling.k8s.io``
-    labels."""
+    ``tenant`` names the identity that submits it (a flow of its own
+    under APF); ``cls`` tags its workload class (``serve``, ``batch``,
+    ``filler``, ``gang``, ...) for latency by class. ``gang`` and
+    ``gang_size`` make the pod a member of a coscheduled gang:
+    ``pod_dict`` stamps the ``pod-group.scheduling.k8s.io`` labels."""
 
     t: float
     name: str
@@ -96,6 +102,8 @@ class TraceEvent:
     memory_mib: int
     priority: int = 0
     lifetime_s: Optional[float] = None
+    tenant: str = ""
+    cls: str = ""
     gang: str = ""
     gang_size: int = 0
     labels: Dict[str, str] = field(default_factory=dict)
@@ -105,7 +113,8 @@ class TraceEvent:
         """The event as a dict, fields at their defaults left out."""
         d = asdict(self)
         for k, default in (("priority", 0), ("lifetime_s", None),
-                           ("gang", ""), ("gang_size", 0), ("labels", {}),
+                           ("tenant", ""), ("cls", ""), ("gang", ""),
+                           ("gang_size", 0), ("labels", {}),
                            ("namespace", "default")):
             if d[k] == default:
                 del d[k]
@@ -119,6 +128,8 @@ class TraceEvent:
             memory_mib=int(d["memory_mib"]),
             priority=int(d.get("priority", 0)),
             lifetime_s=d.get("lifetime_s"),
+            tenant=d.get("tenant", ""),
+            cls=d.get("cls", ""),
             gang=d.get("gang", ""),
             gang_size=int(d.get("gang_size", 0)),
             labels=dict(d.get("labels", {})),
@@ -175,14 +186,15 @@ def generate_trace(
     lifetime_modes=((0.8, math.log(8.0), 0.8),
                     (0.2, math.log(120.0), 0.6)),
     priorities=((1.0, 0),),
+    tenants=("",),
     burst_factor: float = 3.0,
     burst_period_s: float = 10.0,
     namespace: str = "default",
 ) -> Trace:
     """``count`` arrivals over ``duration_s``: Poisson-burst offsets,
     bounded-Pareto cpu, memory proportional with jitter, lognormal-
-    mixture lifetimes (none when ``lifetime_modes`` is None) and a
-    weighted priority mix."""
+    mixture lifetimes (none when ``lifetime_modes`` is None), a
+    weighted priority mix, and ``tenants`` in turn."""
     rng = Random(seed)
     offsets = arrivals_exactly(rng, count, duration_s,
                                burst_factor=burst_factor,
@@ -205,9 +217,44 @@ def generate_trace(
             t=round(t, 6), name=f"{name_prefix}{i}", cpu_milli=cpu,
             memory_mib=mem, priority=prio,
             lifetime_s=round(life, 3) if life is not None else None,
+            tenant=tenants[i % len(tenants)] if tenants else "",
             namespace=namespace))
     return Trace(events=events, family=family, seed=seed,
                  duration_s=duration_s)
+
+
+def write_trace_jsonl(trace: Trace, path: str) -> None:
+    """A header line (family, seed, duration, event count), then one
+    compact JSON line an event in arrival order; floats print as repr,
+    so the round trip is exact."""
+    with open(path, "w") as f:
+        f.write(json.dumps({
+            "header": True, "family": trace.family, "seed": trace.seed,
+            "duration_s": trace.duration_s,
+            "events": len(trace.events)}, sort_keys=True) + "\n")
+        for e in trace.events:
+            f.write(json.dumps(e.to_dict(), sort_keys=True) + "\n")
+
+
+def load_trace_jsonl(path: str) -> Trace:
+    """The trace ``write_trace_jsonl`` wrote, events sorted by (t, name)."""
+    events: List[TraceEvent] = []
+    family, seed, duration = "", 0, 0.0
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            d = json.loads(line)
+            if d.get("header"):
+                family = d.get("family", "")
+                seed = int(d.get("seed", 0))
+                duration = float(d.get("duration_s", 0.0))
+                continue
+            events.append(TraceEvent.from_dict(d))
+    events.sort(key=lambda e: (e.t, e.name))
+    return Trace(events=events, family=family, seed=seed,
+                 duration_s=duration)
 
 
 def events_to_pods(events: Iterable[TraceEvent]) -> List[Pod]:

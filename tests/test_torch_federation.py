@@ -620,3 +620,13 @@ def test_plan_rebalance_decides_like_the_reference(seed):
         slot_rates, ns_rates, topo, dead, jax_partitions.RebalancePolicy(),
         jax_partitions.PartitionGroup(max_partitions=6))
     assert got == want
+
+
+def test_federation_client_elects_trace_ids_with_the_rest_client():
+    """The federation client's trace-id election is the REST client's own
+    function, so a cross-cluster hop elects the id the per-cluster client
+    stamps on the wire."""
+    from kubernetes_tpu_torch.client import restcluster
+    from kubernetes_tpu_torch.federation import client as fed_client
+
+    assert fed_client.elect_trace_uid is restcluster.elect_trace_uid

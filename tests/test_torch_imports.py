@@ -255,3 +255,75 @@ def test_run_workload_rest_without_device_raises(no_cuda):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_workload_rest("SchedulingBasic", nodes=2, measure_pods=4)
+
+
+SLICE_16_MODULES = (
+    "harness/qos.py", "harness/chaos_overload.py", "harness/diagfmt.py",
+    "testing/__init__.py", "testing/wrappers.py", "testing/fake_plugins.py",
+    "workloads/__init__.py", "workloads/scenarios.py",
+    "workloads/replay_bench.py", "observability/slo.py")
+
+# what the noisy-tenant aggressors and the replay apiserver child import
+SLICE_16_CHILD_MODULES = (
+    "kubernetes_tpu_torch.harness.qos",
+    "kubernetes_tpu_torch.workloads.replay_bench",
+    "kubernetes_tpu_torch.workloads.scenarios",
+    "kubernetes_tpu_torch.apiserver.rbac",
+    "kubernetes_tpu_torch.apiserver.rest",
+    "kubernetes_tpu_torch.apiserver.store",
+    "kubernetes_tpu_torch.apiserver.wal",
+    "kubernetes_tpu_torch.harness.rest_perf",
+    "kubernetes_tpu_torch.utils.gctune")
+
+
+@pytest.mark.parametrize("rel", SLICE_16_MODULES)
+def test_qos_and_replay_modules_are_checked_and_import(rel):
+    """The qos and replay rows' modules are among the sources the import
+    rule checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module.removesuffix(".__init__"))
+
+
+def test_qos_and_replay_children_import_no_torch():
+    """The aggressor processes (``qos._aggressor_main``) and the replay
+    apiserver child (``replay_bench._apiserver_main``) import nothing
+    that imports torch or numpy."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in SLICE_16_CHILD_MODULES)
+            + "from kubernetes_tpu_torch.workloads import build_family\n"
+            "build_family('tenancy', 11, 0.15)\n"
+            "bad = [m for m in ('torch', 'numpy', 'jax') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   timeout=120)
+
+
+def _qos_and_replay_entry_points():
+    """Each qos and replay entry point, called without a device."""
+    from kubernetes_tpu_torch.harness.qos import run_noisy_tenant_qos
+    from kubernetes_tpu_torch.workloads import (
+        run_replay_cell,
+        run_replay_once,
+        run_replay_row,
+    )
+
+    return {
+        "run_noisy_tenant_qos": lambda: run_noisy_tenant_qos(2, 4),
+        "run_replay_once": lambda: run_replay_once("storm", scale=0.05),
+        "run_replay_row": lambda: run_replay_row("gangs", scale=0.05),
+        "run_replay_cell": lambda: run_replay_cell(11, pods=10),
+    }
+
+
+@pytest.mark.parametrize("name", ("run_noisy_tenant_qos", "run_replay_once",
+                                  "run_replay_row", "run_replay_cell"))
+def test_qos_and_replay_entry_points_without_device_raise(no_cuda, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _qos_and_replay_entry_points()[name]()
