@@ -284,18 +284,38 @@ prints no result):
     solve, the kernel equal to the plain version on the largest batch;
     both arms' pods/s and e2e p99, create-to-bind, the p99 ratio and
     ``qos_ok`` (reported, not gated), APF's counts by level;
-33. ``bench.py``'s three replay rows at its size (``workloads/
-    replay_bench.py``; seed 11, scale 1, time scale 1, batches of at
-    most 1,024) over the REST fabric, pods arriving open loop on the
-    trace's clock and expiring into deletions: the preemption storm
-    (702 pods over 45 s on 120 nodes), the mesh gangs in a scored and an
-    adjacency-blind arm (747 over 30 s on 64), serve and batch tenants
-    with the autoscaler buying nodes from 20 (880 over 45 s): each row's
+33. ``bench.py``'s three replay rows (``workloads/replay_bench.py``;
+    seed 11, batches of at most 1,024) at scale and time scale 0.5, cut
+    from 1.0 for the script's time (the same rate a node, half the pods,
+    half the trace), over the REST fabric, pods arriving open loop on the
+    trace's clock and expiring into deletions: the preemption storm (at
+    full size 702 pods over 45 s on 120 nodes), the mesh gangs in a
+    scored and an adjacency-blind arm (747 over 30 s on 64), serve and
+    batch tenants with the autoscaler buying nodes from 20 (880 over 45
+    s): each row's
     own verdicts (zero lost, gangs whole, no priority inversion, scored
     beating blind, the serve p99 within 2 s, the SLO gate), every launch
     of the cluster kernel and of the scan kernel (the tenancy row's
     what-ifs) held against its plain version; pods/s, arrival-to-bind
     p50 / p99, preemptions, expiries, launches and device seconds.
+34. the partitioned control plane (``harness/scale.py``) at 5,000 nodes
+    / 30,000 pods, cut from ``bench.py``'s scale10x row (50,000 /
+    500,000) for this script's time: (a) the in-process arm, four store
+    partitions with a watch dispatch thread each under a hollow fleet,
+    two node-sharded replicas with batch paths of at most 1,024 pods;
+    (b) ``run_scale10x_row``: the REST arm with four partition apiserver
+    processes and a kubemark and creator child, the same arm with one
+    partition (the A/B), and the conflict cell (10 nodes / 38 pods,
+    serial, replicas racing on every pod over shared nodes, the
+    partitioned store's bind-time ledger arbitrating). Zero lost pods
+    and zero double binds in every arm, no node over its allocatable by
+    the partition servers' own counts, the conflict cell's ``ok``
+    (conflicts that happened, all resolved), no torch in any child,
+    every launch on the kernel its plan gives, one a solve, and held
+    against the plain version; a ``row {...}`` line an arm with pods/s,
+    e2e p50 / p99, the A/B speedup, the partition balance, the watch
+    streams, the stale binds refused by path, the launches by kernel and
+    the plan of each replica's pool, and the card's busy share.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -313,7 +333,7 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23 and 25 to 33) resets the kernels'
+Every main-path run (4, 5, 8 to 23 and 25 to 34) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
 Before the last line come the script's wall time, the scatters' counts
@@ -328,6 +348,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -418,7 +439,13 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+T_START = time.monotonic()
+
+
 def log(msg: str) -> None:
+    if msg[:1] == "[" and msg[1:2].isdigit():
+        # a phase header: the script's seconds so far
+        msg += f" (at {time.monotonic() - T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -997,29 +1024,37 @@ class _Recorder:
         self.slots = []     # per kept launch: a slot stream or not
         self.params = []    # with keep="all": each launch's parameters
         self.outputs = []   # with keep="all": (assignments, final state)
+        # one launch's records go into the lists together: replicas on
+        # threads of their own launch at once
+        self._lock = threading.Lock()
 
     def __getattr__(self, name):   # plan, slots_plan: the wrapper's
         return getattr(self.kernel, name)
 
     def __call__(self, params, ps, state, ints, floats, **kw):
+        kept = None
         if self.keep:
-            kept = ps
+            kept_ps = ps
             if self.keep == "all":
-                kept = ps._replace(ints=ps.ints.clone(),
-                                   f32s=ps.f32s.clone(),
-                                   sc_meta=ps.sc_meta.clone())
-                self.params.append(params)
-            self.inputs.append((kept, state.clone(), ints.clone(),
-                                floats.clone()))
-            self.slots.append(kw.get("slots", False))
+                kept_ps = ps._replace(ints=ps.ints.clone(),
+                                      f32s=ps.f32s.clone(),
+                                      sc_meta=ps.sc_meta.clone())
+            kept = (kept_ps, state.clone(), ints.clone(), floats.clone())
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = self.kernel(params, ps, state, ints, floats, **kw)
         end.record()
-        self.events.append((start, end))
-        if self.keep == "all":
-            self.outputs.append((out.clone(), state.clone()))
+        outputs = (out.clone(), state.clone()) if self.keep == "all" \
+            else None
+        with self._lock:
+            self.events.append((start, end))
+            if kept is not None:
+                self.inputs.append(kept)
+                self.slots.append(kw.get("slots", False))
+            if outputs is not None:
+                self.params.append(params)
+                self.outputs.append(outputs)
         return out
 
     def kernel_ms(self):
@@ -4135,6 +4170,160 @@ def phase_replays(seed=11, scale=1.0, time_scale=1.0, max_batch=1024):
 
 
 
+# phase 34's size: cut from bench.py's scale10x row (50,000 nodes /
+# 500,000 pods) to fit this script's time
+SCALE_NODES, SCALE_PODS, SCALE_PARTITIONS = 5000, 30000, 4
+# the depth cut that keeps the whole script under 1,100 s with phase 34:
+# the replay rows' scale and time scale together (the same rate a node,
+# half the pods and half the trace's length)
+REPLAY_SCALE = 0.5
+
+
+def scale_launches(name, recorder, lo, hi):
+    """Launches ``lo:hi`` of a recorded run (one arm's, the arms running
+    one after the other): the kernel each one's plan gives, and each
+    held against the plain version. Returns (launches by kernel, the
+    pools' plans by shape, held, valid pods, plain ms, max_abs_err)."""
+    part = _Recorder(recorder.kernel, keep="all")
+    for attr in ("inputs", "slots", "params", "outputs", "events"):
+        setattr(part, attr, getattr(recorder, attr)[lo:hi])
+    by_kernel = dict.fromkeys(LAUNCHES, 0)
+    for (ps, _, ints, floats), slots in zip(part.inputs, part.slots):
+        by_kernel[planned_kernel(ps, ints, floats, slots)] += 1
+    plans = check_plans(name, by_kernel, part)
+    held, pods, plain_ms, err = plain_every_launch(name, part)
+    check(held == hi - lo, f"{name}: {held} launches held of {hi - lo}")
+    return ({k: v for k, v in by_kernel.items() if v}, plans, held, pods,
+            plain_ms, err)
+
+
+def scale_arm_report(name, arm, launches, kernel_ms, extra=None):
+    """Check one arm's invariants and print its ``row {...}`` line."""
+    by_kernel, plans, held, pods, plain_ms, err = launches
+    check(arm["device"].startswith("cuda"), f"{name} ran on the card")
+    check(arm["lost_pods"] == 0, f"{name}: lost {arm['lost_pods']}")
+    check(arm["double_binds"] == 0 and arm["oversubscribed_nodes"] == 0,
+          f"{name}: double binds {arm['double_binds']}, nodes over "
+          f"{arm['oversubscribed_nodes']}")
+    check(sum(arm["solves"]) == sum(by_kernel.values()),
+          f"{name}: launches {by_kernel} == solves {arm['solves']}")
+    check(len(arm["federation_instances"]) >= arm["partitions"]
+          + arm["replicas"], f"{name}: federation "
+          f"{arm['federation_instances']}")
+    busy_events = sum(kernel_ms) / 1000 / arm["time_to_all_bound_s"]
+    row = {"row": name, "device": arm["device"],
+           "nodes": arm["nodes"], "pods": arm["pods"],
+           "cut": "from bench.py's 50,000 nodes / 500,000 pods",
+           "partitions": arm["partitions"], "replicas": arm["replicas"],
+           "pods_per_s": arm["pods_per_sec"],
+           "seconds": arm["time_to_all_bound_s"],
+           "e2e_ms": arm["e2e_ms"],
+           "partition_pods": arm["partition_pods"],
+           "partition_balance": arm["partition_balance"],
+           "watch_streams": arm.get("watch_streams"),
+           "stale_binds_rejected": arm["stale_binds_rejected"],
+           "replica_pools": arm["replica_pools"],
+           "launches": by_kernel, "plans": plans,
+           "launches_held": held, "pods_held": pods,
+           "plain_ms": plain_ms, "max_abs_err": err,
+           "kernel_ms_sum": sum(kernel_ms),
+           "device_busy_share": arm["device_busy_share"],
+           "device_busy_share_events": busy_events,
+           **(extra or {})}
+    ROW_REPORTS.append(row)
+    print("row " + json.dumps(row, default=str), flush=True)
+    log(f"  {name} {arm['nodes']:,} nodes / {arm['pods']:,} pods (cut "
+        f"from 50,000 / 500,000), {arm['partitions']} partitions x "
+        f"{arm['replicas']} replicas on {arm['device']}: "
+        f"{arm['pods_per_sec']:.1f} pods/s over "
+        f"{arm['time_to_all_bound_s']:.3f} s; e2e ms p50 / p99 "
+        f"{arm['e2e_ms']['p50']:.1f} / {arm['e2e_ms']['p99']:.1f}; "
+        f"partition pods {arm['partition_pods']}; pools "
+        f"{arm['replica_pools']}; launches {by_kernel} (held against "
+        f"plain, max_abs_err {err}); stale binds "
+        f"{arm['stale_binds_rejected']}; card busy "
+        f"{arm['device_busy_share']} (devprof), {busy_events:.4f} (CUDA "
+        f"events over every launch)")
+    return row
+
+
+def phase_scale(nodes=SCALE_NODES, pods=SCALE_PODS,
+                partitions=SCALE_PARTITIONS, replicas=2, max_batch=1024,
+                wait_timeout=600.0):
+    """Phase 34 (see the module's docstring): the in-process arm, then
+    ``run_scale10x_row`` over REST, each under ``run_path`` with every
+    launch kept and held against the plain version."""
+    from kubernetes_tpu_torch.harness.scale import (
+        run_scale10x_row,
+        run_scale_arm_inproc,
+    )
+
+    name = "scale:inproc"
+    arm, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: run_scale_arm_inproc(
+            nodes=nodes, pods=pods, partitions=partitions,
+            replicas=replicas, use_batch=True, max_batch=max_batch,
+            device="cuda", wait_timeout=wait_timeout, progress=log),
+        keep="all", kernel=None)
+    launches = scale_launches(name, recorder, 0, len(recorder.inputs))
+    check(launches[0] == {k: v for k, v in counts.items() if v},
+          f"{name}: counted {counts}, planned {launches[0]}")
+    inproc = scale_arm_report(name, arm, launches, kernel_ms,
+                              {"wall_s": wall})
+
+    name = "scale10x"
+    row, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: run_scale10x_row(
+            nodes=nodes, pods=pods, partitions=partitions,
+            replicas=replicas, max_batch=max_batch, device="cuda",
+            wait_timeout=wait_timeout, progress=log),
+        keep="all", kernel=None)
+    arms = row["arms"]
+    cut = sum(arms["partitioned"]["solves"])
+    total = len(recorder.inputs)
+    check(sum(counts.values()) == total == cut
+          + sum(arms["single"]["solves"]),
+          f"{name}: launches {counts}, kept {total}, solves "
+          f"{arms['partitioned']['solves']} + {arms['single']['solves']}")
+    ab = row["ab"]
+    reports, planned = {}, dict.fromkeys(counts, 0)
+    for arm_name, lo, hi in (("partitioned", 0, cut),
+                             ("single", cut, total)):
+        arm = arms[arm_name]
+        check(arm["server_pods_bound"] == arm["server_pods_total"] == pods,
+              f"{name}/{arm_name}: the partition servers hold "
+              f"{arm['server_pods_total']} pods, {arm['server_pods_bound']} "
+              f"bound, of {pods}")
+        check(arm["rv_regressions"] == 0,
+              f"{name}/{arm_name}: list versions went backwards")
+        reports[arm_name] = scale_arm_report(
+            f"{name}/{arm_name}", arm, scale_launches(
+                f"{name}/{arm_name}", recorder, lo, hi),
+            kernel_ms[lo:hi],
+            {"speedup": ab["speedup"], "sharding_pays": ab["sharding_pays"],
+             "created": arm["created"]})
+        for k, v in reports[arm_name]["launches"].items():
+            planned[k] += v
+    check(planned == counts, f"{name}: counted {counts}, planned {planned}")
+    cell = row["conflict_cell"]
+    check(cell["ok"] and cell["conflicts_total"] > 0,
+          f"{name}: the conflict cell {cell}")
+    check(row["invariants"] == {"lost_pods": 0, "double_binds": 0},
+          f"{name}: invariants {row['invariants']}")
+    check(not row["children_import_torch"],
+          f"{name}: a spawned child imported torch")
+    log(f"  {name}: A/B {ab['partitioned_pods_per_sec']:.1f} against "
+        f"{ab['single_partition_pods_per_sec']:.1f} pods/s, speedup "
+        f"{ab['speedup']:.3f} (sharding_pays {ab['sharding_pays']}); "
+        f"conflict cell {cell}; whole row {wall:.1f} s")
+    return {"inproc": inproc, "partitioned": reports["partitioned"],
+            "single": reports["single"], "ab": ab, "conflict_cell": cell,
+            "wall_s": wall,
+            "err": max(r["max_abs_err"] for r in
+                       (inproc, reports["partitioned"],
+                        reports["single"]))}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4269,8 +4458,8 @@ def main() -> None:
     log("[24] the scan kernel against the plain scan on seeded what-ifs")
     errs["scan"] = phase_scan_compare()
 
-    log(f"[25] the autoscale row: {AUTOSCALE_BURST:,} pods from a fifth "
-        f"of the nodes, boot 1 s")
+    log(f"[25] the autoscale row: {AUTOSCALE_BURST:,} pods (cut from "
+        f"{AUTOSCALE_ROW_BURST:,}) from a fifth of the nodes, boot 1 s")
     autoscale = phase_autoscale()
     scan_fixed = scan_batch(*autoscale_whatif(), "cuda")
     scan_ms, scan_plain_ms, err, scan_pods = time_scan(
@@ -4333,12 +4522,24 @@ def main() -> None:
     qos = phase_qos(rest)
     errs["cluster"] = max(errs["cluster"], qos["err"])
 
-    log("[33] the replay rows over the REST fabric: storm, gangs (scored "
-        "and adjacency-blind), tenancy (the autoscaler buying nodes)")
-    replays = phase_replays()
+    log(f"[33] the replay rows over the REST fabric at scale and time scale "
+        f"{REPLAY_SCALE} (cut from 1.0): storm, gangs (scored and "
+        f"adjacency-blind), tenancy (the autoscaler buying nodes)")
+    replays = phase_replays(scale=REPLAY_SCALE, time_scale=REPLAY_SCALE)
     errs["cluster"] = max(errs["cluster"], replays["err"])
     errs["scan"] = max(errs["scan"], replays["scan_err"])
-    log(f"  main-path launches over phases 4, 5 and 8 to 33: {LAUNCHES}")
+
+    log(f"[34] the partitioned control plane at {SCALE_NODES:,} nodes / "
+        f"{SCALE_PODS:,} pods (cut from bench.py's 50,000 / 500,000): the "
+        f"in-process arm ({SCALE_PARTITIONS} partitions, 2 node-sharded "
+        f"replicas, batches of 1,024), then the scale10x row over REST "
+        f"({SCALE_PARTITIONS} partition apiservers and 1, a hollow fleet, "
+        f"the conflict cell)")
+    scale_phase = phase_scale()
+    for k in {k for arm in ("inproc", "partitioned", "single")
+              for k in scale_phase[arm]["launches"]}:
+        errs[k] = max(errs[k], scale_phase["err"])
+    log(f"  main-path launches over phases 4, 5 and 8 to 34: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -4456,7 +4657,7 @@ def main() -> None:
         "autoscale": autoscale, "mesh": mesh, "federation": federation,
         "wide_pods": wide_pods, "wide_kernel": wide_timed,
         "sharded": sharded, "config_ha": config_ha, "rest": rest,
-        "qos": qos, "replays": replays,
+        "qos": qos, "replays": replays, "scale": scale_phase,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

@@ -33,6 +33,7 @@ SCHEME: Dict[str, type] = {
         "Pod",
         "Node",
         "Service",
+        "Endpoints",
         "ReplicaSet",
         "ReplicationController",
         "StatefulSet",

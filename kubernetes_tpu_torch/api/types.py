@@ -677,6 +677,30 @@ class Service:
 
 
 @dataclass
+class EndpointAddress:
+    ip: str = ""
+    node_name: str = ""
+    target_pod: str = ""  # "ns/name" of the backing pod
+
+
+@dataclass
+class Endpoints:
+    """A Service's backend addresses (what the proxier routes to)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    addresses: List[EndpointAddress] = field(default_factory=list)
+    ports: List[ServicePort] = field(default_factory=list)
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+
+@dataclass
 class ReplicaSet:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     selector: Optional[LabelSelector] = None

@@ -42,11 +42,17 @@ amortized server-side too: selector-free binary list responses are
 served from a per-kind pre-encoded cache, and authn/authz resolution
 sits behind a decision cache invalidated by RBAC object events.
 
+A server may be one partition of the partitioned control plane
+(``APIServer(partition=(index, count))``, ``apiserver/partition.py``): its
+store holds only that partition's keyspace, and the exempt
+``/api/v1/partitiontopology`` document names the partition, so a
+partition-aware client checks its routing against it.
+
 Not served here: admission webhooks, custom resources, versioned group
 routes (every kind is served at ``v1`` only), service-account tokens
 and client certificates, pods' exec, log and port-forward
 subresources, Service cluster IP allocation, JSON Patch, read-only
-replicas and the partition routes.
+replicas, and the live-resharding and subscription routes.
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ PLURALS: Dict[str, str] = {
     "pods": "Pod",
     "nodes": "Node",
     "services": "Service",
+    "endpoints": "Endpoints",
     "replicasets": "ReplicaSet",
     "replicationcontrollers": "ReplicationController",
     "statefulsets": "StatefulSet",
@@ -356,7 +363,7 @@ class _Handler(BaseHTTPRequestHandler):
     # blind the metrics scraper, and (via ADMIN_ROUTES) never lock out
     # the debug surfaces mid-overload.
     _EXEMPT_PATHS = ("/healthz", "/livez", "/readyz",
-                     "/metrics")
+                     "/metrics", "/api/v1/partitiontopology")
 
     def _admission_exempt(self, path: str) -> bool:
         return path in self.ADMIN_ROUTES or path in self._EXEMPT_PATHS
@@ -1035,6 +1042,16 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+            return
+        if u.path == "/api/v1/partitiontopology":
+            # which partition of the partitioned control plane this
+            # server is: a client with misordered URLs fails its check
+            # instead of reading half-empty partitions. Exempt like the
+            # probes: it must answer mid-overload too
+            self._send_json(200, {
+                "partition": self.server.partition_index,
+                "partitions": self.server.partition_count,
+            })
             return
         if u.path in ("/api", "/apis") or self._is_discovery_path(u.path):
             self._serve_discovery(u.path)
@@ -1965,8 +1982,13 @@ class APIServer(ThreadingHTTPServer):
         max_readonly_inflight: Optional[int] = 400,
         max_mutating_inflight: Optional[int] = 200,
         flow_control: Optional[str] = "default",
+        partition: Optional[Tuple[int, int]] = None,
     ):
         super().__init__((host, port), _Handler)
+        # (index, count) when this server is one partition of the
+        # partitioned control plane, its store holding only that
+        # partition's keyspace; (0, 1) is the unpartitioned server
+        self.partition_index, self.partition_count = partition or (0, 1)
         # pre-encoded list responses (binary, selector-free), validated
         # by the store's per-kind mutation counter: a scheduler relist
         # of 5k nodes while only pods churn costs one cache hit, not a

@@ -1,5 +1,5 @@
 """In-process cluster store for pods, nodes, PodDisruptionBudgets, the
-controller objects SelectorSpread reads (Services,
+controller objects SelectorSpread reads (Services, Endpoints,
 ReplicationControllers, ReplicaSets, StatefulSets), the storage objects
 (PersistentVolumeClaims, PersistentVolumes, StorageClasses, CSINodes)
 and Events, with synchronous watch delivery, plus the scheduler's event
@@ -27,7 +27,15 @@ priority classes, resource quotas). Every dispatched event carries its
 commit time (``ts``, the watch-delivery SLI's anchor) and the sampled
 trace context of the request that committed it (``origin``);
 ``kind_seq`` counts each kind's mutations, status writes included, for
-the server's pre-encoded list cache."""
+the server's pre-encoded list cache. ``mutate_object`` is a read, modify,
+write with a resourceVersion precondition (the kubelet's node status
+writes).
+
+As one partition of a ``PartitionedStore`` (``apiserver/partition.py``) a
+store takes its versions from a shared counter (``rv_source``), and a
+slice of the keyspace moves between partitions over the silent
+placement channel (``adopt_objects``, ``evict_objects``): no watcher
+hears the move, the WAL (``watch_silent``) does."""
 
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from kubernetes_tpu_torch.api.types import (
     ClusterRole,
     ClusterRoleBinding,
     CSINode,
+    Endpoints,
     Lease,
     Namespace,
     ObjectMeta,
@@ -114,9 +123,13 @@ class WatchHandle:
 
 
 class ClusterStore:
-    def __init__(self):
+    def __init__(self, rv_source: Optional[Callable[[], int]] = None):
         self._lock = threading.RLock()
         self._rv = 0
+        # a shared resourceVersion allocator (the partitioned store hands
+        # each partition the same counter, so versions stay unique and
+        # comparable across partitions); None: this store counts alone
+        self._rv_source = rv_source
         self._pods: Dict[str, Pod] = {}
         self._nodes: Dict[str, Node] = {}
         self._pdbs: Dict[str, PodDisruptionBudget] = {}
@@ -125,6 +138,7 @@ class ClusterStore:
         self._storage_classes: Dict[str, StorageClass] = {}
         self._csi_nodes: Dict[str, CSINode] = {}
         self._services: Dict[str, Service] = {}
+        self._endpoints: Dict[str, Endpoints] = {}
         self._rcs: Dict[str, ReplicationController] = {}
         self._rss: Dict[str, ReplicaSet] = {}
         self._sss: Dict[str, StatefulSet] = {}
@@ -149,9 +163,17 @@ class ClusterStore:
         # per-kind mutation counters, status writes included
         self._kind_seq: Dict[str, int] = {}
         self._freshness = freshness_metrics()
+        # observers of the silent placement channel (``adopt_objects``,
+        # ``evict_objects``): the WAL hears a slice move, watchers do not
+        self._silent_sinks: List[Callable[[List[Event]], None]] = []
 
     def _next_rv(self) -> str:
-        self._rv += 1
+        if self._rv_source is not None:
+            # from the shared counter, remembered here: ``current_rv``
+            # stays the newest version this store committed
+            self._rv = self._rv_source()
+        else:
+            self._rv += 1
         return str(self._rv)
 
     def kind_seq(self, kind: str) -> int:
@@ -199,6 +221,68 @@ class ClusterStore:
         with self._lock:
             if handle in self._watches:
                 self._watches.remove(handle)
+
+    # ------------------------------------------------------------------
+    # the silent placement channel (a partition's slice moving between
+    # stores): the objects did not change, only where they live, so
+    # watchers hear nothing, and the WAL hears every move
+    def watch_silent(self, batch_fn: Callable[[List[Event]], None]
+                     ) -> "_SilentHandle":
+        """``batch_fn`` hears each ``adopt_objects`` (MODIFIED events) and
+        ``evict_objects`` (DELETED events) batch; returns a stop handle."""
+        with self._lock:
+            self._silent_sinks.append(batch_fn)
+        return _SilentHandle(self, batch_fn)
+
+    def _dispatch_silent(self, events: List[Event]) -> None:
+        for e in events:
+            # the REST list cache keys on the kind's mutation count
+            self._bump_kind(e.kind)
+        for fn in list(self._silent_sinks):
+            fn(events)
+
+    def adopt_objects(self, kind: str, objs: List[Any]) -> int:
+        """Insert objects with their resourceVersions kept and no watch
+        event: the receiving half of a slice move. A stored entry is
+        replaced only by an equal or newer version, and this store's
+        later versions exceed every adopted one. Returns how many were
+        adopted."""
+        events: List[Event] = []
+        with self._lock:
+            for obj in objs:
+                table, key = self._table_key(
+                    kind, obj.metadata.namespace, obj.metadata.name)
+                rv = _int_rv(obj)
+                cur = table.get(key)
+                if cur is not None and _int_rv(cur) > rv:
+                    continue
+                table[key] = obj
+                if kind == "Pod":
+                    self._bound += (bool(obj.spec.node_name)
+                                    - bool(cur is not None
+                                           and cur.spec.node_name))
+                self._rv = max(self._rv, rv)
+                events.append(Event(MODIFIED, kind, obj))
+            self._dispatch_silent(events)
+        return len(events)
+
+    def evict_objects(self, kind: str, keys: List[Tuple[str, str]]
+                      ) -> List[Any]:
+        """Remove (namespace, name) objects with no watch event: the
+        source half of a slice move. Returns the evicted objects."""
+        events: List[Event] = []
+        out: List[Any] = []
+        with self._lock:
+            for namespace, name in keys:
+                table, key = self._table_key(kind, namespace, name)
+                obj = table.pop(key, None)
+                if obj is not None:
+                    if kind == "Pod":
+                        self._bound -= bool(obj.spec.node_name)
+                    out.append(obj)
+                    events.append(Event(DELETED, kind, obj))
+            self._dispatch_silent(events)
+        return out
 
     # ------------------------------------------------------------------
     # nodes
@@ -471,6 +555,25 @@ class ClusterStore:
     def list_services(self, namespace: str) -> List[Service]:
         return self._in_namespace(self._services, namespace)
 
+    def delete_service(self, namespace: str, name: str) -> None:
+        self.delete_object("Service", namespace, name)
+
+    def upsert_endpoints(self, ep: Endpoints) -> None:
+        self._upsert(self._endpoints, "Endpoints",
+                     f"{ep.namespace}/{ep.name}", ep)
+
+    def delete_endpoints(self, namespace: str, name: str) -> None:
+        self.delete_object("Endpoints", namespace, name)
+
+    def get_endpoints(self, namespace: str, name: str
+                      ) -> Optional[Endpoints]:
+        with self._lock:
+            return self._endpoints.get(f"{namespace}/{name}")
+
+    def list_endpoints(self) -> List[Endpoints]:
+        with self._lock:
+            return list(self._endpoints.values())
+
     def add_replication_controller(self, rc: ReplicationController) -> None:
         self._upsert(self._rcs, "ReplicationController",
                      f"{rc.namespace}/{rc.name}", rc)
@@ -692,6 +795,7 @@ class ClusterStore:
         "Pod": ("_pods", True),
         "Node": ("_nodes", False),
         "Service": ("_services", True),
+        "Endpoints": ("_endpoints", True),
         "ReplicaSet": ("_rss", True),
         "ReplicationController": ("_rcs", True),
         "StatefulSet": ("_sss", True),
@@ -807,6 +911,33 @@ class ClusterStore:
             self._dispatch([Event(MODIFIED, kind, obj, old)])
             return obj
 
+    def mutate_object(self, kind: str, namespace: str, name: str,
+                      mutate: Callable[[Any], Any], retries: int = 8):
+        """Read, modify, write with a resourceVersion precondition:
+        ``mutate`` edits a copy (metadata and status copied too) and may
+        return False to write nothing; a conflicting writer costs a
+        retry, not a lost field. Returns the stored object, or None when
+        it is missing or ``mutate`` declined; ``ConflictError`` once
+        ``retries`` are spent."""
+        for _ in range(retries):
+            current = self.get_object(kind, namespace, name)
+            if current is None:
+                return None
+            updated = shallow_copy(current)
+            updated.metadata = shallow_copy(current.metadata)
+            if hasattr(current, "status"):
+                updated.status = shallow_copy(current.status)
+            if mutate(updated) is False:
+                return None
+            try:
+                return self.update_object(
+                    kind, updated,
+                    expect_rv=current.metadata.resource_version)
+            except ConflictError:
+                continue
+        raise ConflictError(
+            f"{kind} {namespace}/{name}: mutate_object retries exhausted")
+
     def delete_object(self, kind: str, namespace: str, name: str) -> bool:
         """Delete one object (a DELETED event carrying a copy stamped with
         a new resourceVersion); False when it is not stored."""
@@ -886,6 +1017,23 @@ class ClusterStore:
         with self._lock:
             lease = self._leases.get(name)
             return lease.holder if lease else None
+
+
+def _int_rv(obj) -> int:
+    try:
+        return int(obj.metadata.resource_version or 0)
+    except (TypeError, ValueError):
+        return 0
+
+
+class _SilentHandle:
+    def __init__(self, store: ClusterStore, fn):
+        self._store, self._fn = store, fn
+
+    def stop(self) -> None:
+        with self._store._lock:
+            if self._fn in self._store._silent_sinks:
+                self._store._silent_sinks.remove(self._fn)
 
 
 class _Lease:

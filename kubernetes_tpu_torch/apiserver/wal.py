@@ -61,6 +61,10 @@ class WalHandle:
             target=self._writer_loop, daemon=True, name="wal-writer")
         self._writer.start()
         self._watch = store.watch(self._on_events)
+        # the silent placement channel (a partition's slice moving in or
+        # out): no watcher hears it, but a restore that missed it would
+        # lose the slice or bring it back on the wrong partition
+        self._silent_watch = store.watch_silent(self._on_events)
 
     # ------------------------------------------------------------------
     def _on_events(self, events) -> None:
@@ -146,6 +150,7 @@ class WalHandle:
     def close(self) -> None:
         """Stop logging, write out what is queued, close the log."""
         self._watch.stop()
+        self._silent_watch.stop()
         self.drain()
         self._queue.put(None)
         self._writer.join(timeout=5.0)

@@ -1,5 +1,6 @@
 """Shared informers and listers over the store's batched watch (client-
-go's informer machinery, for pods and nodes). ``start`` replays
+go's informer machinery: pods and nodes through the store's typed list
+methods, any other kind through ``list_objects``). ``start`` replays
 each informer's initial list as ADDED events, then the store's watch
 batches are queued and drained by one dispatch thread, so handlers run
 in commit order and never under the store's lock. Listers read the
@@ -146,8 +147,15 @@ class SharedInformerFactory:
         with self._cond:
             inf = self._informers.get(kind)
             if inf is None:
-                inf = SharedInformer(kind, getattr(self._store,
-                                                   _KIND_LISTS[kind]))
+                # a kind without a typed list method (or a store-shaped
+                # client without it) lists through the generic verb
+                list_name = _KIND_LISTS.get(kind)
+                list_fn = getattr(self._store, list_name, None) \
+                    if list_name is not None else None
+                if list_fn is None:
+                    list_fn = (
+                        lambda kind=kind: self._store.list_objects(kind))
+                inf = SharedInformer(kind, list_fn)
                 self._informers[kind] = inf
                 if self._thread is not None:
                     self._pending_sync.append(inf)

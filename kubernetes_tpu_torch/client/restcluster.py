@@ -34,9 +34,18 @@ streams each kind from its list's version, so no event is missed
 between the two and none the lists already hold is delivered again.
 
 Reads the scheduler consults once per cycle (services, replica sets,
-PDBs, ...) are served from short-TTL caches. One apiserver endpoint:
-the JAX package's partitioned, elastic-topology and read-replica
-routing are not ported.
+PDBs, ...) are served from short-TTL caches.
+
+Partitioned control plane (``partition_urls``, one apiserver a store
+partition, ``apiserver/partition.py``): single-object calls route by
+``partition_for``, lists fan in from every partition a kind can live
+in, bulk verbs (``BindingList``, ``PodStatusList``, ``{Kind}List``)
+split by partition and go out at once on a shared executor, and the
+watch opens one stream a (kind, partition), each listed, resumed and
+relisted on its own partition's resourceVersion.
+``check_partition_topology`` fails loudly on URLs in the wrong order.
+Not here: the elastic topology (re-routing on a topology epoch) and
+read replicas.
 """
 
 from __future__ import annotations
@@ -51,6 +60,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from kubernetes_tpu_torch.api.serialization import from_wire, to_wire
 from kubernetes_tpu_torch.apiserver import codec
+from kubernetes_tpu_torch.apiserver.partition import (
+    CompositeCursor,
+    partition_for,
+    partitions_for,
+)
 from kubernetes_tpu_torch.apiserver.rest import KIND_TO_PLURAL
 from kubernetes_tpu_torch.apiserver.store import ADDED, DELETED, MODIFIED, Event
 from kubernetes_tpu_torch.client.backoff import (
@@ -273,7 +287,8 @@ class _ConnPool:
 
 
 class RestClusterClient:
-    """The store's contract over REST, against one apiserver."""
+    """The store's contract over REST, against one apiserver or one a
+    store partition."""
 
     # past this size, a bulk bind splits across two pipelined requests:
     # the client pickles chunk k+1 while the server applies chunk k
@@ -292,7 +307,8 @@ class RestClusterClient:
                  watch_kinds: Tuple[str, ...] = SCHEDULER_WATCH_KINDS,
                  retry_after_cap: float = RETRY_AFTER_CAP_S,
                  retry_budget: Optional[RetryBudget] = None,
-                 retry_seed: Optional[int] = None):
+                 retry_seed: Optional[int] = None,
+                 partition_urls: Optional[List[str]] = None):
         """A client of the apiserver at ``base_url`` authenticating with
         bearer ``token``; ``qps`` (None: unlimited) is the rate and the
         burst of its token bucket, charged an object at a time;
@@ -302,31 +318,42 @@ class RestClusterClient:
         ``retry_after_cap`` caps the wait a Retry-After asks for;
         ``retry_budget`` replaces the default budget (32 retries,
         refilled at 4 a second); ``retry_seed`` makes the backoff's
-        jitter repeatable."""
-        self.base_url = base_url.rstrip("/")
-        rest = self.base_url.split("://", 1)[1]
-        host, _, port = rest.partition(":")
-        self._host, self._port = host, int(port or 80)
+        jitter repeatable. ``partition_urls`` (the apiserver of each
+        store partition, in partition order) makes the client
+        partition-aware; ``base_url`` is then the first."""
+        urls = [u.rstrip("/") for u in (partition_urls or [base_url])]
+        self.base_url = urls[0]
+        self.partition_urls = urls
+        self.partitions = len(urls)
+        self._endpoints: List[Tuple[str, int]] = []
+        for u in urls:
+            host, _, port = u.split("://", 1)[1].partition(":")
+            self._endpoints.append((host, int(port or 80)))
+        self._host, self._port = self._endpoints[0]
         self.token = token
         self.binary = binary
         self.watch_kinds = tuple(watch_kinds)
         self.limiter = TokenBucket(qps) if qps else None
-        # keep-alive pools per lane (mirroring the server's readonly and
-        # mutating in-flight lanes): checked out per request, pre-warmed
-        # on failure so retries ride an established connection
-        self._pools: Dict[str, _ConnPool] = {
-            lane: _ConnPool(self._host, self._port)
+        # keep-alive pools per (partition, lane), the lanes mirroring the
+        # server's readonly and mutating in-flight lanes: checked out per
+        # request, pre-warmed on failure so retries ride an established
+        # connection
+        self._pools: Dict[Tuple[int, str], _ConnPool] = {
+            (p, lane): _ConnPool(host, port)
+            for p, (host, port) in enumerate(self._endpoints)
             for lane in ("ro", "rw")}
         self._pool_init_lock = threading.Lock()
         self._bind_pool = None
+        self._fan_pool = None
         # active batched-status-write buffers per thread
         self._status_buffers = threading.local()
         self._ttl_cache: Dict[str, tuple] = {}
         self._stopping = threading.Event()
         self._watch_threads: List[threading.Thread] = []
-        # each kind's live stream, so a stop can sever one blocked in a
-        # read
-        self._stream_conns: Dict[str, http.client.HTTPConnection] = {}
+        # each (kind, partition)'s live stream, so a stop can sever one
+        # blocked in a read
+        self._stream_conns: Dict[Tuple[str, int],
+                                 http.client.HTTPConnection] = {}
         # resilience stack: jittered exponential backoff between retries,
         # a per-client retry budget so a sick server costs bounded extra
         # load, and a circuit breaker whose listener the scheduler wires
@@ -341,10 +368,11 @@ class RestClusterClient:
             else RetryBudget(budget=32.0, refill_per_second=4.0)
         self.breaker = CircuitBreaker(
             failure_threshold=self.BREAKER_THRESHOLD)
-        # resourceVersion monotonicity watchdog: list RVs per kind must
-        # never regress; violations are recorded, never raised
+        # resourceVersion monotonicity watchdog: list RVs per (kind,
+        # partition) must never regress; violations are recorded, never
+        # raised
         self._rv_lock = threading.Lock()
-        self._last_rv: Dict[str, int] = {}
+        self._last_rv: Dict[Tuple[str, int], int] = {}
         self.rv_regressions: List[Tuple[str, int, int]] = []
         # wire-version pin: the codec version this client speaks, stamped
         # on every request; the server echoes the pinned min(server,
@@ -373,9 +401,11 @@ class RestClusterClient:
         self._stop_watches()
         self._drop_conn()
         with self._pool_init_lock:
-            pool, self._bind_pool = self._bind_pool, None
-        if pool is not None:
-            pool.shutdown(wait=False)
+            pools = (self._bind_pool, self._fan_pool)
+            self._bind_pool = self._fan_pool = None
+        for pool in pools:
+            if pool is not None:
+                pool.shutdown(wait=False)
 
     def _headers(self, body_binary: bool) -> Dict[str, str]:
         h: Dict[str, str] = {}
@@ -479,13 +509,15 @@ class RestClusterClient:
     def _request(self, method: str, path: str, payload: Any = None,
                  charge: float = 1.0, body_binary: Optional[bool] = None,
                  retries: Optional[int] = None,
-                 trace_ctx: Optional[str] = None) -> Tuple[int, Any]:
-        """One request with the client's discipline: the token bucket
-        charged ``charge`` objects, retries on transport errors and on
-        429/503 (honoring Retry-After, capped at ``retry_after_cap``)
-        within the retry budget, the circuit breaker fed. The body goes
-        binary unless ``body_binary`` (default: the client's ``binary``)
-        is False. Returns (status, decoded body)."""
+                 trace_ctx: Optional[str] = None,
+                 partition: int = 0) -> Tuple[int, Any]:
+        """One request to ``partition``'s apiserver with the client's
+        discipline: the token bucket charged ``charge`` objects, retries
+        on transport errors and on 429/503 (honoring Retry-After, capped
+        at ``retry_after_cap``) within the retry budget, the circuit
+        breaker fed. The body goes binary unless ``body_binary``
+        (default: the client's ``binary``) is False. Returns (status,
+        decoded body)."""
         if body_binary is None:
             body_binary = self.binary
         if self.limiter is not None:
@@ -494,7 +526,8 @@ class RestClusterClient:
         if payload is not None:
             data = codec.encode(payload) if body_binary \
                 else json.dumps(payload).encode()
-        pool = self._pools["ro" if method in ("GET", "HEAD") else "rw"]
+        pool = self._pools[(partition,
+                            "ro" if method in ("GET", "HEAD") else "rw")]
         headers = self._headers(body_binary)
         if trace_ctx:
             # retries re-send the SAME context: a retried hop stays one
@@ -600,28 +633,50 @@ class RestClusterClient:
     def _list(self, kind: str, namespace: Optional[str] = None) -> List[Any]:
         return self._list_with_rv(kind, namespace)[0]
 
-    def _list_with_rv(self, kind: str, namespace: Optional[str] = None
+    def _pk(self, kind: str, namespace: Optional[str],
+            name: Optional[str]) -> int:
+        """The partition an object lives in."""
+        return partition_for(kind, namespace, name, self.partitions)
+
+    def _list_with_rv(self, kind: str, namespace: Optional[str] = None,
+                      partition: Optional[int] = None
                       ) -> Tuple[List[Any], int]:
-        """A list and the resourceVersion it is consistent at; the
-        monotonicity watchdog records a version that went backwards."""
-        code, payload = self._request("GET", self._path(kind, namespace))
+        """A list and the resourceVersion it is consistent at, from
+        ``partition``, or fanned in from every partition the kind can
+        live in (the version is then the largest). The monotonicity
+        watchdog records a partition's version that went backwards."""
+        if partition is None:
+            parts = partitions_for(kind, self.partitions, namespace)
+            if len(parts) > 1:
+                got = self._fan_out().map(
+                    lambda p: self._list_with_rv(kind, namespace, p), parts)
+                objs: List[Any] = []
+                rv = 0
+                for items, part_rv in got:
+                    objs.extend(items)
+                    rv = max(rv, part_rv)
+                return objs, rv
+            partition = parts[0]
+        code, payload = self._request("GET", self._path(kind, namespace),
+                                      partition=partition)
         self._raise_for(code, payload)
         rv = int(payload["resourceVersion"])
         items = payload["items"]
         if items and isinstance(items[0], dict):   # the JSON wire
             items = [from_wire(i, kind) for i in items]
         with self._rv_lock:
-            last = self._last_rv.get(kind, 0)
+            last = self._last_rv.get((kind, partition), 0)
             if rv < last:
                 self.rv_regressions.append((kind, last, rv))
             else:
-                self._last_rv[kind] = rv
+                self._last_rv[(kind, partition)] = rv
         return items, rv
 
     def _get(self, kind: str, namespace: Optional[str],
              name: str) -> Optional[Any]:
         code, payload = self._request(
-            "GET", self._path(kind, namespace, name))
+            "GET", self._path(kind, namespace, name),
+            partition=self._pk(kind, namespace, name))
         if code == 404:
             return None
         self._raise_for(code, payload)
@@ -666,7 +721,8 @@ class RestClusterClient:
 
     def delete_node(self, name: str) -> None:
         code, payload = self._request("DELETE",
-                                      self._path("Node", None, name))
+                                      self._path("Node", None, name),
+                                      partition=self._pk("Node", None, name))
         if code >= 400 and code != 404:
             self._raise_for(code, payload)
 
@@ -734,18 +790,88 @@ class RestClusterClient:
         code, payload = self._request(
             "POST", self._path("Pod", namespace, name, "binding"),
             {"kind": "Binding", "uid": uid, "target": {"name": node_name}},
-            body_binary=False)
+            body_binary=False, partition=self._pk("Pod", namespace, name))
         self._raise_for(code, payload)
+
+    # -- partition fan-out ---------------------------------------------
+    def _fan_out(self):
+        """The shared executor bulk verbs and list fan-ins go out on, one
+        request a partition at once (each partition's server applies its
+        slice under its own lock and interpreter)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with self._pool_init_lock:
+            pool = self._fan_pool
+            if pool is None:
+                pool = self._fan_pool = ThreadPoolExecutor(
+                    max_workers=max(2, min(self.partitions, 8)),
+                    thread_name_prefix="partition-fan")
+        return pool
+
+    def _group_by_partition(self, items, key_fn
+                            ) -> List[Tuple[int, List[Tuple[int, Any]]]]:
+        """[(partition, [(index, item), ...]), ...], each partition's
+        items in their order."""
+        groups: Dict[int, List[Tuple[int, Any]]] = {}
+        for i, item in enumerate(items):
+            groups.setdefault(key_fn(item), []).append((i, item))
+        return sorted(groups.items())
+
+    def _fan_by_partition(self, items, key_fn, call_fn) -> List[Any]:
+        """Split positional ``items`` by partition (``key_fn``), run
+        ``call_fn(partition, slice)`` for each group (at once when there
+        are several) and merge each slice's positional results back into
+        the items' order."""
+        groups = self._group_by_partition(items, key_fn)
+        if len(groups) == 1:
+            p, entries = groups[0]
+            outs = [(entries, call_fn(p, [it for _, it in entries]))]
+        else:
+            pool = self._fan_out()
+            futures = [(entries, pool.submit(call_fn, p,
+                                             [it for _, it in entries]))
+                       for p, entries in groups]
+            outs = [(entries, fut.result()) for entries, fut in futures]
+        results: List[Any] = [None] * len(items)
+        for entries, got in outs:
+            for (i, _), r in zip(entries, got):
+                results[i] = r
+        return results
+
+    def check_partition_topology(self) -> None:
+        """Each endpoint must serve the partition this client routes to
+        it (GET /api/v1/partitiontopology): URLs in the wrong order or of
+        the wrong count fail here, not as half-empty partitions."""
+        for i in range(self.partitions):
+            code, topo = self._request(
+                "GET", "/api/v1/partitiontopology", partition=i)
+            if code != 200 or not isinstance(topo, dict):
+                raise RuntimeError(
+                    f"partition {i} topology probe failed: HTTP {code}")
+            if topo.get("partition") != i \
+                    or topo.get("partitions") != self.partitions:
+                raise RuntimeError(
+                    f"partition_urls[{i}] ({self.partition_urls[i]}) "
+                    f"serves partition {topo.get('partition')} of "
+                    f"{topo.get('partitions')}, not {i} of "
+                    f"{self.partitions}: misconfigured routing")
 
     def bind_many(self, bindings: List[Tuple[str, str, str, str]]
                   ) -> List[Optional[Exception]]:
         """Bulk POST /bindings: (namespace, name, uid, node) each, one
         token a binding, failures back positionally (KeyError for a
         missing pod, ValueError for a conflict) — the contract of
-        ``store.bind_many``. Past ``_BIND_SPLIT`` the batch goes out as
-        two pipelined halves."""
+        ``store.bind_many``. Split by partition; past ``_BIND_SPLIT`` a
+        partition's slice goes out as two pipelined halves."""
         if not bindings:
             return []
+        return self._fan_by_partition(
+            list(bindings), lambda b: self._pk("Pod", b[0], b[1]),
+            self._bind_partition)
+
+    def _bind_partition(self, partition: int,
+                        bindings: List[Tuple[str, str, str, str]]
+                        ) -> List[Optional[Exception]]:
         if len(bindings) > self._BIND_SPLIT:
             from concurrent.futures import ThreadPoolExecutor
 
@@ -755,13 +881,13 @@ class RestClusterClient:
                     pool = self._bind_pool = ThreadPoolExecutor(
                         max_workers=2, thread_name_prefix="bind-many")
             mid = len(bindings) // 2
-            left = pool.submit(self._bind_chunk, bindings[:mid])
-            right = self._bind_chunk(bindings[mid:])
+            left = pool.submit(self._bind_chunk, bindings[:mid], partition)
+            right = self._bind_chunk(bindings[mid:], partition)
             return left.result() + right
-        return self._bind_chunk(bindings)
+        return self._bind_chunk(bindings, partition)
 
-    def _bind_chunk(self, bindings: List[Tuple[str, str, str, str]]
-                    ) -> List[Optional[Exception]]:
+    def _bind_chunk(self, bindings: List[Tuple[str, str, str, str]],
+                    partition: int) -> List[Optional[Exception]]:
         if self.binary:
             payload: Any = {"kind": "BindingList",
                             "items": [tuple(b) for b in bindings]}
@@ -773,7 +899,8 @@ class RestClusterClient:
         code, resp = self._request("POST", "/api/v1/bindings", payload,
                                    charge=len(bindings),
                                    trace_ctx=self._trace_ctx_for(
-                                       [b[2] for b in bindings]))
+                                       [b[2] for b in bindings]),
+                                   partition=partition)
         if code >= 400:
             err = RuntimeError(
                 resp.get("message", f"HTTP {code}")
@@ -798,7 +925,8 @@ class RestClusterClient:
         code, payload = self._request(
             "PUT", self._path("Pod", namespace, name, "status"),
             {"status": status}, body_binary=False,
-            trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]))
+            trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]),
+            partition=self._pk("Pod", namespace, name))
         if code == 404:
             return   # pod deleted under us: store semantics are no-op
         self._raise_for(code, payload)
@@ -806,21 +934,28 @@ class RestClusterClient:
     def write_pod_statuses(self, updates: List[dict]
                            ) -> List[Optional[Exception]]:
         """Bulk POST /api/v1/statuses (PodStatusList): N status writes
-        in one round trip, positional failures. Each item is
+        in one round trip a partition, positional failures. Each item is
         ``{"namespace", "name", "status": {...}}`` with the exact
         per-item semantics of PUT pods/{name}/status; the token bucket
         charges per ITEM. 404s are None (pod deleted under us), as in
         ``_put_status``."""
         if not updates:
             return []
-        updates = list(updates)
+        return self._fan_by_partition(
+            list(updates),
+            lambda u: self._pk("Pod", u.get("namespace"), u.get("name")),
+            self._statuses_partition)
+
+    def _statuses_partition(self, partition: int, updates: List[dict]
+                            ) -> List[Optional[Exception]]:
         code, resp = self._request(
             "POST", "/api/v1/statuses",
             {"kind": "PodStatusList", "items": updates},
             charge=len(updates), body_binary=False,
             trace_ctx=self._trace_ctx_for(
                 [f"{u.get('namespace')}/{u.get('name')}"
-                 for u in updates]))
+                 for u in updates]),
+            partition=partition)
         if code >= 400:
             err = RuntimeError(
                 resp.get("message", f"HTTP {code}")
@@ -881,7 +1016,8 @@ class RestClusterClient:
     def delete_pod(self, namespace: str, name: str) -> None:
         code, payload = self._request(
             "DELETE", self._path("Pod", namespace, name),
-            trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]))
+            trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]),
+            partition=self._pk("Pod", namespace, name))
         if code >= 400 and code != 404:
             self._raise_for(code, payload)
 
@@ -908,10 +1044,23 @@ class RestClusterClient:
 
     # -- generic objects and Events ------------------------------------
     def create_objects_bulk(self, kind: str, objs: List[Any]) -> int:
-        """POST a {Kind}List; a taken name is skipped (a 409 item).
-        Returns how many were created."""
+        """POST a {Kind}List (one a partition, at once); a taken name is
+        skipped (a 409 item). Returns how many were created."""
         if not objs:
             return 0
+
+        def create(partition: int, items: List[Any]) -> List[int]:
+            # a slice's count at its first item's place, 0 at the rest
+            return [self._create_list(kind, items, partition)] + \
+                [0] * (len(items) - 1)
+
+        return sum(self._fan_by_partition(
+            list(objs), lambda o: self._pk(
+                kind, getattr(o.metadata, "namespace", None),
+                o.metadata.name), create))
+
+    def _create_list(self, kind: str, objs: List[Any], partition: int
+                     ) -> int:
         # a batch spanning namespaces POSTs the cluster-scoped
         # collection (the path namespace overrides per-item namespaces
         # server-side)
@@ -926,7 +1075,8 @@ class RestClusterClient:
         code, resp = self._request(
             "POST", self._path(kind, ns), payload, charge=len(objs),
             trace_ctx=self._trace_ctx_for(
-                [getattr(o.metadata, "uid", "") for o in objs]))
+                [getattr(o.metadata, "uid", "") for o in objs]),
+            partition=partition)
         self._raise_for(code, resp)
         return resp.get("created", 0)
 
@@ -935,7 +1085,8 @@ class RestClusterClient:
         ns = getattr(obj.metadata, "namespace", None)
         code, payload = self._request(
             "PUT", self._path(kind, ns, obj.metadata.name),
-            obj if self.binary else to_wire(obj))
+            obj if self.binary else to_wire(obj),
+            partition=self._pk(kind, ns, obj.metadata.name))
         self._raise_for(code, payload)
         return obj
 
@@ -946,9 +1097,39 @@ class RestClusterClient:
             obj if self.binary else to_wire(obj),
             trace_ctx=self._trace_ctx_for(
                 [getattr(obj.metadata, "uid", "")
-                 or f"{ns}/{obj.metadata.name}"]))
+                 or f"{ns}/{obj.metadata.name}"]),
+            partition=self._pk(kind, ns, obj.metadata.name))
         self._raise_for(code, payload)
         return obj
+
+    def create_pod(self, pod) -> Any:
+        """One pod (the kubelet's mirror pod)."""
+        return self.create_object("Pod", pod)
+
+    def set_pod_phase(self, namespace: str, name: str, phase: str,
+                      pod_ip: str = "", host_ip: str = "") -> bool:
+        """The kubelet's status write (PUT pods/{name}/status); False when
+        the pod is gone."""
+        status: Dict[str, Any] = {}
+        if phase:
+            status["phase"] = phase
+        if pod_ip:
+            status["podIP"] = pod_ip
+        if host_ip:
+            status["hostIP"] = host_ip
+        code, payload = self._request(
+            "PUT", self._path("Pod", namespace, name, "status"),
+            {"status": status}, body_binary=False,
+            trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]),
+            partition=self._pk("Pod", namespace, name))
+        if code == 404:
+            return False
+        self._raise_for(code, payload)
+        return True
+
+    def list_objects(self, kind: str, namespace: Optional[str] = None
+                     ) -> List[Any]:
+        return self._list(kind, namespace)
 
     def get_object(self, kind: str, namespace: str, name: str):
         return self._get(kind, namespace if namespace else None, name)
@@ -966,10 +1147,41 @@ class RestClusterClient:
         return 0   # the server's Event TTL owns expiry over REST
 
     # -- list, then watch ------------------------------------------------
-    def list_for_watch(self) -> Dict[str, Tuple[List[Any], int]]:
+    def list_for_watch(self) -> Dict[str, Tuple[List[Any], Any]]:
         """Every watched kind's list and the resourceVersion it is
-        consistent at: what ``watch(..., resume=)`` streams on from."""
-        return {kind: self._list_with_rv(kind) for kind in self.watch_kinds}
+        consistent at: what ``watch(..., resume=)`` streams on from. A
+        partition-aware client lists each partition and gives the
+        per-partition versions as a ``CompositeCursor``."""
+        if self.partitions == 1:
+            return {kind: self._list_with_rv(kind, partition=0)
+                    for kind in self.watch_kinds}
+        out: Dict[str, Tuple[List[Any], Any]] = {}
+        for kind in self.watch_kinds:
+            parts = partitions_for(kind, self.partitions)
+            got = self._fan_out().map(
+                lambda p, kind=kind: self._list_with_rv(kind, partition=p),
+                parts)
+            objs: List[Any] = []
+            rvs = [0] * self.partitions
+            for p, (items, rv) in zip(parts, got):
+                objs.extend(items)
+                rvs[p] = rv
+            out[kind] = (objs, CompositeCursor(rvs))
+        return out
+
+    def _resume_for(self, kind: str, partition: int, resume
+                    ) -> Optional[Tuple[List[Any], int]]:
+        """Partition ``partition``'s slice of ``list_for_watch``'s list
+        of ``kind``, and its version."""
+        if not resume or kind not in resume:
+            return None
+        objs, rv = resume[kind]
+        if not isinstance(rv, CompositeCursor):
+            return objs, rv
+        return ([o for o in objs
+                 if self._pk(kind, getattr(o.metadata, "namespace", None),
+                             o.metadata.name) == partition],
+                rv.component(partition))
 
     def watch(self, batch_fn: Callable[[List[Event]], None],
               resume: Optional[Dict[str, Tuple[List[Any], int]]] = None
@@ -984,12 +1196,14 @@ class RestClusterClient:
         difference against what it has delivered."""
         self._stopping.clear()
         for kind in self.watch_kinds:
-            t = threading.Thread(
-                target=self._watch_loop,
-                args=(kind, batch_fn, (resume or {}).get(kind)),
-                daemon=True, name=f"watch-{kind}")
-            t.start()
-            self._watch_threads.append(t)
+            for p in partitions_for(kind, self.partitions):
+                t = threading.Thread(
+                    target=self._watch_loop,
+                    args=(kind, p, batch_fn,
+                          self._resume_for(kind, p, resume)),
+                    daemon=True, name=f"watch-{kind}-p{p}")
+                t.start()
+                self._watch_threads.append(t)
         return _WatchHandle(self)
 
     def _stop_watches(self) -> None:
@@ -1000,10 +1214,11 @@ class RestClusterClient:
         for conn in conns:
             _sever(conn)
 
-    def _watch_loop(self, kind: str, batch_fn,
+    def _watch_loop(self, kind: str, partition: int, batch_fn,
                     initial: Optional[Tuple[List[Any], int]]) -> None:
         # objects this stream has shown the consumer, for a relist's
-        # diff after a dropped stream: (ns, name) -> last-seen object
+        # diff after a dropped stream (of this partition's slice only):
+        # (ns, name) -> last-seen object
         known: Dict[tuple, Any] = {}
 
         def deliver(events: List[Event]) -> None:
@@ -1020,7 +1235,7 @@ class RestClusterClient:
                 if first and initial is not None:
                     objs, rv = initial
                 else:
-                    objs, rv = self._list_with_rv(kind)
+                    objs, rv = self._list_with_rv(kind, partition=partition)
                 if first:
                     # the consumer replays the first list itself; this
                     # stream only has to remember what exists
@@ -1036,21 +1251,23 @@ class RestClusterClient:
                         kind, dict(known), {_key_of(o): o for o in objs})
                     if events:
                         deliver(events)
-                self._stream_watch(kind, rv, deliver)
+                self._stream_watch(kind, rv, deliver, partition)
             except (http.client.HTTPException, OSError, RuntimeError):
                 pass
             if self._stopping.is_set():
                 return
             time.sleep(0.2)   # relist and watch again
 
-    def _stream_watch(self, kind: str, rv: int, deliver) -> None:
+    def _stream_watch(self, kind: str, rv: int, deliver,
+                      partition: int = 0) -> None:
         plural = KIND_TO_PLURAL.get(kind, kind.lower() + "s")
-        conn = http.client.HTTPConnection(self._host, self._port,
-                                          timeout=300)
+        host, port = self._endpoints[partition]
+        conn = http.client.HTTPConnection(host, port, timeout=300)
         conn.connect()
         conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        key = (kind, partition)
         with self._pool_init_lock:
-            self._stream_conns[kind] = conn
+            self._stream_conns[key] = conn
         if self._stopping.is_set():
             _sever(conn)
         headers = {"Accept": codec.BINARY_CONTENT_TYPE,
@@ -1108,8 +1325,8 @@ class RestClusterClient:
                 deliver(events)
         finally:
             with self._pool_init_lock:
-                if self._stream_conns.get(kind) is conn:
-                    self._stream_conns.pop(kind, None)
+                if self._stream_conns.get(key) is conn:
+                    self._stream_conns.pop(key, None)
             try:
                 conn.close()
             except OSError:

@@ -20,14 +20,21 @@ from kubernetes_tpu_torch.harness.workloads import basic_pod
 
 def make_burst_pods(count: int, cpu_milli: int = 500, memory: str = "500Mi",
                     name_prefix: str = "burst-", uid_prefix: str = "bu-",
-                    safe_to_evict: bool = False) -> List[Pod]:
+                    safe_to_evict: bool = False, offset: int = 0,
+                    namespaces: Optional[Sequence[str]] = None
+                    ) -> List[Pod]:
     """Pods ``{name_prefix}{i}`` (uid ``{uid_prefix}{i}``) for i in
-    [0, count), each requesting ``cpu_milli`` and ``memory``; with
-    ``safe_to_evict`` a drain may evict them."""
+    [offset, offset + count), each requesting ``cpu_milli`` and
+    ``memory``; with ``safe_to_evict`` a drain may evict them.
+    ``namespaces`` spreads them round robin over several namespaces (the
+    partitioned store shards pods by namespace, so a burst in one
+    namespace would land whole in one partition)."""
     out: List[Pod] = []
-    for i in range(count):
+    for i in range(offset, offset + count):
         d = basic_pod(i, cpu=f"{cpu_milli}m", memory=memory)
         d["metadata"]["name"] = f"{name_prefix}{i}"
+        if namespaces:
+            d["metadata"]["namespace"] = namespaces[i % len(namespaces)]
         pod = Pod.from_dict(d)
         pod.metadata.uid = f"{uid_prefix}{i}"
         if safe_to_evict:

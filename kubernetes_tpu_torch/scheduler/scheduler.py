@@ -56,7 +56,11 @@ once its renew deadline runs out. A replica of a set
 (``scheduler.replicas``) owns the pending pods ``pod_shard`` accepts and
 caches the nodes ``node_shard`` accepts; ``commit_capacity_guard``
 refuses, at commit, a placement whose node a sibling filled since the
-solve (``SchedulerCache.commit_fits``).
+solve (``SchedulerCache.commit_fits``). A bind the store refuses because
+a sibling got there first unwinds like any refused bind and is counted
+by path (``stale_binds_rejected``, and the process-wide
+``stale_binds_rejected_total``): ``bind_conflict`` for the partitioned
+store's capacity ledger, ``replica_conflict`` for a pod already bound.
 
 Each scheduler counts into its own ``SchedulerMetrics`` (attempts by
 result, the e2e and algorithm latency histograms, preemption attempts,
@@ -1024,6 +1028,7 @@ class Scheduler:
     def _unreserve_forget_fail(self, state: CycleState, qpi: QueuedPodInfo,
                                assumed: Pod, node_name: str, err: Exception,
                                cycle: int) -> None:
+        self._note_bind_conflict(err)
         fwk = self.framework_for_pod(assumed)
         fwk.run_reserve_plugins_unreserve(state, assumed, node_name)
         gang = fwk.get_plugin("Coscheduling")
@@ -1043,10 +1048,25 @@ class Scheduler:
             f"(assignment solved against a stale snapshot)")
         self._record_failure(qpi, err, "SchedulerError", "", cycle)
 
+    def _note_bind_conflict(self, err: Exception) -> None:
+        """Count a bind the store refused because another writer got
+        there first: "capacity conflict" (the partitioned store's ledger
+        settled a node race: ``bind_conflict``), "already assigned" or
+        "uid mismatch" (a sibling bound the pod, or it was recreated:
+        ``replica_conflict``). The pod unwinds as any refused bind."""
+        msg = str(err)
+        if "capacity conflict" in msg:
+            self.note_stale_binds("bind_conflict")
+        elif "already assigned" in msg or "uid mismatch" in msg:
+            self.note_stale_binds("replica_conflict")
+
     def note_stale_binds(self, path: str, amount: int = 1) -> None:
+        """Count ``amount`` refused commits under ``path``, here and on
+        the process-wide ``stale_binds_rejected_total{path}``."""
         with self._inflight_zero:
             self.stale_binds_rejected[path] = (
                 self.stale_binds_rejected.get(path, 0) + amount)
+        fabric_metrics().stale_binds_rejected_total.inc(path, amount=amount)
 
     def _record_failure(self, qpi: QueuedPodInfo, err: Exception,
                         reason: str, nominated_node: str,
