@@ -316,6 +316,35 @@ prints no result):
     e2e p50 / p99, the A/B speedup, the partition balance, the watch
     streams, the stale binds refused by path, the launches by kernel and
     the plan of each replica's pool, and the card's busy share.
+35. the reshard chaos cells (``harness/chaos_reshard.py``, seed 11) at
+    their own sizes: midstorm (20 nodes / 120 pods: a move, a split and
+    a move under three writer threads), rebalance (20 / 300: the
+    rebalancer splitting a hot tenant) and sigkill (20 / 80: a spawned
+    WAL-backed partition server SIGKILLed mid migration, restored from
+    its log and re-pointed). No scheduler, no kernel. Each cell's
+    verdict and zero lost pods; the relists beyond the moved slices, the
+    epoch and the freeze reported;
+36. ``bench.py``'s hotspot row (``harness/hotspot.py``): 24,000 pods, 3
+    partition apiservers, 80% of the writes to one namespace from 3
+    creator children; the balanced, hotspot and rebalanced arms, no
+    scheduler. Zero lost pods and watch events, no duplicate, no relist
+    of an unmoved slice, no resourceVersion regression, the rebalancer
+    acting; each arm's pods/s, the recovery ratio against its bar of 0.8
+    (reported, not gated), the splits and moves committed and the
+    freeze;
+37. ``bench.py``'s rolling-upgrade row (``harness/upgrade.py``,
+    ``run_upgrade_row()``'s defaults): 2,400 pods at 100 a second, 3
+    spawned partition apiservers on synchronous WALs with prespawned
+    standbys, 2 scheduler replicas with batch paths of at most 256 pods
+    on the card and a codec-v1 witness client, every process restarted
+    exactly once under the arrivals. Zero lost pods and watch events,
+    none duplicated, no relist of an unmoved slice, every pod bound,
+    one epoch, the v1 pin clean, no torch in the children, and every
+    launch on the kernel its plan gives, held against the plain version
+    bit for bit; pods/s, p50 / p99 arrival-to-bind against the 500 ms
+    budget and the longest freeze against 2 s (reported), codec
+    renegotiations, handoff fetches and the card's busy share by CUDA
+    events.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -4324,6 +4353,206 @@ def phase_scale(nodes=SCALE_NODES, pods=SCALE_PODS,
                         reports["single"]))}
 
 
+# ----------------------------------------------------------------------
+# phases 35-37: the elastic control plane's write side. The JAX package's
+# sizes: the reshard cells' own defaults, ``bench.py``'s hotspot row
+# (24,000 pods, 3 partitions, hot share 0.8, 3 creators) and its upgrade
+# row (``run_upgrade_row()``'s defaults)
+RESHARD_SEED = 11
+HOTSPOT_PODS, HOTSPOT_PARTITIONS, HOTSPOT_SHARE = 24_000, 3, 0.8
+RECOVERY_BAR = 0.8
+
+
+def phase_reshard(seed=RESHARD_SEED):
+    """Phase 35: the reshard chaos cells (``harness/chaos_reshard.py``),
+    one seed each: migrations under a write storm, the rebalancer under
+    a hot tenant, and a spawned WAL-backed partition server SIGKILLed
+    mid migration and restored. No scheduler runs: no kernel launches.
+    Each cell's verdict and its zero-loss count gate; relists and the
+    freeze are reported."""
+    from kubernetes_tpu_torch.harness.chaos_reshard import (
+        run_reshard_midstorm,
+        run_reshard_rebalance,
+        run_reshard_sigkill,
+    )
+
+    out = {}
+    for cell, run in (
+            ("midstorm", lambda: run_reshard_midstorm(seed, nodes=20,
+                                                      pods=120)),
+            ("rebalance", lambda: run_reshard_rebalance(seed, nodes=20,
+                                                        pods=300)),
+            ("sigkill", lambda: run_reshard_sigkill(seed, nodes=20,
+                                                    pods=80,
+                                                    progress=log))):
+        name = f"reshard:{cell}"
+        t0 = time.monotonic()
+        r = run()
+        wall = time.monotonic() - t0
+        st = r["stats"]
+        check(r["ok"], f"{name}: {r['failure']}")
+        check(st["lost"] == 0, f"{name}: lost {st['lost']}")
+        row = {"row": name, "seed": seed, "profile": r["profile"],
+               "ok": r["ok"], **st, "wall_s": wall}
+        ROW_REPORTS.append(row)
+        print("row " + json.dumps(row, default=str), flush=True)
+        log(f"  {name} seed {seed}: ok {r['ok']}; lost {st['lost']}, "
+            f"relists beyond the moved slices "
+            f"{st.get('unmoved_relists', 'no watch')}, epoch "
+            f"{st['epoch']}, frozen {st['frozen_ms']} ms; {st} "
+            f"({wall:.1f} s)")
+        out[cell] = row
+    return out
+
+
+def phase_hotspot(pods=HOTSPOT_PODS, partitions=HOTSPOT_PARTITIONS,
+                  hot_share=HOTSPOT_SHARE):
+    """Phase 36: ``bench.py``'s hotspot row (``harness/hotspot.py``): the
+    balanced, hotspot and rebalanced arms over spawned partition
+    apiservers and creator children, no scheduler. Zero lost pods and
+    watch events, no duplicate, no relist of an unmoved slice, no
+    resourceVersion regression and the rebalancer's action gate; the
+    recovery ratio is reported against its bar of 0.8."""
+    from kubernetes_tpu_torch.harness.hotspot import run_hotspot_row
+
+    name = "hotspot"
+    t0 = time.monotonic()
+    row = run_hotspot_row(pods=pods, partitions=partitions,
+                          hot_share=hot_share, creator_clients=3,
+                          wait_timeout=900.0, progress=log)
+    wall = time.monotonic() - t0
+    inv = row["invariants"]
+    for k in ("lost_pods", "duplicated_pods", "lost_watches",
+              "unmoved_relists", "rv_regressions"):
+        check(inv[k] == 0, f"{name}: {k} {inv[k]}")
+    check(inv["rebalancer_acted"], f"{name}: the rebalancer never acted")
+    ops = [m.get("reason") for m in row["migrations"]]
+    splits, moves = ops.count("split"), ops.count("move")
+    report = {"row": name, "pods": pods, "partitions": partitions,
+              "hot_share": hot_share, "creators": 3,
+              "recovery_bar": RECOVERY_BAR,
+              "recovery_ok": row["recovery_ratio"] >= RECOVERY_BAR,
+              "splits": splits, "moves": moves, "wall_s": wall,
+              **{k: v for k, v in row.items() if k != "metric"}}
+    ROW_REPORTS.append(report)
+    print("row " + json.dumps(report, default=str), flush=True)
+    log(f"  {name} {pods:,} pods, {partitions} partitions, hot share "
+        f"{hot_share}: pods/s balanced {row['balanced_pods_per_sec']}, "
+        f"hotspot {row['hotspot_pods_per_sec']}, rebalanced "
+        f"{row['rebalanced_pods_per_sec']} (recovered "
+        f"{row['recovered_rate']}); recovery ratio "
+        f"{row['recovery_ratio']} against the bar {RECOVERY_BAR} "
+        f"({'met' if report['recovery_ok'] else 'NOT met'}, reported, not "
+        f"gated); splits {splits}, moves {moves} committed, frozen "
+        f"{row['frozen_ms_total']} ms, epoch {row['epoch']}; lost pods "
+        f"{inv['lost_pods']}, lost watch events {inv['lost_watches']} "
+        f"({wall:.1f} s)")
+    return report
+
+
+def kernel_alone_ms(recorder):
+    """Each launch of a row (``run_path(..., keep="all")``) run again on
+    its kernel alone, on copies of its inputs, timed with CUDA events:
+    the card's own time for the row's launches. The run's own events
+    bracket the wrapper's call, so they also hold the host's waits
+    inside it and the launches other threads queued meanwhile."""
+    ms = 0.0
+    for params, (ps, state, ints, floats) in zip(recorder.params,
+                                                 recorder.inputs):
+        st = state.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        solve_mod.solve_kernel(params, ps, st, ints, floats,
+                               profiles_checked=True)
+        end.record()
+        end.synchronize()
+        ms += start.elapsed_time(end)
+    return ms
+
+
+def phase_upgrade(pods=2400, qps=100.0, max_batch=256):
+    """Phase 37: ``bench.py``'s upgrade row (``run_upgrade_row()``'s
+    defaults: 2,400 pods at 100 a second, 3 spawned partition
+    apiservers with prespawned standbys, 2 scheduler replicas with batch
+    paths of at most 256 pods on the card), every partition and replica
+    rolled once under the open-loop arrivals, under ``run_path`` with
+    every launch kept: each launch on the kernel its plan gives and held
+    against the plain version, bit for bit. The row line is printed,
+    then the zero-loss invariants, exactly-once restarts, one epoch and
+    the v1 witness are checked; the p99 arrival-to-bind against its
+    500 ms budget, the freeze against its 2 s budget and the SLO
+    verdicts are reported. The card's busy share: the launches' kernel
+    times alone (``kernel_alone_ms``) over the row's wall time; beside
+    it the share of the run's own launch events, which bound it from
+    above. ``run_upgrade_roll``'s own
+    defaults, as a call of their own (the kernel builds at its first
+    launch)::
+
+        python3 -c 'import chip_smoke as c; c.phase_upgrade(30000, 5000, 4096)'
+    """
+    from kubernetes_tpu_torch.harness.upgrade import (
+        P99_ARRIVAL_TO_BIND_BUDGET_MS,
+        run_upgrade_row,
+    )
+
+    name = "upgrade"
+    row, counts, kernel_ms, _, recorder, wall = run_path(
+        name, lambda: run_upgrade_row(pods=pods, qps=qps,
+                                      max_batch=max_batch, progress=log,
+                                      device="cuda"),
+        keep="all", kernel=None)
+    by_kernel, plans, held, pods_held, plain_ms, err = scale_launches(
+        name, recorder, 0, len(recorder.inputs))
+    check(by_kernel == {k: v for k, v in counts.items() if v},
+          f"{name}: counted {counts}, planned {by_kernel}")
+    check(sum(counts.values()) > 0, f"{name}: no kernel launched")
+    check(row["device"].startswith("cuda"), f"{name} ran on the card")
+    check(not row["children_import_torch"],
+          f"{name}: a spawned child imported torch")
+    alone_ms = kernel_alone_ms(recorder)
+    busy_row = alone_ms / 1000 / wall
+    events_row = sum(kernel_ms) / 1000 / wall
+    report = {"row": name, "max_batch": max_batch,
+              **{k: v for k, v in row.items()
+                 if k not in ("metric", "freshness")},
+              "slo_verdicts_ok": row.get("slo_verdicts_ok"),
+              "p99_budget_ms": P99_ARRIVAL_TO_BIND_BUDGET_MS,
+              "p99_within_budget": row["p99_arrival_to_bind_ms"]
+              <= P99_ARRIVAL_TO_BIND_BUDGET_MS,
+              "launches": by_kernel, "plans": plans,
+              "launches_held": held, "pods_held": pods_held,
+              "plain_ms": plain_ms, "max_abs_err": err,
+              "kernel_ms_sum": sum(kernel_ms),
+              "kernel_alone_ms_sum": alone_ms,
+              "device_busy_share_row": busy_row,
+              "launch_events_share_row": events_row, "wall_s": wall}
+    ROW_REPORTS.append(report)
+    print("row " + json.dumps(report, default=str), flush=True)
+    log(f"  {name} on {row['device']}: {row['value']} pods/s over the "
+        f"roll's {row['roll_wall_s']} s; arrival-to-bind p50 / p99 "
+        f"{row['p50_arrival_to_bind_ms']} / {row['p99_arrival_to_bind_ms']}"
+        f" ms against the {P99_ARRIVAL_TO_BIND_BUDGET_MS:.0f} ms budget; "
+        f"rolled {row['rolled_partitions']} partitions and "
+        f"{row['rolled_replicas']} replicas, exactly once "
+        f"{row['rolled_exactly_once']}; frozen max {row['frozen_ms_max']} "
+        f"ms against {row['freeze_budget_ms']:.0f}; codec "
+        f"renegotiations {row['codec_renegotiations']}, failures "
+        f"{row['codec_failures']}; handoff fetches "
+        f"{row['handoff_fetches']}; epoch {row['epoch']}; invariants "
+        f"{'ok' if row['invariants_ok'] else row['invariants']}; "
+        f"launches {by_kernel}, every one held against plain "
+        f"(max_abs_err {err}); card busy {busy_row:.4f} of the row's "
+        f"{wall:.1f} s (the kernels alone; the run's launch events "
+        f"{events_row:.4f})")
+    failed = set((row["invariants"] or {}).get("failed", "").split())
+    gated = failed - {"slo", "freeze_budget"}
+    check(not gated, f"{name}: invariants failed: {sorted(gated)}")
+    check(row["ever_bound"] == row["injected"] == pods,
+          f"{name}: bound {row['ever_bound']} of {row['injected']}")
+    return report
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4539,7 +4768,26 @@ def main() -> None:
     for k in {k for arm in ("inproc", "partitioned", "single")
               for k in scale_phase[arm]["launches"]}:
         errs[k] = max(errs[k], scale_phase["err"])
-    log(f"  main-path launches over phases 4, 5 and 8 to 34: {LAUNCHES}")
+
+    log("[35] the reshard chaos cells: midstorm (20 nodes / 120 pods), "
+        "rebalance (20 / 300), sigkill (20 / 80), seed "
+        f"{RESHARD_SEED}")
+    reshard = phase_reshard()
+
+    log(f"[36] the hotspot row: {HOTSPOT_PODS:,} pods, "
+        f"{HOTSPOT_PARTITIONS} partition apiservers, hot share "
+        f"{HOTSPOT_SHARE}, 3 creator children; balanced, hotspot and "
+        "rebalanced arms")
+    hotspot = phase_hotspot()
+
+    log("[37] the rolling-upgrade row: 2,400 pods at 100/s, 3 partition "
+        "apiservers and 2 scheduler replicas (batches of 256) each "
+        "restarted once under open-loop arrivals")
+    upgrade = phase_upgrade()
+    for k in upgrade["launches"]:
+        errs[k] = max(errs[k], upgrade["max_abs_err"])
+    log(f"  main-path launches over phases 4, 5, 8 to 34 and 37: "
+        f"{LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -4658,6 +4906,7 @@ def main() -> None:
         "wide_pods": wide_pods, "wide_kernel": wide_timed,
         "sharded": sharded, "config_ha": config_ha, "rest": rest,
         "qos": qos, "replays": replays, "scale": scale_phase,
+        "reshard": reshard, "hotspot": hotspot, "upgrade": upgrade,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

@@ -46,7 +46,13 @@ A server may be one partition of the partitioned control plane
 (``APIServer(partition=(index, count))``, ``apiserver/partition.py``): its
 store holds only that partition's keyspace, and the exempt
 ``/api/v1/partitiontopology`` document names the partition, so a
-partition-aware client checks its routing against it.
+partition-aware client checks its routing against it. Once a live
+topology is installed (``install_topology``, epochs only increase) the
+document carries it whole, every mutation passes the reshard gate (a
+frozen slice answers 429 with the freeze's Retry-After, a slice this
+server no longer owns 429 with ``X-Partition-Epoch``), and
+``/debug/partition`` is the surface ``apiserver/reshard.py`` drives:
+freeze, unfreeze, topology, slice, adopt, evict, evict_unowned.
 
 Not served here: admission webhooks, custom resources, versioned group
 routes (every kind is served at ``v1`` only), service-account tokens
@@ -351,6 +357,7 @@ class _Handler(BaseHTTPRequestHandler):
     # full lane must not block the postmortem dump.
     ADMIN_ROUTES = {
         "/debug/faults": "_serve_faults_admin",
+        "/debug/partition": "_serve_partition_admin",
         "/debug/trace": "_serve_trace_admin",
         "/debug/apf": "_serve_apf_admin",
         "/debug/slo": "_serve_slo_admin",
@@ -464,6 +471,22 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
         return True
 
+    def _handle_write(self, inner) -> None:
+        """A mutating request: its write ticket, if the topology gate
+        gave it one, closes once it has answered."""
+        self._write_ticket = None
+        try:
+            self._handle_gated(inner)
+        finally:
+            if self._write_ticket is not None:
+                self.server.close_write(self._write_ticket)
+                self._write_ticket = None
+
+    def _open_write(self) -> None:
+        # under ``write_gate``; one ticket a request
+        if getattr(self, "_write_ticket", None) is None:
+            self._write_ticket = self.server.open_write()
+
     def _handle_gated(self, inner) -> None:
         self._body_consumed = False   # per-request: see _send_429 drain
         # pin the wire version FIRST: every response (including the
@@ -550,11 +573,14 @@ class _Handler(BaseHTTPRequestHandler):
             return 0
 
     def _send_429(self, message: str, retry_after: float,
-                  level: str = "", schema: str = "") -> None:
+                  level: str = "", schema: str = "",
+                  epoch: Optional[int] = None) -> None:
         """Overload pushback with an HONEST Retry-After (the level's or
         lane's expected drain time) plus the rejecting priority level /
         flow schema headers the client's retry accounting keys on
-        (X-Kubernetes-PF-* response headers)."""
+        (X-Kubernetes-PF-* response headers). ``epoch`` rides as
+        X-Partition-Epoch when the slice moved away: a client with older
+        routing refreshes its topology and re-routes."""
         # drain the body first so keep-alive framing stays intact for
         # the client's retry (same discipline as the injected-fault 429)
         # — unless a handler already consumed it
@@ -573,6 +599,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("X-Kubernetes-PF-PriorityLevel", level)
         if schema:
             self.send_header("X-Kubernetes-PF-FlowSchema", schema)
+        if epoch is not None:
+            self.send_header("X-Partition-Epoch", str(int(epoch)))
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
@@ -1022,6 +1050,278 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 
+    # -- elastic control plane: the freeze/ownership write gate --------
+    def _reshard_verdict(self, kind: str, ns: Optional[str],
+                         name: Optional[str]) -> Optional[tuple]:
+        """Judge one mutation against the live partition topology.
+        None = allowed (and counted on the slot-write ledger the
+        rebalancer reads); ("frozen", retry_after) = the slice is
+        inside a migration's freeze window; ("stale", epoch) = this
+        server no longer owns the slice — the caller's routing table
+        predates epoch."""
+        server = self.server
+        topo = server.partition_topology
+        if topo is None:
+            return None
+        slot = topo.slot_of(kind, ns, name)
+        if slot is None:
+            return None
+        frozen = server.frozen_slots.get(slot)
+        if frozen is not None:
+            deadline, _eta = frozen
+            remaining = deadline - time.monotonic()
+            if remaining > 0:
+                return ("frozen", max(0.05, remaining))
+            server.frozen_slots.pop(slot, None)   # auto-thaw backstop
+        if topo.owner[slot] != server.partition_index:
+            return ("stale", topo.epoch)
+        server.slot_writes[slot] = server.slot_writes.get(slot, 0) + 1
+        if kind == "Pod" and ns:
+            server.ns_writes[ns] = server.ns_writes.get(ns, 0) + 1
+        return None
+
+    def _reshard_gate(self, kind: Optional[str], ns: Optional[str],
+                      name: Optional[str]) -> bool:
+        """Answer a topology-shaped 429 for a gated mutation. True =
+        the request was answered (frozen slice: computed Retry-After so
+        the client's existing pushback loop simply pauses through the
+        freeze window; moved slice: the new epoch so the client
+        refreshes its routing and re-sends to the owner)."""
+        if kind is None or self.server.partition_topology is None:
+            return False
+        with self.server.write_gate:
+            verdict = self._reshard_verdict(kind, ns, name)
+            if verdict is None:
+                self._open_write()
+                return False
+        if verdict[0] == "frozen":
+            # NO epoch header: frozen means the caller's routing is
+            # CORRECT and the only cure is waiting out the advertised
+            # window — the epoch header is the re-route signal and
+            # would send clients re-splitting a batch that maps to
+            # exactly the same frozen slice
+            self._send_429(
+                f"{kind} {ns or ''}/{name or ''}: keyspace slice frozen "
+                f"by a live partition migration",
+                verdict[1], level="reshard")
+        else:
+            self._send_429(
+                f"{kind} {ns or ''}/{name or ''}: slice moved — this "
+                f"server no longer owns it (topology epoch "
+                f"{verdict[1]})",
+                0.05, level="reshard", epoch=verdict[1])
+        return True
+
+    def _reshard_gate_bulk(self, kind: str, keys) -> bool:
+        """Gate a bulk verb: every (ns, name) must be owned and thawed
+        BEFORE any item mutates state — a half-applied bulk request
+        under a topology flip would be exactly the torn write the
+        freeze protocol exists to prevent. Worst verdict wins (stale
+        beats frozen: re-routing supersedes waiting)."""
+        if self.server.partition_topology is None:
+            return False
+        worst: Optional[tuple] = None
+        with self.server.write_gate:
+            for ns, name in keys:
+                verdict = self._reshard_verdict(kind, ns, name)
+                if verdict is None:
+                    continue
+                if verdict[0] == "stale":
+                    worst = verdict
+                    break
+                worst = worst or verdict
+            if worst is None:
+                self._open_write()
+                return False
+        if worst[0] == "frozen":
+            # no epoch header — see _reshard_gate: frozen = wait, the
+            # routing is already right
+            self._send_429(
+                f"bulk {kind} batch touches a keyspace slice frozen by "
+                f"a live partition migration", worst[1], level="reshard")
+        else:
+            self._send_429(
+                f"bulk {kind} batch touches a moved slice (topology "
+                f"epoch {worst[1]})", 0.05, level="reshard",
+                epoch=worst[1])
+        return True
+
+    def _serve_partition_admin(self, verb: str) -> None:
+        """/debug/partition: the live-resharding control surface the
+        ReshardCoordinator drives — freeze/unfreeze keyspace slices,
+        read a slice out, adopt/evict objects (the silent placement
+        channel), install a new topology, and inspect the slot-write
+        ledger. Control-plane trust envelope; exempt from flow control
+        and the FaultGate like every admin route (a migration must stay
+        drivable while the fabric is sick — that is its point)."""
+        if not self._binary_decode_allowed():
+            self._send_error(403, "Forbidden",
+                             "partition admin requires a control-plane "
+                             "identity")
+            return
+        server = self.server
+        if verb == "GET":
+            topo = server.partition_topology
+            store = server.store
+            with store._lock:
+                objects = sum(
+                    len(getattr(store, attr))
+                    for attr, _ in store._KIND_TABLES.values())
+                mutations = sum(store._kind_seq.values())
+            now = time.monotonic()
+            self._send_json(200, {
+                "partition": server.partition_index,
+                "partitions": server.partition_count,
+                "epoch": topo.epoch if topo is not None else 0,
+                "topology": topo.to_dict() if topo is not None else None,
+                "frozen": sorted(
+                    s for s, (dl, _e) in server.frozen_slots.items()
+                    if dl > now),
+                "slot_writes": {str(k): v
+                                for k, v in server.slot_writes.items()},
+                "ns_writes": dict(server.ns_writes),
+                "objects": objects,
+                "mutations": mutations,
+            })
+            return
+        if verb != "POST":
+            self._send_error(405, "MethodNotAllowed",
+                             "/debug/partition supports GET and POST")
+            return
+        try:
+            body = self._read_body()
+        except json.JSONDecodeError as e:
+            self._send_error(400, "BadRequest", f"invalid JSON: {e}")
+            return
+        if not isinstance(body, dict):
+            self._send_error(400, "BadRequest", "op body required")
+            return
+        op = body.get("op")
+        try:
+            if op == "freeze":
+                drained = server.freeze_and_drain(
+                    body.get("slots") or (), float(body.get("eta") or 5.0))
+                self._send_json(200, {"frozen": sorted(
+                    int(s) for s in body.get("slots") or ()),
+                    "drained": drained})
+            elif op == "unfreeze":
+                slots = body.get("slots")
+                if slots is None:
+                    server.frozen_slots.clear()
+                else:
+                    for s in slots:
+                        server.frozen_slots.pop(int(s), None)
+                self._send_json(200, {"frozen": sorted(
+                    server.frozen_slots)})
+            elif op == "topology":
+                from kubernetes_tpu_torch.apiserver.partition import (
+                    PartitionTopology,
+                )
+
+                doc = body.get("topology") or {}
+                installed = server.install_topology(
+                    PartitionTopology.from_dict(doc))
+                self._send_json(200, {
+                    "installed": installed,
+                    "epoch": server.partition_topology.epoch
+                    if server.partition_topology else 0})
+            elif op == "slice":
+                slots = {int(s) for s in body.get("slots") or ()}
+                spread = frozenset(body.get("spread") or ())
+                slot_count = int(body.get("slot_count") or 0)
+                out = self._collect_slice(slots, spread, slot_count,
+                                          body.get("namespace"))
+                self._send_json(200, {
+                    "objects": {k: [to_wire(o) for o in objs]
+                                for k, objs in out.items()}})
+            elif op == "adopt":
+                counts = {}
+                for kind, items in (body.get("objects") or {}).items():
+                    objs = [from_wire(w, kind) for w in items]
+                    counts[kind] = server.store.adopt_objects(kind, objs)
+                server.invalidate_list_caches()
+                self._send_json(200, {"adopted": counts})
+            elif op == "evict":
+                counts = {}
+                for kind, keys in (body.get("keys") or {}).items():
+                    got = server.store.evict_objects(
+                        kind, [(k[0], k[1]) for k in keys])
+                    counts[kind] = len(got)
+                server.invalidate_list_caches()
+                self._send_json(200, {"evicted": counts})
+            elif op == "evict_unowned":
+                # post-crash reconciliation: silently drop every
+                # sharded object this server does not own under the
+                # committed topology (orphan copies from a torn
+                # migration — the owner holds the live ones)
+                topo = server.partition_topology
+                if topo is None:
+                    self._send_json(200, {"evicted": {}})
+                    return
+                counts = {}
+                from kubernetes_tpu_torch.apiserver.partition import (
+                    SHARDED_CLUSTER_KINDS,
+                    SHARDED_NAMESPACED_KINDS,
+                )
+
+                for kind in (tuple(SHARDED_NAMESPACED_KINDS)
+                             + tuple(SHARDED_CLUSTER_KINDS)):
+                    attr, _ = server.store._KIND_TABLES[kind]
+                    with server.store._lock:
+                        doomed = [
+                            (o.metadata.namespace, o.metadata.name)
+                            for o in getattr(server.store, attr).values()
+                            if topo.partition_of(
+                                kind, o.metadata.namespace,
+                                o.metadata.name)
+                            != server.partition_index]
+                    if doomed:
+                        got = server.store.evict_objects(kind, doomed)
+                        counts[kind] = len(got)
+                server.invalidate_list_caches()
+                self._send_json(200, {"evicted": counts})
+            else:
+                self._send_error(400, "BadRequest",
+                                 f"unknown partition op {op!r}")
+        except (ValueError, TypeError, KeyError) as e:
+            self._send_error(400, "BadRequest",
+                             f"partition op {op!r} failed: {e}")
+
+    def _collect_slice(self, slots, spread, slot_count,
+                       namespace: Optional[str] = None) -> Dict[str, list]:
+        """Objects in the given hash slots (both sharded kinds), read
+        under the store lock — the copy half of a slice migration. The
+        SPREAD set and slot count come from the PROPOSED topology: a
+        split must cut the slice exactly where the new routing will.
+        ``namespace`` narrows a split's copy to the spreading tenant."""
+        from kubernetes_tpu_torch.apiserver.partition import (
+            NUM_SLOTS,
+            SHARDED_CLUSTER_KINDS,
+            SHARDED_NAMESPACED_KINDS,
+            slot_for,
+        )
+
+        slot_count = slot_count or NUM_SLOTS
+        store = self.server.store
+        out: Dict[str, list] = {}
+        with store._lock:
+            for kind in (tuple(SHARDED_NAMESPACED_KINDS)
+                         + tuple(SHARDED_CLUSTER_KINDS)):
+                if namespace is not None \
+                        and kind not in SHARDED_NAMESPACED_KINDS:
+                    continue   # a namespace split never moves Nodes
+                attr, _ = store._KIND_TABLES[kind]
+                got = [
+                    o for o in getattr(store, attr).values()
+                    if (namespace is None
+                        or o.metadata.namespace == namespace)
+                    and slot_for(kind, o.metadata.namespace,
+                                 o.metadata.name, slot_count,
+                                 spread) in slots]
+                if got:
+                    out[kind] = got
+        return out
+
     def _do_GET(self) -> None:
         u = urlparse(self.path)
         if self._dispatch_admin("GET"):
@@ -1046,12 +1346,19 @@ class _Handler(BaseHTTPRequestHandler):
         if u.path == "/api/v1/partitiontopology":
             # which partition of the partitioned control plane this
             # server is: a client with misordered URLs fails its check
-            # instead of reading half-empty partitions. Exempt like the
+            # instead of reading half-empty partitions. With a live
+            # topology installed the whole routing document rides along
+            # (epoch, slot owners, spread namespaces, endpoint URLs), so
+            # clients re-route on an epoch change. Exempt like the
             # probes: it must answer mid-overload too
-            self._send_json(200, {
+            doc = {
                 "partition": self.server.partition_index,
                 "partitions": self.server.partition_count,
-            })
+            }
+            topo = self.server.partition_topology
+            if topo is not None:
+                doc.update(topo.to_dict())
+            self._send_json(200, doc)
             return
         if u.path in ("/api", "/apis") or self._is_discovery_path(u.path):
             self._serve_discovery(u.path)
@@ -1182,6 +1489,9 @@ class _Handler(BaseHTTPRequestHandler):
         except Forbidden as e:
             self._send_error(403, "Forbidden", str(e))
             return
+        if self._reshard_gate_bulk("Pod",
+                                   [(b[0], b[1]) for b in bindings]):
+            return
         errors = self.server.store.bind_many(bindings)
         failures = [
             {"index": i,
@@ -1296,6 +1606,10 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if user is None:
             user = self._user()
+        if self._reshard_gate_bulk("Pod", [
+                (it.get("namespace") or ns or "default",
+                 it.get("name") or "") for it in items]):
+            return
         applied = 0
         failures: List[dict] = []
         for i, it in enumerate(items):
@@ -1368,6 +1682,12 @@ class _Handler(BaseHTTPRequestHandler):
             except (ValueError, TypeError) as e:
                 failures.append({"index": i, "code": 422,
                                  "message": str(e)})
+        # the topology gate before admission charges anything: a bulk
+        # create touching a frozen or moved slice is refused whole
+        if self._reshard_gate_bulk(kind, [
+                (o.metadata.namespace, o.metadata.name)
+                for _, o in decoded]):
+            return
         admitted: List[tuple] = []   # (orig index, AdmissionRequest, obj)
         for i, obj in decoded:
             try:
@@ -1422,7 +1742,7 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
     def do_POST(self) -> None:
-        self._handle_gated(self._do_POST)
+        self._handle_write(self._do_POST)
 
     def _do_POST(self) -> None:
         if self._dispatch_admin("POST"):
@@ -1510,6 +1830,8 @@ class _Handler(BaseHTTPRequestHandler):
         store = self.server.store
         # Binding subresource: POST .../pods/{name}/binding
         if kind == "Pod" and sub == "binding" and name is not None:
+            if self._reshard_gate("Pod", ns, name):
+                return
             try:
                 self._check_authz("create", "Binding", ns or "")
                 target = (body.get("target") or {}).get("name") or body.get("nodeName", "")
@@ -1545,6 +1867,9 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if ns is not None and store.kind_is_namespaced(kind):
                 obj.metadata.namespace = ns
+            if self._reshard_gate(kind, obj.metadata.namespace,
+                                  obj.metadata.name):
+                return
             adm_req = AdmissionRequest(
                 CREATE, kind, obj.metadata.namespace, obj, user=user
             )
@@ -1564,7 +1889,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_error(409, "AlreadyExists", str(e))
 
     def do_PUT(self) -> None:
-        self._handle_gated(self._do_PUT)
+        self._handle_write(self._do_PUT)
 
     def _do_PUT(self) -> None:
         if self._dispatch_admin("PUT"):
@@ -1576,6 +1901,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if kind is None or name is None:
             self._send_error(404, "NotFound", f"no route for {self.path}")
+            return
+        if self._reshard_gate(kind, ns, name):
             return
         try:
             body = self._read_body()
@@ -1656,7 +1983,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_error(404, "NotFound", str(e))
 
     def do_PATCH(self) -> None:
-        self._handle_gated(self._do_PATCH)
+        self._handle_write(self._do_PATCH)
 
     def _do_PATCH(self) -> None:
         """PATCH with an RFC 7386 JSON Merge Patch (the default and
@@ -1744,7 +2071,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_error(404, "NotFound", str(e))
 
     def do_DELETE(self) -> None:
-        self._handle_gated(self._do_DELETE)
+        self._handle_write(self._do_DELETE)
 
     def _do_DELETE(self) -> None:
         if self._dispatch_admin("DELETE"):
@@ -1756,6 +2083,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if kind is None or name is None:
             self._send_error(404, "NotFound", f"no route for {self.path}")
+            return
+        if self._reshard_gate(kind, ns, name):
             return
         try:
             self._check_authz("delete", kind, ns or "")
@@ -1785,6 +2114,7 @@ class _Handler(BaseHTTPRequestHandler):
                      label_sel=None, field_checks=None) -> None:
         binary = self._accepts_binary()
         frames: "queue.Queue[Optional[Any]]" = queue.Queue(maxsize=10_000)
+        dropped: List[bool] = []   # this watcher was dropped as slow
         # capture the REQUEST's api version: the sink runs on store
         # threads, and group-route watches must stream the same wire
         # shape their GETs serve (versioned-codec contract)
@@ -1836,6 +2166,9 @@ class _Handler(BaseHTTPRequestHandler):
                 # slow watcher: drop the connection (apiserver does the
                 # same). This sink runs under the store lock, so never
                 # block — make room for the close sentinel instead.
+                if not dropped:
+                    dropped.append(True)
+                    self.server.watch_drops += 1
                 try:
                     frames.get_nowait()
                     frames.put_nowait(None)
@@ -1989,6 +2322,24 @@ class APIServer(ThreadingHTTPServer):
         # partitioned control plane, its store holding only that
         # partition's keyspace; (0, 1) is the unpartitioned server
         self.partition_index, self.partition_count = partition or (0, 1)
+        # the elastic control plane: the live topology (None: the static
+        # layout), the slices frozen by a migration (slot -> (deadline,
+        # eta)), and the per-slot and per-namespace write ledgers the
+        # rebalancer reads
+        self.partition_topology: Optional[Any] = None
+        self._topology_lock = threading.Lock()
+        self.frozen_slots: Dict[int, Tuple[float, float]] = {}
+        # the writes that passed the topology gate and have not answered
+        # yet, by ticket: a freeze waits for those that passed before it
+        # (the drain), so no write it let through commits after a
+        # migration's copy or an upgrade's WAL snapshot
+        self.write_gate = threading.Condition()
+        self._write_tickets = 0
+        self.open_writes: set = set()
+        self.slot_writes: Dict[int, int] = {}
+        self.ns_writes: Dict[str, int] = {}
+        # watch streams dropped for a full frame queue (a slow watcher)
+        self.watch_drops = 0
         # pre-encoded list responses (binary, selector-free), validated
         # by the store's per-kind mutation counter: a scheduler relist
         # of 5k nodes while only pods churn costs one cache hit, not a
@@ -2155,6 +2506,58 @@ class APIServer(ThreadingHTTPServer):
     def url(self) -> str:
         return f"http://{self.server_address[0]}:{self.port}"
 
+    def install_topology(self, topology) -> bool:
+        """Install a (newer) live partition topology. Epoch-monotonic:
+        a replayed or stale install is refused, so a torn coordinator
+        can never roll a server's routing backwards. Installing also
+        updates the served partition count and drops frozen slices this
+        server no longer owns (their freeze belonged to the migration
+        that just committed)."""
+        with self._topology_lock:
+            cur = self.partition_topology
+            if cur is not None and topology.epoch <= cur.epoch:
+                return False
+            self.partition_topology = topology
+            self.partition_count = topology.partitions
+            for slot in list(self.frozen_slots):
+                if topology.owner[slot] != self.partition_index:
+                    self.frozen_slots.pop(slot, None)
+            return True
+
+    def open_write(self) -> int:
+        """A ticket for a write that just passed the topology gate; the
+        caller holds ``write_gate``."""
+        self._write_tickets += 1
+        self.open_writes.add(self._write_tickets)
+        return self._write_tickets
+
+    def close_write(self, ticket: int) -> None:
+        with self.write_gate:
+            self.open_writes.discard(ticket)
+            self.write_gate.notify_all()
+
+    def freeze_and_drain(self, slots, eta: float) -> bool:
+        """Freeze ``slots`` for ``eta`` seconds, then wait, within that
+        window, for every write the gate let through before the freeze
+        to answer. True when they all did."""
+        deadline = time.monotonic() + eta
+        with self.write_gate:
+            for s in slots:
+                self.frozen_slots[int(s)] = (deadline, eta)
+            passed = set(self.open_writes)
+            while passed & self.open_writes:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self.write_gate.wait(remaining)
+        return True
+
+    def invalidate_list_caches(self) -> None:
+        """Drop the pre-encoded list cache (adopt/evict bump kind_seq,
+        which already invalidates it — this is the belt to that
+        suspender for mixed-version callers)."""
+        with self._list_cache_lock:
+            self._list_cache.clear()
 
     def start(self) -> "APIServer":
         self._thread = threading.Thread(

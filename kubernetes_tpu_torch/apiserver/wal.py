@@ -17,9 +17,18 @@ Usage::
     # after a crash:
     store2 = restore_store("/var/lib/ktpu")
 
-A writer thread serializes and appends each event; nothing is fsynced
-per append, so a crash can lose the events still queued (the window
-``drain`` closes).
+Two writers, as in the JAX package (``attach_wal(async_serialize=)``):
+
+- synchronous (the default): each event is serialized and appended in
+  the store's dispatch, under the store lock, so a write is on disk
+  before the store call returns and before its HTTP response is sent.
+  A SIGKILL loses no acknowledged write (the reshard and upgrade
+  children rely on it);
+- asynchronous (``async_serialize=True``, the REST and replay rows): a
+  writer thread serializes and appends, off the store lock, and a crash
+  can lose the events still queued (the window ``drain`` closes).
+
+Nothing is fsynced per append.
 """
 
 from __future__ import annotations
@@ -40,26 +49,34 @@ SNAP_TMP = "snapshot.json.tmp"
 
 
 class WalHandle:
-    """The watch callback only enqueues the event (the store hands
-    watchers freshly-built objects that later mutations never touch, so
-    holding a reference is snapshot-safe) and a writer thread serializes
-    and appends in commit order, off the store lock. This is etcd's own
-    shape: raft appends are pipelined behind the apply loop, not paid
-    inside each request's critical section."""
+    """``async_serialize=False`` appends inline: the store dispatches each
+    mutation batch synchronously under its lock, and the batch is on disk
+    when the dispatch returns. ``async_serialize=True`` only enqueues the
+    event there (the store hands watchers freshly-built objects that later
+    mutations never touch, so holding a reference is snapshot-safe) and a
+    writer thread serializes and appends in commit order, off the store
+    lock: etcd's own shape, raft appends pipelined behind the apply loop.
+    Lock order is store, then WAL, everywhere."""
 
     def __init__(self, store: ClusterStore, directory: str,
-                 snapshot_every: int = 20000):
+                 snapshot_every: int = 20000,
+                 async_serialize: bool = False):
         self.store = store
         self.dir = directory
         self.snapshot_every = snapshot_every
+        self.async_serialize = bool(async_serialize)
         os.makedirs(directory, exist_ok=True)
         self._log_path = os.path.join(directory, LOG_NAME)
         self._log = open(self._log_path, "a", encoding="utf-8")
         self._entries_since_snapshot = 0
+        # guards the log file between the appender and ``snapshot``
+        self._lock = threading.Lock()
         self._queue: "queue.Queue[Optional[Event]]" = queue.Queue()
-        self._writer = threading.Thread(
-            target=self._writer_loop, daemon=True, name="wal-writer")
-        self._writer.start()
+        self._writer: Optional[threading.Thread] = None
+        if self.async_serialize:
+            self._writer = threading.Thread(
+                target=self._writer_loop, daemon=True, name="wal-writer")
+            self._writer.start()
         self._watch = store.watch(self._on_events)
         # the silent placement channel (a partition's slice moving in or
         # out): no watcher hears it, but a restore that missed it would
@@ -68,8 +85,17 @@ class WalHandle:
 
     # ------------------------------------------------------------------
     def _on_events(self, events) -> None:
+        if self.async_serialize:
+            for event in events:
+                self._queue.put(event)
+            return
+        # inline: the dispatch holds the store lock, so a compaction
+        # here keeps the store -> WAL order
         for event in events:
-            self._queue.put(event)
+            self._append(event)
+        if self._entries_since_snapshot >= self.snapshot_every:
+            with self._lock:
+                self._snapshot_locked()
 
     def _writer_loop(self) -> None:
         while True:
@@ -83,7 +109,7 @@ class WalHandle:
                     pass            # not kill durability for all after
                 if self._entries_since_snapshot >= self.snapshot_every:
                     try:
-                        self._compact()
+                        self.snapshot()
                     except Exception:   # noqa: BLE001
                         pass
             finally:
@@ -104,13 +130,16 @@ class WalHandle:
         return json.dumps(line)
 
     def _append(self, event: Event) -> None:
-        self._log.write(self._line_for(event) + "\n")
-        self._log.flush()
-        self._entries_since_snapshot += 1
+        line = self._line_for(event)
+        with self._lock:
+            self._log.write(line + "\n")
+            self._log.flush()
+            self._entries_since_snapshot += 1
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Block until every event enqueued so far is on disk (appended
-        and flushed). False when ``timeout`` ran out first."""
+        and flushed; at once for the inline writer). False when
+        ``timeout`` ran out first."""
         deadline = time.monotonic() + timeout
         done = self._queue.all_tasks_done
         with done:
@@ -122,13 +151,16 @@ class WalHandle:
         return True
 
     # ------------------------------------------------------------------
-    def _compact(self) -> None:
-        """Cut a snapshot and truncate the log (etcd compaction), on the
-        writer thread between queue items. Events still queued are in
-        the snapshot already and land in the fresh log after it;
-        restore's per-object rv guard skips them."""
+    def snapshot(self) -> None:
+        """Cut a snapshot now and truncate the log (etcd compaction): the
+        upgrade row's quiesce, so a standby restores one snapshot rather
+        than replaying the log. Under the store lock no event is
+        dispatched; events the asynchronous writer still holds are in the
+        snapshot already and land in the fresh log after it, where
+        restore's per-object version guard skips them."""
         with self.store._lock:
-            self._snapshot_locked()
+            with self._lock:
+                self._snapshot_locked()
 
     def _snapshot_locked(self) -> None:
         objects = []
@@ -151,21 +183,27 @@ class WalHandle:
         """Stop logging, write out what is queued, close the log."""
         self._watch.stop()
         self._silent_watch.stop()
-        self.drain()
-        self._queue.put(None)
-        self._writer.join(timeout=5.0)
-        self._log.close()
+        if self._writer is not None:
+            self.drain()
+            self._queue.put(None)
+            self._writer.join(timeout=5.0)
+        with self._lock:
+            self._log.close()
 
 
 def attach_wal(store: ClusterStore, directory: str,
-               snapshot_every: int = 20000) -> WalHandle:
-    """Make ``store`` durable: all subsequent mutations are logged.
-    Cuts an initial snapshot so pre-existing state is captured too; the
-    watch is opened and the snapshot cut under the store lock, so no
-    mutation falls between them and the writer's queue is empty."""
+               snapshot_every: int = 20000,
+               async_serialize: bool = False) -> WalHandle:
+    """Make ``store`` durable: all subsequent mutations are logged, inline
+    unless ``async_serialize``. Cuts an initial snapshot so pre-existing
+    state is captured too; the watch is opened and the snapshot cut under
+    the store lock, so no mutation falls between them and the writer's
+    queue is empty."""
     with store._lock:
-        handle = WalHandle(store, directory, snapshot_every=snapshot_every)
-        handle._snapshot_locked()
+        handle = WalHandle(store, directory, snapshot_every=snapshot_every,
+                           async_serialize=async_serialize)
+        with handle._lock:
+            handle._snapshot_locked()
     return handle
 
 

@@ -16,8 +16,10 @@ liveness:
 
 ``PartitionRebalancer`` observes, plans and acts through a driver, each
 action bounded by the group's cooldown so a noisy signal cannot thrash.
-The drivers of an apiserver fleet wait for the port's REST fabric; the
-federation's driver is in ``federation.rebalancer``.
+The drivers: ``InprocElasticDriver`` over a ``PartitionedStore(
+reshardable=True)``, ``RestElasticDriver`` over a fleet of partition
+apiservers through ``apiserver/reshard.py``'s coordinator; the
+federation's is in ``federation.rebalancer``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from kubernetes_tpu_torch.metrics.autoscaler_metrics import (
     autoscaler_metrics,
@@ -128,6 +130,151 @@ def plan_rebalance(slot_rates: Dict[int, float],
             and rates[coldest] >= policy.buy_floor_share * mean:
         return {"op": "buy"}
     return None
+
+
+# ---------------------------------------------------------------------------
+# drivers: the rebalancer's hands (in-process store / REST coordinator)
+
+
+class InprocElasticDriver:
+    """Drive a ``PartitionedStore`` (reshardable=True) directly."""
+
+    def __init__(self, store,
+                 provisioner: Optional[Callable[[], int]] = None):
+        self.store = store
+        self._provisioner = provisioner
+
+    def observe(self) -> dict:
+        stats = self.store.reshard_stats()
+        return {
+            "epoch": stats["epoch"],
+            "topology": self.store.topology,
+            "slot_writes": {int(k): v
+                            for k, v in stats["slot_writes"].items()},
+            "ns_writes": dict(stats["ns_writes"]),
+            "dead": [],
+        }
+
+    def federate(self) -> None:
+        from kubernetes_tpu_torch.metrics.federation import metrics_federation
+
+        fed = metrics_federation()
+        for i, reg in enumerate(self.store.partition_registries()):
+            fed.forget_instance(f"partition-{i}")
+            fed.absorb_registry(reg, instance=f"partition-{i}")
+
+    def apply(self, action: Dict[str, Any]) -> dict:
+        op = action["op"]
+        if op == "split":
+            return self.store.spread_namespace(action["namespace"])
+        if op == "move":
+            return self.store.migrate_slots(action["assignments"])
+        if op == "retire":
+            return self.store.retire_partition(action["partition"])
+        if op == "failover":
+            return self.store.restart_partition(action["partition"])
+        if op == "buy":
+            if self._provisioner is not None:
+                idx = self._provisioner()
+            else:
+                idx = self.store.add_partition()
+            # drain an even share onto the new partition
+            topo = self.store.topology
+            want = topo.slots // (len(self.store.parts))
+            counts: Dict[int, int] = {}
+            for o in topo.owner:
+                counts[o] = counts.get(o, 0) + 1
+            moves: Dict[int, int] = {}
+            for p in sorted(counts, key=counts.get, reverse=True):
+                for s in topo.slots_of_partition(p):
+                    if len(moves) >= want or counts[p] <= want:
+                        break
+                    moves[s] = idx
+                    counts[p] -= 1
+            report = self.store.migrate_slots(moves) if moves else {}
+            report["new_partition"] = idx
+            return report
+        raise ValueError(f"unknown rebalance op {op!r}")
+
+
+class RestElasticDriver:
+    """Drive a fleet of partition apiservers through a
+    ``ReshardCoordinator``; ``provisioner`` boots a new server process
+    and returns its URL (buy), ``restarter(index)`` WAL-restores a dead
+    one and returns its URL (failover)."""
+
+    def __init__(self, coordinator,
+                 provisioner: Optional[Callable[[], str]] = None,
+                 restarter: Optional[Callable[[int], str]] = None,
+                 federate: bool = True):
+        self.coordinator = coordinator
+        self._provisioner = provisioner
+        self._restarter = restarter
+        # ``federate=False`` for IN-PROCESS partition servers: they
+        # share this process's default registry, and folding a
+        # registry's own counters back into itself re-counts them
+        # every tick (compounding) — the fold contract is for CHILD
+        # processes only
+        self._federate = bool(federate)
+
+    def observe(self) -> dict:
+        stats = self.coordinator.stats()
+        topo = self.coordinator.fetch_topology()
+        slot_writes: Dict[int, float] = {}
+        ns_writes: Dict[str, float] = {}
+        dead: List[int] = []
+        for s in stats:
+            if not s.get("alive"):
+                dead.append(int(s.get("partition", 0)))
+                continue
+            for k, v in (s.get("slot_writes") or {}).items():
+                slot_writes[int(k)] = slot_writes.get(int(k), 0) + v
+            for k, v in (s.get("ns_writes") or {}).items():
+                ns_writes[k] = ns_writes.get(k, 0) + v
+        return {"epoch": topo.epoch, "topology": topo,
+                "slot_writes": slot_writes, "ns_writes": ns_writes,
+                "dead": dead}
+
+    def federate(self) -> None:
+        if not self._federate:
+            return
+        from kubernetes_tpu_torch.metrics.federation import metrics_federation
+
+        fed = metrics_federation()
+        client = self.coordinator.client
+        token = getattr(client, "token", "")
+        for i, url in enumerate(client.partition_urls):
+            fed.forget_instance(f"apiserver-p{i}")
+            try:
+                fed.scrape(url, instance=f"apiserver-p{i}",
+                           token=token, fold=True)
+            except Exception:  # noqa: BLE001 — best-effort per child
+                pass
+
+    def apply(self, action: Dict[str, Any]) -> dict:
+        op = action["op"]
+        if op == "split":
+            return self.coordinator.spread_namespace(action["namespace"])
+        if op == "move":
+            return self.coordinator.move_slots(action["assignments"])
+        if op == "retire":
+            return self.coordinator.retire(action["partition"])
+        if op == "failover":
+            if self._restarter is None:
+                raise RuntimeError(
+                    "failover requires a restarter(index) hook")
+            url = self._restarter(action["partition"])
+            return self.coordinator.reroute_after_restart(
+                action["partition"], url)
+        if op == "buy":
+            if self._provisioner is None:
+                raise RuntimeError("buy requires a provisioner hook")
+            return self.coordinator.split_to(self._provisioner())
+        raise ValueError(f"unknown rebalance op {op!r}")
+
+
+# ---------------------------------------------------------------------------
+# the controller
 
 
 class PartitionRebalancer:

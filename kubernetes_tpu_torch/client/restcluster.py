@@ -31,7 +31,8 @@ List, then watch: ``list_for_watch`` lists every watched kind with the
 resourceVersion the list is consistent at, the scheduler replays those
 lists into its cache and queue, and ``watch(batch_fn, resume=...)``
 streams each kind from its list's version, so no event is missed
-between the two and none the lists already hold is delivered again.
+between the two and none the lists already hold is delivered again. A
+bare ``watch`` takes those lists itself before it returns.
 
 Reads the scheduler consults once per cycle (services, replica sets,
 PDBs, ...) are served from short-TTL caches.
@@ -44,8 +45,21 @@ split by partition and go out at once on a shared executor, and the
 watch opens one stream a (kind, partition), each listed, resumed and
 relisted on its own partition's resourceVersion.
 ``check_partition_topology`` fails loudly on URLs in the wrong order.
-Not here: the elastic topology (re-routing on a topology epoch) and
-read replicas.
+
+The elastic topology (``enable_topology``): the client fetches the live
+routing document and polls it. Single calls route by slot owner (read
+again at each retry), a bulk slice refused by a moved-slice 429
+(``X-Partition-Epoch``) splits again against the refreshed topology,
+and the watch streams keep their reflector state here: on an epoch
+change ``_replumb_streams`` stops the streams of retired or restarted
+partitions, hands their known objects to the new owners' streams,
+starts handoff streams whose first list delivers only the missed
+difference, and catches up the partitions that gained keyspace. A
+stream whose slice did not move is not touched (``stream_relists``
+counts relists of torn streams; ``handoff_fetches`` the handoffs'
+fetches). ``negotiated_codec`` records each partition's wire-version
+pin, and a restart seam's re-pin counts in ``codec_renegotiations``.
+Not here: read replicas.
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ from kubernetes_tpu_torch.api.serialization import from_wire, to_wire
 from kubernetes_tpu_torch.apiserver import codec
 from kubernetes_tpu_torch.apiserver.partition import (
     CompositeCursor,
+    PartitionTopology,
     partition_for,
     partitions_for,
 )
@@ -118,6 +133,13 @@ class TokenBucket:
                     wait = (take - self._tokens) / self.qps
                 time.sleep(min(wait, 0.05))
             remaining -= take
+
+
+class StaleRouteError(RuntimeError):
+    """A bulk slice went to a server that no longer owns part of it (the
+    topology's epoch moved under the split). The caller re-splits against
+    the refreshed topology and sends again; raised only on the elastic
+    path (``enable_topology``)."""
 
 
 def _sever(conn) -> None:
@@ -308,7 +330,8 @@ class RestClusterClient:
                  retry_after_cap: float = RETRY_AFTER_CAP_S,
                  retry_budget: Optional[RetryBudget] = None,
                  retry_seed: Optional[int] = None,
-                 partition_urls: Optional[List[str]] = None):
+                 partition_urls: Optional[List[str]] = None,
+                 codec_version: int = codec.CODEC_VERSION):
         """A client of the apiserver at ``base_url`` authenticating with
         bearer ``token``; ``qps`` (None: unlimited) is the rate and the
         burst of its token bucket, charged an object at a time;
@@ -320,7 +343,9 @@ class RestClusterClient:
         refilled at 4 a second); ``retry_seed`` makes the backoff's
         jitter repeatable. ``partition_urls`` (the apiserver of each
         store partition, in partition order) makes the client
-        partition-aware; ``base_url`` is then the first."""
+        partition-aware; ``base_url`` is then the first. ``codec_version``
+        is the wire version stamped on every request (1 is the old
+        version's, which the upgrade row's witness client speaks)."""
         urls = [u.rstrip("/") for u in (partition_urls or [base_url])]
         self.base_url = urls[0]
         self.partition_urls = urls
@@ -374,12 +399,42 @@ class RestClusterClient:
         self._rv_lock = threading.Lock()
         self._last_rv: Dict[Tuple[str, int], int] = {}
         self.rv_regressions: List[Tuple[str, int, int]] = []
+        # the elastic control plane: None is the static layout.
+        # ``enable_topology`` fetches the live routing document, and from
+        # then single calls route by slot owner, watch streams keep their
+        # reflector state here, and an epoch change re-routes them
+        # without relisting a slice that did not move
+        self._topology: Optional[PartitionTopology] = None
+        self.topology_epoch = 0
+        self._topology_lock = threading.Lock()
+        self._elastic_watching = False
+        self._watch_batch_fn: Optional[Callable[[List[Event]], None]] = None
+        # each (kind, partition) stream's reflector state: what it has
+        # shown the consumer, (ns, name) -> last object
+        self._known_lock = threading.Lock()
+        self._stream_known: Dict[Tuple[str, int], Dict[tuple, Any]] = {}
+        self._stream_stops: Dict[Tuple[str, int], threading.Event] = {}
+        self._handoff_lock = threading.Lock()
+        # relists of a torn stream, a (kind, partition); a handoff's
+        # catch-up fetch counts in ``handoff_fetches`` instead
+        self.stream_relists: Dict[Tuple[str, int], int] = {}
+        self.handoff_fetches = 0
+        self._topology_stop = threading.Event()
+        self._topology_thread: Optional[threading.Thread] = None
+        # routing can learn an epoch on any thread (a 429's epoch), the
+        # stream surgery only on a replumbing caller: the epoch the
+        # streams have caught up to, the partition indices whose endpoint
+        # changed since, and the partitions that gained keyspace since
+        self._replumb_epoch = 0
+        self._pending_changed: set = set()
+        self._pending_gained: set = set()
         # wire-version pin: the codec version this client speaks, stamped
         # on every request; the server echoes the pinned min(server,
-        # client)
-        self.codec_version = codec.CODEC_VERSION
+        # client), recorded a partition
+        self.codec_version = int(codec_version)
         self._codec_lock = threading.Lock()
-        self.negotiated_codec: Optional[int] = None
+        self.negotiated_codec: Dict[int, int] = {}
+        self._codec_pending_reneg: set = set()
         self.codec_renegotiations = 0
         self.codec_failures = 0
 
@@ -418,10 +473,11 @@ class RestClusterClient:
         h[codec.VERSION_HEADER] = str(self.codec_version)
         return h
 
-    def _record_negotiated(self, resp) -> None:
-        """Record the server's echoed wire-version pin: a changed echo
-        is a re-negotiation (a restarted server behind the URL), an echo
-        above our own stamp a contract failure."""
+    def _record_negotiated(self, partition: int, resp) -> None:
+        """Record the echoed wire-version pin of one partition's server:
+        a changed echo, or the first echo after a restart seam changed
+        the partition's endpoint, is a re-negotiation; an echo above our
+        own stamp a contract failure."""
         stamp = resp.headers.get(codec.VERSION_HEADER) if resp.headers \
             else None
         if stamp is None:
@@ -435,10 +491,12 @@ class RestClusterClient:
         with self._codec_lock:
             if v > self.codec_version:
                 self.codec_failures += 1
-            if self.negotiated_codec is not None \
-                    and self.negotiated_codec != v:
+            prev = self.negotiated_codec.get(partition)
+            if (prev is not None and prev != v) \
+                    or partition in self._codec_pending_reneg:
                 self.codec_renegotiations += 1
-            self.negotiated_codec = v
+            self._codec_pending_reneg.discard(partition)
+            self.negotiated_codec[partition] = v
 
     @staticmethod
     def _note_retry(verb: str, reason: str) -> None:
@@ -510,14 +568,19 @@ class RestClusterClient:
                  charge: float = 1.0, body_binary: Optional[bool] = None,
                  retries: Optional[int] = None,
                  trace_ctx: Optional[str] = None,
-                 partition: int = 0) -> Tuple[int, Any]:
-        """One request to ``partition``'s apiserver with the client's
+                 partition: int = 0,
+                 route: Optional[Callable[[], int]] = None,
+                 raise_on_stale: bool = False) -> Tuple[int, Any]:
+        """One request to ``partition``'s apiserver (``route()``'s, read
+        again at every attempt, when given) with the client's
         discipline: the token bucket charged ``charge`` objects, retries
         on transport errors and on 429/503 (honoring Retry-After, capped
         at ``retry_after_cap``) within the retry budget, the circuit
-        breaker fed. The body goes binary unless ``body_binary``
-        (default: the client's ``binary``) is False. Returns (status,
-        decoded body)."""
+        breaker fed. A 429 naming a newer topology epoch refreshes the
+        routing, and with ``raise_on_stale`` (a bulk slice) raises
+        ``StaleRouteError`` for the caller to re-split. The body goes
+        binary unless ``body_binary`` (default: the client's
+        ``binary``) is False. Returns (status, decoded body)."""
         if body_binary is None:
             body_binary = self.binary
         if self.limiter is not None:
@@ -526,8 +589,10 @@ class RestClusterClient:
         if payload is not None:
             data = codec.encode(payload) if body_binary \
                 else json.dumps(payload).encode()
-        pool = self._pools[(partition,
-                            "ro" if method in ("GET", "HEAD") else "rw")]
+        if route is not None:
+            partition = route()
+        lane = "ro" if method in ("GET", "HEAD") else "rw"
+        pool = self._pools[(partition, lane)]
         headers = self._headers(body_binary)
         if trace_ctx:
             # retries re-send the SAME context: a retried hop stays one
@@ -562,7 +627,63 @@ class RestClusterClient:
                 self._note_retry(method, "transport")
                 time.sleep(self._backoff.delay(attempt))
                 attempt += 1
+                # resolve the route and the pool again: a restart seam
+                # may have re-pointed this partition at its successor
+                # during the backoff, and a retry pinned to the old pool
+                # would dial the dead port until the budget ran out
+                if route is not None:
+                    partition = route()
+                pool = self._pools[(partition, lane)]
                 pool.prewarm(1)
+                continue
+            if resp.status == 429 \
+                    and resp.headers.get("X-Partition-Epoch"):
+                # a moved slice: this server no longer owns part of the
+                # request's keyspace and named the live epoch (a frozen
+                # slice carries no epoch: its cure is the Retry-After
+                # wait below). Refresh the routing, then retry at the
+                # owner, or have the caller re-split its batch
+                try:
+                    new_epoch = int(resp.headers.get("X-Partition-Epoch"))
+                except ValueError:
+                    new_epoch = 0
+                if resp.will_close:
+                    _ConnPool.discard(conn)
+                else:
+                    pool.release(conn)
+                conn = None
+                self.breaker.record_success()
+                if new_epoch > self.topology_epoch:
+                    try:
+                        # the refusing server holds the newer document
+                        self.refresh_topology(partition=partition,
+                                              replumb=False)
+                    except Exception:  # noqa: BLE001 — retried below
+                        pass
+                if raise_on_stale and route is None:
+                    # even an equal epoch re-groups a batch split before
+                    # the flip correctly
+                    raise StaleRouteError(
+                        f"topology epoch {new_epoch}: re-split needed")
+                if attempt >= max_r \
+                        or not self._retry_budget.try_spend():
+                    ctype = resp.headers.get("Content-Type") or ""
+                    if ctype.startswith(codec.BINARY_CONTENT_TYPE):
+                        return resp.status, codec.decode(raw)
+                    return resp.status, (json.loads(raw) if raw else {})
+                try:
+                    advertised = float(
+                        resp.headers.get("Retry-After") or 0.0)
+                except ValueError:
+                    advertised = 0.0
+                self._note_retry(method, "reshard")
+                time.sleep(min(max(advertised,
+                                   self._backoff.delay(attempt)),
+                               self.retry_after_cap))
+                attempt += 1
+                if route is not None:
+                    partition = route()
+                pool = self._pools[(partition, lane)]
                 continue
             if resp.status in (429, 503) and attempt < max_r \
                     and self._retry_budget.try_spend():
@@ -597,7 +718,7 @@ class RestClusterClient:
                 _ConnPool.discard(conn)
             else:
                 pool.release(conn)
-            self._record_negotiated(resp)
+            self._record_negotiated(partition, resp)
             ctype = resp.headers.get("Content-Type") or ""
             if ctype.startswith(codec.BINARY_CONTENT_TYPE):
                 return resp.status, codec.decode(raw)
@@ -635,8 +756,20 @@ class RestClusterClient:
 
     def _pk(self, kind: str, namespace: Optional[str],
             name: Optional[str]) -> int:
-        """The partition an object lives in."""
+        """The partition an object lives in: its slot's owner under a
+        live topology, else the static routing function's."""
+        topo = self._topology
+        if topo is not None:
+            return topo.partition_of(kind, namespace, name)
         return partition_for(kind, namespace, name, self.partitions)
+
+    def _pset(self, kind: str, namespace: Optional[str] = None
+              ) -> List[int]:
+        """The partitions a kind (of a namespace) can live in."""
+        topo = self._topology
+        if topo is not None:
+            return topo.partitions_for(kind, namespace)
+        return partitions_for(kind, self.partitions, namespace)
 
     def _list_with_rv(self, kind: str, namespace: Optional[str] = None,
                       partition: Optional[int] = None
@@ -646,7 +779,7 @@ class RestClusterClient:
         live in (the version is then the largest). The monotonicity
         watchdog records a partition's version that went backwards."""
         if partition is None:
-            parts = partitions_for(kind, self.partitions, namespace)
+            parts = self._pset(kind, namespace)
             if len(parts) > 1:
                 got = self._fan_out().map(
                     lambda p: self._list_with_rv(kind, namespace, p), parts)
@@ -676,7 +809,7 @@ class RestClusterClient:
              name: str) -> Optional[Any]:
         code, payload = self._request(
             "GET", self._path(kind, namespace, name),
-            partition=self._pk(kind, namespace, name))
+            route=lambda: self._pk(kind, namespace, name))
         if code == 404:
             return None
         self._raise_for(code, payload)
@@ -722,7 +855,8 @@ class RestClusterClient:
     def delete_node(self, name: str) -> None:
         code, payload = self._request("DELETE",
                                       self._path("Node", None, name),
-                                      partition=self._pk("Node", None, name))
+                                      route=lambda: self._pk("Node", None,
+                                                             name))
         if code >= 400 and code != 404:
             self._raise_for(code, payload)
 
@@ -790,7 +924,8 @@ class RestClusterClient:
         code, payload = self._request(
             "POST", self._path("Pod", namespace, name, "binding"),
             {"kind": "Binding", "uid": uid, "target": {"name": node_name}},
-            body_binary=False, partition=self._pk("Pod", namespace, name))
+            body_binary=False,
+            route=lambda: self._pk("Pod", namespace, name))
         self._raise_for(code, payload)
 
     # -- partition fan-out ---------------------------------------------
@@ -817,26 +952,56 @@ class RestClusterClient:
             groups.setdefault(key_fn(item), []).append((i, item))
         return sorted(groups.items())
 
-    def _fan_by_partition(self, items, key_fn, call_fn) -> List[Any]:
+    def _fan_by_partition(self, items, key_fn, call_fn,
+                          _depth: int = 0) -> List[Any]:
         """Split positional ``items`` by partition (``key_fn``), run
         ``call_fn(partition, slice)`` for each group (at once when there
         are several) and merge each slice's positional results back into
-        the items' order."""
+        the items' order. A slice refused by a moved-slice 429
+        (``StaleRouteError``) splits again alone, against the refreshed
+        topology: slices that committed keep their results (sending them
+        again would read their own 409s as failures)."""
         groups = self._group_by_partition(items, key_fn)
+        retry: List[Tuple[int, Any]] = []
+        outs = []
         if len(groups) == 1:
-            p, entries = groups[0]
-            outs = [(entries, call_fn(p, [it for _, it in entries]))]
+            futures = [(groups[0][1], None)]
         else:
             pool = self._fan_out()
             futures = [(entries, pool.submit(call_fn, p,
                                              [it for _, it in entries]))
                        for p, entries in groups]
-            outs = [(entries, fut.result()) for entries, fut in futures]
+        for (entries, fut), (p, _) in zip(futures, groups):
+            try:
+                got = fut.result() if fut is not None \
+                    else call_fn(p, [it for _, it in entries])
+                outs.append((entries, got))
+            except StaleRouteError:
+                if _depth >= 3:
+                    raise
+                retry.extend(entries)
         results: List[Any] = [None] * len(items)
         for entries, got in outs:
             for (i, _), r in zip(entries, got):
                 results[i] = r
+        if retry:
+            time.sleep(0.05)
+            again = self._fan_by_partition(
+                [it for _, it in retry], key_fn, call_fn, _depth + 1)
+            for (i, _), r in zip(retry, again):
+                results[i] = r
         return results
+
+    def _with_resplit(self, fn):
+        """Run a bulk fan-out, splitting it again against the refreshed
+        topology while a server answers a moved-slice 429. Bounded: a
+        topology that never settles surfaces the error."""
+        for _ in range(4):
+            try:
+                return fn()
+            except StaleRouteError:
+                time.sleep(0.05)
+        return fn()
 
     def check_partition_topology(self) -> None:
         """Each endpoint must serve the partition this client routes to
@@ -856,6 +1021,139 @@ class RestClusterClient:
                     f"{topo.get('partitions')}, not {i} of "
                     f"{self.partitions}: misconfigured routing")
 
+    # -- the elastic topology (live resharding) --------------------------
+    def enable_topology(self, poll_interval: float = 0.5) -> bool:
+        """Switch to epoch-aware routing: fetch the live topology document
+        and (``poll_interval`` > 0) start a poller that re-routes this
+        client, its watch streams included, whenever
+        ``/api/v1/partitiontopology`` changes epoch. False when the
+        servers have no live topology (the client stays static)."""
+        got = self.refresh_topology()
+        if got and poll_interval > 0 and self._topology_thread is None:
+            self._topology_stop.clear()
+            self._topology_thread = threading.Thread(
+                target=self._topology_poll_loop, args=(poll_interval,),
+                daemon=True, name="topology-poll")
+            self._topology_thread.start()
+        return got
+
+    def stop_topology_watch(self) -> None:
+        self._topology_stop.set()
+        t, self._topology_thread = self._topology_thread, None
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=2.0)
+
+    def _topology_poll_loop(self, interval: float) -> None:
+        offset = 0
+        while not self._topology_stop.wait(interval):
+            # round-robin the endpoints: partition 0 may be the one that
+            # just died (a failover is when the topology changes)
+            for i in range(len(self._endpoints)):
+                p = (offset + i) % len(self._endpoints)
+                try:
+                    self.refresh_topology(partition=p, replumb=True)
+                    break   # a server answered
+                except Exception:  # noqa: BLE001 — dead endpoint: next
+                    continue
+            offset += 1
+
+    def refresh_topology(self, partition: int = 0,
+                         replumb: bool = True) -> bool:
+        """Fetch the topology document from one endpoint and apply it if
+        its epoch is newer. ``replumb=False`` updates the routing only
+        (a 429's refresh runs on any thread; the watch streams' surgery
+        belongs to the poller)."""
+        code, doc = self._request("GET", "/api/v1/partitiontopology",
+                                  partition=partition, retries=0)
+        if code != 200 or not isinstance(doc, dict) \
+                or "owner" not in doc:
+            return False
+        self._apply_topology(PartitionTopology.from_dict(doc),
+                             replumb=replumb)
+        return True
+
+    def apply_topology(self, topo: PartitionTopology,
+                       replumb: bool = True) -> None:
+        """Install a topology directly (a coordinator that has just
+        committed a migration hands it over without waiting a poll)."""
+        self._apply_topology(topo, replumb=replumb)
+
+    def _apply_topology(self, topo: PartitionTopology,
+                        replumb: bool) -> None:
+        """Install the routing of a newer epoch (any thread) and, for a
+        replumbing caller (the poller, a coordinator), bring the watch
+        streams up to whatever epoch the routing has reached. The two
+        are tracked apart (``_replumb_epoch``): a routing-only install
+        must not let the streams' catch-up be lost to an equal epoch."""
+        do_streams = False
+        changed: set = set()
+        gained: set = set()
+        with self._topology_lock:
+            if self._topology is None or topo.epoch > self.topology_epoch:
+                self._install_routing_locked(topo)
+            if replumb and self._elastic_watching \
+                    and self._replumb_epoch < self.topology_epoch:
+                do_streams = True
+                self._replumb_epoch = self.topology_epoch
+                changed, self._pending_changed = \
+                    set(self._pending_changed), set()
+                gained, self._pending_gained = \
+                    set(self._pending_gained), set()
+                topo = self._topology
+        if do_streams:
+            self._replumb_streams(topo, changed, gained)
+
+    def _install_routing_locked(self, topo: PartitionTopology) -> None:
+        """Under ``_topology_lock``: the routing tables, the pools and the
+        version watchdog of a newer epoch."""
+        old_urls = list(self.partition_urls)
+        old_topo = self._topology
+        new_urls = [u.rstrip("/") for u in topo.urls] \
+            if topo.urls else old_urls
+        # the partitions that gained keyspace: a changed spread set can
+        # land a namespace's keys anywhere (slots by name), so every
+        # partition gains; an owner change gains the slots' new owners
+        if old_topo is not None:
+            if topo.spread != old_topo.spread:
+                self._pending_gained |= set(range(len(new_urls)))
+            else:
+                for slot, owner in enumerate(topo.owner):
+                    if slot >= len(old_topo.owner) \
+                            or old_topo.owner[slot] != owner:
+                        self._pending_gained.add(owner)
+        changed = {p for p in range(len(new_urls))
+                   if p >= len(old_urls) or new_urls[p] != old_urls[p]}
+        endpoints = []
+        for u in new_urls:
+            host, _, port = u.split("://", 1)[1].partition(":")
+            endpoints.append((host, int(port or 80)))
+        for p in changed:
+            host, port = endpoints[p]
+            for lane in ("ro", "rw"):
+                old_pool = self._pools.get((p, lane))
+                if old_pool is not None:
+                    old_pool.close_all()
+                self._pools[(p, lane)] = _ConnPool(host, port)
+        self.partition_urls = new_urls
+        self.partitions = len(new_urls)
+        self._endpoints = endpoints
+        self._topology = topo
+        self.topology_epoch = topo.epoch
+        self._pending_changed |= changed
+        # the version watchdog is keyed by (kind, partition index); a
+        # changed index is another server now (a split's new process, a
+        # restart with a restored store), whose first list must not read
+        # as a regression of its predecessor's versions
+        with self._rv_lock:
+            for key in [k for k in self._last_rv if k[1] in changed]:
+                del self._last_rv[key]
+        # a changed index is a restart seam: the pin belonged to the old
+        # server, and the new server's first echo is a re-negotiation
+        with self._codec_lock:
+            for p in changed:
+                if self.negotiated_codec.pop(p, None) is not None:
+                    self._codec_pending_reneg.add(p)
+
     def bind_many(self, bindings: List[Tuple[str, str, str, str]]
                   ) -> List[Optional[Exception]]:
         """Bulk POST /bindings: (namespace, name, uid, node) each, one
@@ -865,9 +1163,9 @@ class RestClusterClient:
         partition's slice goes out as two pipelined halves."""
         if not bindings:
             return []
-        return self._fan_by_partition(
+        return self._with_resplit(lambda: self._fan_by_partition(
             list(bindings), lambda b: self._pk("Pod", b[0], b[1]),
-            self._bind_partition)
+            self._bind_partition))
 
     def _bind_partition(self, partition: int,
                         bindings: List[Tuple[str, str, str, str]]
@@ -900,7 +1198,9 @@ class RestClusterClient:
                                    charge=len(bindings),
                                    trace_ctx=self._trace_ctx_for(
                                        [b[2] for b in bindings]),
-                                   partition=partition)
+                                   partition=partition,
+                                   raise_on_stale=self._topology
+                                   is not None)
         if code >= 400:
             err = RuntimeError(
                 resp.get("message", f"HTTP {code}")
@@ -926,7 +1226,7 @@ class RestClusterClient:
             "PUT", self._path("Pod", namespace, name, "status"),
             {"status": status}, body_binary=False,
             trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]),
-            partition=self._pk("Pod", namespace, name))
+            route=lambda: self._pk("Pod", namespace, name))
         if code == 404:
             return   # pod deleted under us: store semantics are no-op
         self._raise_for(code, payload)
@@ -941,10 +1241,10 @@ class RestClusterClient:
         ``_put_status``."""
         if not updates:
             return []
-        return self._fan_by_partition(
+        return self._with_resplit(lambda: self._fan_by_partition(
             list(updates),
             lambda u: self._pk("Pod", u.get("namespace"), u.get("name")),
-            self._statuses_partition)
+            self._statuses_partition))
 
     def _statuses_partition(self, partition: int, updates: List[dict]
                             ) -> List[Optional[Exception]]:
@@ -955,7 +1255,8 @@ class RestClusterClient:
             trace_ctx=self._trace_ctx_for(
                 [f"{u.get('namespace')}/{u.get('name')}"
                  for u in updates]),
-            partition=partition)
+            partition=partition,
+            raise_on_stale=self._topology is not None)
         if code >= 400:
             err = RuntimeError(
                 resp.get("message", f"HTTP {code}")
@@ -1017,7 +1318,7 @@ class RestClusterClient:
         code, payload = self._request(
             "DELETE", self._path("Pod", namespace, name),
             trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]),
-            partition=self._pk("Pod", namespace, name))
+            route=lambda: self._pk("Pod", namespace, name))
         if code >= 400 and code != 404:
             self._raise_for(code, payload)
 
@@ -1054,10 +1355,10 @@ class RestClusterClient:
             return [self._create_list(kind, items, partition)] + \
                 [0] * (len(items) - 1)
 
-        return sum(self._fan_by_partition(
+        return sum(self._with_resplit(lambda: self._fan_by_partition(
             list(objs), lambda o: self._pk(
                 kind, getattr(o.metadata, "namespace", None),
-                o.metadata.name), create))
+                o.metadata.name), create)))
 
     def _create_list(self, kind: str, objs: List[Any], partition: int
                      ) -> int:
@@ -1076,7 +1377,8 @@ class RestClusterClient:
             "POST", self._path(kind, ns), payload, charge=len(objs),
             trace_ctx=self._trace_ctx_for(
                 [getattr(o.metadata, "uid", "") for o in objs]),
-            partition=partition)
+            partition=partition,
+            raise_on_stale=self._topology is not None)
         self._raise_for(code, resp)
         return resp.get("created", 0)
 
@@ -1086,7 +1388,7 @@ class RestClusterClient:
         code, payload = self._request(
             "PUT", self._path(kind, ns, obj.metadata.name),
             obj if self.binary else to_wire(obj),
-            partition=self._pk(kind, ns, obj.metadata.name))
+            route=lambda: self._pk(kind, ns, obj.metadata.name))
         self._raise_for(code, payload)
         return obj
 
@@ -1098,7 +1400,7 @@ class RestClusterClient:
             trace_ctx=self._trace_ctx_for(
                 [getattr(obj.metadata, "uid", "")
                  or f"{ns}/{obj.metadata.name}"]),
-            partition=self._pk(kind, ns, obj.metadata.name))
+            route=lambda: self._pk(kind, ns, obj.metadata.name))
         self._raise_for(code, payload)
         return obj
 
@@ -1121,7 +1423,7 @@ class RestClusterClient:
             "PUT", self._path("Pod", namespace, name, "status"),
             {"status": status}, body_binary=False,
             trace_ctx=self._trace_ctx_for([f"{namespace}/{name}"]),
-            partition=self._pk("Pod", namespace, name))
+            route=lambda: self._pk("Pod", namespace, name))
         if code == 404:
             return False
         self._raise_for(code, payload)
@@ -1157,7 +1459,7 @@ class RestClusterClient:
                     for kind in self.watch_kinds}
         out: Dict[str, Tuple[List[Any], Any]] = {}
         for kind in self.watch_kinds:
-            parts = partitions_for(kind, self.partitions)
+            parts = self._pset(kind)
             got = self._fan_out().map(
                 lambda p, kind=kind: self._list_with_rv(kind, partition=p),
                 parts)
@@ -1188,15 +1490,32 @@ class RestClusterClient:
               ) -> _WatchHandle:
         """Watch every scheduler kind over chunked HTTP, one stream a
         kind, delivering each decoded frame (a server-coalesced batch)
-        in one ``batch_fn`` call, as the store's watch does. With
-        ``resume`` (``list_for_watch``'s lists) each stream starts at
-        its list's version and delivers nothing that list holds;
-        without it each stream lists first and delivers only what
-        follows. A stream that drops relists and delivers the
-        difference against what it has delivered."""
+        in one ``batch_fn`` call, as the store's watch does. Each
+        stream starts at the version of ``resume`` (``list_for_watch``'s
+        lists) and delivers nothing that list holds; without ``resume``
+        the lists are taken here, before the call returns, so every
+        write after it is delivered, as from the store's watch. A stream
+        that drops relists and delivers the difference against what it
+        has delivered."""
+        if resume is None:
+            resume = self.list_for_watch()
         self._stopping.clear()
+        if self._topology is not None:
+            # elastic: restartable streams a (kind, partition) whose
+            # reflector state this client holds, so an epoch change hands
+            # a moved slice to its new partition's stream and relists
+            # nothing that did not move
+            self._elastic_watching = True
+            self._watch_batch_fn = batch_fn
+            with self._handoff_lock:
+                for kind in self.watch_kinds:
+                    for p in self._pset(kind):
+                        self._start_stream(
+                            kind, p, handoff=False,
+                            initial=self._resume_for(kind, p, resume))
+            return _WatchHandle(self)
         for kind in self.watch_kinds:
-            for p in partitions_for(kind, self.partitions):
+            for p in self._pset(kind):
                 t = threading.Thread(
                     target=self._watch_loop,
                     args=(kind, p, batch_fn,
@@ -1208,11 +1527,236 @@ class RestClusterClient:
 
     def _stop_watches(self) -> None:
         self._stopping.set()
+        self._elastic_watching = False
+        self._watch_batch_fn = None
+        for ev in list(self._stream_stops.values()):
+            ev.set()
         with self._pool_init_lock:
             conns = list(self._stream_conns.values())
             self._stream_conns.clear()
         for conn in conns:
             _sever(conn)
+        self.stop_topology_watch()
+
+    # -- elastic watch streams (the cursor-keeping handoff) ---------------
+    def _start_stream(self, kind: str, p: int, handoff: bool,
+                      initial: Optional[Tuple[List[Any], int]] = None
+                      ) -> None:
+        """Start (or replace) the stream of one (kind, partition). A
+        ``handoff`` stream starts mid-run after a topology change: its
+        first list delivers the difference against the (transferred)
+        known map, the window the consumer missed, where a boot stream's
+        first list (or ``initial``, ``list_for_watch``'s slice) is only
+        remembered."""
+        old_stop = self._stream_stops.get((kind, p))
+        if old_stop is not None:
+            old_stop.set()
+        with self._pool_init_lock:
+            old_conn = self._stream_conns.pop((kind, p), None)
+        _sever(old_conn)
+        stop = threading.Event()
+        self._stream_stops[(kind, p)] = stop
+        t = threading.Thread(
+            target=self._watch_elastic_loop,
+            args=(kind, p, stop, handoff, initial),
+            daemon=True, name=f"watch-{kind}-p{p}")
+        t.start()
+        self._watch_threads.append(t)
+
+    def _deliver(self, kind: str, p: int, events: List[Event]) -> None:
+        """Forward events to the consumer through the stream's known map,
+        with a version filter an object: an event replayed past the
+        handoff seam, or a late delivery a catch-up fetch already
+        superseded, is dropped (never duplicated, never backwards)."""
+        topo = self._topology
+        out: List[Event] = []
+        with self._known_lock:
+            known = self._stream_known.setdefault((kind, p), {})
+            for e in events:
+                key = _key_of(e.obj)
+                rv = _rv_of(e.obj)
+                prev = known.get(key)
+                prev_rv = _rv_of(prev) if prev is not None else -1
+                if prev is None and topo is not None \
+                        and topo.partition_of(kind, key[0], key[1]) != p:
+                    # a key this stream neither owns nor has state for:
+                    # a late delivery from before the transfer (its new
+                    # owner's catch-up covers it) or an early one from
+                    # after the flip (the owner's stream delivers it).
+                    # Forwarding it would deliver it twice
+                    continue
+                if e.type == DELETED:
+                    if prev is None or (rv and prev_rv > rv):
+                        continue
+                    known.pop(key, None)
+                else:
+                    if prev is not None and rv and prev_rv >= rv:
+                        continue
+                    known[key] = e.obj
+                out.append(e)
+        batch_fn = self._watch_batch_fn
+        if out and batch_fn is not None:
+            batch_fn(out)
+
+    def _endpoint(self, p: int) -> Optional[Tuple[str, int]]:
+        endpoints = self._endpoints
+        return endpoints[p] if p < len(endpoints) else None
+
+    def _watch_elastic_loop(self, kind: str, p: int,
+                            stop: threading.Event, handoff: bool,
+                            initial: Optional[Tuple[List[Any], int]]
+                            ) -> None:
+        from kubernetes_tpu_torch.metrics.fabric_metrics import (
+            fabric_metrics,
+        )
+
+        first = True
+        # the endpoint this stream was plumbed against: when it changes
+        # the partition's process was replaced, and the seam belongs to
+        # ``_replumb_streams``, which stops this loop and opens a handoff
+        # stream (reconnecting here would count the restart as a relist
+        # of an unmoved slice)
+        ep0 = self._endpoint(p)
+        while not self._stopping.is_set() and not stop.is_set():
+            if self._endpoint(p) != ep0:
+                return
+            try:
+                if first and initial is not None:
+                    objs, rv = initial
+                else:
+                    objs, rv = self._list_with_rv(kind, partition=p)
+                if stop.is_set() or self._stopping.is_set() \
+                        or self._endpoint(p) != ep0:
+                    return
+                live = {_key_of(o): o for o in objs}
+                events: List[Event] = []
+                if first and not handoff:
+                    # a boot stream: the consumer replays the first list
+                    # itself; remember what exists
+                    with self._known_lock:
+                        self._stream_known.setdefault(
+                            (kind, p), {}).update(live)
+                else:
+                    with self._known_lock:
+                        snapshot = dict(self._stream_known.setdefault(
+                            (kind, p), {}))
+                    events = replace_diff(kind, snapshot, live)
+                    if first:
+                        self.handoff_fetches += 1
+                    else:
+                        # a torn stream relists its own slice only
+                        fabric_metrics().client_relists_total.inc(kind)
+                        self.stream_relists[(kind, p)] = \
+                            self.stream_relists.get((kind, p), 0) + 1
+                first = False
+                if events:
+                    self._deliver(kind, p, events)
+                self._stream_watch(
+                    kind, rv, lambda evs: self._deliver(kind, p, evs), p,
+                    stop=stop)
+            except (http.client.HTTPException, OSError, RuntimeError):
+                pass
+            if self._stopping.is_set() or stop.is_set():
+                return
+            time.sleep(0.2)   # relist and watch again
+
+    def _reconcile_stream(self, kind: str, p: int,
+                          keys: List[tuple]) -> None:
+        """Catch up keys just transferred into partition p's live stream
+        (a move to an existing partition, a retire draining into the
+        survivors): list p once and deliver the difference. The live
+        stream covers what p commits after the flip; this covers the
+        window before it that the source's stream may not have
+        delivered. Additions and updates come from the whole list (a
+        write of the freeze window the source never delivered is in no
+        known map); deletions only for the transferred ``keys`` (a
+        whole-list diff would race the live stream into a false
+        DELETED). The known map is read before the list, so what lands
+        between shows up as a duplicate the version filter drops."""
+        self.handoff_fetches += 1
+        with self._known_lock:
+            snapshot = dict(self._stream_known.setdefault((kind, p), {}))
+        try:
+            objs, _rv = self._list_with_rv(kind, partition=p)
+        except (http.client.HTTPException, OSError, RuntimeError):
+            return
+        live = {_key_of(o): o for o in objs}
+        events: List[Event] = []
+        for key, cur in live.items():
+            old = snapshot.get(key)
+            if old is None:
+                events.append(Event(ADDED, kind, cur))
+            elif _rv_of(old) != _rv_of(cur):
+                events.append(Event(MODIFIED, kind, cur, old))
+        for key in keys:
+            if key not in live and key in snapshot:
+                events.append(Event(DELETED, kind, snapshot[key]))
+        if events:
+            self._deliver(kind, p, events)
+
+    def _replumb_streams(self, topo: PartitionTopology, changed_urls: set,
+                         gained: Optional[set] = None) -> None:
+        """Re-route the watch streams after an epoch change:
+
+        1. stop the streams whose partition left the fan set (retired) or
+           whose endpoint changed (a restart), and let their delivery
+           drain;
+        2. move each stopped or moved key's known entry to its new
+           owner's map (the client's half of the cursor transfer);
+        3. start handoff streams where the fan set lacks one (a split's
+           new partition, a restarted endpoint): their first list
+           delivers the missed window as a difference;
+        4. catch up the live streams that gained keyspace, whether or
+           not a known key moved with it.
+
+        The streams of unmoved slices are not touched: no relist."""
+        gained = gained or set()
+        with self._handoff_lock:
+            fan: Dict[str, set] = {
+                kind: set(topo.partitions_for(kind))
+                for kind in self.watch_kinds}
+            stopped: List[Tuple[str, int]] = []
+            for (kind, p) in list(self._stream_stops):
+                if kind not in fan:
+                    continue
+                if p not in fan[kind] or p in changed_urls:
+                    ev = self._stream_stops.get((kind, p))
+                    if ev is not None:
+                        ev.set()
+                    with self._pool_init_lock:
+                        conn = self._stream_conns.pop((kind, p), None)
+                    _sever(conn)
+                    stopped.append((kind, p))
+            if stopped:
+                time.sleep(0.05)   # let their delivery drain
+            to_reconcile: Dict[Tuple[str, int], List[tuple]] = {}
+            with self._known_lock:
+                for (kind, p), known in list(self._stream_known.items()):
+                    if kind not in fan:
+                        continue
+                    for key in list(known):
+                        q = topo.partition_of(kind, key[0], key[1])
+                        if q == p:
+                            # same owner: a stopped stream's restarted
+                            # handoff stream diffs it
+                            continue
+                        obj = known.pop(key)
+                        self._stream_known.setdefault(
+                            (kind, q), {})[key] = obj
+                        to_reconcile.setdefault((kind, q), []).append(key)
+            started: set = set()
+            for kind in self.watch_kinds:
+                for q in fan[kind]:
+                    ev = self._stream_stops.get((kind, q))
+                    if ev is None or ev.is_set():
+                        self._start_stream(kind, q, handoff=True)
+                        started.add((kind, q))
+            for kind in self.watch_kinds:
+                for q in gained & fan[kind]:
+                    to_reconcile.setdefault((kind, q), [])
+            for (kind, q), keys in to_reconcile.items():
+                if (kind, q) not in started:
+                    self._reconcile_stream(kind, q, keys)
 
     def _watch_loop(self, kind: str, partition: int, batch_fn,
                     initial: Optional[Tuple[List[Any], int]]) -> None:
@@ -1259,7 +1803,8 @@ class RestClusterClient:
             time.sleep(0.2)   # relist and watch again
 
     def _stream_watch(self, kind: str, rv: int, deliver,
-                      partition: int = 0) -> None:
+                      partition: int = 0,
+                      stop: Optional[threading.Event] = None) -> None:
         plural = KIND_TO_PLURAL.get(kind, kind.lower() + "s")
         host, port = self._endpoints[partition]
         conn = http.client.HTTPConnection(host, port, timeout=300)
@@ -1268,7 +1813,7 @@ class RestClusterClient:
         key = (kind, partition)
         with self._pool_init_lock:
             self._stream_conns[key] = conn
-        if self._stopping.is_set():
+        if self._stopping.is_set() or (stop is not None and stop.is_set()):
             _sever(conn)
         headers = {"Accept": codec.BINARY_CONTENT_TYPE,
                    codec.VERSION_HEADER: str(self.codec_version)}
@@ -1285,7 +1830,7 @@ class RestClusterClient:
                 "GET", f"/api/v1/{plural}?watch=1&resourceVersion={rv}",
                 headers=headers)
             resp = conn.getresponse()
-            self._record_negotiated(resp)
+            self._record_negotiated(partition, resp)
             if resp.status != 200:
                 resp.read()
                 if resp.status == 410:
@@ -1293,7 +1838,8 @@ class RestClusterClient:
                     # the recovery; count it
                     self._note_retry("WATCH", "http_410")
                 return
-            while not self._stopping.is_set():
+            while not self._stopping.is_set() \
+                    and (stop is None or not stop.is_set()):
                 try:
                     batch = codec.read_frame(resp)
                 except Exception:  # noqa: BLE001 — torn outer frame
@@ -1320,6 +1866,8 @@ class RestClusterClient:
                         events.append(Event(t, kind, obj, old, ts, origin))
                 except Exception:  # noqa: BLE001 — torn event
                     return
+                if stop is not None and stop.is_set():
+                    return   # a stream replumbed away delivers nothing
                 self._observe_delivery(kind, events)
                 self._trace_watch_delivery(events)
                 deliver(events)

@@ -120,7 +120,8 @@ def _apiserver_main(conn, wal_dir: Optional[str],
     # the asynchronous WAL writer: serialization rides a background
     # thread instead of every request's critical section (etcd pipelines
     # its log appends the same way)
-    wal = attach_wal(store, wal_dir, snapshot_every=200_000) \
+    wal = attach_wal(store, wal_dir, snapshot_every=200_000,
+                     async_serialize=True) \
         if wal_dir else None
     # create to bind on this process's clock: each pod's creation
     # commit (creationTimestamp) to its bind commit, as a user of the

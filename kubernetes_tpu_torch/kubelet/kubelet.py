@@ -148,12 +148,13 @@ class Kubelet:
         self.heartbeat()
         self._adopt_runtime_state()
         self._load_static_pods()
-        # watch pod events for this node; initial list picks up existing
+        # watch pod events for this node, then list: the list picks up
+        # what the watch began after
+        self._watch_handle = self.store.watch(self._on_events)
         for pod in self.store.list_pods():
             if pod.spec.node_name == self.node_name:
                 self._key_of[pod.uid] = (pod.namespace, pod.name)
                 self._mark_dirty(pod.uid)
-        self._watch_handle = self.store.watch(self._on_events)
         # pods/log provider (the apiserver proxies log requests to the
         # node's kubelet; this registry is that connection in-process).
         # A REST-backed store (kubemark hollow nodes over the fabric)

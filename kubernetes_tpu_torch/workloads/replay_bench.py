@@ -72,7 +72,8 @@ def _apiserver_main(conn, wal_dir: Optional[str],
 
     tune_for_throughput()
     store = ClusterStore()
-    wal = attach_wal(store, wal_dir, snapshot_every=200_000) \
+    wal = attach_wal(store, wal_dir, snapshot_every=200_000,
+                     async_serialize=True) \
         if wal_dir else None
     authz = provision_bootstrap_policy(store)
     authz.add_user_to_group("replay-creator", "system:masters")

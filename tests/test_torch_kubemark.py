@@ -9,7 +9,9 @@ JAX package's:
   that gets four devices;
 - a ``HollowNode`` over the REST fabric (a ``RestClusterClient``):
   registration, the lease renewed through the lease verb, a pod driven
-  to Running, no proxier;
+  to Running, no proxier; with the watch streams starting late (a
+  loaded host), a kubelet and an informer factory over REST still see
+  what was written between their list and the streams';
 - ``HollowFleet``: the same node objects, the same rotation of lease
   renewals and the same lease holders as the JAX fleet; over the
   partitioned store and over a partition-aware client the nodes land in
@@ -151,6 +153,70 @@ def test_hollow_node_over_the_rest_fabric_runs_a_pod():
     finally:
         sched.stop()
         hollow.stop()
+        client.close()
+        server.shutdown_server()
+
+
+@pytest.fixture
+def late_streams(monkeypatch):
+    """REST watch streams whose threads start 1.5 s late, as on a loaded
+    host: a consumer that lists on its own and then watches bare misses
+    what is written between its list and the stream's."""
+    from kubernetes_tpu_torch.client.restcluster import RestClusterClient
+
+    real = RestClusterClient._watch_loop
+
+    def late(self, *args, **kwargs):
+        time.sleep(1.5)
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(RestClusterClient, "_watch_loop", late)
+
+
+def _rest_fabric():
+    from kubernetes_tpu_torch.apiserver.rest import APIServer
+    from kubernetes_tpu_torch.client.restcluster import RestClusterClient
+
+    store = ClusterStore()
+    server = APIServer(store=store).start()
+    client = RestClusterClient(server.url, watch_kinds=("Pod",))
+    return store, server, client
+
+
+def test_kubelet_over_rest_runs_a_pod_bound_before_its_stream_lists(
+        late_streams):
+    """The cause of the REST hollow node's failure under load: the
+    kubelet lists, then streams on from that list's version."""
+    store, server, client = _rest_fabric()
+    hollow = HollowNode(client, "late-0", capacity={"cpu": "8"})
+    hollow.start()
+    try:
+        store.create_pod(MakePod().name("early").uid("ue")
+                         .req({"cpu": "100m"}).obj())
+        store.bind("default", "early", "ue", "late-0")
+        assert wait_for(lambda: store.get_pod("default", "early")
+                        .status.phase == "Running")
+    finally:
+        hollow.stop()
+        client.close()
+        server.shutdown_server()
+
+
+def test_informer_over_rest_holds_an_object_written_before_its_stream_lists(
+        late_streams):
+    from kubernetes_tpu_torch.client.informers import SharedInformerFactory
+
+    store, server, client = _rest_fabric()
+    factory = SharedInformerFactory(client)
+    lister = factory.lister_for("Pod")
+    factory.start()
+    try:
+        assert factory.wait_for_cache_sync()
+        store.create_pod(MakePod().name("early").uid("ue").obj())
+        assert wait_for(lambda: [p.metadata.name for p in lister.list()]
+                        == ["early"])
+    finally:
+        factory.stop()
         client.close()
         server.shutdown_server()
 
