@@ -344,7 +344,33 @@ prints no result):
     bit for bit; pods/s, p50 / p99 arrival-to-bind against the 500 ms
     budget and the longest freeze against 2 s (reported), codec
     renegotiations, handoff fetches and the card's busy share by CUDA
-    events.
+    events;
+38. the read tier (``harness/watchherd.py``) at ``bench.py``'s
+    ``--quick`` sizes: ``run_watchherd_row`` with 64 informers in 2
+    spawned herd children, 120 seeded creates at 20 a second (and their
+    deletes) into a spawned owner on a synchronous WAL, 20 hollow nodes,
+    an arm without replicas and one with 4 spawned read replicas, then
+    the replica-kill cell; then ``run_chaos_readtier`` for owner_restart
+    and lag_fence at their defaults. No scheduler, no kernel. Gated:
+    nothing lost and no informer unconverged anywhere, no duplicate frame
+    and no relist on the arms' steady streams, the same truth hash in
+    both arms, relists only on the killed replica's informers (at least
+    one there), owner_restart resumed at least once with no reseed and
+    no relist, lag_fence fenced. Reported beside the JAX package's bars
+    (not gated): the read scaling per owner CPU-second against 1.5x, the
+    write ratio against 0.85, and events/s, replication-lag p99,
+    reroutes and replica reads;
+39. federation over REST (``run_federation_row``) at ``bench.py``'s
+    sizes: 3 spawned cells (the upgrade harness's apiserver child), each
+    scheduled by a one-replica fleet whose batch path (at most 256 pods)
+    runs on the card, 900 pods at 300 a second, 16-cpu nodes; the spill
+    row (cluster 0 pinned under its tenants' demand) and the loss row (a
+    cell SIGKILLed mid-storm). Gated: zero lost, every pod bound, gangs
+    whole, no relist in a surviving cell, spill spilled and loss failed
+    over with a recovery ratio of at least 0.8, no torch in a cell, and
+    every launch on the kernel its plan gives, held against the plain
+    version bit for bit. Each cluster's p99 arrival-to-bind is reported
+    beside its 2,500 ms bar.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -362,7 +388,7 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23 and 25 to 34) resets the kernels'
+Every main-path run (4, 5, 8 to 23, 25 to 34, 37 and 39) resets the kernels'
 launch counts just before and reads them just after; the kernel table
 sums them.
 Before the last line come the script's wall time, the scatters' counts
@@ -4553,6 +4579,172 @@ def phase_upgrade(pods=2400, qps=100.0, max_batch=256):
     return report
 
 
+WATCHHERD_QUICK = dict(informers=64, creates=120, qps=20.0,
+                       herd_children=2, nodes=20, replica_arms=(0, 4))
+
+
+def phase_readtier(wait_timeout=300.0, **sizes):
+    """Phase 38 (see the module's docstring): the watch-herd row at
+    ``bench.py``'s ``--quick`` sizes (``sizes`` overrides them; with
+    ``WATCHHERD_FULL`` it is ``run_watchherd_row()``'s defaults), then
+    the owner_restart and lag_fence cells. Returns the rows and cells."""
+    from kubernetes_tpu_torch.harness.watchherd import (
+        READ_SCALING_FLOOR_X,
+        WRITE_FLAT_TOLERANCE,
+        run_chaos_readtier,
+        run_watchherd_row,
+    )
+
+    kw = {**WATCHHERD_QUICK, **sizes}
+    t0 = time.monotonic()
+    rows = run_watchherd_row(wait_timeout=wait_timeout, progress=log, **kw)
+    row_s = time.monotonic() - t0
+    arms = [r for r in rows if r["metric"].startswith("watchherd[")]
+    (scaling,) = [r for r in rows
+                  if r["metric"].startswith("watchherd_scaling")]
+    (kill,) = [r for r in rows if r["metric"].startswith("watchherd_cell")]
+    for arm in arms:
+        name = f"readtier:R={arm['replicas']}"
+        check(arm["lost_events"] == 0 and arm["unconverged_informers"] == 0,
+              f"{name}: lost {arm['lost_events']}, unconverged "
+              f"{arm['unconverged_informers']}")
+        check(arm["dup_suppressed"] == 0,
+              f"{name}: {arm['dup_suppressed']} duplicate frames on steady "
+              "streams")
+        check(arm["relists"] == 0, f"{name}: {arm['relists']} relists with "
+              "no process killed")
+        report = {"row": name, **{k: v for k, v in arm.items()
+                                  if k not in ("metric", "freshness")}}
+        ROW_REPORTS.append(report)
+        print("row " + json.dumps(report, default=str), flush=True)
+        log(f"  {name}: {arm['informers']} informers, "
+            f"{arm['events_committed']} events, {arm['value']} events/s "
+            f"delivered ({arm['fanout_per_owner_cpu_s']} per owner "
+            f"CPU-second, owner {arm['owner_cpu_s']} s), writes "
+            f"{arm['write_qps_achieved']}/s of {arm['write_qps_offered']}; "
+            f"replication lag p99 {arm['replication_lag_p99_ms']} ms "
+            f"against {arm['lag_budget_ms']}; fences {arm['fences']}, "
+            f"reroutes {arm['reroutes']}, replica reads "
+            f"{arm['replica_reads']}; lost {arm['lost_events']}; arm "
+            f"invariants {'ok' if arm['invariants_ok'] else arm['invariants']}")
+    check(scaling["differential_match"],
+          f"readtier: truth hashes differ {scaling['state_hashes']}")
+    log(f"  readtier scaling: {scaling['read_scaling_x']}x per owner "
+        f"CPU-second (JAX bar {READ_SCALING_FLOOR_X}x, reported), wall "
+        f"{scaling['wall_clock_scaling_x']}x; write ratio "
+        f"{scaling['write_ratio']} (bar {1 - WRITE_FLAT_TOLERANCE:.2f}, "
+        f"reported); hashes {scaling['state_hashes']} ({row_s:.1f} s)")
+    out = {"arms": arms, "scaling": scaling, "cells": {}, "row_s": row_s}
+    cells = [("replica_kill", kill)]
+    for scenario in ("owner_restart", "lag_fence"):
+        t0 = time.monotonic()
+        cell = run_chaos_readtier(16, scenario=scenario, progress=log)
+        cell.pop("replica_stats", None)
+        cell["wall_s"] = time.monotonic() - t0
+        cells.append((scenario, cell))
+    for scenario, cell in cells:
+        name = f"readtier:{scenario}"
+        check(cell["lost_events"] == 0, f"{name}: lost "
+              f"{cell['lost_events']}")
+        check(cell["relists_beyond_faulted"] == 0,
+              f"{name}: {cell['relists_beyond_faulted']} relists beyond the "
+              "faulted replica")
+        if scenario == "replica_kill":
+            check(cell["relists_on_faulted"] >= 1,
+                  f"{name}: the killed replica's informers never relisted")
+        elif scenario == "owner_restart":
+            check(cell["resumes"] >= 1 and cell["reseeds"] == 0
+                  and cell["relists"] == 0,
+                  f"{name}: resumes {cell['resumes']}, reseeds "
+                  f"{cell['reseeds']}, relists {cell['relists']}")
+        else:
+            check(cell["fences"] >= 1, f"{name}: the lagging replica "
+                  "never fenced")
+        check(cell["ok"], f"{name}: {cell['failure']}")
+        report = {"row": name, **{k: v for k, v in cell.items()
+                                  if k not in ("metric", "invariants")}}
+        ROW_REPORTS.append(report)
+        print("row " + json.dumps(report, default=str), flush=True)
+        log(f"  {name}: ok; {cell['informers']} informers, "
+            f"{cell['events_committed']} events, lost "
+            f"{cell['lost_events']}, relists {cell['relists']} (on the "
+            f"faulted {cell['relists_on_faulted']}), reroutes "
+            f"{cell['reroutes']}, fences {cell['fences']}, resumes "
+            f"{cell['resumes']}, reseeds {cell['reseeds']}")
+        out["cells"][scenario] = report
+    return out
+
+
+WATCHHERD_FULL = dict(informers=320, creates=240, qps=12.0,
+                      herd_children=4, nodes=100, replica_arms=(0, 1, 4))
+
+
+def phase_federation_rest(pods=900, qps=300.0, max_batch=256):
+    """Phase 39 (see the module's docstring): ``run_federation_row`` for
+    spill and loss under ``run_path`` with every launch kept, each launch on
+    the kernel its plan gives and held against the plain version."""
+    from kubernetes_tpu_torch.harness.federation import (
+        P99_PER_CLUSTER_BUDGET_MS,
+        RECOVERY_RATIO_FLOOR,
+        run_federation_row,
+    )
+
+    out = {}
+    for mode in ("spill", "loss"):
+        name = f"federation-rest:{mode}"
+        row, counts, kernel_ms, _, recorder, wall = run_path(
+            name, lambda: run_federation_row(
+                pods=pods, qps=qps, mode=mode, max_batch=max_batch,
+                progress=log, device="cuda"),
+            keep="all", kernel=None)
+        by_kernel, plans, held, pods_held, plain_ms, err = scale_launches(
+            name, recorder, 0, len(recorder.inputs))
+        check(by_kernel == {k: v for k, v in counts.items() if v},
+              f"{name}: counted {counts}, planned {by_kernel}")
+        check(counts["cluster"] > 0, f"{name}: the cluster kernel never "
+              "launched")
+        check(row["device"].startswith("cuda"), f"{name} ran on the card")
+        check(not row["children_import_torch"],
+              f"{name}: a spawned cell imported torch")
+        report = {"row": name, "max_batch": max_batch,
+                  **{k: v for k, v in row.items()
+                     if k not in ("metric", "freshness")},
+                  "p99_per_cluster_budget_ms": P99_PER_CLUSTER_BUDGET_MS,
+                  "launches": by_kernel, "plans": plans,
+                  "launches_held": held, "pods_held": pods_held,
+                  "plain_ms": plain_ms, "max_abs_err": err,
+                  "kernel_ms_sum": sum(kernel_ms),
+                  "launch_events_share_row": sum(kernel_ms) / 1000 / wall,
+                  "wall_s": wall}
+        ROW_REPORTS.append(report)
+        print("row " + json.dumps(report, default=str), flush=True)
+        p99s = {c: v["p99_ms"] for c, v in row["per_cluster"].items()}
+        log(f"  {name} on {row['device']}: {row['ever_bound']}/"
+            f"{row['injected']} bound, {row['value']} pods/s (offered "
+            f"{row['offered_rate_pods_per_sec']}); p50 / p99 arrival-to-"
+            f"bind {row['p50_arrival_to_bind_ms']} / "
+            f"{row['p99_arrival_to_bind_ms']} ms; per cluster p99 {p99s} "
+            f"against {P99_PER_CLUSTER_BUDGET_MS:.0f} ms (reported); "
+            f"spilled {row['spilled']}, failovers {row['failovers']}, "
+            f"recovery {row['recovery_ratio']} (bar "
+            f"{RECOVERY_RATIO_FLOOR}), gang splits {row['gang_splits']}, "
+            f"survivor relists {row['survivor_relists']}, lost "
+            f"{row['lost_pods']}; launches {by_kernel}, every one held "
+            f"against plain (max_abs_err {err}); {wall:.1f} s")
+        failed = set((row["invariants"] or {}).get("failed", "").split())
+        gated = failed - {"slo", "per_cluster_slo"}
+        check(not gated, f"{name}: invariants failed: {sorted(gated)}")
+        check(row["lost_pods"] == 0
+              and row["ever_bound"] == row["injected"] == pods,
+              f"{name}: bound {row['ever_bound']} of {row['injected']}, "
+              f"lost {row['lost_pods']}")
+        if mode == "loss":
+            check(row["recovery_ratio"] >= RECOVERY_RATIO_FLOOR,
+                  f"{name}: recovery ratio {row['recovery_ratio']}")
+        out[mode] = report
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4786,7 +4978,19 @@ def main() -> None:
     upgrade = phase_upgrade()
     for k in upgrade["launches"]:
         errs[k] = max(errs[k], upgrade["max_abs_err"])
-    log(f"  main-path launches over phases 4, 5, 8 to 34 and 37: "
+
+    log("[38] the read tier: the watch-herd row at bench.py's --quick "
+        "sizes (64 informers, 120 creates at 20/s, arms R = 0 and 4, the "
+        "replica-kill cell), then the owner_restart and lag_fence cells")
+    readtier = phase_readtier()
+
+    log("[39] federation over REST: 3 spawned cells, 900 pods at 300/s, "
+        "the spill and loss rows, each cell's batch path on the card")
+    federation_rest = phase_federation_rest()
+    for row in federation_rest.values():
+        for k in row["launches"]:
+            errs[k] = max(errs[k], row["max_abs_err"])
+    log(f"  main-path launches over phases 4, 5, 8 to 34, 37 and 39: "
         f"{LAUNCHES}")
 
     scatters = {"scatters": {
@@ -4907,6 +5111,7 @@ def main() -> None:
         "sharded": sharded, "config_ha": config_ha, "rest": rest,
         "qos": qos, "replays": replays, "scale": scale_phase,
         "reshard": reshard, "hotspot": hotspot, "upgrade": upgrade,
+        "readtier": readtier, "federation_rest": federation_rest,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

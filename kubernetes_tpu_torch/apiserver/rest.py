@@ -54,11 +54,20 @@ server no longer owns 429 with ``X-Partition-Epoch``), and
 ``/debug/partition`` is the surface ``apiserver/reshard.py`` drives:
 freeze, unfreeze, topology, slice, adopt, evict, evict_unowned.
 
+A server may also be a read replica of one partition
+(``APIServer(read_only=True)``, ``apiserver/readtier.py``): it serves
+lists and watches from a mirror store, answers every mutating verb 503
+with ``X-Replica-ReadOnly``, and while ``fenced`` (its replication lag
+over budget) answers reads 503 with ``X-Replica-Fenced`` and closes its
+live watch streams. Its owner serves the commit stream replicas follow,
+``/api/v1/subscription``: every event of every kind as NDJSON frames,
+resumed from a resourceVersion through the watch cache or, past it, the
+WAL (``wal_dir``), or a snapshot with ``?snapshot=1``.
+
 Not served here: admission webhooks, custom resources, versioned group
 routes (every kind is served at ``v1`` only), service-account tokens
 and client certificates, pods' exec, log and port-forward
-subresources, Service cluster IP allocation, JSON Patch, read-only
-replicas, and the live-resharding and subscription routes.
+subresources, Service cluster IP allocation and JSON Patch.
 """
 
 from __future__ import annotations
@@ -130,6 +139,36 @@ KIND_TO_PLURAL = {k: p for p, k in PLURALS.items()}
 # wait up to this long for more, so a steady producer (informer
 # catch-up, bulk creates) ships hundreds of events per syscall
 WATCH_FLUSH_WINDOW = 0.002
+# the frames a stream may hold unsent before its reader counts as slow
+# and the stream is cut: a watcher's, and a read replica's subscription
+WATCH_QUEUE_FRAMES = 10_000
+SUBSCRIPTION_QUEUE_FRAMES = 50_000
+
+
+class _StreamQueue:
+    """The frames between the store's dispatch, which must never block,
+    and one stream's writer thread. A reader that falls behind is cut:
+    the frame that finds the queue full and every frame after it are
+    refused, and the writer ends the stream once it has sent what the
+    queue holds. What the reader got is then a gap-free prefix of the
+    commit order, so a resume from its newest version loses no event
+    (and a replay longer than the queue still moves it forward)."""
+
+    __slots__ = ("frames", "cut", "_on_cut")
+
+    def __init__(self, maxsize: int, on_cut: Callable[[], None]):
+        self.frames: "queue.Queue[Any]" = queue.Queue(maxsize=maxsize)
+        self.cut = False
+        self._on_cut = on_cut
+
+    def put(self, frame: Any) -> None:
+        if self.cut:
+            return
+        try:
+            self.frames.put_nowait(frame)
+        except queue.Full:
+            self.cut = True
+            self._on_cut()
 
 
 class Forbidden(Exception):
@@ -370,7 +409,8 @@ class _Handler(BaseHTTPRequestHandler):
     # blind the metrics scraper, and (via ADMIN_ROUTES) never lock out
     # the debug surfaces mid-overload.
     _EXEMPT_PATHS = ("/healthz", "/livez", "/readyz",
-                     "/metrics", "/api/v1/partitiontopology")
+                     "/metrics", "/api/v1/partitiontopology",
+                     "/api/v1/subscription")
 
     def _admission_exempt(self, path: str) -> bool:
         return path in self.ADMIN_ROUTES or path in self._EXEMPT_PATHS
@@ -691,11 +731,14 @@ class _Handler(BaseHTTPRequestHandler):
             self._apf_ticket = None
             ticket.release()
 
-    def _send_json(self, code: int, payload: Any) -> None:
+    def _send_json(self, code: int, payload: Any,
+                   headers: Optional[Dict[str, str]] = None) -> None:
         body = json.dumps(payload).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
         self._send_codec_header()
         self.end_headers()
         self.wfile.write(body)
@@ -710,7 +753,8 @@ class _Handler(BaseHTTPRequestHandler):
             codec.VERSION_HEADER,
             str(getattr(self, "_codec_version", codec.CODEC_VERSION)))
 
-    def _send_error(self, code: int, reason: str, message: str) -> None:
+    def _send_error(self, code: int, reason: str, message: str,
+                    headers: Optional[Dict[str, str]] = None) -> None:
         # reference metav1.Status error envelope
         self._send_json(
             code,
@@ -721,6 +765,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "message": message,
                 "code": code,
             },
+            headers,
         )
 
     # -- binary codec negotiation (codec.py: the protobuf analog) ------
@@ -1360,8 +1405,24 @@ class _Handler(BaseHTTPRequestHandler):
                 doc.update(topo.to_dict())
             self._send_json(200, doc)
             return
+        if u.path == "/api/v1/subscription":
+            # the read tier's commit stream: every event of every kind,
+            # resumed by resourceVersion; exempt like the topology doc
+            self._serve_subscription(u)
+            return
         if u.path in ("/api", "/apis") or self._is_discovery_path(u.path):
             self._serve_discovery(u.path)
+            return
+        if self.server.fenced.is_set():
+            # a read replica past its replication-lag budget: a read
+            # served now would break the staleness contract. The 503's
+            # header tells the client to read from a sibling or the
+            # owner; probes, metrics and the topology doc stay served
+            self._send_error(
+                503, "ReplicaFenced",
+                "read replica fenced: replication lag over budget — "
+                "re-route to a sibling or the owner",
+                {"X-Replica-Fenced": "1", "Retry-After": "0.5"})
             return
         kind, ns, name, sub, q = self._route()
         if kind is None:
@@ -1747,6 +1808,8 @@ class _Handler(BaseHTTPRequestHandler):
     def _do_POST(self) -> None:
         if self._dispatch_admin("POST"):
             return
+        if self._reject_if_read_only():
+            return
         kind, ns, name, sub, q = self._route()
         if kind == "Lease":
             if sub == "acquire" and name is not None:
@@ -1894,6 +1957,8 @@ class _Handler(BaseHTTPRequestHandler):
     def _do_PUT(self) -> None:
         if self._dispatch_admin("PUT"):
             return
+        if self._reject_if_read_only():
+            return
         kind, ns, name, sub, q = self._route()
         if kind == "Lease":
             self._send_error(405, "MethodNotAllowed",
@@ -1991,6 +2056,8 @@ class _Handler(BaseHTTPRequestHandler):
         shape; an RFC 6902 JSON Patch is answered 415."""
         if self._dispatch_admin("PATCH"):
             return
+        if self._reject_if_read_only():
+            return
         kind, ns, name, sub, q = self._route()
         if kind == "Lease":
             self._send_error(405, "MethodNotAllowed",
@@ -2076,6 +2143,8 @@ class _Handler(BaseHTTPRequestHandler):
     def _do_DELETE(self) -> None:
         if self._dispatch_admin("DELETE"):
             return
+        if self._reject_if_read_only():
+            return
         kind, ns, name, sub, q = self._route()
         if kind == "Lease":
             self._send_error(405, "MethodNotAllowed",
@@ -2113,8 +2182,10 @@ class _Handler(BaseHTTPRequestHandler):
     def _serve_watch(self, kind: str, ns: Optional[str], rv: int,
                      label_sel=None, field_checks=None) -> None:
         binary = self._accepts_binary()
-        frames: "queue.Queue[Optional[Any]]" = queue.Queue(maxsize=10_000)
-        dropped: List[bool] = []   # this watcher was dropped as slow
+        # a slow watcher is dropped (apiserver does the same), and
+        # counted once: the sink runs under the store lock, so it never
+        # blocks
+        frames = _StreamQueue(WATCH_QUEUE_FRAMES, self._count_stream_drop)
         # capture the REQUEST's api version: the sink runs on store
         # threads, and group-route watches must stream the same wire
         # shape their GETs serve (versioned-codec contract)
@@ -2144,36 +2215,23 @@ class _Handler(BaseHTTPRequestHandler):
                 # bind/update detection on it (the reference's informers
                 # synthesize old from their local cache instead — our
                 # binary peers skip that cache)
-                frame = event
-            else:
-                # memoized per event: N watchers must not pay N encodes
-                # (reference cachingObject in the watch cache)
-                frame = event.__dict__.get("_v1_frame") \
-                    if api_version == "v1" else None
-                if frame is None:
-                    wire = SCHEME_V.encode(event.obj, api_version)
-                    doc = {"type": event.type, "object": wire}
-                    if event.ts:
-                        # commit stamp for the freshness SLI (the JSON
-                        # wire's analog of the binary 4-tuple)
-                        doc["commitTs"] = event.ts
-                    frame = json.dumps(doc).encode() + b"\n"
-                    if api_version == "v1":
-                        event.__dict__["_v1_frame"] = frame
-            try:
-                frames.put_nowait(frame)
-            except queue.Full:
-                # slow watcher: drop the connection (apiserver does the
-                # same). This sink runs under the store lock, so never
-                # block — make room for the close sentinel instead.
-                if not dropped:
-                    dropped.append(True)
-                    self.server.watch_drops += 1
-                try:
-                    frames.get_nowait()
-                    frames.put_nowait(None)
-                except (queue.Empty, queue.Full):
-                    pass
+                frames.put(event)
+                return
+            # memoized per event: N watchers must not pay N encodes
+            # (reference cachingObject in the watch cache)
+            frame = event.__dict__.get("_v1_frame") \
+                if api_version == "v1" else None
+            if frame is None:
+                wire = SCHEME_V.encode(event.obj, api_version)
+                doc = {"type": event.type, "object": wire}
+                if event.ts:
+                    # commit stamp for the freshness SLI (the JSON
+                    # wire's analog of the binary 4-tuple)
+                    doc["commitTs"] = event.ts
+                frame = json.dumps(doc).encode() + b"\n"
+                if api_version == "v1":
+                    event.__dict__["_v1_frame"] = frame
+            frames.put(frame)
 
         try:
             handle = self.server.watch_cache.watch_from(rv, sink)
@@ -2204,7 +2262,64 @@ class _Handler(BaseHTTPRequestHandler):
                                 codec.CODEC_VERSION)
         gate = self.server.fault_gate
         plural = KIND_TO_PLURAL.get(kind, kind.lower() + "s")
+
+        def faults() -> bool:
+            # per-frame watch faults: stalls delay delivery, drops abort
+            # mid-stream with no terminating chunk (the client must
+            # detect the loss and relist)
+            if gate._rules:
+                rule = gate.decide("GET", plural, watch=True)
+                if rule is not None:
+                    if rule.fault == "watch_stall":
+                        time.sleep(rule.duration)
+                    elif rule.fault == "watch_drop":
+                        self._abort_socket()
+                        return False
+            return True
+
+        if binary:
+            # the backlog — plus a small flush window so a steady
+            # producer fills the chunk instead of paying one syscall per
+            # event — goes out as ONE length-prefixed frame: a pickled
+            # list of per-event pickles (each cached on its Event,
+            # shared across watchers). The client hands the whole batch
+            # to its handler in one call (the store's own batched
+            # dispatch, kept batched on the wire; reference streams
+            # length-delimited protobuf).
+            self._pump_stream(
+                frames, handle,
+                lambda batch: codec.frame(
+                    [_cached_event_bytes(e, codec_version) for e in batch]),
+                max_batch=2048, flush_window=WATCH_FLUSH_WINDOW,
+                before_batch=faults)
+        else:
+            # JSON coalescing: several newline-delimited frames ride one
+            # chunk write (readline-based clients parse them unchanged)
+            # — syscalls per batch, not per event
+            self._pump_stream(frames, handle, b"".join,
+                              before_batch=faults)
+
+    def _count_stream_drop(self) -> None:
+        self.server.watch_drops += 1
+
+    def _write_chunk(self, body: bytes) -> None:
+        self.wfile.write(b"%x\r\n%s\r\n" % (len(body), body))
+
+    def _pump_stream(self, frames: _StreamQueue, handle,
+                     encode: Callable[[List[Any]], bytes],
+                     max_batch: int = 512, flush_window: float = 0.0,
+                     before_batch: Optional[Callable[[], bool]] = None,
+                     head: bytes = b"") -> None:
+        """Write a stream's chunks until the server stops or fences, the
+        socket dies, ``before_batch`` says stop, or the stream, cut as
+        slow, has sent its queue. ``head`` goes first; then each turn takes the backlog
+        (up to ``max_batch`` frames, waiting ``flush_window`` for more)
+        and writes ``encode(batch)`` as one chunk. Stops ``handle`` and
+        writes the closing chunk on the way out."""
         try:
+            if head:
+                self._write_chunk(head)
+                self.wfile.flush()
             while not self.server.stopping.is_set():
                 if self._sock_aborted:
                     # an injected fault (truncation mid-stream) killed
@@ -2212,76 +2327,39 @@ class _Handler(BaseHTTPRequestHandler):
                     # never raise, so exit explicitly or this thread
                     # would drain a dead subscription forever
                     break
+                if self.server.fenced.is_set():
+                    # a replica that fences mid-stream sheds its
+                    # watchers: the client relists, the fence answers
+                    # the list 503, and the stream lands on a sibling
+                    break
+                if frames.cut and frames.frames.empty():
+                    # what was written is a prefix of the commit order:
+                    # the reader resumes from its newest version
+                    break
                 try:
-                    frame = frames.get(timeout=0.5)
+                    batch = [frames.frames.get(timeout=0.5)]
                 except queue.Empty:
                     continue
-                if frame is None:
+                if before_batch is not None and not before_batch():
                     break
-                if gate._rules:
-                    # per-frame watch faults: stalls delay delivery,
-                    # drops abort mid-stream with no terminating chunk
-                    # (the client must detect the loss and relist)
-                    rule = gate.decide("GET", plural, watch=True)
-                    if rule is not None:
-                        if rule.fault == "watch_stall":
-                            time.sleep(rule.duration)
-                        elif rule.fault == "watch_drop":
-                            self._abort_socket()
-                            break
-                closing = False
-                if binary:
-                    # drain the backlog — plus a small flush window so a
-                    # steady producer fills the chunk instead of paying
-                    # one syscall per event — into ONE length-prefixed
-                    # frame: a pickled list of per-event pickles (each
-                    # cached on its Event, shared across watchers). The
-                    # client hands the whole batch to its handler in one
-                    # call (the store's own batched dispatch, kept
-                    # batched on the wire; reference streams length-
-                    # delimited protobuf).
-                    batch = [frame]
-                    deadline = None
-                    while len(batch) < 2048:
-                        try:
-                            nxt = frames.get_nowait()
-                        except queue.Empty:
-                            if deadline is None:
-                                deadline = time.monotonic() + \
-                                    WATCH_FLUSH_WINDOW
-                            left = deadline - time.monotonic()
-                            if left <= 0:
-                                break
-                            try:
-                                nxt = frames.get(timeout=left)
-                            except queue.Empty:
-                                break
-                        if nxt is None:
-                            closing = True
-                            break
-                        batch.append(nxt)
-                    frame = codec.frame(
-                        [_cached_event_bytes(e, codec_version)
-                         for e in batch])
-                else:
-                    # JSON coalescing: several newline-delimited frames
-                    # ride one chunk write (readline-based clients parse
-                    # them unchanged) — syscalls per batch, not per event
-                    parts = [frame]
-                    while len(parts) < 512:
-                        try:
-                            nxt = frames.get_nowait()
-                        except queue.Empty:
-                            break
-                        if nxt is None:
-                            closing = True
-                            break
-                        parts.append(nxt)
-                    frame = b"".join(parts)
-                self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
+                deadline = None
+                while len(batch) < max_batch:
+                    try:
+                        batch.append(frames.frames.get_nowait())
+                        continue
+                    except queue.Empty:
+                        pass
+                    if deadline is None:
+                        deadline = time.monotonic() + flush_window
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    try:
+                        batch.append(frames.frames.get(timeout=left))
+                    except queue.Empty:
+                        break
+                self._write_chunk(encode(batch))
                 self.wfile.flush()
-                if closing:
-                    break
         except (BrokenPipeError, ConnectionResetError, OSError):
             pass
         finally:
@@ -2291,9 +2369,157 @@ class _Handler(BaseHTTPRequestHandler):
             except OSError:
                 pass
 
+    # -- the read tier's commit stream (apiserver/readtier.py) ---------
+    def _serve_subscription(self, u) -> None:
+        """The commit stream read replicas follow: every watch event of
+        every kind as an NDJSON line ``{type, kind, rv, object,
+        commitTs}``, from ``resourceVersion`` on. The resume comes from
+        the watch cache (replay and live attach under one lock) or, when
+        the cache no longer holds the window (a restarted owner's cache
+        is empty), from the WAL; only when both are compacted past the
+        cursor is the answer 410, and the replica seeds again from
+        ``?snapshot=1``."""
+        q = {k: v[0] for k, v in parse_qs(u.query).items()}
+        if q.get("snapshot") in ("1", "true"):
+            self._serve_subscription_snapshot()
+            return
+        try:
+            rv = int(q.get("resourceVersion") or 0)
+        except ValueError:
+            self._send_error(
+                400, "BadRequest",
+                f"invalid resourceVersion {q.get('resourceVersion')!r}")
+            return
+        # a replica that cannot keep up is cut rather than stalling the
+        # owner's dispatch; it resumes from its cursor, or seeds again
+        frames = _StreamQueue(SUBSCRIPTION_QUEUE_FRAMES,
+                              self._count_stream_drop)
 
+        def sink(event_rv: int, event: Event) -> None:
+            # one encode an event, shared by every subscribed replica
+            frame = event.__dict__.get("_sub_frame")
+            if frame is None:
+                doc = {"type": event.type, "kind": event.kind,
+                       "rv": event_rv, "object": to_wire(event.obj)}
+                if event.ts:
+                    doc["commitTs"] = event.ts
+                frame = json.dumps(doc).encode() + b"\n"
+                event.__dict__["_sub_frame"] = frame
+            frames.put(frame)
 
+        replayed: List[bytes] = []
+        handle = None
+        try:
+            try:
+                handle = self.server.watch_cache.watch_from(rv, sink)
+            except TooOldResourceVersion:
+                handle = self._attach_via_wal(rv, sink, replayed)
+            if handle is None:
+                self._send_error(
+                    410, "Expired",
+                    f"resourceVersion {rv} is compacted out of both the "
+                    "watch cache and the WAL — reseed from ?snapshot=1")
+                return
+        finally:
+            ticket = self._apf_ticket
+            if ticket is not None:
+                ticket.release()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        self._pump_stream(frames, handle, b"".join, head=b"".join(replayed))
 
+    def _attach_via_wal(self, rv: int, sink, replayed: List[bytes]):
+        """A subscription resume the watch cache cannot cover: the WAL's
+        window (rv, end] encoded into ``replayed``, then the live sink
+        attached at the window's top (an event committed while the log
+        was read is newer and replays from the cache). Returns the live
+        handle, or None when the WAL cannot cover the window either."""
+        wal_dir = self.server.wal_dir
+        if not wal_dir:
+            return None
+        from kubernetes_tpu_torch.apiserver.wal import wal_events_since
+
+        try:
+            covered, entries = wal_events_since(wal_dir, rv)
+        except OSError:
+            return None
+        if not covered:
+            return None
+        top = rv
+        for line in entries:
+            line_rv = int(line.get("rv") or 0)
+            doc: Dict[str, Any] = {"rv": line_rv, "kind": line["k"]}
+            if line["t"] == "DEL":
+                # the log keeps no body for a delete: the replica pops
+                # its mirrored object and announces it at this version
+                doc["type"] = "DELETED"
+                doc["key"] = [line.get("ns", ""), line["n"]]
+            else:
+                doc["type"] = "MODIFIED"
+                doc["object"] = line["o"]
+            replayed.append(json.dumps(doc).encode() + b"\n")
+            top = max(top, line_rv)
+        try:
+            return self.server.watch_cache.watch_from(top, sink)
+        except TooOldResourceVersion:
+            return None
+
+    def _serve_subscription_snapshot(self) -> None:
+        """A replica's seed: a leading ``{"rv": R}`` line, R read before
+        any kind is listed, then each kind's objects in batches of 500.
+        Events between R and a kind's list come again on the
+        subscription from R; the replica's per-object version guard
+        drops them."""
+        store = self.server.store
+        rv0 = store.current_rv()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def write_line(doc: dict) -> None:
+            self._write_chunk(json.dumps(doc).encode() + b"\n")
+
+        try:
+            write_line({"rv": rv0})
+            for kind in store.known_kinds():
+                if kind == "Lease":
+                    # no watch event keeps a mirrored lease current
+                    continue
+                try:
+                    objs, krv = store.list_objects_with_rv(kind)
+                except KeyError:
+                    continue
+                if not objs:
+                    continue
+                for i in range(0, len(objs), 500):
+                    write_line({
+                        "kind": kind, "rv": krv,
+                        "objects": [to_wire(o) for o in objs[i:i + 500]],
+                    })
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            pass
+
+    def _reject_if_read_only(self) -> bool:
+        """True when this server is a read replica and the mutating
+        request was answered 503 with ``X-Replica-ReadOnly``: writes go
+        to the partition owner. The body is read first, so the
+        connection's framing survives for the next request."""
+        if not self.server.read_only:
+            return False
+        length = self._content_length()
+        if length and not self._body_consumed:
+            self.rfile.read(length)
+            self._body_consumed = True
+        self._send_error(
+            503, "ReadOnlyReplica",
+            "read replica serves no writes — route mutations to the "
+            "partition owner", {"X-Replica-ReadOnly": "1"})
+        return True
 
 
 class APIServer(ThreadingHTTPServer):
@@ -2316,8 +2542,18 @@ class APIServer(ThreadingHTTPServer):
         max_mutating_inflight: Optional[int] = 200,
         flow_control: Optional[str] = "default",
         partition: Optional[Tuple[int, int]] = None,
+        read_only: bool = False,
     ):
         super().__init__((host, port), _Handler)
+        # a read replica (``apiserver/readtier.py``) serves reads from its
+        # mirror store and answers every write 503. ``fenced`` is its
+        # staleness breaker: set while its replication lag is over budget,
+        # reads answer 503 (X-Replica-Fenced) and live watch streams
+        # close. ``wal_dir``, set by a caller that attached a WAL, lets
+        # the subscription route resume windows the watch cache lost
+        self.read_only = bool(read_only)
+        self.fenced = threading.Event()
+        self.wal_dir: Optional[str] = None
         # (index, count) when this server is one partition of the
         # partitioned control plane, its store holding only that
         # partition's keyspace; (0, 1) is the unpartitioned server

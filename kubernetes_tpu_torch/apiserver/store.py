@@ -35,7 +35,9 @@ As one partition of a ``PartitionedStore`` (``apiserver/partition.py``) a
 store takes its versions from a shared counter (``rv_source``), and a
 slice of the keyspace moves between partitions over the silent
 placement channel (``adopt_objects``, ``evict_objects``): no watcher
-hears the move, the WAL (``watch_silent``) does."""
+hears the move, the WAL (``watch_silent``) does. A read replica's mirror
+store applies its owner's events with their versions kept and dispatches
+them (``apply_replicated``)."""
 
 from __future__ import annotations
 
@@ -283,6 +285,55 @@ class ClusterStore:
                     events.append(Event(DELETED, kind, obj))
             self._dispatch_silent(events)
         return out
+
+    def apply_replicated(self, events: List[Event]) -> List[Event]:
+        """Apply another store's committed events with their
+        resourceVersions kept: the read tier's mirror ingest
+        (``apiserver/readtier.py``). Unlike ``adopt_objects`` the applied
+        events are dispatched, commit stamps included, so a replica's
+        watchers see the owner's history verbatim. An event not newer
+        than the stored object (a resumed subscription's overlap) is
+        dropped, so the replica's history holds no duplicate. A DELETED
+        event may carry a key-only stub (a delete replayed from the WAL
+        has no body): the stored object is popped and announced at the
+        delete's version. Returns the applied events."""
+        applied: List[Event] = []
+        with self._lock:
+            for e in events:
+                try:
+                    table, key = self._table_key(
+                        e.kind, getattr(e.obj.metadata, "namespace", ""),
+                        e.obj.metadata.name)
+                except KeyError:
+                    continue   # a kind this mirror does not store
+                rv = _int_rv(e.obj)
+                cur = table.get(key)
+                cur_rv = _int_rv(cur) if cur is not None else 0
+                if e.type == DELETED:
+                    if cur is None or cur_rv > rv:
+                        continue
+                    table.pop(key, None)
+                    if e.kind == "Pod":
+                        self._bound -= bool(cur.spec.node_name)
+                    # the stored object at the delete's version, on a
+                    # copy: committed events stay as they were
+                    final = shallow_copy(cur)
+                    final.metadata = shallow_copy(cur.metadata)
+                    final.metadata.resource_version = str(rv)
+                    e = Event(DELETED, e.kind, final, ts=e.ts,
+                              origin=e.origin)
+                else:
+                    if cur is not None and cur_rv >= rv:
+                        continue
+                    table[key] = e.obj
+                    if e.kind == "Pod":
+                        self._bound += (bool(e.obj.spec.node_name)
+                                        - bool(cur is not None
+                                               and cur.spec.node_name))
+                self._rv = max(self._rv, rv)
+                applied.append(e)
+            self._dispatch(applied)
+        return applied
 
     # ------------------------------------------------------------------
     # nodes

@@ -193,18 +193,44 @@ class WalHandle:
 
 def attach_wal(store: ClusterStore, directory: str,
                snapshot_every: int = 20000,
-               async_serialize: bool = False) -> WalHandle:
+               async_serialize: bool = False,
+               preserve_log: bool = False) -> WalHandle:
     """Make ``store`` durable: all subsequent mutations are logged, inline
     unless ``async_serialize``. Cuts an initial snapshot so pre-existing
     state is captured too; the watch is opened and the snapshot cut under
     the store lock, so no mutation falls between them and the writer's
-    queue is empty."""
+    queue is empty.
+
+    ``preserve_log=True`` (a restart after ``restore_store``): no initial
+    snapshot, which would truncate the log; the log's torn tail, if the
+    crash left one, is cut back to its last whole line and the log is
+    appended to. A read replica resuming its subscription across the
+    owner's restart replays the missed window from this log
+    (``wal_events_since``)."""
+    if preserve_log:
+        _repair_log_tail(os.path.join(directory, LOG_NAME))
+        return WalHandle(store, directory, snapshot_every=snapshot_every,
+                         async_serialize=async_serialize)
     with store._lock:
         handle = WalHandle(store, directory, snapshot_every=snapshot_every,
                            async_serialize=async_serialize)
         with handle._lock:
             handle._snapshot_locked()
     return handle
+
+
+def _repair_log_tail(path: str) -> None:
+    """Cut a torn final line (a crash mid-append) so appends start on a
+    line of their own: restore stops at the torn line, and a record
+    appended to it would be lost with it."""
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data or data.endswith(b"\n"):
+        return
+    cut = data.rfind(b"\n")
+    os.truncate(path, cut + 1 if cut >= 0 else 0)
 
 
 def wal_events_since(directory: str, cursor: int):

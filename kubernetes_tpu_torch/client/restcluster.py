@@ -59,7 +59,13 @@ stream whose slice did not move is not touched (``stream_relists``
 counts relists of torn streams; ``handoff_fetches`` the handoffs'
 fetches). ``negotiated_codec`` records each partition's wire-version
 pin, and a restart seam's re-pin counts in ``codec_renegotiations``.
-Not here: read replicas.
+
+Read replicas (``apiserver/readtier.py``; the topology document's
+``replicas`` or ``set_read_replicas``): list and get requests and watch
+streams go to one sticky healthy replica of their partition, writes to
+the owner. A replica that drops a connection or answers a fence 503 is
+marked down for a while and the same call re-routes to a sibling or the
+owner (``replica_reads``, ``replica_reroutes``).
 """
 
 from __future__ import annotations
@@ -437,6 +443,21 @@ class RestClusterClient:
         self._codec_pending_reneg: set = set()
         self.codec_renegotiations = 0
         self.codec_failures = 0
+        # the read tier (apiserver/readtier.py): each partition's replica
+        # endpoints, from the topology document's ``replicas`` or
+        # ``set_read_replicas``. Reads stick to one healthy replica (the
+        # version watchdog is a (kind, partition)'s, and replicas trail
+        # the owner by lags of their own, so alternating would read as
+        # regressions); the pick moves only when the replica fails or
+        # fences (a down-mark with a TTL), and the watchdog forgets the
+        # partition at that seam
+        self._replica_lock = threading.Lock()
+        self._read_replicas: Dict[int, List[Tuple[str, int]]] = {}
+        self._replica_pools: Dict[Tuple[int, int], _ConnPool] = {}
+        self._replica_pick: Dict[int, int] = {}
+        self._replica_down: Dict[Tuple[int, int], float] = {}
+        self.replica_reads = 0
+        self.replica_reroutes = 0
 
     def set_degraded_listener(
             self, listener: Callable[[bool], None]) -> None:
@@ -447,8 +468,12 @@ class RestClusterClient:
 
     # -- transport -----------------------------------------------------
     def _drop_conn(self) -> None:
-        """Close every pooled keep-alive connection."""
+        """Close every pooled keep-alive connection, the replicas' too."""
         for pool in self._pools.values():
+            pool.close_all()
+        with self._replica_lock:
+            pools = list(self._replica_pools.values())
+        for pool in pools:
             pool.close_all()
 
     def close(self) -> None:
@@ -461,6 +486,132 @@ class RestClusterClient:
         for pool in pools:
             if pool is not None:
                 pool.shutdown(wait=False)
+
+    # -- read-tier routing ---------------------------------------------
+    _REPLICA_DOWN_TTL = 2.0
+
+    @staticmethod
+    def _replica_eligible(method: str, path: str) -> bool:
+        """Reads of resource paths go to replicas; the topology document
+        (a stale replica's could wedge routing) and the subscription
+        stream (the owner's commit log itself) always go to the owner."""
+        if method not in ("GET", "HEAD"):
+            return False
+        if not path.startswith("/api/v1/"):
+            return False
+        return not path.startswith(("/api/v1/partitiontopology",
+                                    "/api/v1/subscription"))
+
+    def set_read_replicas(self, replicas) -> None:
+        """Install each partition's read-replica URLs
+        (``{partition: [url, ...]}``) without a topology document; a
+        document's ``replicas`` land here too."""
+        with self._replica_lock:
+            new: Dict[int, List[Tuple[str, int]]] = {}
+            for p, urls in (replicas or {}).items():
+                eps = []
+                for u in urls:
+                    rest = u.split("://", 1)[1]
+                    host, _, port = rest.partition(":")
+                    eps.append((host, int(port or 80)))
+                if eps:
+                    new[int(p)] = eps
+            for p in set(self._read_replicas) | set(new):
+                if self._read_replicas.get(p) == new.get(p):
+                    continue
+                # a partition's replica set changed: new pools, and its
+                # down-marks and pick forgotten (the indices moved)
+                for idx in range(len(self._read_replicas.get(p) or ())):
+                    pool = self._replica_pools.pop((p, idx), None)
+                    if pool is not None:
+                        pool.close_all()
+                    self._replica_down.pop((p, idx), None)
+                for idx, (host, port) in enumerate(new.get(p) or ()):
+                    self._replica_pools[(p, idx)] = _ConnPool(host, port)
+                self._replica_pick.pop(p, None)
+            self._read_replicas = new
+
+    def _reset_rv_baseline(self, partition: int) -> None:
+        # a switch of replica: the next may trail the last, so its list
+        # versions are behind; that is staleness (bounded by the fence),
+        # not the regression the watchdog looks for
+        with self._rv_lock:
+            for key in [k for k in self._last_rv if k[1] == partition]:
+                del self._last_rv[key]
+
+    def _pick_replica(self, partition: int) -> Optional[int]:
+        """The partition's sticky healthy replica, or None (no replica
+        advertised, or all down: the owner serves the read)."""
+        switched = False
+        with self._replica_lock:
+            reps = self._read_replicas.get(partition)
+            if not reps:
+                return None
+            n = len(reps)
+            start = self._replica_pick.get(partition)
+            if start is None:
+                # the first pick spreads client instances over the set
+                start = (id(self) >> 6) % n
+                self._replica_pick[partition] = start
+            start %= n
+            now = time.monotonic()
+            pick = None
+            for k in range(n):
+                idx = (start + k) % n
+                if self._replica_down.get((partition, idx), 0.0) > now:
+                    continue
+                pick = idx
+                break
+            if pick is None:
+                return None
+            if pick != start:
+                self._replica_pick[partition] = pick
+                switched = True
+        if switched:
+            self._reset_rv_baseline(partition)
+        return pick
+
+    def _mark_replica_down(self, partition: int, idx: int) -> None:
+        """Skip the replica for ``_REPLICA_DOWN_TTL`` seconds after a
+        transport failure or a fence 503 (the owner serves the reads if
+        every sibling is down too)."""
+        with self._replica_lock:
+            self._replica_down[(partition, idx)] = \
+                time.monotonic() + self._REPLICA_DOWN_TTL
+            reps = self._read_replicas.get(partition) or []
+            if reps and self._replica_pick.get(partition) == idx:
+                self._replica_pick[partition] = (idx + 1) % len(reps)
+            self.replica_reroutes += 1
+        self._reset_rv_baseline(partition)
+
+    def _read_pool(self, partition: int,
+                   lane: str) -> Tuple["_ConnPool", Optional[int]]:
+        """A replica-eligible read's pool: the sticky healthy replica's,
+        else the owner's read lane. Returns (pool, replica index or
+        None)."""
+        idx = self._pick_replica(partition)
+        if idx is not None:
+            with self._replica_lock:
+                pool = self._replica_pools.get((partition, idx))
+            if pool is not None:
+                self.replica_reads += 1
+                return pool, idx
+        return self._pools[(partition, lane)], None
+
+    def _read_endpoint(self, partition: int
+                       ) -> Tuple[str, int, Optional[int]]:
+        """(host, port, replica index or None) for a watch stream:
+        streams go to replicas as lists do."""
+        idx = self._pick_replica(partition)
+        if idx is not None:
+            with self._replica_lock:
+                reps = self._read_replicas.get(partition) or []
+                if idx < len(reps):
+                    host, port = reps[idx]
+                    self.replica_reads += 1
+                    return host, port, idx
+        host, port = self._endpoints[partition]
+        return host, port, None
 
     def _headers(self, body_binary: bool) -> Dict[str, str]:
         h: Dict[str, str] = {}
@@ -592,7 +743,12 @@ class RestClusterClient:
         if route is not None:
             partition = route()
         lane = "ro" if method in ("GET", "HEAD") else "rw"
-        pool = self._pools[(partition, lane)]
+        use_replica = self._replica_eligible(method, path)
+        replica_idx: Optional[int] = None
+        if use_replica:
+            pool, replica_idx = self._read_pool(partition, lane)
+        else:
+            pool = self._pools[(partition, lane)]
         headers = self._headers(body_binary)
         if trace_ctx:
             # retries re-send the SAME context: a retried hop stays one
@@ -630,10 +786,17 @@ class RestClusterClient:
                 # resolve the route and the pool again: a restart seam
                 # may have re-pointed this partition at its successor
                 # during the backoff, and a retry pinned to the old pool
-                # would dial the dead port until the budget ran out
+                # would dial the dead port until the budget ran out. A
+                # read that died on a replica marks it down first, so
+                # the retry goes to a sibling or the owner
+                if replica_idx is not None:
+                    self._mark_replica_down(partition, replica_idx)
                 if route is not None:
                     partition = route()
-                pool = self._pools[(partition, lane)]
+                if use_replica:
+                    pool, replica_idx = self._read_pool(partition, lane)
+                else:
+                    pool = self._pools[(partition, lane)]
                 pool.prewarm(1)
                 continue
             if resp.status == 429 \
@@ -683,7 +846,29 @@ class RestClusterClient:
                 attempt += 1
                 if route is not None:
                     partition = route()
-                pool = self._pools[(partition, lane)]
+                if use_replica:
+                    pool, replica_idx = self._read_pool(partition, lane)
+                else:
+                    pool = self._pools[(partition, lane)]
+                continue
+            if resp.status == 503 and replica_idx is not None \
+                    and resp.headers.get("X-Replica-Fenced") \
+                    and attempt < max_r \
+                    and self._retry_budget.try_spend():
+                # a fenced replica: its own staleness verdict, not
+                # overload, so no Retry-After wait. Mark it down and send
+                # this attempt to a sibling or the owner; the relists
+                # stay with the clients that read from it
+                if resp.will_close:
+                    _ConnPool.discard(conn)
+                else:
+                    pool.release(conn)
+                conn = None
+                self.breaker.record_success()
+                self._mark_replica_down(partition, replica_idx)
+                self._note_retry(method, "replica_fenced")
+                pool, replica_idx = self._read_pool(partition, lane)
+                attempt += 1
                 continue
             if resp.status in (429, 503) and attempt < max_r \
                     and self._retry_budget.try_spend():
@@ -718,7 +903,10 @@ class RestClusterClient:
                 _ConnPool.discard(conn)
             else:
                 pool.release(conn)
-            self._record_negotiated(partition, resp)
+            if replica_idx is None:
+                # the wire-version pin is the owner's: a replica's echo
+                # would read as a renegotiation
+                self._record_negotiated(partition, resp)
             ctype = resp.headers.get("Content-Type") or ""
             if ctype.startswith(codec.BINARY_CONTENT_TYPE):
                 return resp.status, codec.decode(raw)
@@ -1153,6 +1341,9 @@ class RestClusterClient:
             for p in changed:
                 if self.negotiated_codec.pop(p, None) is not None:
                     self._codec_pending_reneg.add(p)
+        # the document's read replicas: an epoch that adds or removes
+        # some reaches every client as ownership moves do
+        self.set_read_replicas(topo.replicas)
 
     def bind_many(self, bindings: List[Tuple[str, str, str, str]]
                   ) -> List[Optional[Exception]]:
@@ -1806,7 +1997,7 @@ class RestClusterClient:
                       partition: int = 0,
                       stop: Optional[threading.Event] = None) -> None:
         plural = KIND_TO_PLURAL.get(kind, kind.lower() + "s")
-        host, port = self._endpoints[partition]
+        host, port, w_replica = self._read_endpoint(partition)
         conn = http.client.HTTPConnection(host, port, timeout=300)
         conn.connect()
         conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
@@ -1830,7 +2021,8 @@ class RestClusterClient:
                 "GET", f"/api/v1/{plural}?watch=1&resourceVersion={rv}",
                 headers=headers)
             resp = conn.getresponse()
-            self._record_negotiated(partition, resp)
+            if w_replica is None:
+                self._record_negotiated(partition, resp)
             if resp.status != 200:
                 resp.read()
                 if resp.status == 410:

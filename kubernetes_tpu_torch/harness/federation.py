@@ -18,11 +18,20 @@ trace, judged by the cluster-granularity invariants:
   ``run_degradation_differential`` holds the layer up and the layer down
   to identical bound sets on one cluster.
 
-``run_federation_mini_cell`` runs one scenario; the device (the card
-unless "cpu") carries every cell's batch solves and, with
+``run_federation_mini_cell`` runs one scenario in process; the device
+(the card unless "cpu") carries every cell's batch solves and, with
 ``FederationPolicy(serial=False)``, the federation's decisions on the
-scan. The reference package's spawned REST storm waits for the port's
-REST fabric.
+scan.
+
+``run_federation_storm`` runs one over the REST fabric: each cell a
+spawned apiserver (the upgrade harness's partition child: WAL, tokens,
+the counts protocol) and a one-replica scheduler fleet in this process
+whose batch path runs on ``device``; cluster loss SIGKILLs a whole
+cell's process. ``run_federation_row`` shapes a row from it,
+``run_chaos_federation`` a seeded chaos cell; ``_federation_ok`` is the
+verdict: lost pods, a gang split across clusters, a relist in a
+surviving cell, a cluster's p99 over ``P99_PER_CLUSTER_BUDGET_MS`` or a
+recovery ratio under ``RECOVERY_RATIO_FLOOR`` fail it.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import gc
 import math
 import random
+import threading
 import time
 from dataclasses import replace
 from typing import Callable, Dict, List, Optional, Tuple
@@ -197,6 +207,551 @@ def _federation_ok(res: dict) -> Tuple[bool, str]:
         checks["failed_over"] = res["failovers"] >= 1
     bad = [k for k, ok in checks.items() if not ok]
     return not bad, " ".join(bad)
+
+
+# ---------------------------------------------------------------------------
+# the spawned storm over the REST fabric
+
+
+class _FederationCells:
+    """K independent spawned cells, each the upgrade harness's one-
+    partition apiserver child; their scheduler fleets live in the
+    parent."""
+
+    def __init__(self, count: int):
+        import multiprocessing as mp
+        import tempfile
+
+        self.count = count
+        self.ctx = mp.get_context("spawn")
+        self.wal_root = tempfile.mkdtemp(prefix="ktpu-federation-wal-")
+        self.children: Dict[int, list] = {}
+        self.urls: Dict[int, str] = {}
+
+    def start(self, timeout: float = 60.0) -> Dict[int, str]:
+        import os
+
+        from kubernetes_tpu_torch.harness.rest_perf import _main_hidden
+        from kubernetes_tpu_torch.harness.upgrade import (
+            _upgrade_apiserver_main,
+        )
+
+        for cid in range(self.count):
+            seg = os.path.join(self.wal_root, f"c{cid}")
+            os.makedirs(seg, exist_ok=True)
+            parent_conn, child_conn = self.ctx.Pipe()
+            proc = self.ctx.Process(
+                target=_upgrade_apiserver_main,
+                args=(child_conn, 0, 1, seg, False, False),
+                daemon=True)
+            with _main_hidden():
+                proc.start()
+            self.children[cid] = [parent_conn, proc]
+        for cid, (conn, _proc) in self.children.items():
+            if not conn.poll(timeout):
+                raise RuntimeError(f"federation cell {cid} did not come up")
+            self.urls[cid] = conn.recv()
+        return dict(self.urls)
+
+    def kill(self, cid: int) -> None:
+        """SIGKILL the whole cell: the cluster-loss seam."""
+        _conn, proc = self.children[cid]
+        proc.kill()
+        proc.join(timeout=5.0)
+
+    def counts(self, cid: int, timeout: float = 10.0) -> Optional[dict]:
+        conn, proc = self.children[cid]
+        if not proc.is_alive():
+            return None
+        try:
+            conn.send("counts")
+            if conn.poll(timeout):
+                return conn.recv()
+        except (BrokenPipeError, EOFError, OSError):
+            pass
+        return None
+
+    def teardown(self) -> None:
+        import shutil
+
+        for conn, _proc in self.children.values():
+            try:
+                conn.send("stop")
+            except (BrokenPipeError, OSError):
+                pass
+        for conn, proc in self.children.values():
+            try:
+                if conn.poll(3.0):
+                    conn.recv()
+            except (EOFError, OSError):
+                pass
+            proc.join(timeout=3.0)
+            if proc.is_alive():
+                proc.terminate()
+        shutil.rmtree(self.wal_root, ignore_errors=True)
+
+
+def run_federation_storm(
+    *,
+    clusters: int = 3,
+    pods: int = 900,
+    qps: float = FEDERATION_QPS,
+    seed: int = 18,
+    scenario: str = "spill",
+    node_cpu: int = 16,
+    max_batch: int = 256,
+    wait_timeout: float = 600.0,
+    progress: Optional[Callable[[str], None]] = None,
+    device=None,
+) -> dict:
+    """One federation storm over spawned cells, each cell's scheduler
+    batching on ``device`` (the card unless "cpu"). Returns the raw
+    result; ``run_federation_row`` shapes the row and
+    ``run_chaos_federation`` the chaos verdict."""
+    from kubernetes_tpu_torch.client.restcluster import RestClusterClient
+    from kubernetes_tpu_torch.harness.perf import (
+        collect_freshness,
+        reset_sli_window,
+    )
+    from kubernetes_tpu_torch.harness.upgrade import (
+        CREATOR_TOKEN,
+        SCHEDULER_TOKEN,
+        _ReplicaFleet,
+    )
+    from kubernetes_tpu_torch.observability.devprof import get_devprof
+    from kubernetes_tpu_torch.utils.gctune import tune_for_throughput
+
+    if scenario not in FEDERATION_SCENARIOS:
+        raise ValueError(
+            f"unknown federation scenario {scenario!r} "
+            f"(have: {', '.join(FEDERATION_SCENARIOS)})")
+    dev = resolve_device(device)
+    tune_for_throughput()
+    get_tracer().clear()
+    reset_sli_window()
+    get_devprof().reset(workload=f"federation/{scenario}")
+    rng = random.Random(seed)
+    namespaces = 12
+    trace = build_federation_trace(seed, pods, qps, namespaces=namespaces)
+    sizing = _fleet_sizing(trace, clusters, node_cpu, scenario)
+
+    cells = _FederationCells(clusters)
+    all_clients: List = []
+    fleets: Dict[int, object] = {}
+    engine = None
+    rebalancer = None
+    probe_stop = threading.Event()
+
+    try:
+        urls = cells.start()
+
+        def make_client(cid: int, token: str, watch_kinds=()):
+            c = RestClusterClient(urls[cid], partition_urls=[urls[cid]],
+                                  token=token, watch_kinds=watch_kinds,
+                                  max_retries=4)
+            all_clients.append(c)
+            return c
+
+        # each cell's creator client (the federation's create and watch
+        # fabric) and probe client (the ledger's capacity poll)
+        creators = {cid: make_client(cid, CREATOR_TOKEN,
+                                     watch_kinds=("Pod",))
+                    for cid in range(clusters)}
+        probes = {cid: make_client(cid, CREATOR_TOKEN)
+                  for cid in range(clusters)}
+
+        for cid in range(clusters):
+            nodes = [Node.from_dict(d) for d in
+                     _cluster_nodes(cid, *sizing[cid])]
+            for lo in range(0, len(nodes), 512):
+                creators[cid].create_objects_bulk(
+                    "Node", nodes[lo:lo + 512])
+        if progress:
+            progress(f"federation[{scenario}]: {clusters} cells, "
+                     f"nodes per cluster {dict(sizing)}, "
+                     f"{len(trace.events)} arrivals @ {qps:.0f}/s")
+
+        # each cell's own scheduler: a one-replica fleet
+        samples = events_to_pods(trace.events[:128])
+        for cid in range(clusters):
+            fleet = _ReplicaFleet(
+                lambda j, _cid=cid: make_client(
+                    _cid, SCHEDULER_TOKEN, watch_kinds=("Pod", "Node")),
+                count=1, use_batch=True, max_batch=max_batch,
+                progress=progress, device=dev)
+            for sched in fleet.replicas:
+                attach_slo_baseline(sched)
+            fleet.run()
+            fleets[cid] = fleet
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            if all(min(f.cache_nodes()) >= sizing[cid][0]
+                   for cid, f in fleets.items()):
+                break
+            time.sleep(0.1)
+        for fleet in fleets.values():
+            fleet.warmup(samples)
+
+        # the federation layer: the ledger (fed by the probe loop), the
+        # scheduler, the client, the rebalancer
+        ledger = CapacityLedger()
+        home_map = HomeMap(list(range(clusters)), pin={
+            f"fed-{i}": i % clusters for i in range(namespaces)})
+        fed_sched = FederationScheduler(ledger, home_of=home_map.home_of,
+                                        device=dev)
+        fed_client = FederatedClusterClient(
+            dict(creators), fed_sched, ledger, home_map=home_map)
+
+        fail_count: Dict[int, int] = {cid: 0 for cid in range(clusters)}
+
+        def probe_loop() -> None:
+            while not probe_stop.wait(0.25):
+                for cid in list(probes):
+                    if not ledger.alive(cid):
+                        continue
+                    try:
+                        ns = probes[cid].list_nodes()
+                        ps = probes[cid].list_pods()
+                        ledger.refresh_from(cid, ns, ps)
+                        fail_count[cid] = 0
+                    except Exception:  # noqa: BLE001 — the cell may be
+                        fail_count[cid] += 1   # dead: two misses in a
+                        if fail_count[cid] >= 2:   # row confirm it
+                            ledger.mark_dead(cid)
+
+        # one probe pass first, so placement starts informed
+        for cid in range(clusters):
+            ledger.refresh_from(cid, probes[cid].list_nodes(),
+                                probes[cid].list_pods())
+        probe = threading.Thread(target=probe_loop, daemon=True,
+                                 name="federation-ledger-probe")
+        probe.start()
+        rebalancer = ClusterRebalancer(fed_client, interval_s=0.3)
+        rebalancer.run()
+
+        engine = ReplayEngine(fed_client, trace, time_scale=1.0,
+                              expire=False, progress=progress)
+        t_start = time.monotonic()
+        engine.start()
+
+        # ---- the seam: SIGKILL one whole cell mid-storm ----------------
+        victim: Optional[int] = None
+        t_kill_rel = 0.0
+        orphans: List[str] = []
+        orphans_unbound: List[str] = []
+        if scenario in _KILL_AT:
+            at = _KILL_AT[scenario] * trace.duration_s
+            while time.monotonic() - t_start < at \
+                    and not engine.injection_done.is_set():
+                time.sleep(0.05)
+            # spill-loss kills a cell that is not saturated: the spill
+            # and the loss land on the same survivors
+            victim = (rng.randrange(1, clusters)
+                      if scenario == "spill-loss" and clusters > 1
+                      else rng.randrange(clusters))
+            with fed_client._lock:
+                orphans = [name for (ns, name), cid
+                           in fed_client._route.items() if cid == victim]
+            with engine._lock:
+                bound_now = set(engine._bind)
+            orphans_unbound = [n for n in orphans if n not in bound_now]
+            t_kill_rel = time.monotonic() - t_start
+            if progress:
+                progress(f"federation[{scenario}]: SIGKILL cluster "
+                         f"{victim} ({len(orphans)} registered, "
+                         f"{len(orphans_unbound)} unbound)")
+            cells.kill(victim)
+            # the dead cell's scheduler stops in the background: its
+            # client calls may block on the dead socket
+            threading.Thread(target=fleets.pop(victim).stop,
+                             daemon=True).start()
+            # the rebalancer sees the dead ledger and fails the cell
+            # over; if it misses its window, fail over directly (the
+            # invariant is the re-placement, not the messenger)
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline:
+                if any(a["action"]["op"] == "failover"
+                       for a in rebalancer.actions):
+                    break
+                time.sleep(0.1)
+            else:
+                ledger.mark_dead(victim)
+                fed_client.failover_cluster(victim, progress=progress)
+
+        # ---- quiesce: every arrival bound ------------------------------
+        want = len(trace.events)
+        deadline = time.monotonic() + wait_timeout
+        last_note = 0.0
+        while time.monotonic() < deadline:
+            with engine._lock:
+                bound = len(engine._bind)
+            if engine.injection_done.is_set() and bound >= want:
+                break
+            if progress and time.monotonic() - last_note > 10.0:
+                last_note = time.monotonic()
+                progress(f"federation[{scenario}]: {bound}/{want} bound")
+            time.sleep(0.1)
+        for fleet in fleets.values():
+            fleet.flush()
+        per_cluster = _per_cluster_latency(engine, clusters)
+        with engine._lock:
+            bind_final = dict(engine._bind)
+        stats = engine.finish()
+        engine = None
+        time.sleep(0.5)
+
+        # ---- invariants, from the surviving cells' own stores ----------
+        name_cluster: Dict[str, int] = {}
+        server_bound = 0
+        children_torch = False
+        for cid in range(clusters):
+            if cid == victim:
+                continue
+            counts = cells.counts(cid)
+            if counts is None:
+                continue
+            children_torch |= counts["import_torch"]
+            for ns, name, _rv, is_bound in counts["pods"]:
+                name_cluster[name] = cid
+                if is_bound:
+                    server_bound += 1
+        gang_splits = _gang_splits(name_cluster, trace)
+        # recovery: of the victim's pods unbound at the kill, those bound
+        # again on a survivor within the budget
+        recovered = 0
+        for n in orphans_unbound:
+            rec = bind_final.get(n)
+            if rec is not None \
+                    and rec[0] - t_kill_rel <= RECOVERY_BUDGET_S:
+                recovered += 1
+        recovery_ratio = (recovered / len(orphans_unbound)
+                          if orphans_unbound else 1.0)
+        # relist confinement: the surviving cells' streams never relist
+        survivor_relists = 0
+        for cid in range(clusters):
+            if cid == victim:
+                continue
+            survivor_relists += sum(creators[cid].stream_relists.values())
+        for cid, fleet in fleets.items():
+            for sched in fleet.replicas:
+                survivor_relists += sum(
+                    sched.client.stream_relists.values())
+        fresh = collect_freshness(
+            get_devprof().summary() if get_devprof().enabled else None)
+        slo = (fresh or {}).get("slo") or {}
+        counters = fed_client.counters()
+        result = {
+            "scenario": scenario,
+            "seed": seed,
+            "device": str(dev),
+            "clusters": clusters,
+            "qps": qps,
+            "injected": stats.injected,
+            "ever_bound": stats.ever_bound,
+            "server_bound": server_bound,
+            "lost_pods": stats.lost,
+            "send_errors": list(stats.send_errors),
+            "p99_arrival_to_bind_ms": round(stats.latency_p99_ms()),
+            "p50_arrival_to_bind_ms": round(
+                stats.arrival_to_bind.get("all", {}).get("p50", 0.0)
+                * 1000),
+            "last_bind_s": stats.last_bind_s,
+            "offered_rate": stats.offered_rate,
+            "per_cluster": per_cluster,
+            "per_cluster_slo_ok": all(
+                v["p99_ms"] <= P99_PER_CLUSTER_BUDGET_MS
+                for v in per_cluster.values() if v["bound"] > 0),
+            "gangs_total": len({e.gang for e in trace.events if e.gang}),
+            "gang_splits": gang_splits,
+            "spilled": counters["spilled"],
+            "fallback_placements": counters["fallback_placements"],
+            "failovers": counters["failovers"],
+            "failover_replaced": counters["failover_replaced"],
+            "victim": victim,
+            "orphans": len(orphans),
+            "orphans_unbound_at_kill": len(orphans_unbound),
+            "recovered_in_budget": recovered,
+            "recovery_budget_s": RECOVERY_BUDGET_S,
+            "recovery_ratio": round(recovery_ratio, 3),
+            "survivor_relists": survivor_relists,
+            "rebalancer_actions": [a["action"]["op"]
+                                   for a in rebalancer.actions],
+            "children_import_torch": children_torch,
+            "freshness": fresh,
+            "slo_verdicts_ok": (all(v == "ok" for v in slo.values())
+                                if slo else None),
+        }
+        # ---- the fleet trace across the cross-cluster hop --------------
+        try:
+            from kubernetes_tpu_torch.observability.fleettrace import (
+                collect_fleet_trace,
+            )
+
+            doc, cp = collect_fleet_trace(
+                remote=[(f"cluster-{cid}", urls[cid])
+                        for cid in range(clusters) if cid != victim],
+                local=[("federation", get_tracer())],
+                token=SCHEDULER_TOKEN, max_pods=25)
+            result["fleet_trace_doc"] = doc
+            result["critical_path"] = cp
+        except Exception:  # noqa: BLE001 — tracing must not fail a row
+            pass
+        return result
+    finally:
+        probe_stop.set()
+        if rebalancer is not None:
+            rebalancer.stop()
+        if engine is not None:
+            try:
+                engine.finish()
+            except Exception:  # noqa: BLE001 — teardown must not mask
+                pass
+        for fleet in fleets.values():
+            try:
+                fleet.stop()
+            except Exception:  # noqa: BLE001
+                pass
+        for c in all_clients:
+            try:
+                c._stop_watches()
+                c._drop_conn()
+            except Exception:  # noqa: BLE001
+                pass
+        cells.teardown()
+        gc.collect()
+
+
+def _federation_diag(res: dict) -> None:
+    import sys
+
+    from kubernetes_tpu_torch.harness import diagfmt
+
+    seg = diagfmt.format_federation({
+        "clusters": res["clusters"],
+        "spilled": res["spilled"],
+        "failovers": res["failovers"],
+        "lost": res["lost_pods"],
+        "recovery": res["recovery_ratio"],
+    })
+    if seg:
+        print(diagfmt.format_diag([seg]), file=sys.stderr, flush=True)
+
+
+def run_federation_row(
+    pods: int = 900,
+    qps: float = FEDERATION_QPS,
+    seed: int = 18,
+    *,
+    mode: str = "spill",
+    clusters: int = 3,
+    node_cpu: int = 16,
+    max_batch: int = 256,
+    wait_timeout: float = 600.0,
+    progress: Optional[Callable[[str], None]] = None,
+    device=None,
+) -> dict:
+    """One federation row over REST, ``mode`` "spill" or "loss" (the
+    loss-mid scenario): the rate to the last bind, normalized by the
+    offered rate, each cluster's p99 arrival-to-bind, and the verdict of
+    ``_federation_ok``."""
+    scenario = "loss-mid" if mode == "loss" else mode
+    res = run_federation_storm(
+        clusters=clusters, pods=pods, qps=qps, seed=seed,
+        scenario=scenario, node_cpu=node_cpu, max_batch=max_batch,
+        wait_timeout=wait_timeout, progress=progress, device=device)
+    ok, why = _federation_ok(res)
+    value = (res["ever_bound"] / res["last_bind_s"]
+             if res["last_bind_s"] > 0 else 0.0)
+    offered = res["offered_rate"]
+    label = ("cluster-loss SIGKILL" if res["victim"] is not None
+             else "saturation spillover")
+    row = {
+        "metric": (
+            f"federation_{mode}[open-loop {qps:.0f}/s "
+            f"{clusters}clusters {label}, {pods}pods seed={seed}, "
+            f"REST fabric]"),
+        "value": round(value, 1),
+        "unit": "pods/s",
+        "device": res["device"],
+        "offered_rate_pods_per_sec": round(offered, 2),
+        "rate_normalized_throughput": round(
+            value / offered, 3) if offered > 0 else 0.0,
+        "p99_arrival_to_bind_ms": res["p99_arrival_to_bind_ms"],
+        "p50_arrival_to_bind_ms": res["p50_arrival_to_bind_ms"],
+        "per_cluster": res["per_cluster"],
+        "per_cluster_slo_ok": res["per_cluster_slo_ok"],
+        "injected": res["injected"],
+        "ever_bound": res["ever_bound"],
+        "lost_pods": res["lost_pods"],
+        "gang_splits": res["gang_splits"],
+        "spilled": res["spilled"],
+        "failovers": res["failovers"],
+        "failover_replaced": res["failover_replaced"],
+        "recovery_ratio": res["recovery_ratio"],
+        "survivor_relists": res["survivor_relists"],
+        "fallback_placements": res["fallback_placements"],
+        "children_import_torch": res["children_import_torch"],
+        "invariants_ok": ok,
+        "invariants": {"failed": why} if why else {},
+    }
+    fresh = res.get("freshness") or {}
+    if fresh:
+        row["freshness"] = fresh
+        slo = fresh.get("slo") or {}
+        row["slo_verdicts_ok"] = res["slo_verdicts_ok"]
+        row["slo_gated"] = sorted(slo)
+    cp = res.get("critical_path")
+    if cp:
+        row["critical_path"] = {k: v for k, v in cp.items()
+                                if k != "per_pod"}
+    _federation_diag(res)
+    if progress:
+        progress(f"[federation/{mode}] {res['ever_bound']}/"
+                 f"{res['injected']} bound, spilled {res['spilled']}, "
+                 f"failovers {res['failovers']}, recovery "
+                 f"{res['recovery_ratio']:.2f}, lost "
+                 f"{res['lost_pods']}, "
+                 f"{'OK' if ok else 'FAILED: ' + why}")
+    return row
+
+
+def run_chaos_federation(seed: int, pods: int = 400,
+                         wait_timeout: float = 300.0,
+                         progress: Optional[Callable] = None,
+                         scenario: str = "loss-mid", device=None) -> Dict:
+    """One seeded (scenario x seed) cell: the kill's timing, the victim
+    (chosen by the seed) and the spill load, over 3 spawned cells."""
+    if scenario not in FEDERATION_SCENARIOS:
+        raise ValueError(
+            f"unknown federation scenario {scenario!r} "
+            f"(have: {', '.join(FEDERATION_SCENARIOS)})")
+    res = run_federation_storm(
+        clusters=3, pods=pods, qps=max(100.0, pods / 4.0), seed=seed,
+        scenario=scenario, node_cpu=16, max_batch=256,
+        wait_timeout=wait_timeout, progress=progress, device=device)
+    ok, why = _federation_ok(res)
+    return {
+        "seed": seed, "profile": scenario, "ok": ok,
+        "failure": "" if ok else (
+            f"{why} lost={res['lost_pods']} "
+            f"splits={res['gang_splits']} "
+            f"relists={res['survivor_relists']} "
+            f"recovery={res['recovery_ratio']}"),
+        "stats": {
+            "injected": res["injected"],
+            "ever_bound": res["ever_bound"],
+            "spilled": res["spilled"],
+            "failovers": res["failovers"],
+            "victim": res["victim"],
+            "orphans": res["orphans"],
+            "recovery_ratio": res["recovery_ratio"],
+            "p99_arrival_to_bind_ms": res["p99_arrival_to_bind_ms"],
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# the in-process cells
 
 
 def _inproc_cluster(cid: int, sizing: Tuple[int, int], max_batch: int,

@@ -8,10 +8,13 @@ on.
 - ``snapshot_staleness_seconds``: per solve cycle, the age of the newest
   cache event reflected in the planes the solve ran against (the session
   notes it, the device profiler keeps it on the cycle record).
+- ``replication_lag_seconds{replica}``: the read tier's owner commit to
+  replica apply, per replica (``apiserver/readtier.py``); the fence
+  state machine judges the same samples against the lag budget.
 
 ``KTPU_FRESHNESS=off`` (or ``configure(enabled=False)``) stops the
-observations. The JAX package's informer and read-tier series have no
-counterpart here: the port has no informers and no read tier."""
+observations. The JAX package's informer series have no counterpart
+here: the port has no shared informer factory."""
 
 from __future__ import annotations
 
@@ -47,6 +50,12 @@ class FreshnessMetrics:
             "Per solve cycle: age of the newest cache event reflected in "
             "the encoded planes the solve ran against",
             buckets=_STALENESS_BUCKETS)
+        self.replication_lag_seconds = histogram(
+            registry, "replication_lag_seconds",
+            "Read-tier replication lag, owner commit to replica apply, "
+            "by replica id (the staleness the fence state machine "
+            "evaluates against the lag budget)",
+            ("replica",), buckets=_STALENESS_BUCKETS)
 
     def configure(self, enabled: Optional[bool] = None) -> None:
         if enabled is not None:
@@ -56,6 +65,7 @@ class FreshnessMetrics:
         """A fresh window for one harness row."""
         self.watch_delivery_seconds.clear()
         self.snapshot_staleness_seconds.clear()
+        self.replication_lag_seconds.clear()
 
 
 _default: Optional[FreshnessMetrics] = None

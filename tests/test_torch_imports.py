@@ -327,3 +327,59 @@ def _qos_and_replay_entry_points():
 def test_qos_and_replay_entry_points_without_device_raise(no_cuda, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _qos_and_replay_entry_points()[name]()
+
+
+SLICE_19_MODULES = (
+    "apiserver/readtier.py", "harness/watchherd.py", "harness/federation.py",
+    "metrics/freshness_metrics.py")
+
+# what the watch herd's spawned owner, replica and herd children import
+SLICE_19_CHILD_MODULES = (
+    "kubernetes_tpu_torch.harness.watchherd",
+    "kubernetes_tpu_torch.apiserver.readtier",
+    "kubernetes_tpu_torch.apiserver.rest",
+    "kubernetes_tpu_torch.apiserver.store",
+    "kubernetes_tpu_torch.apiserver.wal",
+    "kubernetes_tpu_torch.apiserver.partition",
+    "kubernetes_tpu_torch.metrics.freshness_metrics",
+    "kubernetes_tpu_torch.utils.gctune")
+
+
+@pytest.mark.parametrize("rel", SLICE_19_MODULES)
+def test_read_tier_and_storm_modules_are_checked_and_import(rel):
+    """The read tier's and the REST federation storm's modules are among
+    the sources the import rule checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module)
+
+
+def test_watch_herd_children_import_no_torch():
+    """The watch herd's spawned children (``watchherd._owner_main``,
+    ``_replica_main``, ``_herd_main``) import nothing that imports torch
+    or numpy."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in SLICE_19_CHILD_MODULES)
+            + "bad = [m for m in ('torch', 'numpy', 'jax') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("name", ("run_federation_storm",
+                                  "run_federation_row",
+                                  "run_chaos_federation"))
+def test_federation_storm_entry_points_without_device_raise(no_cuda, name):
+    """The storm resolves its device before it spawns a cell."""
+    from kubernetes_tpu_torch.harness import federation
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(federation, name)(**({"seed": 18}
+                                     if name == "run_chaos_federation"
+                                     else {}))
