@@ -171,7 +171,7 @@ prints no result):
     tiers). Every case is launched ten times on fresh
     copies of the state, and every result must be identical (a race
     would show as a difference);
-25. ``bench.py``'s autoscale row at a burst of 10,000 pods (its own is
+25. ``bench.py``'s autoscale row at a burst of 5,000 pods (its own is
     30,000: ``phase_autoscale(burst=AUTOSCALE_ROW_BURST)``; every shape
     kept: 500m pods on 32-cpu
     nodes, a fifth of the needed nodes up at the start, the group's max
@@ -285,9 +285,9 @@ prints no result):
     both arms' pods/s and e2e p99, create-to-bind, the p99 ratio and
     ``qos_ok`` (reported, not gated), APF's counts by level;
 33. ``bench.py``'s three replay rows (``workloads/replay_bench.py``;
-    seed 11, batches of at most 1,024) at scale and time scale 0.5, cut
-    from 1.0 for the script's time (the same rate a node, half the pods,
-    half the trace), over the REST fabric, pods arriving open loop on the
+    seed 11, batches of at most 1,024) at scale and time scale 0.3, cut
+    from 1.0 for the script's time (the same rate a node, 30% of the pods
+    and of the trace), over the REST fabric, pods arriving open loop on the
     trace's clock and expiring into deletions: the preemption storm (at
     full size 702 pods over 45 s on 120 nodes), the mesh gangs in a
     scored and an adjacency-blind arm (747 over 30 s on 64), serve and
@@ -299,7 +299,7 @@ prints no result):
     what-ifs) held against its plain version; pods/s, arrival-to-bind
     p50 / p99, preemptions, expiries, launches and device seconds.
 34. the partitioned control plane (``harness/scale.py``) at 5,000 nodes
-    / 30,000 pods, cut from ``bench.py``'s scale10x row (50,000 /
+    / 15,000 pods, cut from ``bench.py``'s scale10x row (50,000 /
     500,000) for this script's time: (a) the in-process arm, four store
     partitions with a watch dispatch thread each under a hollow fleet,
     two node-sharded replicas with batch paths of at most 1,024 pods;
@@ -370,7 +370,55 @@ prints no result):
     over with a recovery ratio of at least 0.8, no torch in a cell, and
     every launch on the kernel its plan gives, held against the plain
     version bit for bit. Each cluster's p99 arrival-to-bind is reported
-    beside its 2,500 ms bar.
+    beside its 2,500 ms bar;
+40. chaos over REST (``harness/chaos_rest.py``) at the JAX package's
+    defaults: seed 11, the mixed fault profile (resets, 429 bursts,
+    latency, pod watch drops, armed through ``/debug/faults``), 20 nodes
+    and 120 pods in 6 waves through a spawned apiserver child on an
+    inline WAL, SIGKILLed and restored from its WAL after a seeded wave,
+    a serial scheduler binding over ``RestClusterClient``. Gated: all
+    bound exactly once, no oversubscription, the WAL's restore equal to
+    the live assignment, no list version regressed, one kill, faults
+    injected, no torch in the child, no kernel launched; the retries and
+    degraded seconds reported;
+41. the mirror ring (``harness/chaos_mirror.py``): the three
+    ``MIRROR_SCENARIOS`` (node_kill, mesh_resize at 2 then 4 node shards
+    on the sharded kernel, event_storm) at seed 11, 20 nodes / 120 pods,
+    both arms on the card. Gated: each cell's placements bit-identical
+    across the arms, nothing lost, deltas scattered, event_storm
+    reseeded, every launch (cluster and sharded) held against its plain
+    version bit for bit;
+42. node churn (``harness/chaos_nodes.py``): seed 3, the mixed churn
+    profile at the JAX package's defaults (16 nodes, 96 pods in 6 waves
+    over REST, the lifecycle and pod GC controllers beside the store,
+    batches of 64 on the card), then the JAX package's
+    churn-with-autoscaler case (seed 29, killer, 10 nodes of 4 cpu, 70
+    pods, the autoscaler's what-ifs on the scan kernel). Gated: every
+    invariant (no bind into the void, nothing lost, no
+    oversubscription, taints healed, the cache equal to the store), a
+    kill or flap that happened, one cluster launch a solve and one scan
+    launch a what-if, the autoscale cell buying a node, every launch
+    held against its plain version; the churn actions, evictions,
+    rescues and their p99, the stale commits refused reported.
+
+``phase_mirror_ab()`` runs ``bench.py``'s mirror A/B as a call of its
+own (not from ``main``): ``run_mirror_ab`` at ``bench.py``'s full size
+(the sustained row, 30,000 pods at 5,000 a second, 32-cpu nodes,
+batches of 4,096, mirror on and off, both arms run alike) and its
+seed-14 node_kill cell, every launch held against its plain version.
+Gated: the on arm's encode share at most 0.05, at most one reseed, p99
+within 500 ms, invariants held, the differential matched with nothing
+lost, and the on arm's h2d bytes a cycle at most 1.10 times the off
+arm's (the reference's A/B bar; strictly below is reported). The
+sustained trace is arrivals only, so neither arm's mirror has anything
+to scatter (the on arm's mirror events are logged): the A/B does not
+exercise the scatter path, which the cells of phase 41 do.
+
+``phase_chaos_matrix()`` runs the chaos ring's seeded matrix as a call
+of its own (not from ``main``): the rest cells at seeds 11, 23, 37, 41
+and 53 (mixed) and 11 on the other three profiles, the node-churn cells
+at seeds 3, 17, 29, 47 and 61 (mixed) and 3 on the other three, the
+mirror cells at seeds 11 and 23 on each scenario.
 
 Phases 4, 5, 11 and 14 report their rebuilds by kind with devprof's h2d
 bytes each; at the first state-only rebuilds (the static planes kept on
@@ -388,9 +436,9 @@ instance counted as launched and the staging ring empty.
 Phase 4 also holds the aggregate unattributed share of the sampled pods'
 windows to at most 0.05.
 
-Every main-path run (4, 5, 8 to 23, 25 to 34, 37 and 39) resets the kernels'
-launch counts just before and reads them just after; the kernel table
-sums them.
+Every main-path run (4, 5, 8 to 23, 25 to 34, 37, 39, 41 and 42) resets the
+kernels' launch counts just before and reads them just after; the kernel
+table sums them.
 Before the last line come the script's wall time, the scatters' counts
 and times as JSON, the kernel table as JSON and the card's name and
 power limit; the last line is the JSON ok line.
@@ -1184,7 +1232,8 @@ LAUNCHES = {"cluster": 0, "slots": 0, "wide": 0, "sharded": 0,
             "counts": 0, "scan": 0}
 
 
-def run_path(name, run, keep=False, kernel="cluster", cold=False):
+def run_path(name, run, keep=False, kernel="cluster", cold=False,
+             sharded_kept=False):
     """``run()`` on the card with the kernels' launch counts reset just
     before and read just after, the plain version trapped, each launch
     timed with CUDA events and each dispatch with the host clock. Every
@@ -1192,8 +1241,11 @@ def run_path(name, run, keep=False, kernel="cluster", cold=False):
     of each). With ``cold`` (a row whose every cycle follows its warm-up)
     no kernel instance counts as launched and the pinned staging ring is
     empty: the warm-up must book each first launch and allocation, or a
-    measured cycle does, and ``row_report`` fails it. Returns (run's result, counts, kernel ms per launch,
-    dispatches, the recorder, wall seconds)."""
+    measured cycle does, and ``row_report`` fails it. ``sharded_kept``:
+    the caller keeps the sharded kernel's launches, which pass the
+    recorder and the single-card dispatch (``held_run``). Returns (run's
+    result, counts, kernel ms per launch, dispatches, the recorder, wall
+    seconds)."""
     plain_calls = []
     real_plain, real_kernel = solve_mod.solve_plain, solve_mod.solve_kernel
     recorder = _Recorder(real_kernel, keep)
@@ -1223,7 +1275,9 @@ def run_path(name, run, keep=False, kernel="cluster", cold=False):
         others = {k: v for k, v in counts.items() if k != kernel and v}
         check(not others, f"{name}: other kernels launched: {others}")
     check(not plain_calls, f"{name}: plain version called on the card")
-    check(len(kernel_ms) == sum(counts.values()) == len(dispatches.calls),
+    single = sum(v for k, v in counts.items()
+                 if not (sharded_kept and k == "sharded"))
+    check(len(kernel_ms) == single == len(dispatches.calls),
           f"{name}: one timed launch and one dispatch per launch")
     return out, counts, kernel_ms, dispatches.calls, recorder, wall
 
@@ -2866,8 +2920,9 @@ def scan_batch(cluster, batch, pen, dis, device):
 
 
 SCAN_REPEATS = 10
-# the autoscale row's burst here, and bench.py's
-AUTOSCALE_BURST = 10000
+# the autoscale row's burst here (10,000 until phases 40-42 came), and
+# bench.py's
+AUTOSCALE_BURST = 5000
 AUTOSCALE_ROW_BURST = 30000
 # the fixed seeded yardstick: N = 512 with constraints
 SCAN_YARDSTICK = dict(seed=10, n_nodes=94, n_upcoming=162, n_virtual=256,
@@ -4226,12 +4281,14 @@ def phase_replays(seed=11, scale=1.0, time_scale=1.0, max_batch=1024):
 
 
 # phase 34's size: cut from bench.py's scale10x row (50,000 nodes /
-# 500,000 pods) to fit this script's time
-SCALE_NODES, SCALE_PODS, SCALE_PARTITIONS = 5000, 30000, 4
-# the depth cut that keeps the whole script under 1,100 s with phase 34:
-# the replay rows' scale and time scale together (the same rate a node,
-# half the pods and half the trace's length)
-REPLAY_SCALE = 0.5
+# 500,000 pods) to fit this script's time (30,000 pods until phases
+# 40-42 came)
+SCALE_NODES, SCALE_PODS, SCALE_PARTITIONS = 5000, 15000, 4
+# the depth cut that keeps the whole script under 1,100 s with phases
+# 34 and 40-42: the replay rows' scale and time scale together (the same
+# rate a node, 30% of the pods and of the trace's length; 0.5 with phase
+# 34 alone; at 0.2 the tenancy row's autoscaler buys no node)
+REPLAY_SCALE = 0.3
 
 
 def scale_launches(name, recorder, lo, hi):
@@ -4745,6 +4802,387 @@ def phase_federation_rest(pods=900, qps=300.0, max_batch=256):
     return out
 
 
+# ----------------------------------------------------------------------
+# the chaos ring (phases 40-42 and ``phase_chaos_matrix``)
+def chaos_rest_cell(seed=11, profile="mixed"):
+    """One ``run_chaos_rest`` cell at the JAX package's defaults (20
+    nodes, 120 pods in 6 waves, the apiserver child SIGKILLed and
+    restored from its WAL after a seeded wave), the kernels' counts reset
+    just before and read just after: the cell's scheduler is serial, so
+    none may launch. Returns (the cell, launches, errors, problems), as
+    the other cells do: no launch, no error."""
+    from kubernetes_tpu_torch.harness.chaos_rest import run_chaos_rest
+
+    kernel, scan = solve_mod.solve_kernel, solver_mod.scan_kernel
+    kernel.reset_counts()
+    scan.reset_counts()
+    cell = run_chaos_rest(seed, fault_profile=profile, progress=log)
+    launched = kernel.launches + scan.launches
+    st = cell["stats"]
+    problems = [] if cell["ok"] else [cell["failure"] or
+                                      str(cell["invariants"])]
+    if st["kills"] != 1 or st["server_starts"] != 2:
+        problems.append(f"kills {st['kills']}, starts {st['server_starts']}")
+    if st["faults_injected"] <= 0:
+        problems.append("no fault injected")
+    if st["child_imports_torch"]:
+        problems.append("the apiserver child imported torch")
+    if launched:
+        problems.append(f"{launched} kernel launches on the serial path")
+    log(f"  chaos_rest[{seed}/{profile}]: {'ok' if not problems else problems}"
+        f"; invariants {cell['invariants']}; faults injected "
+        f"{st['faults_injected']}, client retries {st['client_retries']}, "
+        f"degraded {st['degraded_seconds']} s, killed after wave "
+        f"{st['kill_wave']}; {st['wall_s']:.1f} s")
+    return cell, {}, {}, problems
+
+
+def phase_chaos_rest(seed=11):
+    """Phase 40 (see the module's docstring)."""
+    cell, _, _, problems = chaos_rest_cell(seed)
+    check(not problems, f"chaos_rest[{seed}/mixed]: {problems}")
+    report = {"row": f"chaos_rest:{seed}/mixed", **cell}
+    ROW_REPORTS.append(report)
+    print("row " + json.dumps(report, default=str), flush=True)
+    return cell
+
+
+class _ShardedKeeper:
+    """Stands in for the kernel wrapper's ``launch_sharded`` while
+    entered: copies of each launch's inputs and outputs, taken on the
+    stream without waiting for it. The launch, and its count, stay the
+    wrapper's."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.kept = []
+
+    def __enter__(self):
+        real = self.kernel.launch_sharded
+
+        def launch_sharded(params, ss, planes, totals, ints, floats):
+            before = (params, ss._replace(
+                ints=ss.ints.clone(), f32s=ss.f32s.clone(),
+                sc_meta=ss.sc_meta.clone(), has_dom=ss.has_dom.clone()),
+                planes.clone(), totals.clone(), ints.clone(),
+                floats.clone())
+            assign, err = real(params, ss, planes, totals, ints, floats)
+            self.kept.append((before, assign.clone(), planes.clone(),
+                              totals.clone()))
+            return assign, err
+
+        self.kernel.launch_sharded = launch_sharded
+        return self
+
+    def __exit__(self, *exc):
+        del self.kernel.launch_sharded
+
+    def against_plain(self, name):
+        """Each kept launch against ``solve_sharded_plain`` on copies of
+        its inputs: assignments, planes and totals. Returns (launches
+        held, largest absolute difference), which must be 0."""
+        err = 0
+        for (params, ss, planes, totals, ints, floats), assign, p_out, \
+                t_out in self.kept:
+            st = SState(planes.clone(), totals.clone())
+            want = sharded_mod.solve_sharded_plain(params, ss, st, ints,
+                                                   floats)
+            err = max(err, _err(assign, want, p_out, st.planes),
+                      int((t_out - st.totals).abs().max()))
+        check(err == 0, f"{name}: every sharded launch equals the plain "
+              "version")
+        return len(self.kept), err
+
+
+def held_run(name, run):
+    """``run()`` under ``run_path`` with every launch kept (the cluster
+    kernel's through the recorder, the sharded kernel's and the scan
+    kernel's through their keepers), the plain versions trapped, and
+    afterwards each launch held against its plain version; the counts
+    kernel must not launch. Returns
+    (run's result, launches by kernel, the largest error by kernel,
+    the launch events' ms summed, wall seconds)."""
+    kernel = solve_mod.solve_kernel
+    scan = solver_mod.scan_kernel
+    real_plain_scan = solver_mod.solve_scan_plain
+    real_plain_sharded = sharded_mod.solve_sharded_plain
+    keeper, plain_calls = _ScanKeeper(scan), []
+
+    def trapped(real):
+        def plain(*args):
+            plain_calls.append(real.__name__)
+            return real(*args)
+        return plain
+
+    solver_mod.scan_kernel = keeper
+    solver_mod.solve_scan_plain = trapped(real_plain_scan)
+    sharded_mod.solve_sharded_plain = trapped(real_plain_sharded)
+    scan.reset_counts()
+    try:
+        with _ShardedKeeper(kernel) as shards:
+            out, counts, kernel_ms, _, recorder, wall = run_path(
+                name, run, keep="all", kernel=None, sharded_kept=True)
+    finally:
+        solver_mod.scan_kernel = scan
+        solver_mod.solve_scan_plain = real_plain_scan
+        sharded_mod.solve_sharded_plain = real_plain_sharded
+    check(not plain_calls, f"{name}: plain versions ran on the card path: "
+          f"{sorted(set(plain_calls))}")
+    # the session's sharded backend counts no feasibility: a launch of
+    # the counts kernel here would go unheld
+    check(not counts["counts"], f"{name}: {counts['counts']} counts-kernel "
+          "launches, none held against plain")
+    counts = dict(counts, scan=scan.launches)
+    LAUNCHES["scan"] += scan.launches
+    errs = {}
+    if recorder.outputs:
+        by_kernel, _, held, _, _, errs["cluster"] = scale_launches(
+            name, recorder, 0, len(recorder.inputs))
+        check(by_kernel == {k: v for k, v in counts.items()
+                            if v and k not in ("sharded", "counts", "scan")},
+              f"{name}: counted {counts}, planned {by_kernel}")
+    if shards.kept:
+        held, errs["sharded"] = shards.against_plain(name)
+        check(held == counts["sharded"], f"{name}: sharded launches "
+              f"{counts['sharded']}, kept {held}")
+    if keeper.kept:
+        held, errs["scan"] = scans_against_plain(name, keeper)
+        check(held == counts["scan"], f"{name}: scan launches "
+              f"{counts['scan']}, kept {held}")
+    return out, {k: v for k, v in counts.items() if v}, errs, \
+        sum(kernel_ms), wall
+
+
+MIRROR_SEED = 11
+
+
+def mirror_cell(scenario, seed=MIRROR_SEED):
+    """One ``run_chaos_mirror`` cell at its defaults (20 nodes, 120
+    pods) on the card, both arms, every launch held against its plain
+    version (``held_run``). Returns (the cell, launches, errors,
+    problems)."""
+    from kubernetes_tpu_torch.harness.chaos_mirror import run_chaos_mirror
+
+    name = f"chaos_mirror[{seed}/{scenario}]"
+    cell, counts, errs, kernel_ms, wall = held_run(
+        name, lambda: run_chaos_mirror(seed, scenario=scenario,
+                                       device="cuda", progress=log))
+    st = cell["stats"]
+    problems = [] if cell["ok"] else [cell["failure"]]
+    if not cell["device"].startswith("cuda"):
+        problems.append(f"ran on {cell['device']}")
+    want = "sharded" if scenario == "mesh_resize" else "cluster"
+    if not counts.get(want):
+        problems.append(f"the {want} kernel never launched")
+    if any(errs.values()):
+        problems.append(f"launches differ from plain: {errs}")
+    log(f"  {name}: {'ok' if not problems else problems}; differential "
+        f"match {cell['differential_match']}, lost {cell['lost_pods']}, "
+        f"bound {st['bound']} of {st['created']} created ({st['deleted']} "
+        f"deleted); scattered events {st['events']}, catch-ups "
+        f"{st['catch_ups']}, reseeds {st['reseeds']}, widths "
+        f"{st['widths']}; launches {counts}, every one held against plain "
+        f"(max_abs_err {errs}); {wall:.1f} s")
+    return cell, counts, errs, problems
+
+
+def phase_mirror_ring(seed=MIRROR_SEED):
+    """Phase 41 (see the module's docstring): the three mirror cells,
+    every launch held against its plain version. Returns the cells and
+    the largest error by kernel."""
+    from kubernetes_tpu_torch.harness.chaos_mirror import MIRROR_SCENARIOS
+
+    out = {"cells": {}, "errs": {}}
+    for scenario in MIRROR_SCENARIOS:
+        cell, counts, errs, problems = mirror_cell(scenario, seed)
+        check(not problems, f"chaos_mirror[{seed}/{scenario}]: {problems}")
+        if scenario == "event_storm":
+            check(cell["stats"]["reseeds"] >= 1, "event_storm: no reseed")
+        for k, v in errs.items():
+            out["errs"][k] = max(out["errs"].get(k, 0), v)
+        report = {"row": f"chaos_mirror:{seed}/{scenario}", **cell,
+                  "launches": counts, "max_abs_err": errs}
+        ROW_REPORTS.append(report)
+        print("row " + json.dumps(report, default=str), flush=True)
+        out["cells"][scenario] = report
+    return out
+
+
+def phase_mirror_ab():
+    """``bench.py``'s mirror A/B, as a call of its own (see the module's
+    docstring)::
+
+        python3 -c 'import chip_smoke as c; c.phase_mirror_ab()'
+
+    Both arms and the node_kill cell run in one ``held_run``: every
+    launch kept and held against its plain version afterwards. Prints
+    the row and raises (a non-zero exit) on a failed gate or a launch
+    that differs from plain. Returns the row."""
+    from kubernetes_tpu_torch.harness.chaos_mirror import run_mirror_ab
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        sys.exit(2)
+    log(f"[mirror-ab] card: {gpu_name_and_power()}")
+    name = "mirror_ab"
+    rows, counts, errs, kernel_ms, wall = held_run(
+        name, lambda: run_mirror_ab(device="cuda", progress=log))
+    on, off, summary = rows
+    cell = summary.pop("cell")
+    report = {"row": name, **summary, "launches": counts,
+              "max_abs_err": errs, "launch_events_ms": kernel_ms,
+              "wall_s": wall, "node_kill_cell": cell["stats"],
+              "on_telemetry": on.get("telemetry"),
+              "off_telemetry": off.get("telemetry"),
+              "on_mirror": on.get("mirror"), "off_session": off["session"]}
+    print("row " + json.dumps(report, default=str), flush=True)
+    log(f"  {name}: on {summary['mirror_on_pods_per_sec']:.1f} / off "
+        f"{summary['mirror_off_pods_per_sec']:.1f} pods/s (overhead "
+        f"{summary['value']} %); cycles on / off "
+        f"{on['cycles']} / {off['cycles']}; h2d a cycle on / off "
+        f"{summary['h2d_per_cycle_on_bytes']} / "
+        f"{summary['h2d_per_cycle_off_bytes']} B (strictly below: "
+        f"{summary['h2d_below_off']}); encode share on / off "
+        f"{summary['encode_share_on']} / {summary['encode_share_off']}; "
+        f"reseeds on {summary['reseeds_on']}; p99 on / off "
+        f"{summary['p99_on_ms']:.1f} / {summary['p99_off_ms']:.1f} ms; "
+        f"node_kill differential {summary['differential_match']}, lost "
+        f"{summary['differential_lost_pods']}; on arm's mirror events "
+        f"{(on.get('mirror') or {}).get('events')}; gates "
+        f"{summary['gates']}; launches {counts}, every one held "
+        f"against plain (max_abs_err {errs}); {wall:.1f} s")
+    check(not any(errs.values()), f"{name}: launches differ from plain")
+    check(summary["ok"], f"{name}: gates failed: "
+          f"{[k for k, v in summary['gates'].items() if not v]}")
+    return report
+
+
+NODES_SEED = 3
+
+
+# the autoscale cell: the JAX package's own churn-with-autoscaler case
+# (tests/test_autoscaler.py, TestChurnIntegration): the workload needs
+# about 9 of 10 nodes and the killer profile buries up to 3, so binding
+# it all takes autoscaled replacements
+AUTOSCALE_CELL = dict(seed=29, profile="killer", nodes=10, pods=70,
+                      node_cpu=4, waves=4, wait_timeout=180.0)
+
+
+def nodes_cell(seed=NODES_SEED, profile="mixed", autoscale=False, **sizes):
+    """One ``run_chaos_nodes`` cell, at the JAX package's defaults unless
+    ``sizes`` says otherwise (16 nodes, 96 pods in 6 waves over REST,
+    batches of 64 on the card); with ``autoscale`` the cluster
+    autoscaler's what-ifs on the scan kernel, which must buy a node.
+    Every launch held against its plain version. Returns (the cell,
+    launches, errors, problems)."""
+    from kubernetes_tpu_torch.harness.chaos_nodes import run_chaos_nodes
+
+    name = f"chaos_nodes[{seed}/{profile}{'+autoscale' if autoscale else ''}]"
+    cell, counts, errs, kernel_ms, wall = held_run(
+        name, lambda: run_chaos_nodes(seed, churn_profile=profile,
+                                      autoscale=autoscale, device="cuda",
+                                      **sizes))
+    st = cell["stats"]
+    actions = st["churn_actions"]
+    problems = [] if cell["ok"] else [cell["failure"]
+                                      or str(cell["invariants"])]
+    if not str(st["device"]).startswith("cuda"):
+        problems.append(f"ran on {st['device']}")
+    if actions.get("kill", 0) + actions.get("flap", 0) == 0:
+        problems.append("no kill or flap happened")
+    if counts.get("cluster", 0) != st["batch_solves"]:
+        problems.append(f"cluster launches {counts.get('cluster', 0)} != "
+                        f"solves {st['batch_solves']}")
+    if counts.get("scan", 0) != st["whatif_solves"]:
+        problems.append(f"scan launches {counts.get('scan', 0)} != "
+                        f"what-ifs {st['whatif_solves']}")
+    if autoscale and not (st["autoscaler_nodes_added"] >= 1
+                          and counts.get("scan", 0) >= 1):
+        problems.append("the autoscaler bought nothing")
+    if any(errs.values()):
+        problems.append(f"launches differ from plain: {errs}")
+    log(f"  {name}: {'ok' if not problems else problems}; invariants "
+        f"{cell['invariants']}; actions {actions}; evictions "
+        f"{st['evictions']}, rescues {st['rescues']} (p50 / p99 "
+        f"{st['rescue_p50_s']} / {st['rescue_p99_s']} s), stale commits "
+        f"refused {st['stale_binds_rejected']}, rebuilds "
+        f"{st['session_rebuilds']}, scale-ups {st['autoscaler_scaleups']} "
+        f"(+{st['autoscaler_nodes_added']} nodes, what-ifs "
+        f"{st['whatif_solves']}); launches {counts}, every one held "
+        f"against plain (max_abs_err {errs}); {wall:.1f} s")
+    return cell, counts, errs, problems
+
+
+def phase_node_churn(seed=NODES_SEED):
+    """Phase 42 (see the module's docstring). Returns the two cells and
+    the largest error by kernel."""
+    out = {"cells": {}, "errs": {}}
+    auto = dict(AUTOSCALE_CELL)
+    for key, (cell_seed, kw) in (
+            ("mixed", (seed, {})),
+            ("autoscale", (auto.pop("seed"), dict(auto, autoscale=True)))):
+        cell, counts, errs, problems = nodes_cell(cell_seed, **kw)
+        check(not problems, f"chaos_nodes[{cell_seed}/{key}]: {problems}")
+        for k, v in errs.items():
+            out["errs"][k] = max(out["errs"].get(k, 0), v)
+        report = {"row": f"chaos_nodes:{cell_seed}/{key}", **cell,
+                  "launches": counts, "max_abs_err": errs}
+        ROW_REPORTS.append(report)
+        print("row " + json.dumps(report, default=str), flush=True)
+        out["cells"][key] = report
+    return out
+
+
+CHAOS_MATRIX = {
+    "rest": [(s, "mixed") for s in (11, 23, 37, 41, 53)]
+    + [(11, p) for p in ("resets", "pushback", "watchstorm")],
+    "nodes": [(s, "mixed") for s in (3, 17, 29, 47, 61)]
+    + [(3, p) for p in ("killer", "flappy", "gentle")],
+    "mirror": [(s, sc) for sc in ("node_kill", "mesh_resize", "event_storm")
+               for s in (11, 23)],
+}
+
+
+def phase_chaos_matrix():
+    """The chaos ring's seeded matrix, as a call of its own (the seeds of
+    the JAX package's slow chaos tests, and seed 11 / 3 on each other
+    profile; the mirror cells at seeds 11 and 23)::
+
+        python3 -c 'import chip_smoke as c; c.phase_chaos_matrix()'
+
+    Every cell runs, on the card where it has a batch path, with every
+    launch held against its plain version; a ``cell {...}`` line each
+    and a summary line; raises (a non-zero exit) if any cell failed."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        sys.exit(2)
+    log(f"[matrix] card: {gpu_name_and_power()}")
+    runs = {"rest": chaos_rest_cell, "nodes": nodes_cell,
+            "mirror": lambda seed, scenario: mirror_cell(scenario, seed)}
+    verdicts = []
+    for suite, cells in CHAOS_MATRIX.items():
+        for seed, profile in cells:
+            t0 = time.monotonic()
+            try:
+                cell, counts, _, problems = runs[suite](seed, profile)
+            except Exception as e:  # noqa: BLE001 — record, go on
+                cell, counts, problems = {}, {}, [f"raised {e!r}"]
+            verdict = {"suite": suite, "seed": seed, "profile": profile,
+                       "ok": not problems, "problems": problems,
+                       "launches": counts,
+                       "stats": cell.get("stats"),
+                       "invariants": cell.get("invariants"),
+                       "wall_s": time.monotonic() - t0}
+            verdicts.append(verdict)
+            print("cell " + json.dumps(verdict, default=str), flush=True)
+    failed = [f"{v['suite']}:{v['seed']}/{v['profile']}"
+              for v in verdicts if not v["ok"]]
+    print(json.dumps({"matrix": len(verdicts), "failed": failed,
+                      "launches": LAUNCHES}), flush=True)
+    check(not failed, f"chaos matrix: failed cells {failed}")
+    return verdicts
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4990,8 +5428,29 @@ def main() -> None:
     for row in federation_rest.values():
         for k in row["launches"]:
             errs[k] = max(errs[k], row["max_abs_err"])
-    log(f"  main-path launches over phases 4, 5, 8 to 34, 37 and 39: "
-        f"{LAUNCHES}")
+
+    log("[40] chaos over REST: run_chaos_rest seed 11, mixed faults, 20 "
+        "nodes / 120 pods in 6 waves, the apiserver child SIGKILLed and "
+        "restored from its WAL mid-workload; the serial scheduler, no "
+        "kernel")
+    chaos_rest = phase_chaos_rest()
+
+    log("[41] the mirror ring: node_kill, mesh_resize (2 then 4 shards), "
+        "event_storm at seed 11, both arms on the card (the mirror A/B "
+        "is a call of its own, phase_mirror_ab)")
+    mirror_ring = phase_mirror_ring()
+    for k, v in mirror_ring["errs"].items():
+        errs[k] = max(errs[k], v)
+
+    log("[42] node churn over REST: run_chaos_nodes seed 3, mixed churn, "
+        "16 nodes / 96 pods, batches of 64 on the card; then seed 29, "
+        "killer churn, 10 nodes of 4 cpu / 70 pods, with the "
+        "autoscaler's what-ifs on the scan kernel")
+    node_churn = phase_node_churn()
+    for k, v in node_churn["errs"].items():
+        errs[k] = max(errs[k], v)
+    log(f"  main-path launches over phases 4, 5, 8 to 34, 37, 39, 41 and "
+        f"42: {LAUNCHES}")
 
     scatters = {"scatters": {
         arm: {"counts": r["scatters"], "host_s": r["host_seconds"]["scatter"],
@@ -5112,6 +5571,8 @@ def main() -> None:
         "qos": qos, "replays": replays, "scale": scale_phase,
         "reshard": reshard, "hotspot": hotspot, "upgrade": upgrade,
         "readtier": readtier, "federation_rest": federation_rest,
+        "chaos_rest": chaos_rest, "mirror_ring": mirror_ring,
+        "node_churn": node_churn,
         "state_only_checks": STATE_ONLY, "rows": ROW_REPORTS,
         "wall_s": time.monotonic() - t_start,
     }

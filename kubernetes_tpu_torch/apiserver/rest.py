@@ -2543,6 +2543,7 @@ class APIServer(ThreadingHTTPServer):
         flow_control: Optional[str] = "default",
         partition: Optional[Tuple[int, int]] = None,
         read_only: bool = False,
+        fault_gate: Optional[FaultGate] = None,
     ):
         super().__init__((host, port), _Handler)
         # a read replica (``apiserver/readtier.py``) serves reads from its
@@ -2582,12 +2583,17 @@ class APIServer(ThreadingHTTPServer):
         # 5k-object pickle
         self._list_cache: Dict[tuple, tuple] = {}
         self._list_cache_lock = threading.Lock()
+        # the newest version a list of each kind was taken at: a cached
+        # list of another namespace older than it is listed again
+        self._list_newest_rv: Dict[str, int] = {}
         # authz decision cache, invalidated by RBAC object events
         self._authz_cache: Dict[tuple, bool] = {}
         # chaos middleware: always present (a rule-less gate costs one
         # attribute read per request) so /debug/faults can arm it at
-        # runtime without a server restart
-        self.fault_gate = FaultGate()
+        # runtime without a server restart; ``fault_gate`` hands in one
+        # armed already
+        self.fault_gate = fault_gate if fault_gate is not None \
+            else FaultGate()
         # flight recorder: the process-wide tracer, so an in-process
         # scheduler's spans and this server's request spans land in ONE
         # ring and /debug/trace serves the stitched picture
@@ -2703,14 +2709,20 @@ class APIServer(ThreadingHTTPServer):
         kinds' churn compacts the watch log past that rv, serving it
         would strand the reflector in a relist→410 loop (its watch from
         the stale rv can never attach) — such entries re-list at the
-        current rv instead."""
+        current rv instead.
+
+        Nor is a hit served whose rv is older than a list of the same
+        kind already taken (another namespace's, or all namespaces'): a
+        client that listed both would see the kind's version go back.
+        It is listed again, once, at the current rv."""
         from kubernetes_tpu_torch.apiserver import codec
 
         seq = self.store.kind_seq(kind)
         key = (kind, namespace)
         with self._list_cache_lock:
             hit = self._list_cache.get(key)
-        if hit is not None and hit[0] == seq:
+            newest = self._list_newest_rv.get(kind, 0)
+        if hit is not None and hit[0] == seq and hit[2] >= newest:
             oldest = self.watch_cache.oldest_rv()
             if oldest is None or hit[2] >= oldest - 1:
                 return hit[1]
@@ -2723,7 +2735,13 @@ class APIServer(ThreadingHTTPServer):
         with self._list_cache_lock:
             if len(self._list_cache) >= 64:
                 self._list_cache.clear()
-            self._list_cache[key] = (seq, body, rv)
+            # two misses racing: the one that listed later wins, or a
+            # hit could serve a version older than a list already sent
+            cur = self._list_cache.get(key)
+            if cur is None or cur[2] <= rv:
+                self._list_cache[key] = (seq, body, rv)
+            if rv > self._list_newest_rv.get(kind, 0):
+                self._list_newest_rv[kind] = rv
         return body
 
     def metrics_text(self) -> str:

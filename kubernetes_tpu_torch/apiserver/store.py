@@ -1069,6 +1069,13 @@ class ClusterStore:
             lease = self._leases.get(name)
             return lease.holder if lease else None
 
+    def lease_info(self, name: str) -> Optional[Tuple[str, float]]:
+        """(holder, last renewal time) of the lease, or None; the lease
+        is left as it is."""
+        with self._lock:
+            lease = self._leases.get(name)
+            return (lease.holder, lease.renew_time) if lease else None
+
 
 def _int_rv(obj) -> int:
     try:

@@ -28,7 +28,9 @@ Two writers, as in the JAX package (``attach_wal(async_serialize=)``):
   writer thread serializes and appends, off the store lock, and a crash
   can lose the events still queued (the window ``drain`` closes).
 
-Nothing is fsynced per append.
+``fsync=True`` also fsyncs each append (etcd's default): the log is on
+stable storage, not only in the page cache, when the append returns.
+The default is off, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,15 +58,17 @@ class WalHandle:
     mutations never touch, so holding a reference is snapshot-safe) and a
     writer thread serializes and appends in commit order, off the store
     lock: etcd's own shape, raft appends pipelined behind the apply loop.
-    Lock order is store, then WAL, everywhere."""
+    Lock order is store, then WAL, everywhere. ``fsync`` fsyncs the log
+    after each append, in either writer."""
 
     def __init__(self, store: ClusterStore, directory: str,
                  snapshot_every: int = 20000,
-                 async_serialize: bool = False):
+                 async_serialize: bool = False, fsync: bool = False):
         self.store = store
         self.dir = directory
         self.snapshot_every = snapshot_every
         self.async_serialize = bool(async_serialize)
+        self.fsync = bool(fsync)
         os.makedirs(directory, exist_ok=True)
         self._log_path = os.path.join(directory, LOG_NAME)
         self._log = open(self._log_path, "a", encoding="utf-8")
@@ -134,6 +138,8 @@ class WalHandle:
         with self._lock:
             self._log.write(line + "\n")
             self._log.flush()
+            if self.fsync:
+                os.fsync(self._log.fileno())
             self._entries_since_snapshot += 1
 
     def drain(self, timeout: float = 30.0) -> bool:
@@ -194,12 +200,12 @@ class WalHandle:
 def attach_wal(store: ClusterStore, directory: str,
                snapshot_every: int = 20000,
                async_serialize: bool = False,
-               preserve_log: bool = False) -> WalHandle:
+               preserve_log: bool = False, fsync: bool = False) -> WalHandle:
     """Make ``store`` durable: all subsequent mutations are logged, inline
-    unless ``async_serialize``. Cuts an initial snapshot so pre-existing
-    state is captured too; the watch is opened and the snapshot cut under
-    the store lock, so no mutation falls between them and the writer's
-    queue is empty.
+    unless ``async_serialize``, each append fsynced with ``fsync``. Cuts
+    an initial snapshot so pre-existing state is captured too; the watch
+    is opened and the snapshot cut under the store lock, so no mutation
+    falls between them and the writer's queue is empty.
 
     ``preserve_log=True`` (a restart after ``restore_store``): no initial
     snapshot, which would truncate the log; the log's torn tail, if the
@@ -210,10 +216,10 @@ def attach_wal(store: ClusterStore, directory: str,
     if preserve_log:
         _repair_log_tail(os.path.join(directory, LOG_NAME))
         return WalHandle(store, directory, snapshot_every=snapshot_every,
-                         async_serialize=async_serialize)
+                         async_serialize=async_serialize, fsync=fsync)
     with store._lock:
         handle = WalHandle(store, directory, snapshot_every=snapshot_every,
-                           async_serialize=async_serialize)
+                           async_serialize=async_serialize, fsync=fsync)
         with handle._lock:
             handle._snapshot_locked()
     return handle

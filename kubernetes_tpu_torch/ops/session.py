@@ -141,14 +141,21 @@ class SolverSession:
         self._warming = False
         self._staleness_anchor = 0.0
         self._mirror: Optional[DeviceClusterMirror] = None
+        # the delta journal attached to the scheduler's cache (None with
+        # the mirror off)
+        self._journal: Optional[DeltaJournal] = None
         if mirror_enabled() if mirror is None else mirror:
-            journal = DeltaJournal()
-            scheduler.cache.attach_delta_journal(journal)
-            self._mirror = DeviceClusterMirror(self, journal)
+            self._journal = DeltaJournal()
+            scheduler.cache.attach_delta_journal(self._journal)
+            self._mirror = DeviceClusterMirror(self, self._journal)
 
     @property
     def mirror(self) -> Optional[DeviceClusterMirror]:
         return self._mirror
+
+    @property
+    def journal(self) -> Optional[DeltaJournal]:
+        return self._journal
 
     def invalidate(self) -> None:
         """Mark the device state diverged until the next rebuild (sticky:

@@ -1078,15 +1078,31 @@ class Scheduler:
         pod = qpi.pod
         self.recorders.get(pod.spec.scheduler_name, self.recorder).event(
             pod, "Warning", "FailedScheduling", str(err))
-        self.client.patch_pod_condition(
-            pod.namespace, pod.name,
-            PodCondition("PodScheduled", "False", reason, str(err)))
+        # the status writes are best effort: over REST they can fail
+        # (server down, pushback, retry budget spent), and a failure here
+        # must not skip the requeue below, or the pod is parked nowhere
+        try:
+            self.client.patch_pod_condition(
+                pod.namespace, pod.name,
+                PodCondition("PodScheduled", "False", reason, str(err)))
+            if nominated_node:
+                self.client.set_nominated_node_name(pod.namespace, pod.name,
+                                                    nominated_node)
+        except Exception:  # noqa: BLE001 — usually transport loss
+            _logger.debug("status write failed for %s/%s; requeueing",
+                          pod.namespace, pod.name, exc_info=True)
         if nominated_node:
-            self.client.set_nominated_node_name(pod.namespace, pod.name,
-                                                nominated_node)
             pod.status.nominated_node_name = nominated_node
             self.queue.add_nominated_pod(pod, nominated_node)
-        current = self.client.get_pod(pod.namespace, pod.name)
+        # requeue only a pod that still exists unassigned; when the check
+        # itself fails, the pod is taken to live, and a later cycle checks
+        # again
+        try:
+            current = self.client.get_pod(pod.namespace, pod.name)
+        except Exception:  # noqa: BLE001 — transport failure
+            _logger.debug("existence check failed for %s/%s; taken to live",
+                          pod.namespace, pod.name, exc_info=True)
+            current = pod
         if current is not None and not assigned(current):
             try:
                 self.queue.add_unschedulable_if_not_present(

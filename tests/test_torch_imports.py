@@ -383,3 +383,70 @@ def test_federation_storm_entry_points_without_device_raise(no_cuda, name):
         getattr(federation, name)(**({"seed": 18}
                                      if name == "run_chaos_federation"
                                      else {}))
+
+
+SLICE_20_MODULES = (
+    "harness/chaos_rest.py", "harness/chaos_mirror.py",
+    "harness/chaos_nodes.py", "controllers/nodelifecycle.py",
+    "controllers/podgc.py")
+
+# what the chaos apiserver child (``chaos_rest._apiserver_main``) imports
+SLICE_20_CHILD_MODULES = (
+    "kubernetes_tpu_torch.harness.chaos_rest",
+    "kubernetes_tpu_torch.harness.rest_perf",
+    "kubernetes_tpu_torch.apiserver.rest",
+    "kubernetes_tpu_torch.apiserver.store",
+    "kubernetes_tpu_torch.apiserver.wal")
+
+
+@pytest.mark.parametrize("rel", SLICE_20_MODULES)
+def test_chaos_ring_modules_are_checked_and_import(rel):
+    """The chaos ring's harnesses and the two controllers are among the
+    sources the import rule checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module)
+
+
+def test_chaos_apiserver_child_imports_no_torch():
+    """The chaos apiserver child imports nothing that imports torch or
+    numpy."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in SLICE_20_CHILD_MODULES)
+            + "bad = [m for m in ('torch', 'numpy', 'jax') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("name", ("run_chaos_mirror", "run_mirror_ab",
+                                  "run_chaos_nodes"))
+def test_chaos_ring_entry_points_without_device_raise(no_cuda, name):
+    """The entry points that run a batch path resolve their device before
+    they build anything."""
+    from kubernetes_tpu_torch.harness import chaos_mirror, chaos_nodes
+
+    calls = {
+        "run_chaos_mirror": lambda: chaos_mirror.run_chaos_mirror(
+            11, scenario="node_kill"),
+        "run_mirror_ab": lambda: chaos_mirror.run_mirror_ab(),
+        "run_chaos_nodes": lambda: chaos_nodes.run_chaos_nodes(3),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name]()
+
+
+def test_chaos_rest_touches_no_device(no_cuda):
+    """``run_chaos_rest``'s scheduler is serial: the cell runs whole with
+    no card to be had."""
+    from kubernetes_tpu_torch.harness import chaos_rest
+
+    res = chaos_rest.run_chaos_rest(23, nodes=2, pods=8, waves=2,
+                                    kill_at_wave=0, wait_timeout=60.0)
+    assert res["ok"], res
