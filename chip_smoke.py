@@ -479,6 +479,7 @@ from kubernetes_tpu_torch.observability.devprof import get_devprof
 from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.harness.problems import (
     autoscale_whatif,
+    cache_slot_planes,
     random_planes,
     random_slot_planes,
     scan_case_inputs,
@@ -772,6 +773,38 @@ def slot_cases():
                                                        sc=2, u=2),
                 solve_mod.slots_candidate(5120, 3, 2, 100, 2,
                                           max_cluster=8)))
+    # the term-row cache: the batch's terms many times its lines (every
+    # chunk boundary evicts), a pod reading counts the pod before it
+    # committed in the same chunk, lines evicted and read again three
+    # chunks on; and the same at one pod a chunk (a plan every pod)
+    for name, seed, t in (("slots-cache-t200", 28, 200),
+                          ("slots-cache-t100", 29, 100)):
+        plan = solve_mod.slots_candidate(5120, 3, 1, t, 1)
+        lines = solve_mod.slot_cache(3, 1, t, 1, plan.cluster, plan.threads,
+                                     plan.cols_per_block, plan.chunk).lines
+        check(lines < t, f"{name}: the cache holds fewer than T lines")
+        out.append((name, cache_slot_planes(seed, 5120, 128, t, plan.chunk,
+                                            real=5000), None))
+    one = solve_mod.slots_candidate(5120, 3, 1, 100, 1)
+    one = one._replace(chunk=1, smem_bytes=solve_mod.slots_smem_bytes(
+        3, 1, 100, 1, one.cluster, one.threads, one.cols_per_block, 1))
+    out.append(("slots-cache-chunk1", cache_slot_planes(30, 5120, 128, 100,
+                                                        1, real=5000), one))
+    # at 20,480 columns the lines hold one pod's references, not two: a
+    # window whose first pod does not fit beside the running one is planned
+    # again after it (every window of eight references a pod; some of the
+    # random stream's)
+    wide = solve_mod.slots_candidate(20480, 3, 1, 100, 1)
+    lines = solve_mod.slot_cache(3, 1, 100, 1, wide.cluster, wide.threads,
+                                 wide.cols_per_block, wide.chunk).lines
+    check(wide.smem_bytes <= solve_mod.SMEM_LIMIT
+          and lines < 2 * solve_mod.SPARSE_K,
+          f"the slot plan at 20,480 columns holds {lines} lines, fewer "
+          "than two pods' references")
+    out.append(("slots-cache-20480", cache_slot_planes(
+        31, 20480, 128, 100, wide.chunk, real=20000), None))
+    out.append(("slots-mixed-20480", random_slot_planes(32, 20480, 128, 100,
+                                                        real=20000), None))
     return out
 
 
@@ -842,8 +875,8 @@ def phase_compare():
                               ints[128:].clone(), floats[128:].clone()))
     for name, args, plan in wide_cases():
         errs["wide"] = max(errs["wide"], compare_wide(name, *args, plan=plan))
-    for name, args in sharded_cases():
-        err, counts_err = compare_sharded(name, *args)
+    for name, args, widths in sharded_cases():
+        err, counts_err = compare_sharded(name, *args, widths=widths)
         errs["sharded"] = max(errs["sharded"], err)
         errs["counts"] = max(errs["counts"], counts_err)
     return errs
@@ -1030,25 +1063,38 @@ def sharded_on_card(ps: PStatic, state, shards):
 
 def sharded_cases():
     """Seeded problems for the sharded kernel: (name, (planes, state, pod
-    ints, pod floats)) on the CPU: a hard spread constraint and none,
-    SV = 64, T = 100 on the dense stream, and identical nodes and pods
-    (every score ties, across the shards' boundaries too)."""
+    ints, pod floats) on the CPU, mesh widths): a hard spread constraint
+    and none, SV = 64, T = 100 on the dense stream, and identical nodes
+    and pods (every score ties, across the shards' boundaries too), each
+    at 1, 2, 4 and 8 shards (the one-cluster route) and at 3 and 6 shards,
+    which divide no cluster size (the global route): the ties case at its
+    own 384 columns, the others drawn again at a width 3 and 6 divide."""
     out = []
     for name, seed, hard in (("sharded-hard-2048", 50, 1),
                              ("sharded-soft-2048", 51, 0)):
         case = random_planes(seed, 2048, 512, sc=2, t=3, u=2, real=2000)
         case[0].sc_meta[1] = hard
-        out.append((name, case))
+        out.append((name, case, (1, 2, 4, 8)))
     out.append(("sharded-sv64-1024", random_planes(
-        52, 1024, 512, r=4, sc=2, t=2, u=2, sv=64)))
+        52, 1024, 512, r=4, sc=2, t=2, u=2, sv=64), (1, 2, 4, 8)))
     out.append(("sharded-t100-5120", _fewer_affinities(random_planes(
-        53, 5120, 256, t=100))))
+        53, 5120, 256, t=100)), (1, 2, 4, 8)))
     nodes = [workloads.node_template(i) for i in range(300)]
     cluster, batch = encode(nodes, [workloads.basic_pod(i)
                                     for i in range(400)], 512)
     ps, state = prepare(cluster, batch, "cpu")
     out.append(("sharded-ties-512", (ps, state, *(
-        torch.from_numpy(a) for a in pack_podin(batch)))))
+        torch.from_numpy(a) for a in pack_podin(batch))),
+        (1, 2, 3, 4, 6, 8)))
+    for name, seed, hard in (("sharded-global-hard-1536", 54, 1),
+                             ("sharded-global-soft-1536", 55, 0)):
+        case = random_planes(seed, 1536, 256, sc=2, t=3, u=2, real=1500)
+        case[0].sc_meta[1] = hard
+        out.append((name, case, (3, 6)))
+    out.append(("sharded-global-sv64-1536", random_planes(
+        56, 1536, 256, r=4, sc=2, t=2, u=2, sv=64), (3, 6)))
+    out.append(("sharded-global-t100-3072", _fewer_affinities(random_planes(
+        57, 3072, 128, t=100)), (3, 6)))
     return out
 
 
@@ -1058,9 +1104,10 @@ def compare_sharded(name, ps, state, ints, floats, widths=(1, 2, 4, 8)):
     same problem: assignments, planes (all but the totals row, which the
     sharded solve leaves as found) and each shard's totals (against the
     single card's totals row); the counts kernel against its plain
-    version on 1 x S and 2 x S meshes. Eight shards only where the card
-    holds eight clusters at once. Returns the largest absolute
-    differences (sharded, counts)."""
+    version on 1 x S and 2 x S meshes. A width that divides the cluster
+    size runs the one-cluster route, any other the global route (checked
+    against the plan). Returns the largest absolute differences (sharded,
+    counts)."""
     kernel = solve_mod.solve_kernel
     single, single_state, ran = _solve_on_card(ps, state, ints, floats)
     do, _ = state_planes(ps.r, ps.sc, ps.t, ps.sv)
@@ -1069,13 +1116,11 @@ def compare_sharded(name, ps, state, ints, floats, widths=(1, 2, 4, 8)):
     worst = worst_counts = 0
     for s in widths:
         ss, st = sharded_on_card(ps, state, s)
-        try:
-            plan = kernel.sharded_plan(ss, s)
-        except RuntimeError as e:
-            check(s == 8, f"{name}: {s} clusters co-reside ({e})")
-            log(f"  {name}: S=8 skipped, the card holds no eight such "
-                f"clusters at once ({e})")
-            continue
+        plan = kernel.sharded_plan(ss, s)
+        groups = solve_mod.sharded_groups(plan, s, ps.ints.shape[1])
+        check((groups > 0) == (s in (1, 2, 4, 8)),
+              f"{name}: S={s} takes the {'one-cluster' if groups else 'global'}"
+              " route")
         plain_st = SState(st.planes.clone(), st.totals.clone())
         want = sharded_mod.solve_sharded_plain(PARAMS, ss, plain_st, ints_c,
                                                floats_c)
@@ -1101,11 +1146,14 @@ def compare_sharded(name, ps, state, ints, floats, widths=(1, 2, 4, 8)):
             check(e == 0, f"counts kernel equals plain on {name} at "
                   f"{axis} x {s}")
         worst = max(worst, err)
+        route = (f"one cluster of {plan.cluster} blocks, {groups} a shard"
+                 if groups else f"{s} clusters of {plan.cluster} blocks "
+                 "(global exchange)")
         log(f"  {name}: N={ps.ints.shape[1]} B={ints.shape[0]} SC={ps.sc} "
-            f"T={ps.t} SV={ps.sv} hard={ss.any_hard} S={s}: "
-            f"{plan.cluster} blocks x {plan.cols_per_block} columns a "
-            f"shard, chunk {plan.chunk}; placed {int((want >= 0).sum())}; "
-            f"equal to plain and to the {ran} kernel; counts equal")
+            f"T={ps.t} SV={ps.sv} hard={ss.any_hard} S={s}: {route} x "
+            f"{plan.cols_per_block} columns, chunk {plan.chunk}; placed "
+            f"{int((want >= 0).sum())}; equal to plain and to the {ran} "
+            "kernel; counts equal")
     return worst, worst_counts
 
 
@@ -3427,25 +3475,30 @@ def _bare_ms(fn, make, repeats):
 
 def time_sharded(batch, repeats=10):
     """Phase 29 (a): on one batch, ``repeats`` bare launches of the
-    cluster kernel and of the sharded kernel at each of
-    ``SHARDED_WIDTHS``, in turns (cluster, S ascending, S descending,
-    cluster); the counts kernel's launches; the plain versions once each
-    at the widest mesh. Every sharded result equals the cluster kernel's
-    and the plain version's."""
+    cluster kernel, the wide kernel (forced) and the sharded kernel at
+    each of ``SHARDED_WIDTHS`` (each on the one-cluster route: no flag or
+    poll at GPU scope), in turns (cluster, wide, S ascending, S
+    descending, wide, cluster); the counts kernel's launches; the plain
+    versions once each at the widest mesh. Every sharded result equals
+    the cluster kernel's and the plain version's, and so does the wide
+    kernel's."""
     kernel = solve_mod.solve_kernel
     ps, state, ints, floats = batch
+    n = ps.ints.shape[1]
     valid = int((ints[:, ps.r + 3] > 0).sum())
-    cluster_plan = kernel.plan(ps)
-    check(cluster_plan.kernel == "cluster", "phase 29 batch plans the "
+    plans = {"cluster": kernel.plan(ps), "wide": kernel.wide_plan(ps)}
+    check(plans["cluster"].kernel == "cluster", "phase 29 batch plans the "
           "cluster kernel")
     finals, meshes = {}, {}
     for s in SHARDED_WIDTHS:
         ss, st = sharded_mod.shard_planes(ps, state, s)
         meshes[s] = (ss, st, kernel.sharded_plan(ss, s))
+        check(solve_mod.sharded_groups(meshes[s][2], s, n) > 0,
+              f"phase 29: S={s} takes the one-cluster route")
 
-    def run_cluster(st):
-        finals["cluster"] = (kernel.launch(PARAMS, ps, st, ints, floats,
-                                           cluster_plan), st)
+    def run_dense(which, st):
+        finals[which] = (kernel.launch(PARAMS, ps, st, ints, floats,
+                                       plans[which]), st)
 
     def run_sharded(s, st):
         ss, _, plan = meshes[s]
@@ -3457,15 +3510,18 @@ def time_sharded(batch, repeats=10):
         return lambda: (s, SState(st.planes.clone(), st.totals.clone()))
 
     turns = {}
-    order = ["cluster", *SHARDED_WIDTHS, *reversed(SHARDED_WIDTHS),
-             "cluster"]
+    order = ["cluster", "wide", *SHARDED_WIDTHS, *reversed(SHARDED_WIDTHS),
+             "wide", "cluster"]
     for which in order:
-        if which == "cluster":
-            ms = _bare_ms(run_cluster, lambda: (state.clone(),), repeats)
+        if which in plans:
+            ms = _bare_ms(run_dense, lambda w=which: (w, state.clone()),
+                          repeats)
         else:
             ms = _bare_ms(run_sharded, fresh(which), repeats)
         turns.setdefault(which, []).append(ms)
     want, want_state = finals["cluster"]
+    wide_err = _err(finals["wide"][0], want, finals["wide"][1], want_state)
+    check(wide_err == 0, "phase 29: wide kernel equals the cluster kernel")
     do, _ = state_planes(ps.r, ps.sc, ps.t, ps.sv)
     rows = [i for i in range(state.shape[0]) if i != do["totals"]]
     err = 0
@@ -3503,14 +3559,17 @@ def time_sharded(batch, repeats=10):
     ms = {k: float(np.mean(v)) for k, v in turns.items()}
     b_ms, b_by = bound_ms(*batch)
     c_ms, c_by = counts_bound_ms(ps, ints)
-    log(f"  SchedulingBasic batch N={ps.ints.shape[1]} B={ints.shape[0]} "
+    log(f"  SchedulingBasic batch N={n} B={ints.shape[0]} "
         f"valid={valid}: cluster kernel ms {turns['cluster'][0]:.3f} / "
         f"{turns['cluster'][1]:.3f} ({ms['cluster'] / valid * 1000:.3f} us "
-        "a pod)")
+        f"a pod); wide kernel (forced) ms {turns['wide'][0]:.3f} / "
+        f"{turns['wide'][1]:.3f} ({ms['wide'] / valid * 1000:.3f} us a pod)")
     for s in SHARDED_WIDTHS:
         plan = meshes[s][2]
-        log(f"    sharded S={s} ({plan.cluster} blocks x "
-            f"{plan.cols_per_block} columns a shard): ms "
+        g = solve_mod.sharded_groups(plan, s, n)
+        log(f"    sharded S={s} (one cluster of {plan.cluster} blocks, {g} "
+            f"a shard, x {plan.cols_per_block} columns; exchange in "
+            f"distributed shared memory, no flag or poll): ms "
             f"{turns[s][0]:.3f} / {turns[s][1]:.3f} "
             f"({ms[s] / valid * 1000:.3f} us a pod)")
     log(f"    counts kernel {counts_ms:.4f} ms (bound {c_ms:.6f}, {c_by}), "
@@ -3520,7 +3579,7 @@ def time_sharded(batch, repeats=10):
             "turns": {str(k): v for k, v in turns.items()},
             "us_per_pod": {str(k): v / valid * 1000 for k, v in ms.items()},
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "err": max(err, e), "counts_ms": counts_ms,
+            "err": max(err, e, wide_err), "counts_ms": counts_ms,
             "counts_plain_ms": counts_plain_ms, "counts_bound_ms": c_ms,
             "counts_bound_by": c_by, "counts_err": counts_err,
             "plans": {str(s): meshes[s][2]._asdict() for s in meshes}}
@@ -5281,6 +5340,11 @@ def main() -> None:
     anti, slots = phase_anti_affinity()
     for k in ("slots", "wide"):
         errs[k] = max(errs[k], slots["err"])
+    us = slots["us_per_pod"]
+    log(f"  per pod: slot kernel {us['slots']:.3f} us, wide kernel forced "
+        f"{us['wide']:.3f} us, beside the cluster kernel's "
+        f"{sb['ms']['cluster'] / sb['valid_pods'] * 1000:.3f} us on the "
+        "SchedulingBasic batch (phase 7)")
 
     log("[16] the wide-term families: SchedulingPodAffinity, "
         "SchedulingPreferredPodAffinity, SchedulingPreferredPodAntiAffinity")

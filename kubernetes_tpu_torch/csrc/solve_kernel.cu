@@ -56,10 +56,11 @@
 // Three kernels, picked per batch by the wrapper's launch plan (ops/solve.py,
 // plan_launch): the cluster kernel whenever its shared-memory layout fits one
 // block's 227 KB; else the slot kernel when every pod of the batch references
-// at most 8 terms (the slot stream, ops/slots.py) and the epoch has no sv
-// slots; else the wide kernel. The sharded tier (kubernetes_tpu_torch/
-// parallel/sharded.py) runs the sharded kernel below on every batch, and
-// the feasibility counts kernel for solve_scan_sharded.
+// at most 8 terms (the slot stream, ops/slots.py), the epoch has no sv slots
+// and its cache holds the term lines of one pod; else the wide kernel. The
+// sharded tier (kubernetes_tpu_torch/parallel/sharded.py) runs the sharded
+// kernel below on every batch, and the feasibility counts kernel for
+// solve_scan_sharded.
 //
 // solve_cluster_kernel, the main path. The node axis is spread over a
 // thread-block cluster of up to 16 blocks (one per SM); block q owns columns
@@ -94,21 +95,38 @@
 // matched = bit 0, own affinity = bit 1, own anti-affinity = bit 2, and its
 // preferred weight), so a pod's term work is O(K) rows, not O(T). The cluster
 // kernel's structure is kept: node axis over the cluster, each block's slice
-// of the non-term state rows and of the static rows in shared memory, pod
-// chunks double-buffered, fact lists built once a chunk (from the slot flags
-// and weights), one cluster barrier a pod (two with hard spread), local
-// commits, a per-block copy of the term totals. What changes: the term rows
-// (term_counts, term_owners, term_codes: 3*T rows, 6.1 MB at T = 100 over
-// 5,120 columns) stay in global memory, where the 50 MB L2 holds them, and a
-// pod touches them only through its slots, so shared memory does not grow
-// with T but for the totals. Block q's columns of term_counts and term_owners
-// are read and written only by block q (by the thread that owns the column),
-// so no fence across blocks is needed. Those two rows are written by the
-// kernel itself, so they are read at L2 (__ldcg), never through the
-// read-only path (__ldg may return stale data); term_codes is static. Bound,
-// as the cluster kernel, by the per-pod latency chain: the pod's L2 round
-// trips for its term rows (filter, then commit) add about 0.9 us a pod to it
-// on an H100 (PERF.md).
+// of the non-term state rows and of the static rows in shared memory, fact
+// lists built once a chunk (from the slot flags and weights), one cluster
+// barrier a pod (two with hard spread), local commits, a per-block copy of
+// the term totals. The term rows (term_counts, term_owners, term_codes: 3*T
+// rows, 6.1 MB at T = 100 over 5,120 columns) do not fit beside them, so each
+// block keeps a cache of term lines in the shared memory the rest leaves, as
+// many as fit and at most T, keyed by term index: a line is one term's owners,
+// counts and codes rows at the block's columns (3,840 B at 320 columns; 49
+// lines at T = 100 over 5,120 columns). Pods are staged by cp.async three
+// chunks deep and run in windows: at each window's start warp 0 plans the
+// next one, taking pods (four to 32 a warp step, by how many slots they use)
+// while the terms it lists beside the running window's still fit the lines,
+// so a window is as long as the data allows; a term keeps its line if
+// resident, else it takes the clock's next line that neither window needs.
+// While the running window's pods run, every thread writes the evicted
+// lines' owners and counts back at L2 (__stcg; the codes are static) and
+// copies the missing terms' rows in (cp.async.cg, 16 bytes a copy). Filters,
+// the preferred sum and the commits read and write resident lines only. A
+// window writes only lines it listed, so no line is written while it is
+// copied in; a block's columns are touched only by its own threads, so no
+// fence across blocks is needed. The plan (ops/solve.py::slots_candidate)
+// stages the most pods, up to 32, that leave the cache the lines of a
+// window of one pod (min(T, 8)). Where the lines hold two such windows (up
+// to 10,240 columns at T = 100) the next window's first pod always fits
+// beside the running one; where they do not (8 lines at 20,480 columns), a
+// window whose first pod does not fit is planned again once the running
+// window is done, its copies then not overlapped. The
+// codes ride in the line because the cache takes most of the SM's shared
+// memory and so most of its L1, where the read-only path kept them (two-row
+// lines ran slower on the card). Bound, as the cluster kernel, by the
+// per-pod latency chain, with no L2 round trip on it but the winner's code;
+// each window adds its plan and two barriers (PERF.md).
 //
 // solve_wide_kernel: the slot kernel's structure over the dense pod stream,
 // for the batches the other two do not take: a shape past the cluster's
@@ -144,25 +162,41 @@
 // best score, its lowest global index at that score and that column's codes,
 // and every device resolves the winner from the gathered rows; a pmin of the
 // hard-spread domain minima first, for a batch with a hard constraint). One
-// card stands in for the mesh: shard s is cluster s of one launch, and the
-// wide kernel's body (wide_solve) runs inside each cluster on columns [s*N/S,
-// (s+1)*N/S). The all_gather becomes an exchange through global memory: the
+// card stands in for the mesh: the wide kernel's body (wide_solve) runs each
+// shard on its columns [s*N/S, (s+1)*N/S), and each shard keeps its own copy
+// of the per-term totals ([S, T], outside the planes, whose totals row stays
+// as it was, as in the reference). The plan's cut picks one of two routes.
+// Where S divides the cluster size (16, or 8 on a card that admits no 16),
+// every shard is a group of g blocks of one cluster, shard s on blocks [s*g,
+// (s+1)*g), and the all_gather is the cluster's own exchange: each block
+// writes its best (score, index) into every block's slots through
+// distributed shared memory before the cluster barrier each pod pays anyway,
+// and every block takes the best of all the slots (the higher score, then
+// the lower index: a total order, so the best of every shard's best, as the
+// reference resolves its gathered rows). The pmin is the body's round of
+// domain minima in distributed shared memory, which now spans every shard's
+// blocks, taken by the reference's rule (the mesh's minimum where the
+// profile has an eligible domain value at all, else 0). The winner's codes
+// come from the static planes, the whole mesh being on this card; every
+// block of a shard keeps the shard's totals, which its first block writes
+// back once. No fence, flag or poll at GPU scope is left on this route: a
+// pod costs the wide kernel's chain, whatever S. Where S divides no cluster
+// size (or is wider than one), the global route: shard s is cluster s of one
+// launch, and the all_gather is an exchange through global memory: the
 // cluster's first block writes the shard's payload (score, index, the SC+T
 // codes of that column) into a slot of the pod's parity and raises the
 // shard's flag to the pod's sequence number with a release store at GPU
 // scope; every block polls the S flags with acquire loads and resolves the
-// winner as the reference does (the higher score, then the lower index), the
-// commit reading the winner's codes from the winning payload. The pmin is a
-// second such round before the skew check, compiled only into the instance
-// for batches with a hard constraint (kHard). Each shard keeps its own copy
-// of the per-term totals ([S, T], outside the planes, whose totals row stays
-// as it was, as in the reference). The workspace is zeroed before every
-// launch, so no launch reads another's flags. A poll is bounded: past 2 s it
-// sets an error word that the wrapper raises on, and every other poll gives
-// up at once. The launch refuses a shape whose S clusters the card cannot
-// hold at once (cudaOccupancyMaxActiveClusters). Bound by the per-pod chain
-// of the wide kernel plus the flag's round trip through L2, one a pod, two
-// with hard spread. A later multi-card build places the slots in peer memory
+// winner as the reference does, the commit reading the winner's codes from
+// the winning payload. The pmin is a second such round before the skew
+// check, compiled only into the instance for batches with a hard constraint
+// (kHard). The workspace is zeroed before every launch, so no launch reads
+// another's flags. A poll is bounded: past 2 s it sets an error word that
+// the wrapper raises on, and every other poll gives up at once. The launch
+// refuses a shape whose S clusters the card cannot hold at once
+// (cudaOccupancyMaxActiveClusters). Bound by the per-pod chain of the wide
+// kernel plus the flag's round trip through L2, one a pod, two with hard
+// spread. A later multi-card build places the slots in peer memory
 // (ROADMAP).
 //
 // feasible_counts_kernel: the reference's _batched_static_feasibility
@@ -264,9 +298,31 @@ __host__ __device__ inline int slot_width(int r, int sc) { return r + 4 + 2 * sc
 // lists.
 __host__ __device__ inline int slot_fact_stride(int sc) { return 8 + 3 * sc + 3 * kSlots; }
 
+// The slot kernel stages pods three chunks deep: the chunk that runs, the
+// next one (where the next window of pods may start) and the one after (in
+// flight).
+constexpr int kPodBufs = 3;
+// A cache line: a term's owners, counts and codes rows at the block's columns.
+constexpr int kLineRows = 3;
+
+// The slot kernel's term-row cache, in 4-byte words after the rest of its
+// layout: the line holding each term (-1: none) and the last window whose
+// plan listed it; one plan's missing terms and its jobs (their count, the
+// window's end, then a line and the term it evicts, a job); then, 16-byte
+// aligned, `cap` lines of kLineRows rows, the term each line holds and the
+// last window that needs it. `need`: min(T, K), the lines a window of one
+// pod may list; the lines are as many as fit one block's shared memory, at
+// most T, and never fewer than `need` (then the layout is past the limit,
+// so the plan does not take it).
+struct Cache {
+  int slot, mark, miss, jobs, rows, key, stamp, cap, need;
+};
+
 // Shared-memory layout of the slot kernel, in 4-byte words: the cluster
-// kernel's without the term rows (ops/solve.py::slots_smem_bytes).
-__host__ __device__ inline Layout slots_layout(const Dims& d, const Plan& p) {
+// kernel's without the term rows, three pod chunks, and the term-row cache
+// (ops/solve.py::slots_smem_bytes).
+__host__ __device__ inline Layout slots_layout(const Dims& d, const Plan& p,
+                                               Cache* cache = nullptr) {
   Layout l{};
   int w = 0;
   l.state = w;
@@ -280,9 +336,9 @@ __host__ __device__ inline Layout slots_layout(const Dims& d, const Plan& p) {
   l.meta = w;
   w += 2 * d.sc;
   l.pod_i = w;
-  w += 2 * p.chunk * slot_width(d.r, d.sc);
+  w += kPodBufs * p.chunk * slot_width(d.r, d.sc);
   l.pod_f = w;
-  w += 2 * p.chunk * kSlots;
+  w += kPodBufs * p.chunk * kSlots;
   l.facts = w;
   w += p.chunk * slot_fact_stride(d.sc);
   l.wmin = w;
@@ -293,7 +349,29 @@ __host__ __device__ inline Layout slots_layout(const Dims& d, const Plan& p) {
   w += 2 * p.cluster * d.sc;
   l.slot_best = w;
   w += 2 * 2 * p.cluster;
+  Cache c{};
+  c.slot = w;
+  w += d.t;
+  c.mark = w;
+  w += d.t;
+  c.miss = w;
+  w += p.chunk * kSlots;
+  c.jobs = w;
+  w += 2 + 2 * p.chunk * kSlots;
+  w = (w + 3) & ~3;
+  const int line = kLineRows * p.cpb + 2;
+  const int fit = (kSmemLimit / (int)sizeof(int) - w) / line;
+  c.need = d.t < kSlots ? d.t : kSlots;
+  c.cap = fit < d.t ? fit : d.t;
+  if (c.cap < c.need) c.cap = c.need;
+  c.rows = w;
+  w += kLineRows * p.cpb * c.cap;
+  c.key = w;
+  w += c.cap;
+  c.stamp = w;
+  w += c.cap;
   l.words = w;
+  if (cache != nullptr) *cache = c;
   return l;
 }
 
@@ -424,6 +502,13 @@ __device__ __forceinline__ void warp_best(float& s, int& j) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// 16 bytes at L2 (.cg: not through L1, which may hold a line of a row the
+// kernel has since written back)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -860,7 +945,8 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int nc = pl.cluster;
-  const Layout L = slots_layout(d, pl);
+  Cache C;
+  const Layout L = slots_layout(d, pl, &C);
 
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = nt >> 5;
@@ -869,6 +955,7 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
   const int cpb = pl.cpb, chunk = pl.chunk;
   const int lo = rank * cpb;
   const int cols = max(0, min(cpb, n - lo));
+  const int quads = cols / 4;  // a multiple of 32 columns: n % 128, cpb % 32
 
   // global static plane rows
   const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
@@ -907,6 +994,15 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
   int* slot_min = smem + L.slot_min;  // [2][cluster][SC]
   float* slot_s = reinterpret_cast<float*>(smem + L.slot_best);  // [2][cluster]
   int* slot_j = smem + L.slot_best + 2 * nc;                    // [2][cluster]
+  // the term-row cache: a line is owners | counts | codes, cpb words each
+  int* cslot = smem + C.slot;    // [T] the line holding the term, -1: none
+  int* cmark = smem + C.mark;    // [T] the last window whose plan listed it
+  int* cmiss = smem + C.miss;    // [chunk * K] one plan's missing terms
+  int* cjobs = smem + C.jobs;    // jobs | window end | (line, evicted term)
+  int* lines = smem + C.rows;    // [cap][kLineRows * cpb]
+  int* ckey = smem + C.key;      // [cap] the term a line holds, -1: none
+  int* cstamp = smem + C.stamp;  // [cap] the last window that needs the line
+  const int lw = kLineRows * cpb;
 
   // the block's slice of the non-term planes, once
   for (int row = 0; row < d_term_counts; ++row)
@@ -924,20 +1020,178 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
     for (int c = tid; c < cols; c += nt)
       cp_async4(s_stat + (a_scores + k) * cpb + c, sta_f + k * N + lo + c);
   cp_async_commit();
-  for (int k = tid; k < t; k += nt) totals[k] = st[d_totals * N + k];
+  for (int k = tid; k < t; k += nt) {
+    totals[k] = st[d_totals * N + k];
+    cslot[k] = -1;
+    cmark[k] = -1;
+  }
+  for (int j = tid; j < C.cap; j += nt) {
+    ckey[j] = -1;
+    cstamp[j] = -2;  // free for the plans of windows 0 and 1
+  }
   for (int k = tid; k < 2 * sc; k += nt) meta[k] = sc_meta[k];
 
   const int nchunks = (d.b + chunk - 1) / chunk;
-  auto fetch = [&](int ch) {
-    const int p0 = ch * chunk, np = min(chunk, d.b - p0), buf = ch & 1;
-    int* di = pod_i + buf * chunk * width;
+  // pod p's row and weights: chunk p / chunk sits in buffer (p / chunk) %
+  // kPodBufs
+  auto pod_row = [&](int p) {
+    return pod_i + ((p / chunk) % kPodBufs * chunk + p % chunk) * width;
+  };
+  auto pod_w = [&](int p) {
+    return pod_f + ((p / chunk) % kPodBufs * chunk + p % chunk) * kSlots;
+  };
+  auto fetch = [&](int ch) {  // chunk ch's pods into its buffer
+    const int p0 = ch * chunk, np = min(chunk, d.b - p0);
+    int* di = pod_row(p0);
     const int* si = pod_ints + (size_t)p0 * width;
     for (int i = tid; i < np * width; i += nt) cp_async4(di + i, si + i);
-    float* df = pod_f + buf * chunk * kSlots;
+    float* df = pod_w(p0);
     const float* sf = pod_floats + (size_t)p0 * kSlots;
     for (int i = tid; i < np * kSlots; i += nt) cp_async4(df + i, sf + i);
   };
+
+  // Warp 0's plan of window x, the pods from `from` on in its chunk, while
+  // window x - 1 runs, a lane a slot: a step takes 32 / w pods of w slots,
+  // w the power of two that holds every pod's last active slot (the pack
+  // puts a pod's references first, so w is 1 on a row of one reference a
+  // pod). Each term the window lists for the first time (its mark; the
+  // first of equal terms in a step) keeps its line if resident (stamped
+  // x), else it misses. The window takes pods while the terms it lists
+  // outside window x - 1 (hits on older lines and misses, each holding a
+  // line) fit the lines window x - 1 leaves and, where T exceeds the
+  // lines, while its own distinct terms leave the next window room: a
+  // pod's K where the lines hold two pods' (then the first pod always
+  // fits), else half the lines. Each miss then takes the clock's next line
+  // that neither window x - 1 nor x needs (stamp below x - 1), evicting
+  // the term it held: the jobs list those lines. Where the lines hold
+  // fewer than two pods' K, window x's first pod may not fit beside window
+  // x - 1: the window is then empty, and once window x - 1 is done it is
+  // planned again `after` it, on all the lines (stamp below x).
+  const int span = C.cap < 32 ? C.cap : 32;  // lines the clock looks at a step
+  int hand = 0, wdist = 0;  // the clock; the last planned window's terms
+  auto plan = [&](int x, int from, bool after) {
+    const int end = min((from / chunk + 1) * chunk, d.b);
+    const int budget = after ? C.cap : C.cap - wdist;
+    const int limit = t <= C.cap ? INT_MAX : max(C.cap - kSlots, C.cap / 2);
+    int w = 0;  // a lane a pod (the chunk holds at most 32): its last active slot
+    if (from + lane < end) {
+      const int* row = pod_row(from + lane);
+      const float* wr = pod_w(from + lane);
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        if (row[c_flags + s] != 0 || wr[s] != 0.0f) w = s + 1;
+    }
+    w = __reduce_max_sync(0xffffffffu, w);
+    const int lg = w <= 1 ? 0 : w <= 2 ? 1 : w <= 4 ? 2 : 3;  // log2 of the step's width
+    const int per = 32 >> lg;                                 // pods a step
+    int used = 0, dist = 0, nmiss = 0, hi = from;
+    for (int p0 = from; p0 < end; p0 += per) {
+      const int q = lane >> lg, s = lane & ((1 << lg) - 1), p = p0 + q;
+      bool active = false;
+      int k = 0;
+      if (p < end) {
+        const int* row = pod_row(p);
+        active = row[c_flags + s] != 0 || pod_w(p)[s] != 0.0f;
+        k = row[c_idx + s];
+      }
+      const bool fresh = active && cmark[k] != x;
+      const unsigned peers = __match_any_sync(0xffffffffu, fresh ? k : -1 - lane);
+      const bool first = fresh && __ffs(peers) - 1 == lane;
+      const int j = first ? cslot[k] : -1;
+      const bool held = first && (after || !(j >= 0 && cstamp[j] == x - 1));
+      const unsigned fb = __ballot_sync(0xffffffffu, first);
+      const unsigned hb = __ballot_sync(0xffffffffu, held);
+      int taken = 0;
+      bool stop = false;
+      const unsigned low = (1u << (1 << lg)) - 1u;  // a pod's lanes
+      for (; taken < per && p0 + taken < end; ++taken) {
+        const int nf = __popc((fb >> (taken << lg)) & low);
+        const int nh = __popc((hb >> (taken << lg)) & low);
+        const bool later = p0 + taken > from;
+        if ((used + nh > budget && (later || t > C.cap)) || (later && dist + nf > limit)) {
+          stop = true;
+          break;
+        }
+        used += nh;
+        dist += nf;
+      }
+      const bool take = first && q < taken;
+      if (take) {
+        cmark[k] = x;
+        if (j >= 0) cstamp[j] = x;
+      }
+      const unsigned mb = __ballot_sync(0xffffffffu, take && j < 0);
+      if (take && j < 0) cmiss[nmiss + __popc(mb & ((1u << lane) - 1u))] = k;
+      nmiss += __popc(mb);
+      hi = p0 + taken;
+      if (stop) break;
+    }
+    __syncwarp();
+    for (int placed = 0; placed < nmiss;) {
+      const int jj = hand + lane < C.cap ? hand + lane : hand + lane - C.cap;
+      const bool free = lane < span && cstamp[jj] < (after ? x : x - 1);
+      const unsigned fm = __ballot_sync(0xffffffffu, free);
+      const int at = placed + __popc(fm & ((1u << lane) - 1u));
+      const bool put = free && at < nmiss;
+      if (put) {
+        const int k = cmiss[at], old = ckey[jj];
+        if (old >= 0) cslot[old] = -1;
+        ckey[jj] = k;
+        cslot[k] = jj;
+        cstamp[jj] = x;
+        cjobs[2 + 2 * at] = jj;
+        cjobs[3 + 2 * at] = old;
+      }
+      const unsigned pm = __ballot_sync(0xffffffffu, put);
+      placed += __popc(pm);
+      // past the last line taken once all are placed, else the whole span
+      const int step = placed >= nmiss ? 32 - __clz(pm) : span;
+      hand = hand + step < C.cap ? hand + step : hand + step - C.cap;
+    }
+    if (lane == 0) {
+      cjobs[0] = nmiss;
+      cjobs[1] = hi;
+    }
+    wdist = dist;
+  };
+  // The plan's jobs, by every thread: the evicted term's owners and counts
+  // written back at L2 (its codes are static), then the new term's three
+  // rows copied in, 16 bytes a copy. A job's quad of columns is one
+  // thread's, so the write-back reads a line before the copy refills it; a
+  // later fill of the evicted term reads what the write-back stored (the
+  // barriers between order them).
+  auto run_jobs = [&]() {
+    const int njobs = cjobs[0];
+    for (int it = tid; it < njobs * quads; it += nt) {
+      const int job = it / quads, c4 = (it - job * quads) * 4;
+      const int j = cjobs[2 + 2 * job], old = cjobs[3 + 2 * job], k = ckey[j];
+      int* ln = lines + j * lw;
+      if (old >= 0) {
+        __stcg(reinterpret_cast<int4*>(g_owners + (size_t)old * N + c4),
+               *reinterpret_cast<const int4*>(ln + c4));
+        __stcg(reinterpret_cast<int4*>(g_counts + (size_t)old * N + c4),
+               *reinterpret_cast<const int4*>(ln + cpb + c4));
+      }
+      cp_async16(ln + c4, g_owners + (size_t)k * N + c4);
+      cp_async16(ln + cpb + c4, g_counts + (size_t)k * N + c4);
+      cp_async16(ln + 2 * cpb + c4, g_codes + (size_t)k * N + c4);
+    }
+  };
+
+  // chunks 0 and 1's pods, then window 0's plan and lines
   if (nchunks > 0) fetch(0);
+  cp_async_commit();
+  if (nchunks > 1) fetch(1);
+  cp_async_commit();
+  cp_async_wait<1>();  // the slices and chunk 0's pods
+  __syncthreads();
+  int wlo = 0, whi = 0;  // the running window's pods
+  if (d.b > 0) {
+    if (warp == 0) plan(0, 0, false);
+    __syncthreads();
+    whi = cjobs[1];
+    run_jobs();
+  }
   cp_async_commit();
 
   // every block of the cluster is running before any slot is written
@@ -945,21 +1199,22 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
   cluster_wait();
 
   int par_min = 0, par_best = 0;
-  for (int ch = 0; ch < nchunks; ++ch) {
-    if (ch + 1 < nchunks) fetch(ch + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // the slice and this chunk have landed
+  for (int x = 0; wlo < d.b; ++x) {
+    // window x's lines and the next chunk's pods have landed
+    cp_async_wait<0>();
     __syncthreads();
-    const int p0 = ch * chunk, np = min(chunk, d.b - p0), buf = ch & 1;
-    const int* rows = pod_i + buf * chunk * width;
-    const float* frows = pod_f + buf * chunk * kSlots;
-
-    // each pod's uniform facts, once. An inactive slot (index 0, flags 0,
-    // weight 0.0) enters no list: its flags and weight say so, not its
-    // index, which is also a real term's.
-    for (int i = tid; i < np; i += nt) {
-      const int* row = rows + i * width;
-      const float* wrow = frows + i * kSlots;
+    const int ch = wlo / chunk, c0 = ch * chunk, np = min(chunk, d.b - c0);
+    const bool opens = wlo == c0;  // the chunk's first window
+    // warp 0 plans window x + 1 while, on a chunk's first window, the last
+    // threads build each of its pods' uniform facts (on a one-warp block,
+    // after the plan). An inactive slot (index 0, flags 0, weight 0.0)
+    // enters no list: its flags and weight say so, not its index, which is
+    // also a real term's.
+    if (whi < d.b && warp == 0) plan(x + 1, whi, false);
+    if (opens && nt - 1 - tid < np) {
+      const int i = nt - 1 - tid;
+      const int* row = pod_row(c0 + i);
+      const float* wrow = pod_w(c0 + i);
       int* f = facts + i * fstride;
       int* hard = f + kHead;
       int* soft = hard + sc;
@@ -995,11 +1250,17 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
       f[kSelfAll] = self_all;
     }
     __syncthreads();
+    // window x + 1's lines come in, and on a chunk's first window the pods
+    // of the chunk after the next, while window x runs
+    int next = whi < d.b ? cjobs[1] : whi;
+    if (whi < d.b) run_jobs();
+    if (opens && ch + 2 < nchunks) fetch(ch + 2);
+    cp_async_commit();
 
-    for (int i = 0; i < np; ++i) {
-      const int p = p0 + i;
-      const int* row = rows + i * width;
-      const float* wrow = frows + i * kSlots;
+    for (int p = wlo; p < whi; ++p) {
+      const int i = p - c0;
+      const int* row = pod_row(p);
+      const float* wrow = pod_w(p);
       if (row[c_valid] <= 0) {  // padding or inexpressible: no node, no commit
         if (rank == 0 && tid == 0) assign[p] = -1;
         continue;
@@ -1052,7 +1313,8 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
       }
 
       // filter (all but the skew check) and score; -inf marks infeasible.
-      // The term rows are read at L2, only at this block's columns.
+      // The term rows are the cache's lines: owners at 0, counts at cpb,
+      // codes at 2 * cpb.
       for (int c = tid; c < cols; c += nt) {
         bool ok = (s_stat[a_valid * cpb + c] > 0) &
                   (s_state[d_pod_count * cpb + c] < s_stat[a_max_pods * cpb + c]) &
@@ -1061,14 +1323,14 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
           ok = ok & (s_state[(d_req + k) * cpb + c] + row[k] <= s_stat[k * cpb + c]);
         for (int x = 0; x < ntf; ++x) {
           const int s = tf[x];
-          const size_t at = (size_t)idx[s] * N + c;
-          const int owners = (flags[s] & kMatched) ? __ldcg(g_owners + at) : 0;
-          const int counts = (flags[s] & kOwnAnti) ? __ldcg(g_counts + at) : 0;
+          const int* ln = lines + cslot[idx[s]] * lw;
+          const int owners = (flags[s] & kMatched) ? ln[c] : 0;
+          const int counts = (flags[s] & kOwnAnti) ? ln[cpb + c] : 0;
           ok = ok & (owners <= 0) & (counts <= 0);
         }
         for (int x = 0; need_aff && x < naff; ++x) {
-          const size_t at = (size_t)idx[aff[x]] * N + c;
-          ok = ok & (__ldcg(g_counts + at) > 0) & (__ldg(g_codes + at) < v);
+          const int* ln = lines + cslot[idx[aff[x]]] * lw;
+          ok = ok & (ln[cpb + c] > 0) & (ln[2 * cpb + c] < v);
         }
         for (int h = 0; h < nh; ++h) ok = ok & (s_stat[(a_sc_codes + hard[h]) * cpb + c] < v);
         const float alloc_cpu = (float)max(s_stat[c], 1);
@@ -1092,7 +1354,7 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
         float pref_sum = 0.0f;
         for (int x = 0; x < npref; ++x) {
           const int s = pref[x];
-          pref_sum += wrow[s] * (float)__ldcg(g_counts + (size_t)idx[s] * N + c);
+          pref_sum += wrow[s] * (float)lines[cslot[idx[s]] * lw + cpb + c];
         }
         float s = w.balanced * balanced;
         s = s + w.least * least;
@@ -1170,24 +1432,33 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
         for (int c = tid; c < cols; c += nt)
           if (codes[c] == code_j) counts[c] += inc;
       }
-      // the term step: slots with the matched or own-anti bit, at L2
+      // the term step: slots with the matched or own-anti bit, on the lines
       for (int x = 0; x < ntf; ++x) {
         const int s = tf[x], k = idx[s];
         const int matched = flags[s] & kMatched, anti = (flags[s] & kOwnAnti) ? 1 : 0;
         const int code_j = __ldg(sta + (s_term_codes + k) * N + jc);
-        const int* codes = g_codes + (size_t)k * N;
-        int* counts = g_counts + (size_t)k * N;
-        int* owners = g_owners + (size_t)k * N;
+        int* ln = lines + cslot[k] * lw;
         for (int c = tid; c < cols; c += nt) {
-          if (__ldg(codes + c) != code_j) continue;
-          if (matched) __stcg(counts + c, __ldcg(counts + c) + 1);
-          if (anti) __stcg(owners + c, __ldcg(owners + c) + 1);
+          if (ln[2 * cpb + c] != code_j) continue;
+          if (matched) ln[cpb + c] += 1;
+          if (anti) ln[c] += 1;
         }
         if (tid == 0 && code_j < v) totals[k] += matched;
       }
       if (rank == 0 && tid == 0) assign[p] = jc;
     }
-    __syncthreads();  // the chunk's buffers are free for the next fetch
+    if (next == whi && whi < d.b) {
+      // window x + 1 was empty: its first pod's terms did not fit beside
+      // window x's lines, which are free now
+      __syncthreads();
+      if (warp == 0) plan(x + 1, whi, true);
+      __syncthreads();
+      next = cjobs[1];
+      run_jobs();
+      cp_async_commit();
+    }
+    wlo = whi;
+    whi = next;
   }
 
   cp_async_wait<0>();
@@ -1197,6 +1468,16 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
   for (int c = tid; c < cols; c += nt) {
     const int j = lo + c;
     st[d_totals * N + j] = j < t ? totals[j] : 0;
+  }
+  // the resident terms' owners and counts back at L2
+  for (int it = tid; it < C.cap * quads; it += nt) {
+    const int j = it / quads, c4 = (it - j * quads) * 4, k = ckey[j];
+    if (k < 0) continue;
+    const int* ln = lines + j * lw;
+    __stcg(reinterpret_cast<int4*>(g_owners + (size_t)k * N + c4),
+           *reinterpret_cast<const int4*>(ln + c4));
+    __stcg(reinterpret_cast<int4*>(g_counts + (size_t)k * N + c4),
+           *reinterpret_cast<const int4*>(ln + cpb + c4));
   }
   // no block leaves while another may still address its shared memory
   cluster_arrive();
@@ -1208,12 +1489,16 @@ solve_slots_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_
 // body. Pods come as the dense stream, as for the cluster kernel. kSv as in
 // the cluster kernel; kSlices: the block's slices of the non-term state and
 // static rows are in shared memory (else read at L2 by the owning thread, as
-// the term rows always are). kMode 0: the wide kernel, one cluster over the
-// node axis; 1: the sharded kernel, cluster s of the launch over shard s's
-// columns, each pod's best exchanged through global memory; 2: the same with
-// the round of hard-spread domain minima. Mode 0 compiles none of the mesh's
-// code, so the wide kernel runs as it did before the sharded kernel existed.
-enum { kOneCluster = 0, kMesh = 1, kMeshHard = 2 };
+// the term rows always are). kMode kOneCluster: the wide kernel, one cluster
+// over the node axis. kGroups: the sharded kernel with every shard in one
+// cluster, shard s on blocks [s * g, (s + 1) * g), each pod's best and
+// domain minima exchanged in distributed shared memory. kMesh: the sharded
+// kernel with a cluster a shard, cluster s of the launch over shard s's
+// columns, each pod's best exchanged through global memory; kMeshHard: the
+// same with the round of hard-spread domain minima. kOneCluster compiles
+// none of the mesh's code, so the wide kernel runs as it did before the
+// sharded kernel existed; kGroups none of the global exchange.
+enum { kOneCluster = 0, kGroups = 1, kMesh = 2, kMeshHard = 3 };
 
 template <bool kSv, bool kSlices, int kMode>
 __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
@@ -1229,6 +1514,7 @@ __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
   const int nc = pl.cluster;
   const Layout L = kMode == kOneCluster ? wide_layout(d, pl, kSlices)
                                         : sharded_layout(d, pl, kSlices);
+  constexpr bool kGlobal = kMode >= kMesh;  // the exchange through global memory
 
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = nt >> 5;
@@ -1237,15 +1523,21 @@ __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
   const int cpb = pl.cpb, chunk = pl.chunk;
   const bool staged = chunk > 0;
   const int per = staged ? chunk : 1;  // pods a round
-  // this cluster's shard of the node axis (all of it for the wide kernel)
+  // this block's shard of the node axis (all of it for the wide kernel) and
+  // its place among the shard's `group` blocks: the cluster's g = nc / S on
+  // the one-cluster route, the whole cluster on the global one
   const int shards = kMode == kOneCluster ? 1 : sh.shards;
-  const int shard = kMode == kOneCluster ? 0 : (int)blockIdx.x / nc;
+  const int group = kMode == kGroups ? nc / shards : nc;
+  const int shard = kMode == kOneCluster ? 0
+                    : kMode == kGroups   ? rank / group
+                                         : (int)blockIdx.x / nc;
+  const int q_in = kMode == kGroups ? rank - shard * group : rank;
   const int nl = kMode == kOneCluster ? n : sh.nl;
-  const int lo = shard * nl + rank * cpb;
-  const int cols = max(0, min(cpb, nl - rank * cpb));
+  const int lo = shard * nl + q_in * cpb;
+  const int cols = max(0, min(cpb, nl - q_in * cpb));
   const bool lead = rank == 0 && shard == 0;  // writes the assignments
   const Exchange X = sharded_workspace(shards, sc, t);
-  int* err = kMode == kOneCluster ? nullptr : sh.ws + X.err;
+  int* err = kGlobal ? sh.ws + X.err : nullptr;
 
   // global static plane rows
   const int s_alloc = 0, s_max_pods = r, s_masks = r + 1, s_sc_codes = r + 1 + u;
@@ -1577,6 +1869,15 @@ __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
           if constexpr (kMode == kOneCluster) {
             for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
             m = m < kBig ? m : 0;  // 0 when the profile has no eligible domain
+          } else if constexpr (kMode == kGroups) {
+            // the pmin: every shard's blocks published their minima into
+            // this block's slots, so the mesh's minimum is the least of
+            // them; the reference's rule takes it where the profile has an
+            // eligible domain value at all, else 0
+            if (__ldg(sh.has_dom + profile * sc + k))
+              for (int q = 0; q < nc; ++q) m = min(m, mins[q * sc + h]);
+            else
+              m = 0;
           } else {
             // the reference's rule: the mesh's minimum where the profile has
             // an eligible domain value at all, else 0
@@ -1609,14 +1910,19 @@ __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
       }
       cluster_arrive();
       cluster_wait();
+      // the best of the cluster's slots (on the one-cluster route every
+      // shard's blocks): the higher score, then the lower index, a total
+      // order, so the best of all blocks is the best of the shards' bests,
+      // as the reference resolves its gathered rows
       best_s = -INFINITY;
       best_j = INT_MAX;
       for (int q = 0; q < nc; ++q) better(best_s, best_j, slot_s[par_best * nc + q], slot_j[par_best * nc + q]);
       par_best ^= 1;
       if (nh > 0) par_min ^= 1;
-      // the winner's codes: the static planes, or the winning shard's payload
+      // the winner's codes: the static planes (the whole mesh is on this
+      // card), or on the global route the winning shard's payload
       const int* wcodes = nullptr;
-      if constexpr (kMode != kOneCluster) {
+      if constexpr (kGlobal) {
         // the exchange: the cluster's first block publishes the shard's best
         // (score, index, that column's codes) in its parity's payload and
         // releases its flag with the pod's sequence number; every block reads
@@ -1680,8 +1986,7 @@ __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
       for (int x = 0; x < nscc; ++x) {
         const int k = scc[x];
         const int inc = row[c_sc_match + k];
-        const int code_j = kMode == kOneCluster ? __ldg(sta + (s_sc_codes + k) * N + jc)
-                                                : __ldcg(wcodes + k);
+        const int code_j = kGlobal ? __ldcg(wcodes + k) : __ldg(sta + (s_sc_codes + k) * N + jc);
         for (int c = tid; c < cols; c += nt)
           if (stat_at(a_sc_codes + k, s_sc_codes + k, c) == code_j) state_add(d_sc_counts + k, c, inc);
       }
@@ -1693,8 +1998,8 @@ __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
         if (!(e & kRefCommit)) continue;
         const int k = e >> kRefShift;
         const int matched = row[c_match_by + k], anti = row[c_own_anti + k];
-        const int code_j = kMode == kOneCluster ? __ldg(sta + (s_term_codes + k) * N + jc)
-                                                : __ldcg(wcodes + sc + k);
+        const int code_j =
+            kGlobal ? __ldcg(wcodes + sc + k) : __ldg(sta + (s_term_codes + k) * N + jc);
         const int* codes = g_codes + (size_t)k * N;
         int* counts = g_counts + (size_t)k * N;
         int* owners = g_owners + (size_t)k * N;
@@ -1726,9 +2031,10 @@ __device__ __forceinline__ void wide_solve(const int* __restrict__ sc_meta,
       const int j = lo + c;
       st[d_totals * N + j] = j < t ? totals[j] : 0;
     }
-  } else if (rank == 0) {
-    // the shard's totals; the planes' totals row is left as it was, as the
-    // reference's sharded scan leaves it
+  } else if (q_in == 0) {
+    // the shard's totals, from its first block (every block of a shard
+    // keeps the same copy); the planes' totals row is left as it was, as
+    // the reference's sharded scan leaves it
     for (int k = tid; k < t; k += nt) sh.totals[shard * t + k] = totals[k];
   }
   // no block leaves while another may still address its shared memory
@@ -1748,17 +2054,18 @@ solve_wide_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_i
 
 // ---------------------------------------------------------------------------
 // The sharded kernel (see the note at the top): the wide kernel's body over
-// S clusters of one launch, cluster s on shard s's columns. kHard: the
-// instance with the round of hard-spread domain minima (a batch whose
-// constraints include a hard one); the other compiles no such round.
-template <bool kSv, bool kSlices, bool kHard>
+// the S shards, kMode the route: kGroups, every shard a block group of one
+// cluster; kMesh, a cluster a shard with the exchange through global memory;
+// kMeshHard, the same with the round of hard-spread domain minima (a batch
+// whose constraints include a hard one), which kMesh does not compile.
+template <bool kSv, bool kSlices, int kMode>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 solve_sharded_kernel(const int* __restrict__ sc_meta, const int* __restrict__ pod_ints,
                      const float* __restrict__ pod_floats, const int* __restrict__ sta,
                      const float* __restrict__ sta_f, int* __restrict__ st,
                      int* __restrict__ assign, Dims d, Weights w, Plan pl, Shard sh) {
-  wide_solve<kSv, kSlices, kHard ? kMeshHard : kMesh>(sc_meta, pod_ints, pod_floats, sta, sta_f,
-                                                      st, assign, d, w, pl, sh);
+  wide_solve<kSv, kSlices, kMode>(sc_meta, pod_ints, pod_floats, sta, sta_f, st, assign, d, w,
+                                  pl, sh);
 }
 
 // ---------------------------------------------------------------------------
@@ -1881,12 +2188,15 @@ int launch_cluster(ClusterKernel fn, int layout_words, const int* sc_meta, const
 using ShardedKernel = void (*)(const int*, const int*, const float*, const int*, const float*,
                                int*, int*, Dims, Weights, Plan, Shard);
 
-// The sharded kernel's instances: [sv][slices][hard].
-const ShardedKernel kShardedKernels[2][2][2] = {
-    {{solve_sharded_kernel<false, false, false>, solve_sharded_kernel<false, false, true>},
-     {solve_sharded_kernel<false, true, false>, solve_sharded_kernel<false, true, true>}},
-    {{solve_sharded_kernel<true, false, false>, solve_sharded_kernel<true, false, true>},
-     {solve_sharded_kernel<true, true, false>, solve_sharded_kernel<true, true, true>}}};
+// The sharded kernel's instances: [sv][slices][route: one cluster, global,
+// global with the hard round].
+#define KTT_SHARDED_ROUTES(sv, sl)                                               \
+  {solve_sharded_kernel<sv, sl, kGroups>, solve_sharded_kernel<sv, sl, kMesh>, \
+   solve_sharded_kernel<sv, sl, kMeshHard>}
+const ShardedKernel kShardedKernels[2][2][3] = {
+    {KTT_SHARDED_ROUTES(false, false), KTT_SHARDED_ROUTES(false, true)},
+    {KTT_SHARDED_ROUTES(true, false), KTT_SHARDED_ROUTES(true, true)}};
+#undef KTT_SHARDED_ROUTES
 
 // The fewest clusters of this shape any instance of the sharded kernel fits
 // at once; a negative value is a CUDA error.
@@ -1894,7 +2204,7 @@ int sharded_max_active(int cluster, int threads, int smem_bytes) {
   int fewest = INT_MAX;
   for (int sv = 0; sv < 2; ++sv)
     for (int sl = 0; sl < 2; ++sl)
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < 3; ++h) {
         const int count = max_active(kShardedKernels[sv][sl][h], cluster, threads, smem_bytes);
         if (count < 0) return count;
         fewest = count < fewest ? count : fewest;
@@ -1993,7 +2303,13 @@ extern "C" int ktt_solve_slots_launch(const int* sc_meta, const int* pod_ints,
   if (sv != 0) return (int)cudaErrorInvalidValue;
   Dims d{r, sc, t, u, v, sv, n, b};
   Plan p{cluster, threads, cpb, chunk};
-  return launch_cluster(solve_slots_kernel, slots_layout(d, p).words, sc_meta, pod_ints,
+  // the cache copies 16 bytes at a time: four columns, 16-byte aligned rows
+  const int words = slots_layout(d, p).words;
+  if (n % 4 != 0 || cpb % 4 != 0 || chunk > 32 || (reinterpret_cast<size_t>(state) & 15) != 0 ||
+      (reinterpret_cast<size_t>(static_ints) & 15) != 0 ||
+      (long)words * (long)sizeof(int) > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster(solve_slots_kernel, words, sc_meta, pod_ints,
                         pod_floats, static_ints, static_f32s, state, assign, d, p, smem_bytes,
                         Weights{balanced_w, least_w, spread_w, affinity_w, static_w}, stream);
 }
@@ -2028,27 +2344,34 @@ extern "C" int ktt_sharded_smem_bytes(int r, int sc, int t, int u, int sv, int c
 }
 
 // The same for the sharded kernel: the fewest clusters of this shape any of
-// its eight instances fits at once.
+// its twelve instances fits at once.
 extern "C" int ktt_sharded_max_active(int cluster, int threads, int smem_bytes) {
   return sharded_max_active(cluster, threads, smem_bytes);
 }
 
-// Words of the sharded kernel's exchange workspace (sharded_workspace).
+// Words of the sharded kernel's exchange workspace (sharded_workspace),
+// given on either route; the one-cluster route reads and writes none of it,
+// so its error word stays as the caller zeroed it.
 extern "C" int ktt_sharded_workspace_words(int shards, int sc, int t) {
   return sharded_workspace(shards, sc, t).words;
 }
 
-// Launch the sharded solve on `stream`: `shards` clusters of the plan's
-// blocks, cluster s over columns [s * n / shards, (s + 1) * n / shards),
-// each pod's best exchanged through `ws` (ktt_sharded_workspace_words
-// words, zeroed by the caller on the stream before the launch). The state
-// planes are updated in place but for their totals row; the shards' totals
-// ([S, T]) are read and written in `totals`. Refused (an invalid value) when
-// the plan or the workspace does not match, and refused
+// Launch the sharded solve on `stream`, shard s over columns [s * n /
+// shards, (s + 1) * n / shards). The plan's cut names the route: where its
+// cluster holds g = cluster / shards blocks a shard that cover a shard's
+// columns, one cluster, shard s on blocks [s * g, (s + 1) * g), exchanging
+// in distributed shared memory (`ws` untouched); else `shards` clusters of
+// the plan's blocks, cluster s on shard s, each pod's best exchanged
+// through `ws` (ktt_sharded_workspace_words words on either route). `ws` is
+// zeroed by the caller on the stream before the launch. The state planes
+// are updated in place but for their totals row; the shards' totals ([S,
+// T]) are read and written in `totals`. Refused (an invalid value) when the
+// plan or the workspace does not match, and refused
 // (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold all the
 // clusters at once, since a cluster waiting for one not yet running would
-// spin: every launch checks it. `launched` of the clusters run (shards but
-// in the tests' launch below).
+// spin: every launch checks it. `launched` of the global route's clusters
+// run (shards but in the tests' launch below, which the one-cluster route
+// refuses).
 static int sharded_launch(const int* sc_meta, const int* pod_ints, const float* pod_floats,
                           const int* static_ints, const float* static_f32s, int* state,
                           int* assign, const int* has_dom, int* totals, int* ws, int ws_words,
@@ -2060,18 +2383,22 @@ static int sharded_launch(const int* sc_meta, const int* pod_ints, const float* 
   if (shards < 1 || shards > 32 || n % shards != 0) return (int)cudaErrorInvalidValue;
   const int nl = n / shards;
   const bool slices = sharded_slices(d, p);
+  const bool groups =
+      p.cluster % shards == 0 && (long)(p.cluster / shards) * p.cpb >= nl;  // one cluster
   if (p.cluster < 1 || p.cluster > kMaxCluster || p.threads < 32 || p.threads % 32 != 0 ||
       p.threads > kClusterThreads || p.chunk < 0 || (long)p.cluster * p.cpb < nl ||
       sharded_layout(d, p, slices).words * (int)sizeof(int) != smem_bytes ||
-      sharded_workspace(shards, sc, t).words != ws_words)
+      sharded_workspace(shards, sc, t).words != ws_words ||
+      (groups && launched != shards))
     return (int)cudaErrorInvalidValue;
-  ShardedKernel fn = kShardedKernels[sv > 0][slices][hard != 0];
+  ShardedKernel fn = kShardedKernels[sv > 0][slices][groups ? 0 : hard != 0 ? 2 : 1];
   const int active = max_active(fn, p.cluster, p.threads, smem_bytes);
   if (active < 0) return -active;
-  if (active < shards) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (active < (groups ? 1 : shards)) return (int)cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(p.cluster, p.threads, smem_bytes,
-                                          static_cast<cudaStream_t>(stream), &attr, launched);
+                                          static_cast<cudaStream_t>(stream), &attr,
+                                          groups ? 1 : launched);
   cudaError_t e = cudaLaunchKernelEx(&cfg, fn, sc_meta, pod_ints, pod_floats, static_ints,
                                      static_f32s, state, assign, d, w, p,
                                      Shard{shards, nl, has_dom, totals, ws});
@@ -2097,7 +2424,7 @@ extern "C" int ktt_solve_sharded_launch(const int* sc_meta, const int* pod_ints,
 
 // The same launch with the last shard's cluster left out of the grid, so
 // that every poll for its flag runs out: the tests' hold on the poll's bound
-// and the error word (needs shards >= 2).
+// and the error word (needs shards >= 2 on the global route).
 extern "C" int ktt_solve_sharded_launch_one_short(
     const int* sc_meta, const int* pod_ints, const float* pod_floats, const int* static_ints,
     const float* static_f32s, int* state, int* assign, const int* has_dom, int* totals, int* ws,

@@ -174,6 +174,56 @@ def random_slot_planes(seed: int, n: int, b: int, t: int, r: int = 3,
     return ps, state, ints, floats
 
 
+def cache_slot_planes(seed: int, n: int, b: int, t: int, chunk: int,
+                      r: int = 3, sc: int = 1, u: int = 1, v: int = 10,
+                      real: int = None) -> Tuple[PStatic, torch.Tensor,
+                                                 torch.Tensor, torch.Tensor]:
+    """``random_planes`` with a pod stream that packs into slots and works
+    the slot kernel's term-row cache at its pod ``chunk``: every pod
+    references ``SPARSE_K`` terms, two of them the previous pod's (which
+    that pod matched, so its commit counted them, and which this pod
+    weighs or is anti-affine to, so it reads those counts) and the rest
+    fresh, so a chunk references ``6 * chunk + 2`` terms and the batch
+    walks through all ``t`` of them (more than the cache holds, so lines
+    are evicted); every fourth chunk references the terms of the chunk
+    three before it again (held by lines that the two chunks between
+    evicted in part)."""
+    ps, state, ints, floats = random_planes(seed, n, b, r=r, sc=sc, t=t,
+                                            u=u, v=v, real=real)
+    rng = np.random.default_rng(seed + 104729)
+    c = r + 4 + 2 * sc
+    ints[:, c:] = 0
+    floats[:] = 0
+    fresh = SPARSE_K - 2
+    span = fresh * chunk + 2            # the terms a chunk references
+    weights = np.array([-5, -3, -1, 1, 2, 4, 7], dtype=np.float32)
+    for i in range(b):
+        x, q = divmod(i, chunk)
+        block = x - 3 if x % 4 == 3 else x
+        start = block * span + fresh * q
+        for m in range(SPARSE_K):
+            k = (start + m) % t
+            if m >= fresh:              # shared with the next pod
+                ints[i, c + k] = 1
+                continue
+            if m < 2 and q > 0:         # the previous pod counted it
+                if rng.random() < 0.2:
+                    ints[i, c + 2 * t + k] = 1
+                else:
+                    floats[i, k] = float(rng.choice(weights))
+                continue
+            kind = rng.random()
+            if kind < 0.4:
+                ints[i, c + k] = 1
+            elif kind < 0.45:
+                ints[i, c + t + k] = ints[i, c + k] = 1
+            elif kind < 0.55:
+                ints[i, c + 2 * t + k] = 1
+            if kind >= 0.3:
+                floats[i, k] = float(rng.choice(weights))
+    return ps, state, ints, floats
+
+
 # ----------------------------------------------------------------------
 # seeded what-if problems for the legacy scan (``ops/solver.py``)
 ZONE = "topology.kubernetes.io/zone"

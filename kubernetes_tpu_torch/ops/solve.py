@@ -14,9 +14,13 @@ each block's slice of the planes in its shared memory) whenever that
 layout fits one block's shared memory; else, when every pod of the batch
 references at most ``SPARSE_K`` terms, the slot kernel (the same cluster
 design over the slot stream of ``ops/slots.py``, the term rows in global
-memory); else the wide kernel (the slot kernel's design over the dense
-stream, for any width: a pod of more than ``SPARSE_K`` term references,
-shared-volume slots, a node axis too wide for any slice). The backend
+memory and the lines a window of pods needs cached in shared memory, a
+window ahead, each window as long as its terms fit beside the running
+one's); else the
+wide kernel (the slot kernel's design over the dense stream with the term
+rows read at L2, for any width: a pod of more than ``SPARSE_K`` term
+references, shared-volume slots, a node axis too wide for the slot
+kernel's cache). The backend
 packs the slot stream (``solve_slots``) only for batches of at least
 ``SPARSE_MIN_T`` terms that the cluster kernel does not take, as the
 reference routes its sparse scan. An epoch with shared-volume slots
@@ -25,11 +29,12 @@ sparse scan has no attach planes: the cluster and wide kernels and the
 plain version carry them.
 
 The sharded tier (``parallel/sharded.py``) launches the sharded kernel
-(the wide kernel's body over S clusters of one launch, one a node shard,
-exchanging each pod's best through global memory) and the feasibility
-counts kernel through the same wrapper: ``sharded_plan`` checks that the
-card holds the S clusters at once before it plans, and the launch checks
-it again.
+(the wide kernel's body over S node shards: where S divides the cluster
+size, every shard a group of blocks of one cluster, exchanging each pod's
+best in distributed shared memory; else a cluster a shard, exchanging
+through global memory) and the feasibility counts kernel through the same
+wrapper: ``sharded_plan`` checks that the card holds the route's clusters
+at once before it plans, and the launch checks it again.
 
 Float scores are computed in the same order, with the same f32
 operations, as the reference solve, so assignments agree exactly:
@@ -119,19 +124,56 @@ def cluster_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
     return 4 * words
 
 
+# the slot kernel's pod chunks staged at once (the one that runs, the next,
+# where the next window of pods may start, and the one in flight) and the
+# rows of a cache line (a term's owners, counts and codes)
+SLOT_POD_BUFFERS = 3
+CACHE_LINE_ROWS = 3
+
+
+class SlotCache(NamedTuple):
+    """The slot kernel's term-row cache for a plan (``slots_layout`` in
+    the source): ``lines`` cached terms, ``need`` the fewest it runs with
+    (``min(T, SPARSE_K)``: a window of one pod), and ``fixed_words`` the
+    layout's words before the lines."""
+
+    lines: int
+    need: int
+    fixed_words: int
+
+
+def slot_cache(r: int, sc: int, t: int, u: int, cluster: int, threads: int,
+               cols_per_block: int, chunk: int) -> SlotCache:
+    """The slot kernel's layout but for its cache lines: the cluster
+    kernel's without the term rows, three chunks of slot-stream pod rows
+    (``R+4+2*SC+2*K`` ints and ``K`` weights a pod), the slot fact lists,
+    a term's line and mark, and one window plan's misses and jobs; then
+    as many lines (three rows of ``cols_per_block`` words, a key and a
+    stamp) as fit one block's shared memory, at most T, never fewer than
+    ``need``."""
+    k = SPARSE_K
+    rows = (r + 3 + sc) + (r + 2 + sc + 2 * u) + 1
+    fixed = (rows * cols_per_block + t + 2 * sc
+             + SLOT_POD_BUFFERS * chunk * (slot_width(r, sc) + k)
+             + chunk * (8 + 3 * sc + 3 * k)
+             + (sc + 2) * (threads // 32) + 2 * cluster * (sc + 2)
+             + 2 * t + chunk * k + 2 + 2 * chunk * k)
+    fixed = _round_up(fixed, 4)
+    line = CACHE_LINE_ROWS * cols_per_block + 2
+    need = min(t, k)
+    lines = max(need, min(t, (SMEM_LIMIT // 4 - fixed) // line))
+    return SlotCache(lines, need, fixed)
+
+
 def slots_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
                      threads: int, cols_per_block: int, chunk: int) -> int:
     """Shared memory of one block of the slot kernel, as its layout
-    (``slots_layout`` in the source) lays it out: the cluster kernel's
-    without the term rows (they stay in global memory) and with slot-
-    stream pod chunks (``R+4+2*SC+2*K`` ints and ``K`` weights a pod) and
-    slot fact lists. Only the totals grow with T, one word a term."""
-    rows = (r + 3 + sc) + (r + 2 + sc + 2 * u) + 1
-    words = (rows * cols_per_block + t + 2 * sc
-             + 2 * chunk * (slot_width(r, sc) + SPARSE_K)
-             + chunk * (8 + 3 * sc + 3 * SPARSE_K)
-             + (sc + 2) * (threads // 32) + 2 * cluster * (sc + 2))
-    return 4 * words
+    (``slots_layout`` in the source) lays it out: ``slot_cache``'s fixed
+    part and its lines. Past the limit exactly when the lines that fit are
+    fewer than ``need``."""
+    cache = slot_cache(r, sc, t, u, cluster, threads, cols_per_block, chunk)
+    return 4 * (cache.fixed_words
+                + cache.lines * (CACHE_LINE_ROWS * cols_per_block + 2))
 
 
 def wide_smem_bytes(r: int, sc: int, t: int, u: int, cluster: int,
@@ -173,9 +215,19 @@ def wide_slices(plan: LaunchPlan, r: int, sc: int, t: int, u: int,
                 plan.cols_per_block, plan.chunk, sv) <= SMEM_LIMIT
 
 
+def sharded_groups(plan: LaunchPlan, shards: int, n: int) -> int:
+    """The sharded plan's route, as the launch reads it from the cut: the
+    blocks a shard of its one cluster where the plan's cluster holds
+    ``shards`` groups of blocks that cover a shard's ``n // shards``
+    columns, else 0 (the global route: a cluster a shard)."""
+    g, rest = divmod(plan.cluster, shards)
+    return g if rest == 0 and g * plan.cols_per_block >= n // shards else 0
+
+
 # the sharded kernel's exchange workspace (``sharded_workspace`` in the
 # source): a flag a parity and shard for each round, on a 128-byte line of
-# its own, the error word, the offers and the domain minima
+# its own, the error word, the offers and the domain minima. The one-cluster
+# route is given it too and touches none of it, so its error word stays 0
 FLAG_STRIDE = 32
 EXCHANGE_ERRORS = {
     1: "a shard's wait for another's offer ran out",
@@ -220,25 +272,43 @@ def cluster_candidate(n: int, r: int, sc: int, t: int, u: int,
 def slots_candidate(n: int, r: int, sc: int, t: int, u: int,
                     max_cluster: int = MAX_CLUSTER) -> LaunchPlan:
     """The slot kernel's launch over ``n`` node columns, whether or not
-    it fits: the cluster kernel's cut of the node axis."""
+    it fits: the cluster kernel's cut of the node axis and the largest pod
+    chunk (``POD_CHUNK`` down to 1) whose staging leaves the cache its
+    ``need`` of lines; where not even one pod's chunk does, the chunk-1
+    plan, past the limit. The kernel cuts each chunk into windows of pods
+    whose terms fit the lines beside the running window's."""
     c = cluster_candidate(n, r, sc, t, u, max_cluster)
-    smem = slots_smem_bytes(r, sc, t, u, c.cluster, c.threads,
-                            c.cols_per_block, c.chunk)
-    return c._replace(kernel="slots", smem_bytes=smem)
+    for chunk in range(POD_CHUNK, 0, -1):
+        smem = slots_smem_bytes(r, sc, t, u, c.cluster, c.threads,
+                                c.cols_per_block, chunk)
+        if smem <= SMEM_LIMIT:
+            break
+    return c._replace(kernel="slots", smem_bytes=smem, chunk=chunk)
 
 
 def wide_candidate(n: int, r: int, sc: int, t: int, u: int,
                    max_cluster: int = MAX_CLUSTER, sv: int = 0,
-                   chunk: int = None, kernel: str = "wide") -> LaunchPlan:
+                   chunk: int = None, kernel: str = "wide",
+                   shards: int = 1) -> LaunchPlan:
     """The wide kernel's launch over ``n`` node columns: the cluster
     kernel's cut of the node axis, and the first layout that fits one
     block's shared memory, slices in shared memory before slices at L2,
     each with the largest pod chunk (``POD_CHUNK`` down to 1, then 0:
     rows read in place), or ``chunk`` where given. Where none fits, the
     plan at L2 with ``chunk`` (default 0), which the launch refuses.
-    ``kernel="sharded"``: the sharded kernel's launch over one shard's
-    ``n`` columns, on its layout (``sharded_smem_bytes``)."""
-    c = cluster_candidate(n, r, sc, t, u, max_cluster, sv)
+
+    ``kernel="sharded"``: the sharded kernel's launch over ``shards``
+    shards of ``n`` columns each, on its layout (``sharded_smem_bytes``),
+    by the route rule: where ``shards`` divides ``max_cluster``, one
+    cluster, each shard's columns cut into ``g`` blocks by the cluster
+    kernel's cut at ``max_cluster // shards`` blocks (``cluster`` is
+    ``shards * g``: ``sharded_groups``); else the global route, a cluster
+    a shard cut at ``max_cluster`` blocks."""
+    if kernel == "sharded" and max_cluster % shards == 0:
+        g = cluster_candidate(n, r, sc, t, u, max_cluster // shards, sv)
+        c = g._replace(cluster=shards * g.cluster)
+    else:
+        c = cluster_candidate(n, r, sc, t, u, max_cluster, sv)
     smem = sharded_smem_bytes if kernel == "sharded" else wide_smem_bytes
 
     def plan(ch, slices):
@@ -615,9 +685,11 @@ class SolveKernel:
     def sharded_plan(self, ss, shards: int) -> LaunchPlan:
         """The sharded kernel's launch for these planes over ``shards``
         node shards on this card (``wide_candidate(kernel="sharded")`` over
-        a shard's columns): the largest cluster of 16, 8 or 4 blocks of
-        which the card holds ``shards`` at once. Raises RuntimeError where
-        none does: a cluster waiting for one not yet running would spin."""
+        a shard's columns): the first cluster size of 16, 8 and 4 blocks
+        whose route the card holds, one cluster of every shard's blocks
+        where ``shards`` divides the size, else ``shards`` clusters at
+        once. Raises RuntimeError where none does: a cluster waiting for
+        one not yet running would spin."""
         n = ss.ints.shape[1]
         if shards < 1 or shards > 32 or n % shards != 0:
             raise ValueError(f"{n} node columns do not split into {shards} "
@@ -628,12 +700,13 @@ class SolveKernel:
             fits = []
             for size in (MAX_CLUSTER, PORTABLE_CLUSTER, 4):
                 plan = wide_candidate(*key, max_cluster=size, sv=ss.sv,
-                                      kernel="sharded")
+                                      kernel="sharded", shards=shards)
                 if plan.smem_bytes > SMEM_LIMIT:
                     continue
                 active = self._active(lib, plan, ss)
                 fits.append((plan.cluster, active))
-                if active >= shards:
+                if active >= (1 if sharded_groups(plan, shards, n)
+                              else shards):
                     self._plans[key, "sharded", ss.sv, shards] = plan
                     break
             else:
@@ -676,14 +749,15 @@ class SolveKernel:
         self.check_sharded(ss, planes, totals, pod_ints, pod_floats)
         plan = plan or self.sharded_plan(ss, shards)
         lib = self._load()
+        n, b = ss.ints.shape[1], pod_ints.shape[0]
+        one = sharded_groups(plan, shards, n) > 0
         instance = ("sharded", ss.sv > 0)
         if not wide_slices(plan, ss.r, ss.sc, ss.t, ss.u, ss.sv):
             instance += ("at L2",)
-        if ss.any_hard:
-            instance += ("hard",)
+        if not one:
+            instance += ("global", "hard") if ss.any_hard else ("global",)
         first = instance not in self.launched
         t0 = time.monotonic()
-        n, b = ss.ints.shape[1], pod_ints.shape[0]
         dev = planes.device
         assign = torch.empty(b, dtype=torch.int32, device=dev)
         words = exchange_words(shards, ss.sc, ss.t)

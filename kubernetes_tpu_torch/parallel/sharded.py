@@ -14,12 +14,15 @@ totals live outside the planes, one copy a shard (``SState.totals``,
 ``[S, T]``), each updated by its shard: the planes' totals row stays as
 the batch found it, as the reference's scan leaves it.
 
-One card stands in for the mesh: shard ``s`` is cluster ``s`` of one
-launch of ``solve_sharded_kernel`` (``csrc/solve_kernel.cu``), and the
-offers go through global memory where the reference has an
-``all_gather``. The per-pod feasibility counts (``solve_scan_sharded``)
-are ``feasible_counts_kernel``. A mesh over more than one card is not
-built (ROADMAP §A10).
+One card stands in for the mesh, in one launch of
+``solve_sharded_kernel`` (``csrc/solve_kernel.cu``). Where the shard
+count divides the cluster size (16 blocks, or 8), shard ``s`` is the
+``s``-th group of blocks of one cluster and the offers meet in
+distributed shared memory where the reference has an ``all_gather``;
+else shard ``s`` is cluster ``s`` and the offers go through global
+memory. The per-pod feasibility counts (``solve_scan_sharded``) are
+``feasible_counts_kernel``. A mesh over more than one card is not built
+(ROADMAP §A10).
 
 The plain versions (``solve_sharded_plain``, ``feasible_counts_plain``)
 are written from the reference's step: each shard's offer and the

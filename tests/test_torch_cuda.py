@@ -3,8 +3,10 @@ the backend's lazy solve and scatters on the card against the same calls
 on CPU tensors, small GangScheduling, SchedulingPodAntiAffinity and
 volume rows through ``run_workload`` on the card against the CPU, the
 shared-volume attach planes on the cluster and wide kernels, and the
-sharded tier's kernels (the sharded solve at 1, 2 and 4 shards, its
-poll's bound, and the feasibility counts) against their plain versions. The tests
+sharded tier's kernels (the sharded solve on its one-cluster route at 1,
+2, 4, 8 and 16 shards and on its global route at 3 and 6, the global
+route's poll bound, and the feasibility counts) against their plain
+versions. The tests
 whose names say "one block" hold the shapes the one-block kernel took
 before the wide kernel replaced it.
 
@@ -24,6 +26,7 @@ import torch
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.harness import perf, workloads
 from kubernetes_tpu_torch.harness.problems import (
+    cache_slot_planes,
     random_planes,
     random_slot_planes,
 )
@@ -268,11 +271,32 @@ def _slots_equal_plain(card, args, plan=None):
     (21, 5120, 128, 50, 2, 2, 5120),
     (22, 1408, 96, 40, 2, 2, 1400),     # a ragged last slice
     (23, 1024, 64, 16, 3, 3, 1000),     # the dense cluster layout fits
+    (26, 20480, 128, 100, 1, 1, 20000),  # lines for one pod's terms
 ])
 def test_slot_kernel_matches_plain(card, seed, n, b, t, sc, u, real):
     args = random_slot_planes(seed, n, b, t, sc=sc, u=u, real=real)
     want, _ = _slots_equal_plain(card, args)
     assert (want >= 0).sum() > b // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,t", [
+    (27, 5120, 200),    # terms four times the lines
+    (28, 5120, 100),
+    (29, 20480, 100),   # eight lines: every window waits for the last
+])
+def test_slot_kernel_term_line_cache_matches_plain(card, seed, n, t):
+    """The stream that works the term-line cache at the plan's chunk
+    (``cache_slot_planes``: eight references a pod, two the pod before
+    committed, lines evicted and read again three chunks on): the slot
+    kernel equals the plain slot solve and the dense plain solve."""
+    plan = solve_mod.slots_candidate(n, 3, 1, t, 1)
+    lines = solve_mod.slot_cache(3, 1, t, 1, plan.cluster, plan.threads,
+                                 plan.cols_per_block, plan.chunk).lines
+    assert plan.smem_bytes <= solve_mod.SMEM_LIMIT and lines < t
+    args = cache_slot_planes(seed, n, 128, t, plan.chunk, real=n - 100)
+    want, _ = _slots_equal_plain(card, args)
+    assert (want >= 0).sum() > 32
 
 
 @pytest.mark.cuda
@@ -755,28 +779,48 @@ def _sharded_on(device, ss, st):
             SState(st.planes.to(device).clone(), st.totals.to(device).clone()))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shards", [1, 2, 4])
-@pytest.mark.parametrize("seed,kw", [
+SHARDED_SEEDS = [
     (40, dict(sc=2, t=3, u=2)),                  # hard spread, as drawn
     (41, dict(sc=2, t=2, u=2, hard=False)),      # no hard constraint
     (42, dict(r=4, sc=2, t=2, u=2, sv=16)),      # shared-volume slots
-    (43, dict(sc=1, t=40, u=2))])                # a wide term axis
+    (43, dict(sc=1, t=40, u=2))]                 # a wide term axis
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("seed,kw", SHARDED_SEEDS)
 def test_sharded_kernel_matches_plain(card, shards, seed, kw):
-    """``solve_sharded_kernel`` against ``solve_sharded_plain`` (CPU) and
+    """``solve_sharded_kernel`` on its one-cluster route (every shard a
+    block group of one cluster) against ``solve_sharded_plain`` (CPU) and
     the single-card plain solve: assignments, planes and each shard's
     totals; the feasibility counts kernel against its plain version on
     a 2 x ``shards`` mesh."""
+    _sharded_equals_plain(card, shards, seed, kw, 1024, one_cluster=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [3, 6])
+@pytest.mark.parametrize("seed,kw", SHARDED_SEEDS)
+def test_sharded_kernel_global_route_matches_plain(card, shards, seed, kw):
+    """The same on the global route: a mesh whose shard count divides no
+    cluster size runs a cluster a shard, exchanging through global
+    memory."""
+    _sharded_equals_plain(card, shards, seed, kw, 1536, one_cluster=False)
+
+
+def _sharded_equals_plain(card, shards, seed, kw, n, one_cluster):
     from kubernetes_tpu_torch.parallel import sharded
 
     kw = dict(kw)
     hard = kw.pop("hard", True)
-    ps, state, ints, floats = random_planes(seed, 1024, 256, **kw)
+    ps, state, ints, floats = random_planes(seed, n, 256, **kw)
     ps.sc_meta[1] = 1 if hard else 0
     ss, st = sharded.shard_planes(ps, state, shards)
     ssc, stc = _sharded_on(card, ss, st)
     params = SolverParams()
     kernel = solve_mod.solve_kernel
+    plan = kernel.sharded_plan(ssc, shards)
+    assert (solve_mod.sharded_groups(plan, shards, n) > 0) == one_cluster
     before = kernel.counts["sharded"]
     got, err = kernel.launch_sharded(params, ssc, stc.planes, stc.totals,
                                      ints.to(card), floats.to(card))
@@ -801,9 +845,11 @@ def test_sharded_kernel_matches_plain(card, shards, seed, kw):
 
 @pytest.mark.cuda
 def test_sharded_launch_refuses_clusters_that_cannot_coreside(card):
-    """16 shards of 16 blocks, each block of 512 threads over more than
-    half an SM's shared memory, are more blocks than the card's 132 SMs
-    hold at once: the launch raises instead of spinning."""
+    """16 shards of 16 blocks on the global route (the plan's cut of one
+    shard's columns, which no one cluster holds 16 times), each block of
+    512 threads over more than half an SM's shared memory, are more
+    blocks than the card's 132 SMs hold at once: the launch raises
+    instead of spinning."""
     from kubernetes_tpu_torch.parallel import sharded
 
     ps, state, ints, floats = random_planes(44, 16 * 8192, 8, u=25)
@@ -820,16 +866,19 @@ def test_sharded_launch_refuses_clusters_that_cannot_coreside(card):
 
 @pytest.mark.cuda
 def test_sharded_error_word_raises(card):
-    """A batch with a hard spread constraint launched on the instance
-    without the round of domain minima (``any_hard`` False) sets the
-    exchange's error word; the wrapper raises on it."""
+    """On the global route (three shards), a batch with a hard spread
+    constraint launched on the instance without the round of domain
+    minima (``any_hard`` False) sets the exchange's error word; the
+    wrapper raises on it."""
     from kubernetes_tpu_torch.parallel import sharded
 
-    ps, state, ints, floats = random_planes(45, 1024, 64, sc=2, t=2, u=2)
+    ps, state, ints, floats = random_planes(45, 1536, 64, sc=2, t=2, u=2)
     ps.sc_meta[1] = 1
     ints[:, ps.r + 4:ps.r + 4 + ps.sc] = 1
-    ss, st = _sharded_on(card, *sharded.shard_planes(ps, state, 2))
+    ss, st = _sharded_on(card, *sharded.shard_planes(ps, state, 3))
     ss = ss._replace(any_hard=False)
+    plan = solve_mod.solve_kernel.sharded_plan(ss, 3)
+    assert solve_mod.sharded_groups(plan, 3, 1536) == 0
     with pytest.raises(RuntimeError, match="hard spread"):
         sharded.solve_sharded(SolverParams(), ss, st, ints.to(card),
                               floats.to(card))
@@ -837,15 +886,16 @@ def test_sharded_error_word_raises(card):
 
 @pytest.mark.cuda
 def test_sharded_poll_runs_out_and_the_card_stays_usable(card, monkeypatch):
-    """A launch with the last shard's cluster left out of the grid: the
-    first poll for its flag runs out after its bound, sets the error word,
-    and every later poll gives up at once, so the launch ends and the
-    wrapper raises; a whole launch after it equals the plain version."""
+    """A launch on the global route (three shards) with the last shard's
+    cluster left out of the grid: the first poll for its flag runs out
+    after its bound, sets the error word, and every later poll gives up
+    at once, so the launch ends and the wrapper raises; a whole launch
+    after it equals the plain version."""
     from kubernetes_tpu_torch.parallel import sharded
 
-    ps, state, ints, floats = random_planes(46, 1024, 64, sc=2, t=2, u=2)
+    ps, state, ints, floats = random_planes(46, 1536, 64, sc=2, t=2, u=2)
     ps.sc_meta[1] = 0
-    ss, st = sharded.shard_planes(ps, state, 2)
+    ss, st = sharded.shard_planes(ps, state, 3)
     kernel = solve_mod.solve_kernel
     lib = kernel._load()
 

@@ -17,6 +17,8 @@ from kubernetes_tpu_torch.ops.solve import (
     cluster_candidate,
     cluster_smem_bytes,
     plan_launch,
+    sharded_groups,
+    slot_cache,
     slots_candidate,
     slots_smem_bytes,
     wide_candidate,
@@ -119,21 +121,23 @@ def test_wide_terms_at_5k_nodes_run_the_slot_kernel(t):
     """SchedulingPodAffinity and SchedulingPreferredPodAffinity (T = 50),
     SchedulingPodAntiAffinity and SchedulingPreferredPodAntiAffinity
     (T = 100) at 5,000 nodes: past the dense cluster layout, so a batch
-    that packs runs the slot kernel on the same cut of the node axis."""
+    that packs runs the slot kernel on the same cut of the node axis,
+    staging chunks of ``POD_CHUNK`` pods, with 49 term lines in the rest
+    of each block's shared memory."""
     dense = cluster_candidate(5120, 3, 1, t, 1)
     assert dense.smem_bytes > SMEM_LIMIT
     plan = plan_launch(5120, 3, 1, t, 1, packs=True)
     assert plan.kernel == "slots"
     assert (plan.cluster, plan.threads, plan.cols_per_block, plan.chunk) \
         == (dense.cluster, dense.threads, dense.cols_per_block, dense.chunk)
-    assert plan.smem_bytes == slots_smem_bytes(3, 1, t, 1, 16, 320, 320, 32)
+    assert plan.smem_bytes == slots_smem_bytes(3, 1, t, 1, 16, 320, 320,
+                                               POD_CHUNK)
     assert plan.smem_bytes <= SMEM_LIMIT
-    # 16 rows of 320 columns held (7 state, 8 static, a score row) and
-    # slot-sized pod chunks: about 35 KB, one word a term more for the
-    # totals
-    assert 16 * 320 * 4 < plan.smem_bytes < 36 * 1024
-    assert plan.smem_bytes - slots_smem_bytes(3, 1, 0, 1, 16, 320, 320,
-                                              32) == 4 * t
+    cache = slot_cache(3, 1, t, 1, 16, 320, 320, plan.chunk)
+    assert cache.need == SPARSE_K and cache.lines == 49
+    # 16 rows of 320 columns held (7 state, 8 static, a score row), three
+    # rows a cache line
+    assert 4 * (16 * 320 + cache.lines * 3 * 320) < plan.smem_bytes
 
 
 def test_a_pod_of_nine_references_runs_the_one_block_kernel():
@@ -272,3 +276,101 @@ def test_past_one_pod_the_wide_plan_reads_rows_in_place():
         assert forced.chunk == chunk and wide_slices(forced, 3, 1, 100, 1)
         assert forced.smem_bytes == wide_smem_bytes(3, 1, 100, 1, 16, 320,
                                                     320, chunk)
+
+
+SLOT_SHAPES = [  # (n, r, sc, t, u): shapes the slot route may take
+    (640, 3, 1, 100, 1), (1408, 3, 2, 40, 2), (5120, 3, 1, 12, 1),
+    (5120, 3, 1, 50, 1), (5120, 3, 1, 100, 1), (5120, 4, 2, 100, 2),
+    (5120, 3, 1, 200, 1), (5120, 3, 1, 1024, 1), (10240, 3, 1, 100, 1),
+    (20480, 3, 1, 100, 1), (40960, 3, 1, 100, 1),
+]
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+@pytest.mark.parametrize("shape", SLOT_SHAPES)
+def test_slot_plan_leaves_the_cache_a_pod_of_terms(shape, max_cluster):
+    """The slot plan's chunk is the largest (``POD_CHUNK`` down to 1)
+    whose staging leaves the term-row cache the lines of a window of one
+    pod (``min(T, SPARSE_K)``), on which the kernel's windows always make
+    progress; the cache holds as many lines as fit, at most T. Where not
+    even one pod a chunk leaves that many, the plan is past the limit and
+    the batch goes to the wide kernel."""
+    n, r, sc, t, u = shape
+    plan = slots_candidate(n, r, sc, t, u, max_cluster)
+    cut = cluster_candidate(n, r, sc, t, u, max_cluster)
+    assert (plan.cluster, plan.threads, plan.cols_per_block) == (
+        cut.cluster, cut.threads, cut.cols_per_block)
+    args = (r, sc, t, u, plan.cluster, plan.threads, plan.cols_per_block)
+    cache = slot_cache(*args, plan.chunk)
+    assert cache.need == min(t, SPARSE_K)
+    assert plan.smem_bytes == slots_smem_bytes(*args, plan.chunk)
+    assert cache.fixed_words % 4 == 0     # 16-byte aligned lines
+    line = 3 * plan.cols_per_block + 2
+    if plan.smem_bytes <= SMEM_LIMIT:
+        assert 1 <= plan.chunk <= POD_CHUNK
+        assert cache.need <= cache.lines <= t
+        # as many lines as fit: one more would pass the limit (or T)
+        assert cache.lines == t or plan.smem_bytes + 4 * line > SMEM_LIMIT
+        if plan.chunk < POD_CHUNK:
+            assert slots_smem_bytes(*args, plan.chunk + 1) > SMEM_LIMIT
+    else:
+        assert plan.chunk == 1 and cache.lines == cache.need
+        assert plan_launch(n, r, sc, t, u, max_cluster,
+                           packs=True).kernel == "wide"
+
+
+def test_a_cache_of_every_term_keeps_the_whole_chunk():
+    """Where every term's line fits beside full staging (T = 100 at 640
+    columns, T = 40 at 1,408), the chunk is ``POD_CHUNK`` and no line is
+    ever evicted; at 10,240 columns the cache holds 22 lines of T = 100
+    (two pods' references and more), at 20,480 eight (one pod's: a window
+    may wait for the one before it), and at 40,960 not eight, so those
+    batches run the wide kernel."""
+    for shape in ((640, 3, 1, 100, 1), (1408, 3, 2, 40, 2)):
+        plan = slots_candidate(*shape)
+        cache = slot_cache(*shape[1:], plan.cluster, plan.threads,
+                           plan.cols_per_block, plan.chunk)
+        assert plan.chunk == POD_CHUNK and cache.lines == shape[3]
+    plan = slots_candidate(10240, 3, 1, 100, 1)
+    assert slot_cache(3, 1, 100, 1, plan.cluster, plan.threads,
+                      plan.cols_per_block, plan.chunk).lines == 22
+    for n, lines in ((20480, SPARSE_K), (40960, None)):
+        plan = plan_launch(n, 3, 1, 100, 1, packs=True)
+        assert plan.kernel == ("slots" if lines else "wide")
+        if lines:
+            assert plan.chunk == POD_CHUNK and slot_cache(
+                3, 1, 100, 1, plan.cluster, plan.threads,
+                plan.cols_per_block, plan.chunk).lines == lines
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+@pytest.mark.parametrize("n,shards", [
+    (5120, 1), (5120, 2), (5120, 4), (5120, 8), (5120, 16), (1024, 16),
+    (1536, 3), (1536, 6), (5120, 5), (4096, 32), (2048, 2), (128, 4)])
+def test_sharded_plan_takes_one_cluster_exactly_when_the_shards_divide_it(
+        n, shards, max_cluster):
+    """The sharded plan's route: one cluster (``sharded_groups`` > 0)
+    exactly when the shard count divides the cluster size, each shard a
+    group of ``cluster // shards`` blocks; else the global route, a
+    cluster a shard cut from one shard's columns. Either fits one block's
+    shared memory and covers every column."""
+    nl = n // shards
+    plan = wide_candidate(nl, 3, 1, 1, 1, max_cluster=max_cluster,
+                          kernel="sharded", shards=shards)
+    g = sharded_groups(plan, shards, n)
+    assert (g > 0) == (max_cluster % shards == 0)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert 1 <= plan.cluster <= max_cluster
+    if g:
+        assert plan.cluster == shards * g
+        assert g * plan.cols_per_block >= nl
+        assert (g - 1) * plan.cols_per_block < nl     # no empty block
+        assert plan == wide_candidate(
+            nl, 3, 1, 1, 1, max_cluster=max_cluster // shards,
+            kernel="sharded")._replace(cluster=plan.cluster,
+                                       smem_bytes=plan.smem_bytes)
+    else:
+        assert plan == wide_candidate(nl, 3, 1, 1, 1,
+                                      max_cluster=max_cluster,
+                                      kernel="sharded")
+        assert plan.cluster * plan.cols_per_block >= nl

@@ -520,3 +520,39 @@ def test_exchange_error_words():
     assert solve_mod.exchange_words(4, 2, 3) == (
         4 * 4 * 32 + 32 + 2 * 4 * 7 + 2 * 4 * 2)
     assert solve_mod.exchange_error_word(4) == 4 * 4 * 32
+
+
+def _blocks(plan, shards, n):
+    """Each block of a sharded launch as the kernel places it: (shard,
+    first column, columns). One cluster: shard ``rank // g``, the ``rank
+    % g``-th block of it; the global route: cluster ``s`` of the grid is
+    shard ``s``, its ``rank``-th block."""
+    nl = n // shards
+    g = solve_mod.sharded_groups(plan, shards, n)
+    ranks = ([(r // g, r % g) for r in range(plan.cluster)] if g else
+             [(s, q) for s in range(shards) for q in range(plan.cluster)])
+    return [(s, s * nl + q * plan.cols_per_block,
+             max(0, min(plan.cols_per_block,
+                        nl - q * plan.cols_per_block))) for s, q in ranks]
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+@pytest.mark.parametrize("n,shards", [
+    (5120, 1), (5120, 2), (5120, 4), (5120, 8), (5120, 16), (1024, 16),
+    (640, 4), (1536, 3), (1536, 6), (5120, 5), (4096, 32), (65536, 2)])
+def test_each_shard_block_group_covers_its_columns_once(n, shards,
+                                                        max_cluster):
+    """Every column of the mesh is one block's, and every block's columns
+    lie in its own shard, on either route; no block of the one-cluster
+    route is empty."""
+    nl = n // shards
+    plan = solve_mod.wide_candidate(nl, 4, 2, 3, 2, max_cluster=max_cluster,
+                                    kernel="sharded", shards=shards)
+    owner = np.full(n, -1)
+    for b, (s, lo, cols) in enumerate(_blocks(plan, shards, n)):
+        assert s * nl <= lo and lo + cols <= (s + 1) * nl or cols == 0
+        assert (owner[lo:lo + cols] == -1).all()
+        owner[lo:lo + cols] = b
+        if solve_mod.sharded_groups(plan, shards, n):
+            assert cols > 0
+    assert (owner >= 0).all()

@@ -17,10 +17,14 @@ from kubernetes_tpu.harness import workloads as jax_workloads
 from kubernetes_tpu.ops import pallas_solver as jps
 from kubernetes_tpu.ops.solver import SolverParams as JaxParams
 from kubernetes_tpu_torch.harness import perf, workloads
-from kubernetes_tpu_torch.harness.problems import random_slot_planes
+from kubernetes_tpu_torch.harness.problems import (
+    cache_slot_planes,
+    random_slot_planes,
+)
 from kubernetes_tpu_torch.ops import slots as slots_mod
 from kubernetes_tpu_torch.ops import solve as solve_mod
 from kubernetes_tpu_torch.ops.solve import solve_plain, solve_plain_slots
+from kubernetes_tpu_torch.ops.slots import SPARSE_K
 from kubernetes_tpu_torch.ops.solver import SolverParams
 from test_torch_pipeline import port_arm, pump, stop
 
@@ -130,6 +134,38 @@ def test_plain_slots_match_the_sparse_scan_and_the_dense_solve(seed, t):
     # the fresh groups' pods were placed: the first of each by the
     # first-pod rule
     assert (np.array(placed)[group_pods] >= 0).sum() >= 4
+
+
+@pytest.mark.parametrize("seed,t,chunk", [(5, 100, 3), (6, 200, 3),
+                                           (7, 100, 1)])
+def test_plain_slots_match_the_sparse_scan_on_the_cache_stress_stream(
+        seed, t, chunk):
+    """The stream that works the slot kernel's term-row cache
+    (``cache_slot_planes``: eight references a pod, two shared with the
+    pod before, chunks walking through all T terms, every fourth chunk
+    back on the terms of the chunk three before): the slot solve, the
+    reference's sparse scan and the dense plain solve agree on every
+    assignment and plane, and the commits it shares between pods land."""
+    ps, state, ints, floats = cache_slot_planes(seed, 256, 96, t, chunk,
+                                                sc=2, u=2, real=240)
+    ints, floats = ints.numpy(), floats.numpy()
+    stream = slots_mod.slot_stream(ints, floats, ps.r, ps.sc, t)
+    assert stream is not None
+    active = (stream[0][:, -SPARSE_K:] != 0) | (stream[1] != 0)
+    assert (active.sum(1) == SPARSE_K).all()
+    assert len(set(stream[0][:, -2 * SPARSE_K:-SPARSE_K][active])) == t
+    dense_state = state.clone()
+    ref_planes = state.numpy().copy()
+    got = solve_plain_slots(PARAMS, ps, state,
+                            *(torch.from_numpy(a) for a in stream))
+    want, ref_planes = _jax_sparse(ps, ref_planes, ints, floats)
+    dense = solve_plain(PARAMS, ps, dense_state, torch.from_numpy(ints),
+                        torch.from_numpy(floats))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(state.numpy(), ref_planes)
+    np.testing.assert_array_equal(got.numpy(), dense.numpy())
+    np.testing.assert_array_equal(state.numpy(), dense_state.numpy())
+    assert (got >= 0).sum() > 48
 
 
 def _routes(monkeypatch):

@@ -20,9 +20,20 @@ before that function cannot run this row). Every launch must give the same resul
 the assignments and final state) lets two trees be held bit for bit.
 
 The ``kernels`` row does the same for the cluster kernel
-(``random_planes(32, 5120, 4096)``, T = 1) and the slot kernel (the
-slot stream of ``random_slot_planes(33, 5120, 4096, 100)``), whose
-sources the wide kernel shares.
+(``random_planes(32, 5120, 4096)``, T = 1), the slot kernel (the
+slot stream of ``random_slot_planes(33, 5120, 4096, 100)``) and the
+wide kernel forced on that batch's dense stream, whose sources they
+share; and on the SchedulingBasic batch (4,096 ``basic_pod``s over
+5,000 ``node_template`` nodes, the batch of ``chip_smoke.py``'s phase
+29 (c)), the cluster kernel, the wide kernel forced and the sharded
+kernel at 1, 2 and 4 shards (``shard_planes``, each tree's own
+``sharded_plan``), digests over the assignments, the planes and each
+shard's totals. Last, slot-route batches on the kernel each tree routes
+them to (the slot kernel on the slot stream where the tree plans it,
+else its plan on the dense stream): phase 15's first batch (4,096
+SchedulingPodAntiAffinity pods over 5,000 nodes, T = 100, one term
+reference a pod) and 4,096 pods of exactly 1 or 8 references at T =
+100 over 10,240 and 20,480 columns (``SLOT_SHAPES``, ``_refs_planes``).
 
 The ``wide`` row does the same for the dense solve past the cluster
 kernel's shared memory, on the kernel the tree's ``plan_launch`` picks
@@ -47,7 +58,7 @@ Compare two commits in one call, in turns, one process a run:
     for t in chip_proof/parent . . chip_proof/parent; do
         python3 tools/torch_ab.py --tree $t; done
 
-Imports ``torch`` and the package under ``--tree`` only.
+Imports ``torch``, numpy and the package under ``--tree`` only.
 """
 
 from __future__ import annotations
@@ -60,6 +71,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROWS = ("basic", "sustained", "preemption", "scan", "wide", "widepods",
         "kernels", "config")
 WIDE_INPUTS = {"A": (30, 5120, 4096, dict(t=100)),
@@ -69,6 +82,9 @@ YARDSTICK = dict(n_nodes=94, n_upcoming=162, n_virtual=256, n_pods=2000,
                  pad=2048)
 YARDSTICK_SEED = 10
 SCAN_REPEATS = 10
+# the ``kernels`` row's slot-route batches past the slot kernel's cache of
+# 5,120 columns: (node columns, term references a pod), T = 100
+SLOT_SHAPES = ((10240, 1), (10240, 8), (20480, 1), (20480, 8))
 
 
 def _card() -> str:
@@ -118,18 +134,20 @@ def _time_scan(torch, solver, batch, k=None) -> dict:
             "digest": digest}
 
 
-def _time_dense(torch, solve_mod, args, slots=False) -> dict:
+def _time_dense(torch, solve_mod, args, slots=False, wide=False) -> dict:
     """Ten bare launches (and one before them) of the kernel the tree
     plans for ``args`` (planes, state, pod ints, pod floats on the CPU;
-    with ``slots``, a slot stream on the slot kernel), each on a fresh
-    copy of the state; every result equal."""
+    with ``slots``, a slot stream on the slot kernel; with ``wide``, the
+    wide kernel forced), each on a fresh copy of the state; every result
+    equal."""
     ps, state, ints, floats = args
     moved = type(ps)(ps.ints.cuda(), ps.f32s.cuda(), ps.sc_meta.cuda(),
                      *ps[3:])
     ints, floats = ints.cuda(), floats.cuda()
     kernel = solve_mod.solve_kernel
     kernel.check(moved, state.cuda(), ints, floats, slots=slots)
-    plan = kernel.slots_plan(moved) if slots else kernel.plan(moved)
+    plan = kernel.slots_plan(moved) if slots else \
+        kernel.wide_plan(moved) if wide else kernel.plan(moved)
     params = solve_mod.SolverParams()
     times, outs = [], []
     for _ in range(SCAN_REPEATS + 1):
@@ -145,6 +163,124 @@ def _time_dense(torch, solve_mod, args, slots=False) -> dict:
     if any(not all(torch.equal(x, y) for x, y in zip(o, outs[0]))
            for o in outs[1:]):
         sys.exit("wide: repeated launches disagree")
+    digest = hashlib.sha256(b"".join(
+        t.numpy().tobytes() for t in outs[0])).hexdigest()
+    valid = int((ints[:, ps.r + 3] > 0).sum())
+    ms = sum(times[1:]) / SCAN_REPEATS
+    return {"ms": ms, "ms_each": times[1:],
+            "us_per_pod": 1000 * ms / max(valid, 1), "pods": valid,
+            "placed": int((outs[0][0] >= 0).sum()), "plan": list(plan),
+            "digest": digest}
+
+
+def _basic_batch(torch, workloads, nodes=5000, pods=4096, pod_fn=None,
+                 offset=0):
+    """The SchedulingBasic batch as planes on the CPU: ``pods``
+    ``basic_pod``s (or ``pod_fn(offset + i)``) over ``nodes``
+    ``node_template`` nodes, none bound."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.ops.encode import BatchEncoder
+    from kubernetes_tpu_torch.ops.planes import prepare
+    from kubernetes_tpu_torch.ops.solver import pack_podin
+    from kubernetes_tpu_torch.scheduler.snapshot import new_snapshot
+
+    pod_fn = pod_fn or workloads.basic_pod
+    enc = BatchEncoder(new_snapshot([], [
+        Node.from_dict(workloads.node_template(i)) for i in range(nodes)]))
+    cluster, batch = enc.encode([Pod.from_dict(pod_fn(offset + i))
+                                 for i in range(pods)], pad_pods=pods)
+    ps, state = prepare(cluster, batch, "cpu")
+    return (ps, state, *(torch.from_numpy(a) for a in pack_podin(batch)))
+
+
+def _anti_batch(torch, workloads, nodes=5000, init=1000, pods=4096):
+    """The first batch of ``chip_smoke.py``'s phase 15 row
+    (SchedulingPodAntiAffinity at 5,000 nodes / 1,000 / 30,000): its
+    first ``pods`` measured pods, 100 colours, each anti-affine to its
+    own (T = 100, one term reference a pod), over ``nodes`` nodes; the
+    init pods, which carry no label and request 500m of 32 cpu, left
+    out."""
+    op = workloads.scheduling_pod_anti_affinity(nodes, init, pods)[3]
+    return _basic_batch(torch, workloads, nodes, pods, op["podTemplate"],
+                        op["offset"])
+
+
+def _refs_planes(random_planes, seed, n, b, t, refs):
+    """``random_planes(seed, n, b, t=t)`` with every pod referencing
+    exactly ``refs`` of the ``t`` terms, drawn with numpy from ``seed``:
+    one reference, the pod matched by and anti-affine to it (the
+    anti-affinity row's pattern); more, each matched, required or
+    anti-affine or weighted at random, as ``random_slot_planes`` draws
+    them. The batch packs into slots."""
+    ps, state, ints, floats = random_planes(seed, n, b, t=t)
+    rng = np.random.default_rng(seed + 15485863)
+    c = ps.r + 4 + 2 * ps.sc
+    ints[:, c:c + 3 * t] = 0
+    floats[:] = 0
+    weights = np.array([-5, -3, -1, 1, 2, 4, 7], dtype=np.float32)
+    for i in range(b):
+        for k in rng.choice(t, refs, replace=False):
+            k = int(k)
+            if refs == 1:
+                ints[i, c + k] = ints[i, c + 2 * t + k] = 1
+                continue
+            mb, oa = rng.random() < 0.5, rng.random() < 0.1
+            oan = rng.random() < 0.15
+            ints[i, c + k], ints[i, c + t + k] = int(mb), int(oa)
+            ints[i, c + 2 * t + k] = int(oan)
+            if rng.random() < 0.6 or not (mb or oa or oan):
+                floats[i, k] = float(rng.choice(weights))
+    return ps, state, ints, floats
+
+
+def _time_routed(torch, solve_mod, slot_stream, args) -> dict:
+    """``_time_dense`` on the kernel the tree routes a batch of ``args``
+    (dense stream) to, by the backend's slot route: the slot kernel on
+    the batch's slot stream where the tree plans it for a batch that
+    packs, else the tree's plan on the dense stream."""
+    ps, state, ints, floats = args
+    moved = type(ps)(ps.ints.cuda(), ps.f32s.cuda(), ps.sc_meta.cuda(),
+                     *ps[3:])
+    if solve_mod.solve_kernel.plan(moved, packs=True).kernel != "slots":
+        return _time_dense(torch, solve_mod, args)
+    stream = slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc, ps.t)
+    return _time_dense(torch, solve_mod, (
+        ps, state, *(torch.from_numpy(a) for a in stream)), slots=True)
+
+
+def _time_sharded(torch, solve_mod, args, shards) -> dict:
+    """Ten bare launches (and one before them) of the sharded kernel over
+    ``shards`` node shards of ``args`` (single-card planes on the CPU,
+    ``shard_planes``), each on fresh copies of the planes and totals;
+    every result equal."""
+    from kubernetes_tpu_torch.parallel import sharded as sharded_mod
+
+    ps, state, ints, floats = args
+    ss, st = sharded_mod.shard_planes(ps, state, shards)
+    ss = ss._replace(sc_meta=ss.sc_meta.cuda(), ints=ss.ints.cuda(),
+                     f32s=ss.f32s.cuda(), has_dom=ss.has_dom.cuda())
+    planes, totals = st.planes.cuda(), st.totals.cuda()
+    ints, floats = ints.cuda(), floats.cuda()
+    kernel = solve_mod.solve_kernel
+    plan = kernel.sharded_plan(ss, shards)
+    params = solve_mod.SolverParams()
+    times, outs = [], []
+    for _ in range(SCAN_REPEATS + 1):
+        p, tt = planes.clone(), totals.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got, err = kernel.launch_sharded(params, ss, p, tt, ints, floats,
+                                         plan)
+        end.record()
+        torch.cuda.synchronize()
+        if int(err[0]) != 0:
+            sys.exit(f"sharded: exchange error {int(err[0])}")
+        times.append(start.elapsed_time(end))
+        outs.append([got.cpu(), p.cpu(), tt.cpu()])
+    if any(not all(torch.equal(x, y) for x, y in zip(o, outs[0]))
+           for o in outs[1:]):
+        sys.exit("sharded: repeated launches disagree")
     digest = hashlib.sha256(b"".join(
         t.numpy().tobytes() for t in outs[0])).hexdigest()
     valid = int((ints[:, ps.r + 3] > 0).sum())
@@ -332,12 +468,28 @@ def main() -> None:
             ps, state, ints, floats = random_slot_planes(33, 5120, 4096, 100)
             stream = slot_stream(ints.numpy(), floats.numpy(), ps.r, ps.sc,
                                  ps.t)
+            basic = _basic_batch(torch, workloads)
             out[row] = {
                 "cluster": _time_dense(torch, solve_mod,
                                        random_planes(32, 5120, 4096)),
                 "slots": _time_dense(torch, solve_mod, (
                     ps, state, *(torch.from_numpy(a) for a in stream)),
-                    slots=True)}
+                    slots=True),
+                "slots_wide": _time_dense(torch, solve_mod,
+                                          (ps, state, ints, floats),
+                                          wide=True),
+                "basic_cluster": _time_dense(torch, solve_mod, basic),
+                "basic_wide": _time_dense(torch, solve_mod, basic,
+                                          wide=True)}
+            for s in (1, 2, 4):
+                out[row][f"sharded_{s}"] = _time_sharded(torch, solve_mod,
+                                                         basic, s)
+            out[row]["anti"] = _time_routed(torch, solve_mod, slot_stream,
+                                            _anti_batch(torch, workloads))
+            for n, refs in SLOT_SHAPES:
+                out[row][f"refs_{n}_{refs}"] = _time_routed(
+                    torch, solve_mod, slot_stream, _refs_planes(
+                        random_planes, 34, n, 4096, 100, refs))
         elif row == "widepods":
             w = WIDE_PODS
             real = solve_mod.solve_kernel
