@@ -44,7 +44,10 @@ prints no result):
    against its plain version on 1 x S and 2 x S meshes, on seeded
    problems (``sharded_cases``: a hard spread constraint and none,
    SV = 64, T = 100 dense, identical nodes and pods whose ties cross the
-   shards' boundaries);
+   shards' boundaries), and on its own cases (``counts_cases``: a batch
+   no multiple of its 32-pod tile, one pod, N = 128 and 65,536, three
+   profiles, no valid node, pods that fit nowhere, R = 1 and 6, 81,920
+   pods) at the meshes each lists;
 4. the main path: SchedulingBasic, 5,000 nodes / 30,000 pods, batches of
    4,096, through ``run_workload`` on the card, in the default arms
    (pipelined, device mirror on, the latency-budget tuner on). Every pod
@@ -218,8 +221,9 @@ prints no result):
 29. the sharded tier (``kubernetes_tpu_torch/parallel``): (a) on phase
     4's largest batch, ten bare launches each of the cluster kernel and
     the sharded kernel at 1, 2 and 4 shards in turns, ms a launch and us
-    a pod, the counts kernel's launches, the plain versions once, all
-    equal; (b) SchedulingBasic 5,000 / 30,000 through ``run_workload``
+    a pod, the counts kernel's launches (through ``launch_counts``, and
+    alone: 20 launches of its C entry queued back to back), the plain
+    versions once, all equal; (b) SchedulingBasic 5,000 / 30,000 through ``run_workload``
     on ``ShardedBackend(make_mesh(4))``: every pod bound, no node over
     capacity, one sharded launch a solve and no other solve kernel, the
     row's largest batch solved again by the kernel and the plain version,
@@ -249,7 +253,8 @@ prints no result):
     on the card: zero lost, no pod bound twice, each pod on its replica's pool;
     (c) the set with ``shard_nodes=False`` at 1,000 nodes of six pod
     slots and 6,000 pods (the nodes full), pipelined and serialized, and
-    at five slots (1,000 pods more than the slots) serialized: the
+    at five slots on 500 nodes and 3,000 pods (500 pods more than the
+    slots; cut from 1,000 / 6,000 for this script's time) serialized: the
     capacity guard's rejects and the held batches discarded, no node
     over its allocatable, every pod bound or unschedulable (at five
     slots every slot filled); (d)
@@ -305,7 +310,7 @@ prints no result):
     two node-sharded replicas with batch paths of at most 1,024 pods;
     (b) ``run_scale10x_row``: the REST arm with four partition apiserver
     processes and a kubemark and creator child, the same arm with one
-    partition (the A/B), and the conflict cell (10 nodes / 38 pods,
+    partition (the A/B), and the conflict cell (40 nodes / 152 pods,
     serial, replicas racing on every pod over shared nodes, the
     partitioned store's bind-time ledger arbitrating). Zero lost pods
     and zero double binds in every arm, no node over its allocatable by
@@ -480,6 +485,7 @@ from kubernetes_tpu_torch.observability.tracer import get_tracer
 from kubernetes_tpu_torch.harness.problems import (
     autoscale_whatif,
     cache_slot_planes,
+    counts_cases,
     random_planes,
     random_slot_planes,
     scan_case_inputs,
@@ -879,6 +885,9 @@ def phase_compare():
         err, counts_err = compare_sharded(name, *args, widths=widths)
         errs["sharded"] = max(errs["sharded"], err)
         errs["counts"] = max(errs["counts"], counts_err)
+    for name, ps, ints, widths, axes in counts_cases():
+        errs["counts"] = max(errs["counts"],
+                             compare_counts(name, ps, ints, widths, axes))
     return errs
 
 
@@ -1155,6 +1164,60 @@ def compare_sharded(name, ps, state, ints, floats, widths=(1, 2, 4, 8)):
             f"{int((want >= 0).sum())}; equal to plain and to the {ran} "
             "kernel; counts equal")
     return worst, worst_counts
+
+
+def compare_counts(name, ps, ints, widths, axes):
+    """The counts kernel on the card (the bare launch: profiles checked
+    here on the host first) against its plain version on the same inputs,
+    on every ``axis`` x ``S`` mesh; returns the largest absolute
+    difference."""
+    solve_mod.check_profiles(ints[:, ps.r + 2], ps.u)
+    psc = type(ps)(ps.ints.cuda(), ps.f32s.cuda(), ps.sc_meta.cuda(),
+                   *ps[3:])
+    ints_c = ints.cuda()
+    worst = 0
+    for s in widths:
+        for axis in axes:
+            got = solve_mod.solve_kernel.launch_counts(psc, ints_c, s, axis,
+                                                       profiles=False)
+            want = sharded_mod.feasible_counts_plain(psc, ints_c, s, axis)
+            e = int((got - want).abs().max())
+            worst = max(worst, e)
+            check(e == 0, f"counts kernel equals plain on {name} at {axis} "
+                  f"x {s}")
+    log(f"  {name}: N={ps.ints.shape[1]} B={ints.shape[0]} R={ps.r} "
+        f"U={ps.u} at S={widths} x batch axes {axes}: counts equal "
+        f"(mean {float(want.float().mean()):.1f} nodes a pod)")
+    return worst
+
+
+def counts_kernel_ms(ss, ints, shards, launches=20):
+    """The counts kernel alone: ``launches`` calls of the C entry (no check,
+    allocation, fill or count) queued behind a sleeping kernel, so that
+    the card runs them back to back, CUDA events around them; ms a
+    launch."""
+    lib = solve_mod.solve_kernel._load()
+    out = torch.zeros(ints.shape[0], dtype=torch.int32, device=ints.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.ktt_feasible_counts_launch(
+            ints.data_ptr(), ss.ints.data_ptr(), out.data_ptr(), ss.r, ss.sc,
+            ss.t, ss.u, ss.ints.shape[1], ints.shape[0], ints.shape[1],
+            shards, 1, stream)
+        check(err == 0, f"counts kernel launch: CUDA error {err}")
+
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(launches):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 # ----------------------------------------------------------------------
@@ -3536,9 +3599,11 @@ def time_sharded(batch, repeats=10):
               "cluster kernel")
     widest = SHARDED_WIDTHS[-1]
     ss, st0, _ = meshes[widest]
+    solve_mod.check_profiles(ints[:, ps.r + 2], ps.u)
     counts_ms = _bare_ms(
         lambda: finals.__setitem__("counts", kernel.launch_counts(
-            ss, ints, widest)), tuple, repeats)
+            ss, ints, widest, profiles=False)), tuple, repeats)
+    counts_alone_ms = counts_kernel_ms(ss, ints, widest)
     plain_st = SState(st0.planes.clone(), st0.totals.clone())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3572,7 +3637,9 @@ def time_sharded(batch, repeats=10):
             f"distributed shared memory, no flag or poll): ms "
             f"{turns[s][0]:.3f} / {turns[s][1]:.3f} "
             f"({ms[s] / valid * 1000:.3f} us a pod)")
-    log(f"    counts kernel {counts_ms:.4f} ms (bound {c_ms:.6f}, {c_by}), "
+    log(f"    counts kernel alone {counts_alone_ms:.4f} ms (20 launches "
+        f"queued back to back), through launch_counts {counts_ms:.4f} ms "
+        f"(bound {c_ms:.6f}, {c_by}), "
         f"plain {counts_plain_ms:.1f} ms; sharded plain (S={widest}) "
         f"{plain_ms:.1f} ms; bound {b_ms:.6f} ms ({b_by})")
     return {"valid_pods": valid, "ms": {str(k): v for k, v in ms.items()},
@@ -3580,6 +3647,7 @@ def time_sharded(batch, repeats=10):
             "us_per_pod": {str(k): v / valid * 1000 for k, v in ms.items()},
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "err": max(err, e, wide_err), "counts_ms": counts_ms,
+            "counts_alone_ms": counts_alone_ms,
             "counts_plain_ms": counts_plain_ms, "counts_bound_ms": c_ms,
             "counts_bound_by": c_by, "counts_err": counts_err,
             "plans": {str(s): meshes[s][2]._asdict() for s in meshes}}
@@ -3825,7 +3893,8 @@ def _ha_row_log(name, row, counts):
 
 
 def phase_config_ha(nodes=5000, pods=30000, every=200, shared_nodes=1000,
-                    shared_pods=6000, stop_after=10000, max_batch=4096):
+                    shared_pods=6000, oversub_nodes=500, oversub_pods=3000,
+                    stop_after=10000, max_batch=4096):
     """Phase 30: the configuration and HA rows of ``harness.ha`` on the
     card, each with the kernels' counts reset just before and read just
     after (``run_path``): (a) the config row, SchedulingBasic ``nodes`` /
@@ -3837,7 +3906,8 @@ def phase_config_ha(nodes=5000, pods=30000, every=200, shared_nodes=1000,
     ``shared_nodes`` nodes of six pod slots each, ``shared_pods`` pods,
     the capacity guard arbitrating, in the pipelined arm (where a held
     batch a sibling's binds made stale is discarded first) and the
-    serialized one, and at five slots a node (serialized), where the two
+    serialized one, and at five slots a node (serialized, on
+    ``oversub_nodes`` nodes and ``oversub_pods`` pods), where the two
     replicas' solves claim more than the nodes hold; (d) the failover
     row, the leader
     stopped once ``stop_after`` pods are bound."""
@@ -3884,7 +3954,7 @@ def phase_config_ha(nodes=5000, pods=30000, every=200, shared_nodes=1000,
                   node_pods="6", pipeline=False)),
             ("c_oversubscribed",
              "30c shared nodes of five slots, capacity guard, serialized",
-             dict(nodes=shared_nodes, pods=shared_pods, shard_nodes=False,
+             dict(nodes=oversub_nodes, pods=oversub_pods, shard_nodes=False,
                   node_pods="5", pipeline=False))):
         name = f"phase {title}"
         row, counts, kernel_ms, _, _, wall = run_path(
@@ -3895,7 +3965,7 @@ def phase_config_ha(nodes=5000, pods=30000, every=200, shared_nodes=1000,
         for k in ("lost", "double_binds", "pool_violations",
                   "over_allocatable"):
             check(not row[k], f"{name}: {k}: {row[k][:5]}")
-        slots = shared_nodes * int(kw.get("node_pods", "110"))
+        slots = kw["nodes"] * int(kw.get("node_pods", "110"))
         if kw["shard_nodes"] or slots >= kw["pods"]:
             check(row["unschedulable"] == 0, f"{name}: every pod bound")
         else:
@@ -5572,6 +5642,7 @@ def main() -> None:
                     "row_launch_ms_mean": float(np.mean(
                         sharded["row"]["launch_ms"]))},
         "counts": {"ms": st_timed["counts_ms"],
+                   "alone_ms": st_timed["counts_alone_ms"],
                    "plain_ms": st_timed["counts_plain_ms"],
                    "bound_ms": st_timed["counts_bound_ms"],
                    "bound_by": st_timed["counts_bound_by"],

@@ -636,8 +636,25 @@ class ClusterStore:
     def add_replica_set(self, rs: ReplicaSet) -> None:
         self._upsert(self._rss, "ReplicaSet", f"{rs.namespace}/{rs.name}", rs)
 
+    # a replace is the same upsert (a MODIFIED event), as the reference's
+    update_replica_set = add_replica_set
+
+    def get_replica_set(self, namespace: str, name: str
+                        ) -> Optional[ReplicaSet]:
+        with self._lock:
+            return self._rss.get(f"{namespace}/{name}")
+
     def list_replica_sets(self, namespace: str) -> List[ReplicaSet]:
         return self._in_namespace(self._rss, namespace)
+
+    def list_all_replication_controllers(self
+                                         ) -> List[ReplicationController]:
+        with self._lock:
+            return list(self._rcs.values())
+
+    def list_all_stateful_sets(self) -> List[StatefulSet]:
+        with self._lock:
+            return list(self._sss.values())
 
     def add_stateful_set(self, ss: StatefulSet) -> None:
         self._upsert(self._sss, "StatefulSet", f"{ss.namespace}/{ss.name}",
@@ -811,9 +828,19 @@ class ClusterStore:
         with self._lock:
             return list(self._namespaces.values())
 
+    def delete_namespace(self, name: str) -> None:
+        """Remove the namespace (a DELETED event); its contents are the
+        namespace controller's to sweep first."""
+        self.delete_object("Namespace", "", name)
+
     def add_resource_quota(self, quota: ResourceQuota) -> None:
         self._upsert(self._quotas, "ResourceQuota",
                      f"{quota.namespace}/{quota.name}", quota)
+
+    def get_resource_quota(self, namespace: str, name: str
+                           ) -> Optional[ResourceQuota]:
+        with self._lock:
+            return self._quotas.get(f"{namespace}/{name}")
 
     def list_resource_quotas(self) -> List[ResourceQuota]:
         """Read without the lock (copying a dict's values is one atomic

@@ -124,6 +124,10 @@ class Lister:
     def list(self) -> List[Any]:
         return self._informer.indexer.list()
 
+    def by_namespace(self, namespace: str) -> List[Any]:
+        return [o for o in self._informer.indexer.list()
+                if getattr(o.metadata, "namespace", "") == namespace]
+
 
 class SharedInformerFactory:
     """One store's informers. ``start`` watches the store and replays the

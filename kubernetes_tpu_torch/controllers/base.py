@@ -5,6 +5,7 @@ error and forgetting the key on success."""
 
 from __future__ import annotations
 
+import copy
 import logging
 import threading
 from typing import List, Optional
@@ -51,6 +52,13 @@ class Controller:
                 self.resync()
             except Exception:  # noqa: BLE001 — the tick must not die
                 _logger.exception("%s: resync failed", self.name)
+
+    def enqueue(self, obj) -> None:
+        """Queue the object's key: ``namespace/name``, or the bare name
+        where the namespace is empty."""
+        meta = obj.metadata
+        ns = getattr(meta, "namespace", "")
+        self.queue.add(f"{ns}/{meta.name}" if ns else meta.name)
 
     def enqueue_key(self, key: str) -> None:
         self.queue.add(key)
@@ -110,3 +118,29 @@ def controller_of(obj) -> Optional[dict]:
         if r.get("controller"):
             return r
     return None
+
+
+def owner_ref(kind: str, obj) -> dict:
+    """A controller owner reference to ``obj`` (metav1.OwnerReference with
+    ``controller`` set)."""
+    return {"kind": kind, "name": obj.metadata.name, "uid": obj.metadata.uid,
+            "controller": True}
+
+
+def is_owned_by(obj, kind: str, owner) -> bool:
+    """Whether ``obj``'s controller reference names ``owner`` of ``kind``
+    by uid."""
+    return any(r.get("controller") and r.get("kind") == kind
+               and r.get("uid") == owner.metadata.uid
+               for r in obj.metadata.owner_references)
+
+
+def with_status(obj, status):
+    """A shallow copy of ``obj`` (its metadata copied too) carrying
+    ``status``: a controller never edits the store's or an informer's
+    instance in place, since watchers compare the old object with the
+    new."""
+    new = copy.copy(obj)
+    new.metadata = copy.copy(obj.metadata)
+    new.status = status
+    return new

@@ -201,11 +201,23 @@
 //
 // feasible_counts_kernel: the reference's _batched_static_feasibility
 // (sharded.py, a psum over the node axis): per pod the nodes that are valid,
-// in its profile's static mask and fit its requests. A block takes 16 pods
-// of one slice of the mesh's batch axis over one shard's columns and adds
-// its sums to the pods' counts with integer atomics (exact in any order).
-// Bound by the bytes of the static rows it reads once a block (L2 serves
-// the repeats).
+// in its profile's static mask and fit its requests. The count does not
+// depend on the mesh (a sum over the shards' column slices is a sum over all
+// N columns), so one launch covers every column, whatever S and the batch
+// axis are. A cluster of up to 8 blocks splits the columns; each block copies
+// its slice's alloc rows into shared memory by cp.async and folds each
+// profile's mask with the validity row into one bit word per 32 columns,
+// once. As many clusters as the card holds then take tiles of 32 pods
+// (requests and profile), up to 16 tiles a chunk, double-buffered by
+// cp.async: the next chunk is in flight while this one is counted. A lane
+// owns a pod of the tile, its requests in registers; a warp walks its words
+// of the slice, four columns a broadcast read of each alloc row, and each
+// lane adds its pod's fits, masked by its profile's word, to its running
+// count. The warps' sums meet in shared memory, the blocks' in distributed
+// shared memory after one cluster barrier a chunk, and rank 0 writes each
+// pod's count once: no fill, no atomics, integer sums (exact in any order).
+// Bound by the per pod x column compare (R + 2 integer operations); the
+// static rows are read once a block.
 //
 // Exactness: built with --fmad=false and IEEE division; the score is summed
 // in the reference's order, and the (higher score, lower index) rule is
@@ -2069,58 +2081,154 @@ solve_sharded_kernel(const int* __restrict__ sc_meta, const int* __restrict__ po
 }
 
 // ---------------------------------------------------------------------------
-// The batched static feasibility counts (see the note at the top): per pod,
-// the nodes that are valid, in its profile's static mask and fit its
-// requests. Block (x, s, a): pods [a * per + x * kCountPods, +kCountPods)
-// of the mesh's batch slice a, over shard s's columns; its sums go to the
-// counts by integer atomics, exact in any order.
-constexpr int kCountPods = 16;
-constexpr int kCountThreads = 256;
+// The batched static feasibility counts (see the note at the top). Block
+// `rank` of a cluster owns columns [rank * 32 * words, +32 * words); cluster
+// c counts pod tiles c, c + clusters, ... of 32 pods each, in chunks of up
+// to kCountSlots tiles.
+constexpr int kCountWarps = 8;
+constexpr int kCountThreads = kCountWarps * 32;
+constexpr int kCountCluster = 8;  // the portable size; more only where shared memory asks
+constexpr int kCountSlots = 16;   // tiles a chunk
 
+// Ints a staged pod row takes: its R requests and its profile, to 16 bytes.
+__host__ __device__ inline int count_row_ints(int r) { return (r + 1 + 3) & ~3; }
+
+// Shared memory of one block: alloc [R][32 * words], pod rows [2][slots][32]
+// [row], mask words [U + 1][words] (row U empty), warp sums [slots][warps]
+// [32], the block's sums [2][slots][32].
+__host__ inline size_t count_smem_bytes(int r, int u, int words) {
+  return sizeof(int) * ((size_t)r * 32 * words + 2 * kCountSlots * 32 * count_row_ints(r) +
+                        (size_t)(u + 1) * words + kCountSlots * kCountWarps * 32 +
+                        2 * kCountSlots * 32);
+}
+
+// kWide: R > 3 (the fourth request in registers too, any past it read from
+// shared memory); else R <= 3, three compares a column.
+template <bool kWide>
 __global__ void __launch_bounds__(kCountThreads)
 feasible_counts_kernel(const int* __restrict__ pod_ints, const int* __restrict__ sta,
-                       int* __restrict__ counts, Dims d, int width, int nl, int per) {
-  extern __shared__ int smem[];
-  __shared__ int part[kCountPods][kCountThreads / 32];
-  const int r = d.r, u = d.u, sc = d.sc, t = d.t;
-  const size_t N = (size_t)d.n;
+                       int* __restrict__ counts, Dims d, int width, int words) {
+  extern __shared__ int smem[];  // the dynamic base is 16-byte aligned
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = d.r, u = d.u, n = d.n, b = d.b;
+  const size_t N = (size_t)n;
+  const int rank = (int)cluster.block_rank(), ncl = (int)cluster.num_blocks();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kCountPods;
-  const int np = min(kCountPods, per - q0);
-  const int p0 = blockIdx.z * per + q0;
-  const int s_masks = r + 1, s_node_valid = r + 1 + u + sc + u * sc + t;
-  int* req = smem;                      // [kCountPods][R]
-  int* prof = smem + kCountPods * r;    // [kCountPods]
-  for (int i = tid; i < np * r; i += blockDim.x) req[i] = pod_ints[(size_t)(p0 + i / r) * width + i % r];
-  for (int i = tid; i < np; i += blockDim.x) prof[i] = pod_ints[(size_t)(p0 + i) * width + r + 2];
-  __syncthreads();
-  int cnt[kCountPods];
+  const int rs = count_row_ints(r), cols = 32 * words, lo = rank * cols;
+  const int s_masks = r + 1, s_valid = r + 1 + u + d.sc + u * d.sc + d.t;
+  int* alloc_s = smem;                                       // [R][cols]
+  int* pods_s = alloc_s + (size_t)r * cols;                  // [2][slots][32][rs]
+  unsigned* mask_s = (unsigned*)(pods_s + 2 * kCountSlots * 32 * rs);  // [U + 1][words]
+  int* part_s = (int*)(mask_s + (size_t)(u + 1) * words);   // [slots][warps][32]
+  int* tot_s = part_s + kCountSlots * kCountWarps * 32;     // [2][slots][32]
+  const int tiles = (b + 31) / 32;
+  const int first = (int)blockIdx.x / ncl, step = (int)gridDim.x / ncl;
+  const int own = first < tiles ? (tiles - first + step - 1) / step : 0;  // this cluster's tiles
+  const int chunks = (own + kCountSlots - 1) / kCountSlots;
+
+  // the slice's alloc rows (static rows [0, R)), once
+  const int ncols = max(0, min(n, lo + cols) - lo);
+  for (int i = tid; i < r * ncols; i += kCountThreads) {
+    const int k = i / ncols, c = i - k * ncols;
+    cp_async4(alloc_s + k * cols + c, sta + k * N + lo + c);
+  }
+  cp_async_commit();
+  // chunk `ch`'s pod rows (requests and profile) into buffer `buf`
+  auto stage = [&](int ch, int buf) {
+    const int nt = min(kCountSlots, own - ch * kCountSlots);
+    int* dst = pods_s + buf * kCountSlots * 32 * rs;
+    for (int i = tid; i < nt * 32 * (r + 1); i += kCountThreads) {
+      const int q = i / (r + 1), k = i - q * (r + 1);  // q: slot * 32 + pod
+      const int p = (first + step * (ch * kCountSlots + q / 32)) * 32 + (q & 31);
+      if (p < b) cp_async4(dst + q * rs + k, pod_ints + (size_t)p * width + (k < r ? k : r + 2));
+    }
+  };
+  if (chunks > 0) stage(0, 0);
+  cp_async_commit();
+  // each profile's mask and the validity row as one bit word per 32
+  // columns (the loads of a few words in flight at once)
+#pragma unroll 4
+  for (int x = warp; x < u * words; x += kCountWarps) {
+    const int p = x / words, k = x - p * words;
+    const int c = lo + 32 * k + lane;
+    const int valid = c < n ? __ldg(sta + s_valid * N + c) : 0;
+    const int mask = c < n ? __ldg(sta + (s_masks + p) * N + c) : 0;
+    const unsigned bits = __ballot_sync(0xffffffffu, valid > 0 && mask > 0);
+    if (lane == 0) mask_s[x] = bits;
+  }
+  for (int k = tid; k < words; k += kCountThreads) mask_s[u * words + k] = 0u;
+
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1, nt = min(kCountSlots, own - ch * kCountSlots);
+    if (ch + 1 < chunks) stage(ch + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // the slice and this chunk have landed
+    __syncthreads();
+    for (int sl = 0; sl < nt; ++sl) {
+      const int p0 = (first + step * (ch * kCountSlots + sl)) * 32, np = min(32, b - p0);
+      // lane i owns pod p0 + i: its first four requests in registers (a
+      // resource past R compares as always met), its profile's mask words
+      // (the empty row for a profile outside [0, U) and past the batch)
+      const int* mine_s = pods_s + ((buf * kCountSlots + sl) * 32 + lane) * rs;
+      const int4 q4 = *reinterpret_cast<const int4*>(mine_s);
+      const int q0 = q4.x, q1 = r > 1 ? q4.y : INT_MIN, q2 = r > 2 ? q4.z : INT_MIN,
+                q3 = q4.w;
+      const int prof = lane < np ? mine_s[r] : -1;
+      const unsigned* mrow = mask_s + ((unsigned)prof < (unsigned)u ? prof : u) * words;
+      int mine = 0;  // the pod's fits over this warp's words
+      for (int k = warp; k < words; k += kCountWarps) {
+        const unsigned mw = mrow[k];
+        if (!__any_sync(0xffffffffu, mw != 0u)) continue;
+        const int* col = alloc_s + 32 * k;
 #pragma unroll
-  for (int i = 0; i < kCountPods; ++i) cnt[i] = 0;
-  for (int c = tid; c < nl; c += blockDim.x) {
-    const size_t j = (size_t)blockIdx.y * nl + c;
-    if (__ldg(sta + s_node_valid * N + j) <= 0) continue;
+        for (int j = 0; j < 32; j += 4) {
+          // four columns of each resource, one broadcast read each
+          const int4 x0 = *reinterpret_cast<const int4*>(col + j);
+          const int4 x1 = r > 1 ? *reinterpret_cast<const int4*>(col + cols + j) : x0;
+          const int4 x2 = r > 2 ? *reinterpret_cast<const int4*>(col + 2 * cols + j) : x0;
+          const int4 x3 = kWide ? *reinterpret_cast<const int4*>(col + 3 * cols + j) : x0;
+          const int a[4][4] = {{x0.x, x1.x, x2.x, x3.x}, {x0.y, x1.y, x2.y, x3.y},
+                               {x0.z, x1.z, x2.z, x3.z}, {x0.w, x1.w, x2.w, x3.w}};
 #pragma unroll
-    for (int i = 0; i < kCountPods; ++i) {
-      if (i < np) {
-        bool ok = __ldg(sta + (s_masks + prof[i]) * N + j) > 0;
-        for (int k = 0; ok && k < r; ++k) ok = req[i * r + k] <= __ldg(sta + k * N + j);
-        cnt[i] += ok;
+          for (int e = 0; e < 4; ++e) {
+            bool ok = (mw & (1u << (j + e))) && q0 <= a[e][0] && q1 <= a[e][1] &&
+                      q2 <= a[e][2];
+            if (kWide) {
+              ok = ok && q3 <= a[e][3];
+              for (int x = 4; x < r; ++x) ok = ok && mine_s[x] <= col[x * cols + j + e];
+            }
+            mine += ok;
+          }
+        }
+      }
+      part_s[(sl * kCountWarps + warp) * 32 + lane] = mine;
+    }
+    __syncthreads();
+    // the block's sum a pod over its warps
+    for (int i = tid; i < nt * 32; i += kCountThreads) {
+      int x = 0;
+#pragma unroll
+      for (int w = 0; w < kCountWarps; ++w) x += part_s[((i >> 5) * kCountWarps + w) * 32 + (i & 31)];
+      tot_s[buf * kCountSlots * 32 + i] = x;
+    }
+    // every block's sums for this chunk are in; a block writes this buffer
+    // again two chunks on, after the next barrier, which rank 0 reaches
+    // only once it has read them
+    cluster.sync();
+    if (rank == 0) {
+      for (int i = tid; i < nt * 32; i += kCountThreads) {
+        const int p = (first + step * (ch * kCountSlots + (i >> 5))) * 32 + (i & 31);
+        if (p >= b) continue;
+        int x = 0;
+#pragma unroll 8
+        for (int q = 0; q < ncl; ++q)
+          x += *cluster.map_shared_rank(tot_s + buf * kCountSlots * 32 + i, q);
+        counts[p] = x;
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < kCountPods; ++i) {
-    int x = cnt[i];
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    if (lane == 0) part[i][warp] = x;
-  }
-  __syncthreads();
-  if (tid < np) {
-    int x = 0;
-    for (int q = 0; q < (int)(blockDim.x >> 5); ++q) x += part[tid][q];
-    if (x != 0) atomicAdd(counts + p0 + tid, x);
-  }
+  cp_async_wait<0>();
+  cluster.sync();  // no block leaves while rank 0 may still read its sums
 }
 
 // The three cluster kernels share one signature.
@@ -2439,20 +2547,45 @@ extern "C" int ktt_solve_sharded_launch_one_short(
                         shards - 1);
 }
 
-// Launch the feasibility counts on `stream`: `counts` ([B] int32) must be
-// zeroed by the caller on the stream first; B is `batch_axis` slices of
-// `per` pods, the node axis `shards` slices of n / shards columns.
+using CountKernel = void (*)(const int*, const int*, int*, Dims, int, int);
+
+// Launch the feasibility counts on `stream`, which writes `counts` ([B]
+// int32) whole. The mesh (`shards` node slices of n / shards columns,
+// `batch_axis` slices of the batch) must split the problem, as the
+// reference's shard_map requires; the counts do not depend on it.
 extern "C" int ktt_feasible_counts_launch(const int* pod_ints, const int* static_ints, int* counts,
                                           int r, int sc, int t, int u, int n, int b, int width,
                                           int shards, int batch_axis, void* stream) {
-  if (shards < 1 || batch_axis < 1 || n % shards != 0 || b % batch_axis != 0 || r < 1)
+  if (shards < 1 || batch_axis < 1 || n % shards != 0 || b % batch_axis != 0 || r < 1 || u < 0 ||
+      width < r + 3)
     return (int)cudaErrorInvalidValue;
-  const int per = b / batch_axis;
-  if (per == 0) return 0;
+  if (b == 0) return 0;
+  // the smallest cluster that leaves each warp at most two words of its
+  // slice, up to the portable 8; past that only where shared memory asks
+  const int all_words = (n + 31) / 32;
+  int cluster = 1;
+  while (cluster < kCountCluster && all_words > cluster * 2 * kCountWarps) cluster *= 2;
+  int words = (all_words + cluster - 1) / cluster;
+  size_t smem = count_smem_bytes(r, u, words);
+  while (smem > (size_t)kSmemLimit && cluster < kMaxCluster) {
+    cluster *= 2;
+    words = (all_words + cluster - 1) / cluster;
+    smem = count_smem_bytes(r, u, words);
+  }
+  if (smem > (size_t)kSmemLimit || words < 1) return (int)cudaErrorInvalidValue;
+  // as many clusters as the card holds at once (each loads its slices
+  // once), no more than the tiles; max_active also sets the instance's
+  // cluster attributes
+  const CountKernel fn = r > 3 ? feasible_counts_kernel<true> : feasible_counts_kernel<false>;
+  const int held = max_active(fn, cluster, kCountThreads, (int)smem);
+  if (held < 1) return held < 0 ? -held : (int)cudaErrorInvalidValue;
+  const int clusters = min((b + 31) / 32, held);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(cluster, kCountThreads, (int)smem,
+                                          static_cast<cudaStream_t>(stream), &attr, clusters);
   Dims d{r, sc, t, u, 0, 0, n, b};
-  const dim3 grid((per + kCountPods - 1) / kCountPods, shards, batch_axis);
-  feasible_counts_kernel<<<grid, kCountThreads, kCountPods * (r + 1) * sizeof(int),
-                           static_cast<cudaStream_t>(stream)>>>(pod_ints, static_ints, counts, d,
-                                                                width, n / shards, per);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, fn, pod_ints, static_ints, counts, d, width, words);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Seeded solve problems made directly in the planes layout, at any node
 count and constraint width, for holding the solve kernels against their
-plain version (``tests/test_torch_cuda.py``, ``chip_smoke.py``); and
+plain version (``tests/test_torch_cuda.py``, ``chip_smoke.py``), with
+the feasibility counts kernel's own cases (``counts_cases``); and
 seeded what-if problems for the legacy scan (``whatif_problem``) with
 the cases its kernel is held against (``scan_cases``).
 
@@ -134,6 +135,59 @@ def random_planes(seed: int, n: int, b: int, r: int = 3, sc: int = 1,
                       torch.from_numpy(sc_meta), r, sc, t, u, v, sv)
     return (pstatic, torch.from_numpy(state), torch.from_numpy(pod_ints),
             torch.from_numpy(pod_floats))
+
+
+def counts_planes(seed: int, n: int, b: int, r: int = 3, u: int = 2,
+                  mask_p: float = 0.6) -> Tuple[PStatic, torch.Tensor]:
+    """(static planes, pod ints) for the feasibility counts: ``random_planes``
+    with each profile's mask drawn at ``mask_p`` and the requests drawn from
+    the alloc rows' own range, so each resource fits about half the nodes
+    and the counts vary from pod to pod."""
+    ps, _, ints, _ = random_planes(seed, n, b, r=r, u=u)
+    rng = np.random.default_rng(seed + 1000)
+    so, _ = static_planes(r, ps.sc, ps.t, u)
+    ps.ints[so["masks"]:so["masks"] + u] = torch.from_numpy(
+        (rng.random((u, n)) < mask_p).astype(np.int32))
+    ints[:, :r] = torch.from_numpy(
+        rng.integers(0, 24000, (b, r)).astype(np.int32))
+    return ps, ints
+
+
+def counts_cases() -> List[Tuple[str, PStatic, torch.Tensor, Tuple[int, ...],
+                                 Tuple[int, ...]]]:
+    """Seeded problems for the feasibility counts kernel: (name, planes,
+    pod ints, node shard counts, batch axes). A batch that is no multiple
+    of the kernel's 32-pod tile, one pod (a batch axis of 1 only: one pod
+    does not split), 128 and 65,536 columns, three profiles drawn apart,
+    no valid node, pods that fit nowhere (a request past every node's
+    alloc), one resource and six (past the four the kernel keeps in
+    registers), and 81,920 pods: more tiles than a cluster's chunk of 16
+    where the card holds at most 132 clusters."""
+    out = [("counts-ragged-4002", *counts_planes(60, 5120, 4002), (1, 2, 4),
+            (1, 2)),
+           ("counts-one-pod", *counts_planes(61, 1024, 1), (1, 2, 4), (1,)),
+           ("counts-128", *counts_planes(62, 128, 96), (1, 2, 4), (1, 2)),
+           ("counts-65536", *counts_planes(63, 65536, 256), (1, 2, 4),
+            (1, 2))]
+    ps, ints = counts_planes(64, 2048, 512, u=3)
+    so, _ = static_planes(ps.r, ps.sc, ps.t, ps.u)
+    for p, frac in enumerate((0.9, 0.4, 0.05)):
+        ps.ints[so["masks"] + p] = torch.from_numpy((np.random.default_rng(
+            64 + p).random(2048) < frac).astype(np.int32))
+    ints[:, ps.r + 2] = torch.arange(512, dtype=torch.int32) % 3
+    out.append(("counts-three-profiles", ps, ints, (1, 2, 4), (1, 2)))
+    ps, ints = counts_planes(65, 2048, 256)
+    ps.ints[static_planes(ps.r, ps.sc, ps.t, ps.u)[0]["node_valid"]] = 0
+    out.append(("counts-no-valid-node", ps, ints, (1, 2, 4), (1, 2)))
+    ps, ints = counts_planes(66, 2048, 256)
+    ints[::3, 1] = 10 ** 9
+    out.append(("counts-fit-nowhere", ps, ints, (1, 2, 4), (1, 2)))
+    for r in (1, 6):
+        out.append((f"counts-r{r}", *counts_planes(66 + r, 3072, 320, r=r),
+                    (1, 2, 4), (1, 2)))
+    out.append(("counts-chunks-81920", *counts_planes(69, 5120, 81920),
+                (1, 4), (1, 2)))
+    return out
 
 
 def random_slot_planes(seed: int, n: int, b: int, t: int, r: int = 3,

@@ -50,6 +50,11 @@ POD_MEMORY = "500Mi"
 # partition-aware creator clients in the driver child, the burst's
 # chunks rotated over them
 CREATOR_CLIENTS = 4
+# the scale row's conflict cell: four times ``run_conflict_cell``'s
+# 10 nodes / 38 pods and as tight (95% of the CPU asked for). At 38 pods
+# two replicas now and then never race (zero conflicts, and a cell with
+# no conflict proves nothing); at 152 each run holds dozens of races
+CONFLICT_NODES, CONFLICT_PODS = 40, 152
 
 
 def scale_namespaces(partitions: int, per_partition: int = 2) -> List[str]:
@@ -710,7 +715,8 @@ def run_scale10x_row(
         use_batch=use_batch, max_batch=max_batch, qps=qps,
         node_cpu=node_cpu, wait_timeout=wait_timeout, device=device,
         progress=progress)
-    cell = run_conflict_cell(progress=progress)
+    cell = run_conflict_cell(nodes=CONFLICT_NODES, pods=CONFLICT_PODS,
+                             progress=progress)
     speedup = (arm["pods_per_sec"] / single["pods_per_sec"]) \
         if single["pods_per_sec"] else 0.0
     return {

@@ -784,11 +784,16 @@ class SolveKernel:
         return assign, ws[e:e + 1]
 
     def launch_counts(self, ss, pod_ints: torch.Tensor, shards: int,
-                      batch_axis: int = 1) -> torch.Tensor:
-        """Launch the feasibility counts kernel over a ``batch_axis`` x
-        ``shards`` mesh on the current stream, without synchronising:
-        per pod the nodes that are valid, in its profile's static mask
-        and fit its requests."""
+                      batch_axis: int = 1, profiles: bool = True
+                      ) -> torch.Tensor:
+        """Launch the feasibility counts kernel on the current stream: per
+        pod the nodes that are valid, in its profile's static mask and fit
+        its requests. The ``batch_axis`` x ``shards`` mesh must split the
+        pods and the node columns; the counts do not depend on it. With
+        ``profiles`` the pods' profile indices are checked here, which
+        waits for the stream; with ``profiles`` False the caller has
+        checked them on the host (``check_profiles``), and the call queues
+        the kernel alone, which writes every count, and returns."""
         r, sc, t, u = ss.r, ss.sc, ss.t, ss.u
         n, b = ss.ints.shape[1], pod_ints.shape[0]
         if n % shards != 0 or b % batch_axis != 0:
@@ -799,11 +804,12 @@ class SolveKernel:
                 or pod_ints.shape[1] < r + 3:
             raise ValueError("counts kernel wants the contiguous int32 pod "
                              f"stream on {ss.ints.device}")
-        check_profiles(pod_ints[:, r + 2], u)
+        if profiles:
+            check_profiles(pod_ints[:, r + 2], u)
         lib = self._load()
         first = ("counts",) not in self.launched
         t0 = time.monotonic()
-        counts = torch.zeros(b, dtype=torch.int32, device=pod_ints.device)
+        counts = torch.empty(b, dtype=torch.int32, device=pod_ints.device)
         stream = torch.cuda.current_stream(pod_ints.device).cuda_stream
         err = lib.ktt_feasible_counts_launch(
             pod_ints.data_ptr(), ss.ints.data_ptr(), counts.data_ptr(), r, sc,

@@ -393,13 +393,15 @@ def solve_sharded(params: SolverParams, ss: SStatic, sstate: SState,
 def feasible_counts(ss: SStatic, pod_ints: torch.Tensor, mesh: Mesh
                     ) -> torch.Tensor:
     """The per-pod feasibility counts over the mesh: the plain version on
-    CPU tensors, ``feasible_counts_kernel`` on CUDA tensors."""
+    CPU tensors, ``feasible_counts_kernel`` on CUDA tensors. The caller
+    checks the profile indices on the host (as ``solve_scan_sharded``
+    does), so nothing waits for the card."""
     shards, batch_axis = mesh.shape["nodes"], mesh.shape["batch"]
     if pod_ints.device.type == "cpu":
         return feasible_counts_plain(ss, pod_ints, shards, batch_axis)
     if pod_ints.device.type == "cuda":
-        return solve_mod.solve_kernel.launch_counts(ss, pod_ints, shards,
-                                                    batch_axis)
+        return solve_mod.solve_kernel.launch_counts(
+            ss, pod_ints, shards, batch_axis, profiles=False)
     raise ValueError(f"no feasibility counts for device {pod_ints.device}")
 
 
@@ -407,13 +409,19 @@ def solve_scan_sharded(cluster: EncodedCluster, batch: EncodedBatch,
                        mesh: Mesh, params: SolverParams = SolverParams()
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """The sharded solve of one encoded batch on the mesh's device:
-    (assignments [B] global node indices, feasible counts [B])."""
-    ss, sstate = _prepare_sharded(cluster, batch, mesh)
+    (assignments [B] global node indices, feasible counts [B]). The pods'
+    profile indices and volume references are checked on the host before
+    anything is uploaded."""
     pod_ints, pod_floats = pack_podin(batch)
     if pod_ints.shape[0] % mesh.shape["batch"] != 0:
         raise ValueError(
             f"padded batch size {pod_ints.shape[0]} not divisible by mesh "
             f"batch axis {mesh.shape['batch']}")
+    r, sc = cluster.allocatable.shape[1], batch.sc_counts.shape[0]
+    sv = 0 if cluster.sv_attached is None else cluster.sv_attached.shape[0]
+    check_profiles(pod_ints[:, r + 2], batch.static_masks.shape[0])
+    check_sv(pod_ints, r, sc, batch.term_counts.shape[0], sv)
+    ss, sstate = _prepare_sharded(cluster, batch, mesh)
     ints = torch.from_numpy(pod_ints).to(mesh.device)
     floats = torch.from_numpy(pod_floats).to(mesh.device)
     counts = feasible_counts(ss, ints, mesh)

@@ -27,6 +27,7 @@ from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.harness import perf, workloads
 from kubernetes_tpu_torch.harness.problems import (
     cache_slot_planes,
+    counts_cases,
     random_planes,
     random_slot_planes,
 )
@@ -841,6 +842,45 @@ def _sharded_equals_plain(card, shards, seed, kw, n, one_cluster):
         counts.cpu().numpy(),
         sharded.feasible_counts_plain(ss, ints, shards, 2).numpy())
     assert (want >= 0).sum() > 0
+
+
+COUNTS_CASES = ["counts-ragged-4002", "counts-one-pod", "counts-128",
+                "counts-65536", "counts-three-profiles",
+                "counts-no-valid-node", "counts-fit-nowhere", "counts-r1",
+                "counts-r6", "counts-chunks-81920"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COUNTS_CASES)
+def test_counts_kernel_matches_plain(card, name):
+    """The feasibility counts kernel's bare launch (the profiles checked
+    here first) equals its plain version bit for bit on each of
+    ``counts_cases`` at every mesh it lists, one launch a call, writing
+    every count over a buffer it did not zero."""
+    from kubernetes_tpu_torch.parallel import sharded
+
+    [(ps, ints, widths, axes)] = [c[1:] for c in counts_cases()
+                                  if c[0] == name]
+    solve_mod.check_profiles(ints[:, ps.r + 2], ps.u)
+    psc = type(ps)(ps.ints.to(card), ps.f32s.to(card), ps.sc_meta.to(card),
+                   *ps[3:])
+    ints_c = ints.to(card)
+    kernel = solve_mod.solve_kernel
+    for shards in widths:
+        for axis in axes:
+            junk = torch.full((ints.shape[0],), -7, dtype=torch.int32,
+                              device=card)
+            # freed to the caching allocator, whose next block of this
+            # size the wrapper's uninitialised counts take
+            del junk
+            before = kernel.counts["counts"]
+            got = kernel.launch_counts(psc, ints_c, shards, axis,
+                                       profiles=False)
+            assert kernel.counts["counts"] == before + 1
+            np.testing.assert_array_equal(
+                got.cpu().numpy(),
+                sharded.feasible_counts_plain(ps, ints, shards,
+                                              axis).numpy())
 
 
 @pytest.mark.cuda

@@ -411,6 +411,25 @@ def test_chaos_ring_modules_are_checked_and_import(rel):
     importlib.import_module(module)
 
 
+SLICE_22_MODULES = tuple(f"controllers/{name}.py" for name in (
+    "replicaset", "statefulset", "endpoints", "namespace", "serviceaccount",
+    "serviceaccounttoken", "bootstraptoken", "clusterroleaggregation",
+    "resourcequota", "nodeipam", "nodettl", "volume", "volumeexpand",
+    "attachdetach", "ephemeralvolume"))
+
+
+@pytest.mark.parametrize("rel", SLICE_22_MODULES)
+def test_stored_kind_controllers_are_checked_and_import(rel):
+    """The controllers of the kinds the port's store holds are among the
+    sources the import rule checks, and import on their own."""
+    import importlib
+
+    path = REPO / "kubernetes_tpu_torch" / rel
+    assert path in _port_sources()
+    module = "kubernetes_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module)
+
+
 def test_chaos_apiserver_child_imports_no_torch():
     """The chaos apiserver child imports nothing that imports torch or
     numpy."""

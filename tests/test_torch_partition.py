@@ -736,19 +736,26 @@ def test_mini_scale_cell():
 
 @pytest.mark.parametrize("pkg", ["jax", "port"])
 def test_conflict_cell_resolves_every_collision(pkg):
-    """Replicas racing on every pod over ten tight nodes: conflicts
-    happen in both packages, every one resolves, no pod is lost or bound
-    twice and no node is over."""
+    """Replicas racing on every pod over tight nodes: conflicts happen
+    in both packages, every one resolves, no pod is lost or bound twice
+    and no node is over. At the port's scale-row size (40 nodes / 152
+    pods, as tight as the cell's default 10 / 38, where the two replicas
+    now and then never race)."""
     from importlib import import_module
+
+    from kubernetes_tpu_torch.harness.scale import (
+        CONFLICT_NODES,
+        CONFLICT_PODS,
+    )
 
     root = "kubernetes_tpu" if pkg == "jax" else "kubernetes_tpu_torch"
     scale = import_module(f"{root}.harness.scale")
     fm = import_module(f"{root}.metrics.fabric_metrics").fabric_metrics()
     before = sum(v for _, _, v in fm.stale_binds_rejected_total.collect())
-    cell = scale.run_conflict_cell()
+    cell = scale.run_conflict_cell(nodes=CONFLICT_NODES, pods=CONFLICT_PODS)
     after = sum(v for _, _, v in fm.stale_binds_rejected_total.collect())
     assert cell["ok"], cell
-    assert cell["bound"] == 38
+    assert cell["bound"] == CONFLICT_PODS
     assert cell["conflicts_total"] > 0
     assert cell["lost_pods"] == 0 and cell["double_binds"] == 0
     assert after > before

@@ -492,6 +492,31 @@ def test_padded_node_count_must_split():
         solve_scan_sharded(got_c, got_b, make_mesh(3, device="cpu"))
 
 
+@pytest.mark.parametrize("bad", ["past the last", "negative"])
+def test_out_of_range_profile_is_refused_before_any_upload(monkeypatch, bad):
+    """``solve_scan_sharded`` checks the pods' profile indices on the
+    host's numpy stream before anything reaches the mesh's device, as the
+    single-card backend's ``solve_lazy`` does, so the counts kernel's bare
+    launch (``profiles=False``) never waits on the card for it. (The JAX
+    ``solve_scan_sharded`` has no such check: its gather clamps the
+    index.)"""
+    from kubernetes_tpu_torch.parallel import sharded as sharded_mod
+
+    got_c, got_b, _, _ = _encode("basic_fit")
+    got_b.profile_idx = got_b.profile_idx.copy()
+    got_b.profile_idx[1] = (got_b.static_masks.shape[0]
+                            if bad == "past the last" else -1)
+    uploads = []
+    real_to = torch.Tensor.to
+    monkeypatch.setattr(sharded_mod, "_prepare_sharded",
+                        lambda *a: uploads.append("planes"))
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: (
+        uploads.append("pods"), real_to(self, *a, **k))[1])
+    with pytest.raises(ValueError, match="profile index"):
+        solve_scan_sharded(got_c, got_b, make_mesh(2, device="cpu"))
+    assert uploads == []
+
+
 @pytest.mark.parametrize("n,r,sc,t,u,sv", [
     (1280, 3, 1, 1, 1, 0), (640, 4, 2, 100, 2, 64), (8192, 3, 1, 1, 25, 0)])
 def test_sharded_plan_is_the_wide_plan_with_the_winner_slots(n, r, sc, t, u,

@@ -28,12 +28,21 @@ share; and on the SchedulingBasic batch (4,096 ``basic_pod``s over
 29 (c)), the cluster kernel, the wide kernel forced and the sharded
 kernel at 1, 2 and 4 shards (``shard_planes``, each tree's own
 ``sharded_plan``), digests over the assignments, the planes and each
-shard's totals. Last, slot-route batches on the kernel each tree routes
+shard's totals, and the feasibility counts kernel at 4 shards, through
+its wrapper and alone (its C entry, launches queued back to back), with
+a digest of the counts. Last, slot-route batches on the kernel each tree routes
 them to (the slot kernel on the slot stream where the tree plans it,
 else its plan on the dense stream): phase 15's first batch (4,096
 SchedulingPodAntiAffinity pods over 5,000 nodes, T = 100, one term
 reference a pod) and 4,096 pods of exactly 1 or 8 references at T =
 100 over 10,240 and 20,480 columns (``SLOT_SHAPES``, ``_refs_planes``).
+
+The ``counts`` row times the feasibility counts kernel alone: the
+SchedulingBasic batch at 4 shards as in the ``kernels`` row, then
+``random_planes`` inputs from 32 pods over 128 columns to 4,096 pods over
+5,120 columns (``COUNTS_SHAPES``; the last at R = 4), one shard, so that
+the launch's fixed cost shows beside the part that grows with pods x
+columns.
 
 The ``wide`` row does the same for the dense solve past the cluster
 kernel's shared memory, on the kernel the tree's ``plan_launch`` picks
@@ -74,7 +83,7 @@ import time
 import numpy as np
 
 ROWS = ("basic", "sustained", "preemption", "scan", "wide", "widepods",
-        "kernels", "config")
+        "kernels", "counts", "config")
 WIDE_INPUTS = {"A": (30, 5120, 4096, dict(t=100)),
                "B": (31, 1024, 1024, dict(r=4, t=100, sv=64))}
 WIDE_PODS = dict(nodes=5000, init=1000, pods=30000, every=64, terms=12)
@@ -85,6 +94,10 @@ SCAN_REPEATS = 10
 # the ``kernels`` row's slot-route batches past the slot kernel's cache of
 # 5,120 columns: (node columns, term references a pod), T = 100
 SLOT_SHAPES = ((10240, 1), (10240, 8), (20480, 1), (20480, 8))
+# the ``counts`` row's ``random_planes(35, n, b, r=r)`` inputs: (pods,
+# node columns, requests a pod)
+COUNTS_SHAPES = ((32, 128, 3), (4096, 128, 3), (32, 5120, 3),
+                 (4096, 5120, 3), (4096, 5120, 4))
 
 
 def _card() -> str:
@@ -291,6 +304,67 @@ def _time_sharded(torch, solve_mod, args, shards) -> dict:
             "digest": digest}
 
 
+def _time_counts(torch, solve_mod, args, shards=4) -> dict:
+    """The feasibility counts kernel over ``shards`` node shards of
+    ``args`` (single-card planes on the CPU, ``shard_planes``): ten calls
+    of ``launch_counts`` after one, CUDA events around each (with
+    ``profiles=False`` on a tree whose wrapper takes it: its bare path),
+    every result equal; and the kernel alone, 20 calls of its C entry
+    queued behind a sleeping kernel so that the card runs them back to
+    back, events around them all."""
+    import inspect
+
+    from kubernetes_tpu_torch.parallel import sharded as sharded_mod
+
+    ps, state, ints, _ = args
+    ss, _ = sharded_mod.shard_planes(ps, state, shards)
+    ss = ss._replace(ints=ss.ints.cuda())
+    ints = ints.cuda()
+    kernel = solve_mod.solve_kernel
+    bare = ({"profiles": False} if "profiles" in inspect.signature(
+        kernel.launch_counts).parameters else {})
+    times, outs = [], []
+    for _ in range(SCAN_REPEATS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = kernel.launch_counts(ss, ints, shards, **bare)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        outs.append(got.cpu())
+    if any(not torch.equal(o, outs[0]) for o in outs[1:]):
+        sys.exit("counts: repeated launches disagree")
+    lib = kernel._load()
+    out = torch.zeros_like(ints[:, 0])
+    stream = torch.cuda.current_stream().cuda_stream
+    n, b = ss.ints.shape[1], ints.shape[0]
+
+    def launch():
+        err = lib.ktt_feasible_counts_launch(
+            ints.data_ptr(), ss.ints.data_ptr(), out.data_ptr(), ss.r, ss.sc,
+            ss.t, ss.u, n, b, ints.shape[1], shards, 1, stream)
+        if err != 0:
+            sys.exit(f"counts: CUDA error {err}")
+
+    alone = []
+    for _ in range(2):
+        launch()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(20):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        alone.append(start.elapsed_time(end) / 20)
+    return {"wrapper_ms": sum(times[1:]) / SCAN_REPEATS,
+            "wrapper_ms_each": times[1:], "alone_ms": alone,
+            "digest": hashlib.sha256(outs[0].numpy().tobytes()).hexdigest()}
+
+
 def _wide_pods_ops(workloads, nodes, init, pods, every, terms,
                    colours=100):
     """The anti-affinity row with every ``every``-th measured pod also
@@ -484,12 +558,20 @@ def main() -> None:
             for s in (1, 2, 4):
                 out[row][f"sharded_{s}"] = _time_sharded(torch, solve_mod,
                                                          basic, s)
+            out[row]["counts_4"] = _time_counts(torch, solve_mod, basic)
             out[row]["anti"] = _time_routed(torch, solve_mod, slot_stream,
                                             _anti_batch(torch, workloads))
             for n, refs in SLOT_SHAPES:
                 out[row][f"refs_{n}_{refs}"] = _time_routed(
                     torch, solve_mod, slot_stream, _refs_planes(
                         random_planes, 34, n, 4096, 100, refs))
+        elif row == "counts":
+            from kubernetes_tpu_torch.harness.problems import random_planes
+            out[row] = {"basic_4": _time_counts(
+                torch, solve_mod, _basic_batch(torch, workloads))}
+            for b, n, r in COUNTS_SHAPES:
+                out[row][f"b{b}_n{n}_r{r}"] = _time_counts(
+                    torch, solve_mod, random_planes(35, n, b, r=r), shards=1)
         elif row == "widepods":
             w = WIDE_PODS
             real = solve_mod.solve_kernel
